@@ -1,0 +1,147 @@
+"""Semi-dense inverse-depth template for the coarse tracker (port of
+models/depth_template.py).
+
+Active window points projected into the newest keyframe are scatter-added
+into a level-0 idepth/weight map, 2x2 sum-pooled up the pyramid,
+hole-dilated (diagonal neighbours on levels 0-1, axis neighbours above),
+normalised, and compacted in raster order into fixed-budget per-level
+point lists.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..utils.compact import nonzero_fixed
+
+
+class TrackerTemplate(NamedTuple):
+    """Per-level fixed-budget point lists (the tracker's reference data)."""
+
+    pu: Tuple[torch.Tensor, ...]      # [B_l] pixel x at level l
+    pv: Tuple[torch.Tensor, ...]      # [B_l]
+    pid: Tuple[torch.Tensor, ...]     # [B_l] inverse depth
+    pcolor: Tuple[torch.Tensor, ...]  # [B_l] reference intensity
+    pmask: Tuple[torch.Tensor, ...]   # [B_l] bool
+
+    @property
+    def levels(self) -> int:
+        return len(self.pu)
+
+
+def default_budgets(w: int, h: int, levels: int, base: int = 8192) -> Tuple[int, ...]:
+    out = []
+    for l in range(levels):
+        hw = (w >> l) * (h >> l)
+        b = min(hw, max(base >> l, 128))
+        out.append(((b + 127) // 128) * 128)
+    return tuple(out)
+
+
+def _shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """Shift with zero padding: out[y, x] = in[y+dy, x+dx]."""
+    h, w = x.shape
+    out = torch.zeros_like(x)
+    ys = slice(max(dy, 0), h + min(dy, 0))
+    xs = slice(max(dx, 0), w + min(dx, 0))
+    yd = slice(max(-dy, 0), h + min(-dy, 0))
+    xd = slice(max(-dx, 0), w + min(-dx, 0))
+    out[yd, xd] = x[ys, xs]
+    return out
+
+
+def _dilate_once(idepth, weight, offsets):
+    """Fill weight<=0 holes with the mean of neighbours that have weight>0."""
+    s = torch.zeros_like(idepth)
+    n = torch.zeros_like(weight)
+    cnt = torch.zeros_like(weight)
+    for dy, dx in offsets:
+        w_s = _shift2d(weight, dy, dx)
+        i_s = _shift2d(idepth, dy, dx)
+        m = (w_s > 0).to(torch.float32)
+        s = s + i_s * m
+        n = n + w_s * m
+        cnt = cnt + m
+    fill = (weight <= 0) & (cnt > 0)
+    cnt_safe = torch.clamp(cnt, min=1.0)
+    return (torch.where(fill, s / cnt_safe, idepth),
+            torch.where(fill, n / cnt_safe, weight))
+
+
+def _pool(x: torch.Tensor) -> torch.Tensor:
+    h2, w2 = x.shape[0] // 2, x.shape[1] // 2
+    return x[: 2 * h2, : 2 * w2].reshape(h2, 2, w2, 2).sum(dim=(1, 3))
+
+
+def build_template(proj_u, proj_v, proj_id, proj_w, ref_img, levels: int,
+                   budgets: Tuple[int, ...], valid=None) -> TrackerTemplate:
+    """proj_*: [N] points projected into the reference KF (level 0);
+    ref_img: [H, W] reference intensity (coarser levels re-derived by 2x2
+    mean, as the pyramid builder does)."""
+    H, W = ref_img.shape
+    dev = ref_img.device
+    if valid is None:
+        valid = torch.ones_like(proj_u, dtype=torch.bool)
+    # (proj + 0.5).astype(int32) truncates toward zero; clip afterwards.
+    # Lanes that are not ok carry zero weight, so where their (possibly
+    # non-finite) coordinates land is irrelevant; nan_to_num only keeps
+    # the integer conversion defined.
+    ui = torch.clamp(torch.nan_to_num(proj_u + 0.5).clamp(-2**30, 2**30)
+                     .to(torch.int64), 0, W - 1)
+    vi = torch.clamp(torch.nan_to_num(proj_v + 0.5).clamp(-2**30, 2**30)
+                     .to(torch.int64), 0, H - 1)
+    ok = (valid & (proj_id > 0) & (proj_u >= 0) & (proj_v >= 0)
+          & (proj_u < W) & (proj_v < H))
+    wgt = torch.where(ok, proj_w, torch.zeros_like(proj_w))
+
+    flat_idx = vi * W + ui
+    idepth0 = torch.zeros(H * W, dtype=torch.float32, device=dev).index_add_(
+        0, flat_idx, proj_id * wgt).reshape(H, W)
+    weight0 = torch.zeros(H * W, dtype=torch.float32, device=dev).index_add_(
+        0, flat_idx, wgt).reshape(H, W)
+
+    idepths, weights, imgs = [idepth0], [weight0], [ref_img]
+    img = ref_img
+    for _ in range(1, levels):
+        idepths.append(_pool(idepths[-1]))
+        weights.append(_pool(weights[-1]))
+        img = 0.25 * _pool(img)
+        imgs.append(img)
+
+    diag = [(1, 1), (-1, -1), (1, -1), (-1, 1)]
+    axes = [(0, 1), (0, -1), (1, 0), (-1, 0)]
+    for l in range(min(2, levels)):
+        idepths[l], weights[l] = _dilate_once(idepths[l], weights[l], diag)
+    for l in range(2, levels):
+        idepths[l], weights[l] = _dilate_once(idepths[l], weights[l], axes)
+
+    pu, pv, pid, pcolor, pmask = [], [], [], [], []
+    for l in range(levels):
+        d, wsum, img_l = idepths[l], weights[l], imgs[l]
+        h_l, w_l = d.shape
+        ys = torch.arange(h_l, device=dev)[:, None]
+        xs = torch.arange(w_l, device=dev)[None, :]
+        border_ok = (ys >= 2) & (ys < h_l - 2) & (xs >= 2) & (xs < w_l - 2)
+        idn = d / torch.clamp(wsum, min=1e-12)
+        good = border_ok & (wsum > 0) & (idn > 0) & torch.isfinite(img_l)
+
+        B = budgets[l]
+        flat_good = good.reshape(-1)
+        idx = nonzero_fixed(flat_good, B, 0)
+        count = torch.sum(flat_good)
+        lane_ok = torch.arange(B, device=dev) < count
+        zero = torch.zeros(B, dtype=torch.float32, device=dev)
+        pu.append(torch.where(lane_ok, (idx % w_l).to(torch.float32), zero))
+        pv.append(torch.where(lane_ok, (idx // w_l).to(torch.float32), zero))
+        pid.append(torch.where(lane_ok, idn.reshape(-1)[idx], zero))
+        pcolor.append(torch.where(lane_ok, img_l.reshape(-1)[idx], zero))
+        pmask.append(lane_ok)
+    return TrackerTemplate(tuple(pu), tuple(pv), tuple(pid), tuple(pcolor),
+                           tuple(pmask))
+
+
+def scale_template_idepth(template: TrackerTemplate, scale) -> TrackerTemplate:
+    """Divide all template inverse depths by the accepted stereo scale."""
+    return template._replace(pid=tuple(p / scale for p in template.pid))

@@ -1,0 +1,1024 @@
+"""Visual-odometry front end: the host orchestrator (port of
+models/frontend.py, synchronous stereo path).
+
+Per-frame coarse tracking with the staged motion-model try-list, the
+keyframe decision, and the keyframe pipeline: trace -> flag frames for
+marginalization -> insert -> activate -> windowed BA -> template ->
+stereo scale optimization -> point removal -> new traces -> frame
+marginalization. Numeric work runs in the port's device functions on
+``device``; this module owns the control flow and the fixed-slot
+bookkeeping.
+
+Differences from the reference's orchestration, all without effect on
+the numbers: the keyframe tail commits at once (the reference defers it
+to the next frame's tracker pull only to hide a device round trip;
+``flush_pending`` stays as a no-op), host views of the window are read
+fresh after each state change instead of being patched, and the
+pipelined tracking mode and the monocular bootstrap are not ported
+(``cfg.runtime.pipelined_tracking`` / ``mono_initializer`` raise).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import SLAMConfig
+from ..geometry.camera import PyramidIntrinsics
+from ..ops.distance_map import build_distance_map
+from ..ops.interp import bilinear_gather_scalar
+from ..ops.pyramid import Pyramid, build_pyramid
+from ..ops.select import adapt_potential, make_selection_map
+from ..utils.timing import StageTimers
+from . import ba, immature, initializer
+from .depth_template import (TrackerTemplate, build_template, default_budgets,
+                             scale_template_idepth)
+from .scale_opt import ScaleState, decide_scale_optimization, dispatch_scale_optimization
+from .tracker import (AffLight, make_motion_tries, select_winner,
+                      select_winner_serial, track_candidates_batch)
+
+
+def _to_int(x: torch.Tensor) -> torch.Tensor:
+    """Float -> int64 as the reference's f32 -> int32 cast behaves on the
+    values that matter (NaN reads as 0, out-of-range saturates)."""
+    return torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 30, 2.0 ** 30).to(torch.int64)
+
+
+def _halfres_distance_map(state: ba.BAState, new_slot: int, K1: torch.Tensor,
+                          h2: int, w2: int) -> torch.Tensor:
+    """Project every active point into the new KF at half resolution and
+    build the activation distance map (kernel K1 on the card)."""
+    fx0, fy0, cx0, cy0 = state.calib_current().unbind(0)
+    T_all = state.T_current()
+    T_nh = torch.einsum("ij,hjk->hik", T_all[new_slot], torch.linalg.inv_ex(T_all)[0])
+    Xh = torch.stack([(state.p_u - cx0) / fx0, (state.p_v - cy0) / fy0,
+                      torch.ones_like(state.p_u)], -1) / torch.clamp(state.p_idepth, min=1e-6)[:, None]
+    R = T_nh[state.p_host, :3, :3]
+    t = T_nh[state.p_host, :3, 3]
+    pt = (R @ Xh[..., None])[..., 0] + t
+    pu2 = K1[0, 0] * pt[:, 0] / pt[:, 2] + K1[0, 2]
+    pv2 = K1[1, 1] * pt[:, 1] / pt[:, 2] + K1[1, 2]
+    proj_ok = state.p_valid & (pt[:, 2] > 0)
+    return build_distance_map(pu2, pv2, proj_ok, h2, w2)
+
+
+def _gate_impl(pts: immature.ImmaturePoints, dist_map, KRKi1, Kt1, min_act_dist,
+               host_flagged, cfg: SLAMConfig, w2: int, h2: int):
+    """Activation gate over the stacked [S, NI] candidates: project each
+    candidate into the new KF at half res with its mid idepth, look up the
+    distance map; returns (gate_ok, drop) masks (see the reference for the
+    deletion policy and the frac() dither quirk)."""
+    can = immature.can_activate(pts, cfg)
+    u1 = (pts.u + 0.5) / 2.0 - 0.5
+    v1 = (pts.v + 0.5) / 2.0 - 0.5
+    id_mid = 0.5 * (pts.idepth_min + torch.clamp(pts.idepth_max, max=1e3))
+    xyz = torch.stack([u1, v1, torch.ones_like(u1)], -1)             # [S, NI, 3]
+    ptp = xyz @ KRKi1.transpose(1, 2) + Kt1[:, None, :] * id_mid[..., None]
+    z = ptp[..., 2]
+    zs = torch.where(z == 0, torch.full_like(z, 1e-9), z)
+    gu_raw = _to_int(torch.floor(ptp[..., 0] / zs + 0.5))
+    gv_raw = _to_int(torch.floor(ptp[..., 1] / zs + 0.5))
+    gu = torch.clamp(gu_raw, 0, w2 - 1)
+    gv = torch.clamp(gv_raw, 0, h2 - 1)
+    in_b = ((z > 0) & (gu_raw > 0) & (gv_raw > 0) & (gu_raw < w2 - 1)
+            & (gv_raw < h2 - 1))
+    dither = ptp[..., 0] - torch.floor(ptp[..., 0])
+    gate = dist_map[gv, gu] + dither >= min_act_dist * pts.my_type
+    gate_ok = can & in_b & gate
+    never_traced = ~torch.isfinite(pts.idepth_max) & (pts.status != immature.IPS_UNINITIALIZED)
+    drop = pts.valid & (
+        never_traced
+        | (pts.status == immature.IPS_OUTLIER)
+        | (~can & (host_flagged[:, None] | (pts.status == immature.IPS_OOB)))
+        | (can & ~in_b))
+    return gate_ok, drop
+
+
+def _gate_compact_activate(imm, dist_map, KRKi1, Kt1, min_act_dist, host_flagged,
+                           images, frame_valid, T_cw, aff, calib, exposure,
+                           cfg: SLAMConfig, w2: int, h2: int, budget: int):
+    """Cheap gates on all lanes, then the idepth LM only on the first
+    ``budget`` survivors of each slot (lane order). Returns (ok [S,B],
+    idepth [S,B], lane [S,B], drop [S,NI])."""
+    gate_ok, drop = _gate_impl(imm, dist_map, KRKi1, Kt1, min_act_dist,
+                               host_flagged, cfg, w2, h2)
+    lane = torch.sort((~gate_ok).to(torch.int8), dim=1, stable=True).indices[:, :budget]
+    sel_ok = torch.gather(gate_ok, 1, lane)
+
+    def take(a):
+        idx = lane
+        while idx.dim() < a.dim():
+            idx = idx[..., None]
+        return torch.gather(a, 1, idx.expand(idx.shape[:2] + a.shape[2:]))
+
+    sub = immature.ImmaturePoints(*[take(a) for a in imm])
+    S = gate_ok.shape[0]
+    acts = immature.activate_points_all(
+        sub, torch.arange(S, device=images.device), images, frame_valid, T_cw,
+        aff, calib, exposure, cfg)
+    return sel_ok & acts.ok, acts.idepth, lane, drop
+
+
+def _allocate_candidates(ok, lane, drop, p_valid, participate: np.ndarray, P: int):
+    """Activation insertion allocator: slots in ascending order; each
+    slot's accepted candidates (compacted lane order) take the slot's own
+    free pool segment rows first, then any other free rows, capped by the
+    remaining capacity. Accepted-but-unplaced candidates stay immature;
+    dropped candidates are consumed regardless. Returns (src_slot,
+    src_sub, src_lane, dst, host, valid) each [B] plus consumed [S, NI]."""
+    S, BUD = ok.shape
+    NI = drop.shape[1]
+    B = p_valid.shape[0]
+    dev = ok.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    rows = torch.arange(B, **i64)
+    free = torch.cat([~p_valid, torch.zeros(1, dtype=torch.bool, device=dev)])
+    n_fill = torch.zeros((), **i64)
+    out = {k: torch.zeros(B + 1, **i64) for k in ("slot", "sub", "lane", "dst", "host")}
+    valid = torch.zeros(B + 1, dtype=torch.bool, device=dev)
+    consumed = torch.zeros(S, NI, dtype=torch.bool, device=dev)
+    sub = torch.arange(BUD, **i64)
+    for s in range(S):
+        if not participate[s]:
+            continue
+        accs = ok[s]
+        n_acc = torch.sum(accs)
+        outside = (rows < s * P) | (rows >= (s + 1) * P)
+        key = rows + outside.to(torch.int64) * B + (~free[:B]).to(torch.int64) * (4 * B)
+        order = torch.argsort(key)
+        n_free = torch.sum(free[:B])
+        k = torch.minimum(torch.minimum(n_free, n_acc), B - n_fill)
+        rank = torch.cumsum(accs.to(torch.int64), 0) - 1
+        take = accs & (rank < k)
+        gpos = torch.where(take, n_fill + rank, torch.full_like(rank, B))
+        dstrow = order[torch.clamp(rank, 0, B - 1)]
+        out["slot"][gpos] = s
+        out["sub"][gpos] = sub
+        out["lane"][gpos] = lane[s]
+        out["dst"][gpos] = dstrow
+        out["host"][gpos] = s
+        valid[gpos] = True
+        free[torch.where(take, dstrow, torch.full_like(dstrow, B))] = False
+        row = torch.cat([drop[s], torch.zeros(1, dtype=torch.bool, device=dev)])
+        row[torch.where(take, lane[s], torch.full_like(lane[s], NI))] = True
+        consumed[s] = row[:NI]
+        n_fill = n_fill + k
+    return (out["slot"][:B], out["sub"][:B], out["lane"][:B], out["dst"][:B],
+            out["host"][:B], valid[:B], consumed)
+
+
+def _flag_points_for_removal(p_valid, pid_a, n_good, Hdd, pair_good, p_num_good,
+                             p_last_res, host_flagged, flagged, cfg: SLAMConfig):
+    """flagPointsForRemoval on host arrays: (bad, leaving, marg, drop, rules)."""
+    mgar = cfg.ba.min_good_active_res_for_marg
+    mgr = cfg.ba.min_good_res_for_marg
+    bad = p_valid & ((pid_a < 0) | (n_good == 0))
+    vis_in_marg = (pair_good[:, flagged].sum(1) if len(flagged) else np.zeros_like(n_good))
+    rule_support = ((n_good >= mgar) & (p_num_good > mgr + 10)
+                    & (n_good - vis_in_marg < mgar))
+    rule_oob = p_last_res[:, 0] == ba.RES_OOB
+    rule_out2 = ((n_good >= 2) & (p_last_res[:, 0] == ba.RES_OUTLIER)
+                 & (p_last_res[:, 1] == ba.RES_OUTLIER))
+    is_oob = rule_support | rule_oob | rule_out2
+    leaving = p_valid & ~bad & (host_flagged | is_oob)
+    inlier_new = (n_good >= mgar) & (p_num_good >= mgr)
+    marg = leaving & inlier_new & (Hdd > cfg.ba.min_idepth_h_marg)
+    drop = bad | (leaving & ~marg)
+    proactive = leaving & ~host_flagged
+    rules = {
+        "bad": int(bad.sum()),
+        "support_concentration": int((proactive & rule_support).sum()),
+        "newest_oob": int((proactive & rule_oob & ~rule_support).sum()),
+        "two_outliers": int((proactive & rule_out2 & ~rule_support & ~rule_oob).sum()),
+        "host_leaving": int((leaving & host_flagged).sum()),
+    }
+    return bad, leaving, marg, drop, rules
+
+
+def _gather_level_colors(pyr_data, u, v) -> torch.Tensor:
+    """Level-0 pixel coords [K] -> per-level interpolated intensity [K, L]."""
+    cols = []
+    for lvl, planes in enumerate(pyr_data):
+        ul = (u + 0.5) / (1 << lvl) - 0.5
+        vl = (v + 0.5) / (1 << lvl) - 0.5
+        cols.append(bilinear_gather_scalar(planes[..., 0], ul, vl))
+    return torch.stack(cols, -1)
+
+
+@dataclass
+class TrackResultNp:
+    """Host copy of the tracker-batch outputs."""
+
+    res_per_level: np.ndarray    # [N, L]
+    flow: np.ndarray             # [N, 3]
+    T: np.ndarray                # [N, 4, 4]
+    aff: np.ndarray              # [N, 2]
+    ok: np.ndarray               # [N]
+
+
+@dataclass
+class FrameShell:
+    """Host record per processed frame (DSO FrameShell)."""
+
+    incoming_id: int
+    timestamp: float
+    T_wc: np.ndarray                  # camToWorld
+    aff: np.ndarray                   # (a, b)
+    tracking_ref_kf: int = -1
+    is_kf: bool = False
+    exposure: float = 1.0
+
+
+@dataclass
+class MarginalizedKF:
+    """Record handed to the loop handler when a KF leaves the window."""
+
+    kf_id: int
+    incoming_id: int
+    timestamp: float
+    T_wc: np.ndarray
+    dso_error: float
+    scale_error: float
+    pts_cam: np.ndarray               # [K, 3] camera frame
+    pts_colors: np.ndarray            # [K, L]
+    pyr: Optional[tuple] = None
+    exposure: float = 1.0
+
+
+class FrontEnd:
+    def __init__(self, cfg: SLAMConfig, intr0: PyramidIntrinsics,
+                 intr1: PyramidIntrinsics, t_cam1_cam0: np.ndarray,
+                 prev_kf_count: int = 0, timers: Optional[StageTimers] = None,
+                 device="cpu"):
+        if cfg.runtime.pipelined_tracking and cfg.tracker.winner_policy != "serial":
+            raise NotImplementedError("pipelined tracking is not ported yet")
+        if cfg.runtime.mono_initializer:
+            raise NotImplementedError("the monocular initializer is not ported yet")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.intr0 = intr0
+        self.intr1 = intr1
+        self.t_cam1_cam0 = np.asarray(t_cam1_cam0, np.float32)
+        self.levels = cfg.tracker.pyr_levels
+
+        self.n_slots = cfg.ba.max_frames + 1
+        self.pool = self.n_slots * cfg.ba.max_points_per_frame
+        H, W = intr0.h[0], intr0.w[0]
+        calib = np.array([intr0.fx[0], intr0.fy[0], intr0.cx[0], intr0.cy[0]], np.float32)
+        self.ba_state = ba.empty_state(self.n_slots, self.pool, H, W, calib, self.device)
+        self.budgets = default_budgets(W, H, self.levels)
+
+        self.imm_budget = cfg.ba.max_immature_per_frame
+        self.immatures = immature.empty_batch(self.n_slots, self.imm_budget, self.device)
+        self.imm_slots: set = set()
+        self.pyramids: Dict[int, Pyramid] = {}
+        self.slot_stats: Dict[int, Dict[str, int]] = {}
+        self.removal_stats: Dict[str, int] = {}
+        self.template: Optional[TrackerTemplate] = None
+        self.template_kf_slot = -1
+        self.template_ref_aff = AffLight(self._f32(0.0), self._f32(0.0))
+        self.template_ref_aff_np = np.zeros(2, np.float32)
+        self.template_ref_exposure = self._f32(1.0)
+        self.template_ref_exposure_np = 1.0
+        self.first_coarse_rmse = -1.0
+        self.last_coarse_rmse = 1e9
+
+        self.all_frames: List[FrameShell] = []
+        self.kf_shells: List[FrameShell] = []
+        self.prev_kf_count = prev_kf_count
+        self.num_kfs = prev_kf_count       # global KF id counter (see reference)
+
+        self.initialized = False
+        self.is_lost = False
+        self.init_failed = False
+        self.cur_pose = np.eye(4, dtype=np.float32)   # camToWorld
+
+        self.scale_state = ScaleState()
+        self.scale_errors: Dict[int, float] = {}
+        self.slot_exposure: Dict[int, float] = {}
+        self._cur_exposure = 1.0
+        self.last_dso_error = 10e5
+        self.current_min_act_dist = 2.0
+        self.pot = 5
+
+        self.marginalized_queue: List[MarginalizedKF] = []
+        self._trace_overflow_acc = None
+        self._frames_since_kf = 0
+        self._marg_export_acc: Dict[int, list] = {}
+        self.timers = timers if timers is not None else StageTimers()
+        self.last_completed_shell: Optional[FrameShell] = None
+        self._views_cache_key = None
+        self._views_cache = None
+        self._track_imm_counts = None
+        self._track_imm_counts_key = None
+
+    # ------------------------------------------------------------------
+    # helpers
+    # ------------------------------------------------------------------
+
+    def _f32(self, x) -> torch.Tensor:
+        return torch.tensor(float(x), dtype=torch.float32, device=self.device)
+
+    def _views_np(self):
+        """Host copies of ba.current_views, cached per BAState instance
+        (states are replaced, never mutated, so identity is a sound key)."""
+        st = self.ba_state
+        if self._views_cache_key is not st:
+            self._views_cache = tuple(v.cpu().numpy() for v in ba.current_views(st))
+            self._views_cache_key = st
+        return self._views_cache
+
+    def _free_slot(self) -> int:
+        valid = self._views_np()[3]
+        for i in range(self.n_slots):
+            if not valid[i]:
+                return i
+        raise RuntimeError("no free keyframe slot")
+
+    def _newest_slot(self) -> int:
+        views = self._views_np()
+        return int(np.argmax(np.where(views[3], views[4], -1)))
+
+    def _active_slots(self) -> List[int]:
+        views = self._views_np()
+        valid, fid = views[3], views[4]
+        return sorted([i for i in range(self.n_slots) if valid[i]], key=lambda s: fid[s])
+
+    def _kf_pose(self, slot: int) -> np.ndarray:
+        """camToWorld of a window KF (current estimate)."""
+        return np.linalg.inv(self._views_np()[0][slot])
+
+    def _image(self, img) -> torch.Tensor:
+        """A [H, W] intensity image (numpy or tensor) as f32 on the device."""
+        if isinstance(img, torch.Tensor):
+            return img.to(device=self.device, dtype=torch.float32)
+        return torch.tensor(np.asarray(img, np.float32), device=self.device)
+
+    def _imm_counts_np(self) -> np.ndarray:
+        return self.immatures.valid.sum(dim=1).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # main entry (reference addActiveStereoFrame)
+    # ------------------------------------------------------------------
+
+    def add_stereo_frame(self, img0, img1, incoming_id: int, timestamp: float,
+                         exposure: float = 1.0) -> FrameShell:
+        """``img0``/``img1``: [H, W] intensities (numpy or tensors);
+        ``exposure`` is the left image's exposure time (1.0 when unknown)."""
+        self._cur_exposure = max(float(exposure), 1e-6)
+        pyr0 = build_pyramid(self._image(img0), self.levels)
+        if not self.initialized:
+            shell = self._initialize(pyr0, img1, incoming_id, timestamp)
+            if not self.initialized or getattr(shell, "_flow", None) is None:
+                return shell
+        else:
+            shell = self._track_frame(pyr0, incoming_id, timestamp)
+        if self.is_lost:
+            return shell
+        if self._keyframe_decision(shell):
+            self._make_keyframe(shell, pyr0, img1)
+        else:
+            self._make_non_keyframe(shell, pyr0)
+        self.last_completed_shell = shell
+        return shell
+
+    # ------------------------------------------------------------------
+    # initialization (stereo)
+    # ------------------------------------------------------------------
+
+    def _initialize(self, pyr0: Pyramid, img1, incoming_id, timestamp) -> FrameShell:
+        pyr1 = build_pyramid(self._image(img1), self.levels)
+        res = initializer.initialize_from_stereo(
+            pyr0, pyr1, self.intr0, self.t_cam1_cam0, self.cfg,
+            budget=self.cfg.ba.max_immature_per_frame, pot=self.pot)
+        shell = FrameShell(incoming_id, timestamp, self.cur_pose.copy(),
+                           np.zeros(2, np.float32), exposure=self._cur_exposure)
+        self.all_frames.append(shell)
+        if not res.ok:
+            return shell
+
+        # subsample to the desired density
+        valid = res.valid.cpu().numpy()
+        n_have = valid.sum()
+        keep_frac = min(1.0, self.cfg.ba.desired_point_density / max(n_have, 1))
+        rng = np.random.RandomState(0)
+        keep = valid & (rng.rand(len(valid)) < keep_frac)
+
+        slot = 0
+        T_cw = np.linalg.inv(self.cur_pose).astype(np.float32)
+        self.ba_state = ba.add_frame(self.ba_state, slot, self.num_kfs, T_cw,
+                                     np.zeros(2, np.float32), shell.exposure, pyr0.data[0])
+        self.slot_exposure[slot] = shell.exposure
+        P = self.cfg.ba.max_points_per_frame
+        cap = min(P, len(valid))
+        k = min(cap, int(keep.sum()))
+        src = np.zeros(P, np.int64)
+        src[:k] = np.nonzero(keep)[0][:k]
+        src_t = torch.as_tensor(src, device=self.device)
+        self.ba_state = ba.add_points(
+            self.ba_state, torch.arange(P, device=self.device), slot,
+            res.u[src_t], res.v[src_t], res.idepth[src_t], res.color[src_t],
+            res.weight[src_t], torch.as_tensor(np.arange(P) < k, device=self.device),
+            prior=torch.full((P,), self.cfg.ba.idepth_fix_prior, dtype=torch.float32,
+                             device=self.device))
+        self.slot_stats[slot] = {"out": 0, "marg": 0}
+        self.pyramids[slot] = pyr0
+        shell.is_kf = True
+        shell.tracking_ref_kf = self.num_kfs
+        self.kf_shells.append(shell)
+        self.num_kfs += 1
+        self._make_new_traces(slot, pyr0)
+        self._build_template(slot, pyr0)
+        self.initialized = True
+        return shell
+
+    # ------------------------------------------------------------------
+    # tracking (reference trackNewCoarse)
+    # ------------------------------------------------------------------
+
+    def _track_frame(self, pyr0: Pyramid, incoming_id, timestamp) -> FrameShell:
+        ref_slot = self.template_kf_slot
+        T_w_ref = self._kf_pose(ref_slot)
+        if len(self.all_frames) >= 2 and self.all_frames[-1].tracking_ref_kf >= 0:
+            slast = self.all_frames[-1]
+            sprelast = self.all_frames[-2]
+            slast_2_sprelast = np.linalg.inv(sprelast.T_wc) @ slast.T_wc
+            lastF_2_slast = np.linalg.inv(slast.T_wc) @ T_w_ref
+            aff_init = AffLight(self._f32(np.float32(slast.aff[0])),
+                                self._f32(np.float32(slast.aff[1])))
+            stage1, stage2 = make_motion_tries(np.eye(4), lastF_2_slast,
+                                               slast_2_sprelast, self.cfg)
+        else:
+            # first tracked frame after initialization: no motion history
+            stage1 = np.stack([np.eye(4, dtype=np.float32)])
+            _, stage2 = make_motion_tries(np.eye(4), np.eye(4), np.eye(4), self.cfg)
+            aff_init = AffLight(self._f32(0.0), self._f32(0.0))
+
+        new_exposure = self._f32(self._cur_exposure)
+        with self.timers.span("track"):
+            thr = self.cfg.tracker.re_track_threshold * self.last_coarse_rmse
+
+            def run(batch, selector=select_winner):
+                r = track_candidates_batch(
+                    tuple(pyr0.data), self.template, self.intr0, self.cfg,
+                    torch.as_tensor(np.asarray(batch, np.float32), device=self.device),
+                    aff_init, self.template_ref_aff, self.template_ref_exposure,
+                    new_exposure)
+                r_np = TrackResultNp(
+                    r.res_per_level.cpu().numpy(), r.flow.cpu().numpy(),
+                    r.T.cpu().numpy(),
+                    torch.stack([r.aff.a, r.aff.b], -1).cpu().numpy(),
+                    r.ok.cpu().numpy())
+                self._track_imm_counts = self._imm_counts_np()
+                self._track_imm_counts_key = self.immatures
+                i, g = selector(r_np, self.last_coarse_rmse, self.cfg)
+                return r_np, i, g
+
+            if self.cfg.tracker.winner_policy == "serial":
+                res, idx, good = run(np.concatenate([stage1, stage2], axis=0),
+                                     selector=select_winner_serial)
+            else:
+                res, idx, good = run(stage1[:1])
+                if not good or float(res.res_per_level[idx, 0]) > thr:
+                    res5, idx5, good5 = run(stage1, selector=select_winner_serial)
+                    if good5 and (not good or float(res5.res_per_level[idx5, 0])
+                                  < float(res.res_per_level[idx, 0])):
+                        res, idx, good = res5, idx5, good5
+                if not good or float(res.res_per_level[idx, 0]) > thr:
+                    res2, idx2, good2 = run(stage2, selector=select_winner_serial)
+                    if good2 and (not good or float(res2.res_per_level[idx2, 0])
+                                  < float(res.res_per_level[idx, 0])):
+                        res, idx, good = res2, idx2, good2
+
+        shell = FrameShell(incoming_id, timestamp, self.cur_pose.copy(),
+                           np.zeros(2, np.float32), exposure=self._cur_exposure)
+        self.all_frames.append(shell)
+        r0 = float(res.res_per_level[idx, 0])
+        flow = res.flow[idx]
+        if not math.isfinite(r0) or not np.all(np.isfinite(flow)):
+            self.is_lost = True
+            return shell
+        if not good:
+            # "BIG ERROR": take the predicted pose (candidate 0)
+            idx = 0
+            flow = np.zeros(3, np.float32)
+            r0 = float(res.res_per_level[0, 0])
+        T_ref_new = res.T[idx]
+        shell.T_wc = (T_w_ref @ np.linalg.inv(T_ref_new)).astype(np.float32)
+        shell.aff = res.aff[idx].copy()
+        shell.tracking_ref_kf = int(self._views_np()[4][ref_slot])
+        shell._T_ref_new = T_ref_new
+        shell._flow = flow
+        shell._res0 = r0
+        self.cur_pose = shell.T_wc
+        if self.first_coarse_rmse < 0:
+            self.first_coarse_rmse = r0
+        self.last_coarse_rmse = r0
+        return shell
+
+    # ------------------------------------------------------------------
+    # keyframe decision
+    # ------------------------------------------------------------------
+
+    def _keyframe_decision(self, shell: FrameShell) -> bool:
+        kc = self.cfg.keyframe
+        if kc.keyframes_per_second > 0:
+            return (shell.timestamp - self.kf_shells[-1].timestamp) > 0.95 / kc.keyframes_per_second
+        w, h = self.intr0.w[0], self.intr0.h[0]
+        ref_aff = self.template_ref_aff_np
+        a_rel = math.exp(shell.aff[0] - ref_aff[0]) * (
+            shell.exposure / max(self.template_ref_exposure_np, 1e-9))
+        flow_t, _, flow_rt = shell._flow
+        score = (
+            kc.kf_global_weight * kc.max_shift_weight_t * math.sqrt(max(flow_t, 0.0)) / (w + h)
+            + kc.kf_global_weight * kc.max_shift_weight_r * 0.0
+            + kc.kf_global_weight * kc.max_shift_weight_rt * math.sqrt(max(flow_rt, 0.0)) / (w + h)
+            + kc.kf_global_weight * kc.max_affine_weight * abs(math.log(max(a_rel, 1e-9)))
+        )
+        return score > 1.0 or 2.0 * self.first_coarse_rmse < shell._res0
+
+    # ------------------------------------------------------------------
+    # non-keyframe: trace immatures
+    # ------------------------------------------------------------------
+
+    def _make_non_keyframe(self, shell: FrameShell, pyr0: Pyramid):
+        self._frames_since_kf += 1
+        tc = self.cfg.trace
+        steady = tc.steady_after > 0 and self._frames_since_kf >= tc.steady_after
+        with self.timers.span("trace"):
+            self._trace_all(shell.T_wc, pyr0.data[0], shell.aff, shell.exposure,
+                            steady=steady)
+
+    def _trace_all(self, T_wc_new: np.ndarray, target_planes, new_aff,
+                   new_exposure: float = 1.0, steady: bool = False):
+        """traceOn over every window slot in one batched call."""
+        if not self.imm_slots:
+            return
+        K = np.asarray(self.intr0.K(0), np.float32)
+        Ki = np.linalg.inv(K)
+        T_cw_new = np.linalg.inv(T_wc_new)
+        aff_all = self._views_np()[1]
+        S = self.n_slots
+        KRKi = np.tile(np.eye(3, dtype=np.float32), (S, 1, 1))
+        Kt = np.zeros((S, 3), np.float32)
+        a_rel = np.ones(S, np.float32)
+        b_rel = np.zeros(S, np.float32)
+        for slot in self.imm_slots:
+            T_nh = T_cw_new @ self._kf_pose(slot)
+            KRKi[slot] = K @ T_nh[:3, :3] @ Ki
+            Kt[slot] = K @ T_nh[:3, 3]
+            a_rel[slot] = np.exp(np.clip(new_aff[0] - aff_all[slot, 0], -20.0, 20.0)) * (
+                new_exposure / max(self.slot_exposure.get(slot, 1.0), 1e-9))
+            b_rel[slot] = new_aff[1] - a_rel[slot] * aff_all[slot, 1]
+        tc = self.cfg.trace
+        tier = (dict(num_steps=tc.steady_num_steps, budget=tc.steady_budget,
+                     max_reach=tc.steady_max_reach) if steady else {})
+        t = lambda a: torch.as_tensor(a, device=self.device)
+        self.immatures, _, n_overflow = immature.trace_points_all_compact(
+            self.immatures, target_planes, t(KRKi), t(Kt), t(a_rel), t(b_rel),
+            self.cfg, **tier)
+        self._trace_overflow_acc = (n_overflow if self._trace_overflow_acc is None
+                                    else self._trace_overflow_acc + n_overflow)
+
+    # ------------------------------------------------------------------
+    # keyframe pipeline
+    # ------------------------------------------------------------------
+
+    def _make_keyframe(self, shell: FrameShell, pyr0: Pyramid, img1):
+        cfg = self.cfg
+        shell.is_kf = True
+        self._frames_since_kf = 0
+        self.kf_shells.append(shell)
+
+        counts = (self._track_imm_counts if self._track_imm_counts_key is self.immatures
+                  else self._imm_counts_np())
+        imm_counts = {s: int(counts[s]) for s in self.imm_slots}
+        pre_views = self._views_np()          # pre-insert snapshot
+
+        with self.timers.span("trace"):
+            self._trace_all(shell.T_wc, pyr0.data[0], shell.aff, shell.exposure)
+
+        flagged = self._flag_frames_for_marginalization(shell, imm_counts)
+
+        # ---- insert the new KF into the window ----------------------------
+        slot = self._free_slot()
+        T_cw = np.linalg.inv(shell.T_wc).astype(np.float32)
+        prev_newest = self._newest_slot()
+        n_active_before = int(np.asarray(pre_views[3]).sum())
+        st = ba.add_frame(self.ba_state, slot, self.num_kfs, T_cw, shell.aff,
+                          shell.exposure, pyr0.data[0])
+        energy_th = st.energy_th.clone()
+        energy_th[slot] = st.energy_th[prev_newest]
+        self.ba_state = st._replace(energy_th=energy_th)
+        self.slot_exposure[slot] = shell.exposure
+        self.slot_stats[slot] = {"out": 0, "marg": 0}
+        self.pyramids[slot] = pyr0
+        self.scale_errors[slot] = -1.0
+        self.num_kfs += 1
+
+        # ---- activate candidate points ------------------------------------
+        with self.timers.span("activate"):
+            self._activate_points(slot, T_cw, pre_views, flagged)
+
+        # ---- windowed BA ----------------------------------------------------
+        n_active_frames = n_active_before + 1
+        iters = cfg.ba.max_opt_iterations
+        if n_active_frames < 3:
+            iters = 20
+        elif n_active_frames < 4:
+            iters = 15
+        scale_enabled = (cfg.scale_opt.accept_thres > 0
+                         and len(self.kf_shells) > cfg.scale_opt.min_kfs_before_scale)
+        st_pre_ba = self.ba_state
+
+        def run_ba_chain(compact_budget):
+            """BA -> template -> scale, redone full-shape on compact overflow."""
+            with self.timers.span("dso_opt"):
+                st, rmse, ok, hdd, ndrop = ba.optimize_keyframe(
+                    st_pre_ba, cfg, iters, slot, compact_budget)
+            with self.timers.span("template"):
+                ti = ba.template_inputs(st, cfg, slot, hdd)
+                tmpl = build_template(ti[0], ti[1], ti[2], ti[3], pyr0.data[0][..., 0],
+                                      self.levels, self.budgets, valid=ti[4])
+            scale_out = None
+            if scale_enabled:
+                with self.timers.span("scale_opt"):
+                    pyr1 = build_pyramid(self._image(img1), self.levels)
+                    scale_out = dispatch_scale_optimization(
+                        tuple(pyr1.data), tmpl, self.intr0, self.intr1,
+                        self.t_cam1_cam0, cfg, self.scale_state)
+            return st, tmpl, scale_out, float(rmse), bool(ok), int(tmpl.pmask[0].sum()), int(ndrop)
+
+        cb = cfg.ba.compact_budget
+        cb = cb if 0 < cb < self.pool else None
+        st, tmpl, scale_out, rmse, ok, pmask_count, ndrop = run_ba_chain(cb)
+        if cb is not None and ndrop > 0:
+            st, tmpl, scale_out, rmse, ok, pmask_count, ndrop = run_ba_chain(None)
+        self.ba_state = st
+
+        # ---- init-failure / lost gates ------------------------------------------
+        gates = self.cfg.runtime.init_rmse_gates
+        nk = len(self.kf_shells)
+        if (nk == 2 and rmse > gates[0]) or (nk == 3 and rmse > gates[1]) or \
+                (nk == 4 and rmse > gates[2]):
+            self.init_failed = True
+            return
+        if not ok:
+            self.is_lost = True
+            return
+
+        self._refresh_kf_shells()
+        shell.T_wc = self._kf_pose(slot)
+        self.cur_pose = shell.T_wc
+
+        # ---- adopt the template --------------------------------------------------
+        self.template = tmpl
+        if pmask_count < 8:
+            self.is_lost = True
+        self.template_kf_slot = slot
+        aff = self._views_np()[1][slot]
+        self.template_ref_aff = AffLight(self._f32(aff[0]), self._f32(aff[1]))
+        self.template_ref_aff_np = np.asarray(aff[:2], np.float32)
+        self.template_ref_exposure = self._f32(shell.exposure)
+        self.template_ref_exposure_np = shell.exposure
+        self.first_coarse_rmse = -1.0
+        self.last_coarse_rmse = 1e9
+
+        # ---- stereo scale decision ---------------------------------------------
+        scale_error = -1.0
+        if scale_out is not None:
+            accepted, new_scale, scale_error, self.scale_state = decide_scale_optimization(
+                scale_out.scale.cpu().numpy(), scale_out.error.cpu().numpy(), cfg,
+                self.scale_state)
+            if accepted:
+                self._apply_scale(new_scale, slot)
+        self.scale_errors[slot] = scale_error
+
+        self._finalize_keyframe(flagged, slot, pyr0)
+
+    # ------------------------------------------------------------------
+
+    def flush_pending(self):
+        """The keyframe tail commits at once in this port: nothing is ever
+        pending (kept for callers of the reference's API)."""
+
+    def _finalize_keyframe(self, flagged: List[int], new_slot: int, pyr0: Pyramid):
+        """Keyframe tail: one linearization of the post-BA/post-scale state
+        feeds point flagging, dso_error and the marginalized-point exports;
+        new immature traces for the new KF; flagged frames marginalize."""
+        cfg = self.cfg
+        st = self.ba_state
+        lin = ba.linearize(st, cfg)
+        n_good = torch.sum(lin.pair_good, dim=1)
+        sel_map, sel_count = make_selection_map(
+            pyr0.abs_grad[0], pyr0.abs_grad[1], pyr0.abs_grad[2], self.pot, cfg)
+        colors_by_slot = {s: _gather_level_colors(tuple(self.pyramids[s].data), st.p_u, st.p_v)
+                          for s in self.pyramids}
+        with self.timers.span("feature_detect"):
+            self.immatures = immature.set_slot(
+                self.immatures, new_slot,
+                immature.create_points(pyr0.data[0], sel_map, self.imm_budget,
+                                       cfg.ba.outlier_th_sum_component))
+            self.imm_slots.add(new_slot)
+            if flagged:
+                clear = np.zeros(self.n_slots, bool)
+                clear[flagged] = True
+                self.immatures = immature.clear_slots(
+                    self.immatures, torch.as_tensor(clear, device=self.device))
+                for mslot in flagged:
+                    self.imm_slots.discard(mslot)
+        npy = lambda t: t.cpu().numpy()
+        bundle = (
+            self._views_np(),
+            tuple(npy(a) for a in (st.p_u, st.p_v, st.p_idepth, n_good, lin.Hdd,
+                                   lin.pair_good, lin.pair_energy, st.p_color,
+                                   st.p_num_good, st.p_last_res)),
+            int(sel_count),
+            {s: npy(c) for s, c in colors_by_slot.items()},
+        )
+        self._finalize_keyframe_commit(bundle, lin, st, flagged, new_slot)
+
+    def _finalize_keyframe_commit(self, bundle, lin, st, flagged: List[int],
+                                  new_slot: int):
+        """Host bookkeeping half of the keyframe tail."""
+        cfg = self.cfg
+        views = bundle[0]
+        (pu_a, pv_a, pid_a, n_good, Hdd, pair_good, pair_e, p_color,
+         p_num_good, p_last_res) = bundle[1]
+        got = bundle[2]
+        colors_by_slot = bundle[3]
+        p_valid, p_host = views[5], views[6]
+        fx0, fy0, cx0, cy0 = views[2]
+
+        with self.timers.span("point_marg"):
+            host_flagged = np.isin(p_host, flagged)
+            bad, leaving, marg, drop, rules = _flag_points_for_removal(
+                p_valid, pid_a, n_good, Hdd, pair_good, p_num_good, p_last_res,
+                host_flagged, flagged, cfg)
+            removed = marg | drop
+            for k, v in rules.items():
+                self.removal_stats[k] = self.removal_stats.get(k, 0) + v
+            for s in set(p_host[marg]):
+                self.slot_stats.setdefault(int(s), {"out": 0, "marg": 0})[
+                    "marg"] += int((marg & (p_host == s)).sum())
+            for s in set(p_host[drop & p_valid]):
+                self.slot_stats.setdefault(int(s), {"out": 0, "marg": 0})[
+                    "out"] += int((drop & (p_host == s)).sum())
+            if marg.any():
+                self.ba_state = ba.marginalize_points(
+                    self.ba_state, torch.as_tensor(marg, device=self.device), cfg, lin)
+            if drop.any():
+                self.ba_state = ba.drop_points(self.ba_state,
+                                               torch.as_tensor(drop, device=self.device))
+            exp_mask = leaving if cfg.loop.densify_scans else marg
+            stay = exp_mask & ~host_flagged
+            if stay.any():
+                for s in set(p_host[stay]):
+                    m = stay & (p_host == s)
+                    pid = np.maximum(pid_a[m], 1e-6)
+                    pts_cam = np.stack([(pu_a[m] - cx0) / fx0 / pid,
+                                        (pv_a[m] - cy0) / fy0 / pid, 1.0 / pid], -1)
+                    col = (colors_by_slot[s][m] if s in colors_by_slot
+                           else p_color[m][:, 4:5])
+                    self.removal_stats["stay_export"] = (
+                        self.removal_stats.get("stay_export", 0) + int(m.sum()))
+                    self._marg_export_acc.setdefault(int(s), []).append((pts_cam, col))
+            last_marg_mask = exp_mask & host_flagged
+
+        self.pot = adapt_potential(self.pot, got, cfg.ba.desired_immature_density)
+
+        with self.timers.span("frame_marg"):
+            for mslot in flagged:
+                restart = math.isnan(self.last_dso_error)
+                tgt = pair_good[:, mslot] & ~removed
+                cnt = int(tgt.sum())
+                if cnt > 0:
+                    dso_error = float(pair_e[tgt, mslot].sum()) / cnt / cnt
+                elif restart:
+                    dso_error = 10e5
+                else:
+                    dso_error = 10.0 * self.last_dso_error
+                self.last_dso_error = dso_error
+                if restart:
+                    dso_error = float("nan")
+
+                sel = last_marg_mask & (p_host == mslot)
+                pid = np.maximum(pid_a[sel], 1e-6)
+                pts_cam = np.stack([(pu_a[sel] - cx0) / fx0 / pid,
+                                    (pv_a[sel] - cy0) / fy0 / pid, 1.0 / pid], -1)
+                if mslot in colors_by_slot and sel.any():
+                    colors = colors_by_slot[mslot][sel]
+                else:
+                    colors = p_color[sel][:, 4:5]
+                acc = self._marg_export_acc.pop(mslot, None)
+                if acc:
+                    acc_pts = np.concatenate([a[0] for a in acc], 0)
+                    acc_col = np.concatenate([a[1] for a in acc], 0)
+                    L = colors.shape[1] if colors.size else acc_col.shape[1]
+                    if acc_col.shape[1] < L:
+                        acc_col = np.concatenate(
+                            [acc_col] + [acc_col[:, -1:]] * (L - acc_col.shape[1]), 1)
+                    elif colors.size and colors.shape[1] < acc_col.shape[1]:
+                        colors = np.concatenate(
+                            [colors] + [colors[:, -1:]] * (acc_col.shape[1] - colors.shape[1]), 1)
+                    pts_cam = np.concatenate([pts_cam, acc_pts], 0)
+                    colors = np.concatenate([colors, acc_col], 0) if colors.size else acc_col
+
+                fid = int(views[4][mslot])
+                k = fid - self.prev_kf_count
+                shell = self.kf_shells[k] if 0 <= k < len(self.kf_shells) else None
+                self.marginalized_queue.append(MarginalizedKF(
+                    kf_id=fid,
+                    incoming_id=shell.incoming_id if shell else -1,
+                    timestamp=shell.timestamp if shell else 0.0,
+                    T_wc=np.linalg.inv(views[0][mslot]),
+                    dso_error=dso_error,
+                    scale_error=self.scale_errors.get(mslot, -1.0),
+                    pts_cam=pts_cam, pts_colors=colors,
+                    pyr=tuple(self.pyramids[mslot].data) if mslot in self.pyramids else None,
+                    exposure=self.slot_exposure.get(mslot, 1.0),
+                ))
+                self.ba_state = ba.marginalize_frame(self.ba_state, mslot)
+                self.pyramids.pop(mslot, None)
+                self.slot_stats.pop(mslot, None)
+                self.scale_errors.pop(mslot, None)
+                self.slot_exposure.pop(mslot, None)
+
+    # ------------------------------------------------------------------
+
+    def _flag_frames_for_marginalization(self, shell, imm_counts) -> List[int]:
+        """FrontEndMarginalize.cpp:62-146, on the host views."""
+        cfg = self.cfg.ba
+        slots = self._active_slots()
+        if len(slots) < 2:
+            return []
+        newest = slots[-1]
+        views = self._views_np()
+        aff_all = views[1]
+        p_valid, p_host = views[5], views[6]
+        flagged: List[int] = []
+        for s in slots:
+            n_in = int((p_valid & (p_host == s)).sum())
+            n_in += int(imm_counts.get(s, 0))
+            n_out = self.slot_stats.get(s, {}).get("out", 0) + \
+                self.slot_stats.get(s, {}).get("marg", 0)
+            a_rel = math.exp(aff_all[newest, 0] - aff_all[s, 0]) * (
+                self.slot_exposure.get(newest, 1.0) / max(self.slot_exposure.get(s, 1.0), 1e-9))
+            if (n_in < cfg.min_points_remaining * (n_in + n_out)
+                    or abs(math.log(max(a_rel, 1e-9))) > cfg.max_log_aff_fac_in_window) \
+                    and len(slots) - len(flagged) > cfg.min_frames:
+                flagged.append(s)
+        if len(slots) - len(flagged) >= cfg.max_frames:
+            fid = views[4]
+            latest_id = fid[newest]
+            poses = {s: self._kf_pose(s) for s in slots}
+            best_score, best_slot = 1.0, None
+            for s in slots:
+                if fid[s] > latest_id - cfg.min_frame_age or fid[s] == 0 or s in flagged:
+                    continue
+                dist_score = 0.0
+                for t in slots:
+                    if t == s or fid[t] > latest_id - cfg.min_frame_age + 1:
+                        continue
+                    d = np.linalg.norm(poses[s][:3, 3] - poses[t][:3, 3])
+                    dist_score += 1.0 / (1e-5 + d)
+                d_latest = np.linalg.norm(poses[s][:3, 3] - poses[newest][:3, 3])
+                dist_score *= -math.sqrt(max(d_latest, 1e-12))
+                if dist_score < best_score:
+                    best_score, best_slot = dist_score, s
+            if best_slot is not None:
+                flagged.append(best_slot)
+        return flagged
+
+    # ------------------------------------------------------------------
+
+    def _activate_points(self, new_slot: int, T_cw_new: np.ndarray, pre_views,
+                         flagged_slots=()):
+        """Density-adaptive distance-map gating (kernel K1 on the card) +
+        batched 1-D idepth optimization + insertion into the point pool."""
+        cfg = self.cfg
+        want = cfg.ba.desired_point_density
+        have = int(np.asarray(pre_views[5]).sum())
+        d = self.current_min_act_dist
+        if have < want * 0.66:
+            d -= 0.8
+        if have < want * 0.8:
+            d -= 0.5
+        elif have < want * 0.9:
+            d -= 0.2
+        elif have < want:
+            d -= 0.1
+        if have > want * 1.5:
+            d += 0.8
+        if have > want * 1.3:
+            d += 0.5
+        if have > want * 1.15:
+            d += 0.2
+        if have > want:
+            d += 0.1
+        self.current_min_act_dist = float(np.clip(d, 0.0, 4.0))
+
+        K = np.asarray(self.intr0.K(1), np.float32)   # level-1 intrinsics
+        h2, w2 = self.intr0.h[1], self.intr0.w[1]
+        st = self.ba_state
+        dist_map = _halfres_distance_map(st, new_slot, torch.as_tensor(K, device=self.device),
+                                         h2, w2)
+        slots_todo = [s for s in self.imm_slots if s != new_slot]
+        if not slots_todo:
+            return
+        S = self.n_slots
+        T_all_old = pre_views[0]
+        K1i = np.linalg.inv(K)
+        KRKi1 = np.tile(np.eye(3, dtype=np.float32), (S, 1, 1))
+        Kt1 = np.zeros((S, 3), np.float32)
+        for slot in slots_todo:
+            T_nh1 = T_cw_new @ np.linalg.inv(T_all_old[slot])
+            KRKi1[slot] = K @ T_nh1[:3, :3] @ K1i
+            Kt1[slot] = K @ T_nh1[:3, 3]
+        host_flagged = np.zeros(S, bool)
+        host_flagged[list(flagged_slots)] = True
+        views = ba.current_views(st)
+        t = lambda a: torch.as_tensor(a, device=self.device)
+        ok_d, idepth_d, lane_d, drop_d = _gate_compact_activate(
+            self.immatures, dist_map, t(KRKi1), t(Kt1),
+            self._f32(self.current_min_act_dist), t(host_flagged), st.images,
+            st.frame_valid, views[0], views[1], views[2], st.exposure, cfg, w2, h2,
+            cfg.ba.act_budget)
+        participate = np.zeros(S, bool)
+        participate[slots_todo] = True
+        (src_slot, src_sub, src_lane, dst_idx, host, valid,
+         consumed) = _allocate_candidates(ok_d, lane_d, drop_d, st.p_valid, participate,
+                                          cfg.ba.max_points_per_frame)
+        imm = self.immatures
+        self.ba_state = ba.add_points(
+            self.ba_state, dst_idx, host, imm.u[src_slot, src_lane],
+            imm.v[src_slot, src_lane], idepth_d[src_slot, src_sub],
+            imm.color[src_slot, src_lane], imm.weight[src_slot, src_lane], valid)
+        self.immatures = imm._replace(valid=imm.valid & ~consumed)
+
+    # ------------------------------------------------------------------
+
+    def _refresh_kf_shells(self):
+        """Push optimized window poses back into the shells."""
+        fid = self._views_np()[4]
+        for s in self._active_slots():
+            k = int(fid[s]) - self.prev_kf_count
+            if 0 <= k < len(self.kf_shells):
+                self.kf_shells[k].T_wc = self._kf_pose(s)
+
+    def _build_template(self, ref_slot: int, pyr_ref: Pyramid):
+        """Tracker template for the initialization path."""
+        ti = ba.template_inputs(self.ba_state, self.cfg, ref_slot)
+        self.template = build_template(ti[0], ti[1], ti[2], ti[3], pyr_ref.data[0][..., 0],
+                                       self.levels, self.budgets, valid=ti[4])
+        if int(self.template.pmask[0].sum()) < 8:
+            self.is_lost = True
+        self.template_kf_slot = ref_slot
+        aff = self._views_np()[1][ref_slot]
+        self.template_ref_aff = AffLight(self._f32(aff[0]), self._f32(aff[1]))
+        self.template_ref_aff_np = np.asarray(aff[:2], np.float32)
+        ref_exp = self.slot_exposure.get(ref_slot, 1.0)
+        self.template_ref_exposure = self._f32(ref_exp)
+        self.template_ref_exposure_np = ref_exp
+        self.first_coarse_rmse = -1.0
+        self.last_coarse_rmse = 1e9
+
+    def _apply_scale(self, new_scale: float, newest_slot: int):
+        """Rescale template, window idepths, and the newest KF's translation
+        to its tracking reference."""
+        s = float(new_scale)
+        self.template = scale_template_idepth(self.template, self._f32(s))
+        st = self.ba_state
+        new_idepth = torch.where(st.p_valid, st.p_idepth / s, st.p_idepth)
+        st = st._replace(p_idepth=new_idepth, p_idepth_zero=new_idepth)
+        shell = self.kf_shells[-1]
+        ref_kf = shell.tracking_ref_kf - self.prev_kf_count
+        if 0 <= ref_kf < len(self.kf_shells) - 1:
+            T_w_ref = self.kf_shells[ref_kf].T_wc
+            T_ref_new = np.linalg.inv(T_w_ref) @ shell.T_wc
+            T_ref_new[:3, 3] *= s
+            shell.T_wc = (T_w_ref @ T_ref_new).astype(np.float32)
+            T_cw = np.linalg.inv(shell.T_wc).astype(np.float32)
+            T_zero = st.T_zero.clone()
+            T_zero[newest_slot] = torch.as_tensor(T_cw, device=self.device)
+            delta = st.delta.clone()
+            delta[newest_slot, :6] = 0.0
+            st = st._replace(T_zero=T_zero, delta=delta)
+            self.cur_pose = shell.T_wc
+        self.ba_state = st
+
+    def _make_new_traces(self, slot: int, pyr0: Pyramid):
+        """makeNewTraces with density feedback (initialization path)."""
+        cfg = self.cfg
+        sel, count = make_selection_map(pyr0.abs_grad[0], pyr0.abs_grad[1],
+                                        pyr0.abs_grad[2], self.pot, cfg)
+        self.pot = adapt_potential(self.pot, int(count), cfg.ba.desired_immature_density)
+        self.immatures = immature.set_slot(
+            self.immatures, slot,
+            immature.create_points(pyr0.data[0], sel, self.imm_budget,
+                                   cfg.ba.outlier_th_sum_component))
+        self.imm_slots.add(slot)

@@ -1,0 +1,140 @@
+"""Build, load and call the port's hand-written CUDA kernels.
+
+All kernels live in ``direct_stereo_slam_tpu_torch/csrc/*.cu`` behind a
+plain C interface. On first use they are compiled with ``nvcc`` for Hopper
+(``sm_90a``) into one shared library under ``build/torch_kernels/`` at
+the repository root, named by a digest of the sources and flags so an
+edited source is rebuilt; the library is loaded with ``ctypes``. Nothing
+here runs at import time, and there is no fallback: a missing toolkit, a
+failed build or a refused launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+# The reference pins Precision.HIGHEST for its geometry and H/b matmuls;
+# on the card that means no TF32 in matmuls or cuDNN convolutions. Set
+# once here, where every module of the device path imports this one.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures of the exported entry points (csrc/*.cu); every entry
+# returns a cudaError_t as int and launches on the stream passed last.
+_SIGNATURES = {
+    # pu, pv, mask, n, occ, out, h2, w2, stream
+    "dsslam_distance_map": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
+    # img, H, W, umax, vmax, pu, pv, pid, pcolor, pmask, N, params, B,
+    # fx, fy, cx, cy, huber, compute_flow, partial, nblk, out, stream
+    "dsslam_pose_pass": [_P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _I, _P, _I,
+                         _F, _F, _F, _F, _F, _I, _P, _I, _P, _P],
+    # img, H, W, umax, vmax, pu, pv, pid, pcolor, pmask, N, params, G,
+    # fx, fy, cx, cy, huber, partial, nblk, out, stream
+    "dsslam_scale_pass": [_P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _I, _P, _I,
+                          _F, _F, _F, _F, _F, _P, _I, _P, _P],
+}
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset, no nvcc)")
+    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
+    if not nvcc.exists():
+        raise RuntimeError(f"nvcc not found under {CUDA_HOME}")
+    return str(nvcc)
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libdsslam_kernels_{digest.hexdigest()[:16]}.so"
+
+
+class KernelLibrary:
+    """The loaded shared library plus what its build reported."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
+                 build_log: str):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library; cached per process."""
+    path = library_path()
+    t0 = time.perf_counter()
+    log = ""
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cus = [str(s) for s in _sources() if s.suffix == ".cu"]
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cus]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, path)       # atomic: concurrent builders agree
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.dsslam_error_string.argtypes = [ctypes.c_int]
+    lib.dsslam_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(lib, path, time.perf_counter() - t0, log)
+
+
+def call(name: str, *args) -> None:
+    """Launch one entry point on the current stream; raise on any CUDA
+    error the launch reports."""
+    kl = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(kl.lib, name)(*args, stream)
+    if err != 0:
+        msg = kl.lib.dsslam_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels take contiguous CUDA tensors on one device, read as f32
+    (data) or uint8 (masks)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.dtype not in (torch.float32, torch.uint8):
+            raise TypeError(f"{name}: tensors must be float32 (masks uint8), "
+                            f"got {t.dtype}")

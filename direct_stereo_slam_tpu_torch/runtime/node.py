@@ -1,0 +1,95 @@
+"""SLAM node driver (port of runtime/node.py).
+
+Owns the front end on ``device``; feeds synced stereo pairs; detects new
+sequences by timestamp gap; reinitializes the front end on loss or
+init-failure while preserving the current pose and the keyframe-count
+offset; prints the per-stage timing table. The loop handler, the
+undistorters, the live viewer and the debug dumps are not ported yet:
+asking for any of them raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import SLAMConfig
+from ..geometry.camera import PyramidIntrinsics
+from ..models.frontend import FrontEnd
+from ..utils.timing import StageTimers
+
+
+class SLAMNode:
+    def __init__(self, cfg: SLAMConfig, intr0: PyramidIntrinsics,
+                 intr1: PyramidIntrinsics, t_cam1_cam0: np.ndarray,
+                 loop_handler=None, undistorter0=None, undistorter1=None,
+                 device="cpu", sync_timers: bool = False):
+        if loop_handler is not None:
+            raise NotImplementedError("loop closure is not ported yet")
+        if undistorter0 is not None or undistorter1 is not None:
+            raise NotImplementedError("undistortion is not ported yet")
+        rt = cfg.runtime
+        if rt.live_view_path or rt.debug_dump_dir or rt.step_by_step:
+            raise NotImplementedError("viewer / debug dumps / step mode are not ported yet")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.intr0 = intr0
+        self.intr1 = intr1
+        self.t_cam1_cam0 = np.asarray(t_cam1_cam0, np.float32)
+        self.timers = StageTimers(sync=sync_timers)
+        self.frontend = FrontEnd(cfg, intr0, intr1, self.t_cam1_cam0,
+                                 timers=self.timers, device=self.device)
+        self.incoming_id = 0
+        self.current_timestamp = -1.0
+
+    def process(self, img0, img1, timestamp: float, exposure: float = 1.0):
+        """One synced stereo pair; ``exposure`` is the left frame's
+        exposure time when the dataset provides one."""
+        if (self.current_timestamp > 0 and abs(timestamp - self.current_timestamp)
+                > self.cfg.runtime.sequence_gap_seconds):
+            self.frontend.is_lost = True
+        self.current_timestamp = timestamp
+
+        if self.frontend.init_failed or self.frontend.is_lost:
+            last_pose = self.frontend.cur_pose
+            prev_kf = self.frontend.num_kfs
+            queue = self.frontend.marginalized_queue
+            self.frontend = FrontEnd(self.cfg, self.intr0, self.intr1, self.t_cam1_cam0,
+                                     prev_kf_count=prev_kf, timers=self.timers,
+                                     device=self.device)
+            self.frontend.cur_pose = last_pose
+            self.frontend.marginalized_queue = queue
+            # sequence-restart marker: the first marginalized KF of the new
+            # sequence carries dso_error = NaN (no odometry edge)
+            self.frontend.last_dso_error = float("nan")
+
+        with self.timers.span("per_frame"):
+            shell = self.frontend.add_stereo_frame(img0, img1, self.incoming_id,
+                                                   timestamp, exposure=exposure)
+        self.incoming_id += 1
+        # without a loop handler the marginalized-KF records are drained
+        # (each pins its KF's full pyramid)
+        self.frontend.marginalized_queue.clear()
+        return shell
+
+    def finish(self):
+        """Flush; returns the loop handler's trajectory rows (none here)."""
+        self.frontend.flush_pending()
+        self.frontend.marginalized_queue.clear()
+        return []
+
+    def timing_report(self) -> str:
+        names = ["feature_detect", "scale_opt", "dso_opt", "track", "trace",
+                 "activate", "template", "point_marg", "frame_marg", "per_frame"]
+        rep = self.timers.report([n for n in names if n in self.timers.times])
+        acc = self.frontend._trace_overflow_acc
+        if acc is not None:
+            rep += f"\ntrace_overflow {int(acc)}"
+        return rep
+
+
+def write_trajectory(path: str, rows):
+    """Write `incoming_id x y z` rows (sodso.txt/dslam.txt format)."""
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(f"{r[0]} {r[1]:.6f} {r[2]:.6f} {r[3]:.6f}\n")

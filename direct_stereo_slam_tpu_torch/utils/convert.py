@@ -1,0 +1,74 @@
+"""Carry state between the JAX package and the port.
+
+The SLAM system has no weights; its state is NamedTuples of arrays. The
+JAX package's NamedTuples, pulled to the host as numpy arrays (with
+``jax.device_get``), convert field by field into the port's NamedTuples
+of the same name and fields (``to_torch``), and back into numpy
+(``to_numpy``). Covered: ``TrackerTemplate``, ``Pyramid``, ``BAState``,
+``ImmaturePoints`` and ``PyramidIntrinsics``; nested tuples convert
+element-wise.
+
+Index fields (``BAState.p_host``) are int64 in the port, where they index
+tensors, and int32 as in the JAX package on the way back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..geometry.camera import PyramidIntrinsics
+from ..models.ba import BAState
+from ..models.depth_template import TrackerTemplate
+from ..models.immature import ImmaturePoints
+from ..ops.pyramid import Pyramid
+
+PORT_TYPES = {cls.__name__: cls for cls in
+              (TrackerTemplate, Pyramid, BAState, ImmaturePoints, PyramidIntrinsics)}
+_INDEX_FIELDS = {"p_host"}
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def to_torch(tree, device="cpu"):
+    """numpy (or array-like) leaves -> tensors on ``device``; known
+    NamedTuples -> the port's class of the same name."""
+    if _is_namedtuple(tree):
+        cls = PORT_TYPES.get(type(tree).__name__, type(tree))
+        if cls is PyramidIntrinsics:
+            return PyramidIntrinsics(*tree)           # static host tuples
+        vals = []
+        for name, v in zip(tree._fields, tree):
+            t = to_torch(v, device)
+            if name in _INDEX_FIELDS:
+                t = t.to(torch.int64)
+            vals.append(t)
+        return cls(*vals)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_torch(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, (int, float, bool)) or tree is None:
+        return tree
+    return torch.as_tensor(np.array(tree), device=device)
+
+
+def to_numpy(tree):
+    """Tensor leaves -> numpy; NamedTuples keep their (port) class."""
+    if _is_namedtuple(tree):
+        if isinstance(tree, PyramidIntrinsics):
+            return tree
+        vals = []
+        for name, v in zip(tree._fields, tree):
+            a = to_numpy(v)
+            if name in _INDEX_FIELDS:
+                a = a.astype(np.int32)
+            vals.append(a)
+        return type(tree)(*vals)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
