@@ -11,8 +11,10 @@ Phases, each of which must pass (any fault exits non-zero):
 3. each kernel against its plain PyTorch version on the card, at KITTI
    shapes: K1 distance map (bit-equal), K2 pose pass at budgets 8192 and
    512 with the tracker's batches of 1, 5 and 78 poses, and K3 scale pass
-   with 8 guesses (H and b per entry within 1e-4 x max|entry|, stats
-   within rel 1e-5);
+   with 8 guesses, and K4 loop pose pass (metric points, N = 2048 with
+   all lanes live and with padded lanes, 1 and 6 seeds, one seed that
+   projects no point, on pyramid levels 0 and 3) (H and b per entry
+   within 1e-4 x max|entry|, stats within rel 1e-5);
    median over 25 samples of the time per call of each (10 back-to-back
    calls per sample, CUDA events);
 4. the port's SLAMNode end to end on a rendered 40-frame 1232x368
@@ -20,13 +22,19 @@ Phases, each of which must pass (any fault exits non-zero):
    translation ATE < 2% of the path length, and K1, K2 and K3 each
    launched during the timed pass. A first pass with a device
    synchronize at the end of every span gives the per-stage table; FPS
-   comes from the second pass, without them.
+   comes from the second pass, without them;
+5. loop closure: the port's SLAMNode with its threaded LoopHandler (as
+   ``run_slam`` runs them) over 160 frames (2 laps at 4.5 deg/frame) of
+   the loop room at 1232x368, images quantised to uint8, loop_margin 40:
+   at least one verified loop, the loop-closed (dslam) ATE below the
+   odometry (sodso) ATE, and K1-K4 each launched during the run.
 
 Options: --profile DIR profiles one more end-to-end pass; --long also
-runs an 80-frame loop and a 120-frame forward sequence at the same size
-and prints the error of every frame (reported, not gated), and runs
-each through the port on the host CPU as well, frame by frame against
-the card.
+runs the full 320-frame loop protocol (loop_margin 100), printed beside
+the JAX package's TPU record of the same protocol, then an 80-frame loop
+and a 120-frame forward sequence at the same size with the error of every
+frame (reported, not gated), each of those also through the port on the
+host CPU, frame by frame against the card.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX.
@@ -45,6 +53,13 @@ import numpy as np
 
 W, H, LEVELS = 1232, 368, 5
 E2E_FRAMES = 40
+# loop closure: scripts/gen_longseq.py's world and trajectory (the loop
+# room, radius 8 m, 4.5 deg/frame), cut from its 320 frames to 2 laps and
+# from loop_margin 100 to the smallest margin that still keeps the last
+# ~half lap of keyframes out of retrieval
+LOOP_FRAMES, LOOP_MARGIN = 160, 40
+# the JAX package's record of the full protocol (EVAL_r05.json, TPU v5e)
+R05 = dict(loops=50, tries=74, ate_sodso=1.765, ate_dslam=0.545)
 REPEATS = 25
 POSE_BATCHES = (1, 5, 78)
 
@@ -241,6 +256,78 @@ def kernel_phase(torch, dev):
                          source="direct_stereo_slam_tpu_torch/csrc/residual_hb.cu",
                          replaces="direct_stereo_slam_tpu/ops/residual_hb.py:313",
                          max_abs_err=err, ms=ms, plain_ms=pms))
+
+    rows += pose3d_rows(torch, dev, gen, pyr1, pyr_template, depth0, intr, T)
+    return rows
+
+
+def pose3d_rows(torch, dev, gen, pyr1, pyr_template, depth0, intr, T):
+    """K4 against its plain version at the loop estimator's shapes: the
+    matched keyframe's points (max_loop_points = 2048, metric, in its
+    camera frame) against the current keyframe's pyramid levels 0 and 3,
+    all lanes live and k < 2048 live (padding x = y = 0, z = 1, mask
+    False, as the handler pads), a stack of 1 seed (reference_acceptance)
+    and of 6 (primary, a second seed, 4 yaw perturbations). The second
+    seed sits 100 m behind the points and projects none of them."""
+    from direct_stereo_slam_tpu_torch.loop.pose_estimator import make_seed_stack
+    from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
+
+    rows = []
+    kmax = 2048
+    K0 = intr.K(0)
+    us = gen.uniform(4, W - 5, kmax)
+    vs = gen.uniform(4, H - 5, kmax)
+    z = depth0[vs.astype(int), us.astype(int)].astype(np.float64)
+    xyz = np.stack([(us - K0[0, 2]) / K0[0, 0] * z, (vs - K0[1, 2]) / K0[1, 1] * z, z], -1)
+    T_np = T.cpu().numpy().astype(np.float64)
+    behind = T_np.copy()
+    behind[2, 3] -= 100.0
+    stacks = {1: T_np[None].astype(np.float32),
+              6: make_seed_stack(T_np, (behind,), (3.0, -3.0, 6.0, -6.0))}
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    for lvl in (0, 3):
+        s = 1 << lvl
+        hl, wl = pyr_template[lvl].shape
+        col = pyr_template[lvl][np.clip((vs / s).astype(int), 0, hl - 1),
+                                np.clip((us / s).astype(int), 0, wl - 1)]
+        for k in (kmax, 1500):
+            live = np.arange(kmax) < k
+            p = np.where(live[:, None], xyz, [0.0, 0.0, 1.0]).astype(np.float32)
+            c = np.where(live, col, 0.0).astype(np.float32)
+            for S, Ts in stacks.items():
+                args = (pyr1.data[lvl], t(p[:, 0]), t(p[:, 1]), t(p[:, 2]), t(c), t(live),
+                        t(Ts[:, :3, :3]), t(Ts[:, :3, 3]),
+                        torch.linspace(0.97, 1.02, S, device=dev),
+                        torch.linspace(-2.0, 1.5, S, device=dev),
+                        torch.zeros((), device=dev), intr.fx[lvl], intr.fy[lvl],
+                        intr.cx[lvl], intr.cy[lvl], 9.0,
+                        torch.linspace(20.0, 40.0, S, device=dev))
+                got = rh.pose3d_residual_pass_cuda(*args)
+                ref = rh.pose3d_residual_pass_plain(*args)
+                torch.cuda.synchronize()
+                tag = f"lvl {lvl} N={kmax} k={k} S={S}"
+                if not bool(torch.isfinite(ref.H).all()) or float(ref.num_in[0]) < 0.25 * k:
+                    fail(f"K4 {tag}: the plain version saw too little "
+                         f"(num_in {ref.num_in.tolist()})")
+                if S == 6 and float(ref.stats.num_terms[1]) != 0.0:
+                    fail(f"K4 {tag}: the seed behind the points projected some")
+                eH, eb = rel_err(torch, got.H, ref.H), rel_err(torch, got.b, ref.b)
+                est = max(rel_err(torch, g, r) for g, r in zip(
+                    list(got.stats) + [got.num_in], list(ref.stats) + [ref.num_in]))
+                if not (eH <= 1e-4 and eb <= 1e-4 and est <= 1e-5):
+                    fail(f"K4 pose3d pass {tag}: H {eH:.3g} b {eb:.3g} stats {est:.3g}")
+                err = max(float(torch.max(torch.abs(got.H - ref.H))),
+                          float(torch.max(torch.abs(got.b - ref.b))))
+                ms, pms = ab_ms(torch, lambda: rh.pose3d_residual_pass_cuda(*args),
+                                lambda: rh.pose3d_residual_pass_plain(*args))
+                print(f"K4 pose3d_residual_pass {tag}: H rel {eH:.2e}, b rel {eb:.2e}, "
+                      f"stats rel {est:.2e}; kernel {ms:.4f} ms, plain {pms:.4f} ms",
+                      flush=True)
+                rows.append(dict(name=f"pose3d_residual_pass[lvl={lvl},k={k},S={S}]",
+                                 route="cuda",
+                                 source="direct_stereo_slam_tpu_torch/csrc/residual_hb.cu",
+                                 replaces="direct_stereo_slam_tpu/ops/residual_hb.py:235",
+                                 max_abs_err=err, ms=ms, plain_ms=pms))
     return rows
 
 
@@ -266,7 +353,7 @@ def e2e_profile(torch, run_once, out_dir: str) -> None:
           f"{busy:.1f} ms = {100 * busy / 1e3 / wall:.1f}% busy; "
           f"{sum(e.count for e in kernels)} kernel launches", flush=True)
     ours = [e for e in kernels if e.key.startswith("(anonymous namespace)::") and any(
-        k in e.key for k in ("pose_partial", "pose_final", "scale_partial",
+        k in e.key for k in ("pose_partial", "pose3d_partial", "pose_final", "scale_partial",
                              "scale_final", "relax_kernel", "occupancy_kernel",
                              "fill_kernel"))]
     for e in sorted(ours, key=dev_ms, reverse=True):
@@ -325,8 +412,6 @@ def sequence_setup(dev, n, **kw):
 def e2e_phase(torch, dev, profile_dir=None):
     """The port's SLAMNode on a rendered KITTI-size sequence; returns the
     launch count of each kernel during the timed pass."""
-    from direct_stereo_slam_tpu_torch.ops import distance_map as dm
-    from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
     from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
 
     ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
@@ -339,9 +424,8 @@ def e2e_phase(torch, dev, profile_dir=None):
           f"barriers):", flush=True)
     print(node1.timing_report(), flush=True)
 
-    counters = {"distance_map": dm.build_distance_map_cuda,
-                "pose_residual_pass": rh.pose_residual_pass_cuda,
-                "scale_residual_pass": rh.scale_residual_pass_cuda}
+    counters = kernel_counters()
+    del counters["pose3d_residual_pass"]      # loop closure is not on this path
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -384,6 +468,116 @@ def e2e_phase(torch, dev, profile_dir=None):
     if profile_dir:
         e2e_profile(torch, lambda: run_sequence(torch, SLAMNode, cfg, intr, ds,
                                                 frames, dev), profile_dir)
+    return launches
+
+
+def kernel_counters():
+    from direct_stereo_slam_tpu_torch.ops import distance_map as dm
+    from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
+
+    return {"distance_map": dm.build_distance_map_cuda,
+            "pose_residual_pass": rh.pose_residual_pass_cuda,
+            "scale_residual_pass": rh.scale_residual_pass_cuda,
+            "pose3d_residual_pass": rh.pose3d_residual_pass_cuda}
+
+
+class QuantisedFrames:
+    """Pre-rendered frames as a dataset reader gives them after PNG
+    decoding: images cut to uint8 as scripts/gen_longseq.py writes them
+    (np.clip(img, 0, 255).astype(np.uint8), truncating)."""
+
+    def __init__(self, frames):
+        self.frames = [dict(f, img0=np.clip(f["img0"], 0, 255).astype(np.uint8),
+                            img1=np.clip(f["img1"], 0, 255).astype(np.uint8))
+                       for f in frames]
+
+    def __len__(self):
+        return len(self.frames)
+
+    def frame(self, i):
+        return self.frames[i]
+
+
+def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True):
+    """The port's SLAMNode + threaded LoopHandler over the loop room.
+    Returns the launch count of each kernel during the run."""
+    import dataclasses
+
+    from direct_stereo_slam_tpu_torch.config import make_config
+    from direct_stereo_slam_tpu_torch.io.synthetic import (
+        SyntheticStereoDataset, _loop_scene, loop_trajectory)
+    from direct_stereo_slam_tpu_torch.runtime.eval import (
+        run_sequence, score_rows, timing_table)
+
+    ds = SyntheticStereoDataset(n_frames=n_frames, width=W, height=H,
+                                scene=_loop_scene(), device=dev)
+    ds.poses = loop_trajectory(n_frames, radius=8.0, laps=4.5 * n_frames / 360.0,
+                               ease_in=8)
+    t0 = time.perf_counter()
+    frames = QuantisedFrames([ds.frame(i) for i in range(n_frames)])
+    print(f"loop {n_frames}: rendered {n_frames} frames {W}x{H} in "
+          f"{time.perf_counter() - t0:.2f} s (set-up)", flush=True)
+    cfg = make_config(W, H, preset=0, mode=1)
+    cfg = cfg.replace(loop=dataclasses.replace(cfg.loop, loop_margin=loop_margin))
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    node, handler, dt = run_sequence(frames, cfg, ds.K, ds.t_cam1_cam0, levels=LEVELS,
+                                     device=dev)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    handler.close()
+
+    gt = ds.poses[:, :3, 3]
+    ate_o = score_rows(handler.odometry_rows(), gt)
+    ate_d = score_rows(handler.optimized_rows(), gt)
+    loops = handler.direct_loop_count + handler.icp_loop_count
+    tag = f"loop {n_frames} (margin {loop_margin})"
+    print(f"{tag}: {n_frames / dt:.3f} FPS ({dt:.2f} s, threaded loop handler drained, "
+          f"synchronized); keyframes {node.frontend.num_kfs}, loop frames "
+          f"{len(handler.frames)}; funnel {handler.stats}; loops "
+          f"{handler.direct_loop_count} direct + {handler.icp_loop_count} ICP; "
+          f"ATE sodso {ate_o:.4f} m, dslam {ate_d:.4f} m; min SC distance "
+          f"{handler.min_sc_diff:.4f}", flush=True)
+    print(f"{tag} stage table (host wall clock per span, no per-span synchronize; "
+          f"ms x count): " + ", ".join(f"{n} {ms:.2f} x {c}" for n, (ms, c) in
+                                       timing_table(node.timers).items()), flush=True)
+    tries = handler.try_log
+    print(f"{tag}: direct tries {len(tries)}, passed {sum(t[3] and t[4] and t[5] for t in tries)}"
+          f"; gates failed: res {sum(not t[3] for t in tries)}, inlier "
+          f"{sum(not t[4] for t in tries)}, aff {sum(not t[5] for t in tries)}; "
+          f"best pose_error per try "
+          f"{' '.join(f'{t[0]:.2f}' for t in tries)}", flush=True)
+    print(f"{tag} kernel launches: {launches}", flush=True)
+    # the final pose graph optimized once more with nothing else running:
+    # what pose_graph_opt costs without the tracking thread beside it
+    from direct_stereo_slam_tpu_torch.loop import pose_graph
+
+    data, _ = handler.graph_data()
+    pose_graph.optimize(data, cfg.loop.pgo_iterations)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pose_graph.optimize(data, cfg.loop.pgo_iterations)
+    torch.cuda.synchronize()
+    print(f"{tag}: the final pose graph ({len(handler.frames)} nodes, bucket "
+          f"{data.T_wc.shape[0]}) alone: {1000 * (time.perf_counter() - t0):.2f} ms per "
+          f"optimize", flush=True)
+    if n_frames == 320:
+        print(f"{tag} vs EVAL_r05 (JAX package, TPU v5e, PNG ingestion): loops "
+              f"{loops} vs {R05['loops']}, direct tries {handler.stats['direct_try']} "
+              f"vs {R05['tries']}, ATE sodso {ate_o:.3f} vs {R05['ate_sodso']} m, "
+              f"dslam {ate_d:.3f} vs {R05['ate_dslam']} m", flush=True)
+    if not gate:
+        return launches
+    if ate_o is None or ate_d is None or not (np.isfinite(ate_o) and np.isfinite(ate_d)):
+        fail(f"{tag}: no finite ATE ({ate_o}, {ate_d})")
+    if loops < 1:
+        fail(f"{tag}: no loop verified")
+    if not ate_d < ate_o:
+        fail(f"{tag}: dslam ATE {ate_d:.4f} m is not below sodso ATE {ate_o:.4f} m")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"{tag}: kernel {name} was never launched on the loop path")
     return launches
 
 
@@ -431,8 +625,9 @@ def main() -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one more end-to-end pass; table to DIR")
     ap.add_argument("--long", action="store_true",
-                    help="also run longer KITTI-size sequences on the card and on "
-                         "the host CPU (reported, not gated)")
+                    help="also run the 320-frame loop protocol and longer "
+                         "KITTI-size sequences on the card and on the host CPU "
+                         "(reported, not gated)")
     args = ap.parse_args()
 
     import torch
@@ -456,7 +651,10 @@ def main() -> int:
 
     rows = kernel_phase(torch, dev)
     launches = e2e_phase(torch, dev, args.profile)
+    launches.update(pose3d_residual_pass=loop_phase(
+        torch, dev, LOOP_FRAMES, LOOP_MARGIN)["pose3d_residual_pass"])
     if args.long:
+        loop_phase(torch, dev, 320, 100, gate=False)
         long_phase(torch, dev)
     for row in rows:
         row["launches"] = launches[row["name"].split("[")[0]]

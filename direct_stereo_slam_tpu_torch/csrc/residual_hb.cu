@@ -1,8 +1,10 @@
-// K2 / K3: the fused residual -> Jacobian -> H/b passes of the tracker
-// and the stereo scale optimizer. They replace the XLA-compiled programs
-// direct_stereo_slam_tpu/ops/residual_hb.py::pose_residual_pass (:126-232)
-// and ::scale_residual_pass (:313-384); the reference has no Pallas form of
-// them (XLA fused the elementwise pipeline and reductions).
+// K2 / K3 / K4: the fused residual -> Jacobian -> H/b passes of the
+// tracker, the stereo scale optimizer and the loop-closure pose estimator.
+// They replace the XLA-compiled programs
+// direct_stereo_slam_tpu/ops/residual_hb.py::pose_residual_pass (:126-232),
+// ::scale_residual_pass (:313-384) and ::pose3d_residual_pass (:235-310);
+// the reference has no Pallas form of them (XLA fused the elementwise
+// pipeline and reductions).
 //
 // One thread per template point warps it, reads (I, dx, dy) bilinearly
 // (interp.py's clamp), applies the Huber weight and the saturation cutoff,
@@ -14,14 +16,14 @@
 //
 // What bounds them on the H100: per LM iteration a level reads N <= 8192
 // points (5 words each) and 4 bilinear taps of 3 floats from an image
-// that fits in L2, then reduces 51 (K2) or 6 (K3) sums. That little data
-// leaves latency (launch + reduction depth), not bandwidth or FLOPs, as
-// the bound. Design: a grid of (blocks, candidates) with blockIdx.y the
-// pose candidate (K2: 1, 5 or 78 of them) or the scale guess (K3: 8), a
-// fixed-order block reduction (warp shuffles, then warps in order) into a
-// partials buffer, and a second one-block-per-candidate stage that sums
-// the partials in index order and normalises. No atomics: results are
-// deterministic run to run.
+// that fits in L2, then reduces 51 (K2), 48 (K4) or 6 (K3) sums. That
+// little data leaves latency (launch + reduction depth), not bandwidth or
+// FLOPs, as the bound. Design: a grid of (blocks, candidates) with
+// blockIdx.y the pose candidate (K2: 1, 5 or 78 of them), the loop seed
+// (K4: 1 or 6) or the scale guess (K3: 8), a fixed-order block reduction
+// (warp shuffles, then warps in order) into a partials buffer, and a
+// second one-block-per-candidate stage that sums the partials in index
+// order and normalises. No atomics: results are deterministic run to run.
 
 #include "common.cuh"
 
@@ -49,6 +51,15 @@ constexpr int kScaleAcc = 6;
 constexpr int kScaleParams = 16;
 // output: H | b | E | n_terms | sat_ratio | n_in | pad
 constexpr int kScaleOut = 8;
+
+// ---- K4 layout ------------------------------------------------------------
+// accumulators: K2's first 48 (H upper triangle | b | E, n_terms, n_sat,
+// n_in); no flow statistics
+constexpr int kPose3dAcc = 48;
+// per-seed params: R (9) | t (3) | a | b | cutoff | ref_b0 | precond (8)
+constexpr int kPose3dParams = 24;
+constexpr int kPose3dPre = 16;
+// output: K2's layout (flow entries 0)
 
 __device__ __forceinline__ float sq(float x) { return x * x; }
 
@@ -152,19 +163,23 @@ pose_partial_kernel(const float* __restrict__ img, int H, int W, float umax,
                          kPoseAcc);
 }
 
+// Sums the partials of one candidate in index order and writes K2's output
+// layout. NACC = kPoseAcc (K2, with flow statistics) or kPose3dAcc (K4);
+// the preconditioner sits at params[c * NPARAMS + PRE].
+template <int NACC, int NPARAMS, int PRE>
 __global__ void pose_final_kernel(const float* __restrict__ partial, int nblk,
                                   const float* __restrict__ params,
                                   int compute_flow, float* __restrict__ out) {
-  __shared__ float tot[kPoseAcc];
+  __shared__ float tot[NACC];
   const int c = blockIdx.x;
-  if (threadIdx.x < kPoseAcc) {
+  if (threadIdx.x < NACC) {
     float s = 0.f;
     for (int j = 0; j < nblk; ++j)
-      s += partial[(static_cast<size_t>(c) * nblk + j) * kPoseAcc + threadIdx.x];
+      s += partial[(static_cast<size_t>(c) * nblk + j) * NACC + threadIdx.x];
     tot[threadIdx.x] = s;
   }
   __syncthreads();
-  const float* pre = params + c * kPoseParams + 25;
+  const float* pre = params + c * NPARAMS + PRE;
   float* o = out + c * kPoseOut;
   const float n_safe = fmaxf(tot[kNIN], 1.f);
   const int t = threadIdx.x;
@@ -178,14 +193,97 @@ __global__ void pose_final_kernel(const float* __restrict__ partial, int nblk,
   } else if (t == 72) {
     o[72] = tot[kE];
     o[73] = tot[kNT];
-    const float num = tot[kNSUB] * 2.f + 0.1f;
-    o[74] = compute_flow ? tot[kFT] / num : 0.f;
-    o[75] = compute_flow ? tot[kFRT] / num : 0.f;
+    o[74] = 0.f;
+    o[75] = 0.f;
+    if constexpr (NACC > kNSUB) {
+      const float num = tot[kNSUB] * 2.f + 0.1f;
+      o[74] = compute_flow ? tot[kFT] / num : 0.f;
+      o[75] = compute_flow ? tot[kFRT] / num : 0.f;
+    }
     o[76] = tot[kNS] / fmaxf(tot[kNT], 1.f);
     o[77] = tot[kNIN];
     o[78] = 0.f;
     o[79] = 0.f;
   }
+}
+
+// K4: the loop-closure flavor of K2. The points are metric xyz in the
+// matched keyframe's camera frame, warped by R p + t with new_id = 1 / z;
+// the reference frame's affine b (ref_b0) is the estimator's zero affine.
+__global__ void __launch_bounds__(kThreads)
+pose3d_partial_kernel(const float* __restrict__ img, int H, int W, float umax,
+                      float vmax, const float* __restrict__ px,
+                      const float* __restrict__ py,
+                      const float* __restrict__ pz,
+                      const float* __restrict__ pcolor,
+                      const unsigned char* __restrict__ pmask, int N,
+                      const float* __restrict__ params, float fx, float fy,
+                      float cx, float cy, float huber,
+                      float* __restrict__ partial) {
+  const float* P = params + blockIdx.y * kPose3dParams;
+  const float r00 = P[0], r01 = P[1], r02 = P[2];
+  const float r10 = P[3], r11 = P[4], r12 = P[5];
+  const float r20 = P[6], r21 = P[7], r22 = P[8];
+  const float tx = P[9], ty = P[10], tz = P[11];
+  const float aff_a = P[12], aff_b = P[13], cutoff = P[14], ref_b0 = P[15];
+  const float max_energy = 2.f * huber * cutoff - huber * huber;
+  const float wlim = static_cast<float>(W) - 3.f;
+  const float hlim = static_cast<float>(H) - 3.f;
+
+  float acc[kPose3dAcc];
+#pragma unroll
+  for (int k = 0; k < kPose3dAcc; ++k) acc[k] = 0.f;
+
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < N;
+       i += gridDim.x * kThreads) {
+    const float x = px[i], y = py[i], z = pz[i], col = pcolor[i];
+    const bool m = pmask[i] != 0;
+    const float p0 = r00 * x + r01 * y + r02 * z + tx;
+    const float p1 = r10 * x + r11 * y + r12 * z + ty;
+    const float p2 = r20 * x + r21 * y + r22 * z + tz;
+    const float u = p0 / p2, v = p1 / p2;
+    const float Ku = fx * u + cx, Kv = fy * v + cy;
+    const float new_id = 1.f / p2;
+    float hi, gx, gy;
+    dsslam::sample3(img, W, umax, vmax, Ku, Kv, hi, gx, gy);
+    const bool valid = m && Ku > 2.f && Kv > 2.f && Ku < wlim && Kv < hlim &&
+                       new_id > 0.f && isfinite(hi);
+
+    const float r = hi - (aff_a * col + aff_b);
+    const float ar = fabsf(r);
+    const float hw = ar < huber ? 1.f : huber / dsslam::clamp_min(ar, 1e-12f);
+    const bool sat = ar > cutoff;
+    const float vf = valid ? 1.f : 0.f;
+    acc[kE] += vf * (sat ? max_energy : hw * r * r * (2.f - hw));
+    acc[kNT] += vf;
+    acc[kNS] += vf * (sat ? 1.f : 0.f);
+
+    const float in = (valid && !sat) ? 1.f : 0.f;
+    const float w = in * hw;
+    const float dxfx = gx * fx, dyfy = gy * fy;
+    const float J[8] = {
+        new_id * dxfx,
+        new_id * dyfy,
+        -new_id * (u * dxfx + v * dyfy),
+        -(u * v * dxfx + (1.f + v * v) * dyfy),
+        u * v * dyfy + (1.f + u * u) * dxfx,
+        u * dyfy - v * dxfx,
+        aff_a * (ref_b0 - col),
+        -1.f,
+    };
+    acc[kNIN] += in;
+    int k = 0;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const float jw = J[a] * w;
+#pragma unroll
+      for (int b = a; b < 8; ++b) acc[k++] += jw * J[b];
+      acc[36 + a] += jw * r;
+    }
+  }
+  dsslam::block_sum<kPose3dAcc, kThreads>(
+      acc, partial + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                         kPose3dAcc);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -304,8 +402,8 @@ DSSLAM_API int dsslam_pose_pass(const float* img, int H, int W, float umax,
       cy, huber, compute_flow, partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  pose_final_kernel<<<B, 96, 0, stream>>>(partial, nblk, params, compute_flow,
-                                          out);
+  pose_final_kernel<kPoseAcc, kPoseParams, 25><<<B, 96, 0, stream>>>(
+      partial, nblk, params, compute_flow, out);
   return cudaGetLastError();
 }
 
@@ -324,5 +422,24 @@ DSSLAM_API int dsslam_scale_pass(const float* img, int H, int W, float umax,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   scale_final_kernel<<<G, 32, 0, stream>>>(partial, nblk, out);
+  return cudaGetLastError();
+}
+
+DSSLAM_API int dsslam_pose3d_pass(const float* img, int H, int W, float umax,
+                                  float vmax, const float* px, const float* py,
+                                  const float* pz, const float* pcolor,
+                                  const unsigned char* pmask, int N,
+                                  const float* params, int S, float fx,
+                                  float fy, float cx, float cy, float huber,
+                                  float* partial, int nblk, float* out,
+                                  cudaStream_t stream) {
+  if (nblk != blocks_for(N)) return cudaErrorInvalidValue;
+  pose3d_partial_kernel<<<dim3(nblk, S), kThreads, 0, stream>>>(
+      img, H, W, umax, vmax, px, py, pz, pcolor, pmask, N, params, fx, fy, cx,
+      cy, huber, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  pose_final_kernel<kPose3dAcc, kPose3dParams, kPose3dPre>
+      <<<S, 96, 0, stream>>>(partial, nblk, params, 0, out);
   return cudaGetLastError();
 }

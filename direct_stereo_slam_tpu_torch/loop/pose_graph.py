@@ -1,0 +1,228 @@
+"""SE(3) pose-graph optimization (port of loop/pose_graph.py).
+
+The reference's g2o glue: vertices are keyframe poses (camToWorld), edges
+odometry and loop constraints with a Huber kernel and block-diagonal
+information (translation weight on r[0:3], rotation weight on r[3:6]),
+the newest vertex fixed, Gauss-Newton with a light constant damping.
+
+Per-edge residuals r = log(Z^-1 T_a^-1 T_b) and their Jacobians with
+respect to right-multiplied tangents come from forward-mode autodiff
+through the port's Lie ops at xi = 0 (``torch.func.jvp``, as the
+reference uses ``jax.jacfwd``); the series branches of ``lie`` keep them
+finite there. Two solvers, on bucketed problem sizes:
+
+- "dense": the [6N, 6N] system assembled with ``index_add_`` and solved
+  with ``torch.linalg.solve`` (the reference calls ``jnp.linalg.solve``).
+- "cg": matrix-free block-Jacobi preconditioned conjugate gradients; a
+  system that has converged keeps its iterate (a masked update, no host
+  read per iteration).
+
+"auto" is dense up to 512 nodes and CG above. On the card ``index_add_``
+adds with atomics, so results differ from run to run in the last bits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..geometry import lie
+
+
+class PoseGraphData(NamedTuple):
+    """Fixed-size (bucketed) problem arrays."""
+
+    T_wc: torch.Tensor        # [N, 4, 4] initial node poses
+    node_valid: torch.Tensor  # [N]
+    edge_a: torch.Tensor      # [E] node index (the "cur" side)
+    edge_b: torch.Tensor      # [E] node index (the "from"/matched side)
+    edge_Z: torch.Tensor      # [E, 4, 4] measurement: expected T_a^-1 T_b
+    edge_w_t: torch.Tensor    # [E] translation information weight
+    edge_w_r: torch.Tensor    # [E] rotation information weight
+    edge_valid: torch.Tensor  # [E]
+    fixed_node: torch.Tensor  # scalar index
+
+
+def _edge_residual(T_a, T_b, Z):
+    return lie.se3_log(lie.se3_inverse(Z) @ lie.se3_inverse(T_a) @ T_b)
+
+
+def _edge_res_jac(T_a, T_b, Z):
+    """Residuals [E, 6] and Jacobians [E, 6, 12] wrt right-multiplied
+    tangents of (a, b): one forward-mode pass over the edges repeated 12
+    times, each copy pushing one basis direction. (Under a vmap over the
+    edges the per-edge angles would be 0-dim, where PyTorch's forward AD
+    promotes a tangent divided by a Python float to float64.)"""
+    E = T_a.shape[0]
+    rep = lambda x: x.repeat(12, 1, 1)
+
+    def f(xi_ab):
+        return _edge_residual(rep(T_a) @ lie.se3_exp(xi_ab[:, :6]),
+                              rep(T_b) @ lie.se3_exp(xi_ab[:, 6:]), rep(Z))
+
+    eye = torch.eye(12, dtype=T_a.dtype, device=T_a.device)
+    basis = eye[:, None, :].expand(12, E, 12).reshape(12 * E, 12)
+    r, J = torch.func.jvp(f, (torch.zeros_like(basis),), (basis,))
+    return r[:E], J.reshape(12, E, 6).permute(1, 2, 0)
+
+
+def _edge_system(data: PoseGraphData, T, huber_delta):
+    """Per-edge Gauss-Newton blocks at the current poses.
+    Returns (Hblk [E, 12, 12], bblk [E, 12])."""
+    r, J = _edge_res_jac(T[data.edge_a], T[data.edge_b], data.edge_Z)
+    E = r.shape[0]
+    info = torch.cat([data.edge_w_t[:, None].expand(E, 3),
+                      data.edge_w_r[:, None].expand(E, 3)], dim=1)   # [E, 6]
+    chi2 = torch.sum(info * r * r, dim=1)
+    hw = torch.where(chi2 <= huber_delta ** 2, torch.ones_like(chi2),
+                     huber_delta / torch.sqrt(torch.clamp(chi2, min=1e-12)))
+    w = info * (hw * data.edge_valid.to(torch.float32))[:, None]
+    Jw = J * w[:, :, None]
+    Hblk = Jw.transpose(1, 2) @ J
+    bblk = (Jw.transpose(1, 2) @ r[:, :, None])[..., 0]
+    return Hblk, bblk
+
+
+def _free_mask(data: PoseGraphData):
+    idx = torch.arange(data.T_wc.shape[0], device=data.T_wc.device)
+    return data.node_valid & (idx != data.fixed_node)
+
+
+def _scatter_b(data, bblk, N):
+    b = torch.zeros(N, 6, dtype=bblk.dtype, device=bblk.device)
+    b.index_add_(0, data.edge_a, bblk[:, :6])
+    b.index_add_(0, data.edge_b, bblk[:, 6:])
+    return b
+
+
+def _solve_dense(data, Hblk, bblk, lam):
+    """Materialized [6N, 6N] solve."""
+    N = data.T_wc.shape[0]
+    dev = Hblk.device
+    ar = torch.arange(6, device=dev)
+    H = torch.zeros(6 * N * 6 * N, dtype=Hblk.dtype, device=dev)
+    for (rows, cols, lo_r, lo_c) in ((data.edge_a, data.edge_a, 0, 0),
+                                     (data.edge_a, data.edge_b, 0, 6),
+                                     (data.edge_b, data.edge_a, 6, 0),
+                                     (data.edge_b, data.edge_b, 6, 6)):
+        r = 6 * rows[:, None, None] + ar[None, :, None]          # [E, 6, 1]
+        c = 6 * cols[:, None, None] + ar[None, None, :]          # [E, 1, 6]
+        H.index_add_(0, (r * (6 * N) + c).reshape(-1),
+                     Hblk[:, lo_r:lo_r + 6, lo_c:lo_c + 6].reshape(-1))
+    Hd = H.reshape(6 * N, 6 * N)
+    bd = _scatter_b(data, bblk, N).reshape(6 * N)
+
+    # fix the newest vertex and invalid nodes: eliminate their variables
+    free = torch.repeat_interleave(_free_mask(data), 6)
+    Hd = torch.where(free[:, None] & free[None, :], Hd, torch.zeros_like(Hd))
+    # light LM damping on free vars; unit diagonal keeps fixed vars solvable
+    Hd = Hd + torch.diag(torch.where(free, torch.full_like(bd, lam),
+                                     torch.ones_like(bd)))
+    Hd = Hd + 1e-6 * torch.eye(6 * N, dtype=Hd.dtype, device=dev)
+    bd = torch.where(free, bd, torch.zeros_like(bd))
+    return torch.linalg.solve(Hd, -bd).reshape(N, 6)
+
+
+def _solve_cg(data, Hblk, bblk, lam, cg_iters):
+    """Matrix-free block-Jacobi preconditioned CG on the free subsystem."""
+    N = data.T_wc.shape[0]
+    ea, eb = data.edge_a, data.edge_b
+    free = _free_mask(data).to(Hblk.dtype)[:, None]          # [N, 1]
+    damp = lam + 1e-6
+    b = -_scatter_b(data, bblk, N) * free
+    Haa, Hab = Hblk[:, :6, :6], Hblk[:, :6, 6:]
+    Hba, Hbb = Hblk[:, 6:, :6], Hblk[:, 6:, 6:]
+
+    def Hx(x):
+        x = x * free
+        xa, xb = x[ea][..., None], x[eb][..., None]
+        y = torch.zeros_like(x)
+        y.index_add_(0, ea, (Haa @ xa + Hab @ xb)[..., 0])
+        y.index_add_(0, eb, (Hba @ xa + Hbb @ xb)[..., 0])
+        return (y + damp * x) * free
+
+    eye6 = torch.eye(6, dtype=Hblk.dtype, device=Hblk.device)
+    D = torch.zeros(N, 6, 6, dtype=Hblk.dtype, device=Hblk.device)
+    D.index_add_(0, ea, Haa)
+    D.index_add_(0, eb, Hbb)
+    Dinv = torch.linalg.inv(D + damp * eye6[None])
+
+    def Minv(x):
+        return (Dinv @ x[..., None])[..., 0] * free
+
+    x = torch.zeros_like(b)
+    r = b
+    z = Minv(r)
+    p = z
+    rz = torch.sum(r * z)
+    bb = torch.clamp(torch.sum(b * b), min=1e-20)
+    for _ in range(cg_iters):
+        # the reference's while-loop condition, as a mask: a converged
+        # system keeps its carry
+        go = torch.sum(r * r) > 1e-10 * bb
+        Hp = Hx(p)
+        alpha = rz / torch.clamp(torch.sum(p * Hp), min=1e-20)
+        x_n = x + alpha * p
+        r_n = r - alpha * Hp
+        z_n = Minv(r_n)
+        rz_n = torch.sum(r_n * z_n)
+        p_n = z_n + rz_n / torch.clamp(rz, min=1e-20) * p
+        x, r, z, p, rz = [torch.where(go, new, old) for new, old in
+                          ((x_n, x), (r_n, r), (z_n, z), (p_n, p), (rz_n, rz))]
+    return x
+
+
+def optimize(data: PoseGraphData, iterations: int = 25, huber_delta: float = 1.0,
+             solver: str = "auto", cg_iters: int = 100) -> torch.Tensor:
+    """Returns optimized [N, 4, 4] poses. solver: "dense", "cg", or "auto"
+    (dense up to 512 nodes, CG beyond)."""
+    N = data.T_wc.shape[0]
+    if solver == "auto":
+        solver = "dense" if N <= 512 else "cg"
+    lam = 1e-4
+    T = data.T_wc
+    for _ in range(iterations):
+        Hblk, bblk = _edge_system(data, T, huber_delta)
+        if solver == "cg":
+            x = _solve_cg(data, Hblk, bblk, lam, cg_iters)
+        else:
+            x = _solve_dense(data, Hblk, bblk, lam)
+        T = T @ lie.se3_exp(x)
+    return T
+
+
+def next_bucket(n: int) -> int:
+    """Problem sizes in powers of two from 16 (the reference's jit buckets)."""
+    b = 16
+    while b < n:
+        b *= 2
+    return b
+
+
+def build_data(poses_wc: np.ndarray, edges, fixed_node: int,
+               device="cpu") -> PoseGraphData:
+    """``poses_wc`` [n, 4, 4]; ``edges`` a list of (a, b, Z [4, 4], w_t, w_r)."""
+    n = len(poses_wc)
+    N = next_bucket(n)
+    E = next_bucket(max(len(edges), 1))
+    T = np.tile(np.eye(4, dtype=np.float32), (N, 1, 1))
+    T[:n] = poses_wc
+    node_valid = np.zeros(N, bool)
+    node_valid[:n] = True
+    ea = np.zeros(E, np.int64)
+    eb = np.zeros(E, np.int64)
+    Z = np.tile(np.eye(4, dtype=np.float32), (E, 1, 1))
+    wt = np.zeros(E, np.float32)
+    wr = np.zeros(E, np.float32)
+    ev = np.zeros(E, bool)
+    for i, (a, b, z, w_t, w_r) in enumerate(edges):
+        ea[i], eb[i] = a, b
+        Z[i] = z
+        wt[i], wr[i] = w_t, w_r
+        ev[i] = True
+    t = lambda a: torch.as_tensor(a, device=device)
+    return PoseGraphData(T_wc=t(T), node_valid=t(node_valid), edge_a=t(ea),
+                         edge_b=t(eb), edge_Z=t(Z), edge_w_t=t(wt), edge_w_r=t(wr),
+                         edge_valid=t(ev), fixed_node=t(np.int64(fixed_node)))

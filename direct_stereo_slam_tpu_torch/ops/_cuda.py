@@ -50,6 +50,10 @@ _SIGNATURES = {
     # fx, fy, cx, cy, huber, partial, nblk, out, stream
     "dsslam_scale_pass": [_P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _I, _P, _I,
                           _F, _F, _F, _F, _F, _P, _I, _P, _P],
+    # img, H, W, umax, vmax, px, py, pz, pcolor, pmask, N, params, S,
+    # fx, fy, cx, cy, huber, partial, nblk, out, stream
+    "dsslam_pose3d_pass": [_P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _I, _P, _I,
+                           _F, _F, _F, _F, _F, _P, _I, _P, _P],
 }
 
 

@@ -1,13 +1,15 @@
 """Fused direct-alignment residual / Jacobian / Hessian passes (port of
-ops/residual_hb.py): kernels K2 (pose) and K3 (stereo scale).
+ops/residual_hb.py): kernels K2 (pose), K3 (stereo scale) and K4 (the
+loop-closure pose estimator's pass over metric 3-D points).
 
 One pass per LM iteration: warp -> bilinear read of (I, dx, dy) -> Huber
 weight and saturation cutoff -> Jacobian -> reduction to (H, b, stats).
 
-Both passes take an optional leading candidate dimension: the tracker's
-candidate batches (1, 5 or 78 poses) and the scale optimizer's 8 grid
-guesses run as ONE launch each, the candidate on ``blockIdx.y`` (the
-reference vmaps the same pass). For a CUDA image the public functions
+Every pass takes an optional leading candidate dimension: the tracker's
+candidate batches (1, 5 or 78 poses), the loop estimator's seed stack
+(1 or 6 seeds) and the scale optimizer's 8 grid guesses run as ONE
+launch each, the candidate on ``blockIdx.y`` (the reference vmaps the
+same pass). For a CUDA image the public functions
 launch the hand-written kernel (``csrc/residual_hb.cu``); the plain
 PyTorch versions below (``*_plain``) are taken only for CPU tensors, and
 are what the card's kernels are checked against.
@@ -80,6 +82,56 @@ def _unbatch(out, batched: bool):
         _unbatch(f, False) if isinstance(f, tuple) else f[0] for f in out])
 
 
+def _pose_sums(img, Ku, Kv, u, v, new_id, valid, pcolor, a, bb, ref_b0, cutoff,
+               fx, fy, huber_th):
+    """The 8-parameter terms shared by K2 and K4, from warped coordinates
+    [B, N]: bilinear read, Huber weight, cutoff, Jacobian and the masked
+    sums. Returns (E, num_terms, num_sat, H [B, 8, 8], b [B, 8], num_in)."""
+    hit = bilinear_gather(img, Ku, Kv)
+    hit_i, hit_dx, hit_dy = hit[..., 0], hit[..., 1], hit[..., 2]
+    valid = valid & torch.isfinite(hit_i)
+
+    residual = hit_i - (a * pcolor[None] + bb)
+    abs_r = torch.abs(residual)
+    hw = torch.where(abs_r < huber_th, torch.ones_like(abs_r),
+                     huber_th / torch.clamp(abs_r, min=1e-12))
+    sat = abs_r > cutoff
+    max_energy = 2.0 * huber_th * cutoff - huber_th * huber_th
+    vf = valid.to(torch.float32)
+    energy = torch.sum(vf * _huber_energy(residual, hw, sat, max_energy), dim=1)
+    num_terms = torch.sum(vf, dim=1)
+    num_sat = torch.sum(vf * sat.to(torch.float32), dim=1)
+
+    in_mask = (valid & ~sat).to(torch.float32)
+    dxfx = hit_dx * fx
+    dyfy = hit_dy * fy
+    J = torch.stack([
+        new_id * dxfx,
+        new_id * dyfy,
+        -new_id * (u * dxfx + v * dyfy),
+        -(u * v * dxfx + (1.0 + v * v) * dyfy),
+        u * v * dyfy + (1.0 + u * u) * dxfx,
+        u * dyfy - v * dxfx,
+        (a * (ref_b0 - pcolor[None])).expand_as(u),
+        -torch.ones_like(u),
+    ], dim=-1)                                                     # [B, N, 8]
+    w = (in_mask * hw)[..., None]
+    n_in = torch.sum(in_mask, dim=1)
+    n_safe = torch.clamp(n_in, min=1.0)
+    Jw = J * w
+    H = (Jw.transpose(1, 2) @ J) / n_safe[:, None, None]
+    b = (Jw.transpose(1, 2) @ residual[..., None])[..., 0] / n_safe[:, None]
+    P = POSE_PRECOND.to(img.device)
+    return energy, num_terms, num_sat, H * P[:, None] * P[None, :], b * P, n_in
+
+
+def _pose_out(energy, num_terms, num_sat, H, b, n_in, flow_t, flow_rt, batched):
+    stats = ResStats(E=energy, num_terms=num_terms, flow_t=flow_t,
+                     flow_rt=flow_rt,
+                     saturated_ratio=num_sat / torch.clamp(num_terms, min=1.0))
+    return _unbatch(PosePassOut(stats=stats, H=H, b=b, num_in=n_in), batched)
+
+
 # ---------------------------------------------------------------------------
 # K2: pose pass
 # ---------------------------------------------------------------------------
@@ -128,20 +180,9 @@ def pose_residual_pass_plain(img, pu, pv, pid, pcolor, pmask, RKi, Ki, t,
     new_id = pid[None] / pt[..., 2]
     valid = (pmask[None] & (Ku > 2.0) & (Kv > 2.0) & (Ku < W_img - 3.0)
              & (Kv < H_img - 3.0) & (new_id > 0.0))
-    hit = bilinear_gather(img, Ku, Kv)
-    hit_i, hit_dx, hit_dy = hit[..., 0], hit[..., 1], hit[..., 2]
-    valid = valid & torch.isfinite(hit_i)
-
-    residual = hit_i - (a * pcolor[None] + bb)
-    abs_r = torch.abs(residual)
-    hw = torch.where(abs_r < huber_th, torch.ones_like(abs_r),
-                     huber_th / torch.clamp(abs_r, min=1e-12))
-    sat = abs_r > cutoff
-    max_energy = 2.0 * huber_th * cutoff - huber_th * huber_th
-    vf = valid.to(torch.float32)
-    energy = torch.sum(vf * _huber_energy(residual, hw, sat, max_energy), dim=1)
-    num_terms = torch.sum(vf, dim=1)
-    num_sat = torch.sum(vf * sat.to(torch.float32), dim=1)
+    energy, num_terms, num_sat, H, b, n_in = _pose_sums(
+        img, Ku, Kv, u, v, new_id, valid, pcolor, a, bb, ref_b0, cutoff,
+        fx, fy, huber_th)
 
     if compute_flow:
         n = pu.shape[0]
@@ -166,32 +207,8 @@ def pose_residual_pass_plain(img, pu, pv, pid, pcolor, pmask, RKi, Ki, t,
         flow_t = torch.zeros(B, device=dev)
         flow_rt = torch.zeros(B, device=dev)
 
-    in_mask = (valid & ~sat).to(torch.float32)
-    dxfx = hit_dx * fx
-    dyfy = hit_dy * fy
-    J = torch.stack([
-        new_id * dxfx,
-        new_id * dyfy,
-        -new_id * (u * dxfx + v * dyfy),
-        -(u * v * dxfx + (1.0 + v * v) * dyfy),
-        u * v * dyfy + (1.0 + u * u) * dxfx,
-        u * dyfy - v * dxfx,
-        (a * (ref_b0 - pcolor[None])).expand_as(u),
-        -torch.ones_like(u),
-    ], dim=-1)                                                     # [B, N, 8]
-    w = (in_mask * hw)[..., None]
-    n_in = torch.sum(in_mask, dim=1)
-    n_safe = torch.clamp(n_in, min=1.0)
-    Jw = J * w
-    H = (Jw.transpose(1, 2) @ J) / n_safe[:, None, None]
-    b = (Jw.transpose(1, 2) @ residual[..., None])[..., 0] / n_safe[:, None]
-    P = POSE_PRECOND.to(dev)
-    H = H * P[:, None] * P[None, :]
-    b = b * P
-    stats = ResStats(E=energy, num_terms=num_terms, flow_t=flow_t,
-                     flow_rt=flow_rt,
-                     saturated_ratio=num_sat / torch.clamp(num_terms, min=1.0))
-    return _unbatch(PosePassOut(stats=stats, H=H, b=b, num_in=n_in), batched)
+    return _pose_out(energy, num_terms, num_sat, H, b, n_in, flow_t, flow_rt,
+                     batched)
 
 
 def pose_residual_pass_cuda(img, pu, pv, pid, pcolor, pmask, RKi, Ki, t, aff_a,
@@ -356,3 +373,98 @@ def scale_residual_pass_cuda(img1, pu, pv, pid, pcolor, pmask, R01Ki, Ki0, t01,
 
 
 scale_residual_pass_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: loop-closure pose pass over metric 3-D points
+# ---------------------------------------------------------------------------
+
+
+def pose3d_residual_pass(img, px, py, pz, pcolor, pmask, R, t, aff_a, aff_b,
+                         ref_b0, fx: float, fy: float, cx: float, cy: float,
+                         huber_th: float, cutoff_th) -> PosePassOut:
+    """Loop-estimator flavor: points [N] are metric xyz in the matched
+    keyframe's camera frame, warped by ``R @ p + t``. ``R`` [3, 3] or
+    [S, 3, 3] (the seed stack) with ``t`` [3] / [S, 3] and ``aff_a``,
+    ``aff_b``, ``cutoff_th`` scalars or [S]; outputs carry the seed dim iff
+    ``R`` does. No flow statistics (0). CUDA tensors launch kernel K4; CPU
+    tensors take ``pose3d_residual_pass_plain``."""
+    if img.is_cuda:
+        return pose3d_residual_pass_cuda(img, px, py, pz, pcolor, pmask, R, t,
+                                         aff_a, aff_b, ref_b0, fx, fy, cx, cy,
+                                         huber_th, cutoff_th)
+    return pose3d_residual_pass_plain(img, px, py, pz, pcolor, pmask, R, t, aff_a,
+                                      aff_b, ref_b0, fx, fy, cx, cy, huber_th,
+                                      cutoff_th)
+
+
+def pose3d_residual_pass_plain(img, px, py, pz, pcolor, pmask, R, t, aff_a, aff_b,
+                               ref_b0, fx, fy, cx, cy, huber_th,
+                               cutoff_th) -> PosePassOut:
+    """Plain PyTorch version of K4 (the reference's expression, batched)."""
+    batched = R.dim() == 3
+    R = R.reshape(-1, 3, 3)
+    S = R.shape[0]
+    dev = img.device
+    t = t.reshape(S, 3)
+    a = _batched(aff_a, S, dev)[:, None]
+    bb = _batched(aff_b, S, dev)[:, None]
+    cutoff = _batched(cutoff_th, S, dev)[:, None]
+    ref_b0 = torch.as_tensor(ref_b0, dtype=torch.float32, device=dev)
+    H_img, W_img = img.shape[0], img.shape[1]
+
+    xyz = torch.stack([px, py, pz], dim=-1)                         # [N, 3]
+    pt = xyz[None] @ R.transpose(1, 2) + t[:, None, :]              # [S, N, 3]
+    u = pt[..., 0] / pt[..., 2]
+    v = pt[..., 1] / pt[..., 2]
+    Ku = fx * u + cx
+    Kv = fy * v + cy
+    new_id = 1.0 / pt[..., 2]
+    valid = (pmask[None] & (Ku > 2.0) & (Kv > 2.0) & (Ku < W_img - 3.0)
+             & (Kv < H_img - 3.0) & (new_id > 0.0))
+    sums = _pose_sums(img, Ku, Kv, u, v, new_id, valid, pcolor, a, bb, ref_b0,
+                      cutoff, fx, fy, huber_th)
+    zero = torch.zeros(S, device=dev)
+    return _pose_out(*sums, zero, zero, batched)
+
+
+def pose3d_residual_pass_cuda(img, px, py, pz, pcolor, pmask, R, t, aff_a, aff_b,
+                              ref_b0, fx, fy, cx, cy, huber_th,
+                              cutoff_th) -> PosePassOut:
+    """Launch kernel K4 (csrc/residual_hb.cu) for all seeds at once."""
+    batched = R.dim() == 3
+    R = R.reshape(-1, 3, 3)
+    S = R.shape[0]
+    dev = img.device
+    params = torch.cat([
+        R.reshape(S, 9).to(torch.float32),
+        t.reshape(S, 3).to(torch.float32),
+        _batched(aff_a, S, dev)[:, None],
+        _batched(aff_b, S, dev)[:, None],
+        _batched(cutoff_th, S, dev)[:, None],
+        _batched(ref_b0, S, dev)[:, None],
+        POSE_PRECOND.to(dev).reshape(1, 8).expand(S, 8),
+    ], dim=1).contiguous()
+    img = img.contiguous()
+    pmask_u8 = pmask.to(torch.bool).contiguous().view(torch.uint8)
+    N = px.shape[0]
+    H_img, W_img = img.shape[0], img.shape[1]
+    nblk = _blocks_for(N)
+    partial = torch.empty(S, nblk, 48, dtype=torch.float32, device=dev)
+    out = torch.empty(S, 80, dtype=torch.float32, device=dev)
+    _cuda.require_cuda("pose3d_residual_pass", img, px, py, pz, pcolor, pmask_u8,
+                       params)
+    _cuda.call("dsslam_pose3d_pass", img.data_ptr(), H_img, W_img,
+               W_img - 1.001, H_img - 1.001, px.data_ptr(), py.data_ptr(),
+               pz.data_ptr(), pcolor.data_ptr(), pmask_u8.data_ptr(), N,
+               params.data_ptr(), S, float(fx), float(fy), float(cx), float(cy),
+               float(huber_th), partial.data_ptr(), nblk, out.data_ptr())
+    pose3d_residual_pass_cuda.launches += 1
+    stats = ResStats(E=out[:, 72], num_terms=out[:, 73], flow_t=out[:, 74],
+                     flow_rt=out[:, 75], saturated_ratio=out[:, 76])
+    res = PosePassOut(stats=stats, H=out[:, :64].reshape(S, 8, 8),
+                      b=out[:, 64:72], num_in=out[:, 77])
+    return _unbatch(res, batched)
+
+
+pose3d_residual_pass_cuda.launches = 0

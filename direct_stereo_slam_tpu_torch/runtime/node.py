@@ -1,11 +1,12 @@
 """SLAM node driver (port of runtime/node.py).
 
-Owns the front end on ``device``; feeds synced stereo pairs; detects new
-sequences by timestamp gap; reinitializes the front end on loss or
-init-failure while preserving the current pose and the keyframe-count
-offset; prints the per-stage timing table. The loop handler, the
-undistorters, the live viewer and the debug dumps are not ported yet:
-asking for any of them raises.
+Owns the front end on ``device`` and the loop handler; feeds synced
+stereo pairs; hands each marginalized keyframe to the loop handler;
+detects new sequences by timestamp gap; reinitializes the front end on
+loss or init-failure while preserving the current pose, the
+keyframe-count offset and the loop handler; prints the per-stage timing
+table. The undistorters, the live viewer and the debug dumps are not
+ported yet: asking for any of them raises.
 """
 
 from __future__ import annotations
@@ -18,14 +19,20 @@ from ..geometry.camera import PyramidIntrinsics
 from ..models.frontend import FrontEnd
 from ..utils.timing import StageTimers
 
+# the reference's stage names, in its table's order (main.cpp:181-201)
+STAGE_NAMES = (
+    "feature_detect", "scale_opt", "dso_opt", "track", "trace",
+    "activate", "template", "point_marg", "frame_marg",
+    "pts_generation", "sc_generation", "search_ringkey", "search_sc",
+    "direct_est", "icp", "pose_graph_opt", "per_frame",
+)
+
 
 class SLAMNode:
     def __init__(self, cfg: SLAMConfig, intr0: PyramidIntrinsics,
                  intr1: PyramidIntrinsics, t_cam1_cam0: np.ndarray,
                  loop_handler=None, undistorter0=None, undistorter1=None,
                  device="cpu", sync_timers: bool = False):
-        if loop_handler is not None:
-            raise NotImplementedError("loop closure is not ported yet")
         if undistorter0 is not None or undistorter1 is not None:
             raise NotImplementedError("undistortion is not ported yet")
         rt = cfg.runtime
@@ -36,6 +43,7 @@ class SLAMNode:
         self.intr0 = intr0
         self.intr1 = intr1
         self.t_cam1_cam0 = np.asarray(t_cam1_cam0, np.float32)
+        self.loop_handler = loop_handler
         self.timers = StageTimers(sync=sync_timers)
         self.frontend = FrontEnd(cfg, intr0, intr1, self.t_cam1_cam0,
                                  timers=self.timers, device=self.device)
@@ -67,21 +75,30 @@ class SLAMNode:
             shell = self.frontend.add_stereo_frame(img0, img1, self.incoming_id,
                                                    timestamp, exposure=exposure)
         self.incoming_id += 1
-        # without a loop handler the marginalized-KF records are drained
-        # (each pins its KF's full pyramid)
-        self.frontend.marginalized_queue.clear()
+        self._publish_marginalized()
         return shell
 
+    def _publish_marginalized(self):
+        """Hand marginalized KFs to the loop handler; without one, still
+        drain (each record pins its KF's full pyramid)."""
+        while self.frontend.marginalized_queue:
+            mkf = self.frontend.marginalized_queue.pop(0)
+            if self.loop_handler is not None:
+                self.loop_handler.publish_keyframe(mkf)
+
     def finish(self):
-        """Flush; returns the loop handler's trajectory rows (none here)."""
+        """Flush; returns the odometry trajectory rows (incoming_id x y z),
+        the reference's sodso.txt content, once the loop handler has
+        processed every keyframe."""
         self.frontend.flush_pending()
-        self.frontend.marginalized_queue.clear()
-        return []
+        self._publish_marginalized()
+        if self.loop_handler is None:
+            return []
+        self.loop_handler.join()     # drain the threaded handler's queue
+        return self.loop_handler.odometry_rows()
 
     def timing_report(self) -> str:
-        names = ["feature_detect", "scale_opt", "dso_opt", "track", "trace",
-                 "activate", "template", "point_marg", "frame_marg", "per_frame"]
-        rep = self.timers.report([n for n in names if n in self.timers.times])
+        rep = self.timers.report([n for n in STAGE_NAMES if n in self.timers.times])
         acc = self.frontend._trace_overflow_acc
         if acc is not None:
             rep += f"\ntrace_overflow {int(acc)}"

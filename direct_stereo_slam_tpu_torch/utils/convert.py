@@ -5,27 +5,46 @@ JAX package's NamedTuples, pulled to the host as numpy arrays (with
 ``jax.device_get``), convert field by field into the port's NamedTuples
 of the same name and fields (``to_torch``), and back into numpy
 (``to_numpy``). Covered: ``TrackerTemplate``, ``Pyramid``, ``BAState``,
-``ImmaturePoints`` and ``PyramidIntrinsics``; nested tuples convert
-element-wise.
+``ImmaturePoints``, ``PyramidIntrinsics``, ``PoseGraphData``,
+``LoopPoseResult`` and ``AffLight``; nested tuples convert element-wise.
+The ``MarginalizedKF`` dataclass converts too: its pyramid tuple becomes
+tensors, its host fields (poses, points, colours, errors) stay numpy and
+Python numbers, as both packages keep them.
 
-Index fields (``BAState.p_host``) are int64 in the port, where they index
-tensors, and int32 as in the JAX package on the way back.
+Index fields (``BAState.p_host``, the pose graph's edge ends and fixed
+node) are int64 in the port, where they index tensors, and int32 as in
+the JAX package on the way back.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..geometry.camera import PyramidIntrinsics
+from ..loop.pose_estimator import LoopPoseResult
+from ..loop.pose_graph import PoseGraphData
 from ..models.ba import BAState
 from ..models.depth_template import TrackerTemplate
+from ..models.frontend import MarginalizedKF
 from ..models.immature import ImmaturePoints
+from ..models.tracker import AffLight
 from ..ops.pyramid import Pyramid
 
 PORT_TYPES = {cls.__name__: cls for cls in
-              (TrackerTemplate, Pyramid, BAState, ImmaturePoints, PyramidIntrinsics)}
-_INDEX_FIELDS = {"p_host"}
+              (TrackerTemplate, Pyramid, BAState, ImmaturePoints, PyramidIntrinsics,
+               PoseGraphData, LoopPoseResult, AffLight, MarginalizedKF)}
+_INDEX_FIELDS = {"p_host", "edge_a", "edge_b", "fixed_node"}
+
+
+def _convert_mkf(mkf, cls, convert):
+    """A MarginalizedKF of either package as ``cls``, its pyramid converted."""
+    vals = {f.name: getattr(mkf, f.name) for f in dataclasses.fields(mkf)}
+    if vals["pyr"] is not None:
+        vals["pyr"] = tuple(convert(p) for p in vals["pyr"])
+    return cls(**vals)
 
 
 def _is_namedtuple(x) -> bool:
@@ -35,6 +54,8 @@ def _is_namedtuple(x) -> bool:
 def to_torch(tree, device="cpu"):
     """numpy (or array-like) leaves -> tensors on ``device``; known
     NamedTuples -> the port's class of the same name."""
+    if type(tree).__name__ == "MarginalizedKF":
+        return _convert_mkf(tree, MarginalizedKF, lambda p: to_torch(p, device))
     if _is_namedtuple(tree):
         cls = PORT_TYPES.get(type(tree).__name__, type(tree))
         if cls is PyramidIntrinsics:
@@ -57,6 +78,8 @@ def to_torch(tree, device="cpu"):
 
 def to_numpy(tree):
     """Tensor leaves -> numpy; NamedTuples keep their (port) class."""
+    if type(tree).__name__ == "MarginalizedKF":
+        return _convert_mkf(tree, type(tree), to_numpy)
     if _is_namedtuple(tree):
         if isinstance(tree, PyramidIntrinsics):
             return tree

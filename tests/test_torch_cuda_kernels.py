@@ -2,8 +2,11 @@
 the card, at shapes chip_smoke.py does not reach: empty and tiny point
 lists, lists that are not a multiple of the block size, grids that are
 not a multiple of the K1 tile, half-pixel ties, and the tracker's 78-pose
-escalation batch. Tolerances are chip_smoke's: K1 bit-equal; K2/K3 H and
-b per entry within 1e-4 x max|entry|, statistics within rel 1e-5.
+escalation batch, and for K4 (the loop estimator's pass over metric
+points) stacks of 1 and 6 seeds over 8 and 2048 points, a list with every
+lane masked and a seed of NaN. Tolerances are chip_smoke's: K1 bit-equal;
+K2/K3/K4 H and b per entry within 1e-4 x max|entry|, statistics within
+rel 1e-5.
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
@@ -161,3 +164,86 @@ def test_wrappers_raise_on_mixed_devices(dev):
     with pytest.raises(ValueError):
         dm.build_distance_map(torch.zeros(4, device=dev), torch.zeros(4),
                               torch.ones(4, dtype=torch.bool, device=dev), 8, 8)
+
+
+def _points3d(seed, n, dev, live_frac=1.0):
+    """Metric points in front of the camera; padded lanes as the loop
+    handler pads them (x = y = 0, z = 1, colour 0, mask False)."""
+    rng = np.random.RandomState(seed)
+    z = rng.uniform(2.0, 15.0, n)
+    px = ((rng.uniform(3, W - 4, n) - CX) / FX * z).astype(np.float32)
+    py = ((rng.uniform(3, H - 4, n) - CY) / FY * z).astype(np.float32)
+    pz = z.astype(np.float32)
+    pc = rng.uniform(20, 230, n).astype(np.float32)
+    live = np.arange(n) < int(n * live_frac)
+    px[~live] = py[~live] = pc[~live] = 0.0
+    pz[~live] = 1.0
+    return [torch.as_tensor(a, device=dev) for a in (px, py, pz, pc, live)]
+
+
+def _seed_stack(S, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    xi = 0.05 * torch.randn(S, 6, generator=gen)
+    xi[0] = 0.0
+    return torch.stack([lie.se3_exp(x) for x in xi]).to(dev)
+
+
+def _pose3d_args(img, pts, T, dev):
+    S = T.shape[0]
+    return (img, *pts, T[:, :3, :3].contiguous(), T[:, :3, 3].contiguous(),
+            torch.linspace(0.95, 1.05, S, device=dev),
+            torch.linspace(-2.0, 2.0, S, device=dev), torch.zeros((), device=dev),
+            FX, FY, CX, CY, HUBER, torch.linspace(20.0, 60.0, S, device=dev))
+
+
+def _check_pose3d(got, want):
+    assert _rel(got.H, want.H) <= 1e-4 and _rel(got.b, want.b) <= 1e-4
+    for g, w in zip(list(got.stats) + [got.num_in], list(want.stats) + [want.num_in]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("S", [1, 6])
+@pytest.mark.parametrize("n,live_frac", [(8, 1.0), (2048, 1.0), (2048, 0.7)])
+def test_pose3d_pass_matches_plain(dev, S, n, live_frac):
+    img = _image(n + S, dev)
+    pts = _points3d(n + S, n, dev, live_frac)
+    args = _pose3d_args(img, pts, _seed_stack(S, dev, S), dev)
+    before = rh.pose3d_residual_pass_cuda.launches
+    got = rh.pose3d_residual_pass(*args)
+    assert rh.pose3d_residual_pass_cuda.launches == before + 1
+    want = rh.pose3d_residual_pass_plain(*args)
+    assert float(want.num_in.min()) > 0
+    _check_pose3d(got, want)
+
+
+def test_pose3d_pass_all_lanes_masked(dev):
+    """No live lane: every sum is zero, as in the plain version."""
+    img = _image(5, dev)
+    pts = _points3d(5, 2048, dev, live_frac=0.0)
+    args = _pose3d_args(img, pts, _seed_stack(6, dev), dev)
+    got = rh.pose3d_residual_pass(*args)
+    want = rh.pose3d_residual_pass_plain(*args)
+    assert float(torch.abs(want.H).max()) == 0.0
+    assert torch.equal(got.H, want.H) and torch.equal(got.b, want.b)
+    for g, w in zip(list(got.stats) + [got.num_in], list(want.stats) + [want.num_in]):
+        assert torch.equal(g, w)
+
+
+def test_pose3d_pass_nan_seed(dev):
+    """A seed of NaN (a diverged LM step) gives NaN exactly where the plain
+    version does, and leaves the other seeds' sums untouched."""
+    img = _image(6, dev)
+    pts = _points3d(6, 2048, dev)
+    T = _seed_stack(6, dev)
+    T[3] = float("nan")
+    args = _pose3d_args(img, pts, T, dev)
+    got = rh.pose3d_residual_pass(*args)
+    want = rh.pose3d_residual_pass_plain(*args)
+    for g, w in ((got.H, want.H), (got.b, want.b), (got.stats.E, want.stats.E),
+                 (got.num_in, want.num_in)):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+    ok = torch.arange(6, device=dev) != 3
+    _check_pose3d(type(got)(*[type(f)(*[x[ok] for x in f]) if isinstance(f, tuple)
+                              else f[ok] for f in got]),
+                  type(want)(*[type(f)(*[x[ok] for x in f]) if isinstance(f, tuple)
+                               else f[ok] for f in want]))

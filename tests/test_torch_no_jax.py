@@ -1,8 +1,10 @@
 """The port stands without JAX: importing its SLAMNode (the whole device
-path) loads no ``jax``, no module of the port imports jax, and the device
-path turns TF32 off (the reference pins full-f32 matmuls). Of the JAX
-package the port shares only jax-free host modules (config, calib,
-dataset, sync)."""
+path), the loop-closure modules, the evaluation harness and the
+``run_slam`` entry point loads no ``jax``, no module of the port imports
+jax, and the device path turns TF32 off (the reference pins full-f32
+matmuls). Of the JAX package the port shares only jax-free host modules
+(config, calib, dataset, sync, Scan Context, ICP and the signature
+search)."""
 
 import os
 import pathlib
@@ -22,6 +24,15 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import direct_stereo_slam_tpu_torch.runtime.node\n"
         "import direct_stereo_slam_tpu_torch.utils.convert\n"
+        "import direct_stereo_slam_tpu_torch.loop.handler\n"
+        "import direct_stereo_slam_tpu_torch.loop.pose_estimator\n"
+        "import direct_stereo_slam_tpu_torch.loop.pose_graph\n"
+        "import direct_stereo_slam_tpu_torch.loop.retrieval\n"
+        "import direct_stereo_slam_tpu_torch.loop.scan\n"
+        "import direct_stereo_slam_tpu_torch.loop.scancontext\n"
+        "import direct_stereo_slam_tpu_torch.loop.icp\n"
+        "import direct_stereo_slam_tpu_torch.runtime.eval\n"
+        "import direct_stereo_slam_tpu_torch.run_slam\n"
         "import torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib'))\n"

@@ -85,7 +85,7 @@ def test_unported_modes_raise():
         NodeT(cfg.replace(runtime=dataclasses.replace(cfg.runtime, live_view_path="x.html")),
               intr, intr, ds.t_cam1_cam0)
     with pytest.raises(NotImplementedError):
-        NodeT(cfg, intr, intr, ds.t_cam1_cam0, loop_handler=object())
+        NodeT(cfg, intr, intr, ds.t_cam1_cam0, undistorter0=object())
 
 
 def test_sequence_gap_reinitializes_like_the_reference():
