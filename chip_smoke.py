@@ -14,20 +14,31 @@ Phases, each of which must pass (any fault exits non-zero):
    with 8 guesses, and K4 loop pose pass (metric points, N = 2048 with
    all lanes live and with padded lanes, 1 and 6 seeds, one seed that
    projects no point, on pyramid levels 0 and 3) (H and b per entry
-   within 1e-4 x max|entry|, stats within rel 1e-5);
-   median over 25 samples of the time per call of each (10 back-to-back
-   calls per sample, CUDA events);
+   within 1e-4 x max|entry|, stats within rel 1e-5); then the resident
+   LM kernels K2-LM (the tracker's whole LM for a batch of 1, 5 or 78
+   candidates, templates of base budget 8192 and 512) and K4-LM (the
+   loop estimator's for a stack of 1 or 6 seeds over 2048 points, all
+   live or padded), each against the Python LM loop driving the per-pass
+   kernel and against the same loop over plain passes (residuals per
+   level within 1e-3 relative, poses within 1e-3 per matrix entry, the
+   same ok, the same winner; a candidate may differ only where a near-tie
+   accept/reject makes the loops themselves differ when the points' lane
+   order changes, as utils/lm_agreement.py measures in each run); median
+   time per call of each (CUDA events), with its bound
+   (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, the larger);
 4. the port's SLAMNode end to end on a rendered 40-frame 1232x368
    sequence (preset 0, mode 1): initialised, never lost, >= 3 keyframes,
-   translation ATE < 2% of the path length, and K1, K2 and K3 each
-   launched during the timed pass. A first pass with a device
-   synchronize at the end of every span gives the per-stage table; FPS
-   comes from the second pass, without them;
+   translation ATE < 2% of the path length, K1, K2-LM and K3 each
+   launched during the timed pass and the per-pass K2 never. A first
+   pass with a device synchronize at the end of every span gives the
+   per-stage table; FPS and ``track`` per frame come from the second
+   pass, without them;
 5. loop closure: the port's SLAMNode with its threaded LoopHandler (as
    ``run_slam`` runs them) over 160 frames (2 laps at 4.5 deg/frame) of
    the loop room at 1232x368, images quantised to uint8, loop_margin 40:
    at least one verified loop, the loop-closed (dslam) ATE below the
-   odometry (sodso) ATE, and K1-K4 each launched during the run.
+   odometry (sodso) ATE, K1, K2-LM, K3 and K4-LM each launched during
+   the run and the per-pass K2 and K4 never; ``direct_est`` per try.
 
 Options: --profile DIR profiles one more end-to-end pass; --long also
 runs the full 320-frame loop protocol (loop_margin 100), printed beside
@@ -37,7 +48,8 @@ frame (reported, not gated), each of those also through the port on the
 host CPU, frame by frame against the card.
 
 The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}. The script imports nothing of JAX.
+{"ok": true, "device": {...}}. The script imports nothing of JAX nor of
+the JAX package, and checks so before its last line.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 import numpy as np
 
@@ -62,6 +75,15 @@ LOOP_FRAMES, LOOP_MARGIN = 160, 40
 R05 = dict(loops=50, tries=74, ate_sodso=1.765, ate_dslam=0.545)
 REPEATS = 25
 POSE_BATCHES = (1, 5, 78)
+# the least time of a call: bytes over the H100's memory rate, or f32
+# operations over its rate outside the tensor cores (H100 SXM data sheet),
+# whichever is larger
+DRAM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# a residual pass per point: warp, 4 bilinear taps of 3 floats, Huber,
+# Jacobian and the 44 H/b products (~200 f32 operations); it reads the
+# point's 17 bytes and 4 taps x 12 bytes
+PASS_OPS, POINT_BYTES, TAP_BYTES = 200, 17, 48
 
 
 def fail(msg: str) -> None:
@@ -78,12 +100,13 @@ def card_info() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(torch, fn, repeats: int = REPEATS, inner: int = 10) -> float:
+def median_ms(torch, fn, repeats: int = REPEATS, inner: int = 10,
+              warmup: int = 3) -> float:
     """Time per call of fn() on the card: CUDA events around `inner`
     back-to-back calls (host enqueue overlapping device work, as in a
     loop), synchronized before each sample; median over `repeats`
     samples, warm-up excluded."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -100,14 +123,27 @@ def median_ms(torch, fn, repeats: int = REPEATS, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def ab_ms(torch, kernel_fn, plain_fn):
+def ab_ms(torch, kernel_fn, plain_fn, plain_kw=None, kernel_kw=None):
     """(kernel ms, plain ms) measured in turns plain, kernel, kernel, plain
     and averaged, so drift in the card's clocks hits both alike."""
-    p1 = median_ms(torch, plain_fn)
-    k1 = median_ms(torch, kernel_fn)
-    k2 = median_ms(torch, kernel_fn)
-    p2 = median_ms(torch, plain_fn)
+    plain_kw, kernel_kw = plain_kw or {}, kernel_kw or {}
+    p1 = median_ms(torch, plain_fn, **plain_kw)
+    k1 = median_ms(torch, kernel_fn, **kernel_kw)
+    k2 = median_ms(torch, kernel_fn, **kernel_kw)
+    p2 = median_ms(torch, plain_fn, **plain_kw)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops):
+    """One entry of the kernel table: the bound is the larger of the bytes
+    the call must move and the f32 operations it must do."""
+    b_ms = 1e3 * n_bytes / DRAM_BYTES_PER_S
+    o_ms = 1e3 * n_ops / F32_OPS_PER_S
+    return dict(name=name, route="cuda",
+                source=f"direct_stereo_slam_tpu_torch/csrc/{source}",
+                replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations",
+                library_ms=None)
 
 
 def rel_err(torch, a, b) -> float:
@@ -144,10 +180,14 @@ def kernel_phase(torch, dev):
                         lambda: dm.build_distance_map_plain(pu, pv, mask, h2, w2))
         print(f"K1 distance_map {h2}x{w2} n={n}: bit-equal, kernel {ms:.4f} ms, "
               f"plain {pms:.4f} ms", flush=True)
-        rows.append(dict(name=f"distance_map[n={n}]", route="cuda",
-                         source="direct_stereo_slam_tpu_torch/csrc/distance_map.cu",
-                         replaces="direct_stereo_slam_tpu/ops/distance_map.py:59",
-                         max_abs_err=err, ms=ms, plain_ms=pms))
+        # reads (pu, pv, mask), writes the f32 map. The function is the
+        # chessboard distance capped at 16: the least work is ~6 operations
+        # per point to round and clip it and a two-pass chamfer sweep
+        # (per cell and pass 4 mins, 1 add, 1 min with the cell) plus the
+        # cap, 13 per cell (the kernel's 16 relaxations do far more)
+        rows.append(row(f"distance_map[n={n}]", "distance_map.cu",
+                        "direct_stereo_slam_tpu/ops/distance_map.py:59", err, ms, pms,
+                        n * 9 + h2 * w2 * 4, n * 6 + h2 * w2 * 13))
 
     # ---- K2 / K3 on a rendered KITTI-size stereo pair ------------------------
     ds = SyntheticStereoDataset(n_frames=2, width=W, height=H, speed=0.4, device=dev)
@@ -212,10 +252,10 @@ def kernel_phase(torch, dev):
             print(f"K2 pose_residual_pass lvl {lvl} N={budget} B={B}: H rel {eH:.2e}, "
                   f"b rel {eb:.2e}, stats rel {est:.2e}; kernel {ms:.4f} ms, "
                   f"plain {pms:.4f} ms", flush=True)
-            rows.append(dict(name=f"pose_residual_pass[N={budget},B={B}]", route="cuda",
-                             source="direct_stereo_slam_tpu_torch/csrc/residual_hb.cu",
-                             replaces="direct_stereo_slam_tpu/ops/residual_hb.py:126",
-                             max_abs_err=err, ms=ms, plain_ms=pms))
+            rows.append(row(f"pose_residual_pass[N={budget},B={B}]", "residual_hb.cu",
+                            "direct_stereo_slam_tpu/ops/residual_hb.py:126", err, ms, pms,
+                            budget * POINT_BYTES + B * budget * TAP_BYTES + B * 80 * 4,
+                            B * budget * PASS_OPS))
 
         Ki0 = Ki
         t01 = torch.as_tensor(ds.t_cam1_cam0[:3, 3], device=dev)
@@ -252,12 +292,14 @@ def kernel_phase(torch, dev):
         print(f"K3 scale_residual_pass lvl {lvl} N={budget} G=8: H rel {eH:.2e}, "
               f"stats rel {est:.2e}, padded-list NaNs agree; kernel {ms:.4f} ms, "
               f"plain {pms:.4f} ms", flush=True)
-        rows.append(dict(name=f"scale_residual_pass[N={budget}]", route="cuda",
-                         source="direct_stereo_slam_tpu_torch/csrc/residual_hb.cu",
-                         replaces="direct_stereo_slam_tpu/ops/residual_hb.py:313",
-                         max_abs_err=err, ms=ms, plain_ms=pms))
+        # 8 guesses; the 1-DoF pass does ~80 operations per point
+        rows.append(row(f"scale_residual_pass[N={budget}]", "residual_hb.cu",
+                        "direct_stereo_slam_tpu/ops/residual_hb.py:313", err, ms, pms,
+                        budget * POINT_BYTES + 8 * budget * TAP_BYTES + 8 * 8 * 4,
+                        8 * budget * 80))
 
     rows += pose3d_rows(torch, dev, gen, pyr1, pyr_template, depth0, intr, T)
+    rows += lm_rows(torch, dev, ds, f0, f1, intr, pyr1, pyr_template)
     return rows
 
 
@@ -323,11 +365,168 @@ def pose3d_rows(torch, dev, gen, pyr1, pyr_template, depth0, intr, T):
                 print(f"K4 pose3d_residual_pass {tag}: H rel {eH:.2e}, b rel {eb:.2e}, "
                       f"stats rel {est:.2e}; kernel {ms:.4f} ms, plain {pms:.4f} ms",
                       flush=True)
-                rows.append(dict(name=f"pose3d_residual_pass[lvl={lvl},k={k},S={S}]",
-                                 route="cuda",
-                                 source="direct_stereo_slam_tpu_torch/csrc/residual_hb.cu",
-                                 replaces="direct_stereo_slam_tpu/ops/residual_hb.py:235",
-                                 max_abs_err=err, ms=ms, plain_ms=pms))
+                rows.append(row(f"pose3d_residual_pass[lvl={lvl},k={k},S={S}]",
+                                "residual_hb.cu",
+                                "direct_stereo_slam_tpu/ops/residual_hb.py:235", err, ms,
+                                pms, kmax * POINT_BYTES + S * kmax * TAP_BYTES + S * 80 * 4,
+                                S * kmax * PASS_OPS))
+    return rows
+
+
+def lm_bytes_ops(sizes, passes, B):
+    """Bytes and operations of a resident LM call from the passes it ran:
+    each level's points read once, 4 taps per point and pass, the poses in
+    and the rows out."""
+    n = np.asarray(sizes, np.float64)
+    point_passes = float((np.asarray(passes, np.float64) * n[None]).sum())
+    return (float(n.sum()) * POINT_BYTES + point_passes * TAP_BYTES + B * (64 + 160),
+            point_passes * PASS_OPS)
+
+
+def lm_rows(torch, dev, ds, f0, f1, intr, pyr1, pyr_template):
+    """K2-LM and K4-LM against the Python LM loops at the main path's
+    shapes: the tracker's batches of 1, 5 and 78 candidates (the first
+    try, the motion tries, the rotation tries around the constant-motion
+    guess) on a template of base budget 8192 (the front end's) and 512;
+    the loop estimator's stacks of 1 and 6 seeds (primary, a seed 100 m
+    behind the points, 4 yaw perturbations) over 2048 metric points, all
+    live or 1500 live."""
+    from direct_stereo_slam_tpu_torch.config import make_config
+    from direct_stereo_slam_tpu_torch.geometry import lie
+    from direct_stereo_slam_tpu_torch.loop import pose_estimator as pe
+    from direct_stereo_slam_tpu_torch.models import depth_template as dt
+    from direct_stereo_slam_tpu_torch.models import tracker as tr
+    from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
+    from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
+    from direct_stereo_slam_tpu_torch.ops.interp import bilinear_gather_scalar
+    from direct_stereo_slam_tpu_torch.ops.pyramid import build_pyramid
+    from direct_stereo_slam_tpu_torch.utils import lm_agreement as lma
+
+    rows = []
+    cfg = make_config(W, H, preset=0, mode=1)
+    gen = np.random.RandomState(1)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    n = 20000
+    us = gen.uniform(3, W - 4, n).astype(np.float32)
+    vs = gen.uniform(3, H - 4, n).astype(np.float32)
+    z = f0["depth0"][vs.astype(int), us.astype(int)].astype(np.float64)
+    T_true = np.linalg.inv(f1["pose_w_c0"]) @ f0["pose_w_c0"]
+    slast = lie.se3_exp_np([0.02, -0.01, 0.05, 0.01, -0.005, 0.002])
+    stage1, stage2 = tr.make_motion_tries(np.eye(4), T_true, slast, cfg)
+    zero, one = torch.zeros((), device=dev), torch.ones((), device=dev)
+    aff = tr.AffLight(zero, zero)
+    img0 = t(f0["img0"])
+    print(f"K2-LM / K4-LM occupancy: {rlm.max_active_clusters(False, 8192)} / "
+          f"{rlm.max_active_clusters(True, 2048)} 8-block clusters of 256 threads "
+          f"resident at once", flush=True)
+    slow = dict(repeats=3, inner=1, warmup=1)
+    fast = dict(repeats=11, inner=3, warmup=2)
+
+    def winner(r):
+        return tr.select_winner(tr.TrackResult(
+            r.T.cpu().numpy(), None, r.res_per_level.cpu().numpy(), None,
+            r.ok.cpu().numpy()), 1e9, cfg)
+
+    for base in (8192, 512):
+        budgets = dt.default_budgets(W, H, LEVELS, base=base)
+        tmpl = dt.build_template(t(us), t(vs), t((1.0 / z).astype(np.float32)),
+                                 t(np.ones(n, np.float32)), img0, LEVELS, budgets)
+        sizes = [int(x.shape[0]) for x in tmpl.pu]
+        for B, batch in ((1, stage1[:1]), (5, stage1), (78, stage2)):
+            args = (tuple(pyr1.data), tmpl, intr, cfg, t(batch.astype(np.float32)), aff,
+                    aff, one, one)
+            got = tr.track_candidates_batch(*args)
+            o = rlm.track_lm_cuda(*args)
+            loops = (tr.track_candidates_batch_plain,
+                     partial(tr.track_candidates_batch_plain,
+                             residual_pass=rh.pose_residual_pass_plain))
+            refs = {"K2 loop": loops[0](*args), "plain": loops[1](*args)}
+            torch.cuda.synchronize()
+            tag = f"K2-LM track_lm base {base} (N = {sizes}) B={B}"
+            if not (torch.equal(got.T, o.T) and torch.equal(
+                    torch.nan_to_num(got.res_per_level, 7.0), torch.nan_to_num(o.res, 7.0))):
+                fail(f"{tag}: two launches on the same inputs differ")
+            # a near-tie accept/reject decided the other way sends a
+            # candidate down another path: the allowance is the number of
+            # candidates on which the two loops, also run over the
+            # template's lanes in two other orders, disagree among themselves
+            agr = lma.check(got, refs, lma.reordered_track_runs(args, loops))
+            wins = [winner(r) for r in (got, *refs.values())]
+            if not agr.ok or len(set(wins)) != 1:
+                fail(f"{tag}: {agr}; winners {wins}")
+            err = max(agr.max_abs_err.values())
+            ms, pms = ab_ms(torch, lambda: tr.track_candidates_batch(*args),
+                            lambda: tr.track_candidates_batch_plain(
+                                *args, residual_pass=rh.pose_residual_pass_plain),
+                            plain_kw=slow, kernel_kw=fast)
+            loop_ms = median_ms(torch, lambda: tr.track_candidates_batch_plain(*args), **slow)
+            passes = o.passes.cpu().numpy()
+            n_bytes, n_ops = lm_bytes_ops(sizes, passes, B)
+            r = row(f"track_lm[N={base},B={B}]", "resident_lm.cu",
+                    "direct_stereo_slam_tpu/models/tracker.py:316", err, ms, pms, n_bytes, n_ops)
+            r.update(differ=agr.differ, order_sensitive=agr.sensitive)
+            rows.append(r)
+            print(f"{tag}: {agr}; passes per candidate per level (mean) "
+                  f"{passes.mean(axis=0).round(1).tolist()}; kernel {ms:.4f} ms, plain "
+                  f"loop {pms:.4f} ms, loop over K2 passes {loop_ms:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+
+    # ---- K4-LM: the loop estimator's seed stacks ------------------------------
+    kmax = 2048
+    pyr0 = build_pyramid(img0, LEVELS).data
+    K0 = intr.K(0)
+    zk = z[:kmax]
+    xyz = np.stack([(us[:kmax] - K0[0, 2]) / K0[0, 0] * zk,
+                    (vs[:kmax] - K0[1, 2]) / K0[1, 1] * zk, zk], -1).astype(np.float32)
+    cols = torch.stack([bilinear_gather_scalar(pyr0[l][..., 0], t(us[:kmax] / 2 ** l),
+                                               t(vs[:kmax] / 2 ** l))
+                        for l in range(LEVELS)], 1)
+    primary = T_true @ lie.se3_exp_np([0.03, -0.01, 0.05, 0.004, 0.01, -0.003])
+    behind = primary.copy()
+    behind[2, 3] -= 100.0
+    stacks = {1: primary[None].astype(np.float32),
+              6: pe.make_seed_stack(primary, (behind,), (3.0, -3.0, 6.0, -6.0))}
+    for k in (kmax, 1500):
+        live = torch.arange(kmax, device=dev) < k
+        p = torch.where(live[:, None], t(xyz), torch.tensor([0.0, 0.0, 1.0], device=dev))
+        c = torch.where(live[:, None], cols, torch.zeros_like(cols)).contiguous()
+        for S, Ts in stacks.items():
+            args = (tuple(pyr1.data), p[:, 0].contiguous(), p[:, 1].contiguous(),
+                    p[:, 2].contiguous(), c, live, t(Ts), intr, cfg)
+            got = pe.estimate_seeds(*args)
+            o = rlm.loop_pose_lm_cuda(*args)
+            loops = (pe.estimate_seeds_plain,
+                     partial(pe.estimate_seeds_plain,
+                             residual_pass=rh.pose3d_residual_pass_plain))
+            refs = {"K4 loop": loops[0](*args), "plain": loops[1](*args)}
+            torch.cuda.synchronize()
+            tag = f"K4-LM loop_pose_lm N={kmax} k={k} S={S}"
+            if not torch.equal(got.T, o.T):
+                fail(f"{tag}: two launches on the same inputs differ")
+            if not bool(got.ok[0]) or (S == 6 and float(got.inlier_ratio[1]) != 0.0):
+                fail(f"{tag}: primary ok {bool(got.ok[0])}, inlier ratios "
+                     f"{got.inlier_ratio.tolist()}")
+            agr = lma.check(got, refs, lma.reordered_seed_runs(args, loops))
+            if not agr.ok:
+                fail(f"{tag}: {agr} (errors {got.pose_error.tolist()} vs "
+                     f"{[r.pose_error.tolist() for r in refs.values()]})")
+            err = max(agr.max_abs_err.values())
+            ms, pms = ab_ms(torch, lambda: pe.estimate_seeds(*args),
+                            lambda: pe.estimate_seeds_plain(
+                                *args, residual_pass=rh.pose3d_residual_pass_plain),
+                            plain_kw=slow, kernel_kw=fast)
+            loop_ms = median_ms(torch, lambda: pe.estimate_seeds_plain(*args), **slow)
+            passes = o.passes.cpu().numpy()
+            n_bytes, n_ops = lm_bytes_ops([kmax] * LEVELS, passes, S)
+            r = row(f"loop_pose_lm[k={k},S={S}]", "resident_lm.cu",
+                    "direct_stereo_slam_tpu/loop/pose_estimator.py:217", err, ms, pms,
+                    n_bytes, n_ops)
+            r.update(differ=agr.differ, order_sensitive=agr.sensitive)
+            rows.append(r)
+            print(f"{tag}: {agr}; passes per seed per level (mean) "
+                  f"{passes.mean(axis=0).round(1).tolist()}; kernel {ms:.4f} ms, plain "
+                  f"loop {pms:.4f} ms, loop over K4 passes {loop_ms:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
     return rows
 
 
@@ -352,10 +551,10 @@ def e2e_profile(torch, run_once, out_dir: str) -> None:
     print(f"profile: pass wall {wall:.3f} s under the profiler, device kernels "
           f"{busy:.1f} ms = {100 * busy / 1e3 / wall:.1f}% busy; "
           f"{sum(e.count for e in kernels)} kernel launches", flush=True)
-    ours = [e for e in kernels if e.key.startswith("(anonymous namespace)::") and any(
+    ours = [e for e in kernels if "(anonymous namespace)::" in e.key and any(
         k in e.key for k in ("pose_partial", "pose3d_partial", "pose_final", "scale_partial",
                              "scale_final", "relax_kernel", "occupancy_kernel",
-                             "fill_kernel"))]
+                             "fill_kernel", "lm_kernel"))]
     for e in sorted(ours, key=dev_ms, reverse=True):
         print(f"profile:   ours {dev_ms(e):9.3f} ms  x{e.count:6d}  {e.key[:60]}", flush=True)
     for e in sorted(kernels, key=dev_ms, reverse=True)[:12]:
@@ -425,7 +624,6 @@ def e2e_phase(torch, dev, profile_dir=None):
     print(node1.timing_report(), flush=True)
 
     counters = kernel_counters()
-    del counters["pose3d_residual_pass"]      # loop closure is not on this path
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -452,6 +650,11 @@ def e2e_phase(torch, dev, profile_dir=None):
           f"{float(np.max(np.linalg.norm(est - translations(frames, shells1)[0], axis=1))):.3g} m",
           flush=True)
     print(f"e2e kernel launches: {launches}", flush=True)
+    print(f"e2e: track {node.timers.average_ms('track'):.3f} ms per frame x "
+          f"{node.timers.count('track')} (timed pass; synchronized first pass: "
+          f"{node1.timers.average_ms('track'):.3f} ms), K2-LM launches per tracked "
+          f"frame {launches['track_lm'] / max(node.timers.count('track'), 1):.2f}",
+          flush=True)
     if not fe.initialized:
         fail("e2e: front end never initialised")
     if fe.is_lost or fe.init_failed or resets:
@@ -462,23 +665,40 @@ def e2e_phase(torch, dev, profile_dir=None):
         fail("e2e: non-finite poses")
     if not ate < 0.02 * path:
         fail(f"e2e: ATE {ate:.4f} m >= 2% of {path:.2f} m")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"e2e: kernel {name} was never launched on the main path")
+    gate_launches("e2e", launches, E2E_KERNELS)
     if profile_dir:
         e2e_profile(torch, lambda: run_sequence(torch, SLAMNode, cfg, intr, ds,
                                                 frames, dev), profile_dir)
     return launches
 
 
+# the kernels each path must launch; the per-pass K2 and K4 must not (the
+# tracker and the loop estimator run K2-LM and K4-LM on the card)
+E2E_KERNELS = ("distance_map", "track_lm", "scale_residual_pass")
+LOOP_KERNELS = E2E_KERNELS + ("loop_pose_lm",)
+OFF_PATH = ("pose_residual_pass", "pose3d_residual_pass")
+
+
 def kernel_counters():
     from direct_stereo_slam_tpu_torch.ops import distance_map as dm
+    from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
     from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
 
     return {"distance_map": dm.build_distance_map_cuda,
             "pose_residual_pass": rh.pose_residual_pass_cuda,
             "scale_residual_pass": rh.scale_residual_pass_cuda,
-            "pose3d_residual_pass": rh.pose3d_residual_pass_cuda}
+            "pose3d_residual_pass": rh.pose3d_residual_pass_cuda,
+            "track_lm": rlm.track_lm_cuda,
+            "loop_pose_lm": rlm.loop_pose_lm_cuda}
+
+
+def gate_launches(tag, launches, needed):
+    for name in needed:
+        if launches[name] <= 0:
+            fail(f"{tag}: kernel {name} was never launched on the main path")
+    for name in OFF_PATH:
+        if launches[name] != 0:
+            fail(f"{tag}: the per-pass kernel {name} ran {launches[name]} times")
 
 
 class QuantisedFrames:
@@ -549,6 +769,12 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True):
           f"best pose_error per try "
           f"{' '.join(f'{t[0]:.2f}' for t in tries)}", flush=True)
     print(f"{tag} kernel launches: {launches}", flush=True)
+    table = timing_table(node.timers)
+    if "direct_est" in table:
+        ms, n = table["direct_est"]
+        print(f"{tag}: direct_est {ms:.3f} ms per try x {n}, K4-LM launches per try "
+              f"{launches['loop_pose_lm'] / max(n, 1):.2f}; track "
+              f"{table['track'][0]:.3f} ms per frame x {table['track'][1]}", flush=True)
     # the final pose graph optimized once more with nothing else running:
     # what pose_graph_opt costs without the tracking thread beside it
     from direct_stereo_slam_tpu_torch.loop import pose_graph
@@ -575,9 +801,7 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True):
         fail(f"{tag}: no loop verified")
     if not ate_d < ate_o:
         fail(f"{tag}: dslam ATE {ate_d:.4f} m is not below sodso ATE {ate_o:.4f} m")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"{tag}: kernel {name} was never launched on the loop path")
+    gate_launches(tag, launches, LOOP_KERNELS)
     return launches
 
 
@@ -650,17 +874,22 @@ def main() -> int:
             print("  ptxas:", line.strip(), flush=True)
 
     rows = kernel_phase(torch, dev)
+    # each path's kernels count in that path's run: K1, K2-LM and K3 in the
+    # e2e pass, K4-LM in the loop phase; the per-pass K2 and K4 run on
+    # neither (both gate that they stay at 0)
     launches = e2e_phase(torch, dev, args.profile)
-    launches.update(pose3d_residual_pass=loop_phase(
-        torch, dev, LOOP_FRAMES, LOOP_MARGIN)["pose3d_residual_pass"])
+    loop_launches = loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN)
+    launches.update(loop_pose_lm=loop_launches["loop_pose_lm"],
+                    pose3d_residual_pass=loop_launches["pose3d_residual_pass"])
     if args.long:
         loop_phase(torch, dev, 320, 100, gate=False)
         long_phase(torch, dev)
-    for row in rows:
-        row["launches"] = launches[row["name"].split("[")[0]]
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+    for r in rows:
+        r["launches"] = launches[r["name"].split("[")[0]]
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "direct_stereo_slam_tpu"))
     if leaked:
-        fail(f"the port pulled in JAX: {leaked[:5]}")
+        fail(f"the port pulled in JAX or the JAX package: {leaked[:5]}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

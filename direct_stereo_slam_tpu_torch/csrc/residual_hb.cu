@@ -8,11 +8,11 @@
 //
 // One thread per template point warps it, reads (I, dx, dy) bilinearly
 // (interp.py's clamp), applies the Huber weight and the saturation cutoff,
-// forms the Jacobian and adds its terms to per-thread f32 accumulators.
-// Every lane contributes through the reference's multiplicative masks
-// (mask * value, not a skip), so a NaN or infinity on a masked lane
-// reaches H and b as it does in the reference; a NaN coordinate samples
-// NaN, as the reference's clip keeps it (common.cuh, sample3).
+// forms the Jacobian and adds its terms to per-thread f32 accumulators
+// (K2 / K4: pose_terms.cuh, shared with the resident LM kernels of
+// resident_lm.cu, which run the tracker's and the loop estimator's whole
+// LM on the card; these single passes stay for callers that drive one
+// pass at a time and as the per-point arithmetic's check).
 //
 // What bounds them on the H100: per LM iteration a level reads N <= 8192
 // points (5 words each) and 4 bilinear taps of 3 floats from an image
@@ -25,19 +25,25 @@
 // second one-block-per-candidate stage that sums the partials in index
 // order and normalises. No atomics: results are deterministic run to run.
 
-#include "common.cuh"
+#include "pose_terms.cuh"
 
 namespace {
+
+using dsslam::kE;
+using dsslam::kNIN;
+using dsslam::kNS;
+using dsslam::kNT;
+using dsslam::kPose3dAcc;
+using dsslam::kPoseAcc;
+using dsslam::kFT;
+using dsslam::kFRT;
+using dsslam::kNSUB;
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 32;
 
 // ---- K2 layout ------------------------------------------------------------
-// accumulators: H upper triangle (36) | b (8) | E, n_terms, n_sat, n_in,
-// flow_t sum, flow_rt sum, flow subsample count
-constexpr int kPoseAcc = 51;
-constexpr int kE = 44, kNT = 45, kNS = 46, kNIN = 47, kFT = 48, kFRT = 49,
-              kNSUB = 50;
+// accumulators: dsslam::kPoseAcc (pose_terms.cuh)
 // per-candidate params: RKi (9) | t (3) | a | b | cutoff | ref_b0 | Ki (9)
 // | precond (8) | pad
 constexpr int kPoseParams = 40;
@@ -53,15 +59,33 @@ constexpr int kScaleParams = 16;
 constexpr int kScaleOut = 8;
 
 // ---- K4 layout ------------------------------------------------------------
-// accumulators: K2's first 48 (H upper triangle | b | E, n_terms, n_sat,
-// n_in); no flow statistics
-constexpr int kPose3dAcc = 48;
+// accumulators: dsslam::kPose3dAcc, K2's first 48 (no flow statistics)
 // per-seed params: R (9) | t (3) | a | b | cutoff | ref_b0 | precond (8)
 constexpr int kPose3dParams = 24;
 constexpr int kPose3dPre = 16;
 // output: K2's layout (flow entries 0)
 
-__device__ __forceinline__ float sq(float x) { return x * x; }
+// The pass's warp from a candidate's parameter row (K2 and K4 share the
+// first 16 entries; Ki follows for K2).
+__device__ __forceinline__ dsslam::PoseWarp load_warp(const float* P,
+                                                      bool with_ki) {
+  dsslam::PoseWarp c;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) c.r[k] = P[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c.t[k] = P[9 + k];
+  c.a = P[12];
+  c.b = P[13];
+  c.cutoff = P[14];
+  c.ref_b0 = P[15];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) c.k[k] = 0.f;
+  if (with_ki) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) c.k[k] = P[16 + k];
+  }
+  return c;
+}
 
 __global__ void __launch_bounds__(kThreads)
 pose_partial_kernel(const float* __restrict__ img, int H, int W, float umax,
@@ -73,90 +97,16 @@ pose_partial_kernel(const float* __restrict__ img, int H, int W, float umax,
                     const float* __restrict__ params, float fx, float fy,
                     float cx, float cy, float huber, int compute_flow,
                     float* __restrict__ partial) {
-  const float* P = params + blockIdx.y * kPoseParams;
-  const float r00 = P[0], r01 = P[1], r02 = P[2];
-  const float r10 = P[3], r11 = P[4], r12 = P[5];
-  const float r20 = P[6], r21 = P[7], r22 = P[8];
-  const float tx = P[9], ty = P[10], tz = P[11];
-  const float aff_a = P[12], aff_b = P[13], cutoff = P[14], ref_b0 = P[15];
-  const float k00 = P[16], k01 = P[17], k02 = P[18];
-  const float k10 = P[19], k11 = P[20], k12 = P[21];
-  const float k20 = P[22], k21 = P[23], k22 = P[24];
-  const float max_energy = 2.f * huber * cutoff - huber * huber;
-  const float wlim = static_cast<float>(W) - 3.f;
-  const float hlim = static_cast<float>(H) - 3.f;
-
+  const dsslam::PoseWarp c = load_warp(params + blockIdx.y * kPoseParams, true);
   float acc[kPoseAcc];
 #pragma unroll
   for (int k = 0; k < kPoseAcc; ++k) acc[k] = 0.f;
 
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < N;
        i += gridDim.x * kThreads) {
-    const float x = pu[i], y = pv[i], id = pid[i], col = pcolor[i];
-    const bool m = pmask[i] != 0;
-    // R K^-1 x, then + t * idepth
-    const float q0 = r00 * x + r01 * y + r02;
-    const float q1 = r10 * x + r11 * y + r12;
-    const float q2 = r20 * x + r21 * y + r22;
-    const float p0 = q0 + tx * id, p1 = q1 + ty * id, p2 = q2 + tz * id;
-    const float u = p0 / p2, v = p1 / p2;
-    const float Ku = fx * u + cx, Kv = fy * v + cy;
-    const float new_id = id / p2;
-    float hi, gx, gy;
-    dsslam::sample3(img, W, umax, vmax, Ku, Kv, hi, gx, gy);
-    const bool valid = m && Ku > 2.f && Kv > 2.f && Ku < wlim && Kv < hlim &&
-                       new_id > 0.f && isfinite(hi);
-
-    const float r = hi - (aff_a * col + aff_b);
-    const float ar = fabsf(r);
-    const float hw = ar < huber ? 1.f : huber / dsslam::clamp_min(ar, 1e-12f);
-    const bool sat = ar > cutoff;
-    const float vf = valid ? 1.f : 0.f;
-    acc[kE] += vf * (sat ? max_energy : hw * r * r * (2.f - hw));
-    acc[kNT] += vf;
-    acc[kNS] += vf * (sat ? 1.f : 0.f);
-
-    if (compute_flow) {
-      // every-32nd-point subsample (residual_hb.py:182-196)
-      const float sub = (m && (i % 32) == 0) ? 1.f : 0.f;
-      const float s0 = k00 * x + k01 * y + k02;
-      const float s1 = k10 * x + k11 * y + k12;
-      const float s2 = k20 * x + k21 * y + k22;
-      const float a0 = s0 + tx * id, a1 = s1 + ty * id, a2 = s2 + tz * id;
-      const float b0 = s0 - tx * id, b1 = s1 - ty * id, b2 = s2 - tz * id;
-      const float c0 = q0 - tx * id, c1 = q1 - ty * id, c2 = q2 - tz * id;
-      const float KuT = fx * a0 / a2 + cx, KvT = fy * a1 / a2 + cy;
-      const float KuT2 = fx * b0 / b2 + cx, KvT2 = fy * b1 / b2 + cy;
-      const float KuR2 = fx * c0 / c2 + cx, KvR2 = fy * c1 / c2 + cy;
-      acc[kFT] += sub * ((sq(KuT - x) + sq(KvT - y)) +
-                         (sq(KuT2 - x) + sq(KvT2 - y)));
-      acc[kFRT] += sub * ((sq(Ku - x) + sq(Kv - y)) +
-                          (sq(KuR2 - x) + sq(KvR2 - y)));
-      acc[kNSUB] += sub;
-    }
-
-    const float in = (valid && !sat) ? 1.f : 0.f;
-    const float w = in * hw;
-    const float dxfx = gx * fx, dyfy = gy * fy;
-    const float J[8] = {
-        new_id * dxfx,
-        new_id * dyfy,
-        -new_id * (u * dxfx + v * dyfy),
-        -(u * v * dxfx + (1.f + v * v) * dyfy),
-        u * v * dyfy + (1.f + u * u) * dxfx,
-        u * dyfy - v * dxfx,
-        aff_a * (ref_b0 - col),
-        -1.f,
-    };
-    acc[kNIN] += in;
-    int k = 0;
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float jw = J[a] * w;
-#pragma unroll
-      for (int b = a; b < 8; ++b) acc[k++] += jw * J[b];
-      acc[36 + a] += jw * r;
-    }
+    dsslam::pose_point(img, H, W, umax, vmax, pu[i], pv[i], pid[i], pcolor[i],
+                       pmask[i] != 0, i, c, fx, fy, cx, cy, huber,
+                       compute_flow != 0, acc);
   }
   dsslam::block_sum<kPoseAcc, kThreads>(
       acc, partial + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
@@ -185,9 +135,7 @@ __global__ void pose_final_kernel(const float* __restrict__ partial, int nblk,
   const int t = threadIdx.x;
   if (t < 64) {
     const int i = t / 8, j = t % 8;
-    const int lo = min(i, j), hi = max(i, j);
-    const int k = lo * 8 - lo * (lo - 1) / 2 + (hi - lo);
-    o[t] = tot[k] / n_safe * pre[i] * pre[j];
+    o[t] = tot[dsslam::tri_index(i, j)] / n_safe * pre[i] * pre[j];
   } else if (t < 72) {
     o[t] = tot[36 + t - 64] / n_safe * pre[t - 64];
   } else if (t == 72) {
@@ -220,66 +168,16 @@ pose3d_partial_kernel(const float* __restrict__ img, int H, int W, float umax,
                       const float* __restrict__ params, float fx, float fy,
                       float cx, float cy, float huber,
                       float* __restrict__ partial) {
-  const float* P = params + blockIdx.y * kPose3dParams;
-  const float r00 = P[0], r01 = P[1], r02 = P[2];
-  const float r10 = P[3], r11 = P[4], r12 = P[5];
-  const float r20 = P[6], r21 = P[7], r22 = P[8];
-  const float tx = P[9], ty = P[10], tz = P[11];
-  const float aff_a = P[12], aff_b = P[13], cutoff = P[14], ref_b0 = P[15];
-  const float max_energy = 2.f * huber * cutoff - huber * huber;
-  const float wlim = static_cast<float>(W) - 3.f;
-  const float hlim = static_cast<float>(H) - 3.f;
-
+  const dsslam::PoseWarp c =
+      load_warp(params + blockIdx.y * kPose3dParams, false);
   float acc[kPose3dAcc];
 #pragma unroll
   for (int k = 0; k < kPose3dAcc; ++k) acc[k] = 0.f;
 
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < N;
        i += gridDim.x * kThreads) {
-    const float x = px[i], y = py[i], z = pz[i], col = pcolor[i];
-    const bool m = pmask[i] != 0;
-    const float p0 = r00 * x + r01 * y + r02 * z + tx;
-    const float p1 = r10 * x + r11 * y + r12 * z + ty;
-    const float p2 = r20 * x + r21 * y + r22 * z + tz;
-    const float u = p0 / p2, v = p1 / p2;
-    const float Ku = fx * u + cx, Kv = fy * v + cy;
-    const float new_id = 1.f / p2;
-    float hi, gx, gy;
-    dsslam::sample3(img, W, umax, vmax, Ku, Kv, hi, gx, gy);
-    const bool valid = m && Ku > 2.f && Kv > 2.f && Ku < wlim && Kv < hlim &&
-                       new_id > 0.f && isfinite(hi);
-
-    const float r = hi - (aff_a * col + aff_b);
-    const float ar = fabsf(r);
-    const float hw = ar < huber ? 1.f : huber / dsslam::clamp_min(ar, 1e-12f);
-    const bool sat = ar > cutoff;
-    const float vf = valid ? 1.f : 0.f;
-    acc[kE] += vf * (sat ? max_energy : hw * r * r * (2.f - hw));
-    acc[kNT] += vf;
-    acc[kNS] += vf * (sat ? 1.f : 0.f);
-
-    const float in = (valid && !sat) ? 1.f : 0.f;
-    const float w = in * hw;
-    const float dxfx = gx * fx, dyfy = gy * fy;
-    const float J[8] = {
-        new_id * dxfx,
-        new_id * dyfy,
-        -new_id * (u * dxfx + v * dyfy),
-        -(u * v * dxfx + (1.f + v * v) * dyfy),
-        u * v * dyfy + (1.f + u * u) * dxfx,
-        u * dyfy - v * dxfx,
-        aff_a * (ref_b0 - col),
-        -1.f,
-    };
-    acc[kNIN] += in;
-    int k = 0;
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const float jw = J[a] * w;
-#pragma unroll
-      for (int b = a; b < 8; ++b) acc[k++] += jw * J[b];
-      acc[36 + a] += jw * r;
-    }
+    dsslam::pose3d_point(img, H, W, umax, vmax, px[i], py[i], pz[i], pcolor[i],
+                         pmask[i] != 0, c, fx, fy, cx, cy, huber, acc);
   }
   dsslam::block_sum<kPose3dAcc, kThreads>(
       acc, partial + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *

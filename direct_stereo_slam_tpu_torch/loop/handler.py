@@ -31,6 +31,7 @@ import torch
 from ..config import SLAMConfig
 from ..geometry.camera import PyramidIntrinsics
 from ..models.frontend import MarginalizedKF
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.timing import StageTimers
 from . import icp as icp_mod
 from . import pose_estimator, pose_graph, retrieval, scan, scancontext
@@ -56,7 +57,7 @@ class LoopFrame:
 class LoopHandler:
     def __init__(self, cfg: SLAMConfig, intr: PyramidIntrinsics,
                  timers: Optional[StageTimers] = None,
-                 threaded: Optional[bool] = None, device="cpu"):
+                 threaded: Optional[bool] = None, device=DEFAULT_DEVICE):
         """``threaded=None`` resolves from cfg.runtime.multi_threading.
         ``device`` holds the pose graph and the large-database retrieval
         buffer; the direct estimate runs where the keyframe's pyramid is."""
@@ -64,7 +65,7 @@ class LoopHandler:
             threaded = cfg.runtime.multi_threading
         self.cfg = cfg
         self.intr = intr
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.timers = timers if timers is not None else StageTimers()
         self.frames: List[LoopFrame] = []
         self.cloud = scan.NearbyPointCloud(cfg)

@@ -4,16 +4,19 @@ Coarse-to-fine LM alignment of a matched keyframe's sparse metric points
 (with per-level intensities) against the current keyframe's pyramid, with
 the reference's acceptance gates on the level-0 residual, the inlier
 ratio and the affine parameters. The LM policy is the tracker's (cutoff
-doubling, one-shot level repeat); each LM iteration is one launch of
-kernel K4 (``ops/residual_hb.pose3d_residual_pass``) for the whole seed
-stack.
+doubling, one-shot level repeat).
 
 The reference vmaps the LM over the seed stack; here the seed is the
-batch dimension ``S``. Each seed follows its own loop exactly as under
-``vmap``: a seed whose loop has ended keeps its carry (and its own
-damping) while the others iterate, and the level repeat runs only for the
-seeds that need it. The loop conditions are read on the host once per
-iteration.
+batch dimension ``S``. On the card the whole LM of all seeds and levels
+is one launch of kernel K4-LM (``ops/resident_lm.loop_pose_lm_cuda``);
+the gates and the winner follow in PyTorch. Its plain version,
+``estimate_seeds_plain`` (what CPU tensors take), is a Python loop with one
+residual pass per LM iteration for the whole stack
+(``ops/residual_hb.pose3d_residual_pass``). Each seed follows its own loop
+exactly as under ``vmap``: a seed whose loop has ended keeps its carry
+(and its own damping) while the others iterate, and the level repeat runs
+only for the seeds that need it; the plain loop reads its conditions on
+the host once per iteration.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ..config import SLAMConfig
 from ..geometry import lie
 from ..geometry.camera import PyramidIntrinsics
 from ..models.tracker import AffLight, _solve_inc, _where, aff_from_to
+from ..ops.resident_lm import loop_pose_lm_cuda
 from ..ops.residual_hb import POSE_PRECOND, pose3d_residual_pass
 
 
@@ -57,7 +61,7 @@ def _select(mask, new, old):
 
 def _estimate_level(img_l, px, py, pz, pcolor_l, pmask, fx, fy, cx, cy, T0,
                     aff0: AffLight, ref_exposure, new_exposure, max_iters: int,
-                    cfg: SLAMConfig, active=None):
+                    cfg: SLAMConfig, residual_pass, active=None):
     """One pyramid level of LM for the seed stack T0 [S, 4, 4]. ``active``
     [S] (default all) marks the seeds that run; the others keep their
     inputs. Returns (T, aff, E, n, num_in, cutoff_repeat)."""
@@ -71,7 +75,7 @@ def _estimate_level(img_l, px, py, pz, pcolor_l, pmask, fx, fy, cx, cy, T0,
     def run_pass(T, aff, cutoff):
         a_rel, b_rel = aff_from_to(ref_exposure, zero, zero, new_exposure,
                                    aff.a, aff.b)
-        return pose3d_residual_pass(
+        return residual_pass(
             img_l, px, py, pz, pcolor_l, pmask, T[:, :3, :3], T[:, :3, 3],
             a_rel, b_rel, zero, fx, fy, cx, cy, tc.huber_th, cutoff)
 
@@ -126,14 +130,30 @@ def _estimate_level(img_l, px, py, pz, pcolor_l, pmask, fx, fy, cx, cy, T0,
     return T, AffLight(aff_a, aff_b), E, n, n_in, repeat
 
 
-def _estimate_seeds(pyr_cur, px, py, pz, pcolors, pmask, T_inits,
-                    intr: PyramidIntrinsics, cfg: SLAMConfig, ref_exposure,
-                    new_exposure) -> LoopPoseResult:
-    """All seeds [S, 4, 4] over all levels; a LoopPoseResult of [S] fields."""
-    if ref_exposure is None:
-        ref_exposure = 1.0
-    if new_exposure is None:
-        new_exposure = 1.0
+def estimate_seeds(pyr_cur, px, py, pz, pcolors, pmask, T_inits,
+                   intr: PyramidIntrinsics, cfg: SLAMConfig, ref_exposure=1.0,
+                   new_exposure=1.0) -> LoopPoseResult:
+    """All seeds [S, 4, 4] over all levels; a LoopPoseResult of [S] fields.
+    A CUDA pyramid launches kernel K4-LM once; CPU tensors take
+    ``estimate_seeds_plain``."""
+    if pyr_cur[0].is_cuda:
+        o = loop_pose_lm_cuda(pyr_cur, px, py, pz, pcolors, pmask, T_inits, intr,
+                              cfg, ref_exposure, new_exposure)
+        return _gated(o.T, AffLight(o.a, o.b), o.x0, o.x1, pmask, cfg,
+                      ref_exposure, new_exposure)
+    return estimate_seeds_plain(pyr_cur, px, py, pz, pcolors, pmask, T_inits, intr,
+                                cfg, ref_exposure, new_exposure)
+
+
+def estimate_seeds_plain(pyr_cur, px, py, pz, pcolors, pmask, T_inits,
+                         intr: PyramidIntrinsics, cfg: SLAMConfig, ref_exposure=1.0,
+                         new_exposure=1.0,
+                         residual_pass=pose3d_residual_pass) -> LoopPoseResult:
+    """Plain version of K4-LM: the LM as a Python loop, one
+    ``residual_pass`` per iteration for the whole stack (the plain pass on
+    the CPU; on the card the per-pass kernel K4, or
+    ``pose3d_residual_pass_plain`` to hold K4-LM against plain PyTorch
+    throughout)."""
     levels = len(pyr_cur)
     tc = cfg.tracker
     dev = T_inits.device
@@ -150,12 +170,12 @@ def _estimate_seeds(pyr_cur, px, py, pz, pcolors, pmask, T_inits,
                 float(intr.cy[lvl]))
         max_it = tc.max_iterations[min(lvl, len(tc.max_iterations) - 1)]
         T, aff, E, n, n_inl, repeat = _estimate_level(
-            *args, T, aff, ref_exposure, new_exposure, max_it, cfg)
+            *args, T, aff, ref_exposure, new_exposure, max_it, cfg, residual_pass)
         need_repeat = (repeat > 1.0) & ~have_repeated
         if bool(need_repeat.any()):
             T2, aff2, E2, n2, in2, _ = _estimate_level(
                 *args, T, aff, ref_exposure, new_exposure, max_it, cfg,
-                active=need_repeat)
+                residual_pass, active=need_repeat)
             T = _where(need_repeat, T2, T)
             aff = AffLight(torch.where(need_repeat, aff2.a, aff.a),
                            torch.where(need_repeat, aff2.b, aff.b))
@@ -164,7 +184,16 @@ def _estimate_seeds(pyr_cur, px, py, pz, pcolors, pmask, T_inits,
         have_repeated = have_repeated | (repeat > 1.0)
         if lvl == 0:
             E0, n0 = E, n
+    return _gated(T, aff, E0, n0, pmask, cfg, ref_exposure, new_exposure)
 
+
+def _gated(T, aff: AffLight, E0, n0, pmask, cfg: SLAMConfig, ref_exposure,
+           new_exposure) -> LoopPoseResult:
+    """Level 0's error and inlier ratio, and the reference's gates on them
+    and on the affine parameters, per seed."""
+    tc = cfg.tracker
+    dev = T.device
+    S = T.shape[0]
     pose_error = torch.sqrt(E0 / torch.clamp(n0, min=1.0))
     total = torch.clamp(torch.sum(pmask.to(torch.float32)), min=1.0)
     # "inner percent" counts every in-view term, saturated included (the
@@ -199,25 +228,25 @@ def _index(res: LoopPoseResult, i) -> LoopPoseResult:
 
 def estimate(pyr_cur: Tuple[torch.Tensor, ...], px, py, pz, pcolors, pmask,
              T_init: torch.Tensor, intr: PyramidIntrinsics, cfg: SLAMConfig,
-             ref_exposure=None, new_exposure=None) -> LoopPoseResult:
+             ref_exposure=1.0, new_exposure=1.0) -> LoopPoseResult:
     """Single-seed estimate: ``pyr_cur`` the current KF's [H, W, 3] level
     planes, points [K] with per-level intensities ``pcolors`` [K, L],
     ``T_init`` [4, 4] the tfm_cur_matched seed."""
-    res = _estimate_seeds(pyr_cur, px, py, pz, pcolors, pmask, T_init[None], intr,
-                          cfg, ref_exposure, new_exposure)
+    res = estimate_seeds(pyr_cur, px, py, pz, pcolors, pmask, T_init[None], intr,
+                         cfg, ref_exposure, new_exposure)
     return _index(res, 0)
 
 
 def estimate_batch(pyr_cur: Tuple[torch.Tensor, ...], px, py, pz, pcolors, pmask,
                    T_inits: torch.Tensor, intr: PyramidIntrinsics, cfg: SLAMConfig,
-                   ref_exposure=None, new_exposure=None) -> LoopPoseBatchResult:
+                   ref_exposure=1.0, new_exposure=1.0) -> LoopPoseBatchResult:
     """Multi-seed direct alignment over the seed stack ``T_inits`` [S, 4, 4],
     then the reference's choice: the passing seed with the lowest
     pose_error; with none passing, the seed closest to acceptance
     (visibility-passing seeds by error, then any seed that sees a point).
     Ties go to the first index."""
-    res = _estimate_seeds(pyr_cur, px, py, pz, pcolors, pmask, T_inits, intr, cfg,
-                          ref_exposure, new_exposure)
+    res = estimate_seeds(pyr_cur, px, py, pz, pcolors, pmask, T_inits, intr, cfg,
+                         ref_exposure, new_exposure)
     inf = torch.full_like(res.pose_error, float("inf"))
     best_ok = torch.argmin(torch.where(res.ok, res.pose_error, inf))
     vis_key = torch.where(res.inlier_ratio > cfg.loop.inner_percent, res.pose_error,

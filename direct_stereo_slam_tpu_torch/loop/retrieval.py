@@ -2,22 +2,21 @@
 
 Ringkey k-nearest neighbours with an insertion lag of ``loop_margin``
 frames (recent frames never match), then the Scan Context signature
-difference over the candidates (``search_signatures``, shared with the
-JAX package). Up to ``DEVICE_MIN`` entries the search is a numpy
-broadcast; past it the database lives in a power-of-two-capacity f32
-buffer on the database's device, and the search is one distance pass and
-``torch.topk``. The reference's quirks stay: index 0 is never a candidate,
+difference over the candidates (``search_signatures``). Up to
+``DEVICE_MIN`` entries the search is a numpy broadcast; past it the
+database lives in a power-of-two-capacity f32 buffer on the database's
+device, and the search is one distance pass and ``torch.topk``. The reference's quirks stay: index 0 is never a candidate,
 and a key enters the database ``loop_margin`` insertions after it came."""
 
 from __future__ import annotations
 
 from collections import deque
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from direct_stereo_slam_tpu.loop.retrieval import search_signatures  # noqa: F401
+from .scancontext import signature_difference
 
 DEVICE_MIN = 4096
 
@@ -72,3 +71,16 @@ class RingkeyDatabase:
                 self._buf[n - 1] = torch.as_tensor(
                     np.asarray(self.db[-1], np.float32), device=self.device)
         return candidates
+
+
+def search_signatures(signature: np.ndarray, all_signatures: List[np.ndarray],
+                      candidates: List[int], num_sectors: int) -> Tuple[int, float]:
+    """search_sc (search_place.h:59-85): best candidate by signature
+    difference."""
+    best_idx = candidates[0]
+    best_diff = 1.1
+    for c in candidates:
+        diff = signature_difference(signature, all_signatures[c], num_sectors)
+        if diff < best_diff:
+            best_idx, best_diff = c, diff
+    return best_idx, best_diff

@@ -33,6 +33,7 @@ from ..ops.distance_map import build_distance_map
 from ..ops.interp import bilinear_gather_scalar
 from ..ops.pyramid import Pyramid, build_pyramid
 from ..ops.select import adapt_potential, make_selection_map
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.timing import StageTimers
 from . import ba, immature, initializer
 from .depth_template import (TrackerTemplate, build_template, default_budgets,
@@ -253,13 +254,13 @@ class FrontEnd:
     def __init__(self, cfg: SLAMConfig, intr0: PyramidIntrinsics,
                  intr1: PyramidIntrinsics, t_cam1_cam0: np.ndarray,
                  prev_kf_count: int = 0, timers: Optional[StageTimers] = None,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
         if cfg.runtime.pipelined_tracking and cfg.tracker.winner_policy != "serial":
             raise NotImplementedError("pipelined tracking is not ported yet")
         if cfg.runtime.mono_initializer:
             raise NotImplementedError("the monocular initializer is not ported yet")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.intr0 = intr0
         self.intr1 = intr1
         self.t_cam1_cam0 = np.asarray(t_cam1_cam0, np.float32)

@@ -7,11 +7,16 @@ one-shot level repeat after a cutoff-doubled level, affine gates, and the
 flow indicators of the finest level.
 
 Candidates are a batch dimension (the reference vmaps): ``track_candidate``
-is the batch of one. Every LM iteration of every candidate is one launch
-of kernel K2 (``ops/residual_hb.pose_residual_pass``) for the whole batch;
-each candidate follows its own loop exactly as under ``vmap`` — a
-candidate whose loop has ended keeps its carry while the others iterate.
-The loop conditions are read on the host once per iteration.
+is the batch of one. On the card ``track_candidates_batch`` is one launch
+of kernel K2-LM (``ops/resident_lm.track_lm_cuda``), which runs every
+level, pass and LM step of every candidate on the device; the acceptance
+gates follow in PyTorch. Its plain version, ``track_candidates_batch_plain``
+(what CPU tensors take), is the same policy as a Python loop over one
+residual pass per LM iteration for the whole batch
+(``ops/residual_hb.pose_residual_pass``): each candidate follows its own
+loop exactly as under ``vmap`` — a candidate whose loop has ended keeps
+its carry while the others iterate — and the loop conditions are read on
+the host once per iteration.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from ..config import SLAMConfig
 from ..geometry import lie
 from ..geometry.camera import PyramidIntrinsics
+from ..ops.resident_lm import track_lm_cuda
 from ..ops.residual_hb import POSE_PRECOND, pose_residual_pass
 from .depth_template import TrackerTemplate
 
@@ -90,7 +96,7 @@ def _where(mask, a, b):
 def _track_level(img_l, tmpl_pu, tmpl_pv, tmpl_pid, tmpl_pcolor, tmpl_pmask,
                  Ki_l, fx, fy, cx, cy, T0, aff0: AffLight, ref_aff: AffLight,
                  ref_exposure, new_exposure, max_iters: int, cfg: SLAMConfig,
-                 compute_flow: bool, active=None):
+                 compute_flow: bool, residual_pass, active=None):
     """One pyramid level of LM for a batch: T0 [B, 4, 4], aff0 fields [B].
     ``active`` [B] (default all) marks candidates that run this level; the
     others keep their inputs (the reference's 0/1-iteration repeat loop).
@@ -105,7 +111,7 @@ def _track_level(img_l, tmpl_pu, tmpl_pv, tmpl_pid, tmpl_pcolor, tmpl_pmask,
     def run_pass(T, aff, cutoff):
         a_rel, b_rel = aff_from_to(ref_exposure, ref_aff.a, ref_aff.b,
                                    new_exposure, aff.a, aff.b)
-        return pose_residual_pass(
+        return residual_pass(
             img_l, tmpl_pu, tmpl_pv, tmpl_pid, tmpl_pcolor, tmpl_pmask,
             T[:, :3, :3] @ Ki_l, Ki_l, T[:, :3, 3], a_rel, b_rel, ref_aff.b,
             fx, fy, cx, cy, huber, cutoff, compute_flow=compute_flow)
@@ -173,7 +179,29 @@ def track_candidates_batch(pyr_new: Tuple[torch.Tensor, ...],
                            aff_init: AffLight, ref_aff: AffLight, ref_exposure,
                            new_exposure) -> TrackResult:
     """Track B pose candidates ([B, 4, 4]) over all levels, coarse to fine,
-    with the one-shot level repeat after a cutoff-doubled level."""
+    with the one-shot level repeat after a cutoff-doubled level. A CUDA
+    pyramid launches kernel K2-LM once; CPU tensors take
+    ``track_candidates_batch_plain``."""
+    if pyr_new[0].is_cuda:
+        o = track_lm_cuda(pyr_new, template, intr, cfg, T_inits, aff_init,
+                          ref_aff, ref_exposure, new_exposure)
+        return _gated(o.T, AffLight(o.a, o.b), o.res, o.x0, o.x1, cfg, ref_aff,
+                      ref_exposure, new_exposure)
+    return track_candidates_batch_plain(pyr_new, template, intr, cfg, T_inits,
+                                        aff_init, ref_aff, ref_exposure,
+                                        new_exposure)
+
+
+def track_candidates_batch_plain(pyr_new: Tuple[torch.Tensor, ...],
+                                 template: TrackerTemplate,
+                                 intr: PyramidIntrinsics, cfg: SLAMConfig,
+                                 T_inits: torch.Tensor, aff_init: AffLight,
+                                 ref_aff: AffLight, ref_exposure, new_exposure,
+                                 residual_pass=pose_residual_pass) -> TrackResult:
+    """Plain version of K2-LM: the LM as a Python loop, one
+    ``residual_pass`` per iteration for the whole batch (the plain pass on
+    the CPU; on the card the per-pass kernel K2, or ``pose_residual_pass_plain``
+    to hold K2-LM against plain PyTorch throughout)."""
     levels = template.levels
     tc = cfg.tracker
     dev = T_inits.device
@@ -193,12 +221,13 @@ def track_candidates_batch(pyr_new: Tuple[torch.Tensor, ...],
         max_it = tc.max_iterations[min(lvl, len(tc.max_iterations) - 1)]
         T, aff, E, n, f_t, f_rt, repeat = _track_level(
             *args, T, aff, ref_aff, ref_exposure, new_exposure, max_it, cfg,
-            compute_flow=(lvl == 0))
+            compute_flow=(lvl == 0), residual_pass=residual_pass)
         need_repeat = (repeat > 1.0) & ~have_repeated
         if bool(need_repeat.any()):
             T2, aff2, E2, n2, ft2, frt2, _ = _track_level(
                 *args, T, aff, ref_aff, ref_exposure, new_exposure, max_it, cfg,
-                compute_flow=(lvl == 0), active=need_repeat)
+                compute_flow=(lvl == 0), residual_pass=residual_pass,
+                active=need_repeat)
             T = _where(need_repeat, T2, T)
             aff = AffLight(torch.where(need_repeat, aff2.a, aff.a),
                            torch.where(need_repeat, aff2.b, aff.b))
@@ -214,9 +243,15 @@ def track_candidates_batch(pyr_new: Tuple[torch.Tensor, ...],
         if lvl == 0:
             flow_t, flow_rt = f_t, f_rt
 
-    res = torch.stack(res_levels, dim=1)
+    return _gated(T, aff, torch.stack(res_levels, dim=1), flow_t, flow_rt, cfg,
+                  ref_aff, ref_exposure, new_exposure)
 
-    # ---- acceptance gates ------------------------------------------------------
+
+def _gated(T, aff: AffLight, res, flow_t, flow_rt, cfg: SLAMConfig,
+           ref_aff: AffLight, ref_exposure, new_exposure) -> TrackResult:
+    """The acceptance gates on the tracked batch (residuals finite, affine
+    bounds by mode), then the affine of a fixed mode zeroed."""
+    tc = cfg.tracker
     ok = torch.all(torch.isfinite(res), dim=1)
     if tc.affine_mode_a != 0:
         ok = ok & (torch.abs(aff.a) <= tc.max_aff_a)

@@ -54,6 +54,9 @@ _SIGNATURES = {
     # fx, fy, cx, cy, huber, partial, nblk, out, stream
     "dsslam_pose3d_pass": [_P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _I, _P, _I,
                            _F, _F, _F, _F, _F, _P, _I, _P, _P],
+    # &LmParams (ops/resident_lm.py), stream
+    "dsslam_track_lm": [_P, _P],
+    "dsslam_loop_pose_lm": [_P, _P],
 }
 
 

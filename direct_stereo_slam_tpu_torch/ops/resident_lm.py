@@ -1,0 +1,242 @@
+"""Launch wrappers of the resident LM kernels (``csrc/resident_lm.cu``):
+K2-LM ``dsslam_track_lm``, the tracker's whole coarse-to-fine LM for a
+candidate batch, and K4-LM ``dsslam_loop_pose_lm``, the loop pose
+estimator's for a seed stack. One launch per call, no host read.
+
+The callers are ``models/tracker.track_candidates_batch`` and
+``loop/pose_estimator.estimate_batch``: for CUDA tensors they call these
+wrappers and then apply the acceptance gates in PyTorch; for CPU tensors
+they take their plain versions (``track_candidates_batch_plain``,
+``estimate_seeds_plain``: the Python LM loops over the passes). Each
+wrapper counts its launches in ``.launches``.
+
+The kernel takes one parameter struct by value (mirrored here with
+``ctypes``); a scalar that lives on the card (an affine parameter, an
+exposure) is passed as its address and read there, so a call builds no
+tensor besides its output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+
+from . import _cuda
+from .residual_hb import POSE_PRECOND
+
+MAX_LEVELS = 8
+CLUSTER = 8
+OUT = 40           # floats per candidate in the output row
+_OUT_A, _OUT_B, _OUT_RES, _OUT_X0, _OUT_X1, _OUT_PASSES = 16, 17, 18, 26, 27, 28
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class _Level(ctypes.Structure):
+    _fields_ = [("img", _P), ("p0", _P), ("p1", _P), ("p2", _P), ("pcolor", _P),
+                ("pmask", _P), ("H", _I), ("W", _I), ("umax", _F), ("vmax", _F),
+                ("N", _I), ("color_stride", _I), ("fx", _F), ("fy", _F),
+                ("cx", _F), ("cy", _F), ("Ki", _F * 9), ("max_iters", _I),
+                ("compute_flow", _I)]
+
+
+class _Scalar(ctypes.Structure):
+    _fields_ = [("ptr", _P), ("value", _F)]
+
+
+class LmParams(ctypes.Structure):
+    _fields_ = [("lv", _Level * MAX_LEVELS), ("T_init", _P), ("out", _P),
+                ("aff_a0", _Scalar), ("aff_b0", _Scalar), ("ref_a", _Scalar),
+                ("ref_b", _Scalar), ("ref_exp", _Scalar), ("new_exp", _Scalar),
+                ("pre", _F * 8), ("huber", _F), ("coarse_cutoff", _F),
+                ("sat_ratio_repeat", _F), ("cutoff_repeat_max", _F),
+                ("lambda_init", _F), ("lambda_lim", _F), ("lambda_accept", _F),
+                ("lambda_reject", _F), ("inc_break", _F), ("mode_a", _F),
+                ("mode_b", _F), ("levels", _I), ("B", _I), ("chunk", _I)]
+
+
+class LmOut(NamedTuple):
+    """Per candidate: the final pose, affine, per-level residual (K2), the
+    two level-0 values (K2: flow_t, flow_rt; K4: E, n), and the passes run
+    per level."""
+
+    T: torch.Tensor          # [B, 4, 4]
+    a: torch.Tensor          # [B]
+    b: torch.Tensor          # [B]
+    res: torch.Tensor        # [B, L]
+    x0: torch.Tensor         # [B]
+    x1: torch.Tensor         # [B]
+    passes: torch.Tensor     # [B, L] (float counts)
+
+
+def slice_len(n: int) -> int:
+    """Points per cluster block at a level (resident_lm.cu slice_len)."""
+    per = (n + CLUSTER - 1) // CLUSTER
+    return (per + 3) // 4 * 4
+
+
+def _scalar(x, dev) -> _Scalar:
+    """A device scalar by address, a host number by value."""
+    if isinstance(x, torch.Tensor):
+        if x.device != dev or x.dtype != torch.float32 or x.numel() != 1:
+            raise ValueError(f"scalar tensors must be one f32 value on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        return _Scalar(x.data_ptr(), 0.0)
+    return _Scalar(None, float(x))
+
+
+def _mask_u8(m: torch.Tensor) -> torch.Tensor:
+    return m.view(torch.uint8) if m.dtype == torch.bool else m
+
+
+def _common(p: LmParams, cfg, T_inits: torch.Tensor, out: torch.Tensor) -> None:
+    tc = cfg.tracker
+    p.T_init = T_inits.data_ptr()
+    p.out = out.data_ptr()
+    p.pre[:] = [float(v) for v in POSE_PRECOND]
+    p.huber = tc.huber_th
+    p.coarse_cutoff = tc.coarse_cutoff_th
+    p.sat_ratio_repeat = tc.saturated_ratio_repeat
+    p.cutoff_repeat_max = tc.cutoff_repeat_max
+    p.lambda_init = tc.lambda_init
+    p.lambda_lim = tc.lambda_extrapolation_limit
+    p.lambda_accept = tc.lambda_accept_factor
+    p.lambda_reject = tc.lambda_reject_factor
+    p.inc_break = tc.inc_break_norm
+    p.mode_a = tc.affine_mode_a
+    p.mode_b = tc.affine_mode_b
+    p.B = T_inits.shape[0]
+
+
+def _level(p: LmParams, lvl: int, img, p0, p1, p2, pcolor, color_stride: int,
+           pmask, intr, max_iters: int, compute_flow: bool) -> None:
+    L = p.lv[lvl]
+    H, W = img.shape[0], img.shape[1]
+    L.img, L.p0, L.p1, L.p2 = img.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr()
+    L.pcolor, L.pmask = pcolor.data_ptr(), pmask.data_ptr()
+    L.H, L.W, L.umax, L.vmax = H, W, W - 1.001, H - 1.001
+    L.N = p0.shape[0]
+    L.color_stride = color_stride
+    L.fx, L.fy, L.cx, L.cy = intr.fx[lvl], intr.fy[lvl], intr.cx[lvl], intr.cy[lvl]
+    L.Ki[:] = [float(v) for v in intr.Ki(lvl).reshape(9)]
+    L.max_iters = max_iters
+    L.compute_flow = int(compute_flow)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> _cuda.KernelLibrary:
+    """The kernel library, with the LM entry points' helpers typed and
+    its ``LmParams`` layout checked against the mirror above (once)."""
+    kl = _cuda.load_library()
+    kl.lib.dsslam_lm_params_size.argtypes = []
+    kl.lib.dsslam_lm_params_size.restype = _I
+    kl.lib.dsslam_lm_max_active_clusters.argtypes = [_I, _I, _P]
+    kl.lib.dsslam_lm_max_active_clusters.restype = _I
+    size = kl.lib.dsslam_lm_params_size()
+    if size != ctypes.sizeof(LmParams):
+        raise RuntimeError(f"LmParams is {size} bytes in {kl.path.name}, "
+                           f"{ctypes.sizeof(LmParams)} in ctypes")
+    return kl
+
+
+def _launch(name: str, p: LmParams, levels: int, sizes, out: torch.Tensor) -> LmOut:
+    p.levels = levels
+    p.chunk = max(slice_len(n) for n in sizes)
+    _library()
+    _cuda.call(name, ctypes.addressof(p))
+    B = out.shape[0]
+    return LmOut(T=out[:, :16].reshape(B, 4, 4), a=out[:, _OUT_A], b=out[:, _OUT_B],
+                 res=out[:, _OUT_RES:_OUT_RES + levels], x0=out[:, _OUT_X0],
+                 x1=out[:, _OUT_X1], passes=out[:, _OUT_PASSES:_OUT_PASSES + levels])
+
+
+def _max_iters(cfg, lvl: int) -> int:
+    its = cfg.tracker.max_iterations
+    return its[min(lvl, len(its) - 1)]
+
+
+def track_lm_cuda(pyr_new, template, intr, cfg, T_inits: torch.Tensor, aff_init,
+                  ref_aff, ref_exposure, new_exposure) -> LmOut:
+    """Launch K2-LM for the candidate batch ``T_inits`` [B, 4, 4]: every
+    level coarse to fine of ``models/tracker.track_candidates_batch``
+    (before its gates). ``res`` is sqrt(E/n) per level (inf where no term
+    survived), ``x0``/``x1`` level 0's flow_t and flow_rt."""
+    levels = template.levels
+    if levels > MAX_LEVELS:
+        raise ValueError(f"track_lm: at most {MAX_LEVELS} levels, got {levels}")
+    dev = pyr_new[0].device
+    T_inits = T_inits.to(torch.float32).contiguous()
+    B = T_inits.shape[0]
+    out = torch.empty(B, OUT, dtype=torch.float32, device=dev)
+    p = LmParams()
+    sizes = []
+    for lvl in range(levels):
+        img = pyr_new[lvl]
+        pts = (template.pu[lvl], template.pv[lvl], template.pid[lvl],
+               template.pcolor[lvl], _mask_u8(template.pmask[lvl]))
+        _cuda.require_cuda("track_lm", img, *pts, T_inits)
+        _level(p, lvl, img, *pts[:4], 1, pts[4], intr, _max_iters(cfg, lvl), lvl == 0)
+        sizes.append(pts[0].shape[0])
+    _common(p, cfg, T_inits, out)
+    p.aff_a0, p.aff_b0 = _scalar(aff_init.a, dev), _scalar(aff_init.b, dev)
+    p.ref_a, p.ref_b = _scalar(ref_aff.a, dev), _scalar(ref_aff.b, dev)
+    p.ref_exp, p.new_exp = _scalar(ref_exposure, dev), _scalar(new_exposure, dev)
+    res = _launch("dsslam_track_lm", p, levels, sizes, out)
+    track_lm_cuda.launches += 1
+    return res
+
+
+track_lm_cuda.launches = 0
+
+
+def loop_pose_lm_cuda(pyr_cur, px, py, pz, pcolors, pmask, T_inits: torch.Tensor,
+                      intr, cfg, ref_exposure=1.0, new_exposure=1.0) -> LmOut:
+    """Launch K4-LM for the seed stack ``T_inits`` [S, 4, 4] over the
+    points ``px, py, pz`` [K] with per-level intensities ``pcolors``
+    [K, L]: every level of ``loop/pose_estimator.estimate_seeds_plain``
+    (before its gates). ``x0``/``x1`` are level 0's E and n."""
+    levels = len(pyr_cur)
+    if levels > MAX_LEVELS:
+        raise ValueError(f"loop_pose_lm: at most {MAX_LEVELS} levels, got {levels}")
+    dev = pyr_cur[0].device
+    T_inits = T_inits.to(torch.float32).contiguous()
+    S = T_inits.shape[0]
+    pmask = _mask_u8(pmask)
+    _cuda.require_cuda("loop_pose_lm", *pyr_cur, px, py, pz, pcolors, pmask, T_inits)
+    if pcolors.dim() != 2 or pcolors.shape[1] < levels:
+        raise ValueError(f"loop_pose_lm: pcolors must be [K, >= {levels}], "
+                         f"got {tuple(pcolors.shape)}")
+    out = torch.empty(S, OUT, dtype=torch.float32, device=dev)
+    p = LmParams()
+    stride = pcolors.shape[1]
+    for lvl in range(levels):
+        # the level's column: pcolors[i, lvl] at base + lvl + i * stride
+        col = pcolors.reshape(-1)[lvl:]
+        _level(p, lvl, pyr_cur[lvl], px, py, pz, col, stride, pmask, intr,
+               _max_iters(cfg, lvl), False)
+    _common(p, cfg, T_inits, out)
+    zero = _Scalar(None, 0.0)
+    p.aff_a0 = p.aff_b0 = p.ref_a = p.ref_b = zero
+    p.ref_exp, p.new_exp = _scalar(ref_exposure, dev), _scalar(new_exposure, dev)
+    res = _launch("dsslam_loop_pose_lm", p, levels, [px.shape[0]] * levels, out)
+    loop_pose_lm_cuda.launches += 1
+    return res
+
+
+loop_pose_lm_cuda.launches = 0
+
+
+def max_active_clusters(points3d: bool, n_points: int) -> int:
+    """How many 8-block clusters of K2-LM (K4-LM with ``points3d``) the
+    card holds at once for levels of up to ``n_points`` points."""
+    out = ctypes.c_int(0)
+    kl = _library()
+    err = kl.lib.dsslam_lm_max_active_clusters(int(points3d), slice_len(n_points),
+                                                ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {err}: "
+                           f"{kl.lib.dsslam_error_string(err).decode()}")
+    return out.value

@@ -14,7 +14,8 @@ Runs ``SLAMNode`` with a ``LoopHandler`` (threaded as
 dslam.txt (loop-closed) in the ``incoming_id x y z`` format, prints the
 per-stage timing table and ``loop_count``, and, where ground truth exists
 (synthetic runs, ``<root>/poses/<seq>.txt``), the ATE of both
-trajectories. ``--device`` defaults to ``cuda`` when a card is present.
+trajectories. ``--device`` defaults to ``cuda``; on a host without a card
+the run stops with a message unless ``--device cpu`` is given.
 Not ported yet (they raise ``NotImplementedError``): rosbag replay, ROS
 topics, undistorted image folders (``--dir0``/``--dir1``), the trajectory
 plot, the live viewer, debug dumps, step mode and pipelined tracking.
@@ -58,9 +59,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--live", action="store_true", help="live viewer (not ported yet)")
     ap.add_argument("--debug-dir", default=None, help="debug dumps (not ported yet)")
     ap.add_argument("--step", action="store_true", help="step mode (not ported yet)")
-    ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda when a card is present, "
-                         "else cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; without a card the run "
+                         "stops unless --device cpu is given)")
     ap.add_argument("--out", default="./slam_out")
     return ap
 
@@ -82,15 +83,17 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     _refuse_unported(args)
 
-    import torch
-
     from .config import make_config
     from .geometry.camera import make_pyramid_intrinsics, num_usable_levels
     from .loop.handler import LoopHandler
     from .runtime.eval import score_rows
     from .runtime.node import SLAMNode, write_trajectory
+    from .utils.device import resolve_device
 
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as err:
+        raise SystemExit(f"run_slam: {err}") from None
     os.makedirs(args.out, exist_ok=True)
 
     gt = None

@@ -18,6 +18,7 @@ import numpy as np
 from ..config import SLAMConfig
 from ..geometry.camera import make_pyramid_intrinsics, num_usable_levels
 from ..loop.handler import LoopHandler
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.timing import StageTimers
 from .node import STAGE_NAMES, SLAMNode
 
@@ -25,13 +26,14 @@ from .node import STAGE_NAMES, SLAMNode
 def run_sequence(ds, cfg: SLAMConfig, K: np.ndarray, t_cam1_cam0: np.ndarray,
                  undistorter0=None, undistorter1=None, levels: int = 5,
                  threaded_loop: Optional[bool] = None, progress: bool = False,
-                 max_frames: Optional[int] = None, device="cpu",
+                 max_frames: Optional[int] = None, device=DEFAULT_DEVICE,
                  sync_timers: bool = False):
     """Run the full SLAM pipeline over ``ds`` on ``device``. Returns (node,
     handler, wall_seconds); on a card the time ends after the loop
     handler has drained and the device has synchronized."""
     import torch
 
+    device = resolve_device(device)
     f0 = ds.frame(0)
     h, w = np.asarray(f0["img0"]).shape[:2]
     if undistorter0 is not None:
@@ -60,7 +62,7 @@ def run_sequence(ds, cfg: SLAMConfig, K: np.ndarray, t_cam1_cam0: np.ndarray,
                   f"loops={handler.direct_loop_count}+{handler.icp_loop_count}",
                   flush=True)
     node.finish()
-    if torch.device(device).type == "cuda":
+    if device.type == "cuda":
         torch.cuda.synchronize()
     return node, handler, time.perf_counter() - t0
 

@@ -17,6 +17,7 @@ import torch
 from ..config import SLAMConfig
 from ..geometry.camera import PyramidIntrinsics
 from ..models.frontend import FrontEnd
+from ..utils.device import DEFAULT_DEVICE, resolve_device
 from ..utils.timing import StageTimers
 
 # the reference's stage names, in its table's order (main.cpp:181-201)
@@ -32,14 +33,14 @@ class SLAMNode:
     def __init__(self, cfg: SLAMConfig, intr0: PyramidIntrinsics,
                  intr1: PyramidIntrinsics, t_cam1_cam0: np.ndarray,
                  loop_handler=None, undistorter0=None, undistorter1=None,
-                 device="cpu", sync_timers: bool = False):
+                 device=DEFAULT_DEVICE, sync_timers: bool = False):
         if undistorter0 is not None or undistorter1 is not None:
             raise NotImplementedError("undistortion is not ported yet")
         rt = cfg.runtime
         if rt.live_view_path or rt.debug_dump_dir or rt.step_by_step:
             raise NotImplementedError("viewer / debug dumps / step mode are not ported yet")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.intr0 = intr0
         self.intr1 = intr1
         self.t_cam1_cam0 = np.asarray(t_cam1_cam0, np.float32)

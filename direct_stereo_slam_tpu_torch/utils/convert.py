@@ -14,6 +14,10 @@ Python numbers, as both packages keep them.
 Index fields (``BAState.p_host``, the pose graph's edge ends and fixed
 node) are int64 in the port, where they index tensors, and int32 as in
 the JAX package on the way back.
+
+``config_from_jax`` rebuilds a ``SLAMConfig`` of the JAX package as the
+port's own (its copy in ``config.py``), field by field, so a test can
+hand both packages the same configuration.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import config as port_config
 from ..geometry.camera import PyramidIntrinsics
 from ..loop.pose_estimator import LoopPoseResult
 from ..loop.pose_graph import PoseGraphData
@@ -95,3 +100,13 @@ def to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return tree
+
+
+def config_from_jax(cfg):
+    """A configuration dataclass tree of the JAX package as the port's
+    classes of the same names (any dataclass field recurses)."""
+    if not dataclasses.is_dataclass(cfg):
+        return cfg
+    cls = getattr(port_config, type(cfg).__name__)
+    return cls(**{f.name: config_from_jax(getattr(cfg, f.name))
+                  for f in dataclasses.fields(cfg)})

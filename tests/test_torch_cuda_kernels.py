@@ -14,6 +14,8 @@ JAX, so on the card's machine they run without the repo's conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 """
 
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -247,3 +249,250 @@ def test_pose3d_pass_nan_seed(dev):
                               else f[ok] for f in got]),
                   type(want)(*[type(f)(*[x[ok] for x in f]) if isinstance(f, tuple)
                                else f[ok] for f in want]))
+
+
+# ---------------------------------------------------------------------------
+# K2-LM / K4-LM: the resident LM kernels against their plain loops
+# ---------------------------------------------------------------------------
+#
+# A rendered pair (320x192, 3 levels): the tracker's template from frame 0
+# and frame 1's pyramid; the loop estimator's metric points from frame 0
+# against frame 1's pyramid. Each kernel is held two ways: against the
+# Python loop that drives the per-pass kernel (K2 / K4) on the card, and
+# against the same loop over the plain passes. Tolerances (a candidate's
+# sums are reduced in another order than the per-pass kernels reduce
+# them, ~1e-6 relative, and the 8x8 solve and se3_exp run in another
+# order than torch's): residuals per level within 1e-3 relative, poses
+# within 1e-3 per matrix entry (m and rotation entries), the same `ok`;
+# a candidate that sees no point keeps inf in both. In the 78-candidate
+# escalation batch, rotation tries that start far from the optimum often
+# run out of iterations at a coarse level, and one near-tie accept/reject
+# decided the other way sends a candidate down another path. The rule is
+# utils/lm_agreement.py's, as in chip_smoke.py: a candidate may differ
+# only if the loops themselves differ on it when the points' lane order
+# changes (measured in each test), and the winner must be the same.
+
+from direct_stereo_slam_tpu_torch.config import make_config  # noqa: E402
+from direct_stereo_slam_tpu_torch.geometry.camera import make_pyramid_intrinsics  # noqa: E402
+from direct_stereo_slam_tpu_torch.io.synthetic import SyntheticStereoDataset  # noqa: E402
+from direct_stereo_slam_tpu_torch.loop import pose_estimator as pe  # noqa: E402
+from direct_stereo_slam_tpu_torch.models import depth_template as dt  # noqa: E402
+from direct_stereo_slam_tpu_torch.models import tracker as tr  # noqa: E402
+from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm  # noqa: E402
+from direct_stereo_slam_tpu_torch.ops.interp import bilinear_gather_scalar  # noqa: E402
+from direct_stereo_slam_tpu_torch.ops.pyramid import build_pyramid  # noqa: E402
+from direct_stereo_slam_tpu_torch.utils import lm_agreement as lma  # noqa: E402
+
+LW, LH, LL = 320, 192, 3
+MODES = [(0.0, 0.0), (-1.0, -1.0), (0.0, -1.0), (-1.0, 0.0)]
+
+
+@pytest.fixture(scope="module")
+def scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    dev = torch.device("cuda")
+    ds = SyntheticStereoDataset(n_frames=2, width=LW, height=LH, speed=0.25, device=dev)
+    f0, f1 = ds.frame(0), ds.frame(1)
+    K = ds.K
+    intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], LW, LH, LL)
+    cfg = make_config(LW, LH, preset=0, mode=1)
+    cfg = cfg.replace(tracker=cfg.tracker.__class__(pyr_levels=LL,
+                                                    max_iterations=(10, 20, 50)))
+    rng = np.random.RandomState(0)
+    n = 3000
+    us = rng.uniform(3, LW - 4, n).astype(np.float32)
+    vs = rng.uniform(3, LH - 4, n).astype(np.float32)
+    depth = f0["depth0"][vs.astype(int), us.astype(int)]
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    tmpl = dt.build_template(t(us), t(vs), t((1.0 / depth).astype(np.float32)),
+                             t(np.ones(n, np.float32)), t(f0["img0"]), LL,
+                             dt.default_budgets(LW, LH, LL))
+    pyr1 = tuple(build_pyramid(t(f1["img0"]), LL).data)
+    pyr0 = tuple(build_pyramid(t(f0["img0"]), LL).data)
+    T_true = (np.linalg.inv(f1["pose_w_c0"]) @ f0["pose_w_c0"]).astype(np.float32)
+    # metric points of frame 0 with their intensity at every level
+    k = 2048
+    K0 = intr.K(0)
+    z = depth[:k].astype(np.float64)
+    xyz = np.stack([(us[:k] - K0[0, 2]) / K0[0, 0] * z,
+                    (vs[:k] - K0[1, 2]) / K0[1, 1] * z, z], -1).astype(np.float32)
+    cols = torch.stack([bilinear_gather_scalar(pyr0[l][..., 0], t(us[:k] / 2 ** l),
+                                               t(vs[:k] / 2 ** l)) for l in range(LL)], 1)
+    return dict(dev=dev, cfg=cfg, intr=intr, tmpl=tmpl, pyr1=pyr1, T_true=T_true,
+                xyz=t(xyz), cols=cols.contiguous(), t=t)
+
+
+def _with_modes(cfg, ma, mb, **kw):
+    import dataclasses
+    return cfg.replace(tracker=dataclasses.replace(cfg.tracker, affine_mode_a=ma,
+                                                   affine_mode_b=mb, **kw))
+
+
+def _candidates(sc, B):
+    """The frontend's batches: the first try, the 5 motion tries and the
+    78 rotation tries around the true motion, plus one candidate 100 m
+    behind the points (every point behind the camera: no term, NaN step)."""
+    slast = lie.se3_exp_np([0.02, -0.01, 0.05, 0.01, -0.005, 0.002])
+    stage1, stage2 = tr.make_motion_tries(np.eye(4), sc["T_true"].astype(np.float64),
+                                          slast, sc["cfg"])
+    batch = {1: stage1[:1], 5: stage1, 78: stage2}[B].copy()
+    if B > 1:
+        batch[-1, 2, 3] -= 100.0
+    return sc["t"](batch)
+
+
+def _track_args(sc, cfg, T, tmpl=None):
+    dev = sc["dev"]
+    zero = torch.zeros((), device=dev)
+    aff0 = tr.AffLight(torch.tensor(0.01, device=dev), torch.tensor(-0.5, device=dev))
+    return (sc["pyr1"], tmpl or sc["tmpl"], sc["intr"], cfg, T, aff0,
+            tr.AffLight(zero, zero + 0.3), torch.tensor(1.0, device=dev),
+            torch.tensor(1.1, device=dev))
+
+
+def _winner(r, cfg):
+    """select_winner on host copies, as the front end calls it."""
+    host = tr.TrackResult(T=r.T.cpu().numpy(), aff=None,
+                          res_per_level=r.res_per_level.cpu().numpy(),
+                          flow=r.flow.cpu().numpy(), ok=r.ok.cpu().numpy())
+    return tr.select_winner(host, 1e9, cfg)
+
+
+TRACK_LOOPS = (tr.track_candidates_batch_plain,
+               partial(tr.track_candidates_batch_plain,
+                       residual_pass=rh.pose_residual_pass_plain))
+
+
+def _same_track(got, args, cfg):
+    """K2-LM's batch against the Python loop over K2 and over plain passes
+    by the measured rule, and the same winner."""
+    refs = {"K2 loop": TRACK_LOOPS[0](*args), "plain": TRACK_LOOPS[1](*args)}
+    agr = lma.check(got, refs, lma.reordered_track_runs(args, TRACK_LOOPS))
+    assert agr.ok, str(agr)
+    for ref in refs.values():
+        assert _winner(got, cfg) == _winner(ref, cfg)
+    return str(agr)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("B", [1, 5, 78])
+def test_track_lm_matches_loops(scene, mode, B):
+    cfg = _with_modes(scene["cfg"], *mode)
+    args = _track_args(scene, cfg, _candidates(scene, B))
+    k2, lm = rh.pose_residual_pass_cuda.launches, rlm.track_lm_cuda.launches
+    got = tr.track_candidates_batch(*args)
+    assert rlm.track_lm_cuda.launches == lm + 1
+    assert rh.pose_residual_pass_cuda.launches == k2
+    print(B, mode, _same_track(got, args, cfg))
+    if B > 1:
+        assert bool(torch.isinf(got.res_per_level[-1]).all())   # behind the camera
+        assert not bool(got.ok[-1])
+    assert _winner(got, cfg)[1]
+
+
+def test_track_lm_cutoff_doubling_and_level_repeat(scene):
+    """A cutoff of 5 gray levels saturates most residuals: the pre-loop
+    doubles it and the level repeat runs. For one candidate the kernel
+    runs as many passes per level as the Python loop does."""
+    cfg = _with_modes(scene["cfg"], 0.0, 0.0, coarse_cutoff_th=5.0)
+    args = _track_args(scene, cfg, _candidates(scene, 1))
+    got = tr.track_candidates_batch(*args)
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append((a[0].shape[0], float(a[-1])))     # level height, cutoff
+        return rh.pose_residual_pass(*a, **kw)
+
+    tr.track_candidates_batch_plain(*args, residual_pass=counted)
+    _same_track(got, args, cfg)
+    assert max(c for _, c in calls) > 5.0                   # the cutoff doubled
+    o = rlm.track_lm_cuda(*args)
+    per_level = [sum(1 for h, _ in calls if h == scene["pyr1"][l].shape[0])
+                 for l in range(LL)]
+    assert o.passes[0].tolist() == per_level
+
+
+def test_track_lm_masked_level(scene):
+    """A level whose lanes are all masked has no term: res = inf there."""
+    t = scene["tmpl"]
+    masks = list(t.pmask)
+    masks[1] = torch.zeros_like(masks[1])
+    tmpl = t._replace(pmask=tuple(masks))
+    args = _track_args(scene, scene["cfg"], _candidates(scene, 5), tmpl)
+    got = tr.track_candidates_batch(*args)
+    assert bool(torch.isinf(got.res_per_level[:, 1]).all())
+    assert not bool(got.ok.any())
+    _same_track(got, args, scene["cfg"])
+    # the masked level's LM never breaks (its step is NaN): max_iterations
+    o = rlm.track_lm_cuda(*args)
+    assert float(o.passes[0, 1]) == 1 + scene["cfg"].tracker.max_iterations[1]
+
+
+@pytest.mark.parametrize("B", [1, 78])
+def test_track_lm_bit_equal_run_to_run(scene, B):
+    args = _track_args(scene, scene["cfg"], _candidates(scene, B))
+    a, b = rlm.track_lm_cuda(*args), rlm.track_lm_cuda(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0))
+
+
+def _seeds(sc, S):
+    T = sc["T_true"].astype(np.float64)
+    behind = T.copy()
+    behind[2, 3] -= 100.0
+    stack = pe.make_seed_stack(T, (behind,), (3.0, -3.0, 6.0, -6.0))
+    return sc["t"](stack[:S])
+
+
+def _loop_args(sc, cfg, S, k=2048):
+    xyz, cols = sc["xyz"], sc["cols"]
+    live = torch.arange(xyz.shape[0], device=sc["dev"]) < k
+    x = torch.where(live[:, None], xyz, torch.tensor([0.0, 0.0, 1.0], device=sc["dev"]))
+    c = torch.where(live[:, None], cols, torch.zeros_like(cols))
+    return (sc["pyr1"], x[:, 0].contiguous(), x[:, 1].contiguous(), x[:, 2].contiguous(),
+            c.contiguous(), live, _seeds(sc, S), sc["intr"], cfg)
+
+
+SEED_LOOPS = (pe.estimate_seeds_plain,
+              partial(pe.estimate_seeds_plain, residual_pass=rh.pose3d_residual_pass_plain))
+
+
+def _same_seeds(got, args):
+    """K4-LM's stack against the Python loop over K4 and over plain passes
+    by the measured rule."""
+    refs = {"K4 loop": SEED_LOOPS[0](*args), "plain": SEED_LOOPS[1](*args)}
+    agr = lma.check(got, refs, lma.reordered_seed_runs(args, SEED_LOOPS))
+    assert agr.ok, (str(agr), got.pose_error, [r.pose_error for r in refs.values()])
+    return str(agr)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("S,k", [(1, 2048), (6, 2048), (6, 1500)])
+def test_loop_pose_lm_matches_loops(scene, mode, S, k):
+    cfg = _with_modes(scene["cfg"], *mode)
+    args = _loop_args(scene, cfg, S, k)
+    k4, lm = rh.pose3d_residual_pass_cuda.launches, rlm.loop_pose_lm_cuda.launches
+    got = pe.estimate_seeds(*args)
+    assert rlm.loop_pose_lm_cuda.launches == lm + 1
+    assert rh.pose3d_residual_pass_cuda.launches == k4
+    print(S, k, mode, _same_seeds(got, args))
+    assert bool(got.ok[0])
+    if S == 6:
+        assert float(got.inlier_ratio[1]) == 0.0 and not bool(got.ok[1])
+
+
+def test_loop_pose_lm_bit_equal_and_one_launch_per_batch(scene):
+    args = _loop_args(scene, scene["cfg"], 6)
+    a, b = rlm.loop_pose_lm_cuda(*args), rlm.loop_pose_lm_cuda(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0))
+    lm = rlm.loop_pose_lm_cuda.launches
+    pe.estimate_batch(*args)
+    assert rlm.loop_pose_lm_cuda.launches == lm + 1
+
+
+def test_lm_clusters_fit(scene):
+    """Several 8-block clusters of either kernel fit on the card at once."""
+    assert rlm.max_active_clusters(False, 8192) >= 2
+    assert rlm.max_active_clusters(True, 2048) >= 2

@@ -43,8 +43,8 @@ def full_slam_setup():
 @pytest.mark.slow
 def test_full_slam_synthetic_loop(tmp_path):
     ds, cfg, intr = full_slam_setup()
-    handler = LoopHandler(cfg, intr, threaded=False)
-    node = SLAMNode(cfg, intr, intr, ds.t_cam1_cam0, loop_handler=handler)
+    handler = LoopHandler(cfg, intr, threaded=False, device="cpu")
+    node = SLAMNode(cfg, intr, intr, ds.t_cam1_cam0, loop_handler=handler, device="cpu")
     for f in ds:
         node.process(f["img0"], f["img1"], f["timestamp"])
         assert not node.frontend.is_lost

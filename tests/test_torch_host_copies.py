@@ -1,0 +1,217 @@
+"""The port keeps its own copies of the JAX package's host modules
+(``config``, ``utils/calib``, ``io/{dataset,sync}``,
+``loop/{scancontext,icp}`` and ``retrieval.search_signatures``), so that
+it imports nothing of that package. These tests pin each copy to the
+reference on the same seeded inputs, so the two cannot drift: configs
+field by field, every other output exactly equal (numpy on both sides,
+the same operations in the same order)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from direct_stereo_slam_tpu import config as cfg_j
+from direct_stereo_slam_tpu.io import dataset as ds_j
+from direct_stereo_slam_tpu.io import sync as sync_j
+from direct_stereo_slam_tpu.loop import icp as icp_j
+from direct_stereo_slam_tpu.loop import retrieval as ret_j
+from direct_stereo_slam_tpu.loop import scancontext as sc_j
+from direct_stereo_slam_tpu.utils import calib as calib_j
+from direct_stereo_slam_tpu_torch import config as cfg_t
+from direct_stereo_slam_tpu_torch.io import dataset as ds_t
+from direct_stereo_slam_tpu_torch.io import sync as sync_t
+from direct_stereo_slam_tpu_torch.loop import icp as icp_t
+from direct_stereo_slam_tpu_torch.loop import retrieval as ret_t
+from direct_stereo_slam_tpu_torch.loop import scancontext as sc_t
+from direct_stereo_slam_tpu_torch.utils import calib as calib_t
+from direct_stereo_slam_tpu_torch.utils.convert import config_from_jax
+
+pytestmark = pytest.mark.smoke
+
+
+def _tree(c):
+    """A config as nested (class name, fields) pairs."""
+    if dataclasses.is_dataclass(c):
+        return (type(c).__name__,
+                {f.name: _tree(getattr(c, f.name)) for f in dataclasses.fields(c)})
+    return c
+
+
+@pytest.mark.parametrize("size", [(96, 48), (256, 80), (320, 96), (320, 192),
+                                  (616, 184), (1232, 368)])
+@pytest.mark.parametrize("preset,mode", [(0, 0), (0, 1), (0, 2), (2, 1)])
+def test_make_config_field_by_field(size, preset, mode):
+    kw = dict(scale_opt_thres=12.0, lidar_range=35.0, scan_context_thres=0.3)
+    for extra in ({}, kw):
+        j = cfg_j.make_config(*size, preset=preset, mode=mode, **extra)
+        t = cfg_t.make_config(*size, preset=preset, mode=mode, **extra)
+        assert type(t) is cfg_t.SLAMConfig
+        assert _tree(t) == _tree(j)
+        assert config_from_jax(j) == t
+
+
+def test_config_constants_and_defaults():
+    names = [n for n in dir(cfg_j) if n.isupper()]
+    assert names and names == [n for n in dir(cfg_t) if n.isupper()]
+    for n in names:
+        np.testing.assert_array_equal(np.asarray(getattr(cfg_t, n)),
+                                      np.asarray(getattr(cfg_j, n)), err_msg=n)
+    classes = [n for n in dir(cfg_j) if dataclasses.is_dataclass(getattr(cfg_j, n))]
+    for n in classes:
+        assert _tree(getattr(cfg_t, n)()) == _tree(getattr(cfg_j, n)()), n
+
+
+CAMERAS = {
+    "pinhole": "Pinhole 718.8560 718.8560 607.1928 185.2157 0\n1241 376\ncrop\n1232 368\n",
+    "radtan": ("RadTan 0.5 0.8 0.5 0.5 -0.28 0.07 0.0002 0.00002\n640 480\n"
+               "crop\n600 440\n"),
+    "fov": "0.5 0.9 0.5 0.5 0.9\n320 240\nfull\n300 220\n",
+    "explicit": "Pinhole 400 400 319.5 239.5 0\n640 480\n0.6 0.8 0.5 0.5 0\n320 240\n",
+}
+
+
+def _same(a, b):
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__
+        for f in dataclasses.fields(a):
+            _same(getattr(a, f.name), getattr(b, f.name))
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    elif isinstance(a, tuple) and isinstance(b, tuple):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    else:
+        assert a == b
+
+
+@pytest.mark.parametrize("kind", sorted(CAMERAS))
+def test_calib_parsing(tmp_path, kind):
+    path = tmp_path / "camera.txt"
+    path.write_text(CAMERAS[kind])
+    _same(calib_j.parse_camera_file(str(path)), calib_t.parse_camera_file(str(path)))
+    _same(calib_j.build_rectified_camera(str(path)),
+          calib_t.build_rectified_camera(str(path)))
+
+
+def test_stereo_and_photometric_calib(tmp_path):
+    rng = np.random.RandomState(0)
+    T = np.eye(4)
+    T[:3, 3] = rng.randn(3)
+    vals = ",\n ".join(f"{v:.9f}" for v in T.reshape(-1))
+    t_path = tmp_path / "T_stereo.yaml"
+    t_path.write_text(f"T_stereo:\n  cols: 4\n  rows: 4\n  data: [{vals}]\n")
+    np.testing.assert_array_equal(calib_t.parse_t_stereo(str(t_path)),
+                                  calib_j.parse_t_stereo(str(t_path)))
+    for n in (256, 1021):
+        g_path = tmp_path / f"pcalib{n}.txt"
+        g_path.write_text(" ".join(f"{v:.6f}" for v in np.cumsum(rng.rand(n))))
+        np.testing.assert_array_equal(calib_t.parse_gamma(str(g_path)),
+                                      calib_j.parse_gamma(str(g_path)))
+    import cv2
+
+    v_path = str(tmp_path / "vignette.png")
+    cv2.imwrite(v_path, (rng.rand(48, 64) * 60000 + 100).astype(np.uint16))
+    for size in ((None, None), (32, 24)):
+        np.testing.assert_array_equal(calib_t.parse_vignette(v_path, *size),
+                                      calib_j.parse_vignette(v_path, *size))
+
+
+def _streams(seed):
+    """Two stamp streams at ~10 Hz with jitter, drops and a late start."""
+    rng = np.random.RandomState(seed)
+    t0 = np.cumsum(rng.uniform(0.08, 0.12, 60))
+    t1 = t0 + rng.uniform(-0.02, 0.02, 60)
+    keep0, keep1 = rng.rand(60) > 0.1, rng.rand(60) > 0.1
+    return ([(float(t), f"L{i}") for i, t in enumerate(t0) if keep0[i]],
+            [(float(t), f"R{i}") for i, t in enumerate(t1[3:]) if keep1[i + 3]])
+
+
+@pytest.mark.parametrize("seed,slop,queue", [(0, 0.01, 10), (1, 0.03, 10), (2, 0.015, 3)])
+def test_sync_and_replay(seed, slop, queue):
+    s0, s1 = _streams(seed)
+    assert list(sync_t.replay([s0, s1], slop, queue)) == \
+        list(sync_j.replay([s0, s1], slop, queue))
+    a, b = sync_j.ApproximateTimeSync(slop, queue), sync_t.ApproximateTimeSync(slop, queue)
+    events = sorted([(t, 0, d) for t, d in s0] + [(t, 1, d) for t, d in s1])
+    for t, k, d in events:
+        assert b.push(k, t, d) == a.push(k, t, d)
+    assert b.flush() == a.flush() and b.dropped == a.dropped
+
+
+def _write_pngs(root, n, rng):
+    import cv2
+
+    for cam in ("image_0", "image_1"):
+        (root / cam).mkdir(parents=True)
+        for i in range(n):
+            cv2.imwrite(str(root / cam / f"{i:06d}.png"),
+                        rng.randint(0, 256, (24, 40)).astype(np.uint8))
+
+
+def test_stereo_dir_datasets(tmp_path):
+    rng = np.random.RandomState(3)
+    _write_pngs(tmp_path, 5, rng)
+    times = tmp_path / "times.txt"
+    times.write_text("".join(f"{i} {0.1 * i:.3f} {10 + i}\n" for i in range(5)))
+    stamps = [tmp_path / f"t{k}.txt" for k in (0, 1)]
+    stamps[0].write_text("".join(f"{0.1 * i:.4f}\n" for i in range(5)))
+    stamps[1].write_text("".join(f"{0.1 * i + 0.004:.4f}\n" for i in range(5)))
+    d0, d1 = str(tmp_path / "image_0"), str(tmp_path / "image_1")
+    pairs = [(ds_j.StereoDirDataset(d0, d1, str(times)),
+              ds_t.StereoDirDataset(d0, d1, str(times))),
+             (ds_j.StereoDirDataset(d0, d1, fps=20.0, pattern="*.png"),
+              ds_t.StereoDirDataset(d0, d1, fps=20.0, pattern="*.png")),
+             (ds_j.UnsyncedStereoDataset(d0, d1, *map(str, stamps), slop=0.01),
+              ds_t.UnsyncedStereoDataset(d0, d1, *map(str, stamps), slop=0.01))]
+    for j, t in pairs:
+        assert len(t) == len(j) == 5
+        for fj, ft in zip(j, t):
+            assert sorted(ft) == sorted(fj)
+            for k in fj:
+                np.testing.assert_array_equal(np.asarray(ft[k]), np.asarray(fj[k]), err_msg=k)
+
+
+def _cloud(rng, n=600):
+    pts = rng.uniform(-30, 30, (n, 3))
+    pts[:, 1] = rng.uniform(-2, 2, n)
+    return pts
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_scan_context(binary):
+    rng = np.random.RandomState(4)
+    clouds = [_cloud(rng) for _ in range(4)]
+    res_j = [sc_j.generate(c, 40.0, binary=binary) for c in clouds]
+    res_t = [sc_t.generate(c, 40.0, binary=binary) for c in clouds]
+    for a, b in zip(res_j, res_t):
+        for f in sc_j.ScanContextResult._fields:
+            np.testing.assert_array_equal(getattr(b, f), getattr(a, f), err_msg=f)
+        for x, y in zip(sc_j.align_points_pca(clouds[0]), sc_t.align_points_pca(clouds[0])):
+            np.testing.assert_array_equal(y, x)
+    for a in range(4):
+        for b in range(4):
+            assert sc_t.signature_difference(res_t[a].signature, res_t[b].signature, 60) == \
+                sc_j.signature_difference(res_j[a].signature, res_j[b].signature, 60)
+    sigs = [r.signature for r in res_j]
+    for cands in ([1, 2, 3], [3, 1], [2]):
+        assert ret_t.search_signatures(sigs[0], sigs, cands, 60) == \
+            ret_j.search_signatures(sigs[0], sigs, cands, 60)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_icp(seed):
+    rng = np.random.RandomState(seed)
+    src = _cloud(rng, 500)
+    ang = 0.05 * (seed + 1)
+    T = np.eye(4)
+    T[:3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]]
+    T[:3, 3] = [0.3, -0.1, 0.5]
+    tgt = src @ T[:3, :3].T + T[:3, 3] + 0.01 * rng.randn(*src.shape)
+    for init in (np.eye(4), T):
+        ok_j, T_j, fit_j = icp_j.icp(src, tgt, init)
+        ok_t, T_t, fit_t = icp_t.icp(src, tgt, init)
+        assert ok_t == ok_j
+        np.testing.assert_array_equal(T_t, T_j)
+        assert fit_t == fit_j

@@ -18,6 +18,7 @@ from direct_stereo_slam_tpu.loop.scan import NearbyPointCloud as CloudJ
 from direct_stereo_slam_tpu_torch.loop import pose_graph as pg_t
 from direct_stereo_slam_tpu_torch.loop import retrieval as rt_t
 from direct_stereo_slam_tpu_torch.loop.scan import NearbyPointCloud as CloudT
+from direct_stereo_slam_tpu_torch.utils.convert import config_from_jax as port_cfg
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
@@ -47,7 +48,7 @@ def _scan_case(case):
 def test_generate_scan_matches(case):
     cfg = make_config(320, 96)
     kfs, T_cw = _scan_case(case)
-    cj, ct = CloudJ(cfg), CloudT(cfg)
+    cj, ct = CloudJ(cfg), CloudT(port_cfg(cfg))
     for kf_id, T_wc, pts in kfs:
         cj.add_keyframe_points(kf_id, T_wc, pts)
         ct.add_keyframe_points(kf_id, T_wc, pts)

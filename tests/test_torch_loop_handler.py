@@ -13,6 +13,7 @@ import pytest
 from direct_stereo_slam_tpu.loop.handler import LoopHandler as HandlerJ
 from direct_stereo_slam_tpu_torch.loop.handler import LoopHandler as HandlerT
 from direct_stereo_slam_tpu_torch.utils.convert import to_torch
+from direct_stereo_slam_tpu_torch.utils.convert import config_from_jax as port_cfg
 from test_loop_handler import make_loop_stream
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -29,7 +30,7 @@ def handlers():
     cfg, intr, stream, gt, est = make_loop_stream()
     ref = _feed(HandlerJ(cfg, intr, threaded=False), stream)
     port_stream = [to_torch(m) for m in stream]
-    port = _feed(HandlerT(cfg, intr, threaded=False), port_stream)
+    port = _feed(HandlerT(port_cfg(cfg), intr, threaded=False, device="cpu"), port_stream)
     return cfg, intr, port_stream, ref, port
 
 
@@ -68,7 +69,7 @@ def test_optimized_trajectory_agrees(handlers):
 
 def test_threaded_equals_sync(handlers):
     cfg, intr, port_stream, _, sync = handlers
-    thr = _feed(HandlerT(cfg, intr, threaded=True), port_stream)
+    thr = _feed(HandlerT(port_cfg(cfg), intr, threaded=True, device="cpu"), port_stream)
     assert thr.stats == sync.stats
     assert (thr.direct_loop_count, thr.icp_loop_count) == \
         (sync.direct_loop_count, sync.icp_loop_count)
@@ -85,6 +86,6 @@ def test_threaded_resolves_from_config(handlers):
     cfg, intr, _, _, _ = handlers
     for flag in (True, False):
         c = cfg.replace(runtime=dataclasses.replace(cfg.runtime, multi_threading=flag))
-        h = HandlerT(c, intr)
+        h = HandlerT(port_cfg(c), intr, device="cpu")
         assert h.threaded is flag
         h.close()

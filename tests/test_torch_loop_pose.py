@@ -10,6 +10,12 @@
    handler's seed stack (primary, odometry seed, 4 yaw perturbations):
    the same ``seed_ok`` and best seed, T within 1e-3 m / 1e-3 rad and
    pose_error within 1e-3 relative.
+3. The cases the card's K4-LM kernel must reproduce, through the port's
+   plain loop (``estimate_seeds_plain``, what the CPU takes) against the
+   JAX ``estimate_batch``: all four affine modes with a seed 100 m behind
+   the points in the stack (it sees nothing: inlier ratio 0, not ok), the
+   cutoff doubling with the one-shot level repeat, and a point list with
+   every lane masked. Tolerances as in 2, per seed where the seed passes.
 """
 
 import numpy as np
@@ -22,6 +28,7 @@ from direct_stereo_slam_tpu.loop import pose_estimator as pe_j
 from direct_stereo_slam_tpu.ops import residual_hb as rh_j
 from direct_stereo_slam_tpu_torch.loop import pose_estimator as pe_t
 from direct_stereo_slam_tpu_torch.ops import residual_hb as rh_t
+from direct_stereo_slam_tpu_torch.utils.convert import config_from_jax as port_cfg
 from test_loop_handler import make_loop_stream
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -173,7 +180,7 @@ def test_estimate_batch_matches_reference(loop_stream, cur, matched, noise):
                              jnp.asarray(stack), intr, cfg)
     rt = pe_t.estimate_batch(tuple(torch.as_tensor(np.array(p)) for p in pyr),
                              *[torch.as_tensor(x) for x in pts],
-                             torch.as_tensor(stack), intr, cfg)
+                             torch.as_tensor(stack), intr, port_cfg(cfg))
     assert rt.seed_ok.tolist() == np.asarray(rj.seed_ok).tolist()
     assert _best_index(rt.seed_errors, rt.best.pose_error) == \
         _best_index(rj.seed_errors, rj.best.pose_error)
@@ -198,7 +205,7 @@ def test_estimate_single_seed_matches_reference(loop_stream):
                        jnp.asarray(stack[0]), intr, cfg)
     rt = pe_t.estimate(tuple(torch.as_tensor(np.array(p)) for p in pyr),
                        *[torch.as_tensor(x) for x in pts], torch.as_tensor(stack[0]),
-                       intr, cfg)
+                       intr, port_cfg(cfg))
     assert bool(rt.ok) == bool(rj.ok)
     assert (bool(rt.ok_res), bool(rt.ok_inlier), bool(rt.ok_aff)) == \
         (bool(rj.ok_res), bool(rj.ok_inlier), bool(rj.ok_aff))
@@ -207,3 +214,71 @@ def test_estimate_single_seed_matches_reference(loop_stream):
     # last LM steps by ~0.5%: 1e-3 gray levels absolute (1e-4 of res_thres)
     np.testing.assert_allclose(float(rt.pose_error), float(rj.pose_error), rtol=1e-3,
                                atol=1e-3)
+
+
+def _batches_agree(loop_stream, cfg, cur, matched, mask_all=False):
+    """estimate_batch of both packages on one keyframe pair, with the
+    handler's stack plus a seed 100 m behind the points."""
+    _, intr, stream, gt, est = loop_stream
+    stack = _seed_stack(gt, est, cur, matched, cfg, [0.05, 0.0, -0.05, 0.0, 0.01, 0.0])
+    behind = stack[0].astype(np.float64)
+    behind[2, 3] -= 100.0
+    stack = np.concatenate([stack, behind[None].astype(np.float32)])
+    pts = list(_matched_points(stream[matched], cfg))
+    if mask_all:
+        pts[4] = np.zeros_like(pts[4])
+    pyr = stream[cur].pyr
+    rj = pe_j.estimate_batch(tuple(pyr), *[jnp.asarray(x) for x in pts],
+                             jnp.asarray(stack), intr, cfg)
+    rt = pe_t.estimate_batch(tuple(torch.as_tensor(np.array(p)) for p in pyr),
+                             *[torch.as_tensor(x) for x in pts],
+                             torch.as_tensor(stack), intr, port_cfg(cfg))
+    ok = np.asarray(rj.seed_ok)
+    assert rt.seed_ok.tolist() == ok.tolist()
+    np.testing.assert_allclose(rt.seed_errors.numpy()[ok], np.asarray(rj.seed_errors)[ok],
+                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(rt.seed_inliers.numpy()[ok], np.asarray(rj.seed_inliers)[ok],
+                               rtol=1e-3)
+    assert float(rt.seed_inliers[-1]) == float(rj.seed_inliers[-1]) == 0.0
+    assert not bool(rt.seed_ok[-1])
+    if ok.any():
+        Tj = np.asarray(rj.best.T, np.float64)
+        Tt = rt.best.T.numpy().astype(np.float64)
+        assert np.abs(Tt[:3, 3] - Tj[:3, 3]).max() <= 1e-3
+        assert _angle(Tt[:3, :3].T @ Tj[:3, :3]) <= 1e-3
+    return rt
+
+
+@pytest.mark.parametrize("mode", [(0.0, 0.0), (-1.0, -1.0), (0.0, -1.0), (-1.0, 0.0)])
+def test_estimate_batch_affine_modes_and_blind_seed_match(loop_stream, mode):
+    import dataclasses
+    cfg = loop_stream[0]
+    cfg = cfg.replace(tracker=dataclasses.replace(cfg.tracker, affine_mode_a=mode[0],
+                                                  affine_mode_b=mode[1]))
+    rt = _batches_agree(loop_stream, cfg, 30, 4)
+    assert bool(rt.seed_ok.any())
+
+
+def test_estimate_cutoff_doubling_repeat_and_masked_match(loop_stream):
+    """A cutoff of 5 gray levels doubles in the pre-loop and repeats the
+    level; a point list with every lane masked leaves every seed without a
+    term (inlier ratio 0, nothing passes)."""
+    import dataclasses
+    cfg = loop_stream[0]
+    cfg = cfg.replace(tracker=dataclasses.replace(cfg.tracker, coarse_cutoff_th=5.0))
+    _, intr, stream, gt, est = loop_stream
+    cutoffs = []
+
+    def counted(*a, **kw):
+        cutoffs.append(float(torch.max(torch.as_tensor(a[-1]))))
+        return rh_t.pose3d_residual_pass(*a, **kw)
+
+    stack = _seed_stack(gt, est, 30, 4, cfg, [0.05, 0.0, -0.05, 0.0, 0.01, 0.0])
+    pts = _matched_points(stream[4], cfg)
+    pe_t.estimate_seeds_plain(tuple(torch.as_tensor(np.array(p)) for p in stream[30].pyr),
+                              *[torch.as_tensor(x) for x in pts], torch.as_tensor(stack),
+                              intr, port_cfg(cfg), residual_pass=counted)
+    assert max(cutoffs) > 5.0
+    _batches_agree(loop_stream, cfg, 30, 4)
+    rt = _batches_agree(loop_stream, loop_stream[0], 30, 4, mask_all=True)
+    assert float(rt.seed_inliers.max()) == 0.0 and not bool(rt.seed_ok.any())

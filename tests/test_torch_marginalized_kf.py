@@ -18,6 +18,7 @@ from direct_stereo_slam_tpu.geometry.camera import make_pyramid_intrinsics
 from direct_stereo_slam_tpu.io.synthetic import SyntheticStereoDataset
 from direct_stereo_slam_tpu.runtime.node import SLAMNode as NodeJ
 from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode as NodeT
+from direct_stereo_slam_tpu_torch.utils.convert import config_from_jax as port_cfg
 from test_torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 W, H, LVLS = 96, 48, 3
@@ -48,7 +49,11 @@ def _run(node_cls, frames, intr, t_stereo):
                             max_immature_per_frame=128, desired_point_density=150.0,
                             desired_immature_density=100.0))
     rec = Recorder()
-    node = node_cls(cfg, intr, intr, t_stereo, loop_handler=rec)
+    if node_cls is NodeT:
+        node = node_cls(port_cfg(cfg), intr, intr, t_stereo, loop_handler=rec,
+                        device="cpu")
+    else:
+        node = node_cls(cfg, intr, intr, t_stereo, loop_handler=rec)
     for i, f in enumerate(frames):
         node.process(f["img0"], f["img1"], timestamp=0.1 * i)
     rows = node.finish()

@@ -1,13 +1,13 @@
-"""The port stands without JAX: importing its SLAMNode (the whole device
-path), the loop-closure modules, the evaluation harness and the
-``run_slam`` entry point loads no ``jax``, no module of the port imports
-jax, and the device path turns TF32 off (the reference pins full-f32
-matmuls). Of the JAX package the port shares only jax-free host modules
-(config, calib, dataset, sync, Scan Context, ICP and the signature
-search)."""
+"""The port stands alone: importing its SLAMNode (the whole device path),
+the loop-closure modules, the evaluation harness, the host modules it
+keeps its own copies of and the ``run_slam`` entry point loads neither
+``jax`` nor any module of the JAX package ``direct_stereo_slam_tpu``, no
+source of the port imports either, and the device path turns TF32 off
+(the reference pins full-f32 matmuls)."""
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -33,9 +33,14 @@ def test_importing_the_port_loads_no_jax():
         "import direct_stereo_slam_tpu_torch.loop.icp\n"
         "import direct_stereo_slam_tpu_torch.runtime.eval\n"
         "import direct_stereo_slam_tpu_torch.run_slam\n"
+        "import direct_stereo_slam_tpu_torch.config\n"
+        "import direct_stereo_slam_tpu_torch.utils.calib\n"
+        "import direct_stereo_slam_tpu_torch.io.dataset\n"
+        "import direct_stereo_slam_tpu_torch.io.sync\n"
+        "import direct_stereo_slam_tpu_torch.ops.resident_lm\n"
         "import torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib'))\n"
+        "('jax', 'jaxlib', 'direct_stereo_slam_tpu'))\n"
         "assert not bad, bad\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
         "assert torch.backends.cudnn.allow_tf32 is False\n"
@@ -48,16 +53,20 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-def test_no_port_source_imports_jax():
+@pytest.mark.parametrize("package", ["jax", "direct_stereo_slam_tpu"])
+def test_no_port_source_imports(package):
+    """No source of the port (nor chip_smoke.py) imports ``package``."""
+    pattern = re.compile(rf"^\s*(import|from)\s+{package}(\.|\s|$)")
     offenders = []
-    for path in PKG.rglob("*.py"):
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
-            s = line.strip()
-            if s.startswith(("import jax", "from jax")) or "import jax" in s.split("#")[0]:
-                offenders.append(f"{path.relative_to(REPO)}: {s}")
+            code = line.split("#")[0]
+            if pattern.match(code) or re.search(rf"\bimport\s+{package}\b(?!_)", code):
+                offenders.append(f"{path.relative_to(REPO)}: {line.strip()}")
     assert not offenders, offenders
 
 
 def test_kernel_sources_present():
     names = {p.name for p in (PKG / "csrc").iterdir()}
-    assert {"distance_map.cu", "residual_hb.cu", "common.cuh"} <= names
+    assert {"distance_map.cu", "residual_hb.cu", "resident_lm.cu", "pose_terms.cuh",
+            "common.cuh"} <= names

@@ -1,0 +1,165 @@
+"""The host side of the resident LM kernels (``ops/resident_lm.py``) on the
+CPU: the ctypes mirror of the kernel's parameter struct has the layout
+``csrc/resident_lm.cu`` asserts (the module also checks it against the
+built library before a launch), the slice sizes match the kernel's,
+scalars pass by address or by value, CPU tensors take the plain LM loops
+without touching the kernels' launch counters, and the rule that holds
+the kernels to those loops (``utils/lm_agreement.py``) passes the loops
+in other lane orders and catches a candidate that moved."""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from direct_stereo_slam_tpu_torch.config import make_config
+from direct_stereo_slam_tpu_torch.geometry import lie
+from direct_stereo_slam_tpu_torch.geometry.camera import make_pyramid_intrinsics
+from direct_stereo_slam_tpu_torch.loop import pose_estimator as pe
+from direct_stereo_slam_tpu_torch.models import tracker as tr
+from direct_stereo_slam_tpu_torch.models.depth_template import TrackerTemplate
+from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
+from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
+from direct_stereo_slam_tpu_torch.ops.pyramid import build_pyramid
+from direct_stereo_slam_tpu_torch.utils import lm_agreement as lma
+
+pytestmark = pytest.mark.smoke
+
+W, H, L = 64, 48, 2
+
+
+def test_struct_layout_matches_the_kernel():
+    assert ctypes.sizeof(rlm._Level) == 136
+    assert ctypes.sizeof(rlm._Scalar) == 16
+    assert ctypes.sizeof(rlm.LmParams) == 1288
+    assert rlm.LmParams.pre.offset == 1200 and rlm.LmParams.chunk.offset == 1284
+
+
+@pytest.mark.parametrize("n,per", [(0, 0), (1, 4), (8, 4), (33, 8), (512, 64),
+                                   (2048, 256), (8192, 1024), (8200, 1028)])
+def test_slice_len(n, per):
+    assert rlm.slice_len(n) == per
+    assert rlm.CLUSTER * per >= n and per % 4 == 0
+
+
+def test_scalars_by_address_or_value():
+    s = rlm._scalar(1.5, torch.device("cpu"))
+    assert s.ptr is None and s.value == 1.5
+    x = torch.tensor(2.0)
+    assert rlm._scalar(x, torch.device("cpu")).ptr == x.data_ptr()
+    for bad in (torch.tensor(2.0, dtype=torch.float64), torch.ones(2)):
+        with pytest.raises(ValueError):
+            rlm._scalar(bad, torch.device("cpu"))
+
+
+def _image(seed):
+    rng = np.random.RandomState(seed)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    img = 100 + 40 * np.sin(xs / 5.0 + rng.rand()) + 30 * np.cos(ys / 4.0)
+    return torch.as_tensor(img.astype(np.float32))
+
+
+def _lm_args():
+    """A tracker batch (two candidates, two levels) and a loop-estimator
+    stack (two seeds, 64 points) on the CPU."""
+    cfg = make_config(W, H)
+    cfg = cfg.replace(tracker=cfg.tracker.__class__(pyr_levels=L, max_iterations=(5, 5)))
+    intr = make_pyramid_intrinsics(60.0, 60.0, W / 2 - 0.5, H / 2 - 0.5, W, H, L)
+    pyr = tuple(build_pyramid(_image(0), L).data)
+    rng = np.random.RandomState(1)
+    cols = {k: [] for k in TrackerTemplate._fields}
+    for lvl in range(L):
+        n = 128 >> lvl
+        cols["pu"].append(torch.as_tensor(rng.uniform(3, (W >> lvl) - 4, n).astype(np.float32)))
+        cols["pv"].append(torch.as_tensor(rng.uniform(3, (H >> lvl) - 4, n).astype(np.float32)))
+        cols["pid"].append(torch.as_tensor(rng.uniform(0.1, 0.5, n).astype(np.float32)))
+        cols["pcolor"].append(torch.as_tensor(rng.uniform(60, 180, n).astype(np.float32)))
+        cols["pmask"].append(torch.ones(n, dtype=torch.bool))
+    tmpl = TrackerTemplate(*[tuple(cols[k]) for k in TrackerTemplate._fields])
+    T = torch.stack([lie.se3_exp(torch.tensor(x, dtype=torch.float32)) for x in
+                     ([0.0] * 6, [0.01, 0.0, -0.02, 0.0, 0.01, 0.0])])
+    zero = tr.AffLight(torch.tensor(0.0), torch.tensor(0.0))
+    args = (pyr, tmpl, intr, cfg, T, zero, zero, torch.tensor(1.0), 1.0)
+    px, py, pz = [torch.as_tensor(rng.uniform(lo, hi, 64).astype(np.float32))
+                  for lo, hi in ((-2, 2), (-1, 1), (4, 8))]
+    pc = torch.as_tensor(rng.uniform(60, 180, (64, L)).astype(np.float32))
+    largs = (pyr, px, py, pz, pc, torch.ones(64, dtype=torch.bool), T, intr, cfg)
+    return args, largs
+
+
+def test_cpu_tensors_take_the_plain_loops():
+    """On the CPU the public functions equal their plain loops and never
+    count a kernel launch."""
+    args, largs = _lm_args()
+    counts = (rlm.track_lm_cuda.launches, rlm.loop_pose_lm_cuda.launches,
+              rh.pose_residual_pass_cuda.launches, rh.pose3d_residual_pass_cuda.launches)
+    a, b = tr.track_candidates_batch(*args), tr.track_candidates_batch_plain(*args)
+    for x, y in zip(a, b):
+        if isinstance(x, tuple):
+            assert all(torch.equal(u, v) for u, v in zip(x, y))
+        else:
+            assert torch.equal(x, y)
+    c, d = pe.estimate_seeds(*largs), pe.estimate_seeds_plain(*largs)
+    assert torch.equal(c.T, d.T) and torch.equal(c.pose_error, d.pose_error)
+    assert counts == (rlm.track_lm_cuda.launches, rlm.loop_pose_lm_cuda.launches,
+                      rh.pose_residual_pass_cuda.launches,
+                      rh.pose3d_residual_pass_cuda.launches)
+
+
+@pytest.mark.parametrize("which", ["track", "seeds"])
+def test_agreement_passes_reordered_loops_and_catches_a_moved_candidate(which):
+    """The plain loop, run again over the points in other lane orders,
+    passes the rule against itself; the same run with one candidate's pose
+    moved by 1e-2 (ten times the tolerance) fails it."""
+    args, largs = _lm_args()
+    if which == "track":
+        loop, reordered = tr.track_candidates_batch_plain, lma.reordered_track_runs
+    else:
+        loop, reordered = pe.estimate_seeds_plain, lma.reordered_seed_runs
+        args = largs
+    ref = loop(*args)
+    runs = reordered(args, [loop])
+    assert len(runs) == lma.ORDERS
+    agr = lma.check(ref, {"loop": ref}, runs)
+    assert agr.ok and agr.differ == {"loop": 0} and agr.n == 2
+    for run in runs:
+        assert lma.check(run, {"loop": ref}, runs).ok
+    T = ref.T.clone()
+    T[1, 0, 3] += 1e-2
+    bad = lma.check(ref._replace(T=T), {"loop": ref}, runs)
+    assert agr.sensitive == 0 and not bad.ok
+    assert bad.differ == {"loop": 1} and bad.outside == {"loop": 1}
+
+
+def _run(res, ok, T=None):
+    res = torch.tensor(res, dtype=torch.float32)
+    T = torch.eye(4).repeat(res.shape[0], 1, 1) if T is None else T
+    return tr.TrackResult(T=T, aff=None, res_per_level=res, flow=None,
+                          ok=torch.tensor(ok))
+
+
+def test_agreement_allows_only_order_sensitive_candidates():
+    """Three reference runs that split on candidate 2 (an inf level, as a
+    near-tie that ran a candidate out of view) make it order-sensitive:
+    the kernel may differ there, and nowhere else."""
+    inf = float("inf")
+    base = [[1.0, 2.0], [1.5, 2.5], [3.0, 4.0]]
+    ok = [True, True, False]
+    refs = {"a": _run(base, ok), "b": _run(base, ok)}
+    other = _run([[1.0, 2.0], [1.5, 2.5], [3.0, inf]], ok)
+    # the same residuals within 1e-3 relative agree; the kernel follows `other`
+    assert lma.check(_run([[1.0005, 2.0], [1.5, 2.5], [3.0, 4.0]], ok), refs, [other]).ok
+    agr = lma.check(other, refs, [other])
+    assert agr.ok and agr.sensitive == 1 and agr.differ == {"a": 1, "b": 1}
+    # moving candidate 0 (not order-sensitive) fails, however few differ
+    bad = lma.check(_run([[1.01, 2.0], [1.5, 2.5], [3.0, 4.0]], ok), refs, [other])
+    assert not bad.ok and bad.outside == {"a": 1, "b": 1}
+    # so does another ok, or a NaN where the reference is finite
+    assert not lma.check(_run(base, [True, False, False]), refs, [other]).ok
+    assert not lma.check(_run([[1.0, float("nan")], [1.5, 2.5], [3.0, 4.0]], ok),
+                         refs, [other]).ok
+    # and a pose entry off by more than 1e-3 where every level saw points
+    T = torch.eye(4).repeat(3, 1, 1)
+    T[1, 2, 3] = 2e-3
+    assert not lma.check(_run(base, ok, T), refs, [other]).ok

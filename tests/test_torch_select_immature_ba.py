@@ -27,6 +27,7 @@ from direct_stereo_slam_tpu_torch.models import ba as ba_t
 from direct_stereo_slam_tpu_torch.models import immature as im_t
 from direct_stereo_slam_tpu_torch.ops import select as sel_t
 from direct_stereo_slam_tpu_torch.ops.pyramid import build_pyramid as pyr_t
+from direct_stereo_slam_tpu_torch.utils.convert import config_from_jax as port_cfg
 from direct_stereo_slam_tpu_torch.utils.convert import to_numpy, to_torch
 
 pytestmark = pytest.mark.smoke
@@ -60,7 +61,7 @@ def test_selection_map_matches(scene, pot):
     pj = pyr_j(jnp.asarray(img), 3)
     pt = pyr_t(torch.tensor(img), 3)
     mj, cj = sel_j.make_selection_map(pj.abs_grad[0], pj.abs_grad[1], pj.abs_grad[2], pot, cfg)
-    mt, ct = sel_t.make_selection_map(pt.abs_grad[0], pt.abs_grad[1], pt.abs_grad[2], pot, cfg)
+    mt, ct = sel_t.make_selection_map(pt.abs_grad[0], pt.abs_grad[1], pt.abs_grad[2], pot, port_cfg(cfg))
     np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
     assert int(ct) == int(cj) > 0
     for got, want in ((10, 100.0), (60, 100.0), (100, 100.0), (200, 100.0), (500, 100.0)):
@@ -118,7 +119,7 @@ def test_trace_and_activate_match(scene):
         cfg, budget=128)
     out_t, ns_t, no_t = im_t.trace_points_all_compact(
         stack_t, torch.tensor(np.asarray(planes)), torch.tensor(KRKi), torch.tensor(Kt),
-        torch.tensor(a), torch.tensor(b), cfg, budget=128)
+        torch.tensor(a), torch.tensor(b), port_cfg(cfg), budget=128)
     assert int(ns_t) == int(ns_j) > 0 and int(no_t) == int(no_j)
     np.testing.assert_array_equal(out_t.status.numpy(), np.asarray(out_j.status))
     for name in ("idepth_min", "idepth_max", "quality", "pixel_interval"):
@@ -140,14 +141,14 @@ def test_trace_and_activate_match(scene):
     acts_j = im_j.activate_points_all(out_j, slots, images, fv, T_cw, aff, calib, expo, cfg)
     acts_t = im_t.activate_points_all(to_torch(to_numpy(to_torch(out_j))), torch.arange(2),
                                       *[torch.tensor(np.asarray(x)) for x in
-                                        (images, fv, T_cw, aff, calib, expo)], cfg)
+                                        (images, fv, T_cw, aff, calib, expo)], port_cfg(cfg))
     np.testing.assert_array_equal(acts_t.ok.numpy(), np.asarray(acts_j.ok))
     np.testing.assert_array_equal(acts_t.num_good.numpy(), np.asarray(acts_j.num_good))
     ok = np.asarray(acts_j.ok)
     assert ok.sum() > 5
     np.testing.assert_allclose(acts_t.idepth.numpy()[ok], np.asarray(acts_j.idepth)[ok],
                                rtol=1e-4, atol=1e-5)
-    ca_j, ca_t = im_j.can_activate(out_j, cfg), im_t.can_activate(out_t, cfg)
+    ca_j, ca_t = im_j.can_activate(out_j, cfg), im_t.can_activate(out_t, port_cfg(cfg))
     np.testing.assert_array_equal(ca_t.numpy(), np.asarray(ca_j))
 
 
@@ -192,7 +193,7 @@ def test_linearize_and_solve_match(scene):
     ds, frames, cfg = scene
     st_j = _ba_window(frames, cfg)
     st_t = _to_port(st_j)
-    lj, lt = ba_j.linearize(st_j, cfg), ba_t.linearize(st_t, cfg)
+    lj, lt = ba_j.linearize(st_j, cfg), ba_t.linearize(st_t, port_cfg(cfg))
     np.testing.assert_array_equal(lt.pair_good.numpy(), np.asarray(lj.pair_good))
     np.testing.assert_array_equal(lt.pair_in.numpy(), np.asarray(lj.pair_in))
     for name in ("Hff", "bf", "Hfd", "Hdd", "bd"):
@@ -200,7 +201,7 @@ def test_linearize_and_solve_match(scene):
     np.testing.assert_allclose(float(lt.energy), float(lj.energy), rtol=1e-5)
     assert float(lt.num_terms) == float(lj.num_terms) > 0
     xj, xdj = ba_j.solve_step(st_j, lj, jnp.float32(0.1), cfg)
-    xt, xdt = ba_t.solve_step(st_t, lt, torch.tensor(0.1), cfg)
+    xt, xdt = ba_t.solve_step(st_t, lt, torch.tensor(0.1), port_cfg(cfg))
     _close(xt.numpy(), xj, 1e-3)
     _close(xdt.numpy(), xdj, 1e-3)
     views_j = ba_j.current_views(st_j)
@@ -214,7 +215,7 @@ def test_optimize_keyframe_and_marginalization_match(scene):
     st_j = _ba_window(frames, cfg)
     st_t = _to_port(st_j)
     rj = ba_j.optimize_keyframe(st_j, cfg, 6, 2, None)
-    rt = ba_t.optimize_keyframe(st_t, cfg, 6, 2, None)
+    rt = ba_t.optimize_keyframe(st_t, port_cfg(cfg), 6, 2, None)
     np.testing.assert_allclose(float(rt[1]), float(rj[1]), rtol=1e-3)       # rmse
     assert bool(rt[2]) == bool(rj[2])
     Tj, Tt = np.asarray(rj[0].T_current()), rt[0].T_current().numpy()
@@ -227,14 +228,14 @@ def test_optimize_keyframe_and_marginalization_match(scene):
 
     # template inputs, then point and frame marginalization on the result
     ti_j = ba_j.template_inputs(rj[0], cfg, jnp.int32(2), rj[3])
-    ti_t = ba_t.template_inputs(rt[0], cfg, 2, rt[3])
+    ti_t = ba_t.template_inputs(rt[0], port_cfg(cfg), 2, rt[3])
     np.testing.assert_array_equal(ti_t[4].numpy(), np.asarray(ti_j[4]))
     for a, b in zip(ti_j[:4], ti_t[:4]):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-3, atol=1e-3)
     marg = np.zeros(N_POINTS, bool)
     marg[:20] = True
     mj = ba_j.marginalize_frame(ba_j.marginalize_points(rj[0], jnp.asarray(marg), cfg), jnp.int32(0))
-    mt = ba_t.marginalize_frame(ba_t.marginalize_points(rt[0], torch.tensor(marg), cfg), 0)
+    mt = ba_t.marginalize_frame(ba_t.marginalize_points(rt[0], torch.tensor(marg), port_cfg(cfg)), 0)
     _close(mt.HM.numpy(), mj.HM, 2e-3)
     _close(mt.bM.numpy(), mj.bM, 2e-3)
     np.testing.assert_array_equal(mt.p_valid.numpy(), np.asarray(mj.p_valid))
@@ -245,8 +246,8 @@ def test_compact_optimize_equals_full(scene):
     """The compact (valid-rows-first) BA view gives the full-pool result."""
     ds, frames, cfg = scene
     st_t = _to_port(_ba_window(frames, cfg))
-    full = ba_t.optimize_keyframe(st_t, cfg, 3, 2, None)
-    comp = ba_t.optimize_keyframe(st_t, cfg, 3, 2, 160)
+    full = ba_t.optimize_keyframe(st_t, port_cfg(cfg), 3, 2, None)
+    comp = ba_t.optimize_keyframe(st_t, port_cfg(cfg), 3, 2, 160)
     assert int(comp[4]) == 0
     np.testing.assert_allclose(comp[0].T_current().numpy(), full[0].T_current().numpy(),
                                atol=1e-5)

@@ -16,6 +16,7 @@ from direct_stereo_slam_tpu.io.synthetic import SyntheticStereoDataset
 from direct_stereo_slam_tpu.runtime.node import SLAMNode as NodeJ
 from direct_stereo_slam_tpu_torch.models.frontend import FrontEnd as FrontEndT
 from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode as NodeT
+from direct_stereo_slam_tpu_torch.utils.convert import config_from_jax as port_cfg
 
 pytestmark = pytest.mark.smoke
 
@@ -32,8 +33,15 @@ def _config():
     )
 
 
+def _node(node_cls, cfg, intr, t_stereo, **kw):
+    """The JAX node, or the port's on the CPU with its own config."""
+    if node_cls is NodeT:
+        return NodeT(port_cfg(cfg), intr, intr, t_stereo, device="cpu", **kw)
+    return node_cls(cfg, intr, intr, t_stereo, **kw)
+
+
 def _run(node_cls, frames, cfg, intr, t_stereo):
-    node = node_cls(cfg, intr, intr, t_stereo)
+    node = _node(node_cls, cfg, intr, t_stereo)
     shells = [node.process(f["img0"], f["img1"], timestamp=float(i) * 0.1)
               for i, f in enumerate(frames)]
     fe = node.frontend
@@ -80,12 +88,14 @@ def test_unported_modes_raise():
     for rt in (dataclasses.replace(cfg.runtime, pipelined_tracking=True),
                dataclasses.replace(cfg.runtime, mono_initializer=True)):
         with pytest.raises(NotImplementedError):
-            FrontEndT(cfg.replace(runtime=rt), intr, intr, ds.t_cam1_cam0)
+            FrontEndT(port_cfg(cfg.replace(runtime=rt)), intr, intr, ds.t_cam1_cam0,
+                      device="cpu")
     with pytest.raises(NotImplementedError):
-        NodeT(cfg.replace(runtime=dataclasses.replace(cfg.runtime, live_view_path="x.html")),
-              intr, intr, ds.t_cam1_cam0)
+        _node(NodeT, cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                             live_view_path="x.html")),
+              intr, ds.t_cam1_cam0)
     with pytest.raises(NotImplementedError):
-        NodeT(cfg, intr, intr, ds.t_cam1_cam0, undistorter0=object())
+        _node(NodeT, cfg, intr, ds.t_cam1_cam0, undistorter0=object())
 
 
 def test_sequence_gap_reinitializes_like_the_reference():
@@ -98,7 +108,7 @@ def test_sequence_gap_reinitializes_like_the_reference():
     stamps = [0.1 * i for i in range(4)] + [20.0 + 0.1 * i for i in range(4)]
     counts = {}
     for name, cls in (("jax", NodeJ), ("torch", NodeT)):
-        node = cls(_config(), intr, intr, ds.t_cam1_cam0)
+        node = _node(cls, _config(), intr, ds.t_cam1_cam0)
         first = None
         for f, ts in zip(frames, stamps):
             node.process(f["img0"], f["img1"], timestamp=ts)
