@@ -9,7 +9,7 @@ Phases, each of which must pass (any fault exits non-zero):
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the hand-written kernels from csrc/ (timed);
 3. each kernel against its plain PyTorch version on the card, at KITTI
-   shapes: K1 distance map (bit-equal), K2 pose pass at budgets 8192 and
+   shapes: K1 distance map (one launch, bit-equal), K2 pose pass at budgets 8192 and
    512 with the tracker's batches of 1, 5 and 78 poses, and K3 scale pass
    with 8 guesses, and K4 loop pose pass (metric points, N = 2048 with
    all lanes live and with padded lanes, 1 and 6 seeds, one seed that
@@ -18,27 +18,35 @@ Phases, each of which must pass (any fault exits non-zero):
    LM kernels K2-LM (the tracker's whole LM for a batch of 1, 5 or 78
    candidates, templates of base budget 8192 and 512) and K4-LM (the
    loop estimator's for a stack of 1 or 6 seeds over 2048 points, all
-   live or padded), each against the Python LM loop driving the per-pass
-   kernel and against the same loop over plain passes (residuals per
-   level within 1e-3 relative, poses within 1e-3 per matrix entry, the
-   same ok, the same winner; a candidate may differ only where a near-tie
+   live or padded) and K3-LM (the stereo scale optimizer's for 1 guess or
+   the grid of 8, templates of base budget 8192 and 512, all lanes live
+   or the last fifth padded, whose NaN H and b keep every guess), each
+   against the Python LM loop driving the per-pass kernel and against
+   the same loop over plain passes (K2-LM / K4-LM: residuals per level
+   within 1e-3 relative, poses within 1e-3 per matrix entry, the same ok,
+   the same winner; K3-LM: scale and error within 1e-3 relative, the same
+   accept/trap decision; a candidate may differ only where a near-tie
    accept/reject makes the loops themselves differ when the points' lane
    order changes, as utils/lm_agreement.py measures in each run); median
    time per call of each (CUDA events), with its bound
-   (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, the larger);
+   (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, the larger),
+   and for K1 and K3-LM the card's own time per call (the calls queued
+   behind a spin of the card, so that the host's issue time drops out);
 4. the port's SLAMNode end to end on a rendered 40-frame 1232x368
    sequence (preset 0, mode 1): initialised, never lost, >= 3 keyframes,
-   translation ATE < 2% of the path length, K1, K2-LM and K3 each
-   launched during the timed pass and the per-pass K2 never. A first
-   pass with a device synchronize at the end of every span gives the
-   per-stage table; FPS and ``track`` per frame come from the second
-   pass, without them;
+   translation ATE < 2% of the path length, K1, K2-LM and K3-LM each
+   launched during the timed pass and the per-pass K2 and K3 never. A
+   first pass with a device synchronize at the end of every span gives
+   the per-stage table; FPS, ``track`` per frame and ``scale_opt`` per
+   keyframe come from the second pass, without them;
 5. loop closure: the port's SLAMNode with its threaded LoopHandler (as
    ``run_slam`` runs them) over 160 frames (2 laps at 4.5 deg/frame) of
    the loop room at 1232x368, images quantised to uint8, loop_margin 40:
    at least one verified loop, the loop-closed (dslam) ATE below the
-   odometry (sodso) ATE, K1, K2-LM, K3 and K4-LM each launched during
-   the run and the per-pass K2 and K4 never; ``direct_est`` per try.
+   odometry (sodso) ATE, K1, K2-LM, K3-LM and K4-LM each launched during
+   the run and the per-pass K2, K3 and K4 never; ``direct_est`` per try,
+   ``scale_opt`` per keyframe. A failure in the loop thread fails the
+   run (the handler re-raises it when it is drained).
 
 Options: --profile DIR profiles one more end-to-end pass; --long also
 runs the full 320-frame loop protocol (loop_margin 100), printed beside
@@ -84,6 +92,8 @@ F32_OPS_PER_S = 67e12
 # Jacobian and the 44 H/b products (~200 f32 operations); it reads the
 # point's 17 bytes and 4 taps x 12 bytes
 PASS_OPS, POINT_BYTES, TAP_BYTES = 200, 17, 48
+# the 1-DoF scale pass: warp, taps, Huber and the 2 H/b products
+SCALE_PASS_OPS = 80
 
 
 def fail(msg: str) -> None:
@@ -134,6 +144,33 @@ def ab_ms(torch, kernel_fn, plain_fn, plain_kw=None, kernel_kw=None):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def device_ms(torch, fn, calls: int = 20, samples: int = 5):
+    """The card's own time per call of fn(): the calls are queued behind a
+    spin of the card (torch.cuda._sleep, ~100 ms), so the host has issued
+    them all before the first one runs and CUDA events around them time
+    only the card (the gaps between back-to-back launches included); the
+    median over ``samples``. None if the host took longer to issue them
+    than a tenth of the spin."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        issued = time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        if issued > 0.01:
+            return None
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
 def row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops):
     """One entry of the kernel table: the bound is the larger of the bytes
     the call must move and the f32 operations it must do."""
@@ -178,8 +215,9 @@ def kernel_phase(torch, dev):
         err = float(torch.max(torch.abs(got - ref)))
         ms, pms = ab_ms(torch, lambda: dm.build_distance_map_cuda(pu, pv, mask, h2, w2),
                         lambda: dm.build_distance_map_plain(pu, pv, mask, h2, w2))
-        print(f"K1 distance_map {h2}x{w2} n={n}: bit-equal, kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms", flush=True)
+        dev_ms = device_ms(torch, lambda: dm.build_distance_map_cuda(pu, pv, mask, h2, w2))
+        print(f"K1 distance_map {h2}x{w2} n={n}: bit-equal, kernel {ms:.4f} ms "
+              f"(on the card {dev_ms} ms), plain {pms:.4f} ms", flush=True)
         # reads (pu, pv, mask), writes the f32 map. The function is the
         # chessboard distance capped at 16: the least work is ~6 operations
         # per point to round and clip it and a two-pass chamfer sweep
@@ -188,6 +226,7 @@ def kernel_phase(torch, dev):
         rows.append(row(f"distance_map[n={n}]", "distance_map.cu",
                         "direct_stereo_slam_tpu/ops/distance_map.py:59", err, ms, pms,
                         n * 9 + h2 * w2 * 4, n * 6 + h2 * w2 * 13))
+        rows[-1]["device_ms"] = dev_ms
 
     # ---- K2 / K3 on a rendered KITTI-size stereo pair ------------------------
     ds = SyntheticStereoDataset(n_frames=2, width=W, height=H, speed=0.4, device=dev)
@@ -292,14 +331,15 @@ def kernel_phase(torch, dev):
         print(f"K3 scale_residual_pass lvl {lvl} N={budget} G=8: H rel {eH:.2e}, "
               f"stats rel {est:.2e}, padded-list NaNs agree; kernel {ms:.4f} ms, "
               f"plain {pms:.4f} ms", flush=True)
-        # 8 guesses; the 1-DoF pass does ~80 operations per point
+        # 8 guesses
         rows.append(row(f"scale_residual_pass[N={budget}]", "residual_hb.cu",
                         "direct_stereo_slam_tpu/ops/residual_hb.py:313", err, ms, pms,
                         budget * POINT_BYTES + 8 * budget * TAP_BYTES + 8 * 8 * 4,
-                        8 * budget * 80))
+                        8 * budget * SCALE_PASS_OPS))
 
     rows += pose3d_rows(torch, dev, gen, pyr1, pyr_template, depth0, intr, T)
     rows += lm_rows(torch, dev, ds, f0, f1, intr, pyr1, pyr_template)
+    rows += scale_lm_rows(torch, dev, ds, f0, intr, pyr_r)
     return rows
 
 
@@ -373,14 +413,14 @@ def pose3d_rows(torch, dev, gen, pyr1, pyr_template, depth0, intr, T):
     return rows
 
 
-def lm_bytes_ops(sizes, passes, B):
+def lm_bytes_ops(sizes, passes, B, pass_ops=PASS_OPS, io_bytes=64 + 160):
     """Bytes and operations of a resident LM call from the passes it ran:
-    each level's points read once, 4 taps per point and pass, the poses in
-    and the rows out."""
+    each level's points read once, 4 taps per point and pass, per
+    candidate its start read and its row written (``io_bytes``)."""
     n = np.asarray(sizes, np.float64)
     point_passes = float((np.asarray(passes, np.float64) * n[None]).sum())
-    return (float(n.sum()) * POINT_BYTES + point_passes * TAP_BYTES + B * (64 + 160),
-            point_passes * PASS_OPS)
+    return (float(n.sum()) * POINT_BYTES + point_passes * TAP_BYTES + B * io_bytes,
+            point_passes * pass_ops)
 
 
 def lm_rows(torch, dev, ds, f0, f1, intr, pyr1, pyr_template):
@@ -416,8 +456,9 @@ def lm_rows(torch, dev, ds, f0, f1, intr, pyr1, pyr_template):
     zero, one = torch.zeros((), device=dev), torch.ones((), device=dev)
     aff = tr.AffLight(zero, zero)
     img0 = t(f0["img0"])
-    print(f"K2-LM / K4-LM occupancy: {rlm.max_active_clusters(False, 8192)} / "
-          f"{rlm.max_active_clusters(True, 2048)} 8-block clusters of 256 threads "
+    print(f"K2-LM / K3-LM / K4-LM occupancy: {rlm.max_active_clusters('track', 8192)} / "
+          f"{rlm.max_active_clusters('scale', 8192)} / "
+          f"{rlm.max_active_clusters('loop_pose', 2048)} 8-block clusters of 256 threads "
           f"resident at once", flush=True)
     slow = dict(repeats=3, inner=1, warmup=1)
     fast = dict(repeats=11, inner=3, warmup=2)
@@ -530,6 +571,102 @@ def lm_rows(torch, dev, ds, f0, f1, intr, pyr1, pyr_template):
     return rows
 
 
+def scale_lm_rows(torch, dev, ds, f0, intr, pyr_r):
+    """K3-LM against the Python scale loops at the main path's shapes: one
+    guess (a trapped keyframe) and the grid of 8, on templates of the left
+    image with the front end's budgets of base 8192 and 512 against the
+    right image's pyramid. "live": every lane live at sub-pixel positions,
+    idepths wrong by a factor 1.6, so the LM moves; "padded": the last
+    fifth of each level padded as build_template pads, which makes every
+    pass's H and b NaN (the main path's templates are padded so), so every
+    step is rejected and each guess stays."""
+    from direct_stereo_slam_tpu_torch.config import make_config
+    from direct_stereo_slam_tpu_torch.models import depth_template as dt
+    from direct_stereo_slam_tpu_torch.models import scale_opt as so
+    from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
+    from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
+    from direct_stereo_slam_tpu_torch.ops.interp import bilinear_gather_scalar
+    from direct_stereo_slam_tpu_torch.ops.pyramid import build_pyramid
+    from direct_stereo_slam_tpu_torch.utils import lm_agreement as lma
+
+    rows = []
+    cfg = make_config(W, H, preset=0, mode=1)
+    gen = np.random.RandomState(2)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    pyr0 = build_pyramid(t(f0["img0"]), LEVELS).data
+    depth = f0["depth0"]
+    loops = (so.optimize_scale_batch_plain,
+             partial(so.optimize_scale_batch_plain, residual_pass=rh.scale_residual_pass_plain))
+    slow = dict(repeats=3, inner=1, warmup=1)
+    fast = dict(repeats=11, inner=3, warmup=2)
+
+    def decision(r, trapped):
+        state = so.ScaleState(trapped=trapped)
+        ok, scale, error, state = so.decide_scale_optimization(
+            r.scale.cpu().numpy(), r.error.cpu().numpy(), cfg, state)
+        return ok, vars(state), np.array([scale, error])
+
+    for base in (8192, 512):
+        budgets = dt.default_budgets(W, H, LEVELS, base=base)
+        cols = {k: [] for k in dt.TrackerTemplate._fields}
+        for lvl, n in enumerate(budgets):
+            u = gen.uniform(4, (W >> lvl) - 5, n).astype(np.float32)
+            v = gen.uniform(4, (H >> lvl) - 5, n).astype(np.float32)
+            d = depth[(v * (1 << lvl)).astype(int), (u * (1 << lvl)).astype(int)]
+            cols["pu"].append(t(u))
+            cols["pv"].append(t(v))
+            cols["pid"].append(t((1.6 / d).astype(np.float32)))
+            cols["pcolor"].append(bilinear_gather_scalar(pyr0[lvl][..., 0], t(u), t(v)))
+            cols["pmask"].append(torch.ones(n, dtype=torch.bool, device=dev))
+        live = dt.TrackerTemplate(*[tuple(cols[k]) for k in dt.TrackerTemplate._fields])
+        pad = [torch.arange(len(x), device=dev) >= 0.8 * len(x) for x in live.pu]
+        padded = live._replace(
+            pid=tuple(torch.where(m, 0.0, x) for x, m in zip(live.pid, pad)),
+            pcolor=tuple(torch.where(m, 0.0, x) for x, m in zip(live.pcolor, pad)),
+            pmask=tuple(~m for m in pad))
+        for kind, tmpl in (("live", live), ("padded", padded)):
+            for G in (1, 8):
+                guesses = (1.0,) if G == 1 else cfg.scale_opt.grid_guesses
+                args = (tuple(pyr_r.data), tmpl, t(np.array(guesses, np.float32)), intr,
+                        intr, ds.t_cam1_cam0, cfg)
+                got = so.optimize_scale_batch(*args)
+                o = rlm.scale_lm_cuda(*args)
+                refs = {"K3 loop": loops[0](*args), "plain": loops[1](*args)}
+                torch.cuda.synchronize()
+                tag = f"K3-LM scale_lm base {base} (N = {list(budgets)}) G={G} {kind}"
+                if not (torch.equal(got.scale, o.scale) and torch.equal(got.error, o.error)):
+                    fail(f"{tag}: two launches on the same inputs differ")
+                agr = lma.check(got, refs, lma.reordered_scale_runs(args, loops))
+                dec = [decision(r, G == 1) for r in (got, *refs.values())]
+                same = all(d[:2] == dec[0][:2] and np.allclose(d[2], dec[0][2], rtol=1e-3)
+                           for d in dec[1:])
+                if not agr.ok or not same:
+                    fail(f"{tag}: {agr}; decisions {dec}")
+                if kind == "padded" and not torch.equal(got.scale, args[2]):
+                    fail(f"{tag}: a guess moved on the padded template: {got.scale.tolist()}")
+                err = max(agr.max_abs_err.values())
+                ms, pms = ab_ms(torch, lambda: so.optimize_scale_batch(*args),
+                                lambda: loops[1](*args), plain_kw=slow, kernel_kw=fast)
+                loop_ms = median_ms(torch, lambda: loops[0](*args), **slow)
+                dev_ms = device_ms(torch, lambda: so.optimize_scale_batch(*args))
+                passes = o.passes.cpu().numpy()
+                n_bytes, n_ops = lm_bytes_ops(budgets, passes, G, SCALE_PASS_OPS, 4 + 80)
+                r = row(f"scale_lm[N={base},G={G},{kind}]", "resident_lm.cu",
+                        "direct_stereo_slam_tpu/models/scale_opt.py:169", err, ms, pms,
+                        n_bytes, n_ops)
+                r.update(differ=agr.differ, order_sensitive=agr.sensitive, device_ms=dev_ms)
+                rows.append(r)
+                print(f"{tag}: {agr}; passes per guess per level (mean) "
+                      f"{passes.mean(axis=0).round(1).tolist()}, cutoff doublings "
+                      f"{o.repeat.cpu().numpy().max(axis=0).tolist()}; decision "
+                      f"{dec[0][0]}, scale {dec[0][2][0]:.4f}, error {dec[0][2][1]:.4f}; "
+                      f"kernel {ms:.4f} ms (on the card {dev_ms} ms), plain loop "
+                      f"{pms:.4f} ms, loop over K3 passes "
+                      f"{loop_ms:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
+                      flush=True)
+    return rows
+
+
 def e2e_profile(torch, run_once, out_dir: str) -> None:
     """One more end-to-end pass under torch.profiler: device busy share of
     the pass, device time by kernel, and the hand-written kernels' share
@@ -553,8 +690,7 @@ def e2e_profile(torch, run_once, out_dir: str) -> None:
           f"{sum(e.count for e in kernels)} kernel launches", flush=True)
     ours = [e for e in kernels if "(anonymous namespace)::" in e.key and any(
         k in e.key for k in ("pose_partial", "pose3d_partial", "pose_final", "scale_partial",
-                             "scale_final", "relax_kernel", "occupancy_kernel",
-                             "fill_kernel", "lm_kernel"))]
+                             "scale_final", "distance_kernel", "lm_kernel"))]
     for e in sorted(ours, key=dev_ms, reverse=True):
         print(f"profile:   ours {dev_ms(e):9.3f} ms  x{e.count:6d}  {e.key[:60]}", flush=True)
     for e in sorted(kernels, key=dev_ms, reverse=True)[:12]:
@@ -653,7 +789,11 @@ def e2e_phase(torch, dev, profile_dir=None):
     print(f"e2e: track {node.timers.average_ms('track'):.3f} ms per frame x "
           f"{node.timers.count('track')} (timed pass; synchronized first pass: "
           f"{node1.timers.average_ms('track'):.3f} ms), K2-LM launches per tracked "
-          f"frame {launches['track_lm'] / max(node.timers.count('track'), 1):.2f}",
+          f"frame {launches['track_lm'] / max(node.timers.count('track'), 1):.2f}; "
+          f"scale_opt {node.timers.average_ms('scale_opt'):.3f} ms per keyframe x "
+          f"{node.timers.count('scale_opt')} (synchronized first pass: "
+          f"{node1.timers.average_ms('scale_opt'):.3f} ms), K3-LM launches per scale "
+          f"optimization {launches['scale_lm'] / max(node.timers.count('scale_opt'), 1):.2f}",
           flush=True)
     if not fe.initialized:
         fail("e2e: front end never initialised")
@@ -672,11 +812,12 @@ def e2e_phase(torch, dev, profile_dir=None):
     return launches
 
 
-# the kernels each path must launch; the per-pass K2 and K4 must not (the
-# tracker and the loop estimator run K2-LM and K4-LM on the card)
-E2E_KERNELS = ("distance_map", "track_lm", "scale_residual_pass")
+# the kernels each path must launch; the per-pass K2, K3 and K4 must not
+# (the tracker, the scale optimizer and the loop estimator run K2-LM,
+# K3-LM and K4-LM on the card)
+E2E_KERNELS = ("distance_map", "track_lm", "scale_lm")
 LOOP_KERNELS = E2E_KERNELS + ("loop_pose_lm",)
-OFF_PATH = ("pose_residual_pass", "pose3d_residual_pass")
+OFF_PATH = ("pose_residual_pass", "scale_residual_pass", "pose3d_residual_pass")
 
 
 def kernel_counters():
@@ -689,6 +830,7 @@ def kernel_counters():
             "scale_residual_pass": rh.scale_residual_pass_cuda,
             "pose3d_residual_pass": rh.pose3d_residual_pass_cuda,
             "track_lm": rlm.track_lm_cuda,
+            "scale_lm": rlm.scale_lm_cuda,
             "loop_pose_lm": rlm.loop_pose_lm_cuda}
 
 
@@ -770,11 +912,13 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True):
           f"{' '.join(f'{t[0]:.2f}' for t in tries)}", flush=True)
     print(f"{tag} kernel launches: {launches}", flush=True)
     table = timing_table(node.timers)
+    scale_ms, scale_n = table.get("scale_opt", (float("nan"), 0))
     if "direct_est" in table:
         ms, n = table["direct_est"]
         print(f"{tag}: direct_est {ms:.3f} ms per try x {n}, K4-LM launches per try "
               f"{launches['loop_pose_lm'] / max(n, 1):.2f}; track "
-              f"{table['track'][0]:.3f} ms per frame x {table['track'][1]}", flush=True)
+              f"{table['track'][0]:.3f} ms per frame x {table['track'][1]}; scale_opt "
+              f"{scale_ms:.3f} ms per keyframe x {scale_n}", flush=True)
     # the final pose graph optimized once more with nothing else running:
     # what pose_graph_opt costs without the tracking thread beside it
     from direct_stereo_slam_tpu_torch.loop import pose_graph
@@ -874,9 +1018,9 @@ def main() -> int:
             print("  ptxas:", line.strip(), flush=True)
 
     rows = kernel_phase(torch, dev)
-    # each path's kernels count in that path's run: K1, K2-LM and K3 in the
-    # e2e pass, K4-LM in the loop phase; the per-pass K2 and K4 run on
-    # neither (both gate that they stay at 0)
+    # each path's kernels count in that path's run: K1, K2-LM and K3-LM in
+    # the e2e pass, K4-LM in the loop phase; the per-pass K2, K3 and K4 run
+    # on neither (both gate that they stay at 0)
     launches = e2e_phase(torch, dev, args.profile)
     loop_launches = loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN)
     launches.update(loop_pose_lm=loop_launches["loop_pose_lm"],

@@ -9,12 +9,19 @@
 // bit-equal to the plain version.
 //
 // What bounds it on the H100: the KITTI half-res grid (184x616 f32) is
-// small, so launch latency and the 16 dependent stencil sweeps bound it;
-// done naively the sweeps are 16 round trips through device memory (or 16
-// launches). Design: each block owns a 32x32 output tile and loads it with
-// a 16-px halo (a 64x64 f32 tile, ping-ponged in shared memory); 16
-// relaxations reach exactly 16 px, so after 16 in-smem sweeps the inner
-// tile is exact. 120 blocks cover the KITTI grid in one launch.
+// small and the points few (n <= 8192, 9 B each), so the byte bound is a
+// fraction of a microsecond; what costs is launch latency and the 16
+// dependent stencil sweeps. Done naively the sweeps are 16 round trips
+// through device memory (or 16 launches). Design: ONE launch. Each block
+// owns a 32x32 output tile and builds its 64x64 span (the tile plus a
+// 16-px halo, f32, ping-ponged in shared memory) directly: it fills the
+// span with MAX_DIST, scans all the points (from L2; 120 blocks at KITTI
+// size read the 72 KB of points 120 times) and writes 0 where a masked
+// point rounds into the span (every writer stores the same 0, so no
+// atomics), then runs the 16 relaxations in shared memory. 16
+// relaxations reach exactly 16 px, so the inner tile is exact. No
+// occupancy grid in device memory, no fill pass, nothing to allocate but
+// the output.
 
 #include "common.cuh"
 
@@ -27,36 +34,29 @@ constexpr int kHalo = kIters;      // one pixel of reach per relaxation
 constexpr int kSpan = kTile + 2 * kHalo;
 constexpr int kThreads = 256;
 
-__global__ void fill_kernel(float* __restrict__ grid, int n, float value) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) grid[i] = value;
-}
-
-__global__ void occupancy_kernel(const float* __restrict__ pu,
-                                 const float* __restrict__ pv,
-                                 const unsigned char* __restrict__ mask, int n,
-                                 float* __restrict__ occ, int h2, int w2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !mask[i]) return;
-  // rintf rounds half to even like jnp.round; clamping in float before the
-  // int conversion equals the reference's saturating cast + clip. Every
-  // writer stores the same 0, so concurrent writes need no atomics.
-  const float u = fminf(fmaxf(rintf(pu[i]), 0.f), static_cast<float>(w2 - 1));
-  const float v = fminf(fmaxf(rintf(pv[i]), 0.f), static_cast<float>(h2 - 1));
-  occ[static_cast<int>(v) * w2 + static_cast<int>(u)] = 0.f;
-}
-
 __global__ void __launch_bounds__(kThreads)
-relax_kernel(const float* __restrict__ occ, float* __restrict__ out, int h2,
-             int w2) {
+distance_kernel(const float* __restrict__ pu, const float* __restrict__ pv,
+                const unsigned char* __restrict__ mask, int n,
+                float* __restrict__ out, int h2, int w2) {
   __shared__ float buf[2][kSpan][kSpan + 1];
   const int y0 = blockIdx.y * kTile - kHalo;
   const int x0 = blockIdx.x * kTile - kHalo;
-  for (int k = threadIdx.x; k < kSpan * kSpan; k += kThreads) {
-    const int ty = k / kSpan, tx = k % kSpan;
-    const int gy = y0 + ty, gx = x0 + tx;
-    const bool in = gy >= 0 && gy < h2 && gx >= 0 && gx < w2;
-    buf[0][ty][tx] = in ? occ[gy * w2 + gx] : kMaxDist;
+  for (int k = threadIdx.x; k < kSpan * kSpan; k += kThreads)
+    buf[0][k / kSpan][k % kSpan] = kMaxDist;
+  __syncthreads();
+  // unconditional loads, unrolled, so several L2 reads are in flight
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const float u = pu[i], v = pv[i];
+    const bool m = mask[i] != 0;
+    // rintf rounds half to even like jnp.round; clamping in float before
+    // the int conversion equals the reference's saturating cast + clip
+    const int gx = static_cast<int>(
+        fminf(fmaxf(rintf(u), 0.f), static_cast<float>(w2 - 1)));
+    const int gy = static_cast<int>(
+        fminf(fmaxf(rintf(v), 0.f), static_cast<float>(h2 - 1)));
+    const int tx = gx - x0, ty = gy - y0;
+    if (m && tx >= 0 && tx < kSpan && ty >= 0 && ty < kSpan) buf[0][ty][tx] = 0.f;
   }
   __syncthreads();
   int cur = 0;
@@ -97,21 +97,9 @@ DSSLAM_API const char* dsslam_error_string(int err) {
 }
 
 DSSLAM_API int dsslam_distance_map(const float* pu, const float* pv,
-                                   const unsigned char* mask, int n,
-                                   float* occ, float* out, int h2, int w2,
-                                   cudaStream_t stream) {
-  const int cells = h2 * w2;
-  fill_kernel<<<(cells + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      occ, cells, kMaxDist);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (n > 0) {
-    occupancy_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        pu, pv, mask, n, occ, h2, w2);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
+                                   const unsigned char* mask, int n, float* out,
+                                   int h2, int w2, cudaStream_t stream) {
   const dim3 grid((w2 + kTile - 1) / kTile, (h2 + kTile - 1) / kTile);
-  relax_kernel<<<grid, kThreads, 0, stream>>>(occ, out, h2, w2);
+  distance_kernel<<<grid, kThreads, 0, stream>>>(pu, pv, mask, n, out, h2, w2);
   return cudaGetLastError();
 }

@@ -1,6 +1,7 @@
-// Per-point terms of the 8-parameter pose+affine pass, shared by the
-// per-pass kernels K2 / K4 (residual_hb.cu) and the resident LM kernels
-// (resident_lm.cu), so the two forms run the same per-point arithmetic.
+// Per-point terms of the 8-parameter pose+affine pass and of the 1-DoF
+// stereo scale pass, shared by the per-pass kernels K2 / K3 / K4
+// (residual_hb.cu) and the resident LM kernels (resident_lm.cu), so the
+// two forms run the same per-point arithmetic.
 //
 // Every lane contributes through the reference's multiplicative masks
 // (mask * value, not a skip), so a NaN or infinity on a masked lane reaches
@@ -130,6 +131,68 @@ __device__ __forceinline__ void pose3d_point(
   const float Ku = fx * u + cx, Kv = fy * v + cy;
   pose_point_sums(img, H, W, umax, vmax, u, v, Ku, Kv, 1.f / p2, col, m, c,
                   fx, fy, huber, acc);
+}
+
+// accumulators of the 1-DoF stereo scale pass (K3, K3-LM):
+// H | b | E | n_terms | n_sat | n_in
+constexpr int kScaleAcc = 6;
+constexpr int kSH = 0, kSB = 1, kSE = 2, kSNT = 3, kSNS = 4, kSNIN = 5;
+
+// The warp of one scale pass: R01 K0^-1 (r), t01 (t), the scale s and the
+// saturation cutoff.
+struct ScaleWarp {
+  float r[9];
+  float t[3];
+  float s, cutoff;
+};
+
+// K3: template point (x, y) with idepth id warped into camera 1 by
+// s R01 K0^-1 x + t01 id, with the closed-form 1-DoF scale Jacobian
+// (residual_hb.py:361-368). A padded lane (id = 0) makes rx infinite and
+// Js NaN, which reaches H and b through the multiplicative mask, as in the
+// reference.
+__device__ __forceinline__ void scale_point(
+    const float* __restrict__ img, int H, int W, float umax, float vmax,
+    float x, float y, float id, float col, bool m, const ScaleWarp& c,
+    float fx, float fy, float cx, float cy, float huber, float* acc) {
+  const float max_energy = 2.f * huber * c.cutoff - huber * huber;
+  const float wlim = static_cast<float>(W) - 3.f;
+  const float hlim = static_cast<float>(H) - 3.f;
+  const float s = c.s;
+  const float q0 = c.r[0] * x + c.r[1] * y + c.r[2];
+  const float q1 = c.r[3] * x + c.r[4] * y + c.r[5];
+  const float q2 = c.r[6] * x + c.r[7] * y + c.r[8];
+  const float p0 = s * q0 + c.t[0] * id, p1 = s * q1 + c.t[1] * id,
+              p2 = s * q2 + c.t[2] * id;
+  const float u = p0 / p2, v = p1 / p2;
+  const float Ku = fx * u + cx, Kv = fy * v + cy;
+  const float new_id = id / p2;
+  float hi, gx, gy;
+  sample3(img, W, umax, vmax, Ku, Kv, hi, gx, gy);
+  const bool valid = m && Ku > 2.f && Kv > 2.f && Ku < wlim && Kv < hlim &&
+                     new_id > 0.f && isfinite(hi);
+
+  const float r = hi - col;
+  const float ar = fabsf(r);
+  const float hw = ar < huber ? 1.f : huber / clamp_min(ar, 1e-12f);
+  const bool sat = ar > c.cutoff;
+  const float vf = valid ? 1.f : 0.f;
+  acc[kSE] += vf * (sat ? max_energy : hw * r * r * (2.f - hw));
+  acc[kSNT] += vf;
+  acc[kSNS] += vf * (sat ? 1.f : 0.f);
+
+  const float rx0 = q0 / id, rx1 = q1 / id, rx2 = q2 / id;
+  const float deno_sqrt = s * rx2 + c.t[2];
+  const float deno = 1.f / clamp_min(deno_sqrt * deno_sqrt, 1e-20f);
+  const float xno = rx0 * c.t[2] - rx2 * c.t[0];
+  const float yno = rx1 * c.t[2] - rx2 * c.t[1];
+  const float Js = gx * fx * deno * xno + gy * fy * deno * yno;
+
+  const float in = (valid && !sat) ? 1.f : 0.f;
+  const float w = in * hw;
+  acc[kSH] += w * Js * Js;
+  acc[kSB] += w * Js * r;
+  acc[kSNIN] += in;
 }
 
 // Index of H[i][j] (i <= j) in the packed upper triangle.

@@ -1,38 +1,44 @@
-// K2-LM and K4-LM: the whole coarse-to-fine Levenberg-Marquardt of the
-// tracker and of the loop-closure pose estimator, resident on the card,
-// one launch per candidate batch (K2-LM) or seed stack (K4-LM).
+// K2-LM, K3-LM and K4-LM: the whole coarse-to-fine Levenberg-Marquardt of
+// the tracker, of the stereo scale optimizer and of the loop-closure pose
+// estimator, resident on the card, one launch per candidate batch (K2-LM),
+// guess grid (K3-LM) or seed stack (K4-LM).
 //
 // They replace the jitted JAX programs
 // direct_stereo_slam_tpu/models/tracker.py::track_candidates_batch
 // (cutoff loop :143, LM while_loop :206, level repeat :269, vmap over the
-// candidates :316-333) and
+// candidates :316-333),
+// direct_stereo_slam_tpu/models/scale_opt.py::optimize_scale_batch (cutoff
+// loop :51-66, LM while_loop :70-113, level repeat :149-160, vmap over the
+// guesses :169-182) and
 // direct_stereo_slam_tpu/loop/pose_estimator.py::_estimate_seeds (:74,
 // :115, :167, vmap over the seeds :217-252); per LM iteration those run
-// the XLA pass programs ops/residual_hb.py::pose_residual_pass (:126) and
-// ::pose3d_residual_pass (:235). The port's plain versions are the Python
-// loops models/tracker.py::track_candidates_batch_plain and
+// the XLA pass programs ops/residual_hb.py::pose_residual_pass (:126),
+// ::scale_residual_pass (:313) and ::pose3d_residual_pass (:235). The
+// port's plain versions are the Python loops
+// models/tracker.py::track_candidates_batch_plain,
+// models/scale_opt.py::optimize_scale_batch_plain and
 // loop/pose_estimator.py::estimate_seeds_plain.
 //
 // What bounds them on the H100. One LM pass reads a level's points (17 B
 // each) and 4 bilinear taps of (I, dx, dy) per point, then reduces 51
-// (K2) or 48 (K4) sums; per candidate a call runs ~20-200 such passes in
-// sequence, each followed by an 8x8 solve and an SE(3) exponential that
-// decide the next pass. Bytes over 3.35 TB/s bound a call at microseconds
-// (one candidate) to a fraction of a millisecond (78 candidates); the f32
-// operations (~200 per point and pass) take ~5x less, so there is no use
-// for tensor cores (and the reference pins f32: no TF32 anywhere). The
-// real cost is the latency of each pass and LM step in sequence. What the per-pass form lost was the host: a
-// parameter tensor, a ctypes crossing and a blocking read per LM
-// iteration. Here the data-dependent control flow (cutoff doubling, LM
-// accept/reject, the increment-norm break, the one-shot level repeat)
-// runs on the card, so a batch costs one launch and no host read.
+// (K2), 6 (K3) or 48 (K4) sums; per candidate a call runs ~20-200 such
+// passes in sequence, each followed by a step (an 8x8 solve and an SE(3)
+// exponential, or K3's scalar division) that decides the next pass. Bytes
+// over 3.35 TB/s bound a call at microseconds (one candidate) to a
+// fraction of a millisecond (78 candidates); the f32 operations (~80-200
+// per point and pass) take ~5x less, so there is no use for tensor cores
+// (and the reference pins f32: no TF32 anywhere). The real cost is the
+// latency of each pass and LM step in sequence. What the per-pass form
+// lost was the host: a parameter tensor, a ctypes crossing and a blocking
+// read per LM iteration. Here the data-dependent control flow (cutoff
+// doubling, LM accept/reject, the increment-norm break, the one-shot level
+// repeat) runs on the card, so a batch costs one launch and no host read.
 //
 // Design:
-// - One thread-block cluster of 8 blocks (portable size) per candidate or
-//   seed, the candidate on blockIdx.y. Candidates never talk to each
-//   other, so no grid-wide sync; a finished candidate stops, which is
-//   what vmap of a while_loop computes. 8 blocks spread even a batch of
-//   one over 8 SMs.
+// - One thread-block cluster of 8 blocks (portable size) per candidate,
+//   guess or seed, on blockIdx.y. Candidates never talk to each other, so
+//   no grid-wide sync; a finished candidate stops, which is what vmap of a
+//   while_loop computes. 8 blocks spread even a batch of one over 8 SMs.
 // - At each level a block copies its eighth of the level's points into
 //   shared memory with cp.async (cooperative_groups::memcpy_async) once;
 //   every pass of the level reads them from there. At most 8192 points x
@@ -42,20 +48,25 @@
 //   kernels (pose_terms.cuh), the block reduces in a fixed order (warp
 //   shuffles, then warps in order: block_sum) into a double-buffered
 //   slot, and after one cluster barrier every block sums the 8 blocks'
-//   slots through distributed shared memory in rank order. Every block
-//   thus holds bit-identical totals and runs the same LM step on them
-//   (thread 0: the damped solve by the affine mode as an f32 LU with
-//   partial pivoting, extrapolation, preconditioning and the isfinite
-//   guard, se3_exp as geometry/lie.py computes it, accept/reject and the
-//   lambda schedule), so the whole cluster follows one path with no
-//   broadcast and one cluster barrier per pass. No atomics: two runs give
-//   the same bits.
+//   slots through distributed shared memory in rank order (ClusterSums,
+//   shared by the three LMs). Every block thus holds bit-identical totals
+//   and runs the same LM step on them, so the whole cluster follows one
+//   path with no broadcast and one cluster barrier per pass. K2-LM and
+//   K4-LM take the step on thread 0 (the damped solve by the affine mode
+//   as an f32 LU with partial pivoting, extrapolation, preconditioning and
+//   the isfinite guard, se3_exp as geometry/lie.py computes it,
+//   accept/reject and the lambda schedule) and share it through shared
+//   memory; K3-LM's state is a handful of scalars that every thread holds
+//   in registers and updates alike. No atomics: two runs give the same
+//   bits.
 // - Host side: one parameter struct passed by value (per-level image and
-//   point pointers, intrinsics, Ki, the tracker's scalars, the affine
-//   modes; scalars that live on the card are read there through a
-//   pointer). Output per candidate: T, a, b, the per-level residual, the
-//   flow indicators (K2) or level 0's E and n (K4), and the passes run
-//   per level. The acceptance gates and the winner stay in PyTorch.
+//   point pointers, intrinsics, the level's 3x3 matrix, the LM's scalars;
+//   K2-LM's scalars that live on the card are read there through a
+//   pointer). Output per candidate: K2-LM / K4-LM T, a, b, the per-level
+//   residual, the flow indicators (K2) or level 0's E and n (K4), and the
+//   passes run per level; K3-LM the scale, the error, level 0's E and n,
+//   the cutoff-doubling factor and the passes run per level. The
+//   acceptance gates, the winner and the trap decision stay on the host.
 
 #include <cooperative_groups.h>
 #include <cooperative_groups/memcpy_async.h>
@@ -74,11 +85,16 @@ constexpr int kMaxLevels = 8;
 constexpr int kLmOut = 40;
 constexpr int kOutA = 16, kOutB = 17, kOutRes = 18, kOutX0 = 26, kOutX1 = 27,
               kOutPasses = 28;
+// K3-LM: output row per guess
+constexpr int kScaleOut = 20;
+constexpr int kSOutScale = 0, kSOutErr = 1, kSOutE = 2, kSOutN = 3,
+              kSOutRepeat = 4, kSOutPasses = 12;
 
 }  // namespace
 
 // The layouts below are mirrored by ctypes structures in
-// ops/resident_lm.py; dsslam_lm_params_size lets that module check them.
+// ops/resident_lm.py; dsslam_lm_params_size and dsslam_scale_lm_params_size
+// let that module check them.
 struct LmLevel {
   const float* img;            // [H, W, 3] (I, dx, dy)
   const float* p0;             // pu | px
@@ -90,8 +106,8 @@ struct LmLevel {
   float umax, vmax;
   int N;
   int color_stride;
-  float fx, fy, cx, cy;
-  float Ki[9];
+  float fx, fy, cx, cy;         // K3-LM: camera 1's
+  float Ki[9];                 // K^-1 of the level; K3-LM: R01 K0^-1
   int max_iters;
   int compute_flow;
 };
@@ -116,8 +132,21 @@ struct LmParams {
   int chunk;                   // points per block slice (multiple of 4)
 };
 
+struct ScaleLmParams {
+  LmLevel lv[kMaxLevels];
+  const float* s_init;         // [G] initial scales
+  float* out;                  // [G, kScaleOut]
+  float t01[3];
+  float huber, coarse_cutoff, sat_ratio_repeat, cutoff_repeat_max;
+  float lambda_init, lambda_lim, lambda_accept, lambda_reject, inc_break;
+  int levels;
+  int G;
+  int chunk;                   // points per block slice (multiple of 4)
+};
+
 static_assert(sizeof(LmLevel) == 136, "LmLevel layout");
 static_assert(sizeof(LmParams) == 1288, "LmParams layout");
+static_assert(sizeof(ScaleLmParams) == 1168, "ScaleLmParams layout");
 
 namespace {
 
@@ -139,7 +168,6 @@ struct LmState {
   float res[kMaxLevels];
   float x0, x1;
   int passes[kMaxLevels];
-  int buf;
   float ref_a, ref_b, ref_exp, new_exp;
   float M[64], rhs[8];                     // solve scratch
 };
@@ -158,6 +186,68 @@ __host__ __device__ __forceinline__ int slice_len(int N) {
 __host__ __device__ __forceinline__ size_t smem_bytes(int chunk) {
   return (static_cast<size_t>(chunk) * 17 + 15) / 16 * 16;
 }
+
+// A block's slice of a level's points in shared memory, and the cluster's
+// fixed-order sum of NACC per-thread accumulators: what K2-LM, K3-LM and
+// K4-LM share. Every thread calls reduce() alike, so the double-buffer
+// index lives in a register.
+template <int NACC>
+struct ClusterSums {
+  float (*red)[NACC];          // [2][NACC] this block's sums, double-buffered
+  float* tot;                  // [NACC] the cluster's totals
+  float *s0, *s1, *s2, *sc;    // the slice: p0, p1, p2, colour
+  unsigned char* sm;           // the slice: mask
+  int rank, tid;
+  int start = 0, count = 0, buf = 0;
+
+  __device__ ClusterSums(unsigned char* smem, int chunk, float (*red_)[NACC],
+                         float* tot_)
+      : red(red_), tot(tot_), s0(reinterpret_cast<float*>(smem)),
+        s1(s0 + chunk), s2(s1 + chunk), sc(s2 + chunk),
+        sm(reinterpret_cast<unsigned char*>(sc + chunk)),
+        rank(static_cast<int>(cg::this_cluster().block_rank())),
+        tid(threadIdx.x) {}
+
+  // This block's slice of level L's points into shared memory.
+  __device__ void load_level(const LmLevel& L) {
+    __syncthreads();        // nobody still reads the previous level's slice
+    const int per = slice_len(L.N);
+    start = min(rank * per, L.N);
+    count = min(per, L.N - start);
+    cg::thread_block block = cg::this_thread_block();
+    if (count > 0) {
+      cg::memcpy_async(block, s0, L.p0 + start, sizeof(float) * count);
+      cg::memcpy_async(block, s1, L.p1 + start, sizeof(float) * count);
+      cg::memcpy_async(block, s2, L.p2 + start, sizeof(float) * count);
+      cg::memcpy_async(block, sm, L.pmask + start,
+                       sizeof(unsigned char) * count);
+      if (L.color_stride == 1) {
+        cg::memcpy_async(block, sc, L.pcolor + start, sizeof(float) * count);
+      } else {
+        for (int j = tid; j < count; j += kLmThreads)
+          sc[j] = L.pcolor[static_cast<size_t>(start + j) * L.color_stride];
+      }
+    }
+    cg::wait(block);
+  }
+
+  // All threads: the cluster's sums of acc into tot, the same bits in
+  // every block (block_sum, one cluster barrier, the 8 blocks' slots in
+  // rank order), readable by every thread on return.
+  __device__ void reduce(const float (&acc)[NACC]) {
+    dsslam::block_sum<NACC, kLmThreads>(acc, red[buf]);
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (tid < NACC) {
+      float s = 0.f;
+      for (int r = 0; r < kCluster; ++r)
+        s += cluster.map_shared_rank(&red[buf][0], r)[tid];
+      tot[tid] = s;
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+};
 
 // Damped solve of the 8-parameter system by the affine mode
 // (models/tracker.py::_solve_inc): Hl = H + lam diag(H), the 6-, 7- or
@@ -256,36 +346,8 @@ class LmCluster {
  public:
   static constexpr int NACC = kPoints3d ? dsslam::kPose3dAcc : dsslam::kPoseAcc;
 
-  __device__ LmCluster(const LmParams& p, LmState& st, float (*red)[NACC],
-                       float* tot, float* s0, float* s1, float* s2, float* sc,
-                       unsigned char* sm)
-      : p_(p), st_(st), red_(red), tot_(tot), s0_(s0), s1_(s1), s2_(s2),
-        sc_(sc), sm_(sm),
-        rank_(static_cast<int>(cg::this_cluster().block_rank())),
-        tid_(threadIdx.x) {}
-
-  // This block's slice of level lvl's points into shared memory.
-  __device__ void load_level(const LmLevel& L) {
-    __syncthreads();        // nobody still reads the previous level's slice
-    const int per = slice_len(L.N);
-    start_ = min(rank_ * per, L.N);
-    count_ = min(per, L.N - start_);
-    cg::thread_block block = cg::this_thread_block();
-    if (count_ > 0) {
-      cg::memcpy_async(block, s0_, L.p0 + start_, sizeof(float) * count_);
-      cg::memcpy_async(block, s1_, L.p1 + start_, sizeof(float) * count_);
-      cg::memcpy_async(block, s2_, L.p2 + start_, sizeof(float) * count_);
-      cg::memcpy_async(block, sm_, L.pmask + start_,
-                       sizeof(unsigned char) * count_);
-      if (L.color_stride == 1) {
-        cg::memcpy_async(block, sc_, L.pcolor + start_, sizeof(float) * count_);
-      } else {
-        for (int j = tid_; j < count_; j += kLmThreads)
-          sc_[j] = L.pcolor[static_cast<size_t>(start_ + j) * L.color_stride];
-      }
-    }
-    cg::wait(block);
-  }
+  __device__ LmCluster(const LmParams& p, LmState& st, ClusterSums<NACC>& cs)
+      : p_(p), st_(st), cs_(cs), tid_(threadIdx.x) {}
 
   // thread 0: the warp of a pass at pose T, affine (a, b) and cutoff
   __device__ void set_warp(const float* T, float a, float b, float cutoff,
@@ -318,54 +380,44 @@ class LmCluster {
   // H, b and statistics in st.o*.
   __device__ void pass(int lvl, const LmLevel& L) {
     const dsslam::PoseWarp c = st_.warp;
-    const int buf = st_.buf;
     float acc[NACC];
 #pragma unroll
     for (int k = 0; k < NACC; ++k) acc[k] = 0.f;
-    for (int j = tid_; j < count_; j += kLmThreads) {
+    for (int j = tid_; j < cs_.count; j += kLmThreads) {
       if constexpr (kPoints3d) {
-        dsslam::pose3d_point(L.img, L.H, L.W, L.umax, L.vmax, s0_[j], s1_[j],
-                             s2_[j], sc_[j], sm_[j] != 0, c, L.fx, L.fy, L.cx,
-                             L.cy, p_.huber, acc);
+        dsslam::pose3d_point(L.img, L.H, L.W, L.umax, L.vmax, cs_.s0[j],
+                             cs_.s1[j], cs_.s2[j], cs_.sc[j], cs_.sm[j] != 0, c,
+                             L.fx, L.fy, L.cx, L.cy, p_.huber, acc);
       } else {
-        dsslam::pose_point(L.img, L.H, L.W, L.umax, L.vmax, s0_[j], s1_[j],
-                           s2_[j], sc_[j], sm_[j] != 0, start_ + j, c, L.fx,
-                           L.fy, L.cx, L.cy, p_.huber, L.compute_flow != 0,
-                           acc);
+        dsslam::pose_point(L.img, L.H, L.W, L.umax, L.vmax, cs_.s0[j],
+                           cs_.s1[j], cs_.s2[j], cs_.sc[j], cs_.sm[j] != 0,
+                           cs_.start + j, c, L.fx, L.fy, L.cx, L.cy, p_.huber,
+                           L.compute_flow != 0, acc);
       }
     }
-    dsslam::block_sum<NACC, kLmThreads>(acc, red_[buf]);
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    if (tid_ < NACC) {
-      float s = 0.f;
-      for (int r = 0; r < kCluster; ++r)
-        s += cluster.map_shared_rank(&red_[buf][0], r)[tid_];
-      tot_[tid_] = s;
-    }
-    __syncthreads();
+    cs_.reduce(acc);
     if (tid_ == 0) {
       using namespace dsslam;
-      const float n_safe = fmaxf(tot_[kNIN], 1.f);
+      const float* tot = cs_.tot;
+      const float n_safe = fmaxf(tot[kNIN], 1.f);
       for (int i = 0; i < 8; ++i) {
         for (int j = 0; j < 8; ++j)
-          st_.oH[i * 8 + j] = tot_[tri_index(i, j)] / n_safe * p_.pre[i] * p_.pre[j];
-        st_.og[i] = tot_[36 + i] / n_safe * p_.pre[i];
+          st_.oH[i * 8 + j] = tot[tri_index(i, j)] / n_safe * p_.pre[i] * p_.pre[j];
+        st_.og[i] = tot[36 + i] / n_safe * p_.pre[i];
       }
-      st_.oE = tot_[kE];
-      st_.on = tot_[kNT];
-      st_.osat = tot_[kNS] / fmaxf(tot_[kNT], 1.f);
-      st_.onin = tot_[kNIN];
+      st_.oE = tot[kE];
+      st_.on = tot[kNT];
+      st_.osat = tot[kNS] / fmaxf(tot[kNT], 1.f);
+      st_.onin = tot[kNIN];
       st_.oft = 0.f;
       st_.ofrt = 0.f;
       if constexpr (!kPoints3d) {
         if (L.compute_flow) {
-          const float num = tot_[kNSUB] * 2.f + 0.1f;
-          st_.oft = tot_[kFT] / num;
-          st_.ofrt = tot_[kFRT] / num;
+          const float num = tot[kNSUB] * 2.f + 0.1f;
+          st_.oft = tot[kFT] / num;
+          st_.ofrt = tot[kFRT] / num;
         }
       }
-      st_.buf = buf ^ 1;
       st_.passes[lvl] += 1;
     }
     __syncthreads();
@@ -489,7 +541,6 @@ class LmCluster {
       st_.ref_b = read_scalar(p_.ref_b);
       st_.ref_exp = read_scalar(p_.ref_exp);
       st_.new_exp = read_scalar(p_.new_exp);
-      st_.buf = 0;
       st_.x0 = 0.f;
       st_.x1 = 1.f;
       for (int l = 0; l < kMaxLevels; ++l) {
@@ -500,7 +551,7 @@ class LmCluster {
     bool have_repeated = false;
     for (int lvl = p_.levels - 1; lvl >= 0; --lvl) {
       const LmLevel& L = p_.lv[lvl];
-      load_level(L);
+      cs_.load_level(L);
       const float repeat = level(lvl, L);
       if (repeat > 1.f && !have_repeated) level(lvl, L);
       have_repeated = have_repeated || repeat > 1.f;
@@ -515,7 +566,7 @@ class LmCluster {
       }
     }
     __syncthreads();
-    if (rank_ == 0 && tid_ == 0) {
+    if (cs_.rank == 0 && tid_ == 0) {
       float* o = p_.out + static_cast<size_t>(cand) * kLmOut;
       for (int k = 0; k < 16; ++k) o[k] = st_.T[k];
       o[kOutA] = st_.a;
@@ -535,14 +586,8 @@ class LmCluster {
  private:
   const LmParams& p_;
   LmState& st_;
-  float (*red_)[NACC];
-  float* tot_;
-  float *s0_, *s1_, *s2_, *sc_;
-  unsigned char* sm_;
-  int rank_;
+  ClusterSums<NACC>& cs_;
   int tid_;
-  int start_ = 0;
-  int count_ = 0;
 };
 
 template <bool kPoints3d>
@@ -556,12 +601,142 @@ __global__ void __launch_bounds__(kLmThreads) lm_kernel(const LmParams p) {
   __shared__ LmParams sp;
   if (threadIdx.x == 0) sp = p;
   __syncthreads();
-  float* s0 = reinterpret_cast<float*>(smem);
-  float* s1 = s0 + p.chunk;
-  float* s2 = s1 + p.chunk;
-  float* sc = s2 + p.chunk;
-  unsigned char* sm = reinterpret_cast<unsigned char*>(sc + p.chunk);
-  LmCluster<kPoints3d> lm(sp, st, red, tot, s0, s1, s2, sc, sm);
+  ClusterSums<NACC> cs(smem, p.chunk, red, tot);
+  LmCluster<kPoints3d> lm(sp, st, cs);
+  lm.run(blockIdx.y);
+}
+
+// K3-LM: one guess's coarse-to-fine 1-DoF scale LM
+// (models/scale_opt.py::optimize_scale_batch_plain for one guess). Its
+// state is a few scalars that every thread of the cluster holds and
+// updates alike from the bit-identical cluster sums: no thread waits for
+// another's step. The step is the reference's scalar one, no solve.
+class ScaleLm {
+ public:
+  __device__ ScaleLm(const ScaleLmParams& p, ClusterSums<dsslam::kScaleAcc>& cs)
+      : p_(p), cs_(cs) {}
+
+  struct Pass {
+    float H, b, E, n, sat;
+  };
+
+  // All threads: one pass over level L at scale s and cutoff.
+  __device__ Pass pass(const LmLevel& L, float s, float cutoff, int& passes) {
+    using namespace dsslam;
+    ScaleWarp w;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) w.r[k] = L.Ki[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) w.t[k] = p_.t01[k];
+    w.s = s;
+    w.cutoff = cutoff;
+    float acc[kScaleAcc];
+#pragma unroll
+    for (int k = 0; k < kScaleAcc; ++k) acc[k] = 0.f;
+    for (int j = cs_.tid; j < cs_.count; j += kLmThreads)
+      scale_point(L.img, L.H, L.W, L.umax, L.vmax, cs_.s0[j], cs_.s1[j],
+                  cs_.s2[j], cs_.sc[j], cs_.sm[j] != 0, w, L.fx, L.fy, L.cx,
+                  L.cy, p_.huber, acc);
+    cs_.reduce(acc);
+    const float* t = cs_.tot;
+    const float n_safe = fmaxf(t[kSNIN], 1.f);
+    ++passes;
+    return Pass{t[kSH] / n_safe, t[kSB] / n_safe, t[kSE], t[kSNT],
+                t[kSNS] / fmaxf(t[kSNT], 1.f)};
+  }
+
+  // All threads: models/scale_opt.py::_optimize_scale_level for one guess
+  // from s. Leaves the level's s, E and n; returns the cutoff-doubling
+  // factor.
+  __device__ float level(const LmLevel& L, float& s, float& E, float& n,
+                         int& passes) {
+    using dsslam::clamp_min;
+    const float s0 = s;
+    float repeat = 1.f;
+    Pass o = pass(L, s0, p_.coarse_cutoff * repeat, passes);
+    while (o.sat > p_.sat_ratio_repeat && repeat < p_.cutoff_repeat_max) {
+      repeat = repeat * 2.f;
+      o = pass(L, s0, p_.coarse_cutoff * repeat, passes);
+    }
+    const float cutoff = p_.coarse_cutoff * repeat;
+    float H = o.H, b = o.b;
+    E = o.E;
+    n = o.n;
+    float lam = p_.lambda_init;
+    const float lim = p_.lambda_lim;
+    for (int it = 0; it < L.max_iters; ++it) {
+      const float Hl = H * (1.f + lam);
+      float inc = -b / (fabsf(Hl) < 1e-20f ? 1e-20f : Hl);
+      const float extrap = lam < lim ? sqrtf(sqrtf(lim / lam)) : 1.f;
+      inc = inc * extrap;
+      // reject non-finite or over-large steps
+      if (!(isfinite(inc) && fabsf(inc) <= s)) inc = 0.f;
+      const float s_new = s + inc;
+      const Pass t = pass(L, s_new, cutoff, passes);
+      if (t.E / clamp_min(t.n, 1.f) < E / clamp_min(n, 1.f)) {
+        s = s_new;
+        H = t.H;
+        b = t.b;
+        E = t.E;
+        n = t.n;
+        lam = lam * p_.lambda_accept;
+      } else {
+        lam = clamp_min(lam * p_.lambda_reject, lim);
+      }
+      if (fabsf(inc) <= p_.inc_break) break;
+    }
+    return repeat;
+  }
+
+  // All threads: every level coarse to fine with the one-shot level repeat.
+  __device__ void run(int g) {
+    const bool leader = cs_.rank == 0 && cs_.tid == 0;
+    float* o = p_.out + static_cast<size_t>(g) * kScaleOut;
+    float s = p_.s_init[g];
+    float E = 0.f, n = 0.f;
+    bool have_repeated = false;
+    for (int lvl = p_.levels - 1; lvl >= 0; --lvl) {
+      const LmLevel& L = p_.lv[lvl];
+      cs_.load_level(L);
+      int passes = 0;
+      const float repeat = level(L, s, E, n, passes);
+      if (repeat > 1.f && !have_repeated) level(L, s, E, n, passes);
+      have_repeated = have_repeated || repeat > 1.f;
+      if (leader) {
+        o[kSOutRepeat + lvl] = repeat;
+        o[kSOutPasses + lvl] = static_cast<float>(passes);
+      }
+    }
+    if (leader) {
+      o[kSOutScale] = s;
+      o[kSOutErr] = sqrtf(E / dsslam::clamp_min(n, 1.f));
+      o[kSOutE] = E;
+      o[kSOutN] = n;
+      for (int l = p_.levels; l < kMaxLevels; ++l) {
+        o[kSOutRepeat + l] = 0.f;
+        o[kSOutPasses + l] = 0.f;
+      }
+    }
+    // no block leaves while another may still read its shared memory
+    cg::this_cluster().sync();
+  }
+
+ private:
+  const ScaleLmParams& p_;
+  ClusterSums<dsslam::kScaleAcc>& cs_;
+};
+
+__global__ void __launch_bounds__(kLmThreads)
+    scale_lm_kernel(const ScaleLmParams p) {
+  constexpr int NACC = dsslam::kScaleAcc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2][NACC];
+  __shared__ float tot[NACC];
+  __shared__ ScaleLmParams sp;
+  if (threadIdx.x == 0) sp = p;
+  __syncthreads();
+  ClusterSums<NACC> cs(smem, p.chunk, red, tot);
+  ScaleLm lm(sp, cs);
   lm.run(blockIdx.y);
 }
 
@@ -581,14 +756,15 @@ cudaLaunchConfig_t lm_config(int B, size_t smem, cudaStream_t stream,
   return cfg;
 }
 
-template <bool kPoints3d>
-int launch_lm(const LmParams* p, cudaStream_t stream) {
-  if (p->levels < 1 || p->levels > kMaxLevels || p->B < 1 || p->chunk % 4 != 0)
+// One cluster per candidate (batch of them) of an LM kernel taking Params.
+template <typename Params>
+int launch_lm(void (*kernel)(const Params), const Params* p, int batch,
+              cudaStream_t stream) {
+  if (p->levels < 1 || p->levels > kMaxLevels || batch < 1 || p->chunk % 4 != 0)
     return cudaErrorInvalidValue;
   for (int l = 0; l < p->levels; ++l)
     if (slice_len(p->lv[l].N) > p->chunk) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(p->chunk);
-  auto kernel = lm_kernel<kPoints3d>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -596,7 +772,7 @@ int launch_lm(const LmParams* p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = lm_config(p->B, smem, stream, attr);
+  const cudaLaunchConfig_t cfg = lm_config(batch, smem, stream, attr);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, *p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -608,21 +784,36 @@ DSSLAM_API int dsslam_lm_params_size() {
   return static_cast<int>(sizeof(LmParams));
 }
 
+DSSLAM_API int dsslam_scale_lm_params_size() {
+  return static_cast<int>(sizeof(ScaleLmParams));
+}
+
 DSSLAM_API int dsslam_track_lm(const LmParams* p, cudaStream_t stream) {
-  return launch_lm<false>(p, stream);
+  return launch_lm(lm_kernel<false>, p, p->B, stream);
 }
 
 DSSLAM_API int dsslam_loop_pose_lm(const LmParams* p, cudaStream_t stream) {
-  return launch_lm<true>(p, stream);
+  return launch_lm(lm_kernel<true>, p, p->B, stream);
 }
 
-// How many 8-block clusters of the LM kernel (K2-LM, or K4-LM when
-// points3d) fit on the card at once for a slice of `chunk` points.
-DSSLAM_API int dsslam_lm_max_active_clusters(int points3d, int chunk,
-                                             int* out) {
+DSSLAM_API int dsslam_scale_lm(const ScaleLmParams* p, cudaStream_t stream) {
+  return launch_lm(scale_lm_kernel, p, p->G, stream);
+}
+
+// How many 8-block clusters of an LM kernel (kind 0: K2-LM, 1: K4-LM,
+// 2: K3-LM) fit on the card at once for a slice of `chunk` points.
+DSSLAM_API int dsslam_lm_max_active_clusters(int kind, int chunk, int* out) {
   const size_t smem = smem_bytes(chunk);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = lm_config(1, smem, nullptr, attr);
-  return points3d ? cudaOccupancyMaxActiveClusters(out, lm_kernel<true>, &cfg)
-                  : cudaOccupancyMaxActiveClusters(out, lm_kernel<false>, &cfg);
+  switch (kind) {
+    case 0:
+      return cudaOccupancyMaxActiveClusters(out, lm_kernel<false>, &cfg);
+    case 1:
+      return cudaOccupancyMaxActiveClusters(out, lm_kernel<true>, &cfg);
+    case 2:
+      return cudaOccupancyMaxActiveClusters(out, scale_lm_kernel, &cfg);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

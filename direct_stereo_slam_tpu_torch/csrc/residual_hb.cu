@@ -9,10 +9,10 @@
 // One thread per template point warps it, reads (I, dx, dy) bilinearly
 // (interp.py's clamp), applies the Huber weight and the saturation cutoff,
 // forms the Jacobian and adds its terms to per-thread f32 accumulators
-// (K2 / K4: pose_terms.cuh, shared with the resident LM kernels of
-// resident_lm.cu, which run the tracker's and the loop estimator's whole
-// LM on the card; these single passes stay for callers that drive one
-// pass at a time and as the per-point arithmetic's check).
+// (pose_terms.cuh, shared with the resident LM kernels of resident_lm.cu,
+// which run the tracker's, the scale optimizer's and the loop estimator's
+// whole LM on the card; these single passes stay for callers that drive
+// one pass at a time and as the per-point arithmetic's check).
 //
 // What bounds them on the H100: per LM iteration a level reads N <= 8192
 // points (5 words each) and 4 bilinear taps of 3 floats from an image
@@ -35,6 +35,7 @@ using dsslam::kNS;
 using dsslam::kNT;
 using dsslam::kPose3dAcc;
 using dsslam::kPoseAcc;
+using dsslam::kScaleAcc;
 using dsslam::kFT;
 using dsslam::kFRT;
 using dsslam::kNSUB;
@@ -51,8 +52,7 @@ constexpr int kPoseParams = 40;
 constexpr int kPoseOut = 80;
 
 // ---- K3 layout ------------------------------------------------------------
-// accumulators: H | b | E | n_terms | n_sat | n_in
-constexpr int kScaleAcc = 6;
+// accumulators: dsslam::kScaleAcc (pose_terms.cuh)
 // per-guess params: R01Ki (9) | t01 (3) | scale | cutoff | pad
 constexpr int kScaleParams = 16;
 // output: H | b | E | n_terms | sat_ratio | n_in | pad
@@ -195,14 +195,13 @@ scale_partial_kernel(const float* __restrict__ img, int H, int W, float umax,
                      float cx, float cy, float huber,
                      float* __restrict__ partial) {
   const float* P = params + blockIdx.y * kScaleParams;
-  const float r00 = P[0], r01 = P[1], r02 = P[2];
-  const float r10 = P[3], r11 = P[4], r12 = P[5];
-  const float r20 = P[6], r21 = P[7], r22 = P[8];
-  const float tx = P[9], ty = P[10], tz = P[11];
-  const float s = P[12], cutoff = P[13];
-  const float max_energy = 2.f * huber * cutoff - huber * huber;
-  const float wlim = static_cast<float>(W) - 3.f;
-  const float hlim = static_cast<float>(H) - 3.f;
+  dsslam::ScaleWarp c;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) c.r[k] = P[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c.t[k] = P[9 + k];
+  c.s = P[12];
+  c.cutoff = P[13];
 
   float acc[kScaleAcc];
 #pragma unroll
@@ -210,44 +209,8 @@ scale_partial_kernel(const float* __restrict__ img, int H, int W, float umax,
 
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < N;
        i += gridDim.x * kThreads) {
-    const float x = pu[i], y = pv[i], id = pid[i], col = pcolor[i];
-    const bool m = pmask[i] != 0;
-    // scaled stereo warp: s * R01 K0^-1 x + t01 * idepth
-    const float q0 = r00 * x + r01 * y + r02;
-    const float q1 = r10 * x + r11 * y + r12;
-    const float q2 = r20 * x + r21 * y + r22;
-    const float p0 = s * q0 + tx * id, p1 = s * q1 + ty * id,
-                p2 = s * q2 + tz * id;
-    const float u = p0 / p2, v = p1 / p2;
-    const float Ku = fx * u + cx, Kv = fy * v + cy;
-    const float new_id = id / p2;
-    float hi, gx, gy;
-    dsslam::sample3(img, W, umax, vmax, Ku, Kv, hi, gx, gy);
-    const bool valid = m && Ku > 2.f && Kv > 2.f && Ku < wlim && Kv < hlim &&
-                       new_id > 0.f && isfinite(hi);
-
-    const float r = hi - col;
-    const float ar = fabsf(r);
-    const float hw = ar < huber ? 1.f : huber / dsslam::clamp_min(ar, 1e-12f);
-    const bool sat = ar > cutoff;
-    const float vf = valid ? 1.f : 0.f;
-    acc[2] += vf * (sat ? max_energy : hw * r * r * (2.f - hw));
-    acc[3] += vf;
-    acc[4] += vf * (sat ? 1.f : 0.f);
-
-    // closed-form 1-DoF scale Jacobian (residual_hb.py:361-368)
-    const float rx0 = q0 / id, rx1 = q1 / id, rx2 = q2 / id;
-    const float deno_sqrt = s * rx2 + tz;
-    const float deno = 1.f / dsslam::clamp_min(deno_sqrt * deno_sqrt, 1e-20f);
-    const float xno = rx0 * tz - rx2 * tx;
-    const float yno = rx1 * tz - rx2 * ty;
-    const float Js = gx * fx * deno * xno + gy * fy * deno * yno;
-
-    const float in = (valid && !sat) ? 1.f : 0.f;
-    const float w = in * hw;
-    acc[0] += w * Js * Js;
-    acc[1] += w * Js * r;
-    acc[5] += in;
+    dsslam::scale_point(img, H, W, umax, vmax, pu[i], pv[i], pid[i], pcolor[i],
+                        pmask[i] != 0, c, fx, fy, cx, cy, huber, acc);
   }
   dsslam::block_sum<kScaleAcc, kThreads>(
       acc, partial + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *

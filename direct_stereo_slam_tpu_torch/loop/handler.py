@@ -15,6 +15,11 @@ default stream, the one the tracking thread uses too: the two threads'
 device work is ordered on one stream, which is correct, though it does
 not overlap. Each queued keyframe pins its pyramid (about 7 MB at
 1232x368) until the thread has processed it.
+
+A failure in the thread is not swallowed, as the reference's log-and-go-on
+does: the thread keeps the first exception, only drains the queue after
+it (so ``queue.join`` cannot deadlock), and ``join()`` / ``close()``
+raise it, so the run that published the keyframes fails.
 """
 
 from __future__ import annotations
@@ -95,6 +100,7 @@ class LoopHandler:
 
         self.threaded = threaded
         if threaded:
+            self._error: Optional[BaseException] = None
             self._q: "queue.Queue[MarginalizedKF]" = queue.Queue()
             self._stop = threading.Event()
             self._thread = threading.Thread(target=self._run, daemon=True)
@@ -113,14 +119,24 @@ class LoopHandler:
             self._process(mkf)
 
     def join(self):
+        """Wait until the thread has taken every queued keyframe; raise if
+        processing one failed."""
         if self.threaded:
             self._q.join()
+            self._raise_failure()
 
     def close(self):
+        """Drain the queue, stop the thread; raise if processing failed."""
         if self.threaded:
             self._q.join()
             self._stop.set()
             self._thread.join(timeout=2.0)
+            self._raise_failure()
+
+    def _raise_failure(self):
+        if self._error is not None:
+            raise RuntimeError("the loop thread failed to process a keyframe"
+                               ) from self._error
 
     def _run(self):
         while not self._stop.is_set():
@@ -129,12 +145,10 @@ class LoopHandler:
             except queue.Empty:
                 continue
             try:
-                self._process(mkf)
-            except Exception:   # noqa: BLE001 — a dead loop thread would
-                # deadlock queue.join() at shutdown; log and keep serving
-                import traceback
-                print("[loop] keyframe processing failed:", flush=True)
-                traceback.print_exc()
+                if self._error is None:
+                    self._process(mkf)
+            except Exception as e:  # noqa: BLE001 — kept for join()/close()
+                self._error = e
             finally:
                 self._q.task_done()
 

@@ -692,9 +692,10 @@ class FrontEnd:
         # ---- stereo scale decision ---------------------------------------------
         scale_error = -1.0
         if scale_out is not None:
+            # the one host read of the scale LM
+            scales, errors = torch.stack([scale_out.scale, scale_out.error]).cpu().numpy()
             accepted, new_scale, scale_error, self.scale_state = decide_scale_optimization(
-                scale_out.scale.cpu().numpy(), scale_out.error.cpu().numpy(), cfg,
-                self.scale_state)
+                scales, errors, cfg, self.scale_state)
             if accepted:
                 self._apply_scale(new_scale, slot)
         self.scale_errors[slot] = scale_error

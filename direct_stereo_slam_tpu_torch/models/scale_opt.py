@@ -3,15 +3,21 @@
 Coarse-to-fine LM over the single scale parameter: the tracker template
 is projected into the second camera through the fixed stereo extrinsics
 with a scaled rotation term. The grid of initial guesses is a batch
-dimension, so every LM iteration of all guesses is ONE launch of kernel
-K3 (``ops/residual_hb.scale_residual_pass``, guesses on ``blockIdx.y``);
-each guess follows its own loop as under ``vmap``. The trap/untrap state
-machine stays on the host.
+dimension. On the card ``optimize_scale_batch`` is one launch of kernel
+K3-LM (``ops/resident_lm.scale_lm_cuda``), which runs every level, pass
+and LM step of every guess on the device with no host read. Its plain
+version, ``optimize_scale_batch_plain`` (what CPU tensors take), is the
+same LM as a Python loop over one residual pass per LM iteration for all
+guesses (``ops/residual_hb.scale_residual_pass``): each guess follows its
+own loop exactly as under ``vmap``, and the loop conditions are read on
+the host once per iteration. The trap/untrap state machine stays on the
+host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -19,6 +25,7 @@ import torch
 
 from ..config import SLAMConfig
 from ..geometry.camera import PyramidIntrinsics
+from ..ops.resident_lm import scale_lm_cuda
 from ..ops.residual_hb import scale_residual_pass
 from .depth_template import TrackerTemplate
 
@@ -30,7 +37,7 @@ class ScaleOptResult(NamedTuple):
 
 def _optimize_scale_level(img1_l, pu, pv, pid, pcolor, pmask, R01Ki_l, Ki0_l,
                           t01, fx1, fy1, cx1, cy1, scale0, max_iters: int,
-                          cfg: SLAMConfig, active=None):
+                          cfg: SLAMConfig, residual_pass, active=None):
     """One level of LM for G guesses (scale0 [G]). Returns (s, E, n, repeat)."""
     tc = cfg.tracker
     G = scale0.shape[0]
@@ -39,9 +46,8 @@ def _optimize_scale_level(img1_l, pu, pv, pid, pcolor, pmask, R01Ki_l, Ki0_l,
         active = torch.ones(G, dtype=torch.bool, device=dev)
 
     def run_pass(s, cutoff):
-        return scale_residual_pass(img1_l, pu, pv, pid, pcolor, pmask, R01Ki_l,
-                                   Ki0_l, t01, s, fx1, fy1, cx1, cy1,
-                                   tc.huber_th, cutoff)
+        return residual_pass(img1_l, pu, pv, pid, pcolor, pmask, R01Ki_l, Ki0_l,
+                             t01, s, fx1, fy1, cx1, cy1, tc.huber_th, cutoff)
 
     def sel(mask, new, old):
         return type(old)(*[sel(mask, n_, o_) if isinstance(o_, tuple)
@@ -97,10 +103,29 @@ def _optimize_scale_level(img1_l, pu, pv, pid, pcolor, pmask, R01Ki_l, Ki0_l,
 
 def optimize_scale_batch(pyr1: Tuple[torch.Tensor, ...], template: TrackerTemplate,
                          scales0: torch.Tensor, intr0: PyramidIntrinsics,
-                         intr1: PyramidIntrinsics, t_cam1_cam0: torch.Tensor,
+                         intr1: PyramidIntrinsics, t_cam1_cam0: np.ndarray,
                          cfg: SLAMConfig) -> ScaleOptResult:
     """Full coarse-to-fine scale optimization for G initial guesses,
-    including the one-shot level repeat."""
+    including the one-shot level repeat. A CUDA pyramid launches kernel
+    K3-LM once (``t_cam1_cam0`` a host array); CPU tensors take
+    ``optimize_scale_batch_plain``."""
+    if pyr1[0].is_cuda:
+        o = scale_lm_cuda(pyr1, template, scales0, intr0, intr1, t_cam1_cam0, cfg)
+        return ScaleOptResult(scale=o.scale, error=o.error)
+    return optimize_scale_batch_plain(pyr1, template, scales0, intr0, intr1,
+                                      t_cam1_cam0, cfg)
+
+
+def optimize_scale_batch_plain(pyr1: Tuple[torch.Tensor, ...],
+                               template: TrackerTemplate, scales0: torch.Tensor,
+                               intr0: PyramidIntrinsics, intr1: PyramidIntrinsics,
+                               t_cam1_cam0, cfg: SLAMConfig,
+                               residual_pass=scale_residual_pass) -> ScaleOptResult:
+    """Plain version of K3-LM: the LM as a Python loop, one
+    ``residual_pass`` per iteration for all guesses (the plain pass on the
+    CPU; on the card the per-pass kernel K3, or
+    ``scale_residual_pass_plain`` to hold K3-LM against plain PyTorch
+    throughout)."""
     levels = template.levels
     tc = cfg.tracker
     dev = pyr1[0].device
@@ -118,10 +143,10 @@ def optimize_scale_batch(pyr1: Tuple[torch.Tensor, ...], template: TrackerTempla
                 template.pcolor[lvl], template.pmask[lvl], R01Ki_l, Ki0_l, t01,
                 intr1.fx[lvl], intr1.fy[lvl], intr1.cx[lvl], intr1.cy[lvl])
         max_it = tc.max_iterations[min(lvl, len(tc.max_iterations) - 1)]
-        s, E, n, repeat = _optimize_scale_level(*args, s, max_it, cfg)
+        s, E, n, repeat = _optimize_scale_level(*args, s, max_it, cfg, residual_pass)
         need_repeat = (repeat > 1.0) & ~have_repeated
         if bool(need_repeat.any()):
-            s2, E2, n2, _ = _optimize_scale_level(*args, s, max_it, cfg,
+            s2, E2, n2, _ = _optimize_scale_level(*args, s, max_it, cfg, residual_pass,
                                                   active=need_repeat)
             s = torch.where(need_repeat, s2, s)
             E = torch.where(need_repeat, E2, E)
@@ -155,10 +180,17 @@ def dispatch_scale_optimization(pyr1, template: TrackerTemplate,
     """Device half: the (possibly batched) scale LM; pair with
     ``decide_scale_optimization``."""
     so = cfg.scale_opt
-    guesses = [1.0] if state.trapped else list(so.grid_guesses)
-    g = torch.tensor(np.array(guesses, np.float32), device=pyr1[0].device)
-    return optimize_scale_batch(tuple(pyr1), template, g, intr0, intr1,
+    guesses = (1.0,) if state.trapped else tuple(so.grid_guesses)
+    return optimize_scale_batch(tuple(pyr1), template,
+                                _guesses(guesses, pyr1[0].device), intr0, intr1,
                                 t_cam1_cam0, cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _guesses(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """The guesses as a tensor on the device, made once: a copy from the
+    host each keyframe would wait for the stream. Never written to."""
+    return torch.tensor(np.array(values, np.float32), device=device)
 
 
 def decide_scale_optimization(scales: np.ndarray, errors: np.ndarray,
@@ -193,5 +225,5 @@ def run_scale_optimization(pyr1, template, intr0, intr1, t_cam1_cam0,
         return False, 1.0, -1.0, state
     out = dispatch_scale_optimization(pyr1, template, intr0, intr1, t_cam1_cam0,
                                       cfg, state)
-    return decide_scale_optimization(out.scale.cpu().numpy(),
-                                     out.error.cpu().numpy(), cfg, state)
+    scales, errors = torch.stack([out.scale, out.error]).cpu().numpy()
+    return decide_scale_optimization(scales, errors, cfg, state)

@@ -40,8 +40,8 @@ _F = ctypes.c_float
 # C signatures of the exported entry points (csrc/*.cu); every entry
 # returns a cudaError_t as int and launches on the stream passed last.
 _SIGNATURES = {
-    # pu, pv, mask, n, occ, out, h2, w2, stream
-    "dsslam_distance_map": [_P, _P, _P, _I, _P, _P, _I, _I, _P],
+    # pu, pv, mask, n, out, h2, w2, stream
+    "dsslam_distance_map": [_P, _P, _P, _I, _P, _I, _I, _P],
     # img, H, W, umax, vmax, pu, pv, pid, pcolor, pmask, N, params, B,
     # fx, fy, cx, cy, huber, compute_flow, partial, nblk, out, stream
     "dsslam_pose_pass": [_P, _I, _I, _F, _F, _P, _P, _P, _P, _P, _I, _P, _I,
@@ -57,6 +57,8 @@ _SIGNATURES = {
     # &LmParams (ops/resident_lm.py), stream
     "dsslam_track_lm": [_P, _P],
     "dsslam_loop_pose_lm": [_P, _P],
+    # &ScaleLmParams (ops/resident_lm.py), stream
+    "dsslam_scale_lm": [_P, _P],
 }
 
 

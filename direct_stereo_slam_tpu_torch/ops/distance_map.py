@@ -52,16 +52,17 @@ def build_distance_map_plain(pu, pv, mask, h2: int, w2: int) -> torch.Tensor:
 
 
 def build_distance_map_cuda(pu, pv, mask, h2: int, w2: int) -> torch.Tensor:
-    """Launch kernel K1 (csrc/distance_map.cu): occupancy + 16 relaxations."""
+    """Launch kernel K1 (csrc/distance_map.cu): occupancy and the 16
+    relaxations in one launch, which writes the only tensor allocated (the
+    conversions are no-ops on the front end's f32 coordinates and bool
+    mask)."""
     pu = pu.to(torch.float32).contiguous()
     pv = pv.to(torch.float32).contiguous()
     mask_u8 = mask.to(torch.bool).contiguous().view(torch.uint8)
     _cuda.require_cuda("build_distance_map", pu, pv, mask_u8)
-    occ = torch.empty(h2, w2, dtype=torch.float32, device=pu.device)
     out = torch.empty(h2, w2, dtype=torch.float32, device=pu.device)
     _cuda.call("dsslam_distance_map", pu.data_ptr(), pv.data_ptr(),
-               mask_u8.data_ptr(), pu.shape[0], occ.data_ptr(), out.data_ptr(),
-               h2, w2)
+               mask_u8.data_ptr(), pu.shape[0], out.data_ptr(), h2, w2)
     build_distance_map_cuda.launches += 1
     return out
 

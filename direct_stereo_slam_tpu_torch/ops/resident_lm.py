@@ -1,27 +1,32 @@
 """Launch wrappers of the resident LM kernels (``csrc/resident_lm.cu``):
 K2-LM ``dsslam_track_lm``, the tracker's whole coarse-to-fine LM for a
-candidate batch, and K4-LM ``dsslam_loop_pose_lm``, the loop pose
+candidate batch, K3-LM ``dsslam_scale_lm``, the stereo scale optimizer's
+for a grid of guesses, and K4-LM ``dsslam_loop_pose_lm``, the loop pose
 estimator's for a seed stack. One launch per call, no host read.
 
-The callers are ``models/tracker.track_candidates_batch`` and
+The callers are ``models/tracker.track_candidates_batch``,
+``models/scale_opt.optimize_scale_batch`` and
 ``loop/pose_estimator.estimate_batch``: for CUDA tensors they call these
-wrappers and then apply the acceptance gates in PyTorch; for CPU tensors
-they take their plain versions (``track_candidates_batch_plain``,
+wrappers (the tracker and the estimator then apply their acceptance gates
+in PyTorch); for CPU tensors they take their plain versions
+(``track_candidates_batch_plain``, ``optimize_scale_batch_plain``,
 ``estimate_seeds_plain``: the Python LM loops over the passes). Each
 wrapper counts its launches in ``.launches``.
 
-The kernel takes one parameter struct by value (mirrored here with
+A kernel takes one parameter struct by value (mirrored here with
 ``ctypes``); a scalar that lives on the card (an affine parameter, an
-exposure) is passed as its address and read there, so a call builds no
-tensor besides its output.
+exposure) is passed as its address and read there, and K3-LM's per-level
+``R01 K0^-1``, ``t01`` and camera 1's intrinsics are computed on the host
+from host values, so a call builds no tensor besides its output.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -31,6 +36,10 @@ MAX_LEVELS = 8
 CLUSTER = 8
 OUT = 40           # floats per candidate in the output row
 _OUT_A, _OUT_B, _OUT_RES, _OUT_X0, _OUT_X1, _OUT_PASSES = 16, 17, 18, 26, 27, 28
+SCALE_OUT = 20     # floats per guess in K3-LM's output row
+_SOUT_REPEAT, _SOUT_PASSES = 4, 12
+# dsslam_lm_max_active_clusters' kernel numbers
+KINDS = {"track": 0, "loop_pose": 1, "scale": 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -58,6 +67,18 @@ class LmParams(ctypes.Structure):
                 ("mode_b", _F), ("levels", _I), ("B", _I), ("chunk", _I)]
 
 
+class ScaleLmParams(ctypes.Structure):
+    """K3-LM's parameters: a level's ``Ki`` holds R01 K0^-1 and its
+    intrinsics are camera 1's."""
+
+    _fields_ = [("lv", _Level * MAX_LEVELS), ("s_init", _P), ("out", _P),
+                ("t01", _F * 3), ("huber", _F), ("coarse_cutoff", _F),
+                ("sat_ratio_repeat", _F), ("cutoff_repeat_max", _F),
+                ("lambda_init", _F), ("lambda_lim", _F), ("lambda_accept", _F),
+                ("lambda_reject", _F), ("inc_break", _F), ("levels", _I),
+                ("G", _I), ("chunk", _I)]
+
+
 class LmOut(NamedTuple):
     """Per candidate: the final pose, affine, per-level residual (K2), the
     two level-0 values (K2: flow_t, flow_rt; K4: E, n), and the passes run
@@ -70,6 +91,18 @@ class LmOut(NamedTuple):
     x0: torch.Tensor         # [B]
     x1: torch.Tensor         # [B]
     passes: torch.Tensor     # [B, L] (float counts)
+
+
+class ScaleLmOut(NamedTuple):
+    """Per guess: the scale, the error sqrt(E/n) at level 0, level 0's E
+    and n, and per level the cutoff-doubling factor and the passes run."""
+
+    scale: torch.Tensor      # [G]
+    error: torch.Tensor      # [G]
+    E: torch.Tensor          # [G]
+    n: torch.Tensor          # [G]
+    repeat: torch.Tensor     # [G, L]
+    passes: torch.Tensor     # [G, L] (float counts)
 
 
 def slice_len(n: int) -> int:
@@ -92,11 +125,22 @@ def _mask_u8(m: torch.Tensor) -> torch.Tensor:
     return m.view(torch.uint8) if m.dtype == torch.bool else m
 
 
-def _common(p: LmParams, cfg, T_inits: torch.Tensor, out: torch.Tensor) -> None:
+@functools.lru_cache(maxsize=None)
+def _level_matrix(intr, lvl: int, R01: Optional[Tuple[float, ...]] = None
+                  ) -> Tuple[float, ...]:
+    """A level's 3x3 matrix in f32, row-major: K^-1, or R01 K^-1 (R01 nine
+    floats) as the plain scale loop forms it. Cached: the intrinsics and
+    the extrinsics are fixed for a run, and forming them costs more host
+    time than the launch."""
+    M = np.asarray(intr.Ki(lvl), np.float32)
+    if R01 is not None:
+        M = np.asarray(R01, np.float32).reshape(3, 3) @ M
+    return tuple(float(v) for v in M.reshape(9))
+
+
+def _lm_scalars(p, cfg) -> None:
+    """The LM's schedule, shared by both parameter structs."""
     tc = cfg.tracker
-    p.T_init = T_inits.data_ptr()
-    p.out = out.data_ptr()
-    p.pre[:] = [float(v) for v in POSE_PRECOND]
     p.huber = tc.huber_th
     p.coarse_cutoff = tc.coarse_cutoff_th
     p.sat_ratio_repeat = tc.saturated_ratio_repeat
@@ -106,12 +150,20 @@ def _common(p: LmParams, cfg, T_inits: torch.Tensor, out: torch.Tensor) -> None:
     p.lambda_accept = tc.lambda_accept_factor
     p.lambda_reject = tc.lambda_reject_factor
     p.inc_break = tc.inc_break_norm
+
+
+def _common(p: LmParams, cfg, T_inits: torch.Tensor, out: torch.Tensor) -> None:
+    tc = cfg.tracker
+    p.T_init = T_inits.data_ptr()
+    p.out = out.data_ptr()
+    p.pre[:] = [float(v) for v in POSE_PRECOND]
+    _lm_scalars(p, cfg)
     p.mode_a = tc.affine_mode_a
     p.mode_b = tc.affine_mode_b
     p.B = T_inits.shape[0]
 
 
-def _level(p: LmParams, lvl: int, img, p0, p1, p2, pcolor, color_stride: int,
+def _level(p, lvl: int, img, p0, p1, p2, pcolor, color_stride: int,
            pmask, intr, max_iters: int, compute_flow: bool) -> None:
     L = p.lv[lvl]
     H, W = img.shape[0], img.shape[1]
@@ -121,7 +173,7 @@ def _level(p: LmParams, lvl: int, img, p0, p1, p2, pcolor, color_stride: int,
     L.N = p0.shape[0]
     L.color_stride = color_stride
     L.fx, L.fy, L.cx, L.cy = intr.fx[lvl], intr.fy[lvl], intr.cx[lvl], intr.cy[lvl]
-    L.Ki[:] = [float(v) for v in intr.Ki(lvl).reshape(9)]
+    L.Ki[:] = _level_matrix(intr, lvl)
     L.max_iters = max_iters
     L.compute_flow = int(compute_flow)
 
@@ -129,16 +181,19 @@ def _level(p: LmParams, lvl: int, img, p0, p1, p2, pcolor, color_stride: int,
 @functools.lru_cache(maxsize=None)
 def _library() -> _cuda.KernelLibrary:
     """The kernel library, with the LM entry points' helpers typed and
-    its ``LmParams`` layout checked against the mirror above (once)."""
+    its ``LmParams`` and ``ScaleLmParams`` layouts checked against the
+    mirrors above (once)."""
     kl = _cuda.load_library()
-    kl.lib.dsslam_lm_params_size.argtypes = []
-    kl.lib.dsslam_lm_params_size.restype = _I
     kl.lib.dsslam_lm_max_active_clusters.argtypes = [_I, _I, _P]
     kl.lib.dsslam_lm_max_active_clusters.restype = _I
-    size = kl.lib.dsslam_lm_params_size()
-    if size != ctypes.sizeof(LmParams):
-        raise RuntimeError(f"LmParams is {size} bytes in {kl.path.name}, "
-                           f"{ctypes.sizeof(LmParams)} in ctypes")
+    for fn, struct in (("dsslam_lm_params_size", LmParams),
+                       ("dsslam_scale_lm_params_size", ScaleLmParams)):
+        getattr(kl.lib, fn).argtypes = []
+        getattr(kl.lib, fn).restype = _I
+        size = getattr(kl.lib, fn)()
+        if size != ctypes.sizeof(struct):
+            raise RuntimeError(f"{struct.__name__} is {size} bytes in {kl.path.name}, "
+                               f"{ctypes.sizeof(struct)} in ctypes")
     return kl
 
 
@@ -229,12 +284,66 @@ def loop_pose_lm_cuda(pyr_cur, px, py, pz, pcolors, pmask, T_inits: torch.Tensor
 loop_pose_lm_cuda.launches = 0
 
 
-def max_active_clusters(points3d: bool, n_points: int) -> int:
-    """How many 8-block clusters of K2-LM (K4-LM with ``points3d``) the
-    card holds at once for levels of up to ``n_points`` points."""
+def scale_lm_params(pyr1, template, scales0: torch.Tensor, intr0, intr1,
+                    t_cam1_cam0, cfg, out: torch.Tensor) -> ScaleLmParams:
+    """K3-LM's parameter struct for ``optimize_scale_batch``'s arguments,
+    without a launch: per level camera 1's image and intrinsics, the
+    template's lists, ``R01 @ Ki0`` in f32 (as the plain loop forms it)
+    and the level's LM iterations. ``t_cam1_cam0`` is read on the host."""
+    levels = template.levels
+    if levels > MAX_LEVELS:
+        raise ValueError(f"scale_lm: at most {MAX_LEVELS} levels, got {levels}")
+    T = np.asarray(t_cam1_cam0, np.float32)
+    R01 = tuple(float(v) for v in T[:3, :3].reshape(9))
+    p = ScaleLmParams()
+    for lvl in range(levels):
+        _level(p, lvl, pyr1[lvl], template.pu[lvl], template.pv[lvl],
+               template.pid[lvl], template.pcolor[lvl], 1,
+               _mask_u8(template.pmask[lvl]), intr1, _max_iters(cfg, lvl), False)
+        p.lv[lvl].Ki[:] = _level_matrix(intr0, lvl, R01)
+    p.t01[:] = [float(v) for v in T[:3, 3]]
+    _lm_scalars(p, cfg)
+    p.s_init = scales0.data_ptr()
+    p.out = out.data_ptr()
+    p.levels = levels
+    p.G = scales0.shape[0]
+    p.chunk = max(slice_len(int(x.shape[0])) for x in template.pu)
+    return p
+
+
+def scale_lm_cuda(pyr1, template, scales0, intr0, intr1, t_cam1_cam0,
+                  cfg) -> ScaleLmOut:
+    """Launch K3-LM for the guesses ``scales0`` [G]: every level coarse to
+    fine of ``models/scale_opt.optimize_scale_batch``, the cutoff doubling,
+    the 1-DoF LM and the one-shot level repeat, one 8-block cluster per
+    guess. ``t_cam1_cam0`` is a host array, as the front end keeps it."""
+    dev = pyr1[0].device
+    s0 = torch.as_tensor(scales0, dtype=torch.float32, device=dev).reshape(-1).contiguous()
+    for lvl in range(template.levels):
+        _cuda.require_cuda("scale_lm", pyr1[lvl], template.pu[lvl], template.pv[lvl],
+                           template.pid[lvl], template.pcolor[lvl],
+                           _mask_u8(template.pmask[lvl]), s0)
+    out = torch.empty(s0.shape[0], SCALE_OUT, dtype=torch.float32, device=dev)
+    p = scale_lm_params(pyr1, template, s0, intr0, intr1, t_cam1_cam0, cfg, out)
+    _library()
+    _cuda.call("dsslam_scale_lm", ctypes.addressof(p))
+    scale_lm_cuda.launches += 1
+    L = template.levels
+    return ScaleLmOut(scale=out[:, 0], error=out[:, 1], E=out[:, 2], n=out[:, 3],
+                      repeat=out[:, _SOUT_REPEAT:_SOUT_REPEAT + L],
+                      passes=out[:, _SOUT_PASSES:_SOUT_PASSES + L])
+
+
+scale_lm_cuda.launches = 0
+
+
+def max_active_clusters(kind: str, n_points: int) -> int:
+    """How many 8-block clusters of an LM kernel (``kind`` "track": K2-LM,
+    "scale": K3-LM, "loop_pose": K4-LM) the card holds at once for levels
+    of up to ``n_points`` points."""
     out = ctypes.c_int(0)
     kl = _library()
-    err = kl.lib.dsslam_lm_max_active_clusters(int(points3d), slice_len(n_points),
+    err = kl.lib.dsslam_lm_max_active_clusters(KINDS[kind], slice_len(n_points),
                                                 ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {err}: "

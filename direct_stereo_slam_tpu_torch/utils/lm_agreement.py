@@ -1,4 +1,5 @@
-"""How closely a resident LM kernel (K2-LM, K4-LM) follows a Python LM loop.
+"""How closely a resident LM kernel (K2-LM, K3-LM, K4-LM) follows a Python
+LM loop.
 
 Each LM iteration accepts or rejects its step by comparing two sums of
 thousands of terms. Summed in another order, such a sum moves by ~3e-5
@@ -47,33 +48,38 @@ class Agreement(NamedTuple):
 
 
 def _host(r):
-    """(residuals [B, L], poses [B, 4, 4], ok [B], lanes seen [B]) of a
-    tracker or loop-estimator result; seen: every level saw a point."""
+    """(values compared relatively [B, k], poses [B, 4, 4] or None, ok [B],
+    lanes seen [B], inlier ratio [B] or None) of a tracker, scale or
+    loop-estimator result. Tracker: the residual per level, seen where
+    every level saw a point. Scale: the scale and the error, ok where the
+    host's decision counts the guess (error > 0). Loop estimator: the pose
+    error, seen where a point was an inlier."""
     if hasattr(r, "res_per_level"):                     # TrackResult
         res = r.res_per_level.cpu().numpy()
-        seen = np.isfinite(res).all(axis=1)
-        inl = None
-    else:                                               # LoopPoseResult
-        res = r.pose_error[:, None].cpu().numpy()
-        inl = r.inlier_ratio.cpu().numpy()
-        seen = inl > 0
-    return res, r.T.cpu().numpy(), r.ok.cpu().numpy(), seen, inl
+        return res, r.T.cpu().numpy(), r.ok.cpu().numpy(), np.isfinite(res).all(axis=1), None
+    if hasattr(r, "scale"):                             # ScaleOptResult
+        res = np.stack([r.scale.cpu().numpy(), r.error.cpu().numpy()], axis=1)
+        return res, None, res[:, 1] > 0, np.ones(len(res), bool), None
+    inl = r.inlier_ratio.cpu().numpy()                  # LoopPoseResult
+    res = r.pose_error[:, None].cpu().numpy()
+    return res, r.T.cpu().numpy(), r.ok.cpu().numpy(), inl > 0, inl
 
 
 def agreement(got, want, tol: float = 1e-3):
     """Per candidate, whether two runs agree: the same ok, the same
-    non-finite residuals, finite residuals within ``tol`` relative, poses
-    within ``tol`` per matrix entry where ``want``'s every level saw points
-    (and for the loop estimator the inlier ratio within ``tol``). Returns
-    (agree [B] bool, largest residual or pose-entry difference over the
-    agreeing candidates)."""
+    non-finite residuals, finite residuals (scale LM: scale and error)
+    within ``tol`` relative, poses within ``tol`` per matrix entry where
+    ``want``'s every level saw points (and for the loop estimator the
+    inlier ratio within ``tol``). Returns (agree [B] bool, largest residual
+    or pose-entry difference over the agreeing candidates)."""
     res_g, T_g, ok_g, _, inl_g = _host(got)
     res_w, T_w, ok_w, seen, inl_w = _host(want)
     fin = np.isfinite(res_w)
     with np.errstate(invalid="ignore"):
         d_res = np.where(fin, np.abs(res_g - res_w), 0.0)
         rel = d_res / np.maximum(np.abs(np.where(fin, res_w, 1.0)), 1e-6)
-    dT = np.where(seen, np.abs(T_g - T_w).max(axis=(1, 2)), 0.0)
+    dT = (np.zeros(len(res_w)) if T_w is None
+          else np.where(seen, np.abs(T_g - T_w).max(axis=(1, 2)), 0.0))
     agree = ((ok_g == ok_w) & (np.isinf(res_g) == np.isinf(res_w)).all(axis=1)
              & (np.isnan(res_g) == np.isnan(res_w)).all(axis=1)
              & (rel.max(axis=1) <= tol) & (dT <= tol))
@@ -87,7 +93,7 @@ def agreement(got, want, tol: float = 1e-3):
 def order_sensitive(runs: Sequence, tol: float = 1e-3) -> np.ndarray:
     """Candidates on which any two of ``runs`` (the same function, sums in
     different orders) disagree."""
-    out = np.zeros(runs[0].T.shape[0], bool)
+    out = np.zeros(len(_host(runs[0])[0]), bool)
     for i in range(len(runs)):
         for j in range(i + 1, len(runs)):
             out |= ~agreement(runs[i], runs[j], tol)[0]
@@ -120,9 +126,10 @@ def _lane_orders(sizes: Sequence[int], seed: int = 0):
 
 
 def reordered_track_runs(args, loops: Sequence[Callable]) -> List:
-    """Each tracker loop of ``loops`` (called as
-    ``track_candidates_batch_plain(*args)``) on the template with every
-    level's lanes in the other orders."""
+    """Each loop of ``loops`` over a template (called as
+    ``track_candidates_batch_plain(*args)`` or
+    ``optimize_scale_batch_plain(*args)``: the pyramid, then the template)
+    on the template with every level's lanes in the other orders."""
     pyr, tmpl, *rest = args
     out = []
     for perms in _lane_orders([int(x.shape[0]) for x in tmpl.pu]):
@@ -131,6 +138,10 @@ def reordered_track_runs(args, loops: Sequence[Callable]) -> List:
                              for f in ("pu", "pv", "pid", "pcolor", "pmask")})
         out += [loop(pyr, t, *rest) for loop in loops]
     return out
+
+
+# the scale loops take the template as the tracker's do
+reordered_scale_runs = reordered_track_runs
 
 
 def reordered_seed_runs(args, loops: Sequence[Callable]) -> List:

@@ -1,12 +1,15 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
 the card, at shapes chip_smoke.py does not reach: empty and tiny point
 lists, lists that are not a multiple of the block size, grids that are
-not a multiple of the K1 tile, half-pixel ties, and the tracker's 78-pose
-escalation batch, and for K4 (the loop estimator's pass over metric
-points) stacks of 1 and 6 seeds over 8 and 2048 points, a list with every
-lane masked and a seed of NaN. Tolerances are chip_smoke's: K1 bit-equal;
-K2/K3/K4 H and b per entry within 1e-4 x max|entry|, statistics within
-rel 1e-5.
+not a multiple of the K1 tile, half-pixel ties, points clipped onto the
+border and points in a neighbouring tile's halo, and the tracker's
+78-pose escalation batch, and for K4 (the loop estimator's pass over
+metric points) stacks of 1 and 6 seeds over 8 and 2048 points, a list
+with every lane masked and a seed of NaN. Tolerances are chip_smoke's: K1
+bit-equal; K2/K3/K4 H and b per entry within 1e-4 x max|entry|,
+statistics within rel 1e-5. K1 and K3-LM are also shown to be one kernel
+launch with no host synchronisation. The resident LM kernels' part is
+described below.
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
@@ -80,6 +83,71 @@ def test_distance_map_bit_equal(dev, h2, w2, n):
     assert torch.equal(got, dm.build_distance_map_plain(*args, h2, w2))
     cpu = dm.build_distance_map_plain(*[a.cpu() for a in args], h2, w2)
     assert torch.equal(got.cpu(), cpu)
+
+
+# aten operators that make views or allocate, and launch no kernel
+KERNEL_FREE = {"aten::view", "aten::view.dtype", "aten::detach", "aten::alias",
+               "aten::empty.memory_format", "aten::select.int", "aten::slice.Tensor",
+               "aten::_reshape_alias", "aten::as_strided"}
+
+
+def _launches(fn):
+    """(the port's kernel entry points fn() calls, the aten operators it
+    dispatches): with the second all in KERNEL_FREE, the first is every
+    kernel fn() launches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from direct_stereo_slam_tpu_torch.ops import _cuda
+
+    entries, ops = [], []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func.name())
+            return func(*args, **(kwargs or {}))
+
+    call = _cuda.call
+
+    def counted(name, *args):
+        entries.append(name)
+        return call(name, *args)
+
+    _cuda.call = counted
+    try:
+        with Record():
+            fn()
+    finally:
+        _cuda.call = call
+    assert set(ops) <= KERNEL_FREE, ops
+    return entries
+
+
+def _no_sync(fn):
+    """fn() with every host synchronisation an error."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("h2,w2", [(70, 100), (184, 616)])
+def test_distance_map_edges_one_launch(dev, h2, w2):
+    """Points on and beside the 32-px tile borders (a neighbour's halo
+    carries them), at half-pixel ties on the borders, far outside the grid
+    (clipped onto its border rows and columns) and masked ones: bit-equal,
+    in one kernel launch and no host synchronisation."""
+    xs = np.array([31.4, 31.5, 32.5, 15.9, 16.1, 47.6, 48.4, 63.5, 64.5, -40.0,
+                   w2 + 30.0, w2 - 0.5, 0.49, -0.5, 95.5, w2 - 1.5], np.float32)
+    ys = np.array([0.5, 31.5, 33.0, 47.5, 16.5, -3.0, h2 + 7.0, 1.5, 32.5, 12.0,
+                   40.0, h2 - 0.5, 63.49, 64.5, 2.5, -0.5], np.float32)
+    mask = np.ones(len(xs), bool)
+    mask[5] = False
+    args = [torch.as_tensor(a, device=dev) for a in (xs, ys, mask)]
+    got = _no_sync(lambda: dm.build_distance_map(*args, h2, w2))
+    assert torch.equal(got, dm.build_distance_map_plain(*args, h2, w2))
+    assert float(got.min()) == 0.0 and float(got.max()) == 16.0
+    assert _launches(lambda: dm.build_distance_map(*args, h2, w2)) == ["dsslam_distance_map"]
 
 
 @pytest.mark.parametrize("n,B,flow", [(1, 1, True), (300, 5, True),
@@ -493,6 +561,171 @@ def test_loop_pose_lm_bit_equal_and_one_launch_per_batch(scene):
 
 
 def test_lm_clusters_fit(scene):
-    """Several 8-block clusters of either kernel fit on the card at once."""
-    assert rlm.max_active_clusters(False, 8192) >= 2
-    assert rlm.max_active_clusters(True, 2048) >= 2
+    """Several 8-block clusters of each LM kernel fit on the card at once."""
+    assert rlm.max_active_clusters("track", 8192) >= 2
+    assert rlm.max_active_clusters("scale", 8192) >= 2
+    assert rlm.max_active_clusters("loop_pose", 2048) >= 2
+
+
+# ---------------------------------------------------------------------------
+# K3-LM: the stereo scale LM against its plain loops
+# ---------------------------------------------------------------------------
+#
+# Frame 0 of the rendered pair: templates of the left image on budgets of
+# base 8192 and 512, against the right image's pyramid. "live" templates
+# have every lane live at sub-pixel positions with idepths wrong by 1.6, so
+# the LM moves; "padded" ones are the same with the last fifth of each
+# level padded as build_template pads (pid = 0, colour 0, mask False),
+# which makes every pass's H and b NaN (each step zeroed and rejected).
+# Sub-pixel positions keep rows off the strict Kv bounds, where one
+# rounding of the plain passes' unfused multiply-adds could move a whole
+# row (ROADMAP §3, exact-row ties). One guess (the trapped case) and the
+# front end's grid of 8. K3-LM is held against the Python loop over the
+# per-pass K3 and over plain passes by utils/lm_agreement.py's rule (scale
+# and error within 1e-3 relative; a guess may differ only where the loops
+# differ among themselves when the lanes are reordered), with the same
+# accept/trap decision and the chosen scale and error within 1e-3.
+
+from direct_stereo_slam_tpu_torch.models import scale_opt as so  # noqa: E402
+
+SCALE_LOOPS = (so.optimize_scale_batch_plain,
+               partial(so.optimize_scale_batch_plain,
+                       residual_pass=rh.scale_residual_pass_plain))
+
+
+@pytest.fixture(scope="module")
+def scale_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    dev = torch.device("cuda")
+    ds = SyntheticStereoDataset(n_frames=1, width=LW, height=LH, device=dev)
+    f0 = ds.frame(0)
+    K = ds.K
+    intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], LW, LH, LL)
+    cfg = make_config(LW, LH, preset=0, mode=1)
+    cfg = cfg.replace(tracker=cfg.tracker.__class__(pyr_levels=LL,
+                                                    max_iterations=(10, 20, 50)))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    img0 = t(f0["img0"])
+    pyr0 = tuple(build_pyramid(img0, LL).data)
+    depth = f0["depth0"]
+    rng = np.random.RandomState(5)
+    templates = {}
+    for base in (8192, 512):
+        budgets = dt.default_budgets(LW, LH, LL, base=base)
+        cols = {k: [] for k in dt.TrackerTemplate._fields}
+        for lvl, n in enumerate(budgets):
+            u = rng.uniform(4, (LW >> lvl) - 5, n).astype(np.float32)
+            v = rng.uniform(4, (LH >> lvl) - 5, n).astype(np.float32)
+            d = depth[(v * (1 << lvl)).astype(int), (u * (1 << lvl)).astype(int)]
+            cols["pu"].append(t(u))
+            cols["pv"].append(t(v))
+            cols["pid"].append(t((1.6 / d).astype(np.float32)))
+            cols["pcolor"].append(bilinear_gather_scalar(pyr0[lvl][..., 0], t(u), t(v)))
+            cols["pmask"].append(torch.ones(n, dtype=torch.bool, device=dev))
+        live = dt.TrackerTemplate(*[tuple(cols[k]) for k in dt.TrackerTemplate._fields])
+        pad = [torch.arange(len(x), device=dev) >= 0.8 * len(x) for x in live.pu]
+        templates[("live", base)] = live
+        templates[("padded", base)] = live._replace(
+            pid=tuple(torch.where(m, 0.0, x) for x, m in zip(live.pid, pad)),
+            pcolor=tuple(torch.where(m, 0.0, x) for x, m in zip(live.pcolor, pad)),
+            pmask=tuple(~m for m in pad))
+    return dict(dev=dev, cfg=cfg, intr=intr, templates=templates, t10=ds.t_cam1_cam0,
+                pyr_r=tuple(build_pyramid(t(f0["img1"]), LL).data))
+
+
+def _scale_args(sc, kind, base, G, cfg=None):
+    cfg = cfg or sc["cfg"]
+    guesses = (1.0,) if G == 1 else cfg.scale_opt.grid_guesses
+    return (sc["pyr_r"], sc["templates"][(kind, base)],
+            torch.tensor(guesses, dtype=torch.float32, device=sc["dev"]), sc["intr"],
+            sc["intr"], sc["t10"], cfg)
+
+
+def _decision(r, cfg, trapped):
+    """decide_scale_optimization on host copies: (accepted, the state
+    after it, the chosen scale and error)."""
+    state = so.ScaleState(trapped=trapped)
+    accepted, scale, error, state = so.decide_scale_optimization(
+        r.scale.cpu().numpy(), r.error.cpu().numpy(), cfg, state)
+    return accepted, vars(state), (scale, error)
+
+
+def _same_scale(got, args):
+    """K3-LM's guesses against both loops by the measured rule, the same
+    accept/trap decision and the same chosen scale and error."""
+    refs = {"K3 loop": SCALE_LOOPS[0](*args), "plain": SCALE_LOOPS[1](*args)}
+    agr = lma.check(got, refs, lma.reordered_scale_runs(args, SCALE_LOOPS))
+    assert agr.ok, (str(agr), got.scale, [r.scale for r in refs.values()])
+    cfg, trapped = args[-1], args[2].shape[0] == 1
+    mine = _decision(got, cfg, trapped)
+    for ref in refs.values():
+        theirs = _decision(ref, cfg, trapped)
+        assert mine[:2] == theirs[:2]
+        assert mine[2] == pytest.approx(theirs[2], rel=1e-3)
+    return agr
+
+
+@pytest.mark.parametrize("kind", ["live", "padded"])
+@pytest.mark.parametrize("base", [8192, 512])
+@pytest.mark.parametrize("G", [1, 8])
+def test_scale_lm_matches_loops(scale_scene, kind, base, G):
+    args = _scale_args(scale_scene, kind, base, G)
+    k3, lm = rh.scale_residual_pass_cuda.launches, rlm.scale_lm_cuda.launches
+    got = so.optimize_scale_batch(*args)
+    assert rlm.scale_lm_cuda.launches == lm + 1
+    assert rh.scale_residual_pass_cuda.launches == k3
+    _same_scale(got, args)
+    if kind == "padded":             # NaN H and b: no guess moves
+        assert torch.equal(got.scale, args[2])
+    else:                            # the guess 1.0 recovers the factor 1.6
+        one = list(args[2].tolist()).index(1.0)
+        assert abs(float(got.scale[one]) - 1.6) / 1.6 < 0.05
+
+
+@pytest.mark.parametrize("kind,cutoff", [("live", 2.0), ("padded", 20.0)])
+def test_scale_lm_passes_per_level(scale_scene, kind, cutoff):
+    """One guess runs as many passes per level as the Python loop: with a
+    cutoff of 2 gray levels the pre-loop doubles it and the doubled level
+    runs again (the one-shot repeat); on the padded template every pass's H
+    is NaN, so every LM step is zeroed and rejected."""
+    import dataclasses
+    cfg = scale_scene["cfg"]
+    cfg = cfg.replace(tracker=dataclasses.replace(cfg.tracker, coarse_cutoff_th=cutoff))
+    args = _scale_args(scale_scene, kind, 8192, 1, cfg)
+    calls = []
+
+    def counted(*a, **kw):
+        out = rh.scale_residual_pass(*a, **kw)
+        calls.append((a[0].shape[0], float(a[-1]), bool(torch.isnan(out.H).all())))
+        return out
+
+    so.optimize_scale_batch_plain(*args, residual_pass=counted)
+    o = rlm.scale_lm_cuda(*args)
+    _same_scale(so.optimize_scale_batch(*args), args)
+    per_level = [sum(1 for h, _, _ in calls if h == scale_scene["pyr_r"][l].shape[0])
+                 for l in range(LL)]
+    assert o.passes[0].tolist() == per_level
+    if kind == "live":
+        assert max(c for _, c, _ in calls) > cutoff and float(o.repeat[0].max()) > 1.0
+    else:
+        assert all(nan for _, _, nan in calls)
+
+
+@pytest.mark.parametrize("G", [1, 8])
+def test_scale_lm_bit_equal_one_launch_no_host_read(scale_scene, G):
+    """Two launches give the same bits; optimize_scale_batch, and the front
+    end's dispatch once its guesses are on the card, are one kernel launch
+    with no host synchronisation."""
+    args = _scale_args(scale_scene, "live", 8192, G)
+    a, b = rlm.scale_lm_cuda(*args), rlm.scale_lm_cuda(*args)
+    for x, y in zip(a, b):
+        assert torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0))
+    out = _no_sync(lambda: so.optimize_scale_batch(*args))
+    assert torch.equal(out.scale, a.scale)
+    assert _launches(lambda: so.optimize_scale_batch(*args)) == ["dsslam_scale_lm"]
+    state = so.ScaleState(trapped=G == 1)
+    disp = (args[0], args[1], args[3], args[4], args[5], args[6], state)
+    so.dispatch_scale_optimization(*disp)            # puts the guesses on the card
+    got = _no_sync(lambda: so.dispatch_scale_optimization(*disp))
+    assert torch.equal(got.scale, a.scale)

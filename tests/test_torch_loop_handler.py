@@ -7,10 +7,15 @@ trajectory must agree within 1e-3 m. The threaded port handler must give
 what the synchronous one gives. The MarginalizedKF records cross over
 through ``utils.convert``; both handlers run on the CPU."""
 
+import threading
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
 from direct_stereo_slam_tpu.loop.handler import LoopHandler as HandlerJ
+from direct_stereo_slam_tpu_torch.config import make_config
+from direct_stereo_slam_tpu_torch.geometry.camera import make_pyramid_intrinsics
 from direct_stereo_slam_tpu_torch.loop.handler import LoopHandler as HandlerT
 from direct_stereo_slam_tpu_torch.utils.convert import to_torch
 from direct_stereo_slam_tpu_torch.utils.convert import config_from_jax as port_cfg
@@ -89,3 +94,38 @@ def test_threaded_resolves_from_config(handlers):
         h = HandlerT(port_cfg(c), intr, device="cpu")
         assert h.threaded is flag
         h.close()
+
+
+def test_threaded_failure_is_raised():
+    """The threaded handler does not swallow a failure: processing raises on
+    the second keyframe, the later ones are drained without being
+    processed, and close() (and join()) raise it, chained, without
+    hanging."""
+    intr = make_pyramid_intrinsics(100.0, 100.0, 63.5, 39.5, 128, 80, 3)
+    handler = HandlerT(make_config(128, 80), intr, threaded=True, device="cpu")
+    seen = []
+
+    def process(mkf):
+        seen.append(mkf.kf_id)
+        if mkf.kf_id == 1:
+            raise ValueError("keyframe 1")
+
+    handler._process = process
+    for i in range(4):
+        handler.publish_keyframe(SimpleNamespace(kf_id=i))
+    raised = []
+
+    def close():
+        try:
+            handler.close()
+        except RuntimeError as e:
+            raised.append(e)
+
+    t = threading.Thread(target=close, daemon=True)
+    t.start()
+    t.join(timeout=30.0)
+    assert not t.is_alive(), "close() hung"
+    assert len(raised) == 1 and isinstance(raised[0].__cause__, ValueError)
+    assert seen == [0, 1]
+    with pytest.raises(RuntimeError):
+        handler.join()

@@ -1,11 +1,12 @@
 """The host side of the resident LM kernels (``ops/resident_lm.py``) on the
-CPU: the ctypes mirror of the kernel's parameter struct has the layout
-``csrc/resident_lm.cu`` asserts (the module also checks it against the
-built library before a launch), the slice sizes match the kernel's,
-scalars pass by address or by value, CPU tensors take the plain LM loops
-without touching the kernels' launch counters, and the rule that holds
-the kernels to those loops (``utils/lm_agreement.py``) passes the loops
-in other lane orders and catches a candidate that moved."""
+CPU: the ctypes mirrors of the kernels' parameter structs have the layouts
+``csrc/resident_lm.cu`` asserts (the module also checks them against the
+built library before a launch), K3-LM's struct carries each level's
+camera-1 intrinsics, ``R01 K0^-1`` and iterations, the slice sizes match
+the kernel's, scalars pass by address or by value, CPU tensors take the
+plain LM loops without touching the kernels' launch counters, and the
+rule that holds the kernels to those loops (``utils/lm_agreement.py``)
+passes the loops in other lane orders and catches a candidate that moved."""
 
 import ctypes
 
@@ -17,6 +18,7 @@ from direct_stereo_slam_tpu_torch.config import make_config
 from direct_stereo_slam_tpu_torch.geometry import lie
 from direct_stereo_slam_tpu_torch.geometry.camera import make_pyramid_intrinsics
 from direct_stereo_slam_tpu_torch.loop import pose_estimator as pe
+from direct_stereo_slam_tpu_torch.models import scale_opt as so
 from direct_stereo_slam_tpu_torch.models import tracker as tr
 from direct_stereo_slam_tpu_torch.models.depth_template import TrackerTemplate
 from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
@@ -34,6 +36,15 @@ def test_struct_layout_matches_the_kernel():
     assert ctypes.sizeof(rlm._Scalar) == 16
     assert ctypes.sizeof(rlm.LmParams) == 1288
     assert rlm.LmParams.pre.offset == 1200 and rlm.LmParams.chunk.offset == 1284
+
+
+def test_scale_struct_layout_matches_the_kernel():
+    assert ctypes.sizeof(rlm.ScaleLmParams) == 1168
+    assert rlm.ScaleLmParams.s_init.offset == 1088
+    assert rlm.ScaleLmParams.t01.offset == 1104
+    assert rlm.ScaleLmParams.huber.offset == 1116
+    assert rlm.ScaleLmParams.levels.offset == 1152
+    assert rlm.ScaleLmParams.chunk.offset == 1160
 
 
 @pytest.mark.parametrize("n,per", [(0, 0), (1, 4), (8, 4), (33, 8), (512, 64),
@@ -163,3 +174,68 @@ def test_agreement_allows_only_order_sensitive_candidates():
     T = torch.eye(4).repeat(3, 1, 1)
     T[1, 2, 3] = 2e-3
     assert not lma.check(_run(base, ok, T), refs, [other]).ok
+
+
+def _scale_args():
+    """The tracker batch's template and pyramid as a scale problem: camera
+    1's intrinsics differ from camera 0's, and the extrinsics rotate."""
+    args, _ = _lm_args()
+    pyr, tmpl, intr0, cfg = args[:4]
+    intr1 = make_pyramid_intrinsics(62.0, 61.0, W / 2 + 0.5, H / 2 - 1.5, W, H, L)
+    T10 = np.eye(4, dtype=np.float32)
+    T10[:3, :3] = lie.se3_exp_np([0.0, 0.0, 0.0, 0.01, -0.02, 0.005])[:3, :3]
+    T10[:3, 3] = [-0.54, 0.01, 1e-3]
+    return (pyr, tmpl, torch.tensor([0.5, 1.0, 2.0]), intr0, intr1, T10, cfg)
+
+
+def test_scale_params_per_level():
+    """Each level of K3-LM's struct: camera 1's image, size, bounds and
+    intrinsics, the template's lists, R01 K0^-1 formed in f32 as the plain
+    loop forms it, and the level's iterations; t01, the LM's scalars, the
+    guesses and the slice size beside them."""
+    pyr, tmpl, s0, intr0, intr1, T10, cfg = args = _scale_args()
+    out = torch.empty(3, rlm.SCALE_OUT)
+    p = rlm.scale_lm_params(*args, out)
+    assert (p.levels, p.G, p.s_init, p.out) == (L, 3, s0.data_ptr(), out.data_ptr())
+    assert p.chunk == rlm.slice_len(128)
+    np.testing.assert_array_equal(np.array(p.t01), T10[:3, 3])
+    tc = cfg.tracker
+    assert (p.huber, p.coarse_cutoff, p.cutoff_repeat_max) == (
+        tc.huber_th, tc.coarse_cutoff_th, tc.cutoff_repeat_max)
+    assert p.lambda_lim == pytest.approx(tc.lambda_extrapolation_limit, rel=1e-7)
+    for lvl in range(L):
+        lv = p.lv[lvl]
+        assert (lv.H, lv.W, lv.N) == (H >> lvl, W >> lvl, 128 >> lvl)
+        assert lv.img == pyr[lvl].data_ptr() and lv.p2 == tmpl.pid[lvl].data_ptr()
+        assert lv.pmask == tmpl.pmask[lvl].data_ptr() and lv.color_stride == 1
+        assert (lv.fx, lv.fy, lv.cx, lv.cy) == pytest.approx(
+            (intr1.fx[lvl], intr1.fy[lvl], intr1.cx[lvl], intr1.cy[lvl]))
+        assert lv.umax == np.float32((W >> lvl) - 1.001)
+        R01Ki = (torch.as_tensor(T10)[:3, :3]
+                 @ torch.as_tensor(intr0.Ki(lvl), dtype=torch.float32)).numpy()
+        np.testing.assert_allclose(np.array(lv.Ki), R01Ki.reshape(9), rtol=1e-6, atol=1e-9)
+        assert lv.max_iters == tc.max_iterations[lvl] and lv.compute_flow == 0
+
+
+def test_scale_cpu_tensors_take_the_plain_loop():
+    """optimize_scale_batch on CPU tensors is the plain loop and counts no
+    launch of K3-LM or of the per-pass K3."""
+    args = _scale_args()
+    counts = (rlm.scale_lm_cuda.launches, rh.scale_residual_pass_cuda.launches)
+    a, b = so.optimize_scale_batch(*args), so.optimize_scale_batch_plain(*args)
+    assert torch.equal(a.scale, b.scale) and torch.equal(a.error, b.error)
+    assert counts == (rlm.scale_lm_cuda.launches, rh.scale_residual_pass_cuda.launches)
+
+
+def test_agreement_on_scale_results():
+    """The rule on scale results: scale and error within 1e-3 relative,
+    ok where the error counts (> 0); the reordered plain loops pass, a
+    guess moved by 1e-2 relative fails."""
+    args = _scale_args()
+    ref = so.optimize_scale_batch_plain(*args)
+    runs = lma.reordered_scale_runs(args, [so.optimize_scale_batch_plain])
+    assert len(runs) == lma.ORDERS
+    assert lma.check(ref, {"loop": ref}, runs).ok
+    moved = ref._replace(scale=ref.scale * torch.tensor([1.0, 1.01, 1.0]))
+    bad = lma.check(moved, {"loop": ref}, runs)
+    assert not bad.ok and bad.differ == {"loop": 1}
