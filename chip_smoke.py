@@ -39,7 +39,26 @@ Phases, each of which must pass (any fault exits non-zero):
    first pass with a device synchronize at the end of every span gives
    the per-stage table; FPS, ``track`` per frame and ``scale_opt`` per
    keyframe come from the second pass, without them;
-5. loop closure: the port's SLAMNode with its threaded LoopHandler (as
+5. pipelined tracking: the e2e sequence in turns synchronous, pipelined,
+   pipelined, synchronous, twice (FPS of each mode from the same
+   process), then one pass of each with the host's blocking waits on the
+   card counted per call (``WaitCounter``). The last pipelined pass:
+   initialised, never lost, ATE < 2% of the path, keyframe count within
+   2 of the first synchronous pass, mean per-frame translation
+   difference to it < 5% of the distance travelled, at least one
+   keyframe flush retrack, nothing in flight after ``finish``, K1, K2-LM
+   and K3-LM launched and the per-pass K2/K3 not;
+6. the monocular bootstrap in DSO mode (``mono_initializer``, no stereo
+   scale, zeros for the right image) on test_mono_frontend_e2e.py's 40
+   poses at 1232x368, frames cut to uint8 as a camera gives them:
+   keyframe 0 within ``mono_init_max_frames``, never lost, >= 3
+   keyframes, Sim(3)-aligned ATE < 0.35 m, K1 and K2-LM launched; ms per
+   bootstrap frame (``mono_init.track_frame``, plain PyTorch on the
+   card);
+7. undistortion: the ``Undistorter`` on tests/fixtures/realformat on the
+   card against the same call on the CPU, within 1e-3 gray levels; ms
+   per frame;
+8. loop closure: the port's SLAMNode with its threaded LoopHandler (as
    ``run_slam`` runs them) over 160 frames (2 laps at 4.5 deg/frame) of
    the loop room at 1232x368, images quantised to uint8, loop_margin 40:
    at least one verified loop, the loop-closed (dslam) ATE below the
@@ -49,13 +68,17 @@ Phases, each of which must pass (any fault exits non-zero):
    run (the handler re-raises it when it is drained).
 
 Options: --profile DIR profiles one more end-to-end pass; --long also
-runs the full 320-frame loop protocol (loop_margin 100), printed beside
-the JAX package's TPU record of the same protocol, then an 80-frame loop
-and a 120-frame forward sequence at the same size with the error of every
-frame (reported, not gated), each of those also through the port on the
-host CPU, frame by frame against the card.
+runs the mono sequence on the float render and on six dithered uint8
+inputs, the 160-frame loop phase pipelined, the full 320-frame loop
+protocol (loop_margin 100), printed beside the JAX package's TPU record
+of the same protocol, then an 80-frame loop and a 120-frame forward
+sequence at the same size with the error of every frame (reported, not
+gated), each of those also through the port on the host CPU, frame by
+frame against the card.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (each row's
+launches in the e2e or loop phase, in the last pipelined pass and per
+frame of it, and in the mono phase); the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX nor of
 the JAX package, and checks so before its last line.
 """
@@ -700,10 +723,14 @@ def e2e_profile(torch, run_once, out_dir: str) -> None:
         f.write(events.table(sort_by="self_device_time_total", row_limit=80))
 
 
-def run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev, sync_timers=False):
+def run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev, sync_timers=False,
+                 per_call=None):
     """One pass of a fresh SLAMNode over the frames: (node, shells, frames
     at which the node reset the front end, seconds ending in a device
-    synchronize)."""
+    synchronize). In pipelined mode a call returns its frame's shell in
+    flight: it is completed in place one call later (the last one by
+    ``finish``). ``per_call(node, process)`` wraps each frame's call when
+    given."""
     node = SLAMNode(cfg, intr, intr, ds.t_cam1_cam0, device=dev,
                     sync_timers=sync_timers)
     shells, resets = [], []
@@ -712,9 +739,11 @@ def run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev, sync_timers=False)
     t0 = time.perf_counter()
     for i, f in enumerate(frames):
         fe = node.frontend
-        shells.append(node.process(f["img0"], f["img1"], float(f["timestamp"])))
+        process = partial(node.process, f["img0"], f["img1"], float(f["timestamp"]))
+        shells.append(per_call(node, process) if per_call else process())
         if node.frontend is not fe:
             resets.append(i)
+    node.finish()
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return node, shells, resets, time.perf_counter() - t0
@@ -812,11 +841,334 @@ def e2e_phase(torch, dev, profile_dir=None):
     return launches
 
 
+def with_runtime(cfg, **runtime):
+    import dataclasses
+    return cfg.replace(runtime=dataclasses.replace(cfg.runtime, **runtime))
+
+
+class WaitCounter:
+    """Wraps each SLAMNode call and counts the host's blocking waits on the
+    card in it: the synchronizing operations PyTorch reports under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (a read of a device value,
+    a copy to pageable memory, a stream or device synchronize) plus the
+    CUDA event waits (``torch.cuda.Event.synchronize``, the pipelined
+    consume's wait). A call is "benign" when it tracked one frame with one
+    K2-LM launch and completed a frame that is no keyframe (pipelined: and
+    neither escalated nor retracked)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = []          # (kind, waits)
+        self.sites = {}          # kind -> {file:line of a reported wait: count}
+
+    def __call__(self, node, process):
+        import warnings
+
+        from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
+
+        torch = self.torch
+        fe = node.frontend
+        before = (fe.last_completed_shell, fe.pl_escalations, fe.pl_retracks,
+                  rlm.track_lm_cuda.launches)
+        events = [0]
+        event_sync = torch.cuda.Event.synchronize
+
+        def counted(ev):
+            events[0] += 1
+            return event_sync(ev)
+
+        torch.cuda.Event.synchronize = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                shell = process()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.Event.synchronize = event_sync
+        synced = [w for w in caught if "synchronizing CUDA operation" in str(w.message)]
+        waits = events[0] + len(synced)
+        done = node.frontend.last_completed_shell
+        fresh = node.frontend is fe and done is not None and done is not before[0]
+        one_track = rlm.track_lm_cuda.launches - before[3] == 1
+        calm = (fe.pl_escalations, fe.pl_retracks) == before[1:3]
+        if fresh and done.is_kf:
+            kind = "keyframe"
+        elif fresh and one_track and calm:
+            kind = "benign"
+        else:
+            kind = "other"
+        self.calls.append((kind, waits))
+        sites = self.sites.setdefault(kind, {})
+        for w in synced:
+            site = f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+        if events[0]:
+            sites["Event.synchronize"] = sites.get("Event.synchronize", 0) + events[0]
+        return shell
+
+    def summary(self) -> dict:
+        out = {}
+        for kind in ("benign", "keyframe", "other"):
+            w = [n for k, n in self.calls if k == kind]
+            if w:
+                top = sorted(self.sites.get(kind, {}).items(), key=lambda kv: -kv[1])[:6]
+                out[kind] = dict(calls=len(w), median=float(np.median(w)),
+                                 mean=float(np.mean(w)), max=int(max(w)), sites=dict(top))
+        return out
+
+
+def pipelined_phase(torch, dev):
+    """The e2e sequence again in both tracking modes, in turns synchronous,
+    pipelined, pipelined, synchronous, twice; then one pass of each with
+    the blocking waits counted. Gates on the last pipelined pass against
+    the first synchronous one. Returns the last pipelined pass's kernel
+    launches."""
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
+    cfgs = {"synchronous": cfg, "pipelined": with_runtime(cfg, pipelined_tracking=True)}
+    counters = kernel_counters()
+    runs = {mode: [] for mode in cfgs}
+    launches = None
+    for mode in ("synchronous", "pipelined", "pipelined", "synchronous") * 2:
+        for fn in counters.values():
+            fn.launches = 0
+        runs[mode].append(run_sequence(torch, SLAMNode, cfgs[mode], intr, ds, frames, dev))
+        if mode == "pipelined":
+            launches = {name: fn.launches for name, fn in counters.items()}
+    fps = {mode: [E2E_FRAMES / r[3] for r in rs] for mode, rs in runs.items()}
+    waits = {}
+    for mode, c in cfgs.items():
+        counter = WaitCounter(torch)
+        run_sequence(torch, SLAMNode, c, intr, ds, frames, dev, per_call=counter)
+        waits[mode] = counter.summary()
+
+    node_s, shells_s, _, _ = runs["synchronous"][0]
+    node, shells, resets, dt = runs["pipelined"][-1]
+    fe = node.frontend
+    est, gt, path = translations(frames, shells)
+    est_s = translations(frames, shells_s)[0]
+    errs = np.linalg.norm(est[1:] - gt[1:], axis=1)
+    ate = float(np.sqrt(np.mean(errs ** 2)))
+    kfs = [i for i, s in enumerate(shells) if s.is_kf]
+    kfs_s = [i for i, s in enumerate(shells_s) if s.is_kf]
+    diff = float(np.mean(np.linalg.norm(est - est_s, axis=1)))
+    travelled = float(np.linalg.norm(est_s[-1] - est_s[0]))
+    print(f"pipelined: FPS synchronous {' / '.join(f'{x:.3f}' for x in fps['synchronous'])} "
+          f"(median {np.median(fps['synchronous']):.3f}), pipelined "
+          f"{' / '.join(f'{x:.3f}' for x in fps['pipelined'])} (median "
+          f"{np.median(fps['pipelined']):.3f}); turns s, p, p, s, s, p, p, s, {E2E_FRAMES} "
+          f"frames each, same process", flush=True)
+    for mode in cfgs:
+        print(f"pipelined: blocking waits per call, {mode}: {waits[mode]}", flush=True)
+    print(f"pipelined: keyframes {len(kfs)} at {kfs} (synchronous {len(kfs_s)} at "
+          f"{kfs_s}); ATE {ate:.4f} m over {path:.2f} m ({100 * ate / path:.3f}%); mean "
+          f"translation difference to the synchronous pass {diff:.4f} m "
+          f"({100 * diff / travelled:.2f}% of {travelled:.2f} m); pl_escalations "
+          f"{fe.pl_escalations}, pl_retracks {fe.pl_retracks}", flush=True)
+    print(f"pipelined kernel launches: {launches}; K2-LM per frame "
+          f"{launches['track_lm'] / E2E_FRAMES:.3f} (synchronous pass: "
+          f"{node_s.timers.count('track')} track spans); track "
+          f"{node.timers.average_ms('track'):.3f} ms x {node.timers.count('track')} (synchronous "
+          f"{node_s.timers.average_ms('track'):.3f} ms x {node_s.timers.count('track')})",
+          flush=True)
+    if not fe.initialized or fe.is_lost or fe.init_failed or resets:
+        fail(f"pipelined: initialized={fe.initialized} lost={fe.is_lost} "
+             f"init_failed={fe.init_failed} resets at {resets}")
+    if fe._pl_inflight is not None:
+        fail("pipelined: a frame is still in flight after finish")
+    if not np.all(np.isfinite(est)) or not ate < 0.02 * path:
+        fail(f"pipelined: ATE {ate:.4f} m >= 2% of {path:.2f} m")
+    if abs(len(kfs) - len(kfs_s)) > 2:
+        fail(f"pipelined: {len(kfs)} keyframes against {len(kfs_s)} synchronous")
+    if not diff < 0.05 * travelled:
+        fail(f"pipelined: mean difference {diff:.4f} m >= 5% of {travelled:.2f} m")
+    if fe.pl_retracks < 1:
+        fail("pipelined: no keyframe flush retracked the frame in flight")
+    gate_launches("pipelined", launches, E2E_KERNELS)
+    return launches
+
+
+MONO_FRAMES = 40
+
+
+def mono_sequence(dev):
+    """test_mono_frontend_e2e.py's 40 poses rendered at KITTI size (12
+    sideways frames, then forward with a slight lateral drift) and the
+    DSO-mode configuration: the monocular bootstrap, no stereo scale."""
+    import dataclasses
+
+    from direct_stereo_slam_tpu_torch.config import make_config
+    from direct_stereo_slam_tpu_torch.geometry.camera import make_pyramid_intrinsics
+    from direct_stereo_slam_tpu_torch.io.synthetic import SyntheticStereoDataset
+
+    n = MONO_FRAMES
+    ds = SyntheticStereoDataset(n_frames=n, width=W, height=H, speed=0.0, device=dev)
+    poses, T = [], np.eye(4, dtype=np.float32)
+    for i in range(n):
+        poses.append(T.copy())
+        T = T.copy()
+        T[0, 3] += 0.12 if i < 12 else 0.04
+        T[2, 3] += 0.03 if i < 12 else 0.1
+    ds.poses = np.stack(poses)
+    t0 = time.perf_counter()
+    frames = [ds.frame(i) for i in range(n)]
+    print(f"mono: rendered {n} frames {W}x{H} in {time.perf_counter() - t0:.2f} s (set-up)",
+          flush=True)
+    cfg = make_config(W, H, preset=0, mode=1)
+    cfg = cfg.replace(scale_opt=dataclasses.replace(cfg.scale_opt, accept_thres=-1.0),
+                      runtime=dataclasses.replace(cfg.runtime, mono_initializer=True))
+    K = ds.K
+    intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], W, H,
+                                   cfg.tracker.pyr_levels)
+    return ds, frames, cfg, intr
+
+
+def quantised(img, dither_seed=None):
+    """An image as a camera or dataset reader gives it: cut to uint8
+    (truncating, as QuantisedFrames), after a +-0.5 gray-level dither
+    when a seed is given."""
+    if dither_seed is not None:
+        img = img + np.random.RandomState(dither_seed).uniform(-0.5, 0.5, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def mono_run(torch, dev, seq, left):
+    """One DSO-mode pass of a fresh SLAMNode (zeros for the right image:
+    DSO mode never reads it); ``left(i, frame)`` gives the left image.
+    Returns the pass's figures and kernel launches."""
+    from direct_stereo_slam_tpu_torch.runtime.eval import ate_rmse
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    ds, frames, cfg, intr = seq
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    node = SLAMNode(cfg, intr, intr, ds.t_cam1_cam0, device=dev)
+    zeros = np.zeros_like(frames[0]["img1"])
+    shells, resets, boot_ms, snap = [], [], [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        fe = node.frontend
+        tracking = fe.mono_state is not None
+        t1 = time.perf_counter()
+        shells.append(node.process(left(i, f), zeros, 0.1 * i))
+        if tracking and not node.frontend.initialized:
+            boot_ms.append(1e3 * (time.perf_counter() - t1))   # is_done read the card
+        if node.frontend is not fe:
+            resets.append((i, "lost" if fe.is_lost else "init failed"))
+        if snap is None and node.frontend.initialized:
+            snap = i
+    node.finish()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    idx = [i for i, s in enumerate(shells) if s.tracking_ref_kf >= 0 or s.is_kf]
+    ate = None
+    if len(idx) >= 3:
+        # the bootstrap hand-off frame is left out, as the test does
+        est = np.stack([shells[i].T_wc[:3, 3] for i in idx])[1:].astype(np.float64)
+        ate = ate_rmse(est, ds.poses[idx][1:, :3, 3].astype(np.float64), align="sim3")
+    return dict(snap=snap, resets=resets, boot_ms=boot_ms, dt=dt, ate=ate, tracked=len(idx),
+                fe=node.frontend, launches={n: fn.launches for n, fn in counters.items()})
+
+
+def mono_summary(tag, r) -> str:
+    return (f"{tag}: {MONO_FRAMES} frames in {r['dt']:.2f} s ({MONO_FRAMES / r['dt']:.3f} FPS); "
+            f"keyframe 0 made at frame {r['snap']}; {len(r['boot_ms'])} bootstrap frames, "
+            f"{np.mean(r['boot_ms']) if r['boot_ms'] else 0:.2f} ms per bootstrap frame "
+            f"(median {np.median(r['boot_ms']) if r['boot_ms'] else 0:.2f}); keyframes "
+            f"{len(r['fe'].kf_shells)}; tracked frames {r['tracked']}; Sim(3) ATE {r['ate']} m; "
+            f"resets {r['resets']}")
+
+
+def mono_phase(torch, dev):
+    """DSO mode on the mono sequence, its frames cut to uint8 as a camera
+    gives them. Returns the run's kernel launches."""
+    from direct_stereo_slam_tpu_torch.models import mono_init
+    from direct_stereo_slam_tpu_torch.ops.pyramid import build_pyramid
+
+    seq = mono_sequence(dev)
+    r = mono_run(torch, dev, seq, lambda i, f: quantised(f["img0"]))
+    print(mono_summary("mono", r), flush=True)
+    print(f"mono kernel launches: {r['launches']}", flush=True)
+    # one bootstrap step alone: the time for the host to queue it against
+    # the time until the card has run it (equal: the host is the bound)
+    _, frames, cfg, intr = seq
+    pyrs = [build_pyramid(torch.as_tensor(quantised(frames[i]["img0"]), device=dev).float(),
+                          cfg.tracker.pyr_levels) for i in (0, 1)]
+    state = mono_init.create(pyrs[0], cfg, budget=cfg.ba.max_immature_per_frame)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mono_init.track_frame(state, tuple(pyrs[1].data), intr, cfg)
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        done = time.perf_counter() - t0
+    print(f"mono: one track_frame: queued by the host in {1e3 * queued:.2f} ms, run by "
+          f"the card {1e3 * done:.2f} ms after its start", flush=True)
+    fe, cfg = r["fe"], seq[2]
+    if r["snap"] is None or r["snap"] > cfg.runtime.mono_init_max_frames:
+        fail(f"mono: not initialized within {cfg.runtime.mono_init_max_frames} frames")
+    if fe.is_lost or fe.init_failed or r["resets"]:
+        fail(f"mono: lost={fe.is_lost} init_failed={fe.init_failed} resets {r['resets']}")
+    if len(fe.kf_shells) < 3:
+        fail(f"mono: only {len(fe.kf_shells)} keyframes")
+    if r["ate"] is None or not r["ate"] < 0.35:
+        fail(f"mono: Sim(3) ATE {r['ate']} m, not < 0.35 m")
+    gate_launches("mono", r["launches"], MONO_KERNELS)
+    return r["launches"]
+
+
+def mono_sweep(torch, dev) -> None:
+    """The mono sequence in other inputs (reported, not gated): the float
+    render itself and six +-0.5 gray-level dithers before the uint8 cut.
+    The bootstrap is ulp-sensitive (ROADMAP §3)."""
+    seq = mono_sequence(dev)
+    inputs = [("float", lambda i, f: f["img0"])] + [
+        (f"uint8 dither {d}", lambda i, f, d=d: quantised(f["img0"], 100 * d + i))
+        for d in range(6)]
+    for tag, left in inputs:
+        print(mono_summary(f"mono sweep, {tag}", mono_run(torch, dev, seq, left)), flush=True)
+
+
+def undistort_phase(torch, dev):
+    """The Undistorter on the real-format fixture (tests/fixtures/realformat:
+    PGM frames, RadTan camera.txt with crop, pcalib gamma, 16-bit
+    vignette) on the card against the same call on the CPU."""
+    import os
+
+    from direct_stereo_slam_tpu_torch.io.dataset import StereoDirDataset
+    from direct_stereo_slam_tpu_torch.io.undistort import Undistorter
+    from direct_stereo_slam_tpu_torch.utils import calib
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                       "realformat")
+    cam = calib.build_rectified_camera(os.path.join(fix, "camera.txt"))
+    binv = calib.parse_gamma(os.path.join(fix, "pcalib.txt"))
+    vig = calib.parse_vignette(os.path.join(fix, "vignette.png"))
+    ds = StereoDirDataset(os.path.join(fix, "image_0"), os.path.join(fix, "image_1"))
+    raws = [ds.frame(i)[k].astype(np.uint8) for i in range(len(ds)) for k in ("img0", "img1")]
+    card = Undistorter(cam, binv=binv, vignette=vig, device=dev)
+    host = Undistorter(cam, binv=binv, vignette=vig, device="cpu")
+    err = max(float(torch.max(torch.abs(card(r).cpu() - host(r)))) for r in raws)
+    ms = median_ms(torch, lambda: card(raws[0]))
+    print(f"undistort: {len(raws)} frames {raws[0].shape[1]}x{raws[0].shape[0]} -> "
+          f"{cam.w}x{cam.h} (gamma, vignette, RadTan remap): card vs CPU max abs "
+          f"{err:.3g} gray levels; {ms:.4f} ms per frame on the card (uint8 upload "
+          f"included)", flush=True)
+    if not err <= 1e-3:
+        fail(f"undistort: card and CPU differ by {err} gray levels")
+
+
 # the kernels each path must launch; the per-pass K2, K3 and K4 must not
 # (the tracker, the scale optimizer and the loop estimator run K2-LM,
 # K3-LM and K4-LM on the card)
 E2E_KERNELS = ("distance_map", "track_lm", "scale_lm")
 LOOP_KERNELS = E2E_KERNELS + ("loop_pose_lm",)
+# DSO mode makes no stereo scale optimization
+MONO_KERNELS = ("distance_map", "track_lm")
 OFF_PATH = ("pose_residual_pass", "scale_residual_pass", "pose3d_residual_pass")
 
 
@@ -849,8 +1201,7 @@ class QuantisedFrames:
     (np.clip(img, 0, 255).astype(np.uint8), truncating)."""
 
     def __init__(self, frames):
-        self.frames = [dict(f, img0=np.clip(f["img0"], 0, 255).astype(np.uint8),
-                            img1=np.clip(f["img1"], 0, 255).astype(np.uint8))
+        self.frames = [dict(f, img0=quantised(f["img0"]), img1=quantised(f["img1"]))
                        for f in frames]
 
     def __len__(self):
@@ -860,7 +1211,8 @@ class QuantisedFrames:
         return self.frames[i]
 
 
-def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True):
+def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
+               pipelined: bool = False):
     """The port's SLAMNode + threaded LoopHandler over the loop room.
     Returns the launch count of each kernel during the run."""
     import dataclasses
@@ -880,7 +1232,8 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True):
     print(f"loop {n_frames}: rendered {n_frames} frames {W}x{H} in "
           f"{time.perf_counter() - t0:.2f} s (set-up)", flush=True)
     cfg = make_config(W, H, preset=0, mode=1)
-    cfg = cfg.replace(loop=dataclasses.replace(cfg.loop, loop_margin=loop_margin))
+    cfg = cfg.replace(loop=dataclasses.replace(cfg.loop, loop_margin=loop_margin),
+                      runtime=dataclasses.replace(cfg.runtime, pipelined_tracking=pipelined))
 
     counters = kernel_counters()
     for fn in counters.values():
@@ -894,7 +1247,7 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True):
     ate_o = score_rows(handler.odometry_rows(), gt)
     ate_d = score_rows(handler.optimized_rows(), gt)
     loops = handler.direct_loop_count + handler.icp_loop_count
-    tag = f"loop {n_frames} (margin {loop_margin})"
+    tag = f"loop {n_frames} (margin {loop_margin}{', pipelined' if pipelined else ''})"
     print(f"{tag}: {n_frames / dt:.3f} FPS ({dt:.2f} s, threaded loop handler drained, "
           f"synchronized); keyframes {node.frontend.num_kfs}, loop frames "
           f"{len(handler.frames)}; funnel {handler.stats}; loops "
@@ -993,9 +1346,10 @@ def main() -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one more end-to-end pass; table to DIR")
     ap.add_argument("--long", action="store_true",
-                    help="also run the 320-frame loop protocol and longer "
-                         "KITTI-size sequences on the card and on the host CPU "
-                         "(reported, not gated)")
+                    help="also run the 160-frame loop phase pipelined, the "
+                         "320-frame loop protocol and longer KITTI-size "
+                         "sequences on the card and on the host CPU (reported, "
+                         "not gated)")
     args = ap.parse_args()
 
     import torch
@@ -1020,16 +1374,25 @@ def main() -> int:
     rows = kernel_phase(torch, dev)
     # each path's kernels count in that path's run: K1, K2-LM and K3-LM in
     # the e2e pass, K4-LM in the loop phase; the per-pass K2, K3 and K4 run
-    # on neither (both gate that they stay at 0)
+    # on none of the paths (every phase gates that they stay at 0)
     launches = e2e_phase(torch, dev, args.profile)
+    pl_launches = pipelined_phase(torch, dev)
+    mono_launches = mono_phase(torch, dev)
+    undistort_phase(torch, dev)
     loop_launches = loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN)
-    launches.update(loop_pose_lm=loop_launches["loop_pose_lm"],
-                    pose3d_residual_pass=loop_launches["pose3d_residual_pass"])
     if args.long:
+        mono_sweep(torch, dev)
+        loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN, gate=False, pipelined=True)
         loop_phase(torch, dev, 320, 100, gate=False)
         long_phase(torch, dev)
+    launches.update(loop_pose_lm=loop_launches["loop_pose_lm"],
+                    pose3d_residual_pass=loop_launches["pose3d_residual_pass"])
     for r in rows:
-        r["launches"] = launches[r["name"].split("[")[0]]
+        name = r["name"].split("[")[0]
+        r["launches"] = launches[name]
+        r["pipelined_launches"] = pl_launches[name]
+        r["pipelined_launches_per_frame"] = pl_launches[name] / E2E_FRAMES
+        r["mono_launches"] = mono_launches[name]
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "direct_stereo_slam_tpu"))
     if leaked:

@@ -111,8 +111,9 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
 
 
 def _bottom_row(top: torch.Tensor) -> torch.Tensor:
-    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)
-    return row.expand(top.shape[:-2] + (1, 4))
+    """[..., 1, 4] rows (0, 0, 0, 1), filled on the device (no upload)."""
+    lead = top.shape[:-2] + (1,)
+    return torch.cat([top.new_zeros(lead + (3,)), top.new_ones(lead + (1,))], dim=-1)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,7 @@ from ..config import (PATTERN_OFFSETS, SCALE_A, SCALE_B, SCALE_C, SCALE_F,
                       SCALE_XI_ROT, SCALE_XI_TRANS, SLAMConfig)
 from ..geometry import lie
 from ..ops.interp import bilinear_gather_frames
+from ..utils.device import constant
 
 RES_IN = 0
 RES_OOB = 1
@@ -132,8 +133,8 @@ class Linearization(NamedTuple):
 
 
 def _pattern_uv(u, v):
-    du = torch.tensor([o[0] for o in PATTERN_OFFSETS], dtype=torch.float32, device=u.device)
-    dv = torch.tensor([o[1] for o in PATTERN_OFFSETS], dtype=torch.float32, device=u.device)
+    du = constant(tuple(o[0] for o in PATTERN_OFFSETS), u.device)
+    dv = constant(tuple(o[1] for o in PATTERN_OFFSETS), u.device)
     return u[..., None] + du, v[..., None] + dv
 
 
@@ -327,7 +328,7 @@ def _prior_diag(state: BAState, cfg: SLAMConfig) -> torch.Tensor:
     a_prior = ba.initial_aff_a_prior if mode_a < 0 else float(mode_a)
     b_prior = ba.initial_aff_b_prior if mode_b < 0 else float(mode_b)
     calib = torch.full((4,), ba.initial_calib_hessian, dtype=torch.float32, device=dev)
-    per_frame = torch.tensor([0.0] * 6 + [a_prior, b_prior], dtype=torch.float32, device=dev)
+    per_frame = constant((0.0,) * 6 + (a_prior, b_prior), dev)
     frames = per_frame.expand(W, 8)
     frames = torch.where(state.frame_valid[:, None], frames, torch.full_like(frames, 1e12))
     return torch.cat([calib, frames.reshape(-1)])

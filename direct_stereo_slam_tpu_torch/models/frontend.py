@@ -1,5 +1,5 @@
 """Visual-odometry front end: the host orchestrator (port of
-models/frontend.py, synchronous stereo path).
+models/frontend.py).
 
 Per-frame coarse tracking with the staged motion-model try-list, the
 keyframe decision, and the keyframe pipeline: trace -> flag frames for
@@ -7,15 +7,22 @@ marginalization -> insert -> activate -> windowed BA -> template ->
 stereo scale optimization -> point removal -> new traces -> frame
 marginalization. Numeric work runs in the port's device functions on
 ``device``; this module owns the control flow and the fixed-slot
-bookkeeping.
+bookkeeping. Every front-end mode of the reference runs: the synchronous
+path, pipelined tracking (``cfg.runtime.pipelined_tracking``: frame N's
+track is launched before frame N-1 is consumed, see
+``_process_pipelined``) and the monocular bootstrap
+(``cfg.runtime.mono_initializer``, ``models/mono_init.py``).
+
+Host arrays reach the card through pinned memory without waiting for the
+stream (``utils.device.to_device``), so the device's results are read at
+a few chosen points only: on a frame that makes no keyframe, the one read
+of the tracker's outputs.
 
 Differences from the reference's orchestration, all without effect on
 the numbers: the keyframe tail commits at once (the reference defers it
 to the next frame's tracker pull only to hide a device round trip;
-``flush_pending`` stays as a no-op), host views of the window are read
-fresh after each state change instead of being patched, and the
-pipelined tracking mode and the monocular bootstrap are not ported
-(``cfg.runtime.pipelined_tracking`` / ``mono_initializer`` raise).
+``flush_pending`` stays as a no-op), and host views of the window are
+read fresh after each state change instead of being patched.
 """
 
 from __future__ import annotations
@@ -30,17 +37,57 @@ import torch
 from ..config import SLAMConfig
 from ..geometry.camera import PyramidIntrinsics
 from ..ops.distance_map import build_distance_map
-from ..ops.interp import bilinear_gather_scalar
+from ..ops.interp import bilinear_gather, bilinear_gather_scalar
 from ..ops.pyramid import Pyramid, build_pyramid
 from ..ops.select import adapt_potential, make_selection_map
-from ..utils.device import DEFAULT_DEVICE, resolve_device
+from ..utils.device import DEFAULT_DEVICE, resolve_device, to_device
 from ..utils.timing import StageTimers
-from . import ba, immature, initializer
+from . import ba, immature, initializer, mono_init
 from .depth_template import (TrackerTemplate, build_template, default_budgets,
                              scale_template_idepth)
 from .scale_opt import ScaleState, decide_scale_optimization, dispatch_scale_optimization
-from .tracker import (AffLight, make_motion_tries, select_winner,
+from .tracker import (AffLight, TrackResult, make_motion_tries, select_winner,
                       select_winner_serial, track_candidates_batch)
+
+
+def _const_motion_candidate(T_rn_last: torch.Tensor, T_rn_prelast: torch.Tensor):
+    """The constant-motion hypothesis (make_motion_tries' stage1[0]) on the
+    device: with T_rn the warp ref -> frame, the reference's
+    ``inv(slast_2_sprelast) @ lastF_2_slast`` reduces to
+    ``Tl @ inv(Tp) @ Tl``, so a pipelined dispatch needs no host value of
+    the previous frames. ``inv_ex``: ``inv`` checks for errors, which
+    reads the device."""
+    return T_rn_last @ torch.linalg.inv_ex(T_rn_prelast)[0] @ T_rn_last
+
+
+def _pack_track(r: TrackResult, counts: torch.Tensor) -> torch.Tensor:
+    """A tracked batch and the per-slot immature counts as one flat f32
+    tensor, so one copy brings them to the host: per candidate
+    [res_per_level (L), flow (3), T (16), a, b, ok], then the counts."""
+    B = r.T.shape[0]
+    rows = torch.cat([r.res_per_level, r.flow, r.T.reshape(B, 16),
+                      torch.stack([r.aff.a, r.aff.b, r.ok.to(torch.float32)], -1)], 1)
+    return torch.cat([rows.reshape(-1), counts.to(torch.float32)])
+
+
+def _unpack_track(flat: np.ndarray, levels: int, n_slots: int):
+    """_pack_track's layout back into (TrackResultNp, counts [S])."""
+    rows = flat[:flat.shape[0] - n_slots].reshape(-1, levels + 22)
+    L = levels
+    res = TrackResultNp(res_per_level=rows[:, :L], flow=rows[:, L:L + 3],
+                        T=rows[:, L + 3:L + 19].reshape(-1, 4, 4),
+                        aff=rows[:, L + 19:L + 21], ok=rows[:, L + 21] > 0.5)
+    return res, flat[flat.shape[0] - n_slots:].astype(np.int64)
+
+
+def _host_f32(x) -> float:
+    """A host number rounded to f32: how the tracker takes a scalar by
+    value (``ops/resident_lm._scalar``), with no upload."""
+    return float(np.float32(x))
+
+
+def _host_aff(ab) -> AffLight:
+    return AffLight(_host_f32(ab[0]), _host_f32(ab[1]))
 
 
 def _to_int(x: torch.Tensor) -> torch.Tensor:
@@ -255,10 +302,6 @@ class FrontEnd:
                  intr1: PyramidIntrinsics, t_cam1_cam0: np.ndarray,
                  prev_kf_count: int = 0, timers: Optional[StageTimers] = None,
                  device=DEFAULT_DEVICE):
-        if cfg.runtime.pipelined_tracking and cfg.tracker.winner_policy != "serial":
-            raise NotImplementedError("pipelined tracking is not ported yet")
-        if cfg.runtime.mono_initializer:
-            raise NotImplementedError("the monocular initializer is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.intr0 = intr0
@@ -311,18 +354,41 @@ class FrontEnd:
         self._frames_since_kf = 0
         self._marg_export_acc: Dict[int, list] = {}
         self.timers = timers if timers is not None else StageTimers()
-        self.last_completed_shell: Optional[FrameShell] = None
         self._views_cache_key = None
         self._views_cache = None
         self._track_imm_counts = None
         self._track_imm_counts_key = None
+        # pipelined tracking: the frame in flight, the device motion state
+        # (T_rn_last, T_rn_prelast, aff_last), and the two pinned host
+        # buffers its outputs are copied into, used in turn
+        self._pl_inflight = None
+        self._pl_state = None
+        self._pl_bufs: List[Optional[torch.Tensor]] = [None, None]
+        self._pl_next_buf = 0
+        # staged escalations and flush retracks actually exercised
+        self.pl_escalations = 0
+        self.pl_retracks = 0
+        # newest fully processed shell: in pipelined mode add_stereo_frame
+        # returns the in-flight shell, whose pose and is_kf are
+        # placeholders until it is consumed one frame later
+        self.last_completed_shell: Optional[FrameShell] = None
+        # monocular bootstrap (cfg.runtime.mono_initializer)
+        self.mono_state: Optional[mono_init.MonoInitState] = None
+        self._mono_first_pyr: Optional[Pyramid] = None
+        self._mono_first_shell: Optional[FrameShell] = None
+        self._mono_frames = 0
+        self._post_init_T_hint: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------------
     # helpers
     # ------------------------------------------------------------------
 
+    def _upload(self, a) -> torch.Tensor:
+        """A host array on the device, without waiting for the stream."""
+        return to_device(a, self.device)
+
     def _f32(self, x) -> torch.Tensor:
-        return torch.tensor(float(x), dtype=torch.float32, device=self.device)
+        return self._upload(np.float32(x))
 
     def _views_np(self):
         """Host copies of ba.current_views, cached per BAState instance
@@ -357,10 +423,16 @@ class FrontEnd:
         """A [H, W] intensity image (numpy or tensor) as f32 on the device."""
         if isinstance(img, torch.Tensor):
             return img.to(device=self.device, dtype=torch.float32)
-        return torch.tensor(np.asarray(img, np.float32), device=self.device)
+        return self._upload(np.asarray(img, np.float32))
 
     def _imm_counts_np(self) -> np.ndarray:
         return self.immatures.valid.sum(dim=1).cpu().numpy()
+
+    def _read_track(self, r: TrackResult):
+        """One blocking copy of a tracked batch and the per-slot immature
+        counts: (TrackResultNp, counts [S])."""
+        packed = _pack_track(r, self.immatures.valid.sum(dim=1))
+        return _unpack_track(packed.cpu().numpy(), self.levels, self.n_slots)
 
     # ------------------------------------------------------------------
     # main entry (reference addActiveStereoFrame)
@@ -376,22 +448,35 @@ class FrontEnd:
             shell = self._initialize(pyr0, img1, incoming_id, timestamp)
             if not self.initialized or getattr(shell, "_flow", None) is None:
                 return shell
+            # the mono bootstrap just finished and tracked this frame: it
+            # takes the keyframe decision like any other frame
+        elif (self.cfg.runtime.pipelined_tracking
+              and self.cfg.tracker.winner_policy != "serial"):
+            return self._process_pipelined(pyr0, img1, incoming_id, timestamp)
         else:
             shell = self._track_frame(pyr0, incoming_id, timestamp)
-        if self.is_lost:
-            return shell
-        if self._keyframe_decision(shell):
+        if not self.is_lost:
+            self._finish_frame(shell, pyr0, img1)
+        return shell
+
+    def _finish_frame(self, shell: FrameShell, pyr0: Pyramid, img1) -> bool:
+        """The keyframe decision and the keyframe / non-keyframe pipeline of
+        a tracked frame; returns whether it became a keyframe."""
+        is_kf = self._keyframe_decision(shell)
+        if is_kf:
             self._make_keyframe(shell, pyr0, img1)
         else:
             self._make_non_keyframe(shell, pyr0)
         self.last_completed_shell = shell
-        return shell
+        return is_kf
 
     # ------------------------------------------------------------------
     # initialization (stereo)
     # ------------------------------------------------------------------
 
     def _initialize(self, pyr0: Pyramid, img1, incoming_id, timestamp) -> FrameShell:
+        if self.cfg.runtime.mono_initializer:
+            return self._initialize_mono(pyr0, incoming_id, timestamp)
         pyr1 = build_pyramid(self._image(img1), self.levels)
         res = initializer.initialize_from_stereo(
             pyr0, pyr1, self.intr0, self.t_cam1_cam0, self.cfg,
@@ -419,11 +504,11 @@ class FrontEnd:
         k = min(cap, int(keep.sum()))
         src = np.zeros(P, np.int64)
         src[:k] = np.nonzero(keep)[0][:k]
-        src_t = torch.as_tensor(src, device=self.device)
+        src_t = self._upload(src)
         self.ba_state = ba.add_points(
             self.ba_state, torch.arange(P, device=self.device), slot,
             res.u[src_t], res.v[src_t], res.idepth[src_t], res.color[src_t],
-            res.weight[src_t], torch.as_tensor(np.arange(P) < k, device=self.device),
+            res.weight[src_t], self._upload(np.arange(P) < k),
             prior=torch.full((P,), self.cfg.ba.idepth_fix_prior, dtype=torch.float32,
                              device=self.device))
         self.slot_stats[slot] = {"out": 0, "marg": 0}
@@ -437,6 +522,94 @@ class FrontEnd:
         self.initialized = True
         return shell
 
+    def _new_shell(self, incoming_id, timestamp) -> FrameShell:
+        """A frame's shell at the current pose, appended to all_frames."""
+        shell = FrameShell(incoming_id, timestamp, self.cur_pose.copy(),
+                           np.zeros(2, np.float32), exposure=self._cur_exposure)
+        self.all_frames.append(shell)
+        return shell
+
+    def _mono_restart(self, pyr0: Pyramid, incoming_id, timestamp) -> FrameShell:
+        """(Re)start the bootstrap with this frame as its first."""
+        self.mono_state = mono_init.create(
+            pyr0, self.cfg, budget=self.cfg.ba.max_immature_per_frame, pot=self.pot)
+        self._mono_first_pyr = pyr0
+        self._mono_frames = 0
+        self._mono_first_shell = self._new_shell(incoming_id, timestamp)
+        return self._mono_first_shell
+
+    def _initialize_mono(self, pyr0: Pyramid, incoming_id, timestamp) -> FrameShell:
+        """The monocular bootstrap (reference FrontEnd.cpp:607-623, 842-934):
+        track frames against the first until the initializer has snapped
+        and confirmed (``mono_init.is_done``), then make the FIRST frame
+        keyframe 0 with the converged point field (rescaled to mean idepth
+        1) and track the current frame normally. The right camera is never
+        read; metric scale comes later from the stereo scale optimizer, or
+        never (DSO mode, ``scale_opt.accept_thres`` < 0)."""
+        if self.mono_state is None:
+            return self._mono_restart(pyr0, incoming_id, timestamp)
+
+        self.mono_state = mono_init.track_frame(
+            self.mono_state, tuple(pyr0.data), self.intr0, self.cfg)
+        self._mono_frames += 1
+        if not mono_init.is_done(self.mono_state):
+            if self._mono_frames > self.cfg.runtime.mono_init_max_frames:
+                # a stale bootstrap restarts from the current frame
+                return self._mono_restart(pyr0, incoming_id, timestamp)
+            return self._new_shell(incoming_id, timestamp)
+
+        # ---- snapped: the first frame becomes keyframe 0 --------------------
+        u, v, idepth, T_first_new, _ = mono_init.to_points(self.mono_state)
+        # the first tracked frame starts from the bootstrap's pose
+        self._post_init_T_hint = np.asarray(T_first_new, np.float64)
+        if len(u) < 8:
+            # degenerate convergence: restart from the next frame
+            self.mono_state = None
+            self._mono_first_pyr = None
+            return self._new_shell(incoming_id, timestamp)
+        first_pyr = self._mono_first_pyr
+        slot = 0
+        T_cw = np.linalg.inv(self.cur_pose).astype(np.float32)
+        first_exp = self._mono_first_shell.exposure
+        self.ba_state = ba.add_frame(self.ba_state, slot, self.num_kfs, T_cw,
+                                     np.zeros(2, np.float32), first_exp, first_pyr.data[0])
+        self.slot_exposure[slot] = first_exp
+        # pattern colours and gradient weights at the converged points
+        P = self.cfg.ba.max_points_per_frame
+        keep_frac = min(1.0, self.cfg.ba.desired_point_density / max(len(u), 1))
+        rng = np.random.RandomState(0)
+        keep = rng.rand(len(u)) < keep_frac
+        k = min(P, int(keep.sum()))
+        src = np.zeros(P, np.int64)
+        src[:k] = np.nonzero(keep)[0][:k]
+        uu = self._upload(np.asarray(u[src], np.float32))
+        vv = self._upload(np.asarray(v[src], np.float32))
+        pu8, pv8 = ba._pattern_uv(uu, vv)
+        hit = bilinear_gather(first_pyr.data[0], pu8, pv8)     # [P, 8, 3]
+        c2 = self.cfg.ba.outlier_th_sum_component
+        weight = torch.sqrt(c2 / (c2 + (hit[..., 1] ** 2 + hit[..., 2] ** 2)))
+        self.ba_state = ba.add_points(
+            self.ba_state, torch.arange(P, device=self.device), slot, uu, vv,
+            self._upload(np.asarray(idepth[src], np.float32)), hit[..., 0], weight,
+            self._upload(np.arange(P) < k),
+            prior=torch.full((P,), self.cfg.ba.idepth_fix_prior, dtype=torch.float32,
+                             device=self.device))
+        self.slot_stats[slot] = {"out": 0, "marg": 0}
+        self.pyramids[slot] = first_pyr
+        first_shell = self._mono_first_shell
+        first_shell.is_kf = True
+        first_shell.tracking_ref_kf = self.num_kfs
+        self.kf_shells.append(first_shell)
+        self.num_kfs += 1
+        self._make_new_traces(slot, first_pyr)
+        self._build_template(slot, first_pyr)
+        self.initialized = True
+        self.mono_state = None
+        self._mono_first_pyr = None
+        # the current frame goes through the normal tracking path; the
+        # keyframe decision fires on the bootstrap's parallax
+        return self._track_frame(pyr0, incoming_id, timestamp)
+
     # ------------------------------------------------------------------
     # tracking (reference trackNewCoarse)
     # ------------------------------------------------------------------
@@ -449,32 +622,33 @@ class FrontEnd:
             sprelast = self.all_frames[-2]
             slast_2_sprelast = np.linalg.inv(sprelast.T_wc) @ slast.T_wc
             lastF_2_slast = np.linalg.inv(slast.T_wc) @ T_w_ref
-            aff_init = AffLight(self._f32(np.float32(slast.aff[0])),
-                                self._f32(np.float32(slast.aff[1])))
+            aff_init = _host_aff(slast.aff)
             stage1, stage2 = make_motion_tries(np.eye(4), lastF_2_slast,
                                                slast_2_sprelast, self.cfg)
         else:
             # first tracked frame after initialization: no motion history
-            stage1 = np.stack([np.eye(4, dtype=np.float32)])
+            # (the reference's 2-frame try list is empty, a known quirk).
+            # After the mono bootstrap its converged first-to-current pose
+            # is the primary candidate, identity the second.
+            seed = self._post_init_T_hint
+            if seed is not None:
+                stage1 = np.stack([seed.astype(np.float32), np.eye(4, dtype=np.float32)])
+                self._post_init_T_hint = None
+            else:
+                stage1 = np.stack([np.eye(4, dtype=np.float32)])
             _, stage2 = make_motion_tries(np.eye(4), np.eye(4), np.eye(4), self.cfg)
-            aff_init = AffLight(self._f32(0.0), self._f32(0.0))
+            aff_init = _host_aff((0.0, 0.0))
 
-        new_exposure = self._f32(self._cur_exposure)
         with self.timers.span("track"):
             thr = self.cfg.tracker.re_track_threshold * self.last_coarse_rmse
 
             def run(batch, selector=select_winner):
                 r = track_candidates_batch(
                     tuple(pyr0.data), self.template, self.intr0, self.cfg,
-                    torch.as_tensor(np.asarray(batch, np.float32), device=self.device),
-                    aff_init, self.template_ref_aff, self.template_ref_exposure,
-                    new_exposure)
-                r_np = TrackResultNp(
-                    r.res_per_level.cpu().numpy(), r.flow.cpu().numpy(),
-                    r.T.cpu().numpy(),
-                    torch.stack([r.aff.a, r.aff.b], -1).cpu().numpy(),
-                    r.ok.cpu().numpy())
-                self._track_imm_counts = self._imm_counts_np()
+                    self._upload(np.asarray(batch, np.float32)), aff_init,
+                    self.template_ref_aff, self.template_ref_exposure,
+                    _host_f32(self._cur_exposure))
+                r_np, self._track_imm_counts = self._read_track(r)
                 self._track_imm_counts_key = self.immatures
                 i, g = selector(r_np, self.last_coarse_rmse, self.cfg)
                 return r_np, i, g
@@ -520,6 +694,270 @@ class FrontEnd:
             self.first_coarse_rmse = r0
         self.last_coarse_rmse = r0
         return shell
+
+    # ------------------------------------------------------------------
+    # pipelined tracking (cfg.runtime.pipelined_tracking)
+    # ------------------------------------------------------------------
+    # Frame N's track is launched at once with the constant-motion
+    # candidate computed on the device from the previous dispatch's
+    # results, its outputs start their copy into a pinned host buffer, and
+    # only then is frame N-1 consumed: its buffer read (the one wait of a
+    # benign frame) and its host work run while frame N's track runs on
+    # the card.
+    #
+    # Semantics against the synchronous path (every deviation one frame
+    # deep, as in the reference):
+    #  - frame N-1's keyframe decision and pipeline run with frame N in
+    #    flight, so frame N tracks against the pre-keyframe template; its
+    #    world pose is composed from the reference pose it was tracked
+    #    against.
+    #  - escalation (the staged try list) is detected one frame late and
+    #    runs synchronously; a keyframe, escalation, BIG ERROR or loss
+    #    flushes the pipeline: the in-flight successor is retracked
+    #    synchronously and the device motion state reseeded from the host
+    #    shells.
+    #  - is_lost / init_failed surface one frame late (the node checks
+    #    every frame); on loss the in-flight placeholder shell is popped.
+
+    def _process_pipelined(self, pyr0: Pyramid, img1, incoming_id,
+                           timestamp) -> FrameShell:
+        if self._pl_state is None:
+            # no device motion state yet (after init, a flush reset or an
+            # escalation): one synchronous frame, then seed
+            shell = self._track_frame(pyr0, incoming_id, timestamp)
+            if not self.is_lost:
+                self._finish_frame(shell, pyr0, img1)
+                self._pl_seed()
+            return shell
+
+        with self.timers.span("track"):
+            inf = self._pl_dispatch(pyr0)
+        self.flush_pending()
+        prev = self._pl_inflight
+        shell = self._new_shell(incoming_id, timestamp)
+        inf.update(shell=shell, pyr=pyr0, img1=img1, frame_idx=len(self.all_frames) - 1)
+        self._pl_inflight = inf
+
+        # ---- consume frame N-1 ----------------------------------------------
+        if prev is not None:
+            flushed = self._pl_consume(prev)
+            if self.is_lost or self.init_failed:
+                self._pl_reset()
+                return shell
+            if flushed:
+                # the in-flight successor's template or candidate is stale:
+                # retrack it synchronously against the current template
+                inf = self._pl_inflight
+                self._pl_inflight = None
+                self._pl_consume(inf, retrack=True)
+                if self.is_lost or self.init_failed:
+                    self._pl_reset()
+                    return shell
+                self._pl_seed()
+        return shell
+
+    def _pl_dispatch(self, pyr0: Pyramid) -> dict:
+        """Launch frame N's track (one candidate, K2-LM on the card) from
+        the device motion state and start the copy of its outputs; nothing
+        here waits for the device. Returns the in-flight record's track
+        fields. The host reads of the window come first: after the launch
+        a read would wait for it."""
+        ref_slot = self.template_kf_slot
+        inf = {"ref_slot": ref_slot, "ref_kf_id": int(self._views_np()[4][ref_slot]),
+               "T_w_ref": self._kf_pose(ref_slot), "counts_key": self.immatures}
+        Tl, Tp, aff = self._pl_state
+        r = track_candidates_batch(
+            tuple(pyr0.data), self.template, self.intr0, self.cfg,
+            _const_motion_candidate(Tl, Tp)[None], aff, self.template_ref_aff,
+            self.template_ref_exposure, _host_f32(self._cur_exposure))
+        inf["out"] = self._pl_transfer(_pack_track(r, self.immatures.valid.sum(dim=1)))
+        # optimistic device state: the primary candidate wins on almost
+        # every frame; an escalation reseeds
+        self._pl_state = (r.T[0], Tl, AffLight(r.aff.a[0], r.aff.b[0]))
+        return inf
+
+    def _pl_transfer(self, packed: torch.Tensor):
+        """Start the copy of a dispatch's packed outputs to the host: on
+        the card into the next of two pinned buffers (frame N's copy is
+        queued while frame N-1's buffer may still be read), then an event;
+        on the CPU the tensor itself. Returns (buffer, event or None)."""
+        if packed.device.type != "cuda":
+            return packed, None
+        i = self._pl_next_buf
+        self._pl_next_buf ^= 1
+        buf = self._pl_bufs[i]
+        if buf is None or buf.shape != packed.shape:
+            buf = self._pl_bufs[i] = torch.empty(packed.shape, dtype=torch.float32,
+                                                 pin_memory=True)
+        buf.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return buf, event
+
+    def _pl_read(self, out):
+        """Wait for a transfer and unpack it: (TrackResultNp, counts)."""
+        buf, event = out
+        if event is not None:
+            event.synchronize()
+        return _unpack_track(buf.numpy().copy(), self.levels, self.n_slots)
+
+    def _pl_consume(self, inf, retrack: bool = False) -> bool:
+        """Complete a pipelined frame: read its track result, accept or
+        escalate, the shell bookkeeping, the keyframe decision and the
+        keyframe / non-keyframe pipeline. Returns True when the pipeline
+        must flush (keyframe, escalation, BIG ERROR or loss): the
+        in-flight successor's context is stale. ``retrack=True`` discards
+        the in-flight result and tracks the frame again against the
+        current template."""
+        shell = inf["shell"]
+        with self.timers.span("track"):
+            if retrack:
+                self.pl_retracks += 1
+                res, counts = self._pl_retrack(inf)
+            else:
+                res, counts = self._pl_read(inf["out"])
+        # dispatch-time immature counts, keyed by the dispatch-time
+        # immatures: if a trace ran since, _make_keyframe reads them anew
+        self._track_imm_counts = counts
+        self._track_imm_counts_key = inf["counts_key"]
+        res_l, flow, T, affab = res.res_per_level[0], res.flow[0], res.T[0], res.aff[0]
+
+        # thr from the current last_coarse_rmse (frame N-2's r0), as the
+        # synchronous path has it
+        thr = self.cfg.tracker.re_track_threshold * self.last_coarse_rmse
+        r0 = float(res_l[0])
+        good = bool(res.ok[0]) and math.isfinite(r0) and bool(np.all(np.isfinite(flow)))
+        flushed = False
+        if not good or r0 > thr:
+            # trouble: the staged try list, synchronously, against the
+            # current template
+            flushed = True
+            self.pl_escalations += 1
+            esc, idx, good = self._pl_escalate(inf)
+            T, affab, flow = esc.T[idx], esc.aff[idx], esc.flow[idx]
+            r0 = float(esc.res_per_level[idx, 0])
+            self._pl_rebase(inf)
+
+        if not (math.isfinite(r0) and np.all(np.isfinite(flow))):
+            self.is_lost = True
+            return True
+        if not good:
+            # BIG ERROR: keep the motion-model result
+            flow = np.zeros(3, np.float32)
+
+        # compose against the reference KF's current estimate while it is
+        # in the window (BA and scale refinements fold in), else against
+        # the dispatch-time snapshot
+        if (inf["ref_slot"] in self._active_slots()
+                and int(self._views_np()[4][inf["ref_slot"]]) == inf["ref_kf_id"]):
+            T_w_ref = self._kf_pose(inf["ref_slot"])
+        else:
+            T_w_ref = inf["T_w_ref"]
+        shell.T_wc = (T_w_ref @ np.linalg.inv(T)).astype(np.float32)
+        shell.aff = np.asarray(affab, np.float32).copy()
+        shell.tracking_ref_kf = inf["ref_kf_id"]
+        shell._T_ref_new = T
+        shell._flow = np.asarray(flow, np.float32)
+        shell._res0 = r0
+        self.cur_pose = shell.T_wc
+        if self.first_coarse_rmse < 0:
+            self.first_coarse_rmse = r0
+        self.last_coarse_rmse = r0
+
+        is_kf = self._finish_frame(shell, inf["pyr"], inf["img1"])
+        return flushed or is_kf or self.is_lost or self.init_failed
+
+    def _pl_rebase(self, inf):
+        """Point an in-flight record at the current template's keyframe
+        (after a synchronous track against it)."""
+        inf["ref_slot"] = self.template_kf_slot
+        inf["ref_kf_id"] = int(self._views_np()[4][self.template_kf_slot])
+        inf["T_w_ref"] = self._kf_pose(self.template_kf_slot)
+
+    def _pl_motion(self, inf):
+        """(lastF_2_slast, slast_2_sprelast, aff_init) of a flushed frame
+        from the host shells before it, against the current template."""
+        idx = inf["frame_idx"]
+        fs = self.all_frames
+        if idx < 2:
+            return np.eye(4), np.eye(4), _host_aff((0.0, 0.0))
+        slast, sprelast = fs[idx - 1], fs[idx - 2]
+        T_w_ref = self._kf_pose(self.template_kf_slot)
+        return (np.linalg.inv(slast.T_wc) @ T_w_ref,
+                np.linalg.inv(sprelast.T_wc) @ slast.T_wc, _host_aff(slast.aff))
+
+    def _pl_track(self, inf, batch: np.ndarray, aff_init: AffLight):
+        """A synchronous track of a pipelined frame's candidates against
+        the current template: (TrackResultNp, counts)."""
+        r = track_candidates_batch(
+            tuple(inf["pyr"].data), self.template, self.intr0, self.cfg,
+            self._upload(np.asarray(batch, np.float32)), aff_init,
+            self.template_ref_aff, self.template_ref_exposure,
+            _host_f32(max(inf["shell"].exposure, 1e-6)))
+        return self._read_track(r)
+
+    def _pl_retrack(self, inf):
+        """Fresh single-candidate track of a flushed frame against the
+        current template (the constant-motion candidate from the host
+        shells, the last frame's affine); the record's reference fields
+        move to the current template."""
+        lastF_2_slast, slast_2_sprelast, aff_init = self._pl_motion(inf)
+        if inf["frame_idx"] >= 2:
+            T_cand = make_motion_tries(np.eye(4), lastF_2_slast, slast_2_sprelast,
+                                       self.cfg)[0][:1]
+        else:
+            T_cand = np.eye(4, dtype=np.float32)[None]
+        out = self._pl_track(inf, T_cand, aff_init)
+        inf["counts_key"] = self.immatures
+        self._pl_rebase(inf)
+        return out
+
+    def _pl_escalate(self, inf):
+        """The full ordered try list (stage1 + stage2, 83 candidates) for a
+        pipelined frame whose primary candidate failed, walked with the
+        reference's serial rule: (TrackResultNp, winner, good)."""
+        lastF_2_slast, slast_2_sprelast, aff_init = self._pl_motion(inf)
+        stage1, stage2 = make_motion_tries(np.eye(4), lastF_2_slast, slast_2_sprelast,
+                                           self.cfg)
+        res, _ = self._pl_track(inf, np.concatenate([stage1, stage2], axis=0), aff_init)
+        idx, good = select_winner_serial(res, self.last_coarse_rmse, self.cfg)
+        return res, idx, good
+
+    def _pl_seed(self):
+        """(Re)seed the device motion state from the host shells: needs two
+        frames and a template."""
+        fs = self.all_frames
+        if len(fs) < 2 or self.template is None or self.template_kf_slot < 0:
+            self._pl_state = None
+            return
+        T_w_ref = self._kf_pose(self.template_kf_slot)
+        Tl = np.linalg.inv(fs[-1].T_wc) @ T_w_ref
+        Tp = np.linalg.inv(fs[-2].T_wc) @ T_w_ref
+        self._pl_state = (self._upload(Tl.astype(np.float32)),
+                          self._upload(Tp.astype(np.float32)), _host_aff(fs[-1].aff))
+
+    def _pl_reset(self):
+        """Drop the in-flight frame on loss or init failure (its successor
+        never reaches the reinitialized front end) and pop its placeholder
+        shell, so the trajectory has no bogus row."""
+        inf = self._pl_inflight
+        if inf is not None and self.all_frames and self.all_frames[-1] is inf["shell"]:
+            self.all_frames.pop()
+        self._pl_inflight = None
+        self._pl_state = None
+
+    def flush_pipeline(self):
+        """Consume any in-flight pipelined frame synchronously (before the
+        newest pose is read or the run ends)."""
+        inf = self._pl_inflight
+        if inf is None:
+            return
+        self._pl_inflight = None
+        self._pl_consume(inf)
+        if not (self.is_lost or self.init_failed):
+            self._pl_seed()
+        else:
+            self._pl_reset()
 
     # ------------------------------------------------------------------
     # keyframe decision
@@ -578,7 +1016,7 @@ class FrontEnd:
         tc = self.cfg.trace
         tier = (dict(num_steps=tc.steady_num_steps, budget=tc.steady_budget,
                      max_reach=tc.steady_max_reach) if steady else {})
-        t = lambda a: torch.as_tensor(a, device=self.device)
+        t = self._upload
         self.immatures, _, n_overflow = immature.trace_points_all_compact(
             self.immatures, target_planes, t(KRKi), t(Kt), t(a_rel), t(b_rel),
             self.cfg, **tier)
@@ -730,7 +1168,7 @@ class FrontEnd:
                 clear = np.zeros(self.n_slots, bool)
                 clear[flagged] = True
                 self.immatures = immature.clear_slots(
-                    self.immatures, torch.as_tensor(clear, device=self.device))
+                    self.immatures, self._upload(clear))
                 for mslot in flagged:
                     self.imm_slots.discard(mslot)
         npy = lambda t: t.cpu().numpy()
@@ -772,10 +1210,10 @@ class FrontEnd:
                     "out"] += int((drop & (p_host == s)).sum())
             if marg.any():
                 self.ba_state = ba.marginalize_points(
-                    self.ba_state, torch.as_tensor(marg, device=self.device), cfg, lin)
+                    self.ba_state, self._upload(marg), cfg, lin)
             if drop.any():
                 self.ba_state = ba.drop_points(self.ba_state,
-                                               torch.as_tensor(drop, device=self.device))
+                                               self._upload(drop))
             exp_mask = leaving if cfg.loop.densify_scans else marg
             stay = exp_mask & ~host_flagged
             if stay.any():
@@ -927,7 +1365,7 @@ class FrontEnd:
         K = np.asarray(self.intr0.K(1), np.float32)   # level-1 intrinsics
         h2, w2 = self.intr0.h[1], self.intr0.w[1]
         st = self.ba_state
-        dist_map = _halfres_distance_map(st, new_slot, torch.as_tensor(K, device=self.device),
+        dist_map = _halfres_distance_map(st, new_slot, self._upload(K),
                                          h2, w2)
         slots_todo = [s for s in self.imm_slots if s != new_slot]
         if not slots_todo:
@@ -944,7 +1382,7 @@ class FrontEnd:
         host_flagged = np.zeros(S, bool)
         host_flagged[list(flagged_slots)] = True
         views = ba.current_views(st)
-        t = lambda a: torch.as_tensor(a, device=self.device)
+        t = self._upload
         ok_d, idepth_d, lane_d, drop_d = _gate_compact_activate(
             self.immatures, dist_map, t(KRKi1), t(Kt1),
             self._f32(self.current_min_act_dist), t(host_flagged), st.images,
@@ -1006,7 +1444,7 @@ class FrontEnd:
             shell.T_wc = (T_w_ref @ T_ref_new).astype(np.float32)
             T_cw = np.linalg.inv(shell.T_wc).astype(np.float32)
             T_zero = st.T_zero.clone()
-            T_zero[newest_slot] = torch.as_tensor(T_cw, device=self.device)
+            T_zero[newest_slot] = self._upload(T_cw)
             delta = st.delta.clone()
             delta[newest_slot, :6] = 0.0
             st = st._replace(T_zero=T_zero, delta=delta)

@@ -17,6 +17,7 @@ import torch
 from ..config import PATTERN_OFFSETS, SLAMConfig
 from ..ops.interp import bilinear_gather, bilinear_gather_frames, bilinear_gather_scalar
 from ..utils.compact import nonzero_fixed
+from ..utils.device import constant
 
 IPS_GOOD = 0
 IPS_OOB = 1
@@ -48,9 +49,8 @@ class ImmaturePoints(NamedTuple):
 
 
 def _pattern(device):
-    du = torch.tensor([o[0] for o in PATTERN_OFFSETS], dtype=torch.float32, device=device)
-    dv = torch.tensor([o[1] for o in PATTERN_OFFSETS], dtype=torch.float32, device=device)
-    return du, dv
+    return (constant(tuple(o[0] for o in PATTERN_OFFSETS), device),
+            constant(tuple(o[1] for o in PATTERN_OFFSETS), device))
 
 
 def _inf(x: torch.Tensor) -> torch.Tensor:

@@ -44,7 +44,12 @@ class AffLight(NamedTuple):
 def aff_from_to(exp_f, a_f, b_f, exp_t, a_t, b_t):
     """DSO ``AffLight::fromToVecExposure``: relative (a, b) mapping frame
     F's intensities onto frame T's."""
-    a = torch.exp(a_t - a_f) * (exp_t / clamp_min(exp_f, 1e-9))
+    den = clamp_min(exp_f, 1e-9)
+    if isinstance(den, torch.Tensor) and not isinstance(exp_t, torch.Tensor):
+        # number / tensor is reciprocal(tensor) * number in PyTorch, which
+        # rounds differently from the reference's f32 division
+        exp_t = torch.full_like(den, exp_t)
+    a = torch.exp(a_t - a_f) * (exp_t / den)
     b = b_t - a * b_f
     return a, b
 

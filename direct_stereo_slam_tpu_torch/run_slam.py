@@ -9,16 +9,25 @@ Examples:
     # KITTI odometry layout (<root>/sequences/<seq>/, calib.txt, times.txt)
     python -m direct_stereo_slam_tpu_torch.run_slam --kitti /data/kitti --seq 00
 
+    # raw (distorted) image folders with DSO calibration files, pipelined
+    python -m direct_stereo_slam_tpu_torch.run_slam --dir0 cam0/ --dir1 cam1/ \
+        --calib0 camera.txt --gamma0 pcalib.txt --vignette0 vignette.png \
+        --t-stereo T_stereo.yaml --pipelined
+
 Runs ``SLAMNode`` with a ``LoopHandler`` (threaded as
 ``cfg.runtime.multi_threading`` says), writes sodso.txt (odometry) and
 dslam.txt (loop-closed) in the ``incoming_id x y z`` format, prints the
 per-stage timing table and ``loop_count``, and, where ground truth exists
 (synthetic runs, ``<root>/poses/<seq>.txt``), the ATE of both
 trajectories. ``--device`` defaults to ``cuda``; on a host without a card
-the run stops with a message unless ``--device cpu`` is given.
+the run stops with a message unless ``--device cpu`` is given. Image
+folders (``--dir0``/``--dir1``) go through the ``Undistorter`` of their
+camera files (``--calib0``/``--calib1``, ``--gamma*``, ``--vignette*``;
+the vignette applies in the raw frame, before the remap), with the
+stereo extrinsics of ``--t-stereo``. ``--pipelined`` turns on pipelined
+tracking, ``--mono`` the monocular bootstrap.
 Not ported yet (they raise ``NotImplementedError``): rosbag replay, ROS
-topics, undistorted image folders (``--dir0``/``--dir1``), the trajectory
-plot, the live viewer, debug dumps, step mode and pipelined tracking.
+topics, the trajectory plot, the live viewer, debug dumps and step mode.
 """
 
 from __future__ import annotations
@@ -39,8 +48,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--height", type=int, default=96, help="synthetic image height")
     ap.add_argument("--kitti", help="KITTI odometry root")
     ap.add_argument("--seq", default="00")
-    ap.add_argument("--dir0")
-    ap.add_argument("--dir1")
+    ap.add_argument("--dir0", help="left raw image folder (with --calib0)")
+    ap.add_argument("--dir1", help="right raw image folder")
+    ap.add_argument("--calib0", help="DSO camera.txt of cam0")
+    ap.add_argument("--calib1", help="DSO camera.txt of cam1 (default: --calib0)")
+    ap.add_argument("--t-stereo", help="T_stereo.yaml (default: identity)")
+    ap.add_argument("--gamma0", help="DSO pcalib.txt of cam0")
+    ap.add_argument("--gamma1", help="DSO pcalib.txt of cam1 (default: --gamma0)")
+    ap.add_argument("--vignette0", help="vignette image of cam0")
+    ap.add_argument("--vignette1", help="vignette image of cam1 (default: --vignette0)")
     ap.add_argument("--bag", help="rosbag v2.0 file (not ported yet)")
     ap.add_argument("--ros-master", help="live ROS1 topics (not ported yet)")
     ap.add_argument("--preset", type=int, default=0)
@@ -53,7 +69,10 @@ def _parser() -> argparse.ArgumentParser:
                          "lower it for short sequences)")
     ap.add_argument("--levels", type=int, default=5)
     ap.add_argument("--pipelined", action="store_true",
-                    help="pipelined tracking (not ported yet)")
+                    help="pipelined tracking: frame N's track runs while "
+                         "frame N-1 is consumed (default: synchronous)")
+    ap.add_argument("--mono", action="store_true",
+                    help="monocular bootstrap instead of the stereo initializer")
     ap.add_argument("--plot", action="store_true",
                     help="write trajectory.png (not ported yet)")
     ap.add_argument("--live", action="store_true", help="live viewer (not ported yet)")
@@ -68,15 +87,13 @@ def _parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = [("--bag", args.bag), ("--ros-master", args.ros_master),
-                ("--dir0/--dir1 (undistortion)", args.dir0 or args.dir1),
                 ("--plot", args.plot), ("--live", args.live),
-                ("--debug-dir", args.debug_dir), ("--step", args.step),
-                ("--pipelined", args.pipelined)]
+                ("--debug-dir", args.debug_dir), ("--step", args.step)]
     asked = [name for name, v in unported if v]
     if asked:
         raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
-    if not (args.synthetic or args.kitti):
-        raise SystemExit("give --synthetic or --kitti")
+    if not (args.synthetic or args.kitti or (args.dir0 and args.dir1 and args.calib0)):
+        raise SystemExit("give --synthetic, --kitti, or --dir0, --dir1 and --calib0")
 
 
 def main(argv=None) -> int:
@@ -97,6 +114,7 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
 
     gt = None
+    undist0 = undist1 = None
     if args.synthetic:
         from .io.synthetic import SyntheticStereoDataset
         ds = SyntheticStereoDataset(n_frames=args.frames, width=args.width,
@@ -105,7 +123,7 @@ def main(argv=None) -> int:
         K, w, h = ds.K, args.width, args.height
         t10 = ds.t_cam1_cam0
         gt = ds.poses[:, :3, 3]
-    else:
+    elif args.kitti:
         from .io.dataset import KittiOdometryDataset
         from .runtime.eval import kitti_gt_positions
         ds = KittiOdometryDataset(args.kitti, args.seq)
@@ -114,6 +132,24 @@ def main(argv=None) -> int:
         K = np.array([[c["fx"], 0, c["cx"]], [0, c["fy"], c["cy"]], [0, 0, 1]])
         t10 = ds.t_cam1_cam0()
         gt = kitti_gt_positions(args.kitti, args.seq)
+    else:
+        from .io.dataset import StereoDirDataset
+        from .io.undistort import Undistorter
+        from .utils.calib import (build_rectified_camera, parse_gamma, parse_t_stereo,
+                                  parse_vignette)
+        ds = StereoDirDataset(args.dir0, args.dir1)
+        cam0 = build_rectified_camera(args.calib0)
+        cam1 = build_rectified_camera(args.calib1 or args.calib0)
+        g0 = parse_gamma(args.gamma0) if args.gamma0 else None
+        g1 = parse_gamma(args.gamma1) if args.gamma1 else g0
+        # the vignette applies in the raw frame, before the remap
+        in_h, in_w = ds.frame(0)["img0"].shape
+        v0 = parse_vignette(args.vignette0, in_w, in_h) if args.vignette0 else None
+        v1 = parse_vignette(args.vignette1, in_w, in_h) if args.vignette1 else v0
+        undist0 = Undistorter(cam0, binv=g0, vignette=v0, device=device)
+        undist1 = Undistorter(cam1, binv=g1, vignette=v1, device=device)
+        K, w, h = cam0.K, cam0.w, cam0.h
+        t10 = parse_t_stereo(args.t_stereo) if args.t_stereo else np.eye(4)
 
     # floor at 3: the pixel selector scores on three pyramid scales
     levels = min(args.levels, max(3, num_usable_levels(w, h)))
@@ -122,11 +158,15 @@ def main(argv=None) -> int:
                       lidar_range=args.lidar_range,
                       scan_context_thres=args.scan_context_thres)
     cfg = cfg.replace(tracker=cfg.tracker.__class__(pyr_levels=levels),
-                      loop=dataclasses.replace(cfg.loop, loop_margin=args.loop_margin))
+                      loop=dataclasses.replace(cfg.loop, loop_margin=args.loop_margin),
+                      runtime=dataclasses.replace(cfg.runtime,
+                                                  pipelined_tracking=args.pipelined,
+                                                  mono_initializer=args.mono))
     intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], w, h, levels)
 
     handler = LoopHandler(cfg, intr, device=device)
-    node = SLAMNode(cfg, intr, intr, t10, loop_handler=handler, device=device)
+    node = SLAMNode(cfg, intr, intr, t10, loop_handler=handler, undistorter0=undist0,
+                    undistorter1=undist1, device=device)
     handler.timers = node.timers
     n = len(ds)
     for i in range(n):

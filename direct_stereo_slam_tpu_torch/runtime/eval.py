@@ -28,9 +28,12 @@ def run_sequence(ds, cfg: SLAMConfig, K: np.ndarray, t_cam1_cam0: np.ndarray,
                  threaded_loop: Optional[bool] = None, progress: bool = False,
                  max_frames: Optional[int] = None, device=DEFAULT_DEVICE,
                  sync_timers: bool = False):
-    """Run the full SLAM pipeline over ``ds`` on ``device``. Returns (node,
-    handler, wall_seconds); on a card the time ends after the loop
-    handler has drained and the device has synchronized."""
+    """Run the full SLAM pipeline over ``ds`` on ``device``, in the
+    front-end mode ``cfg.runtime`` selects (synchronous, pipelined
+    tracking, the monocular bootstrap), through the undistorters when
+    given (raw frames; the output size is the undistorter's). Returns
+    (node, handler, wall_seconds); on a card the time ends after the
+    loop handler has drained and the device has synchronized."""
     import torch
 
     device = resolve_device(device)

@@ -1,11 +1,12 @@
 """SLAM node driver (port of runtime/node.py).
 
-Owns the front end on ``device`` and the loop handler; feeds synced
-stereo pairs; hands each marginalized keyframe to the loop handler;
-detects new sequences by timestamp gap; reinitializes the front end on
-loss or init-failure while preserving the current pose, the
-keyframe-count offset and the loop handler; prints the per-stage timing
-table. The undistorters, the live viewer and the debug dumps are not
+Owns the undistorters, the front end on ``device`` and the loop handler;
+feeds synced stereo pairs (through the undistorters, when given); hands
+each marginalized keyframe to the loop handler; detects new sequences by
+timestamp gap; reinitializes the front end on loss or init-failure while
+preserving the current pose, the keyframe-count offset and the loop
+handler (a pipelined in-flight frame is dropped); prints the per-stage
+timing table. The live viewer, the debug dumps and step mode are not
 ported yet: asking for any of them raises.
 """
 
@@ -34,13 +35,17 @@ class SLAMNode:
                  intr1: PyramidIntrinsics, t_cam1_cam0: np.ndarray,
                  loop_handler=None, undistorter0=None, undistorter1=None,
                  device=DEFAULT_DEVICE, sync_timers: bool = False):
-        if undistorter0 is not None or undistorter1 is not None:
-            raise NotImplementedError("undistortion is not ported yet")
         rt = cfg.runtime
         if rt.live_view_path or rt.debug_dump_dir or rt.step_by_step:
             raise NotImplementedError("viewer / debug dumps / step mode are not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
+        for und in (undistorter0, undistorter1):
+            if und is not None and und.device != self.device:
+                raise ValueError(f"an undistorter made for {und.device} given to a node "
+                                 f"on {self.device}: make it with device={self.device}")
+        self.undistorter0 = undistorter0
+        self.undistorter1 = undistorter1
         self.intr0 = intr0
         self.intr1 = intr1
         self.t_cam1_cam0 = np.asarray(t_cam1_cam0, np.float32)
@@ -60,6 +65,9 @@ class SLAMNode:
         self.current_timestamp = timestamp
 
         if self.frontend.init_failed or self.frontend.is_lost:
+            # tracking was lost: any pipelined in-flight frame is dropped
+            self.frontend._pl_reset()
+            self.frontend.flush_pending()
             last_pose = self.frontend.cur_pose
             prev_kf = self.frontend.num_kfs
             queue = self.frontend.marginalized_queue
@@ -71,6 +79,11 @@ class SLAMNode:
             # sequence-restart marker: the first marginalized KF of the new
             # sequence carries dso_error = NaN (no odometry edge)
             self.frontend.last_dso_error = float("nan")
+
+        if self.undistorter0 is not None:
+            img0 = self.undistorter0(img0)
+        if self.undistorter1 is not None:
+            img1 = self.undistorter1(img1)
 
         with self.timers.span("per_frame"):
             shell = self.frontend.add_stereo_frame(img0, img1, self.incoming_id,
@@ -88,9 +101,11 @@ class SLAMNode:
                 self.loop_handler.publish_keyframe(mkf)
 
     def finish(self):
-        """Flush; returns the odometry trajectory rows (incoming_id x y z),
-        the reference's sodso.txt content, once the loop handler has
-        processed every keyframe."""
+        """Flush (a pipelined in-flight frame is consumed first); returns
+        the odometry trajectory rows (incoming_id x y z), the reference's
+        sodso.txt content, once the loop handler has processed every
+        keyframe."""
+        self.frontend.flush_pipeline()
         self.frontend.flush_pending()
         self._publish_marginalized()
         if self.loop_handler is None:

@@ -6,14 +6,16 @@ JAX package's NamedTuples, pulled to the host as numpy arrays (with
 of the same name and fields (``to_torch``), and back into numpy
 (``to_numpy``). Covered: ``TrackerTemplate``, ``Pyramid``, ``BAState``,
 ``ImmaturePoints``, ``PyramidIntrinsics``, ``PoseGraphData``,
-``LoopPoseResult`` and ``AffLight``; nested tuples convert element-wise.
+``LoopPoseResult``, ``AffLight`` and ``MonoInitState``; nested tuples
+convert element-wise.
 The ``MarginalizedKF`` dataclass converts too: its pyramid tuple becomes
 tensors, its host fields (poses, points, colours, errors) stay numpy and
 Python numbers, as both packages keep them.
 
 Index fields (``BAState.p_host``, the pose graph's edge ends and fixed
-node) are int64 in the port, where they index tensors, and int32 as in
-the JAX package on the way back.
+node, the mono bootstrap's per-level ``knn`` and ``parent``) are int64
+in the port, where they index tensors, and int32 as in the JAX package
+on the way back.
 
 ``config_from_jax`` rebuilds a ``SLAMConfig`` of the JAX package as the
 port's own (its copy in ``config.py``), field by field, so a test can
@@ -35,13 +37,20 @@ from ..models.ba import BAState
 from ..models.depth_template import TrackerTemplate
 from ..models.frontend import MarginalizedKF
 from ..models.immature import ImmaturePoints
+from ..models.mono_init import MonoInitState
 from ..models.tracker import AffLight
 from ..ops.pyramid import Pyramid
 
 PORT_TYPES = {cls.__name__: cls for cls in
               (TrackerTemplate, Pyramid, BAState, ImmaturePoints, PyramidIntrinsics,
-               PoseGraphData, LoopPoseResult, AffLight, MarginalizedKF)}
-_INDEX_FIELDS = {"p_host", "edge_a", "edge_b", "fixed_node"}
+               PoseGraphData, LoopPoseResult, AffLight, MarginalizedKF,
+               MonoInitState)}
+_INDEX_FIELDS = {"p_host", "edge_a", "edge_b", "fixed_node", "knn", "parent"}
+
+
+def _index(x, cast):
+    """An index field (or a tuple of them, one per level) cast."""
+    return type(x)(cast(a) for a in x) if isinstance(x, tuple) else cast(x)
 
 
 def _convert_mkf(mkf, cls, convert):
@@ -69,7 +78,7 @@ def to_torch(tree, device="cpu"):
         for name, v in zip(tree._fields, tree):
             t = to_torch(v, device)
             if name in _INDEX_FIELDS:
-                t = t.to(torch.int64)
+                t = _index(t, lambda a: a.to(torch.int64))
             vals.append(t)
         return cls(*vals)
     if isinstance(tree, (tuple, list)):
@@ -92,7 +101,7 @@ def to_numpy(tree):
         for name, v in zip(tree._fields, tree):
             a = to_numpy(v)
             if name in _INDEX_FIELDS:
-                a = a.astype(np.int32)
+                a = _index(a, lambda x: x.astype(np.int32))
             vals.append(a)
         return type(tree)(*vals)
     if isinstance(tree, (tuple, list)):

@@ -9,7 +9,9 @@ with every lane masked and a seed of NaN. Tolerances are chip_smoke's: K1
 bit-equal; K2/K3/K4 H and b per entry within 1e-4 x max|entry|,
 statistics within rel 1e-5. K1 and K3-LM are also shown to be one kernel
 launch with no host synchronisation. The resident LM kernels' part is
-described below.
+described below, and last the pipelined front end's dispatch of K2-LM
+(no host synchronisation, a double buffer that two queued dispatches do
+not overwrite).
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
@@ -729,3 +731,94 @@ def test_scale_lm_bit_equal_one_launch_no_host_read(scale_scene, G):
     so.dispatch_scale_optimization(*disp)            # puts the guesses on the card
     got = _no_sync(lambda: so.dispatch_scale_optimization(*disp))
     assert torch.equal(got.scale, a.scale)
+
+
+# ---- pipelined tracking: the dispatch of frame N on the card -----------------
+# A pipelined dispatch (frontend._pl_dispatch) launches K2-LM from the
+# device motion state, packs the outputs and starts their copy into a
+# pinned host buffer, without waiting for the device; two buffers are
+# used in turn, so a second dispatch queued before the first is consumed
+# does not overwrite it.
+
+from direct_stereo_slam_tpu_torch.models import frontend as fe_mod  # noqa: E402
+from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def pl_frames():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    dev = torch.device("cuda")
+    ds = SyntheticStereoDataset(n_frames=11, width=LW, height=LH, speed=0.25, device=dev)
+    cfg = make_config(LW, LH, preset=0, mode=1)
+    cfg = cfg.replace(tracker=cfg.tracker.__class__(pyr_levels=LL),
+                      runtime=cfg.runtime.__class__(pipelined_tracking=True))
+    K = ds.K
+    intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], LW, LH, LL)
+    return dict(dev=dev, ds=ds, cfg=cfg, intr=intr, frames=[ds.frame(i) for i in range(11)])
+
+
+def _pipelined_front_end(pf):
+    """A pipelined node on the card after 8 frames, with a device motion
+    state; the three frames after them."""
+    node = SLAMNode(pf["cfg"], pf["intr"], pf["intr"], pf["ds"].t_cam1_cam0, device=pf["dev"])
+    for i, f in enumerate(pf["frames"][:8]):
+        node.process(f["img0"], f["img1"], 0.1 * i)
+    fe = node.frontend
+    assert fe.initialized and not fe.is_lost and fe._pl_state is not None
+    fe._views_np()                  # the host views the dispatch reads are current
+    pyrs = [build_pyramid(fe._image(f["img0"]), LL) for f in pf["frames"][8:]]
+    torch.cuda.synchronize()
+    return fe, pyrs
+
+
+def test_pipelined_dispatch_does_not_wait(pl_frames):
+    """One dispatch (image upload included) runs with every host
+    synchronisation an error, launches K2-LM once, and returns while the
+    card is still busy with earlier work."""
+    import time
+
+    fe, pyrs = _pipelined_front_end(pl_frames)
+    fe._pl_read(fe._pl_dispatch(pyrs[0])["out"])          # warm-up
+    before = rlm.track_lm_cuda.launches
+    img = pl_frames["frames"][9]["img0"]
+    inf = _no_sync(lambda: fe._pl_dispatch(build_pyramid(fe._image(img), LL)))
+    assert rlm.track_lm_cuda.launches == before + 1
+    res, counts = fe._pl_read(inf["out"])
+    assert np.isfinite(res.res_per_level).all() and bool(res.ok[0])
+    assert counts.shape == (fe.n_slots,)
+    # behind a ~0.2 s spin of the card, the dispatch returns long before it
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter()
+    inf = fe._pl_dispatch(pyrs[2])
+    host = time.perf_counter() - t0
+    assert not inf["out"][1].query() and host < 0.05, host
+    fe._pl_read(inf["out"])
+
+
+def test_two_dispatches_before_a_consume(pl_frames):
+    """Frames N and N+1 both dispatched before either is read give what two
+    synchronous tracks of the same candidates give, bit for bit: the
+    second copy goes to the other pinned buffer."""
+    fe, pyrs = _pipelined_front_end(pl_frames)
+    Tl, Tp, aff = fe._pl_state
+    exposure = fe_mod._host_f32(fe._cur_exposure)
+
+    def track(pyr, T, a):
+        r = tr.track_candidates_batch(tuple(pyr.data), fe.template, fe.intr0, fe.cfg, T[None],
+                                      a, fe.template_ref_aff, fe.template_ref_exposure,
+                                      exposure)
+        return r, fe._read_track(r)
+
+    ra_dev, (want_a, counts_a) = track(pyrs[0], fe_mod._const_motion_candidate(Tl, Tp), aff)
+    _, (want_b, _) = track(pyrs[1], fe_mod._const_motion_candidate(ra_dev.T[0], Tl),
+                           tr.AffLight(ra_dev.aff.a[0], ra_dev.aff.b[0]))
+    ia = fe._pl_dispatch(pyrs[0])
+    ib = fe._pl_dispatch(pyrs[1])
+    assert ia["out"][0].data_ptr() != ib["out"][0].data_ptr()
+    assert ia["out"][0].is_pinned() and ib["out"][0].is_pinned()
+    (got_a, got_counts), (got_b, _) = fe._pl_read(ia["out"]), fe._pl_read(ib["out"])
+    for got, want in ((got_a, want_a), (got_b, want_b)):
+        for field in ("res_per_level", "flow", "T", "aff", "ok"):
+            np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    np.testing.assert_array_equal(got_counts, counts_a)

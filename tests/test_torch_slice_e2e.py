@@ -81,21 +81,21 @@ def test_port_tracks_like_the_reference(n_frames):
 
 
 def test_unported_modes_raise():
+    """What is still not ported raises: the viewer, the debug dumps and
+    step mode. Every front-end mode constructs."""
     ds = SyntheticStereoDataset(n_frames=1, width=W, height=H)
     K = ds.K
     intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], W, H, LVLS)
     cfg = _config()
     for rt in (dataclasses.replace(cfg.runtime, pipelined_tracking=True),
                dataclasses.replace(cfg.runtime, mono_initializer=True)):
+        FrontEndT(port_cfg(cfg.replace(runtime=rt)), intr, intr, ds.t_cam1_cam0,
+                  device="cpu")
+    for unported in (dict(live_view_path="x.html"), dict(debug_dump_dir="dumps"),
+                     dict(step_by_step=True)):
         with pytest.raises(NotImplementedError):
-            FrontEndT(port_cfg(cfg.replace(runtime=rt)), intr, intr, ds.t_cam1_cam0,
-                      device="cpu")
-    with pytest.raises(NotImplementedError):
-        _node(NodeT, cfg.replace(runtime=dataclasses.replace(cfg.runtime,
-                                                             live_view_path="x.html")),
-              intr, ds.t_cam1_cam0)
-    with pytest.raises(NotImplementedError):
-        _node(NodeT, cfg, intr, ds.t_cam1_cam0, undistorter0=object())
+            _node(NodeT, cfg.replace(runtime=dataclasses.replace(cfg.runtime, **unported)),
+                  intr, ds.t_cam1_cam0)
 
 
 def test_sequence_gap_reinitializes_like_the_reference():
