@@ -133,6 +133,71 @@ def card_info() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reports now (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def lm_phases(torch, rlm, launch):
+    """One call of a K2-LM / K4-LM wrapper (``launch(timers=...)``) with
+    its phase counters on, converted at the SM clock nvidia-smi reports
+    right after it; and the calls' outputs with the counters on and off
+    must be the same bits."""
+    off = launch()
+    buf = rlm.timer_buffer(off.T.shape[0], off.T.device)
+    on = launch(timers=buf)
+    torch.cuda.synchronize()
+    clock = sm_clock_mhz()
+    for x, y in zip(off, on):
+        if not torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0)):
+            fail("the phase counters changed a resident LM kernel's output")
+    ph = rlm.phase_breakdown(buf, on.passes, clock)
+    ph["kernel_device_ms"] = device_ms(torch, launch)
+    return ph
+
+
+def phase_text(ph) -> str:
+    share = lambda d: " ".join(f"{k} {100 * v:.1f}%" for k, v in d.items())
+    levels = "; ".join(f"L{l} {d['passes']:.0f} passes {d['us_per_pass']:.3f} us/pass "
+                       f"({share(d['shares'])})" for l, d in enumerate(ph["levels"]))
+    return (f"{ph['us_per_pass']:.3f} us per pass over {ph['passes']:.0f} passes at "
+            f"{ph['clock_mhz']:.0f} MHz (the kernel saw {ph['kernel_mhz']:.0f} MHz), "
+            f"phases {share(ph['shares'])}; per candidate {ph['phase_us']:.2f} us in "
+            f"phases, {ph['run_us']:.2f} us run, the kernel alone "
+            f"{ph['kernel_device_ms']} ms per call on the card; per level: {levels}")
+
+
+def lm_usage(build_log: str) -> dict:
+    """Per resident LM kernel (by its row's name): the registers and the
+    bytes of spill stores ptxas reported when it built the library, and
+    how many 8-block clusters of it the card holds at once (K2-LM and
+    K3-LM at levels of 8192 points, K4-LM at 2048)."""
+    from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
+
+    entries = {"track_lm": ("lm_kernelILb0E", "track", 8192),
+               "loop_pose_lm": ("lm_kernelILb1E", "loop_pose", 2048),
+               "scale_lm": ("scale_lm_kernel", "scale", 8192)}
+    found, current, spill = {}, None, 0
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            current = next((k for k, (m, _, _) in entries.items() if m in line), None)
+        elif current and "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif current and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split("registers")[0])
+            _, kind, n = entries[current]
+            found[current] = (regs, spill, rlm.max_active_clusters(kind, n))
+            current = None
+    if set(found) != set(entries):
+        fail(f"ptxas reported no registers for {sorted(set(entries) - set(found))}")
+    return found
+
+
 def median_ms(torch, fn, repeats: int = REPEATS, inner: int = 10,
               warmup: int = 3) -> float:
     """Time per call of fn() on the card: CUDA events around `inner`
@@ -173,7 +238,7 @@ def device_ms(torch, fn, calls: int = 20, samples: int = 5):
     them all before the first one runs and CUDA events around them time
     only the card (the gaps between back-to-back launches included); the
     median over ``samples``. None if the host took longer to issue them
-    than a tenth of the spin."""
+    than half the spin."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -188,7 +253,7 @@ def device_ms(torch, fn, calls: int = 20, samples: int = 5):
         issued = time.perf_counter() - t0
         end.record()
         end.synchronize()
-        if issued > 0.01:
+        if issued > 0.05:
             return None
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
@@ -524,16 +589,23 @@ def lm_rows(torch, dev, ds, f0, f1, intr, pyr1, pyr_template):
                                 *args, residual_pass=rh.pose_residual_pass_plain),
                             plain_kw=slow, kernel_kw=fast)
             loop_ms = median_ms(torch, lambda: tr.track_candidates_batch_plain(*args), **slow)
+            dev_ms = device_ms(torch, lambda: tr.track_candidates_batch(*args))
+            ph = lm_phases(torch, rlm, partial(rlm.track_lm_cuda, *args))
             passes = o.passes.cpu().numpy()
             n_bytes, n_ops = lm_bytes_ops(sizes, passes, B)
             r = row(f"track_lm[N={base},B={B}]", "resident_lm.cu",
                     "direct_stereo_slam_tpu/models/tracker.py:316", err, ms, pms, n_bytes, n_ops)
-            r.update(differ=agr.differ, order_sensitive=agr.sensitive)
+            r.update(differ=agr.differ, order_sensitive=agr.sensitive, device_ms=dev_ms,
+                     passes_per_call=float(passes.sum(axis=1).mean()),
+                     us_per_pass=ph["us_per_pass"], phase_shares=ph["shares"],
+                     sm_clock_mhz=ph["clock_mhz"])
             rows.append(r)
             print(f"{tag}: {agr}; passes per candidate per level (mean) "
-                  f"{passes.mean(axis=0).round(1).tolist()}; kernel {ms:.4f} ms, plain "
-                  f"loop {pms:.4f} ms, loop over K2 passes {loop_ms:.4f} ms, bound "
-                  f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+                  f"{passes.mean(axis=0).round(1).tolist()}; kernel {ms:.4f} ms (on the "
+                  f"card {dev_ms} ms), plain loop {pms:.4f} ms, loop over K2 passes "
+                  f"{loop_ms:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
+                  flush=True)
+            print(f"{tag}: phase counters: {phase_text(ph)}", flush=True)
 
     # ---- K4-LM: the loop estimator's seed stacks ------------------------------
     kmax = 2048
@@ -580,17 +652,24 @@ def lm_rows(torch, dev, ds, f0, f1, intr, pyr1, pyr_template):
                                 *args, residual_pass=rh.pose3d_residual_pass_plain),
                             plain_kw=slow, kernel_kw=fast)
             loop_ms = median_ms(torch, lambda: pe.estimate_seeds_plain(*args), **slow)
+            dev_ms = device_ms(torch, lambda: pe.estimate_seeds(*args))
+            ph = lm_phases(torch, rlm, partial(rlm.loop_pose_lm_cuda, *args))
             passes = o.passes.cpu().numpy()
             n_bytes, n_ops = lm_bytes_ops([kmax] * LEVELS, passes, S)
             r = row(f"loop_pose_lm[k={k},S={S}]", "resident_lm.cu",
                     "direct_stereo_slam_tpu/loop/pose_estimator.py:217", err, ms, pms,
                     n_bytes, n_ops)
-            r.update(differ=agr.differ, order_sensitive=agr.sensitive)
+            r.update(differ=agr.differ, order_sensitive=agr.sensitive, device_ms=dev_ms,
+                     passes_per_call=float(passes.sum(axis=1).mean()),
+                     us_per_pass=ph["us_per_pass"], phase_shares=ph["shares"],
+                     sm_clock_mhz=ph["clock_mhz"])
             rows.append(r)
             print(f"{tag}: {agr}; passes per seed per level (mean) "
-                  f"{passes.mean(axis=0).round(1).tolist()}; kernel {ms:.4f} ms, plain "
-                  f"loop {pms:.4f} ms, loop over K4 passes {loop_ms:.4f} ms, bound "
-                  f"{r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+                  f"{passes.mean(axis=0).round(1).tolist()}; kernel {ms:.4f} ms (on the "
+                  f"card {dev_ms} ms), plain loop {pms:.4f} ms, loop over K4 passes "
+                  f"{loop_ms:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
+                  flush=True)
+            print(f"{tag}: phase counters: {phase_text(ph)}", flush=True)
     return rows
 
 
@@ -1356,12 +1435,15 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: no CUDA card")
+    try:
+        from direct_stereo_slam_tpu_torch.ops import _cuda
+    except ImportError as e:
+        fail(f"the port's package is not beside chip_smoke.py ({e}); run the script "
+             f"from the repository's root")
     dev = torch.device("cuda", 0)
     print(card_info(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-
-    from direct_stereo_slam_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
     lib = _cuda.load_library()
@@ -1370,8 +1452,15 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
+    usage = lm_usage(lib.build_log)
+    print(f"resident LM kernels (registers, bytes spilled, 8-block clusters resident at "
+          f"once): {usage}", flush=True)
 
     rows = kernel_phase(torch, dev)
+    for r in rows:
+        name = r["name"].split("[")[0]
+        if name in usage:
+            r.update(registers=usage[name][0], resident_clusters=usage[name][2])
     # each path's kernels count in that path's run: K1, K2-LM and K3-LM in
     # the e2e pass, K4-LM in the loop phase; the per-pass K2, K3 and K4 run
     # on none of the paths (every phase gates that they stay at 0)

@@ -71,6 +71,35 @@ __device__ __forceinline__ void block_sum(const float (&acc)[NACC],
   }
 }
 
+// Warp-wide reduce-scatter of M per-lane values (M a power of two): each
+// step with a lane offset OFF halves the values a lane holds, keeping the
+// half its OFF bit names and adding its partner's copy of that half; once
+// a lane holds one value, the remaining offsets add the partner's copy
+// (x + y on one lane, y + x on the other: the same bits). Afterwards lane l
+// holds the sums of entries l * M / 32 ... in v[0 .. max(M / 32, 1)) (M =
+// 64: entries 2l and 2l + 1; M = 8: entry l / 4, on four lanes). Fixed
+// order, no atomics: repeated runs give the same bits. M / 2 + ... + 1
+// shuffles per lane (62 for M = 64).
+template <int M, int OFF = 16, int N>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[N], int lane) {
+  if constexpr (OFF > 0) {
+    if constexpr (M > 1) {
+      constexpr int h = M / 2;
+      const bool up = (lane & OFF) != 0;
+#pragma unroll
+      for (int k = 0; k < h; ++k) {
+        const float send = up ? v[k] : v[k + h];
+        const float keep = up ? v[k + h] : v[k];
+        v[k] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+      warp_reduce_scatter<h, OFF / 2>(v, lane);
+    } else {
+      v[0] = v[0] + __shfl_xor_sync(0xffffffffu, v[0], OFF);
+      warp_reduce_scatter<1, OFF / 2>(v, lane);
+    }
+  }
+}
+
 }  // namespace dsslam
 
 DSSLAM_API const char* dsslam_error_string(int err);

@@ -28,11 +28,9 @@
 // fraction of a millisecond (78 candidates); the f32 operations (~80-200
 // per point and pass) take ~5x less, so there is no use for tensor cores
 // (and the reference pins f32: no TF32 anywhere). The real cost is the
-// latency of each pass and LM step in sequence. What the per-pass form
-// lost was the host: a parameter tensor, a ctypes crossing and a blocking
-// read per LM iteration. Here the data-dependent control flow (cutoff
-// doubling, LM accept/reject, the increment-norm break, the one-shot level
-// repeat) runs on the card, so a batch costs one launch and no host read.
+// latency of each pass and LM step in sequence: at the coarse levels a
+// block holds a point or less per thread, so a pass costs its reduction,
+// its barriers and its step. The design keeps that chain short.
 //
 // Design:
 // - One thread-block cluster of 8 blocks (portable size) per candidate,
@@ -45,20 +43,30 @@
 //   17 B / 8 = 17 KB per block. Image taps come through L2 (level 0 at
 //   KITTI size is 5.4 MB, inside the 50 MB L2).
 // - Per pass each thread runs the per-point arithmetic of the per-pass
-//   kernels (pose_terms.cuh), the block reduces in a fixed order (warp
-//   shuffles, then warps in order: block_sum) into a double-buffered
-//   slot, and after one cluster barrier every block sums the 8 blocks'
-//   slots through distributed shared memory in rank order (ClusterSums,
-//   shared by the three LMs). Every block thus holds bit-identical totals
-//   and runs the same LM step on them, so the whole cluster follows one
-//   path with no broadcast and one cluster barrier per pass. K2-LM and
-//   K4-LM take the step on thread 0 (the damped solve by the affine mode
-//   as an f32 LU with partial pivoting, extrapolation, preconditioning and
-//   the isfinite guard, se3_exp as geometry/lie.py computes it,
-//   accept/reject and the lambda schedule) and share it through shared
-//   memory; K3-LM's state is a handful of scalars that every thread holds
-//   in registers and updates alike. No atomics: two runs give the same
-//   bits.
+//   kernels (pose_terms.cuh). The cluster's sums (ClusterSums, shared by
+//   the three LMs) take one __syncthreads and one cluster barrier: a
+//   reduce-scatter inside each warp (common.cuh), the warps' partials
+//   summed in index order, each block's sums pushed into slot [rank] of
+//   every block's shared memory (distributed shared memory stores, two per
+//   thread), barrier.cluster.arrive / wait, then the warps that need the
+//   totals sum their own block's 8 slots in rank order. No atomics: every
+//   block holds the same bits, and two runs give the same bits.
+// - K2-LM / K4-LM: warp 0 of every block takes the LM step in its
+//   registers (LmCluster::plan): the damped sub-block by the affine mode,
+//   solved by an LU with partial pivoting (the first largest |pivot|, as
+//   LAPACK's isamax; rows chosen by selects, every index known at compile
+//   time), the extrapolation and the isfinite guard, se3_exp as
+//   geometry/lie.py computes it, the trial pose and the next pass's warp,
+//   accept / reject, the lambda schedule and the increment-norm break. It
+//   publishes the block's next operation (a pass at that warp, a level's
+//   slice load, or the end) behind one __syncthreads, so a pass crosses
+//   two block barriers and one cluster barrier. Every block's warp 0
+//   reads the same totals, so the whole cluster follows one path with no
+//   broadcast between blocks. (Every thread taking the step alike needs
+//   ~220 registers: one block per SM, half the clusters resident; capped
+//   at 128, the spilled carry cost the batches 14-16% more than this
+//   form, PERF.md.) K3-LM's step is a few scalars that every thread holds
+//   and updates alike.
 // - Host side: one parameter struct passed by value (per-level image and
 //   point pointers, intrinsics, the level's 3x3 matrix, the LM's scalars;
 //   K2-LM's scalars that live on the card are read there through a
@@ -67,6 +75,11 @@
 //   passes run per level; K3-LM the scale, the error, level 0's E and n,
 //   the cutoff-doubling factor and the passes run per level. The
 //   acceptance gates, the winner and the trap decision stay on the host.
+// - Phase counters: with LmParams::timers set, thread 0 of cluster rank 0
+//   adds clock64() deltas per level and phase (the slice load, the point
+//   loop, the reduction, the cluster barrier and gather, the step, the
+//   block barriers) and the run's cycles and %globaltimer nanoseconds;
+//   ops/resident_lm.py turns them into microseconds per pass.
 
 #include <cooperative_groups.h>
 #include <cooperative_groups/memcpy_async.h>
@@ -79,6 +92,7 @@ namespace {
 
 constexpr int kCluster = 8;
 constexpr int kLmThreads = 256;
+constexpr int kWarps = kLmThreads / 32;
 constexpr int kMaxLevels = 8;
 
 // output row per candidate (ops/resident_lm.py reads the same slots)
@@ -89,6 +103,10 @@ constexpr int kOutA = 16, kOutB = 17, kOutRes = 18, kOutX0 = 26, kOutX1 = 27,
 constexpr int kScaleOut = 20;
 constexpr int kSOutScale = 0, kSOutErr = 1, kSOutE = 2, kSOutN = 3,
               kSOutRepeat = 4, kSOutPasses = 12;
+// phase counters (LmParams::timers): per candidate kMaxLevels x kPhases
+// clock64() sums, then the whole run's cycles and %globaltimer nanoseconds
+enum Phase { kPhLoad = 0, kPhPoints, kPhReduce, kPhCluster, kPhStep, kPhBarrier, kPhases };
+constexpr int kTimerWords = kMaxLevels * kPhases + 2;
 
 }  // namespace
 
@@ -122,6 +140,7 @@ struct LmParams {
   LmLevel lv[kMaxLevels];
   const float* T_init;         // [B, 4, 4]
   float* out;                  // [B, kLmOut]
+  long long* timers;           // [B, kTimerWords] phase counters, or null
   LmScalar aff_a0, aff_b0, ref_a, ref_b, ref_exp, new_exp;
   float pre[8];                // POSE_PRECOND
   float huber, coarse_cutoff, sat_ratio_repeat, cutoff_repeat_max;
@@ -145,31 +164,31 @@ struct ScaleLmParams {
 };
 
 static_assert(sizeof(LmLevel) == 136, "LmLevel layout");
-static_assert(sizeof(LmParams) == 1288, "LmParams layout");
+static_assert(sizeof(LmParams) == 1296, "LmParams layout");
 static_assert(sizeof(ScaleLmParams) == 1168, "ScaleLmParams layout");
 
 namespace {
 
-// Per-cluster LM state, one copy in every block's shared memory; thread 0
-// writes it, all threads read it after a barrier.
-struct LmState {
-  float T[16], a, b;                       // accepted carry
-  float H[64], g[8];
-  float E, n, n_in, ft, frt, sat;
-  float lam;
-  int done;
-  float T0[16], a0, b0;                    // the level's start
-  float repeat;
-  float Tn[16], an, bn;                    // the trial step
-  float inc_norm;
-  dsslam::PoseWarp warp;                   // the next pass's warp
-  float oH[64], og[8];                     // the last pass's result
-  float oE, on, osat, onin, oft, ofrt;
-  float res[kMaxLevels];
-  float x0, x1;
-  int passes[kMaxLevels];
-  float ref_a, ref_b, ref_exp, new_exp;
-  float M[64], rhs[8];                     // solve scratch
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
+// Thread 0 of cluster rank 0, with LmParams::timers set: clock64() deltas
+// per level and phase into shared memory (acc); mark(p) ends phase p. For
+// every other thread acc is null and mark() does nothing.
+struct PhaseTimer {
+  long long* acc = nullptr;
+  long long t = 0;
+  int lvl = 0;
+  __device__ __forceinline__ void mark(int phase) {
+    if (acc) {
+      const long long now = clock64();
+      acc[lvl * kPhases + phase] += now - t;
+      t = now;
+    }
+  }
 };
 
 __device__ __forceinline__ float read_scalar(const LmScalar& s) {
@@ -187,26 +206,47 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int chunk) {
   return (static_cast<size_t>(chunk) * 17 + 15) / 16 * 16;
 }
 
+__host__ __device__ constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+
+// The cluster barrier split in its two halves: arrive releases this
+// thread's earlier stores (to any block's shared memory), wait acquires
+// every thread's of the cluster.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
 // A block's slice of a level's points in shared memory, and the cluster's
 // fixed-order sum of NACC per-thread accumulators: what K2-LM, K3-LM and
 // K4-LM share. Every thread calls reduce() alike, so the double-buffer
 // index lives in a register.
 template <int NACC>
 struct ClusterSums {
-  float (*red)[NACC];          // [2][NACC] this block's sums, double-buffered
-  float* tot;                  // [NACC] the cluster's totals
+  static constexpr int NS = pow2_at_least(NACC);   // NACC padded (64 / 8)
+  static constexpr int PER = NS >= 32 ? NS / 32 : 1;   // sums a lane holds
+  static constexpr int SPAN = NS >= 32 ? 1 : 32 / NS;  // lanes holding each
+
+  struct Shared {
+    float part[kWarps][NS];              // this block's warp partials
+    float slot[2][kCluster][NS];         // every block's partials, pushed
+  };
+
+  Shared& sh;
   float *s0, *s1, *s2, *sc;    // the slice: p0, p1, p2, colour
   unsigned char* sm;           // the slice: mask
-  int rank, tid;
+  int rank, tid, lane, warp;
   int start = 0, count = 0, buf = 0;
+  PhaseTimer tm;
 
-  __device__ ClusterSums(unsigned char* smem, int chunk, float (*red_)[NACC],
-                         float* tot_)
-      : red(red_), tot(tot_), s0(reinterpret_cast<float*>(smem)),
-        s1(s0 + chunk), s2(s1 + chunk), sc(s2 + chunk),
+  __device__ ClusterSums(Shared& sh_, unsigned char* smem, int chunk)
+      : sh(sh_), s0(reinterpret_cast<float*>(smem)), s1(s0 + chunk),
+        s2(s1 + chunk), sc(s2 + chunk),
         sm(reinterpret_cast<unsigned char*>(sc + chunk)),
         rank(static_cast<int>(cg::this_cluster().block_rank())),
-        tid(threadIdx.x) {}
+        tid(threadIdx.x), lane(threadIdx.x & 31), warp(threadIdx.x >> 5) {}
 
   // This block's slice of level L's points into shared memory.
   __device__ void load_level(const LmLevel& L) {
@@ -229,86 +269,176 @@ struct ClusterSums {
       }
     }
     cg::wait(block);
+    tm.mark(kPhLoad);
   }
 
-  // All threads: the cluster's sums of acc into tot, the same bits in
-  // every block (block_sum, one cluster barrier, the 8 blocks' slots in
-  // rank order), readable by every thread on return.
-  __device__ void reduce(const float (&acc)[NACC]) {
-    dsslam::block_sum<NACC, kLmThreads>(acc, red[buf]);
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    if (tid < NACC) {
-      float s = 0.f;
-      for (int r = 0; r < kCluster; ++r)
-        s += cluster.map_shared_rank(&red[buf][0], r)[tid];
-      tot[tid] = s;
+  // All threads, right after the point loop: the cluster's sums of acc,
+  // the same bits in every warp that gathers them, in every block. Each
+  // warp's lanes hold PER sums from entry e0 = lane / SPAN * PER on, which
+  // finish(s, e0) may rewrite (it runs on every lane, so it may shuffle);
+  // they land in dst (the warp's own NS floats), readable by the warp on
+  // return. A warp that passes no dst gathers nothing.
+  template <class Finish>
+  __device__ __forceinline__ void reduce(const float (&acc)[NACC], float* dst,
+                                         Finish finish) {
+    tm.mark(kPhPoints);
+    float v[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) v[k] = k < NACC ? acc[k] : 0.f;
+    dsslam::warp_reduce_scatter<NS>(v, lane);
+    const int e0 = lane / SPAN * PER;
+    if (lane % SPAN == 0) {
+#pragma unroll
+      for (int j = 0; j < PER; ++j) sh.part[warp][e0 + j] = v[j];
     }
+    tm.mark(kPhReduce);
     __syncthreads();
+    tm.mark(kPhBarrier);
+    // the block's sums (warps in index order), pushed into slot [buf][rank]
+    // of every block: thread t sums entry t % NS and stores it to kDest
+    // blocks
+    constexpr int kGroups = kLmThreads / NS;
+    constexpr int kDest = (kCluster + kGroups - 1) / kGroups;
+    static_assert(kWarps == 8, "the block sum's order is written for 8 warps");
+    const int e = tid % NS, q = tid / NS;
+    if (q * kDest < kCluster) {
+      const float s = ((sh.part[0][e] + sh.part[1][e]) + (sh.part[2][e] + sh.part[3][e])) +
+                      ((sh.part[4][e] + sh.part[5][e]) + (sh.part[6][e] + sh.part[7][e]));
+      cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+      for (int d = 0; d < kDest; ++d) {
+        const int r = q * kDest + d;
+        if (r < kCluster) *cluster.map_shared_rank(&sh.slot[buf][rank][e], r) = s;
+      }
+    }
+    tm.mark(kPhReduce);
+    cluster_arrive();
+    cluster_wait();
+    tm.mark(kPhCluster);
     buf ^= 1;
+    if (dst == nullptr) return;
+    float s[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      float t = sh.slot[buf ^ 1][0][e0 + j];
+#pragma unroll
+      for (int r = 1; r < kCluster; ++r) t += sh.slot[buf ^ 1][r][e0 + j];
+      s[j] = t;
+    }
+    finish(s, e0);
+    if (lane % SPAN == 0) {
+#pragma unroll
+      for (int j = 0; j < PER; ++j) dst[e0 + j] = s[j];
+    }
+    __syncwarp();
+    tm.mark(kPhCluster);
   }
 };
 
-// Damped solve of the 8-parameter system by the affine mode
-// (models/tracker.py::_solve_inc): Hl = H + lam diag(H), the 6-, 7- or
-// 8-unknown sub-block ("stitch b into slot 6" when only b is free), f32
-// LU with partial pivoting (first largest pivot, as LAPACK's isamax) and
-// substitution. A singular system gives non-finite values, which the
-// caller's isfinite guard rejects, as the reference's solve does.
-__device__ void solve_inc(LmState& s, float mode_a, float mode_b,
-                          float* inc) {
-  int idx[8];
-  int m = 0;
-  for (int k = 0; k < 6; ++k) idx[m++] = k;
-  if (mode_a >= 0.f) idx[m++] = 6;
-  if (mode_b >= 0.f) idx[m++] = 7;
-  for (int r = 0; r < m; ++r) {
-    for (int c = 0; c < m; ++c) {
-      const float h = s.H[idx[r] * 8 + idx[c]];
-      s.M[r * 8 + c] = r == c ? h + s.lam * h : h;
+// The parameters of the 8-parameter system that the affine mode leaves
+// free (models/tracker.py::_solve_inc): both (8 unknowns), a only (7),
+// b only ("stitch b into slot 6": 7) or neither (6).
+enum SolveMode { kFreeBoth = 0, kFixB, kFixA, kFixBoth };
+
+__host__ __device__ __forceinline__ int solve_mode(float mode_a, float mode_b) {
+  return mode_a >= 0.f ? (mode_b >= 0.f ? kFreeBoth : kFixB)
+                       : (mode_b >= 0.f ? kFixA : kFixBoth);
+}
+
+template <int Mode>
+__host__ __device__ constexpr int solve_size() {
+  return Mode == kFreeBoth ? 8 : Mode == kFixBoth ? 6 : 7;
+}
+
+template <int Mode>
+__device__ __forceinline__ constexpr int solve_index(int r) {
+  return Mode == kFixA && r == 6 ? 7 : r;
+}
+
+// Damped solve of the 8-parameter system by the affine mode: Hl = H + lam
+// diag(H) over the free sub-block, f32 LU with partial pivoting (the
+// first largest |pivot|, as LAPACK's isamax; rows chosen by selects) and
+// substitution, in registers: h(i, j) gives H's entries, g the gradient.
+// A singular system gives non-finite values, which the caller's isfinite
+// guard rejects, as the reference's solve does. piv (the pivot row of
+// each column) is for the test entry point; the LM passes null.
+template <int Mode, class HFn>
+__device__ __forceinline__ void damped_solve(HFn h, const float (&g)[8], float lam,
+                                             float (&inc)[8], int* piv) {
+  constexpr int M = solve_size<Mode>();
+  float A[M][M], r[M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int c = 0; c < M; ++c) {
+      const float v = h(solve_index<Mode>(i), solve_index<Mode>(c));
+      A[i][c] = i == c ? v + lam * v : v;
     }
-    s.rhs[r] = -s.g[idx[r]];
+    r[i] = -g[solve_index<Mode>(i)];
   }
-  for (int k = 0; k < m; ++k) {
-    int piv = k;
-    float best = fabsf(s.M[k * 8 + k]);
-    for (int i = k + 1; i < m; ++i) {
-      const float v = fabsf(s.M[i * 8 + k]);
-      if (v > best) {
-        best = v;
-        piv = i;
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    int p = k;
+    float best = fabsf(A[k][k]);
+#pragma unroll
+    for (int i = k + 1; i < M; ++i) {
+      const float v = fabsf(A[i][k]);
+      const bool larger = v > best;
+      best = larger ? v : best;
+      p = larger ? i : p;
+    }
+    if (piv) piv[k] = p;
+#pragma unroll
+    for (int i = k + 1; i < M; ++i) {
+      const bool swap = p == i;
+#pragma unroll
+      for (int c = k; c < M; ++c) {
+        const float top = A[k][c], low = A[i][c];
+        A[k][c] = swap ? low : top;
+        A[i][c] = swap ? top : low;
       }
+      const float top = r[k], low = r[i];
+      r[k] = swap ? low : top;
+      r[i] = swap ? top : low;
     }
-    if (piv != k) {
-      for (int c = 0; c < m; ++c) {
-        const float t = s.M[k * 8 + c];
-        s.M[k * 8 + c] = s.M[piv * 8 + c];
-        s.M[piv * 8 + c] = t;
-      }
-      const float t = s.rhs[k];
-      s.rhs[k] = s.rhs[piv];
-      s.rhs[piv] = t;
-    }
-    const float d = s.M[k * 8 + k];
-    for (int i = k + 1; i < m; ++i) {
-      const float l = s.M[i * 8 + k] / d;
-      for (int c = k + 1; c < m; ++c) s.M[i * 8 + c] -= l * s.M[k * 8 + c];
-      s.rhs[i] -= l * s.rhs[k];
+    const float d = A[k][k];
+#pragma unroll
+    for (int i = k + 1; i < M; ++i) {
+      const float l = A[i][k] / d;
+#pragma unroll
+      for (int c = k + 1; c < M; ++c) A[i][c] -= l * A[k][c];
+      r[i] -= l * r[k];
     }
   }
-  float x[8];
-  for (int i = m - 1; i >= 0; --i) {
-    float acc = s.rhs[i];
-    for (int c = i + 1; c < m; ++c) acc -= s.M[i * 8 + c] * x[c];
-    x[i] = acc / s.M[i * 8 + i];
+  float x[M];
+#pragma unroll
+  for (int i = M - 1; i >= 0; --i) {
+    float acc = r[i];
+#pragma unroll
+    for (int c = i + 1; c < M; ++c) acc -= A[i][c] * x[c];
+    x[i] = acc / A[i][i];
   }
+#pragma unroll
   for (int k = 0; k < 8; ++k) inc[k] = 0.f;
-  for (int r = 0; r < m; ++r) inc[idx[r]] = x[r];
+#pragma unroll
+  for (int i = 0; i < M; ++i) inc[solve_index<Mode>(i)] = x[i];
+}
+
+// The solve of the launch's affine mode (uniform across the launch).
+template <class HFn>
+__device__ __forceinline__ void solve_inc(int mode, HFn h, const float (&g)[8],
+                                          float lam, float (&inc)[8], int* piv) {
+  switch (mode) {
+    case kFreeBoth: damped_solve<kFreeBoth>(h, g, lam, inc, piv); break;
+    case kFixB: damped_solve<kFixB>(h, g, lam, inc, piv); break;
+    case kFixA: damped_solve<kFixA>(h, g, lam, inc, piv); break;
+    default: damped_solve<kFixBoth>(h, g, lam, inc, piv); break;
+  }
 }
 
 // SE(3) exp of xi = [t, w] as geometry/lie.py::se3_exp computes it in f32
 // (Taylor switch below theta^2 = 1e-4), as a 4x4 row-major matrix.
-__device__ void se3_exp(const float* xi, float* E) {
+__device__ __forceinline__ void se3_exp(const float (&xi)[8], float (&E)[16]) {
   const float w0 = xi[3], w1 = xi[4], w2 = xi[5];
   const float th2 = w0 * w0 + w1 * w1 + w2 * w2;
   const bool small = th2 < 1e-4f;
@@ -321,18 +451,23 @@ __device__ void se3_exp(const float* xi, float* E) {
                         : (st - sinf(st)) / (st2 * st);
   const float W[9] = {0.f, -w2, w1, w2, 0.f, -w0, -w1, w0, 0.f};
   float W2[9];
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j)
       W2[i * 3 + j] = W[i * 3 + 0] * W[0 * 3 + j] + W[i * 3 + 1] * W[1 * 3 + j] +
                       W[i * 3 + 2] * W[2 * 3 + j];
   float V[9];
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
+#pragma unroll
     for (int j = 0; j < 3; ++j) {
       const float eye = i == j ? 1.f : 0.f;
       E[i * 4 + j] = eye + A * W[i * 3 + j] + B * W2[i * 3 + j];
       V[i * 3 + j] = eye + B * W[i * 3 + j] + C * W2[i * 3 + j];
     }
   }
+#pragma unroll
   for (int i = 0; i < 3; ++i)
     E[i * 4 + 3] = V[i * 3 + 0] * xi[0] + V[i * 3 + 1] * xi[1] + V[i * 3 + 2] * xi[2];
   E[12] = 0.f;
@@ -341,269 +476,386 @@ __device__ void se3_exp(const float* xi, float* E) {
   E[15] = 1.f;
 }
 
+// K2-LM (kPoints3d false) and K4-LM (true): one candidate's coarse-to-fine
+// LM (models/tracker.py::track_candidates_batch_plain /
+// loop/pose_estimator.py::estimate_seeds_plain for one candidate). Warp 0
+// of every block runs the LM's logic (plan) in its registers from the
+// pass totals, which only warp 0 gathers, and publishes the block's next
+// operation: a pass at a warp, a level's slice load, or the end. Every
+// block's warp 0 reads the same totals and so publishes the same
+// operations: the cluster follows one path with no broadcast between
+// blocks.
+enum LmOp { kOpPass = 0, kOpLoad, kOpStop };
+enum LmPhase { kStart = 0, kBegin, kPre, kTrial, kLm, kEnd };
+
+// What warp 0 publishes before each block-wide operation.
+struct LmCtl {
+  dsslam::PoseWarp w;          // the pass's warp
+  int op, lvl, dst;            // the operation, its level, the totals' buffer
+};
+
+// Warp 0's LM state between its plans (lane 0 stores it).
+struct LmCarry {
+  float T[16], a, b;           // the accepted pose and affine
+  float Tn[16], an, bn;        // the trial in flight
+  float lam, inc_norm, repeat, first_repeat;
+  float ref_a, ref_b, exp_ratio;
+  int phase, lvl, it, ci, passes, second_run, have_repeated;
+};
+
 template <bool kPoints3d>
 class LmCluster {
  public:
   static constexpr int NACC = kPoints3d ? dsslam::kPose3dAcc : dsslam::kPoseAcc;
+  using Sums = ClusterSums<NACC>;
+  static constexpr int NS = Sums::NS;
+  static_assert(NS == 64 && Sums::PER == 2, "a lane holds two of 64 sums");
 
-  __device__ LmCluster(const LmParams& p, LmState& st, ClusterSums<NACC>& cs)
-      : p_(p), st_(st), cs_(cs), tid_(threadIdx.x) {}
+  // sys: warp 0's [2][NS] pass totals; row: this block's output row
+  __device__ LmCluster(const LmParams& p, Sums& cs, float (*sys)[NS], float* row,
+                       LmCtl* ctl, LmCarry* carry)
+      : p_(p), cs_(cs), sys_(sys), row_(row), ctl_(ctl), carry_(carry),
+        mode_(solve_mode(p.mode_a, p.mode_b)) {}
 
-  // thread 0: the warp of a pass at pose T, affine (a, b) and cutoff
-  __device__ void set_warp(const float* T, float a, float b, float cutoff,
-                           const LmLevel& L) {
-    dsslam::PoseWarp& w = st_.warp;
-    if (kPoints3d) {
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) w.r[i * 3 + j] = T[i * 4 + j];
-    } else {
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j)
-          w.r[i * 3 + j] = T[i * 4 + 0] * L.Ki[0 * 3 + j] +
-                           T[i * 4 + 1] * L.Ki[1 * 3 + j] +
-                           T[i * 4 + 2] * L.Ki[2 * 3 + j];
+  // The warp of a pass at pose T, affine (a, b) and cutoff.
+  __device__ __forceinline__ dsslam::PoseWarp warp(const LmCarry& c, const float (&T)[16],
+                                                   float a, float b, float cutoff,
+                                                   const LmLevel& L) const {
+    dsslam::PoseWarp w;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        w.r[i * 3 + j] = kPoints3d ? T[i * 4 + j]
+                                   : T[i * 4 + 0] * L.Ki[0 * 3 + j] +
+                                         T[i * 4 + 1] * L.Ki[1 * 3 + j] +
+                                         T[i * 4 + 2] * L.Ki[2 * 3 + j];
+      }
     }
     w.t[0] = T[3];
     w.t[1] = T[7];
     w.t[2] = T[11];
     // aff_from_to(ref_exposure, ref a, ref b, new_exposure, a, b)
-    const float a_rel = expf(a - st_.ref_a) *
-                        (st_.new_exp / dsslam::clamp_min(st_.ref_exp, 1e-9f));
+    const float a_rel = expf(a - c.ref_a) * c.exp_ratio;
     w.a = a_rel;
-    w.b = b - a_rel * st_.ref_b;
+    w.b = b - a_rel * c.ref_b;
     w.cutoff = cutoff;
-    w.ref_b0 = st_.ref_b;
+    w.ref_b0 = c.ref_b;
+#pragma unroll
     for (int k = 0; k < 9; ++k) w.k[k] = L.Ki[k];
+    return w;
   }
 
-  // All threads: one pass over the level at st.warp; leaves the pass's
-  // H, b and statistics in st.o*.
-  __device__ void pass(int lvl, const LmLevel& L) {
-    const dsslam::PoseWarp c = st_.warp;
+  // All threads: one pass over level L at the published warp; warp 0
+  // receives H / n_in (packed upper triangle), b / n_in, E, n_terms, the
+  // saturated ratio, n_in and (K2, level 0) the flow indicators, at
+  // dsslam's accumulator indices, in its buffer dst.
+  __device__ __forceinline__ void pass(const LmLevel& L, int dst) {
+    using namespace dsslam;
+    const PoseWarp c = ctl_->w;
     float acc[NACC];
 #pragma unroll
     for (int k = 0; k < NACC; ++k) acc[k] = 0.f;
-    for (int j = tid_; j < cs_.count; j += kLmThreads) {
+    for (int j = cs_.tid; j < cs_.count; j += kLmThreads) {
       if constexpr (kPoints3d) {
-        dsslam::pose3d_point(L.img, L.H, L.W, L.umax, L.vmax, cs_.s0[j],
-                             cs_.s1[j], cs_.s2[j], cs_.sc[j], cs_.sm[j] != 0, c,
-                             L.fx, L.fy, L.cx, L.cy, p_.huber, acc);
+        pose3d_point(L.img, L.H, L.W, L.umax, L.vmax, cs_.s0[j], cs_.s1[j], cs_.s2[j],
+                     cs_.sc[j], cs_.sm[j] != 0, c, L.fx, L.fy, L.cx, L.cy, p_.huber, acc);
       } else {
-        dsslam::pose_point(L.img, L.H, L.W, L.umax, L.vmax, cs_.s0[j],
-                           cs_.s1[j], cs_.s2[j], cs_.sc[j], cs_.sm[j] != 0,
-                           cs_.start + j, c, L.fx, L.fy, L.cx, L.cy, p_.huber,
-                           L.compute_flow != 0, acc);
+        pose_point(L.img, L.H, L.W, L.umax, L.vmax, cs_.s0[j], cs_.s1[j], cs_.s2[j],
+                   cs_.sc[j], cs_.sm[j] != 0, cs_.start + j, c, L.fx, L.fy, L.cx, L.cy,
+                   p_.huber, L.compute_flow != 0, acc);
       }
     }
-    cs_.reduce(acc);
-    if (tid_ == 0) {
-      using namespace dsslam;
-      const float* tot = cs_.tot;
-      const float n_safe = fmaxf(tot[kNIN], 1.f);
-      for (int i = 0; i < 8; ++i) {
-        for (int j = 0; j < 8; ++j)
-          st_.oH[i * 8 + j] = tot[tri_index(i, j)] / n_safe * p_.pre[i] * p_.pre[j];
-        st_.og[i] = tot[36 + i] / n_safe * p_.pre[i];
+    const bool flow = !kPoints3d && L.compute_flow != 0;
+    cs_.reduce(acc, cs_.warp == 0 ? sys_[dst] : nullptr, [flow](float (&s)[2], int e0) {
+      const unsigned all = 0xffffffffu;
+      const float n_in = __shfl_sync(all, s[kNIN % 2], kNIN / 2);
+      const float nt = __shfl_sync(all, s[kNT % 2], kNT / 2);
+      const float ns = __shfl_sync(all, s[kNS % 2], kNS / 2);
+      const float nsub = __shfl_sync(all, s[kNSUB % 2], kNSUB / 2);
+      const float n_safe = fmaxf(n_in, 1.f);
+      const float num = nsub * 2.f + 0.1f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int e = e0 + j;
+        if (e < kE)
+          s[j] = s[j] / n_safe;
+        else if (e == kNS)
+          s[j] = ns / fmaxf(nt, 1.f);
+        else if (e == kFT || e == kFRT)
+          s[j] = flow ? s[j] / num : 0.f;
       }
-      st_.oE = tot[kE];
-      st_.on = tot[kNT];
-      st_.osat = tot[kNS] / fmaxf(tot[kNT], 1.f);
-      st_.onin = tot[kNIN];
-      st_.oft = 0.f;
-      st_.ofrt = 0.f;
-      if constexpr (!kPoints3d) {
-        if (L.compute_flow) {
-          const float num = tot[kNSUB] * 2.f + 0.1f;
-          st_.oft = tot[kFT] / num;
-          st_.ofrt = tot[kFRT] / num;
-        }
-      }
-      st_.passes[lvl] += 1;
-    }
-    __syncthreads();
+    });
   }
 
-  // thread 0: the last pass becomes the carry's system (pre-loop)
-  __device__ void take_pass() {
-    for (int k = 0; k < 64; ++k) st_.H[k] = st_.oH[k];
-    for (int k = 0; k < 8; ++k) st_.g[k] = st_.og[k];
-    st_.E = st_.oE;
-    st_.n = st_.on;
-    st_.n_in = st_.onin;
-    st_.ft = st_.oft;
-    st_.frt = st_.ofrt;
-    st_.sat = st_.osat;
-  }
-
-  // thread 0: the LM trial step from the carry
-  __device__ void trial(float cutoff, const LmLevel& L) {
-    float inc[8];
-    solve_inc(st_, p_.mode_a, p_.mode_b, inc);
+  // Warp 0: the LM trial step from the carry (its system in sys_[c.ci])
+  // at damping c.lam: the trial pose and affine, the increment's norm and
+  // the next pass's warp.
+  __device__ __forceinline__ dsslam::PoseWarp trial(LmCarry& c, const LmLevel& L) const {
+    const float* s = sys_[c.ci];
+    const float* pre = p_.pre;
+    float g[8], inc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) g[i] = s[36 + i] * pre[i];
+    solve_inc(mode_, [s, pre](int i, int j) {
+      return s[dsslam::tri_index(i, j)] * pre[i] * pre[j];
+    }, g, c.lam, inc, nullptr);
     const float lim = p_.lambda_lim;
-    const float extrap = st_.lam < lim ? sqrtf(sqrtf(lim / st_.lam)) : 1.f;
+    const float extrap = c.lam < lim ? sqrtf(sqrtf(lim / c.lam)) : 1.f;
     float scaled[8];
     float sum = 0.f, nrm = 0.f;
+#pragma unroll
     for (int k = 0; k < 8; ++k) {
       inc[k] = inc[k] * extrap;
-      scaled[k] = inc[k] * p_.pre[k];
+      scaled[k] = inc[k] * pre[k];
       sum += scaled[k];
       nrm += inc[k] * inc[k];
     }
-    if (!isfinite(sum))
+    if (!isfinite(sum)) {
+#pragma unroll
       for (int k = 0; k < 8; ++k) scaled[k] = 0.f;
-    st_.inc_norm = sqrtf(nrm);
+    }
+    c.inc_norm = sqrtf(nrm);
     float Ex[16];
     se3_exp(scaled, Ex);
+#pragma unroll
     for (int i = 0; i < 4; ++i)
+#pragma unroll
       for (int j = 0; j < 4; ++j)
-        st_.Tn[i * 4 + j] = Ex[i * 4 + 0] * st_.T[0 * 4 + j] +
-                            Ex[i * 4 + 1] * st_.T[1 * 4 + j] +
-                            Ex[i * 4 + 2] * st_.T[2 * 4 + j] +
-                            Ex[i * 4 + 3] * st_.T[3 * 4 + j];
-    st_.an = st_.a + scaled[6];
-    st_.bn = st_.b + scaled[7];
-    set_warp(st_.Tn, st_.an, st_.bn, cutoff, L);
+        c.Tn[i * 4 + j] = Ex[i * 4 + 0] * c.T[0 * 4 + j] + Ex[i * 4 + 1] * c.T[1 * 4 + j] +
+                          Ex[i * 4 + 2] * c.T[2 * 4 + j] + Ex[i * 4 + 3] * c.T[3 * 4 + j];
+    c.an = c.a + scaled[6];
+    c.bn = c.b + scaled[7];
+    return warp(c, c.Tn, c.an, c.bn, p_.coarse_cutoff * c.repeat, L);
   }
 
-  // thread 0: accept or reject the trial, the lambda schedule, the break
-  __device__ void update() {
-    const float e_new = st_.oE / dsslam::clamp_min(st_.on, 1.f);
-    const float e_old = st_.E / dsslam::clamp_min(st_.n, 1.f);
-    if (e_new < e_old) {
-      for (int k = 0; k < 16; ++k) st_.T[k] = st_.Tn[k];
-      st_.a = st_.an;
-      st_.b = st_.bn;
-      take_pass();
-      st_.lam = st_.lam * p_.lambda_accept;
-    } else {
-      st_.lam = dsslam::clamp_min(st_.lam * p_.lambda_reject, p_.lambda_lim);
-    }
-    st_.done = st_.inc_norm <= p_.inc_break ? 1 : 0;
-  }
-
-  // All threads: one level of LM from the carry (models/tracker.py::
-  // _track_level for one candidate). Returns the cutoff-doubling factor.
-  __device__ float level(int lvl, const LmLevel& L) {
-    if (tid_ == 0) {
-      for (int k = 0; k < 16; ++k) st_.T0[k] = st_.T[k];
-      st_.a0 = st_.a;
-      st_.b0 = st_.b;
-      st_.repeat = 1.f;
-      set_warp(st_.T0, st_.a0, st_.b0, p_.coarse_cutoff * st_.repeat, L);
-    }
-    __syncthreads();
-    pass(lvl, L);
-    if (tid_ == 0) take_pass();
-    __syncthreads();
-    // cutoff doubling while too many residuals saturate
-    for (;;) {
-      const bool more = st_.sat > p_.sat_ratio_repeat &&
-                        st_.repeat < p_.cutoff_repeat_max;
-      __syncthreads();
-      if (!more) break;
-      if (tid_ == 0) {
-        st_.repeat = st_.repeat * 2.f;
-        set_warp(st_.T0, st_.a0, st_.b0, p_.coarse_cutoff * st_.repeat, L);
-      }
-      __syncthreads();
-      pass(lvl, L);
-      if (tid_ == 0) take_pass();
-      __syncthreads();
-    }
-    const float repeat = st_.repeat;
-    const float cutoff = p_.coarse_cutoff * repeat;
-    if (tid_ == 0) {
-      st_.lam = p_.lambda_init;
-      st_.done = 0;
-    }
-    __syncthreads();
-    for (int it = 0; it < L.max_iters; ++it) {
-      const bool done = st_.done != 0;
-      __syncthreads();
-      if (done) break;
-      if (tid_ == 0) trial(cutoff, L);
-      __syncthreads();
-      pass(lvl, L);
-      if (tid_ == 0) update();
-      __syncthreads();
-    }
-    return repeat;
-  }
-
-  // All threads: every level coarse to fine with the one-shot level
-  // repeat (track_candidates_batch / _estimate_seeds for one candidate).
-  __device__ void run(int cand) {
-    if (tid_ == 0) {
-      for (int k = 0; k < 16; ++k) st_.T[k] = p_.T_init[cand * 16 + k];
-      st_.a = read_scalar(p_.aff_a0);
-      st_.b = read_scalar(p_.aff_b0);
-      st_.ref_a = read_scalar(p_.ref_a);
-      st_.ref_b = read_scalar(p_.ref_b);
-      st_.ref_exp = read_scalar(p_.ref_exp);
-      st_.new_exp = read_scalar(p_.new_exp);
-      st_.x0 = 0.f;
-      st_.x1 = 1.f;
-      for (int l = 0; l < kMaxLevels; ++l) {
-        st_.res[l] = 0.f;
-        st_.passes[l] = 0;
-      }
-    }
-    bool have_repeated = false;
-    for (int lvl = p_.levels - 1; lvl >= 0; --lvl) {
-      const LmLevel& L = p_.lv[lvl];
-      cs_.load_level(L);
-      const float repeat = level(lvl, L);
-      if (repeat > 1.f && !have_repeated) level(lvl, L);
-      have_repeated = have_repeated || repeat > 1.f;
-      if (tid_ == 0) {
-        st_.res[lvl] = st_.n > 0.f
-                           ? sqrtf(st_.E / dsslam::clamp_min(st_.n, 1.f))
-                           : __int_as_float(0x7f800000);
-        if (lvl == 0) {
-          st_.x0 = kPoints3d ? st_.E : st_.ft;
-          st_.x1 = kPoints3d ? st_.n : st_.frt;
+  // Warp 0: the LM's logic from the last operation's result to the next
+  // operation (track_candidates_batch / _estimate_seeds for one candidate:
+  // every level coarse to fine, the cutoff doubling, the LM iterations and
+  // the one-shot level repeat), published in ctl_ with the carry.
+  __device__ void plan(int cand) {
+    using dsslam::clamp_min;
+    LmCarry c = *carry_;
+    __syncwarp();
+    LmCtl o = {};
+    for (bool next = false; !next;) {
+      switch (c.phase) {
+        case kStart:
+#pragma unroll
+          for (int k = 0; k < 16; ++k) c.T[k] = p_.T_init[cand * 16 + k];
+          c.a = read_scalar(p_.aff_a0);
+          c.b = read_scalar(p_.aff_b0);
+          c.ref_a = read_scalar(p_.ref_a);
+          c.ref_b = read_scalar(p_.ref_b);
+          c.exp_ratio = read_scalar(p_.new_exp) / clamp_min(read_scalar(p_.ref_exp), 1e-9f);
+          c.lvl = p_.levels - 1;
+          c.ci = 0;
+          c.have_repeated = 0;
+          c.second_run = 0;
+          c.passes = 0;
+          c.phase = kBegin;
+          o.op = kOpLoad;
+          next = true;
+          break;
+        case kBegin:   // the level's (or its repeat's) first pass at the carry
+          c.repeat = 1.f;
+          o.w = warp(c, c.T, c.a, c.b, p_.coarse_cutoff * c.repeat, p_.lv[c.lvl]);
+          o.op = kOpPass;
+          c.phase = kPre;
+          next = true;
+          break;
+        case kPre: {   // a pass of the cutoff doubling is the carry's
+          ++c.passes;
+          c.ci ^= 1;
+          const float sat = sys_[c.ci][dsslam::kNS];
+          if (sat > p_.sat_ratio_repeat && c.repeat < p_.cutoff_repeat_max) {
+            c.repeat = c.repeat * 2.f;
+            o.w = warp(c, c.T, c.a, c.b, p_.coarse_cutoff * c.repeat, p_.lv[c.lvl]);
+            o.op = kOpPass;
+            next = true;
+          } else {
+            c.lam = p_.lambda_init;
+            c.it = 0;
+            c.phase = kTrial;
+          }
+          break;
+        }
+        case kTrial:
+          if (c.it >= p_.lv[c.lvl].max_iters) {
+            c.phase = kEnd;
+          } else {
+            o.w = trial(c, p_.lv[c.lvl]);
+            o.op = kOpPass;
+            c.phase = kLm;
+            next = true;
+          }
+          break;
+        case kLm: {    // accept or reject the trial, the lambda schedule, the break
+          ++c.passes;
+          const float* t = sys_[c.ci ^ 1];
+          const float* s = sys_[c.ci];
+          const float e_new = t[dsslam::kE] / clamp_min(t[dsslam::kNT], 1.f);
+          const float e_old = s[dsslam::kE] / clamp_min(s[dsslam::kNT], 1.f);
+          if (e_new < e_old) {
+#pragma unroll
+            for (int k = 0; k < 16; ++k) c.T[k] = c.Tn[k];
+            c.a = c.an;
+            c.b = c.bn;
+            c.ci ^= 1;
+            c.lam = c.lam * p_.lambda_accept;
+          } else {
+            c.lam = clamp_min(c.lam * p_.lambda_reject, p_.lambda_lim);
+          }
+          ++c.it;
+          c.phase = c.inc_norm <= p_.inc_break ? kEnd : kTrial;
+          break;
+        }
+        default: {     // kEnd: the level's run ended
+          if (!c.second_run) {
+            c.first_repeat = c.repeat;
+            if (c.repeat > 1.f && !c.have_repeated) {
+              c.second_run = 1;
+              c.phase = kBegin;
+              break;
+            }
+          }
+          c.have_repeated = c.have_repeated || c.first_repeat > 1.f;
+          const float* s = sys_[c.ci];
+          const float E = s[dsslam::kE], n = s[dsslam::kNT];
+          if (cs_.lane == 0) {
+            row_[kOutRes + c.lvl] = n > 0.f ? sqrtf(E / clamp_min(n, 1.f))
+                                            : __int_as_float(0x7f800000);
+            row_[kOutPasses + c.lvl] = static_cast<float>(c.passes);
+            if (c.lvl == 0) {
+              row_[kOutX0] = kPoints3d ? E : s[dsslam::kFT];
+              row_[kOutX1] = kPoints3d ? n : s[dsslam::kFRT];
+            }
+          }
+          if (c.lvl == 0) {
+            o.op = kOpStop;
+          } else {
+            --c.lvl;
+            c.passes = 0;
+            c.second_run = 0;
+            c.phase = kBegin;
+            o.op = kOpLoad;
+          }
+          next = true;
+          break;
         }
       }
     }
-    __syncthreads();
-    if (cs_.rank == 0 && tid_ == 0) {
-      float* o = p_.out + static_cast<size_t>(cand) * kLmOut;
-      for (int k = 0; k < 16; ++k) o[k] = st_.T[k];
-      o[kOutA] = st_.a;
-      o[kOutB] = st_.b;
-      for (int l = 0; l < kMaxLevels; ++l) {
-        o[kOutRes + l] = st_.res[l];
-        o[kOutPasses + l] = static_cast<float>(st_.passes[l]);
-      }
-      o[kOutX0] = st_.x0;
-      o[kOutX1] = st_.x1;
-      for (int k = kOutPasses + kMaxLevels; k < kLmOut; ++k) o[k] = 0.f;
+    o.lvl = c.lvl;
+    o.dst = c.ci ^ 1;
+    __syncwarp();
+    if (cs_.lane == 0) {
+      *carry_ = c;
+      *ctl_ = o;
     }
-    // no block leaves while another may still read its shared memory
+  }
+
+  // All threads: the operations warp 0 plans, until the end.
+  __device__ void run(int cand) {
+    if (cs_.tid == 0)
+      for (int k = 0; k < kLmOut; ++k) row_[k] = 0.f;
+    if (cs_.warp == 0) plan(cand);
+    for (;;) {
+      cs_.tm.mark(kPhStep);
+      __syncthreads();
+      cs_.tm.mark(kPhBarrier);
+      const int op = ctl_->op, lvl = ctl_->lvl;
+      if (op == kOpStop) break;
+      cs_.tm.lvl = lvl;
+      if (op == kOpLoad)
+        cs_.load_level(p_.lv[lvl]);
+      else
+        pass(p_.lv[lvl], ctl_->dst);
+      if (cs_.warp == 0) plan(cand);
+    }
+    if (cs_.rank == 0 && cs_.tid == 0) {
+      float* o = p_.out + static_cast<size_t>(cand) * kLmOut;
+      for (int k = 0; k < kLmOut; ++k) o[k] = row_[k];
+      for (int k = 0; k < 16; ++k) o[k] = carry_->T[k];
+      o[kOutA] = carry_->a;
+      o[kOutB] = carry_->b;
+    }
+    // no block leaves while another may still write its shared memory
     cg::this_cluster().sync();
   }
 
  private:
   const LmParams& p_;
-  LmState& st_;
-  ClusterSums<NACC>& cs_;
-  int tid_;
+  Sums& cs_;
+  float (*sys_)[NS];
+  float* row_;
+  LmCtl* ctl_;
+  LmCarry* carry_;
+  int mode_;
 };
 
+// Two blocks per SM (at most 128 registers a thread): an H100 holds 30
+// clusters of a batch at once, not 15.
 template <bool kPoints3d>
-__global__ void __launch_bounds__(kLmThreads) lm_kernel(const LmParams p) {
-  constexpr int NACC = LmCluster<kPoints3d>::NACC;
+__global__ void __launch_bounds__(kLmThreads, 2) lm_kernel(const LmParams p) {
+  using Lm = LmCluster<kPoints3d>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[2][NACC];
-  __shared__ float tot[NACC];
-  __shared__ LmState st;
+  __shared__ typename Lm::Sums::Shared sums;
+  __shared__ float sys[2][Lm::NS];
+  __shared__ float row[kLmOut];
+  __shared__ LmCtl ctl;
+  __shared__ LmCarry carry;
   // the parameters in shared memory, where the levels index them freely
   __shared__ LmParams sp;
-  if (threadIdx.x == 0) sp = p;
-  __syncthreads();
-  ClusterSums<NACC> cs(smem, p.chunk, red, tot);
-  LmCluster<kPoints3d> lm(sp, st, cs);
+  __shared__ long long tacc[kMaxLevels * kPhases];
+  const long long c0 = clock64(), n0 = global_ns();
+  if (threadIdx.x == 0) {
+    sp = p;
+    carry.phase = kStart;
+  }
+  // every block runs, and has its parameters, before any block stores
+  // into another's shared memory
+  cg::this_cluster().sync();
+  typename Lm::Sums cs(sums, smem, p.chunk);
+  const bool timed = p.timers && cs.rank == 0 && threadIdx.x == 0;
+  if (timed) {
+    for (int k = 0; k < kMaxLevels * kPhases; ++k) tacc[k] = 0;
+    cs.tm.acc = tacc;
+    cs.tm.t = c0;
+  }
+  Lm lm(sp, cs, sys, row, &ctl, &carry);
   lm.run(blockIdx.y);
+  if (timed) {
+    cs.tm.mark(kPhBarrier);
+    long long* o = p.timers + static_cast<size_t>(blockIdx.y) * kTimerWords;
+    for (int k = 0; k < kMaxLevels * kPhases; ++k) o[k] = tacc[k];
+    o[kMaxLevels * kPhases] = clock64() - c0;
+    o[kMaxLevels * kPhases + 1] = global_ns() - n0;
+  }
+}
+
+// The LM's damped solve on a batch of systems, one thread each (the test
+// entry point of damped_solve): H [n, 8, 8], g [n, 8], lam [n] ->
+// inc [n, 8] and the pivot row of each column [n, 8] (-1 past the
+// sub-block).
+__global__ void lm_solve_kernel(const float* __restrict__ H, const float* __restrict__ g,
+                                const float* __restrict__ lam, int mode, int n,
+                                float* __restrict__ inc, int* __restrict__ piv) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* h = H + static_cast<size_t>(i) * 64;
+  float gl[8], x[8];
+  int pv[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    gl[k] = g[static_cast<size_t>(i) * 8 + k];
+    pv[k] = -1;
+  }
+  solve_inc(mode, [h](int r, int c) { return h[r * 8 + c]; }, gl, lam[i], x, pv);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    inc[static_cast<size_t>(i) * 8 + k] = x[k];
+    piv[static_cast<size_t>(i) * 8 + k] = pv[k];
+  }
 }
 
 // K3-LM: one guess's coarse-to-fine 1-DoF scale LM
@@ -613,8 +865,11 @@ __global__ void __launch_bounds__(kLmThreads) lm_kernel(const LmParams p) {
 // another's step. The step is the reference's scalar one, no solve.
 class ScaleLm {
  public:
-  __device__ ScaleLm(const ScaleLmParams& p, ClusterSums<dsslam::kScaleAcc>& cs)
-      : p_(p), cs_(cs) {}
+  using Sums = ClusterSums<dsslam::kScaleAcc>;
+
+  // tot: this warp's Sums::NS pass totals
+  __device__ ScaleLm(const ScaleLmParams& p, Sums& cs, float* tot)
+      : p_(p), cs_(cs), tot_(tot) {}
 
   struct Pass {
     float H, b, E, n, sat;
@@ -637,8 +892,8 @@ class ScaleLm {
       scale_point(L.img, L.H, L.W, L.umax, L.vmax, cs_.s0[j], cs_.s1[j],
                   cs_.s2[j], cs_.sc[j], cs_.sm[j] != 0, w, L.fx, L.fy, L.cx,
                   L.cy, p_.huber, acc);
-    cs_.reduce(acc);
-    const float* t = cs_.tot;
+    cs_.reduce(acc, tot_, [](auto&, int) {});
+    const float* t = tot_;
     const float n_safe = fmaxf(t[kSNIN], 1.f);
     ++passes;
     return Pass{t[kSH] / n_safe, t[kSB] / n_safe, t[kSE], t[kSNT],
@@ -723,20 +978,22 @@ class ScaleLm {
 
  private:
   const ScaleLmParams& p_;
-  ClusterSums<dsslam::kScaleAcc>& cs_;
+  Sums& cs_;
+  float* tot_;
 };
 
 __global__ void __launch_bounds__(kLmThreads)
     scale_lm_kernel(const ScaleLmParams p) {
-  constexpr int NACC = dsslam::kScaleAcc;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[2][NACC];
-  __shared__ float tot[NACC];
+  __shared__ ScaleLm::Sums::Shared sums;
+  __shared__ float tot[kWarps][ScaleLm::Sums::NS];
   __shared__ ScaleLmParams sp;
   if (threadIdx.x == 0) sp = p;
-  __syncthreads();
-  ClusterSums<NACC> cs(smem, p.chunk, red, tot);
-  ScaleLm lm(sp, cs);
+  // every block runs, and has its parameters, before any block stores
+  // into another's shared memory
+  cg::this_cluster().sync();
+  ScaleLm::Sums cs(sums, smem, p.chunk);
+  ScaleLm lm(sp, cs, tot[threadIdx.x >> 5]);
   lm.run(blockIdx.y);
 }
 
@@ -798,6 +1055,18 @@ DSSLAM_API int dsslam_loop_pose_lm(const LmParams* p, cudaStream_t stream) {
 
 DSSLAM_API int dsslam_scale_lm(const ScaleLmParams* p, cudaStream_t stream) {
   return launch_lm(scale_lm_kernel, p, p->G, stream);
+}
+
+// The LM's damped solve (damped_solve) on n systems for the affine mode
+// (mode_a, mode_b): H [n, 8, 8], g [n, 8], lam [n] -> inc [n, 8], piv
+// [n, 8] (int32). For tests.
+DSSLAM_API int dsslam_lm_solve(const float* H, const float* g, const float* lam,
+                               float mode_a, float mode_b, int n, float* inc, int* piv,
+                               cudaStream_t stream) {
+  if (n < 1) return cudaErrorInvalidValue;
+  lm_solve_kernel<<<(n + 127) / 128, 128, 0, stream>>>(
+      H, g, lam, solve_mode(mode_a, mode_b), n, inc, piv);
+  return cudaGetLastError();
 }
 
 // How many 8-block clusters of an LM kernel (kind 0: K2-LM, 1: K4-LM,

@@ -40,7 +40,7 @@ from ..ops.distance_map import build_distance_map
 from ..ops.interp import bilinear_gather, bilinear_gather_scalar
 from ..ops.pyramid import Pyramid, build_pyramid
 from ..ops.select import adapt_potential, make_selection_map
-from ..utils.device import DEFAULT_DEVICE, resolve_device, to_device
+from ..utils.device import DEFAULT_DEVICE, resolve_device, to_device, to_host
 from ..utils.timing import StageTimers
 from . import ba, immature, initializer, mono_init
 from .depth_template import (TrackerTemplate, build_template, default_budgets,
@@ -391,11 +391,12 @@ class FrontEnd:
         return self._upload(np.float32(x))
 
     def _views_np(self):
-        """Host copies of ba.current_views, cached per BAState instance
-        (states are replaced, never mutated, so identity is a sound key)."""
+        """Host copies of ba.current_views in one device-to-host copy,
+        cached per BAState instance (states are replaced, never mutated, so
+        identity is a sound key)."""
         st = self.ba_state
         if self._views_cache_key is not st:
-            self._views_cache = tuple(v.cpu().numpy() for v in ba.current_views(st))
+            self._views_cache = to_host(ba.current_views(st))
             self._views_cache_key = st
         return self._views_cache
 

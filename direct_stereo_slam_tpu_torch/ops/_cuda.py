@@ -59,6 +59,8 @@ _SIGNATURES = {
     "dsslam_loop_pose_lm": [_P, _P],
     # &ScaleLmParams (ops/resident_lm.py), stream
     "dsslam_scale_lm": [_P, _P],
+    # H, g, lam, mode_a, mode_b, n, inc, piv, stream
+    "dsslam_lm_solve": [_P, _P, _P, _F, _F, _I, _P, _P, _P],
 }
 
 
@@ -86,7 +88,8 @@ def library_path() -> Path:
 
 
 class KernelLibrary:
-    """The loaded shared library plus what its build reported."""
+    """The loaded shared library plus what its build reported (nvcc's and
+    ptxas's output, kept beside the library)."""
 
     def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
                  build_log: str):
@@ -113,7 +116,10 @@ def load_library() -> KernelLibrary:
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        path.with_suffix(".log").write_text(log)
         os.replace(tmp, path)       # atomic: concurrent builders agree
+    elif path.with_suffix(".log").exists():
+        log = path.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -40,6 +40,11 @@ SCALE_OUT = 20     # floats per guess in K3-LM's output row
 _SOUT_REPEAT, _SOUT_PASSES = 4, 12
 # dsslam_lm_max_active_clusters' kernel numbers
 KINDS = {"track": 0, "loop_pose": 1, "scale": 2}
+# K2-LM / K4-LM phase counters (resident_lm.cu, Phase): per candidate and
+# level the SM cycles of each phase on thread 0 of cluster rank 0, then the
+# whole run's cycles and nanoseconds (%globaltimer)
+PHASES = ("load", "points", "reduce", "cluster", "step", "barrier")
+TIMER_WORDS = MAX_LEVELS * len(PHASES) + 2
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -57,7 +62,7 @@ class _Scalar(ctypes.Structure):
 
 
 class LmParams(ctypes.Structure):
-    _fields_ = [("lv", _Level * MAX_LEVELS), ("T_init", _P), ("out", _P),
+    _fields_ = [("lv", _Level * MAX_LEVELS), ("T_init", _P), ("out", _P), ("timers", _P),
                 ("aff_a0", _Scalar), ("aff_b0", _Scalar), ("ref_a", _Scalar),
                 ("ref_b", _Scalar), ("ref_exp", _Scalar), ("new_exp", _Scalar),
                 ("pre", _F * 8), ("huber", _F), ("coarse_cutoff", _F),
@@ -152,14 +157,21 @@ def _lm_scalars(p, cfg) -> None:
     p.inc_break = tc.inc_break_norm
 
 
-def _common(p: LmParams, cfg, T_inits: torch.Tensor, out: torch.Tensor) -> None:
+_PRECOND = tuple(float(v) for v in POSE_PRECOND)
+
+
+def _schedule(p: LmParams, cfg) -> None:
+    """K2-LM's / K4-LM's schedule, preconditioner and affine mode."""
     tc = cfg.tracker
-    p.T_init = T_inits.data_ptr()
-    p.out = out.data_ptr()
-    p.pre[:] = [float(v) for v in POSE_PRECOND]
+    p.pre[:] = _PRECOND
     _lm_scalars(p, cfg)
     p.mode_a = tc.affine_mode_a
     p.mode_b = tc.affine_mode_b
+
+
+def _batch(p: LmParams, T_inits: torch.Tensor, out: torch.Tensor) -> None:
+    p.T_init = T_inits.data_ptr()
+    p.out = out.data_ptr()
     p.B = T_inits.shape[0]
 
 
@@ -197,9 +209,49 @@ def _library() -> _cuda.KernelLibrary:
     return kl
 
 
-def _launch(name: str, p: LmParams, levels: int, sizes, out: torch.Tensor) -> LmOut:
-    p.levels = levels
-    p.chunk = max(slice_len(n) for n in sizes)
+def _timers(p: LmParams, timers: Optional[torch.Tensor], B: int, dev) -> None:
+    if timers is None:
+        return
+    if (timers.device != dev or timers.dtype != torch.int64 or not timers.is_contiguous()
+            or tuple(timers.shape) != (B, TIMER_WORDS)):
+        raise ValueError(f"timers must be a contiguous int64 [{B}, {TIMER_WORDS}] tensor "
+                         f"on {dev}, got {timers.dtype} {tuple(timers.shape)} on "
+                         f"{timers.device}")
+    p.timers = timers.data_ptr()
+
+
+def timer_buffer(B: int, dev) -> torch.Tensor:
+    """A phase-counter array for a K2-LM / K4-LM call of B candidates."""
+    return torch.zeros(B, TIMER_WORDS, dtype=torch.int64, device=dev)
+
+
+def phase_breakdown(timers, passes, clock_mhz: float) -> dict:
+    """The phase counters of one call (``timers`` [B, TIMER_WORDS], host
+    or device; ``passes`` [B, L], the call's ``LmOut.passes``) converted at
+    ``clock_mhz`` (the SM clock nvidia-smi reports beside the run): per
+    level and over the call, microseconds per pass (summed over the
+    candidates, whose clusters run side by side) and each phase's share;
+    ``run_us`` the mean of the candidates' whole runs, and ``kernel_mhz``
+    the SM clock the kernel itself saw (cycles over %globaltimer)."""
+    t = np.asarray(timers.cpu() if isinstance(timers, torch.Tensor) else timers, np.float64)
+    n = np.asarray(passes.cpu() if isinstance(passes, torch.Tensor) else passes, np.float64)
+    L = n.shape[1]
+    cyc = t[:, :MAX_LEVELS * len(PHASES)].reshape(-1, MAX_LEVELS, len(PHASES))[:, :L].sum(0)
+    shares = lambda c: {k: float(v / max(c.sum(), 1.0)) for k, v in zip(PHASES, c)}
+    per_level = [dict(passes=float(n[:, l].sum()),
+                      us_per_pass=float(cyc[l].sum() / clock_mhz / max(n[:, l].sum(), 1.0)),
+                      shares=shares(cyc[l])) for l in range(L)]
+    total = cyc.sum(0)
+    run_cyc, run_ns = t[:, -2], t[:, -1]
+    return dict(clock_mhz=clock_mhz, passes=float(n.sum()),
+                us_per_pass=float(total.sum() / clock_mhz / max(n.sum(), 1.0)),
+                shares=shares(total), phase_us=float(total.sum() / clock_mhz / t.shape[0]),
+                run_us=float(run_cyc.mean() / clock_mhz),
+                kernel_mhz=float(1e3 * run_cyc.sum() / max(run_ns.sum(), 1.0)),
+                levels=per_level)
+
+
+def _launch(name: str, p: LmParams, levels: int, out: torch.Tensor) -> LmOut:
     _library()
     _cuda.call(name, ctypes.addressof(p))
     B = out.shape[0]
@@ -213,33 +265,61 @@ def _max_iters(cfg, lvl: int) -> int:
     return its[min(lvl, len(its) - 1)]
 
 
+# K2-LM's struct for the last template: (template, intr, cfg, image
+# shapes) and the struct with every field but the call's own
+_track_proto: list = [None]
+
+
+def _track_params(pyr_new, template, intr, cfg) -> LmParams:
+    """K2-LM's parameter struct for a call on ``pyr_new``: the per-level
+    part (the template's lists, the level's size, intrinsics, K^-1 and
+    iterations) and the LM's schedule are built once per template (the
+    front end's changes only at a keyframe), keyed on the template object
+    as the front end keys its host views on the BA state, and copied per
+    call; the call fills in the images."""
+    levels = template.levels
+    key = (template, intr, cfg, tuple(tuple(x.shape) for x in pyr_new[:levels]))
+    hit = _track_proto[0]
+    if hit is None or any(a is not b for a, b in zip(hit[0][:3], key[:3])) or hit[0][3] != key[3]:
+        if levels > MAX_LEVELS:
+            raise ValueError(f"track_lm: at most {MAX_LEVELS} levels, got {levels}")
+        p = LmParams()
+        for lvl in range(levels):
+            pts = (template.pu[lvl], template.pv[lvl], template.pid[lvl],
+                   template.pcolor[lvl], _mask_u8(template.pmask[lvl]))
+            _cuda.require_cuda("track_lm", pyr_new[lvl], *pts)
+            _level(p, lvl, pyr_new[lvl], *pts[:4], 1, pts[4], intr, _max_iters(cfg, lvl),
+                   lvl == 0)
+        _schedule(p, cfg)
+        p.levels = levels
+        p.chunk = max(slice_len(int(x.shape[0])) for x in template.pu)
+        hit = _track_proto[0] = (key, p)
+    p = LmParams.from_buffer_copy(hit[1])
+    for lvl in range(levels):
+        p.lv[lvl].img = pyr_new[lvl].data_ptr()
+    return p
+
+
 def track_lm_cuda(pyr_new, template, intr, cfg, T_inits: torch.Tensor, aff_init,
-                  ref_aff, ref_exposure, new_exposure) -> LmOut:
+                  ref_aff, ref_exposure, new_exposure,
+                  timers: Optional[torch.Tensor] = None) -> LmOut:
     """Launch K2-LM for the candidate batch ``T_inits`` [B, 4, 4]: every
     level coarse to fine of ``models/tracker.track_candidates_batch``
     (before its gates). ``res`` is sqrt(E/n) per level (inf where no term
-    survived), ``x0``/``x1`` level 0's flow_t and flow_rt."""
-    levels = template.levels
-    if levels > MAX_LEVELS:
-        raise ValueError(f"track_lm: at most {MAX_LEVELS} levels, got {levels}")
+    survived), ``x0``/``x1`` level 0's flow_t and flow_rt. ``timers``
+    (``timer_buffer(B)``) receives the phase counters."""
     dev = pyr_new[0].device
     T_inits = T_inits.to(torch.float32).contiguous()
+    _cuda.require_cuda("track_lm", *pyr_new[:template.levels], T_inits)
     B = T_inits.shape[0]
     out = torch.empty(B, OUT, dtype=torch.float32, device=dev)
-    p = LmParams()
-    sizes = []
-    for lvl in range(levels):
-        img = pyr_new[lvl]
-        pts = (template.pu[lvl], template.pv[lvl], template.pid[lvl],
-               template.pcolor[lvl], _mask_u8(template.pmask[lvl]))
-        _cuda.require_cuda("track_lm", img, *pts, T_inits)
-        _level(p, lvl, img, *pts[:4], 1, pts[4], intr, _max_iters(cfg, lvl), lvl == 0)
-        sizes.append(pts[0].shape[0])
-    _common(p, cfg, T_inits, out)
+    p = _track_params(pyr_new, template, intr, cfg)
+    _batch(p, T_inits, out)
     p.aff_a0, p.aff_b0 = _scalar(aff_init.a, dev), _scalar(aff_init.b, dev)
     p.ref_a, p.ref_b = _scalar(ref_aff.a, dev), _scalar(ref_aff.b, dev)
     p.ref_exp, p.new_exp = _scalar(ref_exposure, dev), _scalar(new_exposure, dev)
-    res = _launch("dsslam_track_lm", p, levels, sizes, out)
+    _timers(p, timers, B, dev)
+    res = _launch("dsslam_track_lm", p, template.levels, out)
     track_lm_cuda.launches += 1
     return res
 
@@ -248,11 +328,13 @@ track_lm_cuda.launches = 0
 
 
 def loop_pose_lm_cuda(pyr_cur, px, py, pz, pcolors, pmask, T_inits: torch.Tensor,
-                      intr, cfg, ref_exposure=1.0, new_exposure=1.0) -> LmOut:
+                      intr, cfg, ref_exposure=1.0, new_exposure=1.0,
+                      timers: Optional[torch.Tensor] = None) -> LmOut:
     """Launch K4-LM for the seed stack ``T_inits`` [S, 4, 4] over the
     points ``px, py, pz`` [K] with per-level intensities ``pcolors``
     [K, L]: every level of ``loop/pose_estimator.estimate_seeds_plain``
-    (before its gates). ``x0``/``x1`` are level 0's E and n."""
+    (before its gates). ``x0``/``x1`` are level 0's E and n. ``timers``
+    (``timer_buffer(S)``) receives the phase counters."""
     levels = len(pyr_cur)
     if levels > MAX_LEVELS:
         raise ValueError(f"loop_pose_lm: at most {MAX_LEVELS} levels, got {levels}")
@@ -272,11 +354,15 @@ def loop_pose_lm_cuda(pyr_cur, px, py, pz, pcolors, pmask, T_inits: torch.Tensor
         col = pcolors.reshape(-1)[lvl:]
         _level(p, lvl, pyr_cur[lvl], px, py, pz, col, stride, pmask, intr,
                _max_iters(cfg, lvl), False)
-    _common(p, cfg, T_inits, out)
+    _schedule(p, cfg)
+    _batch(p, T_inits, out)
     zero = _Scalar(None, 0.0)
     p.aff_a0 = p.aff_b0 = p.ref_a = p.ref_b = zero
     p.ref_exp, p.new_exp = _scalar(ref_exposure, dev), _scalar(new_exposure, dev)
-    res = _launch("dsslam_loop_pose_lm", p, levels, [px.shape[0]] * levels, out)
+    _timers(p, timers, S, dev)
+    p.levels = levels
+    p.chunk = slice_len(px.shape[0])
+    res = _launch("dsslam_loop_pose_lm", p, levels, out)
     loop_pose_lm_cuda.launches += 1
     return res
 
@@ -335,6 +421,27 @@ def scale_lm_cuda(pyr1, template, scales0, intr0, intr1, t_cam1_cam0,
 
 
 scale_lm_cuda.launches = 0
+
+
+def lm_solve_cuda(H: torch.Tensor, g: torch.Tensor, lam: torch.Tensor, mode_a: float,
+                  mode_b: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2-LM's and K4-LM's damped solve (``damped_solve`` in
+    ``resident_lm.cu``) on a batch of systems, one thread each, for tests:
+    H [n, 8, 8], g [n, 8], lam [n] -> the increment [n, 8] (as
+    ``models/tracker._solve_inc``) and the pivot row of each column [n, 8]
+    (int32, -1 past the affine mode's sub-block)."""
+    H, g, lam = (x.to(torch.float32).contiguous() for x in (H, g, lam))
+    _cuda.require_cuda("lm_solve", H, g, lam)
+    n = H.shape[0]
+    if tuple(H.shape) != (n, 8, 8) or tuple(g.shape) != (n, 8) or tuple(lam.shape) != (n,):
+        raise ValueError(f"lm_solve: H [n, 8, 8], g [n, 8], lam [n], got "
+                         f"{tuple(H.shape)}, {tuple(g.shape)}, {tuple(lam.shape)}")
+    inc = torch.empty(n, 8, dtype=torch.float32, device=H.device)
+    piv = torch.empty(n, 8, dtype=torch.int32, device=H.device)
+    _library()
+    _cuda.call("dsslam_lm_solve", H.data_ptr(), g.data_ptr(), lam.data_ptr(), float(mode_a),
+               float(mode_b), n, inc.data_ptr(), piv.data_ptr())
+    return inc, piv
 
 
 def max_active_clusters(kind: str, n_points: int) -> int:

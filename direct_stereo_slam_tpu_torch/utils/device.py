@@ -30,6 +30,22 @@ def to_device(a, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def to_host(tensors) -> tuple:
+    """Host numpy copies of ``tensors`` (any dtypes and shapes, on one
+    device) through one device-to-host copy: their bytes are packed into
+    one uint8 tensor on the device, so the card is waited for once, not
+    once per tensor."""
+    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    host = torch.cat(flat).cpu().numpy() if flat else np.zeros(0, np.uint8)
+    out, off = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(host[off:off + n].view(dtype).reshape(t.shape).copy())
+        off += n
+    return tuple(out)
+
+
 def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     """``device`` as a ``torch.device``; raises when it names a CUDA card
     that this host does not have."""

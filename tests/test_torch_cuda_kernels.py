@@ -569,6 +569,234 @@ def test_lm_clusters_fit(scene):
     assert rlm.max_active_clusters("loop_pose", 2048) >= 2
 
 
+# The redesigned step: every thread of K2-LM / K4-LM solves the damped
+# system in registers. The test entry point runs the same device solve on
+# a batch of systems, one thread each, against the plain
+# models/tracker._solve_inc (torch.linalg.solve_ex, LAPACK's getrf) in f32
+# on the CPU. Tolerance: the two LUs round in other places (LAPACK scales
+# a column by the pivot's reciprocal; the kernel divides, and fuses
+# multiply-adds), so on well-conditioned systems each increment agrees
+# within 1e-4 x the largest |entry| of the system's increment.
+
+
+def _systems(seed, n):
+    """n damped systems like the tracker's: H = J^T J / m over 40 random
+    rows, g = J^T r / m, lam in [1e-3, 1]."""
+    rng = np.random.RandomState(seed)
+    J = rng.randn(n, 40, 8).astype(np.float32)
+    J[..., 6] *= 0.3
+    r = rng.randn(n, 40).astype(np.float32)
+    H = np.einsum("nki,nkj->nij", J, J) / 40.0
+    g = np.einsum("nki,nk->ni", J, r) / 40.0
+    lam = 10.0 ** rng.uniform(-3, 0, n)
+    return [torch.as_tensor(a.astype(np.float32)) for a in (H, g, lam)]
+
+
+def _plain_solve(H, g, lam, mode):
+    cfg = _with_modes(make_config(LW, LH), *mode)
+    return tr._solve_inc(H, g, lam, cfg)
+
+
+def _lu_pivots(A):
+    """The pivot rows of partial pivoting that takes the first largest
+    |pivot| (LAPACK's isamax), in float64."""
+    A = np.array(A, np.float64)
+    m = A.shape[0]
+    piv = []
+    for k in range(m):
+        p = k + int(np.argmax(np.abs(A[k:, k])))
+        piv.append(p)
+        A[[k, p]] = A[[p, k]]
+        A[k + 1:, k:] -= np.outer(A[k + 1:, k] / A[k, k], A[k, k:])
+    return piv
+
+
+def _sub(mode):
+    free = list(range(6)) + [6] * (mode[0] >= 0) + [7] * (mode[1] >= 0)
+    return free
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_lm_solve_matches_solve_inc(dev, mode):
+    H, g, lam = _systems(0, 257)
+    got, piv = rlm.lm_solve_cuda(H.to(dev), g.to(dev), lam.to(dev), *mode)
+    want = _plain_solve(H, g, lam, mode)
+    got = got.cpu()
+    scale = want.abs().amax(dim=1, keepdim=True)
+    assert bool(((got - want).abs() <= 1e-4 * scale).all()), float(
+        ((got - want).abs() / scale).max())
+    free = _sub(mode)
+    assert bool((got[:, [k for k in range(8) if k not in free]] == 0).all())
+    # the pivots: those of the first largest |pivot| over the damped block
+    for i in range(0, 257, 32):
+        Hl = H[i] + lam[i] * torch.diag(torch.diagonal(H[i]))
+        expect = _lu_pivots(Hl[free][:, free].numpy())
+        assert piv[i, :len(free)].tolist() == expect
+        assert piv[i, len(free):].tolist() == [-1] * (8 - len(free))
+
+
+def test_lm_solve_singular_is_rejected(dev):
+    """A system with a zero row and column (a parameter no residual sees)
+    is singular also after damping: the increment is non-finite in the
+    kernel and in the plain solve, so the LM's isfinite guard rejects the
+    step in both."""
+    H, g, lam = _systems(1, 8)
+    H[:, 3, :] = 0.0
+    H[:, :, 3] = 0.0
+    for mode in MODES:
+        got, _ = rlm.lm_solve_cuda(H.to(dev), g.to(dev), lam.to(dev), *mode)
+        want = _plain_solve(H, g, lam, mode)
+        assert not bool(torch.isfinite(got.sum(dim=1)).any())
+        assert not bool(torch.isfinite(want.sum(dim=1)).any())
+
+
+def test_lm_solve_tied_pivots_take_the_first(dev):
+    """Column 0 holds +5 and -5 in rows 1 and 2 (and 1 on the diagonal):
+    the kernel pivots on row 1, the first largest, and its increment
+    agrees with the plain solve."""
+    rng = np.random.RandomState(2)
+    A = rng.uniform(-1, 1, (16, 8, 8)).astype(np.float32) + 4 * np.eye(8, dtype=np.float32)
+    A[:, 0, 0] = 1.0
+    A[:, 1, 0] = 5.0
+    A[:, 2, 0] = -5.0
+    H = torch.as_tensor(A)
+    g = torch.as_tensor(rng.randn(16, 8).astype(np.float32))
+    lam = torch.full((16,), 1e-3)
+    got, piv = rlm.lm_solve_cuda(H.to(dev), g.to(dev), lam.to(dev), 0.0, 0.0)
+    assert piv[:, 0].tolist() == [1] * 16
+    for i in range(16):
+        Hl = H[i] + lam[i] * torch.diag(torch.diagonal(H[i]))
+        assert piv[i].tolist() == _lu_pivots(Hl.numpy())
+    want = _plain_solve(H, g, lam, (0.0, 0.0))
+    scale = want.abs().amax(dim=1, keepdim=True)
+    assert bool(((got.cpu() - want).abs() <= 1e-4 * scale).all())
+
+
+def test_lm_solve_ill_conditioned(dev):
+    """H = Q diag(1 .. 1e-6) Q^T (condition 1e6): the kernel's LU is
+    backward stable as the plain one is (relative residual |H x + g| /
+    (|H| |x|) below 1e-5 in float64), and its increment is as close to the
+    float64 solution as the plain f32 solve's, within 10x plus 1e-3."""
+    rng = np.random.RandomState(3)
+    n = 32
+    Q = np.linalg.qr(rng.randn(n, 8, 8))[0]
+    H = np.einsum("nij,j,nkj->nik", Q, np.logspace(0, -6, 8), Q).astype(np.float32)
+    g = rng.randn(n, 8).astype(np.float32)
+    lam = np.zeros(n, np.float32)
+    H64, g64 = H.astype(np.float64), g.astype(np.float64)
+    exact = np.linalg.solve(H64, -g64[..., None])[..., 0]
+    Ht, gt, lt = (torch.as_tensor(a) for a in (H, g, lam))
+    got, _ = rlm.lm_solve_cuda(Ht.to(dev), gt.to(dev), lt.to(dev), 0.0, 0.0)
+    want = _plain_solve(Ht, gt, lt, (0.0, 0.0)).numpy().astype(np.float64)
+    got = got.cpu().numpy().astype(np.float64)
+    for x in (got, want):
+        res = np.linalg.norm(np.einsum("nij,nj->ni", H64, x) + g64, axis=1)
+        rel = res / (np.linalg.norm(H64, axis=(1, 2)) * np.linalg.norm(x, axis=1))
+        assert np.all(rel < 1e-5), rel
+    err = lambda x: np.linalg.norm(x - exact, axis=1) / np.linalg.norm(exact, axis=1)
+    assert np.all(err(got) <= 10 * err(want) + 1e-3), (err(got), err(want))
+
+
+@pytest.mark.parametrize("which,B", [("track", 1), ("track", 5), ("track", 78),
+                                     ("loop_pose", 1), ("loop_pose", 6)])
+def test_lm_bit_equal_with_phase_counters_on_and_off(scene, which, B):
+    """Two launches on the same inputs give the same bits, and so does a
+    launch with the phase counters on; the counters are filled."""
+    if which == "track":
+        args, launch = _track_args(scene, scene["cfg"], _candidates(scene, B)), rlm.track_lm_cuda
+    else:
+        args, launch = _loop_args(scene, scene["cfg"], B), rlm.loop_pose_lm_cuda
+    a, b = launch(*args), launch(*args)
+    timers = rlm.timer_buffer(B, scene["dev"])
+    c = launch(*args, timers=timers)
+    for x, y, z in zip(a, b, c):
+        x, y, z = (torch.nan_to_num(v, 7.0) for v in (x, y, z))
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert bool((timers[:, -2:] > 0).all())
+    assert bool((timers[:, :-2].sum(dim=1) > 0).all())
+
+
+def test_lm_one_launch_no_host_read(scene):
+    """K2-LM and K4-LM are one kernel launch each with no host
+    synchronisation."""
+    targs = _track_args(scene, scene["cfg"], _candidates(scene, 5))
+    largs = _loop_args(scene, scene["cfg"], 6)
+    _no_sync(lambda: rlm.track_lm_cuda(*targs))
+    _no_sync(lambda: rlm.loop_pose_lm_cuda(*largs))
+    assert _launches(lambda: rlm.track_lm_cuda(*targs)) == ["dsslam_track_lm"]
+    assert _launches(lambda: rlm.loop_pose_lm_cuda(*largs)) == ["dsslam_loop_pose_lm"]
+
+
+def _sm_clock_mhz():
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def test_phase_counters_cover_a_call(scene):
+    """The phase counters of a B = 1 K2-LM call, converted at the SM clock
+    nvidia-smi reports, sum to within [0.8, 1.05] of the call's time on
+    the card by CUDA events (median of 5). The call is queued behind a
+    spin of the card, so the events time the card alone (the launch
+    included), not the host's issue."""
+    args = _track_args(scene, scene["cfg"], _candidates(scene, 1))
+    timers = rlm.timer_buffer(1, scene["dev"])
+    ratios = []
+    for _ in range(5):
+        rlm.track_lm_cuda(*args)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        o = rlm.track_lm_cuda(*args, timers=timers)
+        end.record()
+        end.synchronize()
+        ph = rlm.phase_breakdown(timers, o.passes, _sm_clock_mhz())
+        ratios.append(ph["phase_us"] / (1e3 * start.elapsed_time(end)))
+    assert 0.8 <= float(np.median(ratios)) <= 1.05, ratios
+
+
+def test_track_lm_all_masked_level_runs_the_loops_passes(scene):
+    """One candidate on a template whose level 1 is all masked: no term
+    there (res inf, a NaN step rejected every iteration), and the kernel
+    runs as many passes per level as the Python loop does."""
+    t = scene["tmpl"]
+    masks = list(t.pmask)
+    masks[1] = torch.zeros_like(masks[1])
+    tmpl = t._replace(pmask=tuple(masks))
+    args = _track_args(scene, scene["cfg"], _candidates(scene, 1), tmpl)
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape[0])                       # the level's height
+        return rh.pose_residual_pass(*a, **kw)
+
+    ref = tr.track_candidates_batch_plain(*args, residual_pass=counted)
+    o = rlm.track_lm_cuda(*args)
+    got = tr.track_candidates_batch(*args)
+    _same_track(got, args, scene["cfg"])
+    assert bool(torch.isinf(got.res_per_level[:, 1]).all())
+    assert bool(torch.isinf(ref.res_per_level[:, 1]).all())
+    per_level = [sum(1 for h in calls if h == scene["pyr1"][l].shape[0]) for l in range(LL)]
+    assert o.passes[0].tolist() == per_level
+
+
+def test_loop_pose_lm_all_masked(scene):
+    """Seeds over a point list whose lanes are all masked: every level has
+    no term, each runs its pre-loop pass and max_iterations rejected steps,
+    as the Python loops do, and no seed is ok."""
+    args = list(_loop_args(scene, scene["cfg"], 6))
+    args[5] = torch.zeros_like(args[5])
+    got = pe.estimate_seeds(*args)
+    o = rlm.loop_pose_lm_cuda(*args)
+    assert not bool(got.ok.any())
+    _same_seeds(got, tuple(args))
+    its = scene["cfg"].tracker.max_iterations
+    assert o.passes.tolist() == [[1 + its[l] for l in range(LL)]] * 6
+
+
 # ---------------------------------------------------------------------------
 # K3-LM: the stereo scale LM against its plain loops
 # ---------------------------------------------------------------------------

@@ -34,8 +34,51 @@ W, H, L = 64, 48, 2
 def test_struct_layout_matches_the_kernel():
     assert ctypes.sizeof(rlm._Level) == 136
     assert ctypes.sizeof(rlm._Scalar) == 16
-    assert ctypes.sizeof(rlm.LmParams) == 1288
-    assert rlm.LmParams.pre.offset == 1200 and rlm.LmParams.chunk.offset == 1284
+    assert ctypes.sizeof(rlm.LmParams) == 1296
+    assert rlm.LmParams.out.offset == 1096 and rlm.LmParams.timers.offset == 1104
+    assert rlm.LmParams.pre.offset == 1208 and rlm.LmParams.chunk.offset == 1292
+    assert rlm.TIMER_WORDS == rlm.MAX_LEVELS * len(rlm.PHASES) + 2
+
+
+def test_phase_breakdown_of_synthetic_counters():
+    """Two candidates, two levels: the counters (SM cycles per level and
+    phase, then the run's cycles and nanoseconds) become microseconds per
+    pass and shares at the clock given; the kernel's own clock is cycles
+    over nanoseconds."""
+    P = len(rlm.PHASES)
+    t = np.zeros((2, rlm.TIMER_WORDS), np.int64)
+    t[0, :P] = [100, 200, 300, 400, 500, 500]            # level 0: 2000 cycles
+    t[1, :P] = [100, 200, 300, 400, 500, 500]
+    t[0, P:2 * P] = [0, 1000, 0, 0, 0, 0]                # level 1: 1000 cycles
+    t[:, -2] = [4000, 2000]                             # the runs' cycles
+    t[:, -1] = [2000, 1000]                             # and nanoseconds
+    passes = torch.tensor([[4.0, 1.0], [4.0, 0.0]])
+    ph = rlm.phase_breakdown(torch.as_tensor(t), passes, clock_mhz=1000.0)
+    assert ph["passes"] == 9.0 and ph["clock_mhz"] == 1000.0
+    assert ph["us_per_pass"] == pytest.approx(5000 / 1000 / 9)
+    assert ph["phase_us"] == pytest.approx(5000 / 1000 / 2)
+    assert ph["run_us"] == pytest.approx(3.0) and ph["kernel_mhz"] == pytest.approx(2000.0)
+    assert ph["shares"]["points"] == pytest.approx(1400 / 5000)
+    assert sum(ph["shares"].values()) == pytest.approx(1.0)
+    l0, l1 = ph["levels"]
+    assert l0["passes"] == 8.0 and l0["us_per_pass"] == pytest.approx(4000 / 1000 / 8)
+    assert l0["shares"]["step"] == pytest.approx(0.25)
+    assert l1["passes"] == 1.0 and l1["shares"] == dict.fromkeys(rlm.PHASES, 0.0) | {"points": 1.0}
+    # host arrays give the same numbers
+    assert rlm.phase_breakdown(t, passes.numpy(), 1000.0) == ph
+
+
+def test_timers_must_fit_the_batch():
+    p = rlm.LmParams()
+    dev = torch.device("cpu")
+    rlm._timers(p, None, 2, dev)
+    assert p.timers is None
+    buf = rlm.timer_buffer(2, dev)
+    rlm._timers(p, buf, 2, dev)
+    assert p.timers == buf.data_ptr()
+    for bad in (rlm.timer_buffer(3, dev), buf.to(torch.int32), buf[:, :-1]):
+        with pytest.raises(ValueError):
+            rlm._timers(p, bad, 2, dev)
 
 
 def test_scale_struct_layout_matches_the_kernel():
@@ -239,3 +282,32 @@ def test_agreement_on_scale_results():
     moved = ref._replace(scale=ref.scale * torch.tensor([1.0, 1.01, 1.0]))
     bad = lma.check(moved, {"loop": ref}, runs)
     assert not bad.ok and bad.differ == {"loop": 1}
+
+
+def test_track_struct_built_once_per_template(monkeypatch):
+    """K2-LM's per-level fields and schedule are built once per template
+    and copied per call (only the images change); the copy equals a fresh
+    build, and another template, configuration or image size rebuilds
+    it."""
+    monkeypatch.setattr(rlm._cuda, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(rlm, "_track_proto", [None])
+    args, _ = _lm_args()
+    pyr, tmpl, intr, cfg = args[:4]
+    p = rlm._track_params(pyr, tmpl, intr, cfg)
+    proto = rlm._track_proto[0]
+    assert (p.levels, p.chunk, p.lv[0].compute_flow, p.lv[1].compute_flow) == (
+        L, rlm.slice_len(128), 1, 0)
+    assert p.lv[1].p0 == tmpl.pu[1].data_ptr() and p.lv[1].N == 64
+    assert list(p.pre) == pytest.approx([float(v) for v in rh.POSE_PRECOND])
+    other = tuple(x.clone() for x in pyr)
+    q = rlm._track_params(other, tmpl, intr, cfg)
+    assert rlm._track_proto[0] is proto
+    assert [q.lv[l].img for l in range(L)] == [x.data_ptr() for x in other]
+    assert bytes(q.lv[1])[8:] == bytes(p.lv[1])[8:]          # all but the image
+    for changed in ((pyr, tmpl._replace(pu=tuple(x.clone() for x in tmpl.pu)), intr, cfg),
+                    (pyr, tmpl, intr, make_config(W, H))):
+        rlm._track_params(*changed)
+        assert rlm._track_proto[0] is not proto
+        proto = rlm._track_proto[0]
+    monkeypatch.setattr(rlm, "_track_proto", [None])
+    assert bytes(rlm._track_params(pyr, tmpl, intr, cfg)) == bytes(p)

@@ -118,3 +118,29 @@ def test_sequence_gap_reinitializes_like_the_reference():
                         node.frontend.num_kfs, node.frontend.last_dso_error)
     assert counts["torch"][:3] == counts["jax"][:3]
     assert np.isnan(counts["torch"][3]) and np.isnan(counts["jax"][3])
+
+
+def test_packed_views_equal_the_separate_copies():
+    """The port's front end reads the window's host views
+    (ba.current_views) in one packed device-to-host copy: after every
+    frame of the 12-frame sequence they equal the views copied one by one,
+    in dtype, shape and bits."""
+    from direct_stereo_slam_tpu_torch.models import ba
+
+    ds = SyntheticStereoDataset(n_frames=12, width=W, height=H, speed=0.2)
+    K = ds.K
+    intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], W, H, LVLS)
+    node = _node(NodeT, _config(), intr, ds.t_cam1_cam0)
+    kinds = set()
+    for i in range(len(ds)):
+        f = ds.frame(i)
+        node.process(f["img0"], f["img1"], timestamp=float(i) * 0.1)
+        fe = node.frontend
+        packed = fe._views_np()
+        separate = tuple(v.cpu().numpy() for v in ba.current_views(fe.ba_state))
+        assert len(packed) == len(separate) == 7
+        for a, b in zip(packed, separate):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+            kinds.add(a.dtype.kind)
+    assert {"f", "b", "i"} <= kinds and fe.num_kfs >= 3
