@@ -28,10 +28,13 @@ Phases, each of which must pass (any fault exits non-zero):
    accept/trap decision; a candidate may differ only where a near-tie
    accept/reject makes the loops themselves differ when the points' lane
    order changes, as utils/lm_agreement.py measures in each run); median
-   time per call of each (CUDA events), with its bound
-   (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s, the larger),
-   and for K1 and K3-LM the card's own time per call (the calls queued
-   behind a spin of the card, so that the host's issue time drops out);
+   time per call of
+   each (CUDA events), with its bound (bytes over 3.35 TB/s or f32
+   operations over 67 TFLOP/s, the larger), the card's own time per call
+   of K1 and the LM kernels (the calls queued behind a spin of the card,
+   so that the host's issue time drops out), the LM kernels' phase
+   counters, and K3-LM's host part (its issue while the card is busy,
+   its parameter struct built afresh and filled from the prototype);
 4. the port's SLAMNode end to end on a rendered 40-frame 1232x368
    sequence (preset 0, mode 1): initialised, never lost, >= 3 keyframes,
    translation ATE < 2% of the path length, K1, K2-LM and K3-LM each
@@ -66,6 +69,9 @@ Phases, each of which must pass (any fault exits non-zero):
    the run and the per-pass K2, K3 and K4 never; ``direct_est`` per try,
    ``scale_opt`` per keyframe. A failure in the loop thread fails the
    run (the handler re-raises it when it is drained).
+
+K3-LM's calls on the e2e and loop paths are counted by the number of
+guesses and by whether a level doubled its cutoff (read after each run).
 
 Options: --profile DIR profiles one more end-to-end pass; --long also
 runs the mono sequence on the float render and on six dithered uint8
@@ -143,20 +149,22 @@ def sm_clock_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
-def lm_phases(torch, rlm, launch):
-    """One call of a K2-LM / K4-LM wrapper (``launch(timers=...)``) with
-    its phase counters on, converted at the SM clock nvidia-smi reports
-    right after it; and the calls' outputs with the counters on and off
-    must be the same bits."""
+def lm_phases(torch, rlm, launch, passes=lambda o: o.passes):
+    """One call of a resident LM wrapper (``launch(timers=...)``) with its
+    phase counters on, converted at the SM clock nvidia-smi reports right
+    after it (``passes(out)``: the passes the call ran per candidate and
+    level); and the calls' outputs with the counters on and off must be
+    the same bits."""
     off = launch()
-    buf = rlm.timer_buffer(off.T.shape[0], off.T.device)
+    first = next(iter(off))                  # [candidates, ...]
+    buf = rlm.timer_buffer(first.shape[0], first.device)
     on = launch(timers=buf)
     torch.cuda.synchronize()
     clock = sm_clock_mhz()
     for x, y in zip(off, on):
         if not torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0)):
             fail("the phase counters changed a resident LM kernel's output")
-    ph = rlm.phase_breakdown(buf, on.passes, clock)
+    ph = rlm.phase_breakdown(buf, passes(on), clock)
     ph["kernel_device_ms"] = device_ms(torch, launch)
     return ph
 
@@ -175,13 +183,16 @@ def phase_text(ph) -> str:
 def lm_usage(build_log: str) -> dict:
     """Per resident LM kernel (by its row's name): the registers and the
     bytes of spill stores ptxas reported when it built the library, and
-    how many 8-block clusters of it the card holds at once (K2-LM and
-    K3-LM at levels of 8192 points, K4-LM at 2048)."""
+    how many 8-block clusters of it the card holds at once (K2-LM at
+    levels of 8192 points, K4-LM at 2048, K3-LM on the front end's
+    template of base 8192)."""
+    from direct_stereo_slam_tpu_torch.models.depth_template import default_budgets
     from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
 
     entries = {"track_lm": ("lm_kernelILb0E", "track", 8192),
                "loop_pose_lm": ("lm_kernelILb1E", "loop_pose", 2048),
                "scale_lm": ("scale_lm_kernel", "scale", 8192)}
+    sizes = default_budgets(W, H, LEVELS, base=8192)
     found, current, spill = {}, None, 0
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
@@ -191,7 +202,8 @@ def lm_usage(build_log: str) -> dict:
         elif current and "Used" in line and "registers" in line:
             regs = int(line.split("Used")[1].split("registers")[0])
             _, kind, n = entries[current]
-            found[current] = (regs, spill, rlm.max_active_clusters(kind, n))
+            found[current] = (regs, spill, rlm.scale_max_active_clusters(sizes)
+                              if kind == "scale" else rlm.max_active_clusters(kind, n))
             current = None
     if set(found) != set(entries):
         fail(f"ptxas reported no registers for {sorted(set(entries) - set(found))}")
@@ -232,16 +244,15 @@ def ab_ms(torch, kernel_fn, plain_fn, plain_kw=None, kernel_kw=None):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def device_ms(torch, fn, calls: int = 20, samples: int = 5):
-    """The card's own time per call of fn(): the calls are queued behind a
-    spin of the card (torch.cuda._sleep, ~100 ms), so the host has issued
-    them all before the first one runs and CUDA events around them time
-    only the card (the gaps between back-to-back launches included); the
-    median over ``samples``. None if the host took longer to issue them
-    than half the spin."""
+def queued(torch, fn, calls: int = 20, samples: int = 5):
+    """Per sample of ``calls`` calls of fn() queued behind a spin of the
+    card (torch.cuda._sleep, ~100 ms), so the host has issued them all
+    before the first one runs: (the card's ms per call by CUDA events
+    around them, the gaps between back-to-back launches included; the
+    host's ms per call to issue them)."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    out = []
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -253,10 +264,33 @@ def device_ms(torch, fn, calls: int = 20, samples: int = 5):
         issued = time.perf_counter() - t0
         end.record()
         end.synchronize()
-        if issued > 0.05:
-            return None
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+        out.append((start.elapsed_time(end) / calls, 1e3 * issued / calls))
+    return out
+
+
+def device_ms(torch, fn, calls: int = 20, samples: int = 5):
+    """The card's own time per call of fn() (``queued``), the median over
+    ``samples``; None if the host took longer to issue the calls than half
+    the spin."""
+    runs = queued(torch, fn, calls, samples)
+    if any(issue * calls > 50.0 for _, issue in runs):
+        return None
+    return statistics.median(card for card, _ in runs)
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """The host's time per call of fn() (no card work waited for)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def issue_ms(torch, fn) -> float:
+    """The host's time to issue one call of fn() while the card is busy
+    (``queued``: no launch waits for a free slot), the median."""
+    return statistics.median(issue for _, issue in queued(torch, fn))
 
 
 def row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops):
@@ -545,7 +579,7 @@ def lm_rows(torch, dev, ds, f0, f1, intr, pyr1, pyr_template):
     aff = tr.AffLight(zero, zero)
     img0 = t(f0["img0"])
     print(f"K2-LM / K3-LM / K4-LM occupancy: {rlm.max_active_clusters('track', 8192)} / "
-          f"{rlm.max_active_clusters('scale', 8192)} / "
+          f"{rlm.scale_max_active_clusters(dt.default_budgets(W, H, LEVELS))} / "
           f"{rlm.max_active_clusters('loop_pose', 2048)} 8-block clusters of 256 threads "
           f"resident at once", flush=True)
     slow = dict(repeats=3, inner=1, warmup=1)
@@ -738,7 +772,8 @@ def scale_lm_rows(torch, dev, ds, f0, intr, pyr_r):
                 tag = f"K3-LM scale_lm base {base} (N = {list(budgets)}) G={G} {kind}"
                 if not (torch.equal(got.scale, o.scale) and torch.equal(got.error, o.error)):
                     fail(f"{tag}: two launches on the same inputs differ")
-                agr = lma.check(got, refs, lma.reordered_scale_runs(args, loops))
+                reordered = lma.reordered_scale_runs(args, loops)
+                agr = lma.check(got, refs, reordered)
                 dec = [decision(r, G == 1) for r in (got, *refs.values())]
                 same = all(d[:2] == dec[0][:2] and np.allclose(d[2], dec[0][2], rtol=1e-3)
                            for d in dec[1:])
@@ -751,21 +786,37 @@ def scale_lm_rows(torch, dev, ds, f0, intr, pyr_r):
                                 lambda: loops[1](*args), plain_kw=slow, kernel_kw=fast)
                 loop_ms = median_ms(torch, lambda: loops[0](*args), **slow)
                 dev_ms = device_ms(torch, lambda: so.optimize_scale_batch(*args))
-                passes = o.passes.cpu().numpy()
-                n_bytes, n_ops = lm_bytes_ops(budgets, passes, G, SCALE_PASS_OPS, 4 + 80)
+                ph = lm_phases(torch, rlm, partial(rlm.scale_lm_cuda, *args), lambda o: o.run)
+                # the wrapper's host part: its issue while the card is busy,
+                # the parameter struct built afresh, and the prototype's copy
+                # with the call's pointers that a call makes
+                out = torch.empty(G, rlm.SCALE_OUT, device=dev)
+                host = dict(issue_ms=issue_ms(torch, lambda: so.optimize_scale_batch(*args)),
+                            struct_ms=host_ms(lambda: rlm.scale_lm_params(*args, out)),
+                            fill_ms=host_ms(lambda: rlm._scale_params(*args, out)))
+                passes, run = o.passes.cpu().numpy(), o.run.cpu().numpy()
+                n_bytes, n_ops = lm_bytes_ops(budgets, run, G, SCALE_PASS_OPS, 4 + 112)
                 r = row(f"scale_lm[N={base},G={G},{kind}]", "resident_lm.cu",
                         "direct_stereo_slam_tpu/models/scale_opt.py:169", err, ms, pms,
                         n_bytes, n_ops)
-                r.update(differ=agr.differ, order_sensitive=agr.sensitive, device_ms=dev_ms)
+                r.update(differ=agr.differ, order_sensitive=agr.sensitive, device_ms=dev_ms,
+                         passes_per_call=float(run.sum(axis=1).mean()),
+                         reference_passes_per_call=float(passes.sum(axis=1).mean()),
+                         us_per_pass=ph["us_per_pass"], phase_shares=ph["shares"],
+                         sm_clock_mhz=ph["clock_mhz"], **host)
                 rows.append(r)
-                print(f"{tag}: {agr}; passes per guess per level (mean) "
+                print(f"{tag}: {agr}; passes per guess per level (mean) run "
+                      f"{run.mean(axis=0).round(1).tolist()} of the reference's "
                       f"{passes.mean(axis=0).round(1).tolist()}, cutoff doublings "
                       f"{o.repeat.cpu().numpy().max(axis=0).tolist()}; decision "
                       f"{dec[0][0]}, scale {dec[0][2][0]:.4f}, error {dec[0][2][1]:.4f}; "
                       f"kernel {ms:.4f} ms (on the card {dev_ms} ms), plain loop "
                       f"{pms:.4f} ms, loop over K3 passes "
-                      f"{loop_ms:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})",
-                      flush=True)
+                      f"{loop_ms:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
+                      f"host: issue {host['issue_ms']:.4f} ms "
+                      f"per call, struct {host['struct_ms']:.4f} ms afresh, "
+                      f"{host['fill_ms']:.4f} ms from the prototype", flush=True)
+                print(f"{tag}: phase counters: {phase_text(ph)}", flush=True)
     return rows
 
 
@@ -872,9 +923,11 @@ def e2e_phase(torch, dev, profile_dir=None):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     # the timed pass: no per-span synchronize, as a user runs the node
-    node, shells, resets, dt = run_sequence(torch, SLAMNode, cfg, intr, ds,
-                                            frames, dev)
+    with ScaleTraffic() as traffic:
+        node, shells, resets, dt = run_sequence(torch, SLAMNode, cfg, intr, ds,
+                                                frames, dev)
     launches = {name: fn.launches for name, fn in counters.items()}
+    scale_calls = traffic.summary()
 
     fe = node.frontend
     kfs = [i for i, s in enumerate(shells) if s.is_kf]
@@ -894,6 +947,8 @@ def e2e_phase(torch, dev, profile_dir=None):
           f"{float(np.max(np.linalg.norm(est - translations(frames, shells1)[0], axis=1))):.3g} m",
           flush=True)
     print(f"e2e kernel launches: {launches}", flush=True)
+    print(f"e2e: K3-LM calls by guesses (calls, those with a doubled cutoff, the "
+          f"largest doubling factor): {scale_calls}", flush=True)
     print(f"e2e: track {node.timers.average_ms('track'):.3f} ms per frame x "
           f"{node.timers.count('track')} (timed pass; synchronized first pass: "
           f"{node1.timers.average_ms('track'):.3f} ms), K2-LM launches per tracked "
@@ -917,7 +972,7 @@ def e2e_phase(torch, dev, profile_dir=None):
     if profile_dir:
         e2e_profile(torch, lambda: run_sequence(torch, SLAMNode, cfg, intr, ds,
                                                 frames, dev), profile_dir)
-    return launches
+    return launches, scale_calls
 
 
 def with_runtime(cfg, **runtime):
@@ -1251,6 +1306,44 @@ MONO_KERNELS = ("distance_map", "track_lm")
 OFF_PATH = ("pose_residual_pass", "scale_residual_pass", "pose3d_residual_pass")
 
 
+class ScaleTraffic:
+    """K3-LM's calls on a path, by the number of guesses G and by whether
+    any guess doubled its cutoff at a level (the output rows' repeat
+    factor > 1): scale_opt's kernel wrapper is wrapped for the run and
+    each call's rows are kept, then read once after it, so the path makes
+    no extra host read."""
+
+    def __init__(self):
+        from direct_stereo_slam_tpu_torch.models import scale_opt as so
+
+        self.so, self.calls = so, []
+
+    def __enter__(self):
+        self.wrapped = self.so.scale_lm_cuda
+
+        def kept(*a, **kw):
+            out = self.wrapped(*a, **kw)
+            self.calls.append(out)
+            return out
+
+        self.so.scale_lm_cuda = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.so.scale_lm_cuda = self.wrapped
+
+    def summary(self) -> dict:
+        by_g = {}
+        for o in self.calls:
+            rep = o.repeat.cpu().numpy()
+            d = by_g.setdefault(f"G={rep.shape[0]}", dict(calls=0, doubled=0,
+                                                          max_repeat=1.0))
+            d["calls"] += 1
+            d["doubled"] += int((rep > 1.0).any())
+            d["max_repeat"] = max(d["max_repeat"], float(rep.max()))
+        return by_g
+
+
 def kernel_counters():
     from direct_stereo_slam_tpu_torch.ops import distance_map as dm
     from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
@@ -1317,10 +1410,12 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
-    node, handler, dt = run_sequence(frames, cfg, ds.K, ds.t_cam1_cam0, levels=LEVELS,
-                                     device=dev)
+    with ScaleTraffic() as traffic:
+        node, handler, dt = run_sequence(frames, cfg, ds.K, ds.t_cam1_cam0, levels=LEVELS,
+                                         device=dev)
     launches = {name: fn.launches for name, fn in counters.items()}
     handler.close()
+    scale_calls = traffic.summary()
 
     gt = ds.poses[:, :3, 3]
     ate_o = score_rows(handler.odometry_rows(), gt)
@@ -1343,6 +1438,8 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
           f"best pose_error per try "
           f"{' '.join(f'{t[0]:.2f}' for t in tries)}", flush=True)
     print(f"{tag} kernel launches: {launches}", flush=True)
+    print(f"{tag}: K3-LM calls by guesses (calls, those with a doubled cutoff, the "
+          f"largest doubling factor): {scale_calls}", flush=True)
     table = timing_table(node.timers)
     scale_ms, scale_n = table.get("scale_opt", (float("nan"), 0))
     if "direct_est" in table:
@@ -1370,7 +1467,7 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
               f"vs {R05['tries']}, ATE sodso {ate_o:.3f} vs {R05['ate_sodso']} m, "
               f"dslam {ate_d:.3f} vs {R05['ate_dslam']} m", flush=True)
     if not gate:
-        return launches
+        return launches, scale_calls
     if ate_o is None or ate_d is None or not (np.isfinite(ate_o) and np.isfinite(ate_d)):
         fail(f"{tag}: no finite ATE ({ate_o}, {ate_d})")
     if loops < 1:
@@ -1378,7 +1475,7 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
     if not ate_d < ate_o:
         fail(f"{tag}: dslam ATE {ate_d:.4f} m is not below sodso ATE {ate_o:.4f} m")
     gate_launches(tag, launches, LOOP_KERNELS)
-    return launches
+    return launches, scale_calls
 
 
 def long_phase(torch, dev) -> None:
@@ -1464,11 +1561,11 @@ def main() -> int:
     # each path's kernels count in that path's run: K1, K2-LM and K3-LM in
     # the e2e pass, K4-LM in the loop phase; the per-pass K2, K3 and K4 run
     # on none of the paths (every phase gates that they stay at 0)
-    launches = e2e_phase(torch, dev, args.profile)
+    launches, e2e_scale_calls = e2e_phase(torch, dev, args.profile)
     pl_launches = pipelined_phase(torch, dev)
     mono_launches = mono_phase(torch, dev)
     undistort_phase(torch, dev)
-    loop_launches = loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN)
+    loop_launches, loop_scale_calls = loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN)
     if args.long:
         mono_sweep(torch, dev)
         loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN, gate=False, pipelined=True)
@@ -1482,6 +1579,8 @@ def main() -> int:
         r["pipelined_launches"] = pl_launches[name]
         r["pipelined_launches_per_frame"] = pl_launches[name] / E2E_FRAMES
         r["mono_launches"] = mono_launches[name]
+        if name == "scale_lm":
+            r["path_calls"] = dict(e2e=e2e_scale_calls, loop=loop_scale_calls)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "direct_stereo_slam_tpu"))
     if leaked:

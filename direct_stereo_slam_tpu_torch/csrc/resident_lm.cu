@@ -66,20 +66,22 @@
 //   ~220 registers: one block per SM, half the clusters resident; capped
 //   at 128, the spilled carry cost the batches 14-16% more than this
 //   form, PERF.md.) K3-LM's step is a few scalars that every thread holds
-//   and updates alike.
+//   and updates alike; it runs no pass whose sums it holds (ScaleLm).
 // - Host side: one parameter struct passed by value (per-level image and
 //   point pointers, intrinsics, the level's 3x3 matrix, the LM's scalars;
 //   K2-LM's scalars that live on the card are read there through a
 //   pointer). Output per candidate: K2-LM / K4-LM T, a, b, the per-level
 //   residual, the flow indicators (K2) or level 0's E and n (K4), and the
 //   passes run per level; K3-LM the scale, the error, level 0's E and n,
-//   the cutoff-doubling factor and the passes run per level. The
-//   acceptance gates, the winner and the trap decision stay on the host.
-// - Phase counters: with LmParams::timers set, thread 0 of cluster rank 0
-//   adds clock64() deltas per level and phase (the slice load, the point
-//   loop, the reduction, the cluster barrier and gather, the step, the
-//   block barriers) and the run's cycles and %globaltimer nanoseconds;
-//   ops/resident_lm.py turns them into microseconds per pass.
+//   the cutoff-doubling factor and per level the passes of the reference's
+//   loop and those run. The acceptance gates, the winner and the trap
+//   decision stay on the host.
+// - Phase counters: with LmParams::timers (ScaleLmParams::timers) set,
+//   thread 0 of cluster rank 0 adds clock64() deltas per level and phase
+//   (the slice load, the point loop, the reduction, the cluster barrier
+//   and gather, the step, the block barriers) and the run's cycles and
+//   %globaltimer nanoseconds; ops/resident_lm.py turns them into
+//   microseconds per pass.
 
 #include <cooperative_groups.h>
 #include <cooperative_groups/memcpy_async.h>
@@ -99,10 +101,11 @@ constexpr int kMaxLevels = 8;
 constexpr int kLmOut = 40;
 constexpr int kOutA = 16, kOutB = 17, kOutRes = 18, kOutX0 = 26, kOutX1 = 27,
               kOutPasses = 28;
-// K3-LM: output row per guess
-constexpr int kScaleOut = 20;
+// K3-LM: output row per guess (kSOutPasses: the passes the reference's
+// loop runs per level; kSOutRun: those the kernel ran)
+constexpr int kScaleOut = 28;
 constexpr int kSOutScale = 0, kSOutErr = 1, kSOutE = 2, kSOutN = 3,
-              kSOutRepeat = 4, kSOutPasses = 12;
+              kSOutRepeat = 4, kSOutPasses = 12, kSOutRun = 20;
 // phase counters (LmParams::timers): per candidate kMaxLevels x kPhases
 // clock64() sums, then the whole run's cycles and %globaltimer nanoseconds
 enum Phase { kPhLoad = 0, kPhPoints, kPhReduce, kPhCluster, kPhStep, kPhBarrier, kPhases };
@@ -155,12 +158,12 @@ struct ScaleLmParams {
   LmLevel lv[kMaxLevels];
   const float* s_init;         // [G] initial scales
   float* out;                  // [G, kScaleOut]
+  long long* timers;           // [G, kTimerWords] phase counters, or null
   float t01[3];
   float huber, coarse_cutoff, sat_ratio_repeat, cutoff_repeat_max;
   float lambda_init, lambda_lim, lambda_accept, lambda_reject, inc_break;
   int levels;
   int G;
-  int chunk;                   // points per block slice (multiple of 4)
 };
 
 static_assert(sizeof(LmLevel) == 136, "LmLevel layout");
@@ -189,6 +192,21 @@ struct PhaseTimer {
       t = now;
     }
   }
+  // The timed thread: count from the kernel's start c0 into sums (shared
+  // memory, kMaxLevels * kPhases words).
+  __device__ void start(long long* sums, long long c0) {
+    for (int k = 0; k < kMaxLevels * kPhases; ++k) sums[k] = 0;
+    acc = sums;
+    t = c0;
+  }
+  // The timed thread, at the end: the sums, the run's cycles and its
+  // nanoseconds since (c0, n0) into the candidate's kTimerWords.
+  __device__ void finish(long long* row, long long c0, long long n0) {
+    mark(kPhBarrier);
+    for (int k = 0; k < kMaxLevels * kPhases; ++k) row[k] = acc[k];
+    row[kMaxLevels * kPhases] = clock64() - c0;
+    row[kMaxLevels * kPhases + 1] = global_ns() - n0;
+  }
 };
 
 __device__ __forceinline__ float read_scalar(const LmScalar& s) {
@@ -207,6 +225,10 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int chunk) {
 }
 
 __host__ __device__ constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+
+// A block's dynamic shared memory at most (the H100 gives a block 227 KB,
+// some of it static)
+constexpr size_t kMaxDynamicSmem = 200 * 1024;
 
 // The cluster barrier split in its two halves: arrive releases this
 // thread's earlier stores (to any block's shared memory), wait acquires
@@ -235,39 +257,53 @@ struct ClusterSums {
   };
 
   Shared& sh;
+  unsigned char* base;         // the dynamic shared memory
   float *s0, *s1, *s2, *sc;    // the slice: p0, p1, p2, colour
   unsigned char* sm;           // the slice: mask
   int rank, tid, lane, warp;
   int start = 0, count = 0, buf = 0;
   PhaseTimer tm;
 
-  __device__ ClusterSums(Shared& sh_, unsigned char* smem, int chunk)
-      : sh(sh_), s0(reinterpret_cast<float*>(smem)), s1(s0 + chunk),
-        s2(s1 + chunk), sc(s2 + chunk),
-        sm(reinterpret_cast<unsigned char*>(sc + chunk)),
-        rank(static_cast<int>(cg::this_cluster().block_rank())),
+  __device__ ClusterSums(Shared& sh_, unsigned char* smem)
+      : sh(sh_), base(smem), rank(static_cast<int>(cg::this_cluster().block_rank())),
         tid(threadIdx.x), lane(threadIdx.x & 31), warp(threadIdx.x >> 5) {}
 
-  // This block's slice of level L's points into shared memory.
-  __device__ void load_level(const LmLevel& L) {
-    __syncthreads();        // nobody still reads the previous level's slice
+  // This block's slice of level L's points at at, len points an array.
+  __device__ void point_to(const LmLevel& L, unsigned char* at, int len) {
+    s0 = reinterpret_cast<float*>(at);
+    s1 = s0 + len;
+    s2 = s1 + len;
+    sc = s2 + len;
+    sm = reinterpret_cast<unsigned char*>(sc + len);
     const int per = slice_len(L.N);
     start = min(rank * per, L.N);
     count = min(per, L.N - start);
+  }
+
+  // Start the copies of the points point_to named (cp.async); wait for
+  // them with cg::wait.
+  __device__ void copy_points(const LmLevel& L) {
+    if (count <= 0) return;
     cg::thread_block block = cg::this_thread_block();
-    if (count > 0) {
-      cg::memcpy_async(block, s0, L.p0 + start, sizeof(float) * count);
-      cg::memcpy_async(block, s1, L.p1 + start, sizeof(float) * count);
-      cg::memcpy_async(block, s2, L.p2 + start, sizeof(float) * count);
-      cg::memcpy_async(block, sm, L.pmask + start,
-                       sizeof(unsigned char) * count);
-      if (L.color_stride == 1) {
-        cg::memcpy_async(block, sc, L.pcolor + start, sizeof(float) * count);
-      } else {
-        for (int j = tid; j < count; j += kLmThreads)
-          sc[j] = L.pcolor[static_cast<size_t>(start + j) * L.color_stride];
-      }
+    cg::memcpy_async(block, s0, L.p0 + start, sizeof(float) * count);
+    cg::memcpy_async(block, s1, L.p1 + start, sizeof(float) * count);
+    cg::memcpy_async(block, s2, L.p2 + start, sizeof(float) * count);
+    cg::memcpy_async(block, sm, L.pmask + start, sizeof(unsigned char) * count);
+    if (L.color_stride == 1) {
+      cg::memcpy_async(block, sc, L.pcolor + start, sizeof(float) * count);
+    } else {
+      for (int j = tid; j < count; j += kLmThreads)
+        sc[j] = L.pcolor[static_cast<size_t>(start + j) * L.color_stride];
     }
+  }
+
+  // This block's slice of level L's points (len points an array) into
+  // shared memory.
+  __device__ void load_level(const LmLevel& L, int len) {
+    __syncthreads();        // nobody still reads the previous level's slice
+    point_to(L, base, len);
+    copy_points(L);
+    cg::thread_block block = cg::this_thread_block();
     cg::wait(block);
     tm.mark(kPhLoad);
   }
@@ -767,7 +803,7 @@ class LmCluster {
       if (op == kOpStop) break;
       cs_.tm.lvl = lvl;
       if (op == kOpLoad)
-        cs_.load_level(p_.lv[lvl]);
+        cs_.load_level(p_.lv[lvl], p_.chunk);
       else
         pass(p_.lv[lvl], ctl_->dst);
       if (cs_.warp == 0) plan(cand);
@@ -815,22 +851,12 @@ __global__ void __launch_bounds__(kLmThreads, 2) lm_kernel(const LmParams p) {
   // every block runs, and has its parameters, before any block stores
   // into another's shared memory
   cg::this_cluster().sync();
-  typename Lm::Sums cs(sums, smem, p.chunk);
+  typename Lm::Sums cs(sums, smem);
   const bool timed = p.timers && cs.rank == 0 && threadIdx.x == 0;
-  if (timed) {
-    for (int k = 0; k < kMaxLevels * kPhases; ++k) tacc[k] = 0;
-    cs.tm.acc = tacc;
-    cs.tm.t = c0;
-  }
+  if (timed) cs.tm.start(tacc, c0);
   Lm lm(sp, cs, sys, row, &ctl, &carry);
   lm.run(blockIdx.y);
-  if (timed) {
-    cs.tm.mark(kPhBarrier);
-    long long* o = p.timers + static_cast<size_t>(blockIdx.y) * kTimerWords;
-    for (int k = 0; k < kMaxLevels * kPhases; ++k) o[k] = tacc[k];
-    o[kMaxLevels * kPhases] = clock64() - c0;
-    o[kMaxLevels * kPhases + 1] = global_ns() - n0;
-  }
+  if (timed) cs.tm.finish(p.timers + static_cast<size_t>(blockIdx.y) * kTimerWords, c0, n0);
 }
 
 // The LM's damped solve on a batch of systems, one thread each (the test
@@ -862,7 +888,18 @@ __global__ void lm_solve_kernel(const float* __restrict__ H, const float* __rest
 // (models/scale_opt.py::optimize_scale_batch_plain for one guess). Its
 // state is a few scalars that every thread of the cluster holds and
 // updates alike from the bit-identical cluster sums: no thread waits for
-// another's step. The step is the reference's scalar one, no solve.
+// another's step. The step is the reference's scalar one, no solve. What
+// keeps a call short (PERF.md, the phase counters):
+// - No pass whose result is in hand. A pass is a function of the scale
+//   and the cutoff alone, and the level's sums in hand are always those of
+//   the current scale at the level's cutoff (the cutoff loop's last pass,
+//   or the last accepted trial). A trial whose scale has the same bits (a
+//   zeroed step, as every step on a padded template whose H and b are
+//   NaN, or one too small to move s) gets those sums; the reference's loop
+//   runs the pass and gets the same bits, rejects it and breaks.
+// - Every level's slice copied into shared memory at the start, in one
+//   batch of cp.async copies: no level waits for its own.
+// kSOutPasses counts the reference's passes, kSOutRun those run.
 class ScaleLm {
  public:
   using Sums = ClusterSums<dsslam::kScaleAcc>;
@@ -875,9 +912,15 @@ class ScaleLm {
     float H, b, E, n, sat;
   };
 
+  // Passes per level: the reference loop's and those run.
+  struct Count {
+    int passes = 0, run = 0;
+  };
+
   // All threads: one pass over level L at scale s and cutoff.
-  __device__ Pass pass(const LmLevel& L, float s, float cutoff, int& passes) {
+  __device__ Pass pass(const LmLevel& L, float s, float cutoff, Count& c) {
     using namespace dsslam;
+    cs_.tm.mark(kPhStep);
     ScaleWarp w;
 #pragma unroll
     for (int k = 0; k < 9; ++k) w.r[k] = L.Ki[k];
@@ -888,6 +931,9 @@ class ScaleLm {
     float acc[kScaleAcc];
 #pragma unroll
     for (int k = 0; k < kScaleAcc; ++k) acc[k] = 0.f;
+    // unrolled so that a thread's taps of several points are in flight
+    // together (level 0 of a base-8192 template: 4 points a thread)
+#pragma unroll 4
     for (int j = cs_.tid; j < cs_.count; j += kLmThreads)
       scale_point(L.img, L.H, L.W, L.umax, L.vmax, cs_.s0[j], cs_.s1[j],
                   cs_.s2[j], cs_.sc[j], cs_.sm[j] != 0, w, L.fx, L.fy, L.cx,
@@ -895,7 +941,8 @@ class ScaleLm {
     cs_.reduce(acc, tot_, [](auto&, int) {});
     const float* t = tot_;
     const float n_safe = fmaxf(t[kSNIN], 1.f);
-    ++passes;
+    ++c.passes;
+    ++c.run;
     return Pass{t[kSH] / n_safe, t[kSB] / n_safe, t[kSE], t[kSNT],
                 t[kSNS] / fmaxf(t[kSNT], 1.f)};
   }
@@ -903,15 +950,14 @@ class ScaleLm {
   // All threads: models/scale_opt.py::_optimize_scale_level for one guess
   // from s. Leaves the level's s, E and n; returns the cutoff-doubling
   // factor.
-  __device__ float level(const LmLevel& L, float& s, float& E, float& n,
-                         int& passes) {
+  __device__ float level(const LmLevel& L, float& s, float& E, float& n, Count& c) {
     using dsslam::clamp_min;
     const float s0 = s;
     float repeat = 1.f;
-    Pass o = pass(L, s0, p_.coarse_cutoff * repeat, passes);
+    Pass o = pass(L, s0, p_.coarse_cutoff * repeat, c);
     while (o.sat > p_.sat_ratio_repeat && repeat < p_.cutoff_repeat_max) {
       repeat = repeat * 2.f;
-      o = pass(L, s0, p_.coarse_cutoff * repeat, passes);
+      o = pass(L, s0, p_.coarse_cutoff * repeat, c);
     }
     const float cutoff = p_.coarse_cutoff * repeat;
     float H = o.H, b = o.b;
@@ -927,7 +973,13 @@ class ScaleLm {
       // reject non-finite or over-large steps
       if (!(isfinite(inc) && fabsf(inc) <= s)) inc = 0.f;
       const float s_new = s + inc;
-      const Pass t = pass(L, s_new, cutoff, passes);
+      Pass t;
+      if (__float_as_uint(s_new) == __float_as_uint(s)) {
+        t = Pass{H, b, E, n, 0.f};    // the sums in hand: the pass's bits
+        ++c.passes;
+      } else {
+        t = pass(L, s_new, cutoff, c);
+      }
       if (t.E / clamp_min(t.n, 1.f) < E / clamp_min(n, 1.f)) {
         s = s_new;
         H = t.H;
@@ -950,16 +1002,33 @@ class ScaleLm {
     float s = p_.s_init[g];
     float E = 0.f, n = 0.f;
     bool have_repeated = false;
+    // every level's slice, in one batch
+    unsigned char* at = cs_.base;
+    for (int lvl = p_.levels - 1; lvl >= 0; --lvl) {
+      const int len = slice_len(p_.lv[lvl].N);
+      cs_.point_to(p_.lv[lvl], at, len);
+      cs_.copy_points(p_.lv[lvl]);
+      at += smem_bytes(len);
+    }
+    cs_.tm.lvl = p_.levels - 1;
+    cg::thread_block block = cg::this_thread_block();
+    cg::wait(block);
+    cs_.tm.mark(kPhLoad);
+    at = cs_.base;
     for (int lvl = p_.levels - 1; lvl >= 0; --lvl) {
       const LmLevel& L = p_.lv[lvl];
-      cs_.load_level(L);
-      int passes = 0;
-      const float repeat = level(L, s, E, n, passes);
-      if (repeat > 1.f && !have_repeated) level(L, s, E, n, passes);
+      const int len = slice_len(L.N);
+      cs_.tm.lvl = lvl;
+      cs_.point_to(L, at, len);
+      at += smem_bytes(len);
+      Count c;
+      const float repeat = level(L, s, E, n, c);
+      if (repeat > 1.f && !have_repeated) level(L, s, E, n, c);
       have_repeated = have_repeated || repeat > 1.f;
       if (leader) {
         o[kSOutRepeat + lvl] = repeat;
-        o[kSOutPasses + lvl] = static_cast<float>(passes);
+        o[kSOutPasses + lvl] = static_cast<float>(c.passes);
+        o[kSOutRun + lvl] = static_cast<float>(c.run);
       }
     }
     if (leader) {
@@ -970,6 +1039,7 @@ class ScaleLm {
       for (int l = p_.levels; l < kMaxLevels; ++l) {
         o[kSOutRepeat + l] = 0.f;
         o[kSOutPasses + l] = 0.f;
+        o[kSOutRun + l] = 0.f;
       }
     }
     // no block leaves while another may still read its shared memory
@@ -982,19 +1052,24 @@ class ScaleLm {
   float* tot_;
 };
 
-__global__ void __launch_bounds__(kLmThreads)
-    scale_lm_kernel(const ScaleLmParams p) {
+__global__ void __launch_bounds__(kLmThreads) scale_lm_kernel(const ScaleLmParams p) {
+  using Lm = ScaleLm;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ ScaleLm::Sums::Shared sums;
-  __shared__ float tot[kWarps][ScaleLm::Sums::NS];
+  __shared__ Lm::Sums::Shared sums;
+  __shared__ float tot[kWarps][Lm::Sums::NS];
   __shared__ ScaleLmParams sp;
+  __shared__ long long tacc[kMaxLevels * kPhases];
+  const long long c0 = clock64(), n0 = global_ns();
   if (threadIdx.x == 0) sp = p;
   // every block runs, and has its parameters, before any block stores
   // into another's shared memory
   cg::this_cluster().sync();
-  ScaleLm::Sums cs(sums, smem, p.chunk);
-  ScaleLm lm(sp, cs, tot[threadIdx.x >> 5]);
+  Lm::Sums cs(sums, smem);
+  const bool timed = p.timers && cs.rank == 0 && threadIdx.x == 0;
+  if (timed) cs.tm.start(tacc, c0);
+  Lm lm(sp, cs, tot[threadIdx.x >> 5]);
   lm.run(blockIdx.y);
+  if (timed) cs.tm.finish(p.timers + static_cast<size_t>(blockIdx.y) * kTimerWords, c0, n0);
 }
 
 cudaLaunchConfig_t lm_config(int B, size_t smem, cudaStream_t stream,
@@ -1013,26 +1088,38 @@ cudaLaunchConfig_t lm_config(int B, size_t smem, cudaStream_t stream,
   return cfg;
 }
 
-// One cluster per candidate (batch of them) of an LM kernel taking Params.
+// One cluster per candidate (batch of them) of an LM kernel taking Params,
+// with smem bytes of dynamic shared memory.
 template <typename Params>
-int launch_lm(void (*kernel)(const Params), const Params* p, int batch,
-              cudaStream_t stream) {
-  if (p->levels < 1 || p->levels > kMaxLevels || batch < 1 || p->chunk % 4 != 0)
+int launch_clusters(void (*kernel)(const Params), const Params& p, int batch, size_t smem,
+                    cudaStream_t stream) {
+  if (p.levels < 1 || p.levels > kMaxLevels || batch < 1 || smem > kMaxDynamicSmem)
     return cudaErrorInvalidValue;
-  for (int l = 0; l < p->levels; ++l)
-    if (slice_len(p->lv[l].N) > p->chunk) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(p->chunk);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = lm_config(batch, smem, stream, attr);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, *p);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// K2-LM / K4-LM: a block holds a level's slice of at most p->chunk points.
+int launch_lm(void (*kernel)(const LmParams), const LmParams* p, cudaStream_t stream) {
+  if (p->chunk % 4 != 0 || p->levels > kMaxLevels) return cudaErrorInvalidValue;
+  for (int l = 0; l < p->levels; ++l)
+    if (slice_len(p->lv[l].N) > p->chunk) return cudaErrorInvalidValue;
+  return launch_clusters(kernel, *p, p->B, smem_bytes(p->chunk), stream);
+}
+
+// K3-LM's dynamic shared memory: every level's slice.
+size_t scale_smem(const ScaleLmParams& p) {
+  size_t total = 0;
+  for (int l = 0; l < p.levels && l < kMaxLevels; ++l) total += smem_bytes(slice_len(p.lv[l].N));
+  return total;
 }
 
 }  // namespace
@@ -1046,15 +1133,15 @@ DSSLAM_API int dsslam_scale_lm_params_size() {
 }
 
 DSSLAM_API int dsslam_track_lm(const LmParams* p, cudaStream_t stream) {
-  return launch_lm(lm_kernel<false>, p, p->B, stream);
+  return launch_lm(lm_kernel<false>, p, stream);
 }
 
 DSSLAM_API int dsslam_loop_pose_lm(const LmParams* p, cudaStream_t stream) {
-  return launch_lm(lm_kernel<true>, p, p->B, stream);
+  return launch_lm(lm_kernel<true>, p, stream);
 }
 
 DSSLAM_API int dsslam_scale_lm(const ScaleLmParams* p, cudaStream_t stream) {
-  return launch_lm(scale_lm_kernel, p, p->G, stream);
+  return launch_clusters(scale_lm_kernel, *p, p->G, scale_smem(*p), stream);
 }
 
 // The LM's damped solve (damped_solve) on n systems for the affine mode
@@ -1070,17 +1157,22 @@ DSSLAM_API int dsslam_lm_solve(const float* H, const float* g, const float* lam,
 }
 
 // How many 8-block clusters of an LM kernel (kind 0: K2-LM, 1: K4-LM,
-// 2: K3-LM) fit on the card at once for a slice of `chunk` points.
-DSSLAM_API int dsslam_lm_max_active_clusters(int kind, int chunk, int* out) {
-  const size_t smem = smem_bytes(chunk);
+// 2: K3-LM) fit on the card at once with smem bytes of dynamic shared
+// memory a block.
+DSSLAM_API int dsslam_lm_max_active_clusters(int kind, int smem, int* out) {
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = lm_config(1, smem, nullptr, attr);
+  const cudaLaunchConfig_t cfg = lm_config(1, static_cast<size_t>(smem), nullptr, attr);
   switch (kind) {
     case 0:
       return cudaOccupancyMaxActiveClusters(out, lm_kernel<false>, &cfg);
     case 1:
       return cudaOccupancyMaxActiveClusters(out, lm_kernel<true>, &cfg);
     case 2:
+      if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            scale_lm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return err;
+      }
       return cudaOccupancyMaxActiveClusters(out, scale_lm_kernel, &cfg);
     default:
       return cudaErrorInvalidValue;

@@ -17,13 +17,17 @@ A kernel takes one parameter struct by value (mirrored here with
 ``ctypes``); a scalar that lives on the card (an affine parameter, an
 exposure) is passed as its address and read there, and K3-LM's per-level
 ``R01 K0^-1``, ``t01`` and camera 1's intrinsics are computed on the host
-from host values, so a call builds no tensor besides its output.
+from host values, so a call builds no tensor besides its output. K2-LM's
+struct is built once per template and K3-LM's once per sizes,
+intrinsics, extrinsics and configuration; a call copies it and fills in
+its own pointers.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -36,13 +40,13 @@ MAX_LEVELS = 8
 CLUSTER = 8
 OUT = 40           # floats per candidate in the output row
 _OUT_A, _OUT_B, _OUT_RES, _OUT_X0, _OUT_X1, _OUT_PASSES = 16, 17, 18, 26, 27, 28
-SCALE_OUT = 20     # floats per guess in K3-LM's output row
-_SOUT_REPEAT, _SOUT_PASSES = 4, 12
+SCALE_OUT = 28     # floats per guess in K3-LM's output row
+_SOUT_REPEAT, _SOUT_PASSES, _SOUT_RUN = 4, 12, 20
 # dsslam_lm_max_active_clusters' kernel numbers
 KINDS = {"track": 0, "loop_pose": 1, "scale": 2}
-# K2-LM / K4-LM phase counters (resident_lm.cu, Phase): per candidate and
-# level the SM cycles of each phase on thread 0 of cluster rank 0, then the
-# whole run's cycles and nanoseconds (%globaltimer)
+# the LM kernels' phase counters (resident_lm.cu, Phase): per candidate
+# (K3-LM: guess) and level the SM cycles of each phase on thread 0 of
+# cluster rank 0, then the whole run's cycles and nanoseconds (%globaltimer)
 PHASES = ("load", "points", "reduce", "cluster", "step", "barrier")
 TIMER_WORDS = MAX_LEVELS * len(PHASES) + 2
 
@@ -76,12 +80,12 @@ class ScaleLmParams(ctypes.Structure):
     """K3-LM's parameters: a level's ``Ki`` holds R01 K0^-1 and its
     intrinsics are camera 1's."""
 
-    _fields_ = [("lv", _Level * MAX_LEVELS), ("s_init", _P), ("out", _P),
+    _fields_ = [("lv", _Level * MAX_LEVELS), ("s_init", _P), ("out", _P), ("timers", _P),
                 ("t01", _F * 3), ("huber", _F), ("coarse_cutoff", _F),
                 ("sat_ratio_repeat", _F), ("cutoff_repeat_max", _F),
                 ("lambda_init", _F), ("lambda_lim", _F), ("lambda_accept", _F),
                 ("lambda_reject", _F), ("inc_break", _F), ("levels", _I),
-                ("G", _I), ("chunk", _I)]
+                ("G", _I)]
 
 
 class LmOut(NamedTuple):
@@ -98,22 +102,45 @@ class LmOut(NamedTuple):
     passes: torch.Tensor     # [B, L] (float counts)
 
 
-class ScaleLmOut(NamedTuple):
-    """Per guess: the scale, the error sqrt(E/n) at level 0, level 0's E
-    and n, and per level the cutoff-doubling factor and the passes run."""
+class ScaleLmOut:
+    """K3-LM's output rows [G, SCALE_OUT]: per guess the scale, the error
+    sqrt(E/n) at level 0, level 0's E and n, and per level the
+    cutoff-doubling factor, the passes the reference's loop runs and those
+    the kernel ran (it skips a pass whose sums it holds). Each field is a
+    view of the rows, made when it is read."""
 
-    scale: torch.Tensor      # [G]
-    error: torch.Tensor      # [G]
-    E: torch.Tensor          # [G]
-    n: torch.Tensor          # [G]
-    repeat: torch.Tensor     # [G, L]
-    passes: torch.Tensor     # [G, L] (float counts)
+    def __init__(self, rows: torch.Tensor, levels: int):
+        self.rows, self.levels = rows, levels
+
+    scale = property(lambda o: o.rows[:, 0])                          # [G]
+    error = property(lambda o: o.rows[:, 1])                          # [G]
+    E = property(lambda o: o.rows[:, 2])                              # [G]
+    n = property(lambda o: o.rows[:, 3])                              # [G]
+    repeat = property(lambda o: o.rows[:, _SOUT_REPEAT:_SOUT_REPEAT + o.levels])  # [G, L]
+    passes = property(lambda o: o.rows[:, _SOUT_PASSES:_SOUT_PASSES + o.levels])  # [G, L]
+    run = property(lambda o: o.rows[:, _SOUT_RUN:_SOUT_RUN + o.levels])           # [G, L]
+
+    def __iter__(self):
+        return iter((self.scale, self.error, self.E, self.n, self.repeat, self.passes,
+                     self.run))
 
 
 def slice_len(n: int) -> int:
     """Points per cluster block at a level (resident_lm.cu slice_len)."""
     per = (n + CLUSTER - 1) // CLUSTER
     return (per + 3) // 4 * 4
+
+
+def _smem_bytes(points: int) -> int:
+    """A block's shared memory for a level's points (resident_lm.cu
+    smem_bytes: 17 bytes a point, 16-byte aligned)."""
+    return (points * 17 + 15) // 16 * 16
+
+
+def scale_smem(sizes) -> int:
+    """K3-LM's dynamic shared memory a block for levels of ``sizes``
+    points: every level's slice (resident_lm.cu scale_smem)."""
+    return sum(_smem_bytes(slice_len(n)) for n in sizes)
 
 
 def _scalar(x, dev) -> _Scalar:
@@ -221,14 +248,16 @@ def _timers(p: LmParams, timers: Optional[torch.Tensor], B: int, dev) -> None:
 
 
 def timer_buffer(B: int, dev) -> torch.Tensor:
-    """A phase-counter array for a K2-LM / K4-LM call of B candidates."""
+    """A phase-counter array for an LM kernel's call on B candidates,
+    seeds or guesses."""
     return torch.zeros(B, TIMER_WORDS, dtype=torch.int64, device=dev)
 
 
 def phase_breakdown(timers, passes, clock_mhz: float) -> dict:
     """The phase counters of one call (``timers`` [B, TIMER_WORDS], host
     or device; ``passes`` [B, L], the call's ``LmOut.passes``) converted at
-    ``clock_mhz`` (the SM clock nvidia-smi reports beside the run): per
+    ``clock_mhz`` (the SM clock nvidia-smi reports beside the run; for
+    K3-LM pass ``ScaleLmOut.run``, the passes it ran): per
     level and over the call, microseconds per pass (summed over the
     candidates, whose clusters run side by side) and each phase's share;
     ``run_us`` the mean of the candidates' whole runs, and ``kernel_mhz``
@@ -373,9 +402,10 @@ loop_pose_lm_cuda.launches = 0
 def scale_lm_params(pyr1, template, scales0: torch.Tensor, intr0, intr1,
                     t_cam1_cam0, cfg, out: torch.Tensor) -> ScaleLmParams:
     """K3-LM's parameter struct for ``optimize_scale_batch``'s arguments,
-    without a launch: per level camera 1's image and intrinsics, the
-    template's lists, ``R01 @ Ki0`` in f32 (as the plain loop forms it)
-    and the level's LM iterations. ``t_cam1_cam0`` is read on the host."""
+    built afresh, without a launch: per level camera 1's image and
+    intrinsics, the template's lists, ``R01 @ Ki0`` in f32 (as the plain
+    loop forms it) and the level's LM iterations. ``t_cam1_cam0`` is read
+    on the host."""
     levels = template.levels
     if levels > MAX_LEVELS:
         raise ValueError(f"scale_lm: at most {MAX_LEVELS} levels, got {levels}")
@@ -393,31 +423,81 @@ def scale_lm_params(pyr1, template, scales0: torch.Tensor, intr0, intr1,
     p.out = out.data_ptr()
     p.levels = levels
     p.G = scales0.shape[0]
-    p.chunk = max(slice_len(int(x.shape[0])) for x in template.pu)
     return p
 
 
+# K3-LM's struct for the last sizes, intrinsics, extrinsics and
+# configuration: (key, struct), as _track_proto holds K2-LM's
+_scale_proto: list = [None]
+# the last template whose tensors were checked: (device, weak references
+# to its tensors), so a freed template never matches and none is kept alive
+_scale_checked: list = [None]
+
+
+def _scale_params(pyr1, template, scales0: torch.Tensor, intr0, intr1, t_cam1_cam0,
+                  cfg, out: torch.Tensor) -> ScaleLmParams:
+    """``scale_lm_params`` for a call: a copy of a prototype, built once
+    per image and template sizes, intrinsics, extrinsics and configuration
+    (a run keeps all of them; the template changes every keyframe, so it
+    is not part of the key), with the call's pointers filled in: the
+    images, the template's lists, the guesses and the output."""
+    levels = template.levels
+    T = np.asarray(t_cam1_cam0, np.float32)
+    key = (intr0, intr1, cfg, T.tobytes(), tuple(tuple(x.shape) for x in pyr1[:levels]),
+           tuple(x.shape[0] for x in template.pu))
+    hit = _scale_proto[0]
+    if hit is None or any(a is not b for a, b in zip(hit[0][:3], key[:3])) or hit[0][3:] != key[3:]:
+        hit = _scale_proto[0] = (key, scale_lm_params(pyr1, template, scales0, intr0, intr1,
+                                                      t_cam1_cam0, cfg, out))
+    p = ScaleLmParams.from_buffer_copy(hit[1])
+    for lvl in range(levels):
+        L = p.lv[lvl]
+        L.img, L.p0, L.p1 = pyr1[lvl].data_ptr(), template.pu[lvl].data_ptr(), \
+            template.pv[lvl].data_ptr()
+        L.p2, L.pcolor = template.pid[lvl].data_ptr(), template.pcolor[lvl].data_ptr()
+        L.pmask = template.pmask[lvl].data_ptr()
+    p.s_init = scales0.data_ptr()
+    p.out = out.data_ptr()
+    p.G = scales0.shape[0]
+    return p
+
+
+def _check_template(template, dev) -> None:
+    """The template's lists are contiguous f32 (masks bool or uint8) on
+    dev: checked once per template (a tensor's device, type and layout do
+    not change)."""
+    ts = [x for k in ("pu", "pv", "pid", "pcolor", "pmask") for x in getattr(template, k)]
+    hit = _scale_checked[0]
+    if hit is not None and hit[0] == dev and len(hit[1]) == len(ts) \
+            and all(r() is t for r, t in zip(hit[1], ts)):
+        return
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"scale_lm: the template must be on {dev}")
+    _cuda.require_cuda("scale_lm", *(_mask_u8(t) for t in ts))
+    _scale_checked[0] = (dev, tuple(weakref.ref(t) for t in ts))
+
+
 def scale_lm_cuda(pyr1, template, scales0, intr0, intr1, t_cam1_cam0,
-                  cfg) -> ScaleLmOut:
+                  cfg, timers: Optional[torch.Tensor] = None) -> ScaleLmOut:
     """Launch K3-LM for the guesses ``scales0`` [G]: every level coarse to
     fine of ``models/scale_opt.optimize_scale_batch``, the cutoff doubling,
     the 1-DoF LM and the one-shot level repeat, one 8-block cluster per
-    guess. ``t_cam1_cam0`` is a host array, as the front end keeps it."""
+    guess. ``t_cam1_cam0`` is a host array, as the front end keeps it.
+    ``timers`` (``timer_buffer(G)``) receives the phase counters."""
     dev = pyr1[0].device
     s0 = torch.as_tensor(scales0, dtype=torch.float32, device=dev).reshape(-1).contiguous()
-    for lvl in range(template.levels):
-        _cuda.require_cuda("scale_lm", pyr1[lvl], template.pu[lvl], template.pv[lvl],
-                           template.pid[lvl], template.pcolor[lvl],
-                           _mask_u8(template.pmask[lvl]), s0)
+    levels = template.levels
+    if levels > MAX_LEVELS:
+        raise ValueError(f"scale_lm: at most {MAX_LEVELS} levels, got {levels}")
+    _cuda.require_cuda("scale_lm", *pyr1[:levels], s0)
+    _check_template(template, dev)
     out = torch.empty(s0.shape[0], SCALE_OUT, dtype=torch.float32, device=dev)
-    p = scale_lm_params(pyr1, template, s0, intr0, intr1, t_cam1_cam0, cfg, out)
+    p = _scale_params(pyr1, template, s0, intr0, intr1, t_cam1_cam0, cfg, out)
+    _timers(p, timers, s0.shape[0], dev)
     _library()
     _cuda.call("dsslam_scale_lm", ctypes.addressof(p))
     scale_lm_cuda.launches += 1
-    L = template.levels
-    return ScaleLmOut(scale=out[:, 0], error=out[:, 1], E=out[:, 2], n=out[:, 3],
-                      repeat=out[:, _SOUT_REPEAT:_SOUT_REPEAT + L],
-                      passes=out[:, _SOUT_PASSES:_SOUT_PASSES + L])
+    return ScaleLmOut(out, levels)
 
 
 scale_lm_cuda.launches = 0
@@ -446,12 +526,25 @@ def lm_solve_cuda(H: torch.Tensor, g: torch.Tensor, lam: torch.Tensor, mode_a: f
 
 def max_active_clusters(kind: str, n_points: int) -> int:
     """How many 8-block clusters of an LM kernel (``kind`` "track": K2-LM,
-    "scale": K3-LM, "loop_pose": K4-LM) the card holds at once for levels
-    of up to ``n_points`` points."""
+    "loop_pose": K4-LM, for levels of up to ``n_points`` points; "scale":
+    K3-LM, for a template of one level of ``n_points``) the card holds at
+    once."""
+    if kind == "scale":
+        return scale_max_active_clusters((n_points,))
+    return _max_active_clusters(KINDS[kind], _smem_bytes(slice_len(n_points)))
+
+
+def scale_max_active_clusters(sizes) -> int:
+    """How many 8-block clusters of K3-LM the card holds at once for a
+    template of levels of ``sizes`` points (a block holds every level's
+    slice)."""
+    return _max_active_clusters(KINDS["scale"], scale_smem(sizes))
+
+
+def _max_active_clusters(kind: int, smem: int) -> int:
     out = ctypes.c_int(0)
     kl = _library()
-    err = kl.lib.dsslam_lm_max_active_clusters(KINDS[kind], slice_len(n_points),
-                                                ctypes.byref(out))
+    err = kl.lib.dsslam_lm_max_active_clusters(kind, smem, ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {err}: "
                            f"{kl.lib.dsslam_error_string(err).decode()}")

@@ -28,6 +28,7 @@ import torch
 from direct_stereo_slam_tpu_torch.geometry import lie
 from direct_stereo_slam_tpu_torch.ops import distance_map as dm
 from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
+from torch_k1_cases import K1_CASES, K1_GRIDS, k1_points
 
 pytestmark = pytest.mark.cuda
 
@@ -71,14 +72,21 @@ def _points(seed, n, dev, live_frac=1.0):
     return [torch.as_tensor(a, device=dev) for a in (pu, pv, pid, pc, live)]
 
 
-@pytest.mark.parametrize("h2,w2,n", [(7, 9, 0), (33, 65, 50), (48, 80, 3000),
-                                     (184, 616, 8192)])
-def test_distance_map_bit_equal(dev, h2, w2, n):
-    rng = np.random.RandomState(h2 * w2 + n)
-    pu = rng.uniform(-5, w2 + 5, n).astype(np.float32)
-    pv = rng.uniform(-5, h2 + 5, n).astype(np.float32)
-    pu[: n // 4] = np.floor(pu[: n // 4]) + 0.5      # round-half-to-even ties
-    args = [torch.as_tensor(a, device=dev) for a in (pu, pv, rng.rand(n) < 0.7)]
+@pytest.mark.parametrize("h2,w2,n,case", [(7, 9, 0, "random"), (33, 65, 50, "random"),
+                                          (48, 80, 3000, "random"),
+                                          (184, 616, 8192, "random")]
+                         + [(h, w, 0, c) for h, w in K1_GRIDS for c in K1_CASES]
+                         + [(184, 616, 0, c) for c in K1_CASES[3:]])
+def test_distance_map_bit_equal(dev, h2, w2, n, case):
+    if case == "random":
+        rng = np.random.RandomState(h2 * w2 + n)
+        pu = rng.uniform(-5, w2 + 5, n).astype(np.float32)
+        pv = rng.uniform(-5, h2 + 5, n).astype(np.float32)
+        pu[: n // 4] = np.floor(pu[: n // 4]) + 0.5      # round-half-to-even ties
+        pts = (pu, pv, rng.rand(n) < 0.7)
+    else:
+        pts = k1_points(case, h2, w2)
+    args = [torch.as_tensor(a, device=dev) for a in pts]
     before = dm.build_distance_map_cuda.launches
     got = dm.build_distance_map(*args, h2, w2)
     assert dm.build_distance_map_cuda.launches == before + 1
@@ -697,17 +705,28 @@ def test_lm_solve_ill_conditioned(dev):
     assert np.all(err(got) <= 10 * err(want) + 1e-3), (err(got), err(want))
 
 
+def _lm_call(request, which, B):
+    """(arguments, wrapper) of a resident LM call: K2-LM on B candidates,
+    K4-LM on B seeds or K3-LM on B guesses (the live template of base
+    8192)."""
+    if which == "scale":
+        return _scale_args(request.getfixturevalue("scale_scene"), "live", 8192, B), \
+            rlm.scale_lm_cuda
+    sc = request.getfixturevalue("scene")
+    if which == "track":
+        return _track_args(sc, sc["cfg"], _candidates(sc, B)), rlm.track_lm_cuda
+    return _loop_args(sc, sc["cfg"], B), rlm.loop_pose_lm_cuda
+
+
 @pytest.mark.parametrize("which,B", [("track", 1), ("track", 5), ("track", 78),
-                                     ("loop_pose", 1), ("loop_pose", 6)])
-def test_lm_bit_equal_with_phase_counters_on_and_off(scene, which, B):
+                                     ("loop_pose", 1), ("loop_pose", 6),
+                                     ("scale", 1), ("scale", 8)])
+def test_lm_bit_equal_with_phase_counters_on_and_off(request, which, B):
     """Two launches on the same inputs give the same bits, and so does a
     launch with the phase counters on; the counters are filled."""
-    if which == "track":
-        args, launch = _track_args(scene, scene["cfg"], _candidates(scene, B)), rlm.track_lm_cuda
-    else:
-        args, launch = _loop_args(scene, scene["cfg"], B), rlm.loop_pose_lm_cuda
+    args, launch = _lm_call(request, which, B)
     a, b = launch(*args), launch(*args)
-    timers = rlm.timer_buffer(B, scene["dev"])
+    timers = rlm.timer_buffer(B, torch.device("cuda"))
     c = launch(*args, timers=timers)
     for x, y, z in zip(a, b, c):
         x, y, z = (torch.nan_to_num(v, 7.0) for v in (x, y, z))
@@ -735,26 +754,29 @@ def _sm_clock_mhz():
     return float(out.stdout.strip().splitlines()[0])
 
 
-def test_phase_counters_cover_a_call(scene):
-    """The phase counters of a B = 1 K2-LM call, converted at the SM clock
-    nvidia-smi reports, sum to within [0.8, 1.05] of the call's time on
-    the card by CUDA events (median of 5). The call is queued behind a
-    spin of the card, so the events time the card alone (the launch
-    included), not the host's issue."""
-    args = _track_args(scene, scene["cfg"], _candidates(scene, 1))
-    timers = rlm.timer_buffer(1, scene["dev"])
+@pytest.mark.parametrize("which,B", [("track", 1), ("scale", 1), ("scale", 8)])
+def test_phase_counters_cover_a_call(request, which, B):
+    """The phase counters of a call (K2-LM on one candidate, K3-LM on one
+    guess or the grid of 8), converted at the SM clock nvidia-smi reports,
+    sum to within [0.8, 1.05] of the call's time on the card by CUDA
+    events (median of 5), for the candidate whose phases take longest
+    (the clusters run side by side). The call is queued behind a spin of
+    the card, so the events time the card alone (the launch included),
+    not the host's issue."""
+    args, launch = _lm_call(request, which, B)
+    timers = rlm.timer_buffer(B, torch.device("cuda"))
     ratios = []
     for _ in range(5):
-        rlm.track_lm_cuda(*args)
+        launch(*args)
         torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda._sleep(50_000_000)
         start.record()
-        o = rlm.track_lm_cuda(*args, timers=timers)
+        launch(*args, timers=timers)
         end.record()
         end.synchronize()
-        ph = rlm.phase_breakdown(timers, o.passes, _sm_clock_mhz())
-        ratios.append(ph["phase_us"] / (1e3 * start.elapsed_time(end)))
+        phase_us = float(timers[:, :-2].sum(dim=1).max()) / _sm_clock_mhz()
+        ratios.append(phase_us / (1e3 * start.elapsed_time(end)))
     assert 0.8 <= float(np.median(ratios)) <= 1.05, ratios
 
 
@@ -940,6 +962,20 @@ def test_scale_lm_passes_per_level(scale_scene, kind, cutoff):
         assert max(c for _, c, _ in calls) > cutoff and float(o.repeat[0].max()) > 1.0
     else:
         assert all(nan for _, _, nan in calls)
+
+
+@pytest.mark.parametrize("base", [8192, 512])
+@pytest.mark.parametrize("G", [1, 8])
+def test_scale_lm_skips_known_passes(scale_scene, base, G):
+    """On the padded template every step is zeroed, so each level's trial
+    would rerun the pass whose sums K3-LM holds: it runs fewer passes than
+    the reference's loop counts (which it still reports per level), and
+    its outputs are the loops' and the guesses themselves."""
+    args = _scale_args(scale_scene, "padded", base, G)
+    o = rlm.scale_lm_cuda(*args)
+    _same_scale(o, args)
+    assert torch.equal(o.scale, args[2])
+    assert bool((o.run >= 1).all()) and bool((o.run < o.passes).all()), (o.run, o.passes)
 
 
 @pytest.mark.parametrize("G", [1, 8])

@@ -1,7 +1,10 @@
 """Kernel K1 (activation distance map) — its plain PyTorch version here —
 against the JAX package: bit-equal to the XLA form, to the Pallas kernel
 run in interpret mode (as tests/test_distance_map.py runs it), and to a
-brute-force capped Chebyshev distance; empty mask; rounding half to even."""
+brute-force capped Chebyshev distance, on random points and on the card
+tests' edge cases (one-cell, one-row and one-column grids, points on and
+half a cell off the borders, clipped points, a full grid, isolated points
+15-17 cells from a border); empty mask; rounding half to even."""
 
 import numpy as np
 import pytest
@@ -10,6 +13,7 @@ import jax.numpy as jnp
 
 from direct_stereo_slam_tpu.ops import distance_map as dm_j
 from direct_stereo_slam_tpu_torch.ops import distance_map as dm_t
+from torch_k1_cases import K1_CASES, K1_GRIDS, k1_points
 
 pytestmark = pytest.mark.smoke
 
@@ -32,13 +36,20 @@ def _port(pu, pv, mask, h2, w2):
                                    torch.as_tensor(mask), h2, w2).numpy()
 
 
-@pytest.mark.parametrize("seed,n,h2,w2", [(0, 60, 48, 80), (1, 25, 40, 64), (2, 400, 46, 154)])
-def test_matches_xla_pallas_and_brute_force(seed, n, h2, w2):
-    rng = np.random.RandomState(seed)
-    # some points project outside the grid (clipped onto the border)
-    pu = (rng.rand(n) * (w2 + 10) - 5).astype(np.float32)
-    pv = (rng.rand(n) * (h2 + 10) - 5).astype(np.float32)
-    mask = rng.rand(n) < 0.7
+@pytest.mark.parametrize("case,h2,w2", [("random:0:60", 48, 80), ("random:1:25", 40, 64),
+                                        ("random:2:400", 46, 154)]
+                         + [(c, h, w) for h, w in K1_GRIDS for c in K1_CASES])
+def test_matches_xla_pallas_and_brute_force(case, h2, w2):
+    if case.startswith("random"):
+        _, seed, n = case.split(":")
+        rng = np.random.RandomState(int(seed))
+        n = int(n)
+        # some points project outside the grid (clipped onto the border)
+        pu = (rng.rand(n) * (w2 + 10) - 5).astype(np.float32)
+        pv = (rng.rand(n) * (h2 + 10) - 5).astype(np.float32)
+        mask = rng.rand(n) < 0.7
+    else:
+        pu, pv, mask = k1_points(case, h2, w2)
     got = _port(pu, pv, mask, h2, w2)
     args = (jnp.asarray(pu), jnp.asarray(pv), jnp.asarray(mask), h2, w2)
     np.testing.assert_array_equal(got, np.asarray(dm_j.build_distance_map(*args, False)))

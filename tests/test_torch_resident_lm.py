@@ -9,6 +9,7 @@ rule that holds the kernels to those loops (``utils/lm_agreement.py``)
 passes the loops in other lane orders and catches a candidate that moved."""
 
 import ctypes
+import weakref
 
 import numpy as np
 import pytest
@@ -84,10 +85,12 @@ def test_timers_must_fit_the_batch():
 def test_scale_struct_layout_matches_the_kernel():
     assert ctypes.sizeof(rlm.ScaleLmParams) == 1168
     assert rlm.ScaleLmParams.s_init.offset == 1088
-    assert rlm.ScaleLmParams.t01.offset == 1104
-    assert rlm.ScaleLmParams.huber.offset == 1116
-    assert rlm.ScaleLmParams.levels.offset == 1152
-    assert rlm.ScaleLmParams.chunk.offset == 1160
+    assert rlm.ScaleLmParams.timers.offset == 1104
+    assert rlm.ScaleLmParams.t01.offset == 1112
+    assert rlm.ScaleLmParams.huber.offset == 1124
+    assert rlm.ScaleLmParams.levels.offset == 1160
+    assert rlm.ScaleLmParams.G.offset == 1164
+    assert rlm.SCALE_OUT == 28 and rlm._SOUT_RUN == 20
 
 
 @pytest.mark.parametrize("n,per", [(0, 0), (1, 4), (8, 4), (33, 8), (512, 64),
@@ -235,12 +238,11 @@ def test_scale_params_per_level():
     """Each level of K3-LM's struct: camera 1's image, size, bounds and
     intrinsics, the template's lists, R01 K0^-1 formed in f32 as the plain
     loop forms it, and the level's iterations; t01, the LM's scalars, the
-    guesses and the slice size beside them."""
+    guesses beside them."""
     pyr, tmpl, s0, intr0, intr1, T10, cfg = args = _scale_args()
     out = torch.empty(3, rlm.SCALE_OUT)
     p = rlm.scale_lm_params(*args, out)
     assert (p.levels, p.G, p.s_init, p.out) == (L, 3, s0.data_ptr(), out.data_ptr())
-    assert p.chunk == rlm.slice_len(128)
     np.testing.assert_array_equal(np.array(p.t01), T10[:3, 3])
     tc = cfg.tracker
     assert (p.huber, p.coarse_cutoff, p.cutoff_repeat_max) == (
@@ -258,6 +260,85 @@ def test_scale_params_per_level():
                  @ torch.as_tensor(intr0.Ki(lvl), dtype=torch.float32)).numpy()
         np.testing.assert_allclose(np.array(lv.Ki), R01Ki.reshape(9), rtol=1e-6, atol=1e-9)
         assert lv.max_iters == tc.max_iterations[lvl] and lv.compute_flow == 0
+
+
+@pytest.mark.parametrize("sizes,smem", [
+    ((8192, 4096, 2048, 1024, 512), 17408 + 8704 + 4352 + 2176 + 1088),
+    ((512, 256, 128, 128, 128), 1088 + 544 + 3 * 272),
+    ((5, 33), 80 + 144)])
+def test_scale_smem(sizes, smem):
+    """K3-LM's shared memory a block: every level's slice (an eighth of
+    its points rounded up to 4, 17 bytes a point, each level 16-byte
+    aligned)."""
+    assert rlm.scale_smem(sizes) == smem
+
+
+def test_scale_struct_filled_from_a_prototype(monkeypatch):
+    """A call's K3-LM struct is a copy of a prototype kept per image and
+    template sizes, intrinsics, extrinsics and configuration, with the
+    call's pointers filled in: it has the bytes of a fresh build
+    for the same arguments. Another template or pyramid of the same sizes
+    only changes the pointers; other sizes, another configuration or other
+    extrinsics build a new prototype."""
+    monkeypatch.setattr(rlm, "_scale_proto", [None])
+    pyr, tmpl, s0, intr0, intr1, T10, cfg = args = _scale_args()
+    out = torch.empty(3, rlm.SCALE_OUT)
+    fresh = lambda *a: bytes(rlm.scale_lm_params(*a, out))
+    assert bytes(rlm._scale_params(*args, out)) == fresh(*args)
+    proto = rlm._scale_proto[0]
+    other = (tuple(x.clone() for x in pyr), tmpl._replace(pu=tuple(x.clone() for x in tmpl.pu),
+                                                           pmask=tuple(x.clone() for x in tmpl.pmask)),
+             torch.tensor([1.0, 2.0]), intr0, intr1, T10.copy(), cfg)
+    p = rlm._scale_params(*other, out)
+    assert rlm._scale_proto[0] is proto and bytes(p) == fresh(*other)
+    assert (p.lv[0].img, p.lv[1].p0, p.lv[0].pmask, p.G) == (
+        other[0][0].data_ptr(), other[1].pu[1].data_ptr(), other[1].pmask[0].data_ptr(), 2)
+    T11 = T10.copy()
+    T11[0, 3] += 0.01
+    small = tmpl._replace(**{k: tuple(x[:96] for x in getattr(tmpl, k))
+                             for k in ("pu", "pv", "pid", "pcolor", "pmask")})
+    for changed in ((pyr, small, s0, intr0, intr1, T10, cfg),
+                    (pyr, tmpl, s0, intr0, intr1, T10, make_config(W, H)),
+                    (pyr, tmpl, s0, intr0, intr1, T11, cfg)):
+        p = rlm._scale_params(*changed, out)
+        assert rlm._scale_proto[0] is not proto and bytes(p) == fresh(*changed)
+        proto = rlm._scale_proto[0]
+
+
+def test_scale_template_checked_once(monkeypatch):
+    """K3-LM checks a template's tensors once per template (the same
+    tensors) and the pyramid and guesses every call; the check keeps no
+    template alive."""
+    checked = []
+    monkeypatch.setattr(rlm._cuda, "require_cuda", lambda name, *ts: checked.append(len(ts)))
+    monkeypatch.setattr(rlm, "_scale_checked", [None])
+    _, tmpl = _scale_args()[:2]
+    dev = torch.device("cpu")
+    for t in (tmpl, tmpl, tmpl._replace(pu=tuple(x.clone() for x in tmpl.pu)), tmpl):
+        rlm._check_template(t, dev)
+    assert checked == [5 * L] * 3
+    with pytest.raises(ValueError):
+        rlm._check_template(tmpl, torch.device("meta"))
+    other = tmpl._replace(pid=tuple(x.clone() for x in tmpl.pid))
+    rlm._check_template(other, dev)
+    gone = weakref.ref(other.pid[0])
+    del other
+    assert gone() is None and len(checked) == 4
+
+
+def test_scale_out_names_the_rows():
+    """K3-LM's output rows by name: each field a view of its slot(s), the
+    per-level ones as wide as the template's levels, in NamedTuple order
+    when iterated."""
+    rows = torch.arange(3 * rlm.SCALE_OUT, dtype=torch.float32).reshape(3, rlm.SCALE_OUT)
+    o = rlm.ScaleLmOut(rows, L)
+    want = (rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3], rows[:, 4:4 + L],
+            rows[:, 12:12 + L], rows[:, 20:20 + L])
+    got = (o.scale, o.error, o.E, o.n, o.repeat, o.passes, o.run)
+    for x, y, z in zip(got, want, o):
+        assert torch.equal(x, y) and torch.equal(z, y)
+        assert x.data_ptr() == y.data_ptr()          # a view, no copy
+    assert len(list(o)) == 7
 
 
 def test_scale_cpu_tensors_take_the_plain_loop():
