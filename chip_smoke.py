@@ -61,7 +61,29 @@ Phases, each of which must pass (any fault exits non-zero):
 7. undistortion: the ``Undistorter`` on tests/fixtures/realformat on the
    card against the same call on the CPU, within 1e-3 gray levels; ms
    per frame;
-8. loop closure: the port's SLAMNode with its threaded LoopHandler (as
+8. the reference's own inputs and outputs, on the e2e sequence cut to
+   uint8, each gating K1, K2-LM and K3-LM launched and the per-pass
+   kernels not: *bag*, the 40 pairs written as a rosbag uncompressed and
+   bz2 and replayed through SLAMNode in turns with the frames from
+   memory (40 pairs fired, ATE < 2% of the path, keyframes within 1 of
+   memory; read + decode ms per pair, FPS), then ``run_slam --bag
+   --live --debug-dir`` as a user runs it (exit 0, trajectories, page and
+   images written); *live*, the pairs published at 10 Hz over loopback
+   TCPROS into ``StereoTopicSource`` -> ``SLAMNode.process`` (all 40
+   processed, ``close()`` raises nothing, ATE < 2%, waits counted on the
+   source's thread; lag publish -> end of process, deepest queue, FPS);
+   *resume*, under ``torch.use_deterministic_algorithms``: two
+   uninterrupted runs A, A2 with a threaded LoopHandler, B stopped at
+   frame 20 and saved (front end and handler), C loaded from it into a
+   fresh node for frames 20-39 (state on the card, keyframes within 1 of
+   A, every position within the A-A2 spread + 1e-3 m; save / load ms and
+   bytes), then a checkpoint the host CPU wrote resumed on the card for 5
+   frames; *observe*, the live viewer and the debug images on and off in
+   turns (FPS of each; a window and an idepth PNG per tracked keyframe,
+   a residual PNG per other frame, live.html with every tracked frame's
+   pose and a depth pane; blocking waits per benign frame the same on
+   as off);
+9. loop closure: the port's SLAMNode with its threaded LoopHandler (as
    ``run_slam`` runs them) over 160 frames (2 laps at 4.5 deg/frame) of
    the loop room at 1232x368, images quantised to uint8, loop_margin 40:
    at least one verified loop, the loop-closed (dslam) ATE below the
@@ -84,7 +106,8 @@ frame against the card.
 
 The line before the last is the kernel table as JSON (each row's
 launches in the e2e or loop phase, in the last pipelined pass and per
-frame of it, and in the mono phase); the last line is
+frame of it, in the mono phase and in the bag, live, resume and observe
+phases); the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX nor of
 the JAX package, and checks so before its last line.
 """
@@ -93,9 +116,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -824,7 +849,6 @@ def e2e_profile(torch, run_once, out_dir: str) -> None:
     """One more end-to-end pass under torch.profiler: device busy share of
     the pass, device time by kernel, and the hand-written kernels' share
     (full table written to out_dir)."""
-    import os
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1271,7 +1295,6 @@ def undistort_phase(torch, dev):
     """The Undistorter on the real-format fixture (tests/fixtures/realformat:
     PGM frames, RadTan camera.txt with crop, pcalib gamma, 16-bit
     vignette) on the card against the same call on the CPU."""
-    import os
 
     from direct_stereo_slam_tpu_torch.io.dataset import StereoDirDataset
     from direct_stereo_slam_tpu_torch.io.undistort import Undistorter
@@ -1294,6 +1317,433 @@ def undistort_phase(torch, dev):
           f"included)", flush=True)
     if not err <= 1e-3:
         fail(f"undistort: card and CPU differ by {err} gray levels")
+
+
+# ---------------------------------------------------------------------------
+# the reference's own inputs and outputs: rosbag, live topics, checkpoint /
+# resume, the viewer and the debug images (each on the e2e phase's frames,
+# cut to uint8 as a camera gives them)
+# ---------------------------------------------------------------------------
+
+TOPICS = ("/cam0/image_raw", "/cam1/image_raw")
+CAMERA_HZ = 10.0        # KITTI's camera rate
+
+
+def observed_sequence(dev):
+    """The e2e phase's rendered sequence, its images cut to uint8."""
+    ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
+    return ds, QuantisedFrames(frames).frames, cfg, intr
+
+
+def camera_files(ds, out_dir: str):
+    """A pinhole camera.txt (no distortion, no crop) and T_stereo.yaml of
+    the rendered rig, for the raw-image path (``run_slam --calib0``)."""
+
+    K = ds.K
+    calib = os.path.join(out_dir, "camera.txt")
+    with open(calib, "w") as f:
+        f.write(f"Pinhole {K[0, 0]} {K[1, 1]} {K[0, 2]} {K[1, 2]} 0\n{W} {H}\nfull\n{W} {H}\n")
+    stereo = os.path.join(out_dir, "T_stereo.yaml")
+    with open(stereo, "w") as f:
+        f.write("T_stereo: !!opencv-matrix\n  rows: 4\n  cols: 4\n  dt: d\n  data: ["
+                + ", ".join(repr(float(x)) for x in ds.t_cam1_cam0.reshape(-1)) + "]\n")
+    return calib, stereo
+
+
+def zero_counters():
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def read_counters(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def ate_of(frames, shells, first=1):
+    """(translation ATE of the shells from frame ``first`` on, path length)."""
+    est, gt, path = translations(frames, shells)
+    errs = np.linalg.norm(est[first:] - gt[first:], axis=1)
+    return float(np.sqrt(np.mean(errs ** 2))), path
+
+
+def bag_phase(torch, dev, seq, tmp: str):
+    """The sequence written as a rosbag (uncompressed and bz2) and replayed
+    through SLAMNode (``replay_stereo_bag``, the reference's pairing rule),
+    in turns with the same uint8 frames fed from memory; then the entry
+    point on the bz2 bag with the viewer and the debug images. Returns
+    the launches of the last bag pass."""
+
+    from direct_stereo_slam_tpu_torch.io.rosbag import (RosbagReader, replay_stereo_bag,
+                                                        write_stereo_bag)
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    ds, frames, cfg, intr = seq
+    msgs = [m for f in frames for m in ((TOPICS[0], float(f["timestamp"]), f["img0"]),
+                                        (TOPICS[1], float(f["timestamp"]), f["img1"]))]
+    bags = {}
+    for comp in ("none", "bz2"):
+        path = os.path.join(tmp, f"seq_{comp}.bag")
+        t0 = time.perf_counter()
+        write_stereo_bag(path, msgs, compression=comp)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_img = sum(1 for _ in RosbagReader(path).images(TOPICS))
+        decode_ms = 1e3 * (time.perf_counter() - t0) / (n_img / 2)
+        bags[comp] = path
+        print(f"bag {comp}: {len(frames)} pairs {W}x{H} uint8, {os.path.getsize(path) / 2**20:.2f} "
+              f"MiB written in {write_s:.2f} s; read + decode {decode_ms:.3f} ms per pair "
+              f"(host)", flush=True)
+
+    runs = []
+    for source in ("memory", "none", "bz2"):
+        counters = zero_counters()
+        node = SLAMNode(cfg, intr, intr, ds.t_cam1_cam0, device=dev)
+        shells = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if source == "memory":
+            for f in frames:
+                shells.append(node.process(f["img0"], f["img1"], float(f["timestamp"])))
+            fired = len(frames)
+        else:
+            fired = replay_stereo_bag(bags[source], *TOPICS, lambda a, b: shells.append(
+                node.process(a.data, b.data, a.stamp)))
+        node.finish()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs.append((source, fired, shells, dt, read_counters(counters), node))
+    kfs_mem = sum(s.is_kf for s in runs[0][2])
+    for source, fired, shells, dt, launches, node in runs:
+        kfs = sum(s.is_kf for s in shells)
+        ate, path = ate_of(frames, shells) if len(shells) == len(frames) else (float("nan"), 0)
+        read = "" if source == "memory" else " (bag read and decode included)"
+        print(f"bag {source}: {fired} pairs in {dt:.3f} s = {fired / dt:.3f} FPS{read}, {kfs} "
+              f"keyframes, ATE {ate:.4f} m over {path:.2f} m; launches {launches}", flush=True)
+        if source == "memory":
+            continue
+        fe = node.frontend
+        if fired != len(frames):
+            fail(f"bag {source}: {fired} of {len(frames)} pairs fired")
+        if not fe.initialized or fe.is_lost or not ate < 0.02 * path:
+            fail(f"bag {source}: lost={fe.is_lost} ATE {ate:.4f} m (2% of {path:.2f} m)")
+        if abs(kfs - kfs_mem) > 1:
+            fail(f"bag {source}: {kfs} keyframes against {kfs_mem} from memory")
+        gate_launches(f"bag {source}", launches, E2E_KERNELS)
+
+    # the entry point, as a user runs it on a bag: raw-image path, viewer,
+    # debug images, threaded loop handler
+    calib, stereo = camera_files(ds, tmp)
+    out, dbg = os.path.join(tmp, "run_slam_bag"), os.path.join(tmp, "run_slam_dbg")
+    cmd = [sys.executable, "-m", "direct_stereo_slam_tpu_torch.run_slam", "--bag", bags["bz2"],
+           "--calib0", calib, "--t-stereo", stereo, "--live", "--debug-dir", dbg,
+           "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"bag: run_slam --bag exited {proc.returncode}:\n{(proc.stdout + proc.stderr)[-3000:]}")
+    pngs = os.listdir(dbg) if os.path.isdir(dbg) else []
+    per_frame = [ln for ln in proc.stdout.splitlines() if ln.startswith("per_frame")]
+    print(f"bag: run_slam --bag (bz2) --calib0 --live --debug-dir: exit 0 in {wall:.1f} s "
+          f"(a new process: start, kernel library load, {len(frames)} frames, loop thread); "
+          f"{per_frame}; {len(pngs)} debug PNGs", flush=True)
+    for name in ("sodso.txt", "dslam.txt", "live.html"):
+        if not os.path.exists(os.path.join(out, name)):
+            fail(f"bag: run_slam --bag wrote no {name}")
+    if not pngs:
+        fail("bag: run_slam --bag --debug-dir wrote no image")
+    return runs[-1][4]
+
+
+def live_phase(torch, dev, seq):
+    """The sequence published at the camera's rate over loopback TCPROS
+    (MiniMaster, two ImagePublishers) into StereoTopicSource ->
+    SLAMNode.process on the source's thread, under a lock. Returns the
+    launches of the run."""
+    import threading
+
+    from direct_stereo_slam_tpu_torch.io.ros_transport import (ImagePublisher, MiniMaster,
+                                                               StereoTopicSource)
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    ds, frames, cfg, intr = seq
+    node = SLAMNode(cfg, intr, intr, ds.t_cam1_cam0, device=dev)
+    counter = WaitCounter(torch)
+    lock = threading.Lock()
+    done, shells = {}, {}
+    key = lambda stamp: round(stamp, 4)
+
+    def on_pair(a, b):
+        with lock:
+            shells[key(a.stamp)] = counter(node, partial(node.process, a.data, b.data, a.stamp))
+            done[key(a.stamp)] = time.perf_counter()
+
+    master = MiniMaster()
+    pubs = [ImagePublisher(t, master.uri, f"/smoke_pub{i}") for i, t in enumerate(TOPICS)]
+    src = StereoTopicSource(master.uri, *TOPICS, on_pair)
+    try:
+        t0 = time.perf_counter()
+        while not all(p.connected for p in pubs):
+            if time.perf_counter() - t0 > 30:
+                fail("live: the subscribers never connected over loopback")
+            time.sleep(0.01)
+        counters = zero_counters()
+        sent = {}
+        start = time.perf_counter()
+        for i, f in enumerate(frames):
+            time.sleep(max(0.0, start + i / CAMERA_HZ - time.perf_counter()))
+            stamp = float(f["timestamp"])
+            sent[key(stamp)] = time.perf_counter()
+            pubs[0].publish(f["img0"], stamp)
+            pubs[1].publish(f["img1"], stamp)
+        while len(done) < len(frames) and not src.failed \
+                and time.perf_counter() - start < 120:
+            time.sleep(0.01)
+    finally:
+        src.close()                 # raises what the callback raised
+        for p in pubs:
+            p.close()
+        master.close()
+    with lock:
+        node.finish()
+    torch.cuda.synchronize()
+    launches = read_counters(counters)
+    if len(done) != len(frames):
+        fail(f"live: {len(done)} of {len(frames)} pairs processed")
+    lags = np.array([done[k] - sent[k] for k in sent])
+    span = max(done.values()) - start
+    ordered = [shells[key(float(f["timestamp"]))] for f in frames]
+    ate, path = ate_of(frames, ordered)
+    waits = counter.summary()
+    print(f"live: {len(done)} pairs published at {CAMERA_HZ:.0f} Hz over loopback TCPROS, "
+          f"processed at {len(done) / span:.3f} FPS (first publish to last process); lag "
+          f"publish -> end of process median {1e3 * np.median(lags):.1f} ms, max "
+          f"{1e3 * lags.max():.1f} ms (frame {int(np.argmax(lags))}); deepest queue "
+          f"{src.max_queue} pairs; {sum(s.is_kf for s in ordered)} keyframes, ATE {ate:.4f} m "
+          f"over {path:.2f} m; launches {launches}", flush=True)
+    print(f"live: lag per pair (ms): {' '.join(f'{1e3 * x:.0f}' for x in lags)}", flush=True)
+    print(f"live: blocking waits per call on the source's thread: {waits}", flush=True)
+    fe = node.frontend
+    if not fe.initialized or fe.is_lost or not ate < 0.02 * path:
+        fail(f"live: lost={fe.is_lost} ATE {ate:.4f} m (2% of {path:.2f} m)")
+    if waits.get("benign", {}).get("median", 0) < 1:
+        fail(f"live: no blocking wait counted on the source's thread ({waits})")
+    gate_launches("live", launches, E2E_KERNELS)
+    return launches
+
+
+def state_tensors(fe):
+    trees = [fe.ba_state, fe.immatures, *fe.pyramids.values()]
+    if fe.template is not None:
+        trees.append(fe.template)
+    for tree in trees:
+        for v in tree:
+            yield from (v if isinstance(v, tuple) else (v,))
+
+
+def resume_phase(torch, dev, seq, tmp: str):
+    """Checkpoint / resume on the card with a threaded LoopHandler, all
+    under ``torch.use_deterministic_algorithms``: A and A2 run the 40
+    frames uninterrupted; B runs 20 and saves the front end and the
+    handler; C, a fresh node, loads them and runs frames 20-39. Then a
+    checkpoint written on the CPU resumes on the card for 5 frames.
+    Returns the launches of C."""
+    import warnings
+
+    from direct_stereo_slam_tpu_torch.loop.handler import LoopHandler
+    from direct_stereo_slam_tpu_torch.runtime import checkpoint
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    ds, frames, cfg, intr = seq
+    half = len(frames) // 2
+
+    def node_on(device, handler=True):
+        h = LoopHandler(cfg, intr, device=device) if handler else None
+        return SLAMNode(cfg, intr, intr, ds.t_cam1_cam0, loop_handler=h, device=device)
+
+    def feed(node, lo, hi):
+        out = [node.process(f["img0"], f["img1"], float(f["timestamp"])) for f in frames[lo:hi]]
+        return out
+
+    def finish(node):
+        node.finish()
+        node.loop_handler.close()
+        torch.cuda.synchronize()
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            full = []
+            for _ in range(2):
+                node = node_on(dev)
+                full.append((feed(node, 0, len(frames)), node))
+                finish(node)
+            node_b = node_on(dev)
+            feed(node_b, 0, half)
+            base = os.path.join(tmp, "resume")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save_frontend(base + "_fe", node_b.frontend)
+            checkpoint.save_loop_handler(base + "_loop", node_b.loop_handler)
+            save_ms = 1e3 * (time.perf_counter() - t0)
+            finish(node_b)
+            node_c = node_on(dev, handler=False)
+            t0 = time.perf_counter()
+            checkpoint.load_frontend(base + "_fe", node_c.frontend)
+            node_c.loop_handler = checkpoint.load_loop_handler(
+                base + "_loop", LoopHandler(cfg, intr, device=dev))
+            torch.cuda.synchronize()
+            load_ms = 1e3 * (time.perf_counter() - t0)
+            node_c.incoming_id = half
+            node_c.current_timestamp = float(frames[half - 1]["timestamp"])
+            off_card = [t.device for t in state_tensors(node_c.frontend) if t.device.type != "cuda"]
+            counters = zero_counters()
+            shells_c = feed(node_c, half, len(frames))
+            finish(node_c)
+            launches = read_counters(counters)
+        det = sorted({str(w.message)[:120] for w in caught if "determinis" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    size = sum(os.path.getsize(base + s) for s in ("_fe.npz", "_fe.json", "_loop.npz",
+                                                   "_loop.json"))
+    (shells_a, node_a), (shells_a2, _) = full
+    est_a = translations(frames, shells_a)[0]
+    spread = float(np.max(np.linalg.norm(translations(frames, shells_a2)[0] - est_a, axis=1)))
+    est_c = np.stack([np.asarray(s.T_wc)[:3, 3] for s in shells_c])
+    diff = np.linalg.norm(est_c - est_a[half:], axis=1)
+    kfs_a, kfs_c = node_a.frontend.num_kfs, node_c.frontend.num_kfs
+    rows_equal = node_c.loop_handler.odometry_rows() == node_a.loop_handler.odometry_rows()
+    print(f"resume: save {save_ms:.1f} ms, load {load_ms:.1f} ms (front end + loop handler, "
+          f"npz + json), {size / 2**20:.2f} MiB at frame {half}; deterministic algorithms "
+          f"on for A, A2, B and C (their warnings: {det or 'none'})", flush=True)
+    print(f"resume: A vs A2 (uninterrupted) max {spread:.3g} m; C (resumed at {half}) vs A "
+          f"max {float(diff.max()):.3g} m over frames {half}-{len(frames) - 1}; keyframes A "
+          f"{kfs_a}, C {kfs_c}; loop handler odometry rows "
+          f"{'equal' if rows_equal else 'differ'}; C launches {launches}", flush=True)
+    if off_card:
+        fail(f"resume: loaded state tensors off the card: {off_card[:3]}")
+    if abs(kfs_c - kfs_a) > 1:
+        fail(f"resume: {kfs_c} keyframes against {kfs_a} uninterrupted")
+    if not float(diff.max()) <= spread + 1e-3:
+        fail(f"resume: C departs from A by {float(diff.max()):.4g} m, beyond A vs A2 "
+             f"({spread:.4g} m) + 1e-3 m")
+    gate_launches("resume", launches, E2E_KERNELS)
+
+    # the device move: a checkpoint the CPU wrote resumes on the card
+    cpu_frames, card_frames = 6, 5
+    node_h = node_on(torch.device("cpu"), handler=False)
+    t0 = time.perf_counter()
+    feed(node_h, 0, cpu_frames)
+    cpu_s = time.perf_counter() - t0
+    checkpoint.save_frontend(base + "_cpu", node_h.frontend)
+    node_d = node_on(dev, handler=False)
+    checkpoint.load_frontend(base + "_cpu", node_d.frontend)
+    node_d.incoming_id = cpu_frames
+    node_d.current_timestamp = float(frames[cpu_frames - 1]["timestamp"])
+    off_card = [t.device for t in state_tensors(node_d.frontend) if t.device.type != "cuda"]
+    counters = zero_counters()
+    shells_d = feed(node_d, cpu_frames, cpu_frames + card_frames)
+    node_d.finish()
+    torch.cuda.synchronize()
+    moved = read_counters(counters)
+    gt = np.stack([f["pose_w_c0"][:3, 3] for f in frames[cpu_frames:cpu_frames + card_frames]])
+    est = np.stack([np.asarray(s.T_wc)[:3, 3] for s in shells_d])
+    err = float(np.max(np.linalg.norm(est - gt, axis=1)))
+    print(f"resume: a CPU checkpoint ({cpu_frames} frames on the host CPU in {cpu_s:.1f} s) "
+          f"resumed on the card for {card_frames} frames: max error {err:.4f} m against the "
+          f"rendered poses; launches {moved}", flush=True)
+    fe = node_d.frontend
+    if off_card or fe.is_lost or not fe.initialized or not np.all(np.isfinite(est)):
+        fail(f"resume (CPU -> card): off the card {off_card[:3]}, lost={fe.is_lost}")
+    path = translations(frames, shells_a)[2]
+    if not err < 0.02 * path:
+        fail(f"resume (CPU -> card): error {err:.4f} m >= 2% of {path:.2f} m")
+    for name in ("distance_map", "track_lm"):
+        if moved[name] <= 0:
+            fail(f"resume (CPU -> card): kernel {name} was never launched")
+    return launches
+
+
+def observe_phase(torch, dev, seq, tmp: str):
+    """The sequence with the live viewer and the debug images on, in turns
+    with both off (on, off, off, on), then one pass of each with the
+    blocking waits counted. Returns the launches of the last pass on."""
+    import json
+    import re
+    import shutil
+    import struct
+
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    ds, frames, cfg, intr = seq
+    page, dbg = os.path.join(tmp, "live.html"), os.path.join(tmp, "dbg")
+    cfgs = {"on": with_runtime(cfg, live_view_path=page, debug_dump_dir=dbg), "off": cfg}
+
+    def one_pass(mode, per_call=None):
+        """A pass of a fresh node; a pass on starts with no page and no
+        images, so the files are its own."""
+        shutil.rmtree(dbg, ignore_errors=True)
+        if os.path.exists(page):
+            os.remove(page)
+        return run_sequence(torch, SLAMNode, cfgs[mode], intr, ds, frames, dev,
+                            per_call=per_call)
+
+    fps = {"on": [], "off": []}
+    for mode in ("on", "off", "off", "on"):
+        counters = zero_counters()
+        dt = one_pass(mode)[3]
+        fps[mode].append(len(frames) / dt)
+        if mode == "on":
+            launches = read_counters(counters)
+    waits = {}
+    for mode in ("off", "on"):
+        counter = WaitCounter(torch)
+        on_node, on_shells, on_resets, _ = one_pass(mode, per_call=counter)
+        waits[mode] = counter.summary()
+    print(f"observe: FPS viewer + debug images on {' / '.join(f'{x:.3f}' for x in fps['on'])}, "
+          f"off {' / '.join(f'{x:.3f}' for x in fps['off'])} (turns on, off, off, on; "
+          f"{len(frames)} frames each)", flush=True)
+    for mode in ("off", "on"):
+        print(f"observe: blocking waits per call, {mode}: {waits[mode]}", flush=True)
+
+    # the files of the last pass, on
+    names = sorted(os.listdir(dbg))
+    kfs = [i for i, s in enumerate(on_shells) if s.is_kf]
+    tracked_kfs = [i for i in kfs if i > 0]           # frame 0 is the stereo initialisation
+    idepth = [n for n in names if n.endswith("_idepth.png")]
+    window = [n for n in names if n.endswith("_window.png")]
+    residual = sorted(int(n[6:11]) for n in names if n.endswith("_residual.png"))
+    others = [i for i in range(1, len(frames)) if i not in kfs]
+    with open(page) as f:
+        state = json.loads(re.search(r"const S = (\{.*?\});\n", f.read(), re.S).group(1))
+    import base64
+    png = base64.b64decode(state["depth_png"]) if state["depth_png"] else b""
+    dims = struct.unpack(">II", png[16:24]) if png[:8] == b"\x89PNG\r\n\x1a\n" else None
+    print(f"observe: keyframes {kfs}; {len(idepth)} idepth, {len(window)} window and "
+          f"{len(residual)} residual PNGs; live.html {os.path.getsize(page) / 1024:.1f} KiB: "
+          f"{len(state['trail'])} poses, {len(state['kfs'])} keyframes, depth pane {dims}; "
+          f"launches {launches}", flush=True)
+    fe = on_node.frontend
+    if not fe.initialized or fe.is_lost or on_resets:
+        fail(f"observe: lost={fe.is_lost} resets at {on_resets}")
+    if len(idepth) != len(tracked_kfs) or len(window) != len(tracked_kfs):
+        fail(f"observe: {len(idepth)} idepth / {len(window)} window PNGs for "
+             f"{len(tracked_kfs)} tracked keyframes")
+    if residual != others:
+        fail(f"observe: residual PNGs at {residual}, non-keyframes at {others}")
+    if len(state["trail"]) != len(frames) - 1 or dims != (W, H):
+        fail(f"observe: live.html holds {len(state['trail'])} poses (want {len(frames) - 1}: "
+             f"every frame after the initialisation), depth pane {dims}")
+    on, off = waits["on"].get("benign"), waits["off"].get("benign")
+    if not on or not off or on["median"] != off["median"] or on["max"] > off["max"]:
+        fail(f"observe: waits per benign frame with the viewer and the dumps on {on} "
+             f"against off {off}")
+    gate_launches("observe", launches, E2E_KERNELS)
+    return launches
 
 
 # the kernels each path must launch; the per-pass K2, K3 and K4 must not
@@ -1528,6 +1978,10 @@ def main() -> int:
                          "not gated)")
     args = ap.parse_args()
 
+    # cuBLAS is bit-reproducible only with a fixed workspace, set before
+    # its first handle: the resume phase runs under
+    # torch.use_deterministic_algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1541,6 +1995,10 @@ def main() -> int:
     print(card_info(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    import importlib.util
+    print("image and plot modules (the port needs none of them): " + ", ".join(
+        f"{m} {'present' if importlib.util.find_spec(m) else 'missing'}"
+        for m in ("cv2", "PIL", "matplotlib")), flush=True)
 
     t0 = time.perf_counter()
     lib = _cuda.load_library()
@@ -1565,6 +2023,12 @@ def main() -> int:
     pl_launches = pipelined_phase(torch, dev)
     mono_launches = mono_phase(torch, dev)
     undistort_phase(torch, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        seq = observed_sequence(dev)
+        io_launches = {"bag": bag_phase(torch, dev, seq, tmp),
+                       "live": live_phase(torch, dev, seq),
+                       "resume": resume_phase(torch, dev, seq, tmp),
+                       "observe": observe_phase(torch, dev, seq, tmp)}
     loop_launches, loop_scale_calls = loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN)
     if args.long:
         mono_sweep(torch, dev)
@@ -1579,6 +2043,8 @@ def main() -> int:
         r["pipelined_launches"] = pl_launches[name]
         r["pipelined_launches_per_frame"] = pl_launches[name] / E2E_FRAMES
         r["mono_launches"] = mono_launches[name]
+        for phase, counts in io_launches.items():
+            r[f"{phase}_launches"] = counts[name]
         if name == "scale_lm":
             r["path_calls"] = dict(e2e=e2e_scale_calls, loop=loop_scale_calls)
     leaked = sorted(m for m in sys.modules

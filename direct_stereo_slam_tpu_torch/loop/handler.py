@@ -96,7 +96,7 @@ class LoopHandler:
         # optional hook: fn(cur_loopframe, matched_loopframe) -> iterable of
         # extra [4, 4] seeds appended to the stack
         self.debug_seed_hook = None
-        self.viewer = None            # the live viewer is not ported
+        self.viewer = None            # optional LiveViewer (set by SLAMNode)
 
         self.threaded = threaded
         if threaded:
@@ -187,6 +187,10 @@ class LoopHandler:
         idx = len(self.frames)
         self.frames.append(lf)
         self.signatures.append(np.zeros(lp.num_sectors * lp.num_rings))
+
+        if self.viewer is not None:
+            # final-only KF publish (PangolinLoopViewer.cpp:151-175)
+            self.viewer.publish_keyframe(mkf.kf_id, lf.T_wc, mkf.pts_cam)
 
         # odometry edge to the previous keyframe (cpp:214-222); a NaN
         # dso_error marks a sequence restart -> no constraint (cpp:119-121)
@@ -287,9 +291,20 @@ class LoopHandler:
         w_r = lp.pose_r_weight / max(pose_error, 1e-12)
         lf.edges.append((match_idx, tfm_cur_matched, w_t, w_r))
 
+        if self.viewer is not None:
+            # green current / red matched scan pair (refreshLidarData)
+            m_in_cur = matched.pts_spherical @ tfm_cur_matched[:3, :3].T \
+                + tfm_cur_matched[:3, 3]
+            self.viewer.refresh_lidar_data(pts_spherical, m_in_cur)
+
         # ---- pose-graph optimization (cpp:314-329) ------------------------
         with self.timers.span("pose_graph_opt"):
             self._optimize()
+        if self.viewer is not None:
+            self.viewer.modify_keyframe_poses(
+                {f.kf_id: f.T_wc for f in self.frames},
+                loop_pair=(lf.kf_id, matched.kf_id),
+                n_direct=self.direct_loop_count, n_icp=self.icp_loop_count)
 
     def _direct(self, mkf, lf, matched, tfm_pca, tfm_icp, tfm_odo, icp_ok,
                 ref_mode):

@@ -14,6 +14,14 @@ Examples:
         --calib0 camera.txt --gamma0 pcalib.txt --vignette0 vignette.png \
         --t-stereo T_stereo.yaml --pipelined
 
+    # a rosbag (kitti2bag), with the live viewer and the debug images
+    python -m direct_stereo_slam_tpu_torch.run_slam --bag seq.bag \
+        --calib0 camera.txt --t-stereo T_stereo.yaml --live --debug-dir dbg/
+
+    # live ROS1 topics through a master (until --ros-idle s without a pair)
+    python -m direct_stereo_slam_tpu_torch.run_slam --ros-master http://host:11311 \
+        --calib0 camera.txt --topic0 /cam0/image_raw --topic1 /cam1/image_raw
+
 Runs ``SLAMNode`` with a ``LoopHandler`` (threaded as
 ``cfg.runtime.multi_threading`` says), writes sodso.txt (odometry) and
 dslam.txt (loop-closed) in the ``incoming_id x y z`` format, prints the
@@ -24,10 +32,18 @@ the run stops with a message unless ``--device cpu`` is given. Image
 folders (``--dir0``/``--dir1``) go through the ``Undistorter`` of their
 camera files (``--calib0``/``--calib1``, ``--gamma*``, ``--vignette*``;
 the vignette applies in the raw frame, before the remap), with the
-stereo extrinsics of ``--t-stereo``. ``--pipelined`` turns on pipelined
-tracking, ``--mono`` the monocular bootstrap.
-Not ported yet (they raise ``NotImplementedError``): rosbag replay, ROS
-topics, the trajectory plot, the live viewer, debug dumps and step mode.
+stereo extrinsics of ``--t-stereo``. So do the frames of a rosbag
+(``--bag``: ``--topic0``/``--topic1`` paired as the reference's bag
+replay, main.cpp:320-345) and of live ROS1 topics (``--ros-master``: the
+reference's message_filters path, main.cpp:347-362; ``node.process``
+runs on the source's thread under a lock, until ``--ros-idle`` seconds
+pass without a pair; a failure there fails the run). ``--pipelined``
+turns on pipelined tracking, ``--mono`` the monocular bootstrap.
+``--live`` keeps a self-refreshing ``<out>/live.html`` viewer,
+``--debug-dir`` writes the debug images (keyframe idepth, window stitch,
+tracking residual), ``--step`` waits for Enter after every frame, and
+``--plot`` writes ``<out>/trajectory.png`` (it needs matplotlib: without
+it the run stops before any work).
 """
 
 from __future__ import annotations
@@ -57,8 +73,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--gamma1", help="DSO pcalib.txt of cam1 (default: --gamma0)")
     ap.add_argument("--vignette0", help="vignette image of cam0")
     ap.add_argument("--vignette1", help="vignette image of cam1 (default: --vignette0)")
-    ap.add_argument("--bag", help="rosbag v2.0 file (not ported yet)")
-    ap.add_argument("--ros-master", help="live ROS1 topics (not ported yet)")
+    ap.add_argument("--bag", help="rosbag v2.0 file (with --calib0)")
+    ap.add_argument("--ros-master", help="live mode: ROS1 master URI to subscribe to "
+                    "--topic0/--topic1 over TCPROS (with --calib0)")
+    ap.add_argument("--ros-idle", type=float, default=5.0,
+                    help="live mode: stop after this many seconds without a pair")
+    ap.add_argument("--topic0", default="/cam0/image_raw")
+    ap.add_argument("--topic1", default="/cam1/image_raw")
     ap.add_argument("--preset", type=int, default=0)
     ap.add_argument("--mode", type=int, default=1)
     ap.add_argument("--scale-opt-thres", type=float, default=15.0)
@@ -74,10 +95,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mono", action="store_true",
                     help="monocular bootstrap instead of the stereo initializer")
     ap.add_argument("--plot", action="store_true",
-                    help="write trajectory.png (not ported yet)")
-    ap.add_argument("--live", action="store_true", help="live viewer (not ported yet)")
-    ap.add_argument("--debug-dir", default=None, help="debug dumps (not ported yet)")
-    ap.add_argument("--step", action="store_true", help="step mode (not ported yet)")
+                    help="write <out>/trajectory.png (needs matplotlib)")
+    ap.add_argument("--live", action="store_true",
+                    help="write a self-refreshing <out>/live.html viewer")
+    ap.add_argument("--debug-dir", default=None, help="write the debug images here")
+    ap.add_argument("--step", action="store_true",
+                    help="wait for Enter between frames")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; without a card the run "
                          "stops unless --device cpu is given)")
@@ -85,20 +108,26 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(args) -> None:
-    unported = [("--bag", args.bag), ("--ros-master", args.ros_master),
-                ("--plot", args.plot), ("--live", args.live),
-                ("--debug-dir", args.debug_dir), ("--step", args.step)]
-    asked = [name for name, v in unported if v]
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
-    if not (args.synthetic or args.kitti or (args.dir0 and args.dir1 and args.calib0)):
-        raise SystemExit("give --synthetic, --kitti, or --dir0, --dir1 and --calib0")
+def _check_args(args) -> None:
+    """Stop before any work when the input is not given or --plot cannot
+    be honoured."""
+    raw = args.bag or args.ros_master or (args.dir0 and args.dir1)
+    if not (args.synthetic or args.kitti or raw):
+        raise SystemExit("give --synthetic, --kitti, --bag, --ros-master, or "
+                         "--dir0 and --dir1")
+    if raw and not args.calib0:
+        raise SystemExit("--bag, --ros-master and --dir0/--dir1 need --calib0")
+    if args.plot:
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            raise SystemExit("run_slam: --plot needs matplotlib, which this "
+                             "Python does not have") from None
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
+    _check_args(args)
 
     from .config import make_config
     from .geometry.camera import make_pyramid_intrinsics, num_usable_levels
@@ -133,17 +162,23 @@ def main(argv=None) -> int:
         t10 = ds.t_cam1_cam0()
         gt = kitti_gt_positions(args.kitti, args.seq)
     else:
-        from .io.dataset import StereoDirDataset
         from .io.undistort import Undistorter
-        from .utils.calib import (build_rectified_camera, parse_gamma, parse_t_stereo,
-                                  parse_vignette)
-        ds = StereoDirDataset(args.dir0, args.dir1)
+        from .utils.calib import (build_rectified_camera, parse_camera_file, parse_gamma,
+                                  parse_t_stereo, parse_vignette)
         cam0 = build_rectified_camera(args.calib0)
         cam1 = build_rectified_camera(args.calib1 or args.calib0)
         g0 = parse_gamma(args.gamma0) if args.gamma0 else None
         g1 = parse_gamma(args.gamma1) if args.gamma1 else g0
-        # the vignette applies in the raw frame, before the remap
-        in_h, in_w = ds.frame(0)["img0"].shape
+        # the vignette applies in the raw frame, before the remap: a bag's
+        # or a topic's raw size is the calibration file's
+        if args.bag or args.ros_master:
+            ds = None
+            model0 = parse_camera_file(args.calib0)[0]
+            in_w, in_h = model0.in_w, model0.in_h
+        else:
+            from .io.dataset import StereoDirDataset
+            ds = StereoDirDataset(args.dir0, args.dir1)
+            in_h, in_w = ds.frame(0)["img0"].shape
         v0 = parse_vignette(args.vignette0, in_w, in_h) if args.vignette0 else None
         v1 = parse_vignette(args.vignette1, in_w, in_h) if args.vignette1 else v0
         undist0 = Undistorter(cam0, binv=g0, vignette=v0, device=device)
@@ -159,29 +194,51 @@ def main(argv=None) -> int:
                       scan_context_thres=args.scan_context_thres)
     cfg = cfg.replace(tracker=cfg.tracker.__class__(pyr_levels=levels),
                       loop=dataclasses.replace(cfg.loop, loop_margin=args.loop_margin),
-                      runtime=dataclasses.replace(cfg.runtime,
-                                                  pipelined_tracking=args.pipelined,
-                                                  mono_initializer=args.mono))
+                      runtime=dataclasses.replace(
+                          cfg.runtime, pipelined_tracking=args.pipelined,
+                          mono_initializer=args.mono,
+                          live_view_path=os.path.join(args.out, "live.html") if args.live else "",
+                          debug_dump_dir=args.debug_dir or "", step_by_step=args.step))
     intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], w, h, levels)
 
     handler = LoopHandler(cfg, intr, device=device)
     node = SLAMNode(cfg, intr, intr, t10, loop_handler=handler, undistorter0=undist0,
                     undistorter1=undist1, device=device)
     handler.timers = node.timers
-    n = len(ds)
-    for i in range(n):
-        f = ds.frame(i)
-        node.process(f["img0"], f["img1"], float(f["timestamp"]),
-                     exposure=float(f.get("exposure", 1.0)))
-        if i % 10 == 0:
-            print(f"[{i}/{n}] kfs={node.frontend.num_kfs} "
+    n = len(ds) if ds is not None else "?"
+    fed = [0]
+
+    def feed(img0, img1, timestamp, exposure=1.0):
+        node.process(img0, img1, float(timestamp), exposure=float(exposure))
+        if fed[0] % 10 == 0:
+            print(f"[{fed[0]}/{n}] kfs={node.frontend.num_kfs} "
                   f"loops={handler.direct_loop_count}+{handler.icp_loop_count}",
                   flush=True)
+        fed[0] += 1
+
+    if args.bag:
+        from .io.rosbag import replay_stereo_bag
+        pairs = replay_stereo_bag(args.bag, args.topic0, args.topic1,
+                                  lambda a, b: feed(a.data, b.data, a.stamp))
+        print(f"{pairs} stereo pairs replayed from {args.bag}", flush=True)
+    elif args.ros_master:
+        pairs = _run_live(args, feed)
+        print(f"{pairs} stereo pairs received from {args.ros_master}", flush=True)
+    else:
+        for i in range(len(ds)):
+            f = ds.frame(i)
+            feed(f["img0"], f["img1"], f["timestamp"], f.get("exposure", 1.0))
     node.finish()
     handler.close()
 
     write_trajectory(os.path.join(args.out, "sodso.txt"), handler.odometry_rows())
     write_trajectory(os.path.join(args.out, "dslam.txt"), handler.optimized_rows())
+    if args.plot:
+        from .viz.export import plot_trajectories
+        so = np.array([r[1:] for r in handler.odometry_rows()]).reshape(-1, 3)
+        dl = np.array([r[1:] for r in handler.optimized_rows()]).reshape(-1, 3)
+        plot_trajectories(os.path.join(args.out, "trajectory.png"),
+                          [("sodso", so), ("dslam", dl)], gt=gt)
 
     print("\n************** Statistics (ms) ***************")
     print(node.timing_report())
@@ -194,6 +251,36 @@ def main(argv=None) -> int:
             print(f"ATE {name}: {'n/a' if ate is None else f'{ate:.4f} m'}")
     print(f"outputs in {args.out}")
     return 0
+
+
+def _run_live(args, feed) -> int:
+    """Feed synced pairs of the two live topics to ``feed`` on the
+    source's thread, under a lock, until ``--ros-idle`` seconds pass
+    without a pair (or Ctrl-C, or a failure); returns the pairs fed. The
+    pairs received before the end are processed; a failure raises."""
+    import threading
+    import time
+
+    from .io.ros_transport import StereoTopicSource
+
+    lock = threading.Lock()
+    last = [time.monotonic(), 0]
+
+    def on_pair(a, b):
+        with lock:
+            feed(a.data, b.data, a.stamp)
+            last[:] = [time.monotonic(), last[1] + 1]
+
+    src = StereoTopicSource(args.ros_master, args.topic0, args.topic1, on_pair)
+    try:
+        while not src.failed and (last[1] == 0 or
+                                  time.monotonic() - last[0] <= args.ros_idle):
+            time.sleep(0.2)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        src.close()
+    return last[1]
 
 
 if __name__ == "__main__":

@@ -45,7 +45,7 @@ PORT_TYPES = {cls.__name__: cls for cls in
               (TrackerTemplate, Pyramid, BAState, ImmaturePoints, PyramidIntrinsics,
                PoseGraphData, LoopPoseResult, AffLight, MarginalizedKF,
                MonoInitState)}
-_INDEX_FIELDS = {"p_host", "edge_a", "edge_b", "fixed_node", "knn", "parent"}
+INDEX_FIELDS = {"p_host", "edge_a", "edge_b", "fixed_node", "knn", "parent"}
 
 
 def _index(x, cast):
@@ -77,7 +77,7 @@ def to_torch(tree, device="cpu"):
         vals = []
         for name, v in zip(tree._fields, tree):
             t = to_torch(v, device)
-            if name in _INDEX_FIELDS:
+            if name in INDEX_FIELDS:
                 t = _index(t, lambda a: a.to(torch.int64))
             vals.append(t)
         return cls(*vals)
@@ -100,7 +100,7 @@ def to_numpy(tree):
         vals = []
         for name, v in zip(tree._fields, tree):
             a = to_numpy(v)
-            if name in _INDEX_FIELDS:
+            if name in INDEX_FIELDS:
                 a = _index(a, lambda x: x.astype(np.int32))
             vals.append(a)
         return type(tree)(*vals)

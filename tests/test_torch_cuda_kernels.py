@@ -1086,3 +1086,64 @@ def test_two_dispatches_before_a_consume(pl_frames):
         for field in ("res_per_level", "flow", "T", "aff", "ok"):
             np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
     np.testing.assert_array_equal(got_counts, counts_a)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint / resume across devices (runtime/checkpoint.py): a checkpoint
+# the CPU wrote loads into a front end on the card, every state tensor
+# moved there, and continues as the CPU front end continues. The loaded
+# template is new to K2-LM's and K3-LM's parameter caches (they key on the
+# template by weak reference), so the card's first track after the load
+# builds its parameters afresh. The card's state saved again loads back
+# onto the CPU bit for bit.
+
+from direct_stereo_slam_tpu_torch.models.frontend import FrontEnd  # noqa: E402
+from direct_stereo_slam_tpu_torch.runtime import checkpoint  # noqa: E402
+
+
+def _state_tensors(fe):
+    for tree in (fe.ba_state, fe.template, fe.immatures, *fe.pyramids.values()):
+        for v in tree:
+            yield from (v if isinstance(v, tuple) else (v,))
+
+
+def test_cpu_checkpoint_resumes_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    dev = torch.device("cuda")
+    ds = SyntheticStereoDataset(n_frames=11, width=LW, height=LH, speed=0.25)
+    cfg = make_config(LW, LH, preset=0, mode=1)
+    cfg = cfg.replace(tracker=cfg.tracker.__class__(pyr_levels=LL))
+    K = ds.K
+    intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], LW, LH, LL)
+    frames = [ds.frame(i) for i in range(11)]
+
+    def front_end(device):
+        return FrontEnd(cfg, intr, intr, ds.t_cam1_cam0, device=device)
+
+    def feed(fe, lo, hi):
+        for i in range(lo, hi):
+            fe.add_stereo_frame(frames[i]["img0"], frames[i]["img1"], i, 0.1 * i)
+
+    host = front_end("cpu")
+    feed(host, 0, 6)
+    checkpoint.save_frontend(str(tmp_path / "cpu"), host)
+    card = checkpoint.load_frontend(str(tmp_path / "cpu"), front_end(dev))
+    tensors = list(_state_tensors(card))
+    assert len(tensors) > 20 and all(t.device.type == "cuda" for t in tensors)
+    before = rlm.track_lm_cuda.launches
+    feed(card, 6, 11)
+    feed(host, 6, 11)
+    assert rlm.track_lm_cuda.launches - before >= 5
+    assert card.initialized and not card.is_lost
+    assert [s.is_kf for s in card.all_frames] == [s.is_kf for s in host.all_frames]
+    t_card = np.stack([s.T_wc[:3, 3] for s in card.all_frames[6:]])
+    t_host = np.stack([s.T_wc[:3, 3] for s in host.all_frames[6:]])
+    assert np.abs(t_card - t_host).max() <= 1e-2
+
+    checkpoint.save_frontend(str(tmp_path / "card"), card)
+    back = checkpoint.load_frontend(str(tmp_path / "card"), front_end("cpu"))
+    for a, b in zip(_state_tensors(back), _state_tensors(card)):
+        assert a.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a, b.cpu()) or (a.is_floating_point() and torch.equal(
+            torch.nan_to_num(a, nan=7.0), torch.nan_to_num(b.cpu(), nan=7.0)))

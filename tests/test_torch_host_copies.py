@@ -1,6 +1,8 @@
 """The port keeps its own copies of the JAX package's host modules
-(``config``, ``utils/calib``, ``io/{dataset,sync}``,
-``loop/{scancontext,icp}`` and ``retrieval.search_signatures``), so that
+(``config``, ``utils/calib``, ``io/{dataset,sync,rosbag}``, the TCPROS
+wire format of ``io/ros_transport``, ``loop/{scancontext,icp}``,
+``retrieval.search_signatures``, ``viz/export`` and the state of
+``viz/live.LiveViewer``), so that
 it imports nothing of that package. These tests pin each copy to the
 reference on the same seeded inputs, so the two cannot drift: configs
 field by field, every other output exactly equal (numpy on both sides,
@@ -13,19 +15,27 @@ import pytest
 
 from direct_stereo_slam_tpu import config as cfg_j
 from direct_stereo_slam_tpu.io import dataset as ds_j
+from direct_stereo_slam_tpu.io import ros_transport as ros_j
+from direct_stereo_slam_tpu.io import rosbag as bag_j
 from direct_stereo_slam_tpu.io import sync as sync_j
 from direct_stereo_slam_tpu.loop import icp as icp_j
 from direct_stereo_slam_tpu.loop import retrieval as ret_j
 from direct_stereo_slam_tpu.loop import scancontext as sc_j
 from direct_stereo_slam_tpu.utils import calib as calib_j
 from direct_stereo_slam_tpu_torch import config as cfg_t
+from direct_stereo_slam_tpu.viz import export as export_j
+from direct_stereo_slam_tpu.viz import live as live_j
 from direct_stereo_slam_tpu_torch.io import dataset as ds_t
+from direct_stereo_slam_tpu_torch.io import ros_transport as ros_t
+from direct_stereo_slam_tpu_torch.io import rosbag as bag_t
 from direct_stereo_slam_tpu_torch.io import sync as sync_t
 from direct_stereo_slam_tpu_torch.loop import icp as icp_t
 from direct_stereo_slam_tpu_torch.loop import retrieval as ret_t
 from direct_stereo_slam_tpu_torch.loop import scancontext as sc_t
 from direct_stereo_slam_tpu_torch.utils import calib as calib_t
 from direct_stereo_slam_tpu_torch.utils.convert import config_from_jax
+from direct_stereo_slam_tpu_torch.viz import export as export_t
+from direct_stereo_slam_tpu_torch.viz import live as live_t
 
 pytestmark = pytest.mark.smoke
 
@@ -215,3 +225,104 @@ def test_icp(seed):
         assert ok_t == ok_j
         np.testing.assert_array_equal(T_t, T_j)
         assert fit_t == fit_j
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bag_records_and_image_wire_format(tmp_path, seed):
+    """sensor_msgs/Image serialization, the bag's record and header
+    fields, and whole bags (both compressions) are the same bytes; both
+    parsers read them to the same fields."""
+    rng = np.random.RandomState(seed)
+    imgs = [rng.randint(0, 256, (rng.randint(1, 9), rng.randint(1, 13))).astype(np.uint8)
+            for _ in range(4)]
+    stamps = rng.uniform(0, 2e9, 4).tolist() + [0.0, 12.999999999]
+    for img, t in zip(imgs * 2, stamps):
+        assert bag_t.serialize_image(img, t, "cam_l") == bag_j.serialize_image(img, t, "cam_l")
+    fields = [(b"op", bytes([bag_j.OP_MSG])), (b"conn", rng.bytes(4)), (b"time", rng.bytes(8))]
+    data = rng.bytes(int(rng.randint(0, 40)))
+    rec = bag_j._record(fields, data)
+    assert bag_t._record(fields, data) == rec
+    assert list(bag_t._iter_records(rec)) == list(bag_j._iter_records(rec))
+    assert bag_t._parse_header(rec[4:4 + rec[0]]) == bag_j._parse_header(rec[4:4 + rec[0]])
+    msgs = [(f"/cam{i % 2}/image_raw", 1.0 + 0.05 * i, imgs[i]) for i in range(4)]
+    for comp in ("none", "bz2"):
+        pj, pt = tmp_path / f"j{comp}.bag", tmp_path / f"t{comp}.bag"
+        bag_j.write_stereo_bag(str(pj), msgs, compression=comp)
+        bag_t.write_stereo_bag(str(pt), msgs, compression=comp)
+        assert pt.read_bytes() == pj.read_bytes()
+        rj, rt = bag_j.RosbagReader(str(pj)), bag_t.RosbagReader(str(pj))
+        assert rt.connections == rj.connections and rt.topics() == rj.topics()
+        assert list(rt.messages()) == list(rj.messages())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tcpros_connection_header(seed):
+    """The TCPROS connection header: the same bytes for the same fields,
+    and each side reads the other's back to the fields."""
+    import socket
+
+    rng = np.random.RandomState(seed)
+    fields = {"callerid": f"/node{seed}", "topic": "/cam0/image_raw",
+              "md5sum": ros_j.IMAGE_MD5, "type": ros_j.IMAGE_TYPE,
+              "tcp_nodelay": str(int(rng.randint(0, 2))),
+              f"x{rng.randint(100)}": "a=b=" + "c" * int(rng.randint(0, 50))}
+    wire = ros_j._encode_header(fields)
+    assert ros_t._encode_header(fields) == wire
+    assert (ros_t.IMAGE_MD5, ros_t.IMAGE_TYPE) == (ros_j.IMAGE_MD5, ros_j.IMAGE_TYPE)
+    for reader in (ros_t._read_header, ros_j._read_header):
+        a, b = socket.socketpair()
+        try:
+            a.sendall(wire)
+            assert reader(b) == fields
+        finally:
+            a.close()
+            b.close()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_jet_and_depth_image(seed):
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-0.3, 1.3, (9, 11)).astype(np.float32)
+    np.testing.assert_array_equal(export_t._jet(x), export_j._jet(x))
+    idepth = rng.uniform(0.05, 0.8, (24, 40)).astype(np.float32)
+    idepth[rng.rand(24, 40) < 0.6] = 0.0
+    img = rng.uniform(-10, 270, (24, 40)).astype(np.float32)
+    for args in ((idepth,), (idepth, img), (np.zeros_like(idepth), img)):
+        np.testing.assert_array_equal(export_t.depth_image_rgb(*args),
+                                      export_j.depth_image_rgb(*args))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ate(seed):
+    rng = np.random.RandomState(seed)
+    gt = np.cumsum(rng.normal(0, 0.3, (50, 3)), axis=0)
+    ang = rng.uniform(-0.3, 0.3)
+    R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0], [-np.sin(ang), 0, np.cos(ang)]])
+    est = gt @ R.T + rng.normal(0, 0.05, gt.shape) + [1.0, -0.5, 2.0]
+    assert export_t.ate_rmse(est, gt) == export_j.ate_rmse(est, gt)
+    assert export_t.ate_rmse_aligned(est, gt) == export_j.ate_rmse_aligned(est, gt)
+
+
+def test_live_viewer_state_json(tmp_path):
+    """The same hooks give the same page state (its clock aside)."""
+    import json
+
+    rng = np.random.RandomState(5)
+    viewers = [mod.LiveViewer(str(tmp_path / f"{k}.html"), title="run")
+               for k, mod in (("j", live_j), ("t", live_t))]
+    Ts = [np.eye(4) for _ in range(6)]
+    for i, T in enumerate(Ts):
+        T[:3, 3] = rng.normal(0, 2, 3)
+    pts = [rng.normal(0, 5, (int(rng.randint(1, 300)), 3)) for _ in Ts]
+    scans = rng.normal(0, 9, (700, 3)), rng.normal(0, 9, (40, 3))
+    for v in viewers:
+        for i, T in enumerate(Ts):
+            v.publish_cam_pose(T)
+            v.publish_keyframe(i, T, pts[i])
+        v.refresh_lidar_data(*scans)
+        v.modify_keyframe_poses({i: T @ Ts[1] for i, T in enumerate(Ts[:4])},
+                                loop_pair=(5, 1), n_direct=2, n_icp=1)
+    states = [json.loads(v._state_json()) for v in viewers]
+    for st in states:
+        st.pop("time")
+    assert states[1] == states[0]

@@ -1,6 +1,7 @@
 """The port stands alone: importing its SLAMNode (the whole device path),
 the loop-closure modules, the evaluation harness, the host modules it
-keeps its own copies of, the monocular bootstrap, the undistorter and
+keeps its own copies of, the monocular bootstrap, the undistorter, the
+ROS input, checkpointing, the viewer and debug images and
 the ``run_slam`` entry point loads neither
 ``jax`` nor any module of the JAX package ``direct_stereo_slam_tpu``, no
 source of the port imports either, and the device path turns TF32 off
@@ -41,6 +42,13 @@ def test_importing_the_port_loads_no_jax():
         "import direct_stereo_slam_tpu_torch.ops.resident_lm\n"
         "import direct_stereo_slam_tpu_torch.models.mono_init\n"
         "import direct_stereo_slam_tpu_torch.io.undistort\n"
+        "import direct_stereo_slam_tpu_torch.io.rosbag\n"
+        "import direct_stereo_slam_tpu_torch.io.ros_transport\n"
+        "import direct_stereo_slam_tpu_torch.runtime.checkpoint\n"
+        "import direct_stereo_slam_tpu_torch.viz.export\n"
+        "import direct_stereo_slam_tpu_torch.viz.debug\n"
+        "import direct_stereo_slam_tpu_torch.viz.live\n"
+        "import direct_stereo_slam_tpu_torch.viz.png\n"
         "import torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'direct_stereo_slam_tpu'))\n"

@@ -80,22 +80,34 @@ def test_port_tracks_like_the_reference(n_frames):
         assert fe_j.removal_stats["host_leaving"] > 0
 
 
-def test_unported_modes_raise():
-    """What is still not ported raises: the viewer, the debug dumps and
-    step mode. Every front-end mode constructs."""
+@pytest.mark.parametrize("runtime", [dict(pipelined_tracking=True),
+                                     dict(mono_initializer=True),
+                                     dict(live_view_path="live.html"),
+                                     dict(debug_dump_dir="dumps"),
+                                     dict(step_by_step=True)])
+def test_every_mode_and_observer_constructs(tmp_path, runtime):
+    """Every front-end mode constructs, and a node builds with the viewer,
+    the debug dumps or step mode set (the viewer hooked into the loop
+    handler too); building writes nothing."""
+    from direct_stereo_slam_tpu_torch.loop.handler import LoopHandler
+    from direct_stereo_slam_tpu_torch.viz.live import LiveViewer
+
     ds = SyntheticStereoDataset(n_frames=1, width=W, height=H)
     K = ds.K
     intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], W, H, LVLS)
     cfg = _config()
-    for rt in (dataclasses.replace(cfg.runtime, pipelined_tracking=True),
-               dataclasses.replace(cfg.runtime, mono_initializer=True)):
-        FrontEndT(port_cfg(cfg.replace(runtime=rt)), intr, intr, ds.t_cam1_cam0,
-                  device="cpu")
-    for unported in (dict(live_view_path="x.html"), dict(debug_dump_dir="dumps"),
-                     dict(step_by_step=True)):
-        with pytest.raises(NotImplementedError):
-            _node(NodeT, cfg.replace(runtime=dataclasses.replace(cfg.runtime, **unported)),
-                  intr, ds.t_cam1_cam0)
+    for k in ("live_view_path", "debug_dump_dir"):
+        if k in runtime:
+            runtime = dict(runtime, **{k: str(tmp_path / runtime[k])})
+    cfg = port_cfg(cfg.replace(runtime=dataclasses.replace(cfg.runtime, **runtime)))
+    FrontEndT(cfg, intr, intr, ds.t_cam1_cam0, device="cpu")
+    handler = LoopHandler(cfg, intr, threaded=False, device="cpu")
+    node = NodeT(cfg, intr, intr, ds.t_cam1_cam0, loop_handler=handler, device="cpu")
+    assert (node.viewer is not None) == ("live_view_path" in runtime)
+    assert handler.viewer is node.viewer
+    if node.viewer is not None:
+        assert isinstance(node.viewer, LiveViewer)
+    assert not any(tmp_path.iterdir())
 
 
 def test_sequence_gap_reinitializes_like_the_reference():
