@@ -35,6 +35,12 @@ Phases, each of which must pass (any fault exits non-zero):
    so that the host's issue time drops out), the LM kernels' phase
    counters, and K3-LM's host part (its issue while the card is busy,
    its parameter struct built afresh and filled from the prototype);
+   then K2-LM and K3-LM over S = 8 and 11 rendered sequences in one
+   launch (the batched step's form: one candidate, one guess per
+   sequence, each with its own template and pyramid): every sequence's
+   rows bit-equal to a launch on that sequence alone, and held to the
+   Python loops per sequence by the same rule; times of the one
+   launch, of the S single launches and of the plain loops;
 4. the port's SLAMNode end to end on a rendered 40-frame 1232x368
    sequence (preset 0, mode 1): initialised, never lost, >= 3 keyframes,
    translation ATE < 2% of the path length, K1, K2-LM and K3-LM each
@@ -90,7 +96,25 @@ Phases, each of which must pass (any fault exits non-zero):
    odometry (sodso) ATE, K1, K2-LM, K3-LM and K4-LM each launched during
    the run and the per-pass K2, K3 and K4 never; ``direct_est`` per try,
    ``scale_opt`` per keyframe. A failure in the loop thread fails the
-   run (the handler re-raises it when it is drained).
+   run (the handler re-raises it when it is drained);
+10. on the e2e frames cut to uint8 (with phase 8): *native*, the 40 pairs
+   as PGM files read by the native prefetching loader
+   (``NativeStereoLoader``) and by the synchronous reader
+   (``StereoDirDataset``) into SLAMNode, in turns: frames bit-equal to
+   each other and to memory, ATE < 2% of the path, keyframes within 1,
+   FPS and blocking waits per frame of both; *eval*, ``gen_longseq``
+   renders 80 frames of the loop room at 1232x368 into the KITTI layout
+   and ``eval_kitti --config odometry`` reads it back as a new process:
+   exit 0, results.json, keyframes within 1 of an in-memory run of the
+   same uint8 frames, ATE < 2% of the path, K1, K2-LM and K3-LM launched
+   by that process (its counts, printed by the process);
+11. batch evaluation over sequences: ``run_batch`` at 1232x368, 5
+   levels, S = 1, 8 and 11 sequences of 20 frames (11 = KITTI 00-10,
+   BASELINE config 5), the 19 steps' inputs built once and stepped
+   through in 40 passes (a timed window of seconds): exactly one K2-LM
+   and one K3-LM launch per step and no other kernel, a finite pose for
+   every sequence; aggregate and per-sequence FPS, the median and range of
+   the passes' FPS, median translation and rotation errors.
 
 K3-LM's calls on the e2e and loop paths are counted by the number of
 guesses and by whether a level doubled its cutoff (read after each run).
@@ -102,12 +126,18 @@ protocol (loop_margin 100), printed beside the JAX package's TPU record
 of the same protocol, then an 80-frame loop and a 120-frame forward
 sequence at the same size with the error of every frame (reported, not
 gated), each of those also through the port on the host CPU, frame by
-frame against the card.
+frame against the card, and the 320-frame protocol through disk
+(``gen_longseq`` -> ``eval_kitti --config both``, reported).
+--lm-digest [--root DIR] only prints digests of K2-LM's and K3-LM's
+single-sequence outputs on seeded inputs and the card's time per call
+(with --root, of the port in another checkout: two forms of the kernels
+held to the same bits, and timed).
 
 The line before the last is the kernel table as JSON (each row's
 launches in the e2e or loop phase, in the last pipelined pass and per
 frame of it, in the mono phase and in the bag, live, resume and observe
-phases); the last line is
+phases, in the native and eval phases, and per step of the batch
+phase); the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX nor of
 the JAX package, and checks so before its last line.
 """
@@ -487,6 +517,7 @@ def kernel_phase(torch, dev):
     rows += pose3d_rows(torch, dev, gen, pyr1, pyr_template, depth0, intr, T)
     rows += lm_rows(torch, dev, ds, f0, f1, intr, pyr1, pyr_template)
     rows += scale_lm_rows(torch, dev, ds, f0, intr, pyr_r)
+    rows += seq_lm_rows(torch, dev)
     return rows
 
 
@@ -1967,6 +1998,447 @@ def long_phase(torch, dev) -> None:
               f"per frame (m): {' '.join(f'{e:.3f}' for e in d)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the last modules: the sequence axis of K2-LM / K3-LM, the batch evaluation
+# over sequences (run_batch), the native prefetching loader, and the disk
+# evaluation path (gen_longseq -> eval_kitti)
+# ---------------------------------------------------------------------------
+
+SEQ_COUNTS = (8, 11)               # K2-LM / K3-LM rows: S sequences in one launch
+BATCH_SEQUENCES, BATCH_FRAMES = (1, 8, 11), 20   # 11 = KITTI 00-10 (BASELINE config 5)
+BATCH_PASSES = 40        # ~60-80 ms per pass of 19 steps: a window of seconds
+EVAL_FRAMES = 80
+# the eval phase's process: eval_kitti as a user runs it, with the launch
+# counts set to 0 before and printed (one line) after
+EVAL_CHILD = """import json, sys
+from chip_smoke import read_counters, zero_counters
+from direct_stereo_slam_tpu_torch import eval_kitti
+counters = zero_counters()
+rc = eval_kitti.main(sys.argv[1:])
+print("launches " + json.dumps(read_counters(counters)), flush=True)
+sys.exit(rc)
+"""
+
+
+def seq_lm_rows(torch, dev):
+    """K2-LM and K3-LM over S = 8 and 11 sequences in one launch, as the
+    batched step calls them (one candidate from the identity, one guess at
+    scale 1 per sequence): 11 rendered sequences at KITTI size, each with
+    its own template of base 8192 (frame 0) and pyramids (frame 1 left,
+    frame 0 right). Each sequence's rows must be the bits of a launch on
+    that sequence alone, and each sequence is held to the Python loops by
+    utils/lm_agreement.py (once: its rows are the same bits at every S).
+    Times: the S-sequence launch, the S single launches back to back, the
+    plain loops over the sequences."""
+    from direct_stereo_slam_tpu_torch.config import make_config
+    from direct_stereo_slam_tpu_torch.geometry.camera import make_pyramid_intrinsics
+    from direct_stereo_slam_tpu_torch.io.synthetic import SyntheticStereoDataset
+    from direct_stereo_slam_tpu_torch.models import depth_template as dt
+    from direct_stereo_slam_tpu_torch.models import scale_opt as so
+    from direct_stereo_slam_tpu_torch.models import tracker as tr
+    from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
+    from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
+    from direct_stereo_slam_tpu_torch.ops.pyramid import build_pyramid
+    from direct_stereo_slam_tpu_torch.parallel.mesh import _T10
+    from direct_stereo_slam_tpu_torch.utils import lm_agreement as lma
+
+    rows = []
+    cfg = make_config(W, H, preset=0, mode=1)
+    gen = np.random.RandomState(3)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    budgets = dt.default_budgets(W, H, LEVELS)
+    tmpls, left, right = [], [], []
+    for s in range(max(SEQ_COUNTS)):
+        ds = SyntheticStereoDataset(n_frames=2, width=W, height=H, speed=0.25 + 0.05 * (s % 4),
+                                    yaw_rate=0.004 * (s % 3), device=dev)
+        f0, f1 = ds.frame(0), ds.frame(1)
+        n = 20000
+        us = gen.uniform(3, W - 4, n).astype(np.float32)
+        vs = gen.uniform(3, H - 4, n).astype(np.float32)
+        z = f0["depth0"][vs.astype(int), us.astype(int)]
+        tmpls.append(dt.build_template(t(us), t(vs), t((1.0 / z).astype(np.float32)),
+                                       t(np.ones(n, np.float32)), t(f0["img0"]), LEVELS,
+                                       budgets))
+        left.append(f1["img0"])
+        right.append(f0["img1"])
+    K = ds.K
+    intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], W, H, LEVELS)
+    pyr0 = build_pyramid(t(np.stack(left)), LEVELS).data
+    pyr1 = build_pyramid(t(np.stack(right)), LEVELS).data
+    zero_v = tr.AffLight(0.0, 0.0)
+    z0 = torch.zeros((), device=dev)
+    zero, one = tr.AffLight(z0, z0), z0 + 1.0
+    track_loops = (tr.track_candidates_batch_plain,
+                   partial(tr.track_candidates_batch_plain, residual_pass=rh.pose_residual_pass_plain))
+    scale_loops = (so.optimize_scale_batch_plain,
+                   partial(so.optimize_scale_batch_plain, residual_pass=rh.scale_residual_pass_plain))
+    same = lambda a, b: torch.equal(torch.nan_to_num(a, 7.0), torch.nan_to_num(b, 7.0))
+    fast = dict(repeats=11, inner=3, warmup=2)
+    once = dict(repeats=1, inner=1, warmup=0)
+    # per kernel and sequence (differ, order-sensitive, max abs err) against
+    # the loops: a sequence's rows are the bits of its own launch at every
+    # S, so one check per sequence covers every S it is part of
+    checked = {"track": {}, "scale": {}}
+
+    def agreement(kind, S, check):
+        for s in range(S):
+            if s not in checked[kind]:
+                agr = check(s)
+                if not agr.ok:
+                    fail(f"{kind} LM over sequences, sequence {s}: {agr}")
+                checked[kind][s] = (max(agr.differ.values()), agr.sensitive,
+                                    max(agr.max_abs_err.values()))
+        rows_ = [checked[kind][s] for s in range(S)]
+        return dict(differ=sum(r[0] for r in rows_), order_sensitive=sum(r[1] for r in rows_),
+                    max_abs_err=max(r[2] for r in rows_))
+
+    for S in SEQ_COUNTS:
+        p0 = tuple(x[:S].contiguous() for x in pyr0)
+        p1 = tuple(x[:S].contiguous() for x in pyr1)
+        tmpl = dt.TrackerTemplate(*[tuple(torch.stack([tm[k][l] for tm in tmpls[:S]])
+                                          for l in range(LEVELS)) for k in range(5)])
+        own = [(tuple(x[s].contiguous() for x in p0), tuple(x[s].contiguous() for x in p1))
+               for s in range(S)]
+        T0 = torch.eye(4, device=dev).expand(S, 4, 4).contiguous()
+        s0 = torch.ones(S, device=dev)
+
+        # ---- K2-LM: S sequences x 1 candidate
+        k2 = lambda: rlm.track_lm_cuda(p0, tmpl, intr, cfg, T0, zero_v, zero_v, 1.0, 1.0)
+        k2_singles = lambda: [rlm.track_lm_cuda(own[s][0], tmpls[s], intr, cfg, T0[s:s + 1],
+                                                zero_v, zero_v, 1.0, 1.0) for s in range(S)]
+        o, singles = k2(), k2_singles()
+        torch.cuda.synchronize()
+        for s, r in enumerate(singles):
+            if not all(same(x[s:s + 1], y) for x, y in zip(o, r)):
+                fail(f"K2-LM S={S}: sequence {s}'s rows differ from its own launch")
+        if not bool(torch.isfinite(o.T).all()):
+            fail(f"K2-LM S={S}: non-finite poses")
+        argss = [(own[s][0], tmpls[s], intr, cfg, T0[s:s + 1], zero, zero, one, one)
+                 for s in range(S)]
+
+        def track_check(s, o=o):
+            a, sl = argss[s], slice(s, s + 1)
+            got = tr._gated(o.T[sl], tr.AffLight(o.a[sl], o.b[sl]), o.res[sl], o.x0[sl],
+                            o.x1[sl], cfg, zero, one, one)
+            refs = {"K2 loop": track_loops[0](*a), "plain": track_loops[1](*a)}
+            return lma.check(got, refs, lma.reordered_track_runs(a, track_loops[:1]))
+
+        agree = agreement("track", S, track_check)
+        ms = median_ms(torch, k2, **fast)
+        singles_ms = median_ms(torch, k2_singles, **fast)
+        dev_ms = device_ms(torch, k2)
+        plain_ms = median_ms(torch, lambda: [track_loops[1](*a) for a in argss], **once)
+        passes = o.passes.cpu().numpy()
+        n_bytes, n_ops = lm_bytes_ops(budgets, passes, S)
+        n_bytes += (S - 1) * sum(budgets) * POINT_BYTES       # every sequence's points
+        r = row(f"track_lm[N=8192,S={S}]", "resident_lm.cu",
+                "direct_stereo_slam_tpu/models/tracker.py:316", agree["max_abs_err"], ms,
+                plain_ms, n_bytes, n_ops)
+        r.update(sequences=S, device_ms=dev_ms, singles_ms=singles_ms,
+                 passes_per_call=float(passes.sum()), **{k: v for k, v in agree.items()
+                                                           if k != "max_abs_err"})
+        rows.append(r)
+        print(f"K2-LM track_lm S={S} sequences x 1 candidate, one launch: rows bit-equal to "
+              f"{S} single-sequence launches; "
+              f"vs the loops per sequence: {agree['differ']} differ, "
+              f"{agree['order_sensitive']} order-sensitive, max abs err "
+              f"{agree['max_abs_err']:.2e}; passes per sequence (mean) {passes.sum(axis=1).mean():.1f}; kernel {ms:.4f} ms "
+              f"(on the card {dev_ms} ms), {S} single launches {singles_ms:.4f} ms, plain loops "
+              f"{plain_ms:.2f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+
+        # ---- K3-LM: S sequences x 1 guess at scale 1
+        k3 = lambda: rlm.scale_lm_cuda(p1, tmpl, s0, intr, intr, _T10, cfg)
+        k3_singles = lambda: [rlm.scale_lm_cuda(own[s][1], tmpls[s], s0[s:s + 1], intr, intr,
+                                                _T10, cfg) for s in range(S)]
+        o, singles = k3(), k3_singles()
+        torch.cuda.synchronize()
+        for s, r in enumerate(singles):
+            if not same(o.rows[s:s + 1], r.rows):
+                fail(f"K3-LM S={S}: sequence {s}'s rows differ from its own launch")
+        sargs = [(own[s][1], tmpls[s], s0[s:s + 1], intr, intr, _T10, cfg) for s in range(S)]
+
+        def scale_check(s, o=o):
+            a = sargs[s]
+            got = so.ScaleOptResult(scale=o.scale[s:s + 1], error=o.error[s:s + 1])
+            refs = {"K3 loop": scale_loops[0](*a), "plain": scale_loops[1](*a)}
+            return lma.check(got, refs, lma.reordered_scale_runs(a, scale_loops))
+
+        agree = agreement("scale", S, scale_check)
+        ms = median_ms(torch, k3, **fast)
+        singles_ms = median_ms(torch, k3_singles, **fast)
+        dev_ms = device_ms(torch, k3)
+        plain_ms = median_ms(torch, lambda: [scale_loops[1](*a) for a in sargs], **once)
+        run = o.run.cpu().numpy()
+        n_bytes, n_ops = lm_bytes_ops(budgets, run, S, SCALE_PASS_OPS, 4 + 112)
+        n_bytes += (S - 1) * sum(budgets) * POINT_BYTES
+        r = row(f"scale_lm[N=8192,S={S}]", "resident_lm.cu",
+                "direct_stereo_slam_tpu/models/scale_opt.py:169", agree["max_abs_err"], ms,
+                plain_ms, n_bytes, n_ops)
+        r.update(sequences=S, device_ms=dev_ms, singles_ms=singles_ms,
+                 passes_per_call=float(run.sum()), **{k: v for k, v in agree.items()
+                                                     if k != "max_abs_err"})
+        rows.append(r)
+        print(f"K3-LM scale_lm S={S} sequences x 1 guess, one launch: rows bit-equal to {S} "
+              f"single-sequence launches; "
+              f"vs the loops per sequence: {agree['differ']} differ, "
+              f"{agree['order_sensitive']} order-sensitive, max abs err "
+              f"{agree['max_abs_err']:.2e}; scales {' '.join(f'{v:.3f}' for v in o.scale.tolist())}; passes run per "
+              f"sequence (mean) {run.sum(axis=1).mean():.1f}; kernel {ms:.4f} ms (on the card "
+              f"{dev_ms} ms), {S} single launches {singles_ms:.4f} ms, plain loops "
+              f"{plain_ms:.2f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+    return rows
+
+
+def batch_phase(torch, dev):
+    """run_batch (B sequences as one program, BASELINE config 5) at
+    1232x368, 5 levels, S = 1, 8 and 11 sequences of 20 frames, the 19
+    steps stepped through BATCH_PASSES times: one K2-LM and one K3-LM
+    launch per step and no other kernel, a finite pose for every sequence
+    and step. Returns each kernel's launches per step (the same at every
+    S)."""
+    from direct_stereo_slam_tpu_torch import run_batch
+
+    steps = (BATCH_FRAMES - 1) * BATCH_PASSES
+    per_step = None
+    for S in BATCH_SEQUENCES:
+        torch.cuda.reset_peak_memory_stats()
+        counters = zero_counters()
+        r = run_batch.run(S, BATCH_FRAMES, W, H, LEVELS, devices=1, device=dev,
+                          passes=BATCH_PASSES)
+        launches = read_counters(counters)
+        step_ms = 1e3 * np.asarray(r["step_s"][1:])
+        pf = np.asarray(r["pass_fps"])
+        print(f"batch S={S}: {r['fps']} aggregate FPS ({r['fps_per_sequence']} per "
+              f"sequence) over {steps - 1} timed steps of {S} x {W}x{H} in "
+              f"{r['seconds']:.3f} s ({BATCH_PASSES} passes of {BATCH_FRAMES - 1} steps; "
+              f"the passes' FPS median {np.median(pf)}, min {pf.min()}, max {pf.max()}), "
+              f"step median {np.median(step_ms):.3f} ms (min {step_ms.min():.3f}, first step "
+              f"{1e3 * r['step_s'][0]:.3f} ms, untimed); tracking error median |t| "
+              f"{100 * np.median(r['errs_t']):.3f} cm, median |w| "
+              f"{np.degrees(np.median(r['errs_r'])):.4f} deg, max |t| "
+              f"{100 * np.max(r['errs_t']):.3f} cm; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; launches {launches}",
+              flush=True)
+        if launches["track_lm"] != steps or launches["scale_lm"] != steps:
+            fail(f"batch S={S}: {launches['track_lm']} K2-LM and {launches['scale_lm']} K3-LM "
+                 f"launches for {steps} steps (one each per step)")
+        if any(v for k, v in launches.items() if k not in ("track_lm", "scale_lm")):
+            fail(f"batch S={S}: another kernel ran: {launches}")
+        if not np.all(np.isfinite(r["T"])):
+            fail(f"batch S={S}: non-finite poses")
+        per_step = {k: v / steps for k, v in launches.items()}
+    return per_step
+
+
+def write_pgm(path: str, img) -> None:
+    h, w = img.shape
+    with open(path, "wb") as f:
+        f.write(f"P5\n{w} {h}\n255\n".encode() + np.ascontiguousarray(img, np.uint8).tobytes())
+
+
+def native_phase(torch, dev, seq, tmp: str):
+    """The e2e sequence's 40 uint8 pairs as PGM files, read by the native
+    prefetching loader (io/native.NativeStereoLoader) and by the
+    synchronous reader (io/dataset.StereoDirDataset), each into SLAMNode,
+    in turns: the frames bit-equal (to each other and to the frames in
+    memory), FPS of both, blocking waits per benign frame. Returns the
+    launches of the last loader pass."""
+    from direct_stereo_slam_tpu_torch.io.dataset import StereoDirDataset
+    from direct_stereo_slam_tpu_torch.io.native import NativeStereoLoader
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    ds, frames, cfg, intr = seq
+    files = ([], [])
+    for k, cam in enumerate(("img0", "img1")):
+        d = os.path.join(tmp, f"pgm_{k}")
+        os.makedirs(d, exist_ok=True)
+        for i, f in enumerate(frames):
+            files[k].append(os.path.join(d, f"{i:06d}.pgm"))
+            write_pgm(files[k][-1], f[cam])
+    stamps = [float(f["timestamp"]) for f in frames]
+    sources = {
+        "dataset": lambda: iter(StereoDirDataset(os.path.dirname(files[0][0]),
+                                                 os.path.dirname(files[1][0]))),
+        "native": lambda: iter(NativeStereoLoader(files[0], files[1], stamps, (W, H), (W, H),
+                                                  capacity=8, n_threads=4)),
+    }
+    loaded = {name: list(src()) for name, src in sources.items()}
+    for i, f in enumerate(frames):
+        for cam in ("img0", "img1"):
+            want = f[cam].astype(np.float32)
+            if not all(np.array_equal(loaded[n][i][cam], want) for n in loaded):
+                fail(f"native: pair {i} {cam} differs between the readers and memory")
+        if not (loaded["native"][i]["timestamp"] == loaded["dataset"][i]["timestamp"] == stamps[i]
+                and loaded["native"][i]["incoming_id"] == i):
+            fail(f"native: pair {i}'s stamp or id differs")
+    fps, launches, runs = {"dataset": [], "native": []}, None, {}
+    for name in ("dataset", "native", "native", "dataset"):
+        counters = zero_counters()
+        node, shells, resets, dt = run_sequence(torch, SLAMNode, cfg, intr, ds, sources[name](),
+                                                dev)
+        fps[name].append(len(frames) / dt)
+        runs[name] = (node, shells, resets)
+        if name == "native":
+            launches = read_counters(counters)
+    waits = {}
+    for name, src in sources.items():
+        counter = WaitCounter(torch)
+        run_sequence(torch, SLAMNode, cfg, intr, ds, src(), dev, per_call=counter)
+        waits[name] = counter.summary()
+    print(f"native: {len(frames)} PGM pairs {W}x{H}; frames bit-equal across the loader, the "
+          f"synchronous reader and memory; FPS (read and decode included) dataset "
+          f"{' / '.join(f'{x:.3f}' for x in fps['dataset'])}, native loader "
+          f"{' / '.join(f'{x:.3f}' for x in fps['native'])} (turns d, n, n, d)", flush=True)
+    for name in sources:
+        print(f"native: blocking waits per call, {name}: {waits[name]}", flush=True)
+    node, shells, resets = runs["native"]
+    ate, path = ate_of(frames, shells)
+    kfs = sum(s.is_kf for s in shells)
+    kfs_d = sum(s.is_kf for s in runs["dataset"][1])
+    print(f"native: loader pass {kfs} keyframes (dataset {kfs_d}), ATE {ate:.4f} m over "
+          f"{path:.2f} m; launches {launches}", flush=True)
+    fe = node.frontend
+    if not fe.initialized or fe.is_lost or resets or not ate < 0.02 * path:
+        fail(f"native: lost={fe.is_lost} resets {resets} ATE {ate:.4f} m (2% of {path:.2f} m)")
+    if abs(kfs - kfs_d) > 1:
+        fail(f"native: {kfs} keyframes against {kfs_d} through the dataset reader")
+    gate_launches("native", launches, E2E_KERNELS)
+    return launches
+
+
+def eval_phase(torch, dev, tmp: str, n_frames: int = EVAL_FRAMES, config: str = "odometry",
+               gate: bool = True):
+    """The disk evaluation path as a user runs it: gen_longseq renders
+    n_frames of the loop room at 1232x368 into the KITTI layout, then
+    eval_kitti reads it back (PNG decode, calib.txt, times.txt, poses) as
+    a new process (EVAL_CHILD: eval_kitti.main with the launch counts set
+    to 0 before and printed after). Gated (``gate``): exit 0, results.json
+    read back, the keyframes within 1 of an in-memory run of the same
+    uint8 frames (runtime/eval.run_sequence, the same configuration), ATE
+    under 2% of the path, and K1, K2-LM and K3-LM launched by the
+    eval_kitti process. Returns that process's launches."""
+    from direct_stereo_slam_tpu_torch import gen_longseq
+    from direct_stereo_slam_tpu_torch.config import make_config
+    from direct_stereo_slam_tpu_torch.io.synthetic import (SyntheticStereoDataset, _loop_scene,
+                                                           loop_trajectory)
+    from direct_stereo_slam_tpu_torch.runtime.eval import run_sequence as run_eval
+    from direct_stereo_slam_tpu_torch.runtime.eval import score_rows, timing_table
+
+    root = os.path.join(tmp, f"kitti_{n_frames}")
+    t0 = time.perf_counter()
+    if gen_longseq.main(["--out", root, "--frames", str(n_frames), "--width", str(W),
+                         "--height", str(H)]) != 0:
+        fail("eval: gen_longseq failed")
+    gen_s = time.perf_counter() - t0
+    out = os.path.join(tmp, f"eval_{n_frames}")
+    cmd = [sys.executable, "-c", EVAL_CHILD, "--kitti", root, "--seqs", "00", "--config",
+           config, "--max-frames", str(n_frames), "--levels", str(LEVELS), "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"eval: eval_kitti exited {proc.returncode}:\n{(proc.stdout + proc.stderr)[-3000:]}")
+    counts = [l for l in proc.stdout.splitlines() if l.startswith("launches ")]
+    if len(counts) != 1:
+        fail(f"eval: the eval_kitti process printed {len(counts)} launch lines")
+    launches = json.loads(counts[0][len("launches "):])
+    with open(os.path.join(out, "results.json")) as f:
+        results = json.load(f)
+    gt = np.loadtxt(os.path.join(root, "poses", "00.txt")).reshape(-1, 3, 4)[:, :, 3]
+    path = float(np.sum(np.linalg.norm(np.diff(gt, axis=0), axis=1)))
+    tag = f"eval {n_frames}"
+    print(f"{tag}: gen_longseq {n_frames} frames {W}x{H} in {gen_s:.2f} s; eval_kitti --config "
+          f"{config} exit 0 in {wall:.1f} s as a new process (start, kernel library load, PNG "
+          f"decode); path {path:.2f} m; launches in that process {launches}", flush=True)
+    for r in results:
+        print(f"{tag} [{r['config']}]: {r['frames']} frames {r['fps']} FPS, {r['kfs']} "
+              f"keyframes, {r['loops']} loops, ATE sodso {r.get('ate_sodso')} m, dslam "
+              f"{r.get('ate_dslam')} m; stages {r['stages_ms']}", flush=True)
+    if not gate:
+        return launches
+    row0 = results[0]
+    ds = SyntheticStereoDataset(n_frames=n_frames, width=W, height=H, scene=_loop_scene(),
+                                device=dev)
+    ds.poses = loop_trajectory(n_frames, radius=8.0, laps=4.5 * n_frames / 360.0, ease_in=8)
+    mem = QuantisedFrames([ds.frame(i) for i in range(n_frames)])
+    K = ds.K
+    cfg = make_config(int(2 * K[0, 2] + 1), int(2 * K[1, 2] + 1), preset=0, mode=1,
+                      scale_opt_thres=15.0, lidar_range=-1.0, scan_context_thres=0.33)
+    node, handler, dt = run_eval(mem, cfg, K, ds.t_cam1_cam0, levels=LEVELS, device=dev)
+    handler.close()
+    kfs_mem = len(handler.odometry_rows())
+    ate_mem = score_rows(handler.odometry_rows(), ds.poses[:, :3, 3])
+    print(f"{tag}: in memory {n_frames / dt:.3f} FPS, {kfs_mem} keyframes, ATE sodso "
+          f"{ate_mem} m", flush=True)
+    if row0["ate_sodso"] is None or not row0["ate_sodso"] < 0.02 * path:
+        fail(f"{tag}: ATE {row0['ate_sodso']} m from disk, 2% of the path is {0.02 * path:.3f} m")
+    if abs(row0["kfs"] - kfs_mem) > 1:
+        fail(f"{tag}: {row0['kfs']} keyframes from disk against {kfs_mem} in memory")
+    gate_launches(tag, launches, E2E_KERNELS)
+    return launches
+
+
+def lm_digest(torch, dev) -> None:
+    """Digests of K2-LM's and K3-LM's single-sequence outputs (the front
+    end's calls) on inputs made on the host from a seed, at the main
+    path's shapes: 1232x368, 5 levels, templates of base 8192 with the
+    last fifth padded, K2-LM at B = 1 / 5 / 78, K3-LM at G = 1 / 8, each
+    with the card's time per call (``device_ms``, 15 samples). Run with
+    ``--root`` on another checkout of the port to hold two forms of the
+    kernels to the same bits and time them."""
+    import hashlib
+
+    from direct_stereo_slam_tpu_torch.config import make_config
+    from direct_stereo_slam_tpu_torch.geometry import lie
+    from direct_stereo_slam_tpu_torch.geometry.camera import make_pyramid_intrinsics
+    from direct_stereo_slam_tpu_torch.models import depth_template as dt
+    from direct_stereo_slam_tpu_torch.models import tracker as tr
+    from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
+    from direct_stereo_slam_tpu_torch.ops.pyramid import build_pyramid
+
+    gen = np.random.RandomState(11)
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    img = lambda ph: (120 + 50 * np.sin(xs / 9.0 + ph) * np.cos(ys / 7.0 - ph)
+                      + 30 * np.sin((xs + ys) / 23.0)).astype(np.float32)
+    pyr = lambda a: tuple(x.to(dev) for x in build_pyramid(torch.as_tensor(a), LEVELS).data)
+    pyr1, pyr_r = pyr(img(0.3)), pyr(img(0.5))
+    cols = {k: [] for k in dt.TrackerTemplate._fields}
+    for lvl, n in enumerate(dt.default_budgets(W, H, LEVELS)):
+        live = np.arange(n) < 0.8 * n
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        cols["pu"].append(t(gen.uniform(4, (W >> lvl) - 5, n).astype(np.float32)))
+        cols["pv"].append(t(gen.uniform(4, (H >> lvl) - 5, n).astype(np.float32)))
+        cols["pid"].append(t(np.where(live, gen.uniform(0.05, 0.5, n), 0).astype(np.float32)))
+        cols["pcolor"].append(t(np.where(live, gen.uniform(40, 200, n), 0).astype(np.float32)))
+        cols["pmask"].append(t(live))
+    tmpl = dt.TrackerTemplate(*[tuple(cols[k]) for k in dt.TrackerTemplate._fields])
+    cfg = make_config(W, H, preset=0, mode=1)
+    K = np.array([[707.0, 0, W / 2 - 0.5], [0, 707.0, H / 2 - 0.5], [0, 0, 1]])
+    intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], W, H, LEVELS)
+    t10 = np.eye(4, dtype=np.float32)
+    t10[0, 3] = -0.54
+    zero = tr.AffLight(torch.zeros((), device=dev), torch.zeros((), device=dev))
+    one = torch.ones((), device=dev)
+    digest = lambda ts: hashlib.sha256(b"".join(
+        x.contiguous().cpu().numpy().tobytes() for x in ts)).hexdigest()[:16]
+    for B in (1, 5, 78):
+        xi = 0.02 * gen.randn(B, 6).astype(np.float32)
+        T = torch.stack([torch.as_tensor(lie.se3_exp_np(x).astype(np.float32)) for x in xi])
+        T = T.to(dev)
+        call = lambda: rlm.track_lm_cuda(pyr1, tmpl, intr, cfg, T, zero, zero, one, one)
+        print(f"lm digest K2-LM B={B}: {digest(call())}; on the card "
+              f"{device_ms(torch, call, samples=15)} ms", flush=True)
+    for G in (1, 8):
+        s0 = torch.tensor((1.0,) if G == 1 else cfg.scale_opt.grid_guesses, device=dev)
+        for kind, tm in (("padded", tmpl), ("live", tmpl._replace(
+                pmask=tuple(torch.ones_like(m) for m in tmpl.pmask),
+                pid=tuple(torch.where(m, x, 0.2) for x, m in zip(tmpl.pid, tmpl.pmask))))):
+            call = lambda: rlm.scale_lm_cuda(pyr_r, tm, s0, intr, intr, t10, cfg)
+            print(f"lm digest K3-LM G={G} {kind}: {digest([call().rows])}; on the card "
+                  f"{device_ms(torch, call, samples=15)} ms", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -1976,7 +2448,13 @@ def main() -> int:
                          "320-frame loop protocol and longer KITTI-size "
                          "sequences on the card and on the host CPU (reported, "
                          "not gated)")
+    ap.add_argument("--lm-digest", action="store_true",
+                    help="only print digests of K2-LM's and K3-LM's single-sequence "
+                         "outputs on seeded inputs (with --root: of another checkout)")
+    ap.add_argument("--root", help="with --lm-digest: the checkout whose port to load")
     args = ap.parse_args()
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
 
     # cuBLAS is bit-reproducible only with a fixed workspace, set before
     # its first handle: the resume phase runs under
@@ -2007,11 +2485,18 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
+    if args.lm_digest:
+        lm_digest(torch, dev)
+        return 0
     usage = lm_usage(lib.build_log)
     print(f"resident LM kernels (registers, bytes spilled, 8-block clusters resident at "
           f"once): {usage}", flush=True)
 
+    t_run = time.perf_counter()
+    elapsed = lambda phase: print(f"[{phase} done at {time.perf_counter() - t_run:.1f} s]",
+                                  flush=True)
     rows = kernel_phase(torch, dev)
+    elapsed("kernels")
     for r in rows:
         name = r["name"].split("[")[0]
         if name in usage:
@@ -2023,13 +2508,22 @@ def main() -> int:
     pl_launches = pipelined_phase(torch, dev)
     mono_launches = mono_phase(torch, dev)
     undistort_phase(torch, dev)
+    elapsed("e2e, pipelined, mono, undistort")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         seq = observed_sequence(dev)
         io_launches = {"bag": bag_phase(torch, dev, seq, tmp),
                        "live": live_phase(torch, dev, seq),
                        "resume": resume_phase(torch, dev, seq, tmp),
-                       "observe": observe_phase(torch, dev, seq, tmp)}
+                       "observe": observe_phase(torch, dev, seq, tmp),
+                       "native": native_phase(torch, dev, seq, tmp),
+                       "eval": eval_phase(torch, dev, tmp)}
+        if args.long:
+            eval_phase(torch, dev, tmp, 320, "both", gate=False)
+    elapsed("bag, live, resume, observe, native, eval")
+    batch_per_step = batch_phase(torch, dev)
+    elapsed("batch")
     loop_launches, loop_scale_calls = loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN)
+    elapsed("loop")
     if args.long:
         mono_sweep(torch, dev)
         loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN, gate=False, pipelined=True)
@@ -2045,6 +2539,7 @@ def main() -> int:
         r["mono_launches"] = mono_launches[name]
         for phase, counts in io_launches.items():
             r[f"{phase}_launches"] = counts[name]
+        r["batch_launches_per_step"] = batch_per_step[name]
         if name == "scale_lm":
             r["path_calls"] = dict(e2e=e2e_scale_calls, loop=loop_scale_calls)
     leaked = sorted(m for m in sys.modules

@@ -37,6 +37,13 @@
 //   guess or seed, on blockIdx.y. Candidates never talk to each other, so
 //   no grid-wide sync; a finished candidate stops, which is what vmap of a
 //   while_loop computes. 8 blocks spread even a batch of one over 8 SMs.
+// - A sequence axis (K2-LM, K3-LM; the batched evaluation over sequences,
+//   parallel/mesh.py): S sequences of per_seq candidates each, every
+//   sequence with its own pyramid and template, stacked at fixed strides
+//   (LmLevel::img_stride, pt_stride). Thread 0 moves its copy of the level
+//   pointers to sequence blockIdx.y / per_seq before anything reads them;
+//   strides of 0 leave them as given, so a launch on one sequence runs the
+//   same instructions on the same data as before the axis existed.
 // - At each level a block copies its eighth of the level's points into
 //   shared memory with cp.async (cooperative_groups::memcpy_async) once;
 //   every pass of the level reads them from there. At most 8192 points x
@@ -131,6 +138,11 @@ struct LmLevel {
   float Ki[9];                 // K^-1 of the level; K3-LM: R01 K0^-1
   int max_iters;
   int compute_flow;
+  // Elements between two sequences' images (img) and point lists (p0, p1,
+  // p2, pcolor, pmask) when one launch covers several sequences, each with
+  // its own pyramid and template; 0 for a launch on one sequence.
+  long long img_stride;
+  long long pt_stride;
 };
 
 // A scalar that lives on the card (ptr) or is given by value (ptr null).
@@ -152,6 +164,7 @@ struct LmParams {
   int levels;
   int B;
   int chunk;                   // points per block slice (multiple of 4)
+  int per_seq;                 // candidates per sequence: cluster y reads sequence y / per_seq
 };
 
 struct ScaleLmParams {
@@ -164,11 +177,12 @@ struct ScaleLmParams {
   float lambda_init, lambda_lim, lambda_accept, lambda_reject, inc_break;
   int levels;
   int G;
+  int per_seq;                 // guesses per sequence: cluster y reads sequence y / per_seq
 };
 
-static_assert(sizeof(LmLevel) == 136, "LmLevel layout");
-static_assert(sizeof(LmParams) == 1296, "LmParams layout");
-static_assert(sizeof(ScaleLmParams) == 1168, "ScaleLmParams layout");
+static_assert(sizeof(LmLevel) == 152, "LmLevel layout");
+static_assert(sizeof(LmParams) == 1432, "LmParams layout");
+static_assert(sizeof(ScaleLmParams) == 1304, "ScaleLmParams layout");
 
 namespace {
 
@@ -211,6 +225,21 @@ struct PhaseTimer {
 
 __device__ __forceinline__ float read_scalar(const LmScalar& s) {
   return s.ptr ? *s.ptr : s.value;
+}
+
+// The levels of a sequence: each level's image and point pointers moved by
+// seq strides (strides of 0, a launch on one sequence, leave them as given).
+__device__ __forceinline__ void to_sequence(LmLevel* lv, int levels, int seq) {
+  for (int l = 0; l < levels; ++l) {
+    LmLevel& L = lv[l];
+    const long long i = seq * L.img_stride, k = seq * L.pt_stride;
+    L.img += i;
+    L.p0 += k;
+    L.p1 += k;
+    L.p2 += k;
+    L.pcolor += k;
+    L.pmask += k;
+  }
 }
 
 // Points per block slice at a level: an eighth, rounded up to 4 so every
@@ -846,6 +875,7 @@ __global__ void __launch_bounds__(kLmThreads, 2) lm_kernel(const LmParams p) {
   const long long c0 = clock64(), n0 = global_ns();
   if (threadIdx.x == 0) {
     sp = p;
+    to_sequence(sp.lv, p.levels, blockIdx.y / p.per_seq);
     carry.phase = kStart;
   }
   // every block runs, and has its parameters, before any block stores
@@ -1060,7 +1090,10 @@ __global__ void __launch_bounds__(kLmThreads) scale_lm_kernel(const ScaleLmParam
   __shared__ ScaleLmParams sp;
   __shared__ long long tacc[kMaxLevels * kPhases];
   const long long c0 = clock64(), n0 = global_ns();
-  if (threadIdx.x == 0) sp = p;
+  if (threadIdx.x == 0) {
+    sp = p;
+    to_sequence(sp.lv, p.levels, blockIdx.y / p.per_seq);
+  }
   // every block runs, and has its parameters, before any block stores
   // into another's shared memory
   cg::this_cluster().sync();
@@ -1093,7 +1126,8 @@ cudaLaunchConfig_t lm_config(int B, size_t smem, cudaStream_t stream,
 template <typename Params>
 int launch_clusters(void (*kernel)(const Params), const Params& p, int batch, size_t smem,
                     cudaStream_t stream) {
-  if (p.levels < 1 || p.levels > kMaxLevels || batch < 1 || smem > kMaxDynamicSmem)
+  if (p.levels < 1 || p.levels > kMaxLevels || batch < 1 || smem > kMaxDynamicSmem ||
+      p.per_seq < 1 || batch % p.per_seq != 0)
     return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -15,8 +15,12 @@ The reference ingests stereo pairs from rosbags or live ROS topics
   ingestion model of the reference (main.cpp:320-345, 355-362);
 * ``SyntheticStereoDataset`` (io.synthetic) — ground-truth test bed.
 
-Decoding uses cv2 (PIL where cv2 is missing) for every format. Each dataset yields dicts with ``img0``, ``img1`` (float32
-HxW), ``timestamp`` and ``incoming_id`` — the SLAMNode input contract.
+Decoding uses the port's native loader for PGM/PPM (io.native, colour
+channels averaged, as the JAX package reads them) and cv2 (PIL where cv2
+is missing) for PNG/JPG. A native library that cannot be built raises:
+cv2 reads a PPM or a 16-bit PGM into other gray levels. Each dataset
+yields dicts with ``img0``, ``img1`` (float32 HxW), ``timestamp`` and
+``incoming_id`` — the SLAMNode input contract.
 """
 
 from __future__ import annotations
@@ -29,6 +33,13 @@ import numpy as np
 
 
 def _imread_gray(path: str) -> np.ndarray:
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".pgm", ".ppm", ".pnm"):
+        from .native import read_pnm
+        img = read_pnm(path)
+        if img.ndim == 3:
+            img = img.mean(axis=2)
+        return img.astype(np.float32)
     try:
         import cv2
         img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)

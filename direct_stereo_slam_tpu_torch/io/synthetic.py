@@ -177,6 +177,58 @@ def loop_trajectory(n_frames: int, radius: float = 12.0, laps: float = 1.0,
     return np.stack(poses)
 
 
+def stadium_trajectory(n_frames: int, straight: float = 16.0,
+                       radius: float = 7.0, laps: float = 1.25,
+                       ease_in: int = 0):
+    """Stadium (oval) trajectory in the x-z plane: two straights joined by
+    half-circles; ``laps`` > 1 retraces the FIRST STRAIGHT with identical
+    heading. This is the KITTI revisit geometry (straight-segment,
+    same-direction re-drive) — a circle's revisits always carry a heading
+    offset, which structurally caps the direct verifier's visible-point
+    ratio on sparse photometric clouds (in the JAX package's runs the
+    inlier gate failed 8 of 14 tries on the circle lap)."""
+    P = 2.0 * straight + 2.0 * np.pi * radius
+    total = laps * P
+    if ease_in > 0:
+        w = np.minimum(1.0, (np.arange(n_frames) + 1) / ease_in)
+        cum = np.concatenate([[0.0], np.cumsum(w)[:-1]])
+        s_arr = total * cum / cum[-1] if cum[-1] > 0 else cum
+    else:
+        s_arr = total * np.arange(n_frames) / n_frames
+    L, r = straight, radius
+    poses = []
+    for s in np.mod(s_arr, P):
+        if s < L:                                   # straight A, +z
+            pos = np.array([0.0, 0.0, s]);           yaw = 0.0
+        elif s < L + np.pi * r:                     # far half-circle
+            th = (s - L) / r
+            pos = np.array([r - r * np.cos(th), 0.0, L + r * np.sin(th)])
+            yaw = th
+        elif s < 2 * L + np.pi * r:                 # straight B, -z
+            u = s - L - np.pi * r
+            pos = np.array([2 * r, 0.0, L - u]);     yaw = np.pi
+        else:                                       # near half-circle
+            th = (s - 2 * L - np.pi * r) / r
+            pos = np.array([r + r * np.cos(th), 0.0, -r * np.sin(th)])
+            yaw = np.pi + th
+        cy_, sy_ = np.cos(yaw), np.sin(yaw)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = np.array([[cy_, 0, sy_], [0, 1, 0], [-sy_, 0, cy_]],
+                             dtype=np.float32)
+        T[:3, 3] = pos
+        poses.append(T)
+    return np.stack(poses)
+
+
+def dist_to_stadium_track(x, z, straight=16.0, radius=7.0):
+    """Distance from plan-view point (x, z) to the stadium centerline
+    (for keeping scene boxes off the track)."""
+    # spine segment from (radius, 0) to (radius, straight)
+    dz = np.clip(z, 0.0, straight)
+    d_spine = np.hypot(x - radius, z - dz)
+    return np.abs(d_spine - radius)
+
+
 class SyntheticStereoDataset:
     """Iterable stereo dataset: frames ((img0, img1), timestamp, gt pose).
 

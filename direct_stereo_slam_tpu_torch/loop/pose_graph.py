@@ -125,28 +125,32 @@ def _solve_dense(data, Hblk, bblk, lam):
     return torch.linalg.solve(Hd, -bd).reshape(N, 6)
 
 
-def _solve_cg(data, Hblk, bblk, lam, cg_iters):
-    """Matrix-free block-Jacobi preconditioned CG on the free subsystem."""
-    N = data.T_wc.shape[0]
-    ea, eb = data.edge_a, data.edge_b
-    free = _free_mask(data).to(Hblk.dtype)[:, None]          # [N, 1]
-    damp = lam + 1e-6
-    b = -_scatter_b(data, bblk, N) * free
-    Haa, Hab = Hblk[:, :6, :6], Hblk[:, :6, 6:]
-    Hba, Hbb = Hblk[:, 6:, :6], Hblk[:, 6:, 6:]
+def _edge_Hx(ea, eb, Hblk, x):
+    """The edges' Gauss-Newton blocks times x [N, 6], summed per node."""
+    xa, xb = x[ea][..., None], x[eb][..., None]
+    y = torch.zeros_like(x)
+    y.index_add_(0, ea, (Hblk[:, :6, :6] @ xa + Hblk[:, :6, 6:] @ xb)[..., 0])
+    y.index_add_(0, eb, (Hblk[:, 6:, :6] @ xa + Hblk[:, 6:, 6:] @ xb)[..., 0])
+    return y
 
+
+def _edge_diag(ea, eb, Hblk, N):
+    """The edges' diagonal 6x6 blocks summed per node: [N, 6, 6]."""
+    D = torch.zeros(N, 6, 6, dtype=Hblk.dtype, device=Hblk.device)
+    D.index_add_(0, ea, Hblk[:, :6, :6])
+    D.index_add_(0, eb, Hblk[:, 6:, 6:])
+    return D
+
+
+def _pcg(b, edge_Hx, D, free, damp, cg_iters):
+    """Block-Jacobi preconditioned CG for (H + damp I) x = b on the free
+    nodes (``free`` [N, 1]): ``edge_Hx(x)`` is H x, ``D`` H's diagonal
+    blocks [N, 6, 6]."""
     def Hx(x):
         x = x * free
-        xa, xb = x[ea][..., None], x[eb][..., None]
-        y = torch.zeros_like(x)
-        y.index_add_(0, ea, (Haa @ xa + Hab @ xb)[..., 0])
-        y.index_add_(0, eb, (Hba @ xa + Hbb @ xb)[..., 0])
-        return (y + damp * x) * free
+        return (edge_Hx(x) + damp * x) * free
 
-    eye6 = torch.eye(6, dtype=Hblk.dtype, device=Hblk.device)
-    D = torch.zeros(N, 6, 6, dtype=Hblk.dtype, device=Hblk.device)
-    D.index_add_(0, ea, Haa)
-    D.index_add_(0, eb, Hbb)
+    eye6 = torch.eye(6, dtype=D.dtype, device=D.device)
     Dinv = torch.linalg.inv(D + damp * eye6[None])
 
     def Minv(x):
@@ -172,6 +176,16 @@ def _solve_cg(data, Hblk, bblk, lam, cg_iters):
         x, r, z, p, rz = [torch.where(go, new, old) for new, old in
                           ((x_n, x), (r_n, r), (z_n, z), (p_n, p), (rz_n, rz))]
     return x
+
+
+def _solve_cg(data, Hblk, bblk, lam, cg_iters):
+    """Matrix-free block-Jacobi preconditioned CG on the free subsystem."""
+    N = data.T_wc.shape[0]
+    ea, eb = data.edge_a, data.edge_b
+    free = _free_mask(data).to(Hblk.dtype)[:, None]          # [N, 1]
+    b = -_scatter_b(data, bblk, N) * free
+    return _pcg(b, lambda x: _edge_Hx(ea, eb, Hblk, x), _edge_diag(ea, eb, Hblk, N), free,
+                lam + 1e-6, cg_iters)
 
 
 def optimize(data: PoseGraphData, iterations: int = 25, huber_delta: float = 1.0,

@@ -25,25 +25,30 @@ class Pyramid(NamedTuple):
 
 
 def _gradients(img: torch.Tensor):
-    """Central differences; border pixels get zero gradient."""
+    """Central differences over the last two axes; border pixels get zero
+    gradient."""
     xp = F.pad(img, (1, 1, 1, 1))
-    dx = 0.5 * (xp[1:-1, 2:] - xp[1:-1, :-2])
-    dy = 0.5 * (xp[2:, 1:-1] - xp[:-2, 1:-1])
-    dx[:, 0] = 0.0
-    dx[:, -1] = 0.0
-    dy[0, :] = 0.0
-    dy[-1, :] = 0.0
+    dx = 0.5 * (xp[..., 1:-1, 2:] - xp[..., 1:-1, :-2])
+    dy = 0.5 * (xp[..., 2:, 1:-1] - xp[..., :-2, 1:-1])
+    dx[..., :, 0] = 0.0
+    dx[..., :, -1] = 0.0
+    dy[..., 0, :] = 0.0
+    dy[..., -1, :] = 0.0
     return dx, dy
 
 
 def _downsample2(img: torch.Tensor) -> torch.Tensor:
-    """2x2 mean pool."""
-    h2, w2 = img.shape[0] // 2, img.shape[1] // 2
-    return img[: 2 * h2, : 2 * w2].reshape(h2, 2, w2, 2).mean(dim=(1, 3))
+    """2x2 mean pool over the last two axes."""
+    h2, w2 = img.shape[-2] // 2, img.shape[-1] // 2
+    lead = img.shape[:-2]
+    return img[..., : 2 * h2, : 2 * w2].reshape(*lead, h2, 2, w2, 2).mean(dim=(-3, -1))
 
 
 def build_pyramid(image: torch.Tensor, levels: int) -> Pyramid:
-    """image: [H, W] float32 intensity (0..255). Returns ``levels`` levels."""
+    """image: [H, W] float32 intensity (0..255), or a stack [S, H, W] of
+    them (the JAX package's ``vmap(build_pyramid)``: level l is then
+    [S, H_l, W_l, 3], contiguous, sequence s's planes at s * H_l * W_l * 3).
+    Returns ``levels`` levels."""
     data, abs_grad = [], []
     img = image
     for lvl in range(levels):

@@ -50,7 +50,7 @@ KINDS = {"track": 0, "loop_pose": 1, "scale": 2}
 PHASES = ("load", "points", "reduce", "cluster", "step", "barrier")
 TIMER_WORDS = MAX_LEVELS * len(PHASES) + 2
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
 class _Level(ctypes.Structure):
@@ -58,7 +58,7 @@ class _Level(ctypes.Structure):
                 ("pmask", _P), ("H", _I), ("W", _I), ("umax", _F), ("vmax", _F),
                 ("N", _I), ("color_stride", _I), ("fx", _F), ("fy", _F),
                 ("cx", _F), ("cy", _F), ("Ki", _F * 9), ("max_iters", _I),
-                ("compute_flow", _I)]
+                ("compute_flow", _I), ("img_stride", _LL), ("pt_stride", _LL)]
 
 
 class _Scalar(ctypes.Structure):
@@ -73,7 +73,7 @@ class LmParams(ctypes.Structure):
                 ("sat_ratio_repeat", _F), ("cutoff_repeat_max", _F),
                 ("lambda_init", _F), ("lambda_lim", _F), ("lambda_accept", _F),
                 ("lambda_reject", _F), ("inc_break", _F), ("mode_a", _F),
-                ("mode_b", _F), ("levels", _I), ("B", _I), ("chunk", _I)]
+                ("mode_b", _F), ("levels", _I), ("B", _I), ("chunk", _I), ("per_seq", _I)]
 
 
 class ScaleLmParams(ctypes.Structure):
@@ -85,7 +85,7 @@ class ScaleLmParams(ctypes.Structure):
                 ("sat_ratio_repeat", _F), ("cutoff_repeat_max", _F),
                 ("lambda_init", _F), ("lambda_lim", _F), ("lambda_accept", _F),
                 ("lambda_reject", _F), ("inc_break", _F), ("levels", _I),
-                ("G", _I)]
+                ("G", _I), ("per_seq", _I)]
 
 
 class LmOut(NamedTuple):
@@ -196,20 +196,51 @@ def _schedule(p: LmParams, cfg) -> None:
     p.mode_b = tc.affine_mode_b
 
 
-def _batch(p: LmParams, T_inits: torch.Tensor, out: torch.Tensor) -> None:
+def _batch(p: LmParams, T_inits: torch.Tensor, out: torch.Tensor, S: int = 1) -> None:
+    B = T_inits.shape[0]
+    if B % S:
+        raise ValueError(f"a batch of {B} over {S} sequences")
     p.T_init = T_inits.data_ptr()
     p.out = out.data_ptr()
-    p.B = T_inits.shape[0]
+    p.B = B
+    p.per_seq = B // S
+
+
+def n_sequences(pyr) -> int:
+    """The sequences a launch covers: 1 for levels [H, W, 3], S for
+    stacked levels [S, H, W, 3]."""
+    return pyr[0].shape[0] if pyr[0].dim() == 4 else 1
+
+
+def _check_sequences(name: str, pyr, template) -> int:
+    """One sequence (levels [H, W, 3], the template's lists [N]) or S
+    stacked ones (levels [S, H, W, 3], lists [S, N]; every sequence has the
+    same N per level, padding marked by pmask): returns S."""
+    levels = template.levels
+    S = n_sequences(pyr)
+    img_dim, list_dim = (4, 2) if pyr[0].dim() == 4 else (3, 1)
+    lists = [x for k in ("pu", "pv", "pid", "pcolor", "pmask") for x in getattr(template, k)]
+    if any(x.dim() != img_dim or (img_dim == 4 and x.shape[0] != S) for x in pyr[:levels]) \
+            or any(x.dim() != list_dim or (list_dim == 2 and x.shape[0] != S) for x in lists):
+        raise ValueError(f"{name}: levels [H, W, 3] with lists [N], or [S, H, W, 3] with "
+                         f"[S, N], got {[tuple(x.shape) for x in pyr[:levels]]} and "
+                         f"{[tuple(x.shape) for x in template.pu]}")
+    return S
 
 
 def _level(p, lvl: int, img, p0, p1, p2, pcolor, color_stride: int,
            pmask, intr, max_iters: int, compute_flow: bool) -> None:
+    """Level ``lvl`` of a launch on one sequence (img [H, W, 3], point
+    lists [N]) or on S stacked sequences (img [S, H, W, 3], lists [S, N]):
+    the strides between sequences are 0 for one."""
     L = p.lv[lvl]
-    H, W = img.shape[0], img.shape[1]
+    H, W = img.shape[-3], img.shape[-2]
     L.img, L.p0, L.p1, L.p2 = img.data_ptr(), p0.data_ptr(), p1.data_ptr(), p2.data_ptr()
     L.pcolor, L.pmask = pcolor.data_ptr(), pmask.data_ptr()
     L.H, L.W, L.umax, L.vmax = H, W, W - 1.001, H - 1.001
-    L.N = p0.shape[0]
+    L.N = p0.shape[-1]
+    L.img_stride = H * W * 3 if img.dim() == 4 else 0
+    L.pt_stride = L.N if p0.dim() == 2 else 0
     L.color_stride = color_stride
     L.fx, L.fy, L.cx, L.cy = intr.fx[lvl], intr.fy[lvl], intr.cx[lvl], intr.cy[lvl]
     L.Ki[:] = _level_matrix(intr, lvl)
@@ -312,6 +343,7 @@ def _track_params(pyr_new, template, intr, cfg) -> LmParams:
     if hit is None or any(a is not b for a, b in zip(hit[0][:3], key[:3])) or hit[0][3] != key[3]:
         if levels > MAX_LEVELS:
             raise ValueError(f"track_lm: at most {MAX_LEVELS} levels, got {levels}")
+        _check_sequences("track_lm", pyr_new, template)
         p = LmParams()
         for lvl in range(levels):
             pts = (template.pu[lvl], template.pv[lvl], template.pid[lvl],
@@ -321,7 +353,7 @@ def _track_params(pyr_new, template, intr, cfg) -> LmParams:
                    lvl == 0)
         _schedule(p, cfg)
         p.levels = levels
-        p.chunk = max(slice_len(int(x.shape[0])) for x in template.pu)
+        p.chunk = max(slice_len(int(x.shape[-1])) for x in template.pu)
         hit = _track_proto[0] = (key, p)
     p = LmParams.from_buffer_copy(hit[1])
     for lvl in range(levels):
@@ -336,14 +368,18 @@ def track_lm_cuda(pyr_new, template, intr, cfg, T_inits: torch.Tensor, aff_init,
     level coarse to fine of ``models/tracker.track_candidates_batch``
     (before its gates). ``res`` is sqrt(E/n) per level (inf where no term
     survived), ``x0``/``x1`` level 0's flow_t and flow_rt. ``timers``
-    (``timer_buffer(B)``) receives the phase counters."""
+    (``timer_buffer(B)``) receives the phase counters.
+
+    With stacked sequences (levels [S, H, W, 3], the template's lists
+    [S, N]) the batch is S groups of B / S candidates, group s tracked on
+    sequence s; the affine and exposure scalars are the launch's."""
     dev = pyr_new[0].device
     T_inits = T_inits.to(torch.float32).contiguous()
     _cuda.require_cuda("track_lm", *pyr_new[:template.levels], T_inits)
     B = T_inits.shape[0]
     out = torch.empty(B, OUT, dtype=torch.float32, device=dev)
     p = _track_params(pyr_new, template, intr, cfg)
-    _batch(p, T_inits, out)
+    _batch(p, T_inits, out, n_sequences(pyr_new))
     p.aff_a0, p.aff_b0 = _scalar(aff_init.a, dev), _scalar(aff_init.b, dev)
     p.ref_a, p.ref_b = _scalar(ref_aff.a, dev), _scalar(ref_aff.b, dev)
     p.ref_exp, p.new_exp = _scalar(ref_exposure, dev), _scalar(new_exposure, dev)
@@ -409,6 +445,7 @@ def scale_lm_params(pyr1, template, scales0: torch.Tensor, intr0, intr1,
     levels = template.levels
     if levels > MAX_LEVELS:
         raise ValueError(f"scale_lm: at most {MAX_LEVELS} levels, got {levels}")
+    _check_sequences("scale_lm", pyr1, template)
     T = np.asarray(t_cam1_cam0, np.float32)
     R01 = tuple(float(v) for v in T[:3, :3].reshape(9))
     p = ScaleLmParams()
@@ -419,11 +456,19 @@ def scale_lm_params(pyr1, template, scales0: torch.Tensor, intr0, intr1,
         p.lv[lvl].Ki[:] = _level_matrix(intr0, lvl, R01)
     p.t01[:] = [float(v) for v in T[:3, 3]]
     _lm_scalars(p, cfg)
+    p.levels = levels
+    _guesses(p, scales0, out, n_sequences(pyr1))
+    return p
+
+
+def _guesses(p: ScaleLmParams, scales0: torch.Tensor, out: torch.Tensor, S: int) -> None:
+    G = scales0.shape[0]
+    if G % S:
+        raise ValueError(f"{G} guesses over {S} sequences")
     p.s_init = scales0.data_ptr()
     p.out = out.data_ptr()
-    p.levels = levels
-    p.G = scales0.shape[0]
-    return p
+    p.G = G
+    p.per_seq = G // S
 
 
 # K3-LM's struct for the last sizes, intrinsics, extrinsics and
@@ -444,7 +489,7 @@ def _scale_params(pyr1, template, scales0: torch.Tensor, intr0, intr1, t_cam1_ca
     levels = template.levels
     T = np.asarray(t_cam1_cam0, np.float32)
     key = (intr0, intr1, cfg, T.tobytes(), tuple(tuple(x.shape) for x in pyr1[:levels]),
-           tuple(x.shape[0] for x in template.pu))
+           tuple(tuple(x.shape) for x in template.pu))
     hit = _scale_proto[0]
     if hit is None or any(a is not b for a, b in zip(hit[0][:3], key[:3])) or hit[0][3:] != key[3:]:
         hit = _scale_proto[0] = (key, scale_lm_params(pyr1, template, scales0, intr0, intr1,
@@ -456,9 +501,7 @@ def _scale_params(pyr1, template, scales0: torch.Tensor, intr0, intr1, t_cam1_ca
             template.pv[lvl].data_ptr()
         L.p2, L.pcolor = template.pid[lvl].data_ptr(), template.pcolor[lvl].data_ptr()
         L.pmask = template.pmask[lvl].data_ptr()
-    p.s_init = scales0.data_ptr()
-    p.out = out.data_ptr()
-    p.G = scales0.shape[0]
+    _guesses(p, scales0, out, n_sequences(pyr1))
     return p
 
 
@@ -483,7 +526,9 @@ def scale_lm_cuda(pyr1, template, scales0, intr0, intr1, t_cam1_cam0,
     fine of ``models/scale_opt.optimize_scale_batch``, the cutoff doubling,
     the 1-DoF LM and the one-shot level repeat, one 8-block cluster per
     guess. ``t_cam1_cam0`` is a host array, as the front end keeps it.
-    ``timers`` (``timer_buffer(G)``) receives the phase counters."""
+    ``timers`` (``timer_buffer(G)``) receives the phase counters. With
+    stacked sequences (levels [S, H, W, 3], lists [S, N]) the guesses are
+    S groups of G / S, group s optimized on sequence s."""
     dev = pyr1[0].device
     s0 = torch.as_tensor(scales0, dtype=torch.float32, device=dev).reshape(-1).contiguous()
     levels = template.levels

@@ -9,9 +9,12 @@ with every lane masked and a seed of NaN. Tolerances are chip_smoke's: K1
 bit-equal; K2/K3/K4 H and b per entry within 1e-4 x max|entry|,
 statistics within rel 1e-5. K1 and K3-LM are also shown to be one kernel
 launch with no host synchronisation. The resident LM kernels' part is
-described below, and last the pipelined front end's dispatch of K2-LM
+described below, then the pipelined front end's dispatch of K2-LM
 (no host synchronisation, a double buffer that two queued dispatches do
-not overwrite).
+not overwrite), a CPU checkpoint resumed on the card, and last K2-LM and
+K3-LM over S stacked sequences in one launch (S = 1, 3, 8: each
+sequence's rows the bits of its own launch; strides 0 the bits of a
+stack of one; the batched step one launch of each).
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
@@ -1147,3 +1150,152 @@ def test_cpu_checkpoint_resumes_on_the_card(tmp_path):
         assert a.device.type == "cpu" and a.dtype == b.dtype
         assert torch.equal(a, b.cpu()) or (a.is_floating_point() and torch.equal(
             torch.nan_to_num(a, nan=7.0), torch.nan_to_num(b.cpu(), nan=7.0)))
+
+
+# ---------------------------------------------------------------------------
+# The sequence axis of K2-LM and K3-LM (parallel/mesh.py's batched step):
+# S rendered sequences, each with its own template (frame 0) and pyramid
+# (frame 1, and frame 0's right image for the scale), stacked [S, ...]. One
+# launch over the stack must give, row for row, the bits of S launches on
+# one sequence each (a sequence's clusters run the same code on the same
+# data, only their pointers moved), and a stride of 0 (the front end's
+# single-sequence call) the bits of a stack of one.
+
+from direct_stereo_slam_tpu_torch.parallel import mesh as pm  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def seq_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    dev = torch.device("cuda")
+    S = 8
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    budgets = dt.default_budgets(LW, LH, LL)
+    rng = np.random.RandomState(9)
+    tmpls, left, right, T_true = [], [], [], []
+    for s in range(S):
+        ds = SyntheticStereoDataset(n_frames=2, width=LW, height=LH, speed=0.2 + 0.04 * s,
+                                    yaw_rate=0.004 * (s % 3), device=dev)
+        f0, f1 = ds.frame(0), ds.frame(1)
+        n = 3000
+        us = rng.uniform(3, LW - 4, n).astype(np.float32)
+        vs = rng.uniform(3, LH - 4, n).astype(np.float32)
+        depth = f0["depth0"][vs.astype(int), us.astype(int)]
+        tmpls.append(dt.build_template(t(us), t(vs), t((1.0 / depth).astype(np.float32)),
+                                       t(np.ones(n, np.float32)), t(f0["img0"]), LL, budgets))
+        left.append(f1["img0"])
+        right.append(f0["img1"])
+        T_true.append(np.linalg.inv(f1["pose_w_c0"]) @ f0["pose_w_c0"])
+    K = ds.K
+    intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], LW, LH, LL)
+    cfg = make_config(LW, LH, preset=0, mode=1)
+    cfg = cfg.replace(tracker=cfg.tracker.__class__(pyr_levels=LL))
+    stack = dt.TrackerTemplate(*[tuple(torch.stack([tm[k][l] for tm in tmpls])
+                                       for l in range(LL)) for k in range(5)])
+    return dict(dev=dev, S=S, cfg=cfg, intr=intr, tmpl=stack, t10=ds.t_cam1_cam0,
+                img0=t(np.stack(left)), img1=t(np.stack(right)),
+                pyr0=tuple(build_pyramid(t(np.stack(left)), LL).data),
+                pyr1=tuple(build_pyramid(t(np.stack(right)), LL).data),
+                T_true=t(np.stack(T_true).astype(np.float32)))
+
+
+def _first(sc, S):
+    """The first S sequences: the stacked pyramid levels and template
+    lists, and sequence s alone (contiguous copies of its slices)."""
+    cut = lambda x: x[:S].contiguous()
+    tmpl = dt.TrackerTemplate(*[tuple(cut(x) for x in leaf) for leaf in sc["tmpl"]])
+    one = lambda s, pyr: (tuple(x[s].contiguous() for x in pyr),
+                          dt.TrackerTemplate(*[tuple(x[s].contiguous() for x in leaf)
+                                               for leaf in tmpl]))
+    return tuple(cut(x) for x in sc["pyr0"]), tuple(cut(x) for x in sc["pyr1"]), tmpl, one
+
+
+def _rows_equal(a, b):
+    return torch.equal(torch.nan_to_num(a, 7.0), torch.nan_to_num(b, 7.0))
+
+
+@pytest.mark.parametrize("S,C", [(1, 1), (3, 1), (3, 5), (8, 1)])
+def test_track_lm_sequence_axis(seq_scene, S, C):
+    """K2-LM over S sequences x C candidates in one launch: each sequence's
+    rows are the bits of a launch on that sequence alone."""
+    sc = seq_scene
+    pyr0, _, tmpl, one = _first(sc, S)
+    xi = torch.as_tensor(0.01 * np.random.RandomState(C).randn(S * C, 6).astype(np.float32),
+                         device=sc["dev"])
+    T = sc["T_true"][:S].repeat_interleave(C, 0) @ lie.se3_exp(xi)
+    zero = tr.AffLight(0.0, 0.0)
+    before = rlm.track_lm_cuda.launches
+    got = rlm.track_lm_cuda(pyr0, tmpl, sc["intr"], sc["cfg"], T, zero, zero, 1.0, 1.0)
+    assert rlm.track_lm_cuda.launches == before + 1
+    for s in range(S):
+        p, tm = one(s, pyr0)
+        ref = rlm.track_lm_cuda(p, tm, sc["intr"], sc["cfg"], T[s * C:(s + 1) * C], zero,
+                                zero, 1.0, 1.0)
+        for x, y in zip(got, ref):
+            assert _rows_equal(x[s * C:(s + 1) * C], y), s
+    assert bool(torch.isfinite(got.res).all())
+
+
+@pytest.mark.parametrize("S,G", [(1, 1), (3, 1), (3, 8), (8, 1)])
+def test_scale_lm_sequence_axis(seq_scene, S, G):
+    """K3-LM over S sequences x G guesses in one launch: each sequence's
+    rows are the bits of a launch on that sequence alone."""
+    sc = seq_scene
+    _, pyr1, tmpl, one = _first(sc, S)
+    guesses = (1.0,) if G == 1 else sc["cfg"].scale_opt.grid_guesses
+    s0 = torch.tensor(guesses * S, dtype=torch.float32, device=sc["dev"])
+    before = rlm.scale_lm_cuda.launches
+    got = rlm.scale_lm_cuda(pyr1, tmpl, s0, sc["intr"], sc["intr"], sc["t10"], sc["cfg"])
+    assert rlm.scale_lm_cuda.launches == before + 1
+    for s in range(S):
+        p, tm = one(s, pyr1)
+        ref = rlm.scale_lm_cuda(p, tm, s0[s * G:(s + 1) * G], sc["intr"], sc["intr"],
+                                sc["t10"], sc["cfg"])
+        assert _rows_equal(got.rows[s * G:(s + 1) * G], ref.rows), s
+
+
+def test_lm_stride_zero_is_a_stack_of_one(seq_scene):
+    """The front end's call (levels [H, W, 3], lists [N]: strides 0) gives
+    the bits of the same sequence as a stack of one."""
+    sc = seq_scene
+    pyr0, pyr1, tmpl, one = _first(sc, 1)
+    p0, tm = one(0, pyr0)
+    p1, _ = one(0, pyr1)
+    zero = tr.AffLight(0.0, 0.0)
+    T = sc["T_true"][:1]
+    a = rlm.track_lm_cuda(p0, tm, sc["intr"], sc["cfg"], T, zero, zero, 1.0, 1.0)
+    b = rlm.track_lm_cuda(pyr0, tmpl, sc["intr"], sc["cfg"], T, zero, zero, 1.0, 1.0)
+    assert all(_rows_equal(x, y) for x, y in zip(a, b))
+    s0 = torch.ones(1, device=sc["dev"])
+    a = rlm.scale_lm_cuda(p1, tm, s0, sc["intr"], sc["intr"], sc["t10"], sc["cfg"])
+    b = rlm.scale_lm_cuda(pyr1, tmpl, s0, sc["intr"], sc["intr"], sc["t10"], sc["cfg"])
+    assert _rows_equal(a.rows, b.rows)
+    p = rlm._track_params(p0, tm, sc["intr"], sc["cfg"])
+    assert all(p.lv[l].img_stride == 0 and p.lv[l].pt_stride == 0 for l in range(LL))
+
+
+def test_batched_step_one_launch_each(seq_scene):
+    """make_batched_step on the card: one K2-LM and one K3-LM launch for the
+    S sequences, and per sequence the single-sequence path's pose,
+    residual, scale and error (track_candidate, optimize_scale_single on
+    that sequence's own pyramid: within the LM agreement rule's 1e-3)."""
+    sc = seq_scene
+    S = sc["S"]
+    step = pm.make_batched_step(sc["intr"], sc["cfg"], LL)
+    T0 = torch.eye(4, device=sc["dev"]).expand(S, 4, 4)
+    k2, k3 = rlm.track_lm_cuda.launches, rlm.scale_lm_cuda.launches
+    out = step(sc["img0"], sc["img1"], sc["tmpl"], T0)
+    assert (rlm.track_lm_cuda.launches - k2, rlm.scale_lm_cuda.launches - k3) == (1, 1)
+    z = torch.zeros((), device=sc["dev"])
+    for s in range(S):
+        tm = dt.TrackerTemplate(*[tuple(x[s] for x in leaf) for leaf in sc["tmpl"]])
+        r = tr.track_candidate(build_pyramid(sc["img0"][s], LL).data, tm, sc["intr"],
+                               sc["cfg"], T0[s], tr.AffLight(z, z), tr.AffLight(z, z),
+                               z + 1, z + 1)
+        o = so.optimize_scale_single(build_pyramid(sc["img1"][s], LL).data, tm, sc["intr"],
+                                     sc["intr"], pm._T10, sc["cfg"], 1.0)
+        assert torch.allclose(out.T[s], r.T, atol=1e-3, rtol=0), s
+        assert torch.allclose(out.res[s], r.res_per_level[0], rtol=1e-3), s
+        assert torch.allclose(out.scale[s], o.scale, rtol=1e-3), s
+        assert torch.allclose(out.scale_err[s], o.error, rtol=1e-3), s

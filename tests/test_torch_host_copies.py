@@ -1,8 +1,9 @@
 """The port keeps its own copies of the JAX package's host modules
 (``config``, ``utils/calib``, ``io/{dataset,sync,rosbag}``, the TCPROS
 wire format of ``io/ros_transport``, ``loop/{scancontext,icp}``,
-``retrieval.search_signatures``, ``viz/export`` and the state of
-``viz/live.LiveViewer``), so that
+``retrieval.search_signatures``, ``viz/export``, the state of
+``viz/live.LiveViewer`` and the numpy trajectories of ``io/synthetic``),
+so that
 it imports nothing of that package. These tests pin each copy to the
 reference on the same seeded inputs, so the two cannot drift: configs
 field by field, every other output exactly equal (numpy on both sides,
@@ -17,6 +18,7 @@ from direct_stereo_slam_tpu import config as cfg_j
 from direct_stereo_slam_tpu.io import dataset as ds_j
 from direct_stereo_slam_tpu.io import ros_transport as ros_j
 from direct_stereo_slam_tpu.io import rosbag as bag_j
+from direct_stereo_slam_tpu.io import synthetic as syn_j
 from direct_stereo_slam_tpu.io import sync as sync_j
 from direct_stereo_slam_tpu.loop import icp as icp_j
 from direct_stereo_slam_tpu.loop import retrieval as ret_j
@@ -28,6 +30,7 @@ from direct_stereo_slam_tpu.viz import live as live_j
 from direct_stereo_slam_tpu_torch.io import dataset as ds_t
 from direct_stereo_slam_tpu_torch.io import ros_transport as ros_t
 from direct_stereo_slam_tpu_torch.io import rosbag as bag_t
+from direct_stereo_slam_tpu_torch.io import synthetic as syn_t
 from direct_stereo_slam_tpu_torch.io import sync as sync_t
 from direct_stereo_slam_tpu_torch.loop import icp as icp_t
 from direct_stereo_slam_tpu_torch.loop import retrieval as ret_t
@@ -181,6 +184,43 @@ def test_stereo_dir_datasets(tmp_path):
             assert sorted(ft) == sorted(fj)
             for k in fj:
                 np.testing.assert_array_equal(np.asarray(ft[k]), np.asarray(fj[k]), err_msg=k)
+
+
+def _pnm(path, kind, rng):
+    """A seeded 8x10 image file: a colour P6, an 8-bit P5 or a 16-bit P5."""
+    if kind == "P6":
+        head, body = b"P6\n10 8\n255\n", rng.randint(0, 256, (8, 10, 3), np.uint8)
+    elif kind == "P5":
+        head, body = b"P5\n# a comment\n10 8\n255\n", rng.randint(0, 256, (8, 10), np.uint8)
+    else:
+        head, body = b"P5\n10 8\n65535\n", rng.randint(0, 65536, (8, 10)).astype(">u2")
+    path.write_bytes(head + body.tobytes())
+    return str(path)
+
+
+@pytest.mark.parametrize("kind,ext", [("P6", ".ppm"), ("P5", ".pgm"), ("P5-16", ".pgm")])
+def test_imread_gray_pnm(tmp_path, kind, ext):
+    """PGM/PPM files are decoded by the native reader (colour channels
+    averaged), as the JAX package decodes them, not by cv2: a colour P6
+    read through cv2 differs by up to ~52 gray levels, a 16-bit P5 too."""
+    path = _pnm(tmp_path / f"img{ext}", kind, np.random.RandomState(0))
+    want = ds_j._imread_gray(path)
+    got = ds_t._imread_gray(path)
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape == (8, 10)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("laps,ease_in", [(1.25, 0), (2.5, 8)])
+def test_stadium_trajectory(laps, ease_in):
+    kw = dict(straight=12.0, radius=5.0, laps=laps, ease_in=ease_in)
+    want = syn_j.stadium_trajectory(90, **kw)
+    got = syn_t.stadium_trajectory(90, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape == (90, 4, 4)
+    np.testing.assert_array_equal(got, want)
+    rng = np.random.RandomState(4)
+    x, z = rng.uniform(-10, 25, 200), rng.uniform(-10, 30, 200)
+    np.testing.assert_array_equal(syn_t.dist_to_stadium_track(x, z, 12.0, 5.0),
+                                  syn_j.dist_to_stadium_track(x, z, 12.0, 5.0))
 
 
 def _cloud(rng, n=600):

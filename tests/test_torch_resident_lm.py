@@ -33,11 +33,13 @@ W, H, L = 64, 48, 2
 
 
 def test_struct_layout_matches_the_kernel():
-    assert ctypes.sizeof(rlm._Level) == 136
+    assert ctypes.sizeof(rlm._Level) == 152
+    assert rlm._Level.img_stride.offset == 136 and rlm._Level.pt_stride.offset == 144
     assert ctypes.sizeof(rlm._Scalar) == 16
-    assert ctypes.sizeof(rlm.LmParams) == 1296
-    assert rlm.LmParams.out.offset == 1096 and rlm.LmParams.timers.offset == 1104
-    assert rlm.LmParams.pre.offset == 1208 and rlm.LmParams.chunk.offset == 1292
+    assert ctypes.sizeof(rlm.LmParams) == 1432
+    assert rlm.LmParams.out.offset == 1224 and rlm.LmParams.timers.offset == 1232
+    assert rlm.LmParams.pre.offset == 1336 and rlm.LmParams.chunk.offset == 1420
+    assert rlm.LmParams.per_seq.offset == 1424
     assert rlm.TIMER_WORDS == rlm.MAX_LEVELS * len(rlm.PHASES) + 2
 
 
@@ -83,13 +85,14 @@ def test_timers_must_fit_the_batch():
 
 
 def test_scale_struct_layout_matches_the_kernel():
-    assert ctypes.sizeof(rlm.ScaleLmParams) == 1168
-    assert rlm.ScaleLmParams.s_init.offset == 1088
-    assert rlm.ScaleLmParams.timers.offset == 1104
-    assert rlm.ScaleLmParams.t01.offset == 1112
-    assert rlm.ScaleLmParams.huber.offset == 1124
-    assert rlm.ScaleLmParams.levels.offset == 1160
-    assert rlm.ScaleLmParams.G.offset == 1164
+    assert ctypes.sizeof(rlm.ScaleLmParams) == 1304
+    assert rlm.ScaleLmParams.s_init.offset == 1216
+    assert rlm.ScaleLmParams.timers.offset == 1232
+    assert rlm.ScaleLmParams.t01.offset == 1240
+    assert rlm.ScaleLmParams.huber.offset == 1252
+    assert rlm.ScaleLmParams.levels.offset == 1288
+    assert rlm.ScaleLmParams.G.offset == 1292
+    assert rlm.ScaleLmParams.per_seq.offset == 1296
     assert rlm.SCALE_OUT == 28 and rlm._SOUT_RUN == 20
 
 
@@ -392,3 +395,50 @@ def test_track_struct_built_once_per_template(monkeypatch):
         proto = rlm._track_proto[0]
     monkeypatch.setattr(rlm, "_track_proto", [None])
     assert bytes(rlm._track_params(pyr, tmpl, intr, cfg)) == bytes(p)
+
+
+def _stacked(S):
+    """The tracker batch's pyramid and template stacked S times: levels
+    [S, H, W, 3], lists [S, N] (parallel/mesh.py's batched step)."""
+    args, _ = _lm_args()
+    pyr, tmpl = args[:2]
+    stack = lambda xs: tuple(torch.stack([x] * S) for x in xs)
+    return stack(pyr), TrackerTemplate(*[stack(leaf) for leaf in tmpl]), args
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_sequence_strides_in_the_structs(monkeypatch, S):
+    """Stacked sequences set each level's strides (the elements between two
+    sequences' images and point lists) and the candidates (guesses) per
+    sequence; one sequence's call leaves the strides at 0."""
+    monkeypatch.setattr(rlm._cuda, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(rlm, "_track_proto", [None])
+    pyr, tmpl, args = _stacked(S)
+    intr, cfg = args[2], args[3]
+    p = rlm._track_params(pyr, tmpl, intr, cfg)
+    rlm._batch(p, torch.zeros(2 * S, 4, 4), torch.empty(2 * S, rlm.OUT), rlm.n_sequences(pyr))
+    assert (p.B, p.per_seq) == (2 * S, 2)
+    for lvl in range(L):
+        h, w, n = H >> lvl, W >> lvl, 128 >> lvl
+        assert (p.lv[lvl].H, p.lv[lvl].W, p.lv[lvl].N) == (h, w, n)
+        assert (p.lv[lvl].img_stride, p.lv[lvl].pt_stride) == (h * w * 3, n)
+    one = rlm._track_params(args[0], args[1], intr, cfg)
+    assert all((one.lv[l].img_stride, one.lv[l].pt_stride) == (0, 0) for l in range(L))
+    out = torch.empty(3 * S, rlm.SCALE_OUT)
+    q = rlm.scale_lm_params(pyr, tmpl, torch.ones(3 * S), intr, intr, np.eye(4), cfg, out)
+    assert (q.G, q.per_seq, q.lv[1].pt_stride) == (3 * S, 3, 64)
+    with pytest.raises(ValueError, match="over"):
+        rlm._batch(p, torch.zeros(2 * S + 1, 4, 4), torch.empty(1, rlm.OUT), S + 1)
+
+
+def test_sequence_shapes_must_agree(monkeypatch):
+    """Stacked levels need stacked lists of the same S, and one
+    sequence's levels need lists of one."""
+    monkeypatch.setattr(rlm._cuda, "require_cuda", lambda *a: None)
+    pyr, tmpl, args = _stacked(3)
+    _, tmpl2, _ = _stacked(2)
+    for p, t in ((pyr, tmpl2), (pyr, args[1]), (args[0], tmpl)):
+        with pytest.raises(ValueError, match="lists"):
+            rlm._check_sequences("track_lm", p, t)
+    assert rlm._check_sequences("track_lm", pyr, tmpl) == 3
+    assert rlm._check_sequences("track_lm", args[0], args[1]) == 1
