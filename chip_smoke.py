@@ -93,10 +93,15 @@ Phases, each of which must pass (any fault exits non-zero):
    ``run_slam`` runs them) over 160 frames (2 laps at 4.5 deg/frame) of
    the loop room at 1232x368, images quantised to uint8, loop_margin 40:
    at least one verified loop, the loop-closed (dslam) ATE below the
-   odometry (sodso) ATE, K1, K2-LM, K3-LM and K4-LM each launched during
-   the run and the per-pass K2, K3 and K4 never; ``direct_est`` per try,
-   ``scale_opt`` per keyframe. A failure in the loop thread fails the
-   run (the handler re-raises it when it is drained);
+   odometry (sodso) ATE, K1, K2-LM, K3-LM, K4-LM and the pose graph's K6
+   and K7 each launched during the run and the per-pass K2, K3 and K4
+   never; ``direct_est`` per try, ``scale_opt`` per keyframe. A failure
+   in the loop thread fails the run (the handler re-raises it when it is
+   drained). Then the final pose graph alone, optimized by the plain
+   version and by the kernels in turns (plain, kernels, kernels, plain:
+   the two kernel runs bit-equal), and a few of the run's own graphs
+   replayed through both (ms per ``pose_graph_opt`` call, before and
+   after);
 10. on the e2e frames cut to uint8 (with phase 8): *native*, the 40 pairs
    as PGM files read by the native prefetching loader
    (``NativeStereoLoader``) and by the synchronous reader
@@ -114,7 +119,21 @@ Phases, each of which must pass (any fault exits non-zero):
    through in 40 passes (a timed window of seconds): exactly one K2-LM
    and one K3-LM launch per step and no other kernel, a finite pose for
    every sequence; aggregate and per-sequence FPS, the median and range of
-   the passes' FPS, median translation and rotation errors.
+   the passes' FPS, median translation and rotation errors;
+12. the pose graph (K6-K8, csrc/pose_graph.cu): ring graphs at buckets
+   16, 128, 256 (K6 -> K7 -> solve_ex) and 1024 (K6 -> K8), each
+   ``optimize`` within 1e-4 of ``optimize_plain`` (1024, both CG: 2e-3 x
+   the translation scale), two runs bit-equal, launches per optimize, ms
+   of both; then each kernel against its plain version at the loop
+   phase's final graph (K6, K7; K6's blocks within 1e-4 x max|entry|, or,
+   where f32 cancels next to a Lie branch point, no further from the
+   float64 blocks than 2x the plain version; K7's H within 1e-4 x
+   max|entry| and its b within 1e-4 x the largest sum of its terms'
+   magnitudes of the index_add_ form, and bit-equal to its fixed-order
+   plain form) and at bucket 1024 (K8, within 1e-3 of
+   ``_solve_cg``), timed, with ``solve_ex`` as K7's library time, and the
+   device kernels per optimize of both paths (torch.profiler, one
+   session).
 
 K3-LM's calls on the e2e and loop paths are counted by the number of
 guesses and by whether a level doubled its cutoff (read after each run).
@@ -136,8 +155,8 @@ held to the same bits, and timed).
 The line before the last is the kernel table as JSON (each row's
 launches in the e2e or loop phase, in the last pipelined pass and per
 frame of it, in the mono phase and in the bag, live, resume and observe
-phases, in the native and eval phases, and per step of the batch
-phase); the last line is
+phases, in the native and eval phases, per step of the batch phase, and
+per frame of the loop phase); the last line is
 {"ok": true, "device": {...}}. The script imports nothing of JAX nor of
 the JAX package, and checks so before its last line.
 """
@@ -1781,7 +1800,9 @@ def observe_phase(torch, dev, seq, tmp: str):
 # (the tracker, the scale optimizer and the loop estimator run K2-LM,
 # K3-LM and K4-LM on the card)
 E2E_KERNELS = ("distance_map", "track_lm", "scale_lm")
-LOOP_KERNELS = E2E_KERNELS + ("loop_pose_lm",)
+# the loop thread's pose graph stays at or below 512 nodes here: K6 and
+# K7 (K8 above 512, in the pose-graph phase)
+LOOP_KERNELS = E2E_KERNELS + ("loop_pose_lm", "pose_graph_edges", "pose_graph_assemble")
 # DSO mode makes no stereo scale optimization
 MONO_KERNELS = ("distance_map", "track_lm")
 OFF_PATH = ("pose_residual_pass", "scale_residual_pass", "pose3d_residual_pass")
@@ -1825,8 +1846,33 @@ class ScaleTraffic:
         return by_g
 
 
+class GraphTraffic:
+    """The loop handler's pose graphs: ``loop/pose_graph.optimize`` is
+    wrapped for the run and each call's data kept (the handler builds a new
+    one per call), to be replayed after it."""
+
+    def __init__(self):
+        from direct_stereo_slam_tpu_torch.loop import pose_graph as pg
+
+        self.pg, self.calls = pg, []
+
+    def __enter__(self):
+        self.wrapped = self.pg.optimize
+
+        def kept(data, *a, **kw):
+            self.calls.append(data)
+            return self.wrapped(data, *a, **kw)
+
+        self.pg.optimize = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.pg.optimize = self.wrapped
+
+
 def kernel_counters():
     from direct_stereo_slam_tpu_torch.ops import distance_map as dm
+    from direct_stereo_slam_tpu_torch.ops import pose_graph as pgk
     from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
     from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
 
@@ -1836,7 +1882,10 @@ def kernel_counters():
             "pose3d_residual_pass": rh.pose3d_residual_pass_cuda,
             "track_lm": rlm.track_lm_cuda,
             "scale_lm": rlm.scale_lm_cuda,
-            "loop_pose_lm": rlm.loop_pose_lm_cuda}
+            "loop_pose_lm": rlm.loop_pose_lm_cuda,
+            "pose_graph_edges": pgk.pose_graph_edges_cuda,
+            "pose_graph_assemble": pgk.pose_graph_assemble_cuda,
+            "pose_graph_pcg": pgk.pose_graph_pcg_cuda}
 
 
 def gate_launches(tag, launches, needed):
@@ -1867,7 +1916,8 @@ class QuantisedFrames:
 def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
                pipelined: bool = False):
     """The port's SLAMNode + threaded LoopHandler over the loop room.
-    Returns the launch count of each kernel during the run."""
+    Returns the launch count of each kernel during the run, K3-LM's calls
+    and the final pose graph (``handler.graph_data()``)."""
     import dataclasses
 
     from direct_stereo_slam_tpu_torch.config import make_config
@@ -1891,7 +1941,7 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
-    with ScaleTraffic() as traffic:
+    with ScaleTraffic() as traffic, GraphTraffic() as graphs:
         node, handler, dt = run_sequence(frames, cfg, ds.K, ds.t_cam1_cam0, levels=LEVELS,
                                          device=dev)
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1929,26 +1979,17 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
               f"{launches['loop_pose_lm'] / max(n, 1):.2f}; track "
               f"{table['track'][0]:.3f} ms per frame x {table['track'][1]}; scale_opt "
               f"{scale_ms:.3f} ms per keyframe x {scale_n}", flush=True)
-    # the final pose graph optimized once more with nothing else running:
-    # what pose_graph_opt costs without the tracking thread beside it
-    from direct_stereo_slam_tpu_torch.loop import pose_graph
-
-    data, _ = handler.graph_data()
-    pose_graph.optimize(data, cfg.loop.pgo_iterations)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pose_graph.optimize(data, cfg.loop.pgo_iterations)
-    torch.cuda.synchronize()
-    print(f"{tag}: the final pose graph ({len(handler.frames)} nodes, bucket "
-          f"{data.T_wc.shape[0]}) alone: {1000 * (time.perf_counter() - t0):.2f} ms per "
-          f"optimize", flush=True)
+    # the final pose graph alone, with nothing else running, and a few of
+    # the run's own graphs: pose_graph_opt before (plain) and after (kernels)
+    final, _ = handler.graph_data()
+    pose_graph_report(torch, tag, final, graphs.calls, cfg.loop.pgo_iterations)
     if n_frames == 320:
         print(f"{tag} vs EVAL_r05 (JAX package, TPU v5e, PNG ingestion): loops "
               f"{loops} vs {R05['loops']}, direct tries {handler.stats['direct_try']} "
               f"vs {R05['tries']}, ATE sodso {ate_o:.3f} vs {R05['ate_sodso']} m, "
               f"dslam {ate_d:.3f} vs {R05['ate_dslam']} m", flush=True)
     if not gate:
-        return launches, scale_calls
+        return launches, scale_calls, final
     if ate_o is None or ate_d is None or not (np.isfinite(ate_o) and np.isfinite(ate_d)):
         fail(f"{tag}: no finite ATE ({ate_o}, {ate_d})")
     if loops < 1:
@@ -1956,7 +1997,7 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
     if not ate_d < ate_o:
         fail(f"{tag}: dslam ATE {ate_d:.4f} m is not below sodso ATE {ate_o:.4f} m")
     gate_launches(tag, launches, LOOP_KERNELS)
-    return launches, scale_calls
+    return launches, scale_calls, final
 
 
 def long_phase(torch, dev) -> None:
@@ -2439,6 +2480,252 @@ def lm_digest(torch, dev) -> None:
                   f"{device_ms(torch, call, samples=15)} ms", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the loop closure's pose graph: K6 (edges), K7 (dense assembly), K8 (PCG)
+# ---------------------------------------------------------------------------
+
+PG_ITERS = 25                     # cfg.loop.pgo_iterations
+# ring graphs per bucket (io/synthetic_graphs.py): (nodes, loop
+# edge spacing); 1024 takes K8
+PG_RINGS = {16: (12, 0), 128: (100, 10), 256: (200, 12), 1024: (700, 25)}
+PG_REPLAYS = 3                    # the loop run's graphs replayed, spread over it
+# f32 operations the edge system needs per edge (not the dual-number
+# design's 12 evaluations): two SE(3) inverse-products (~160), se3_log
+# (~100), the closed-form 6x12 Jacobian, J_r^-1 and the adjoint product
+# (~700), the Huber weight (~20), J^T W J (~1,700) and J^T W r (~150)
+PG_EDGE_OPS = 3_000
+PG_NODE_OPS = 300                 # T exp(x) per node
+
+
+def call_ms(torch, fn, calls: int):
+    """ms of each of ``calls`` calls of fn(), each alone (synchronized
+    before and after: the call's whole cost, host issue included)."""
+    out = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def pg_launches(fn):
+    """(result of fn(), the K6 / K7 / K8 launches it made)."""
+    counters = kernel_counters()
+    names = ("pose_graph_edges", "pose_graph_assemble", "pose_graph_pcg")
+    before = [counters[k].launches for k in names]
+    out = fn()
+    return out, {k: counters[k].launches - b for k, b in zip(names, before)}
+
+
+def pose_graph_report(torch, tag, final, calls, iterations):
+    """The loop run's final pose graph alone, plain and kernels in turns
+    (plain, kernels, kernels, plain; the two kernel runs bit-equal), and
+    PG_REPLAYS of the graphs the run optimized, replayed through both:
+    ms per call before (plain) and after (kernels)."""
+    from direct_stereo_slam_tpu_torch.loop import pose_graph as pg
+
+    plain = lambda d: pg.optimize_plain(d, iterations)
+    kern = lambda d: pg.optimize(d, iterations)
+    kern(final)
+    out, ms = {}, {"plain": [], "kernels": []}
+    for name, fn in (("plain", plain), ("kernels", kern), ("kernels", kern), ("plain", plain)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.setdefault(name, []).append(fn(final))
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0))
+    if not torch.equal(out["kernels"][0], out["kernels"][1]):
+        fail(f"{tag}: two runs of optimize on the final graph differ")
+    err = float(torch.max(torch.abs(out["kernels"][0] - out["plain"][0])))
+    if err > 1e-4:
+        fail(f"{tag}: the kernels' final graph differs from the plain path by {err:.3g}")
+    _, made = pg_launches(lambda: kern(final))
+    n = int(final.node_valid.sum())
+    print(f"{tag}: the final pose graph ({n} nodes, bucket {final.T_wc.shape[0]}, "
+          f"{int(final.edge_valid.sum())} edges in {final.edge_a.shape[0]}) alone, ms per "
+          f"optimize in turns plain / kernels / kernels / plain: {ms['plain'][0]:.3f} / "
+          f"{ms['kernels'][0]:.3f} / {ms['kernels'][1]:.3f} / {ms['plain'][1]:.3f}; "
+          f"two kernel runs bit-equal; max |kernels - plain| {err:.3g}; kernel launches "
+          f"per optimize {made}", flush=True)
+    if not calls:
+        return
+    pick = sorted({int(i) for i in np.linspace(0, len(calls) - 1, PG_REPLAYS)})
+    before = [call_ms(torch, lambda: plain(calls[i]), 1)[0] for i in pick]
+    after = [min(call_ms(torch, lambda: kern(calls[i]), 2)) for i in pick]
+    sizes = [f"{int(calls[i].node_valid.sum())}/{calls[i].T_wc.shape[0]}" for i in pick]
+    print(f"{tag}: {len(calls)} pose_graph_opt calls in the run; replayed calls {pick} "
+          f"(nodes/bucket {sizes}): plain {' '.join(f'{x:.3f}' for x in before)} ms, kernels "
+          f"{' '.join(f'{x:.3f}' for x in after)} ms (mean {np.mean(before):.3f} -> "
+          f"{np.mean(after):.3f})", flush=True)
+
+
+def device_kernels_per_optimize(torch, final):
+    """Device kernels (and memory copies / sets) of one optimize_plain and
+    one optimize on ``final``, from one torch.profiler session (the plain
+    run, a synchronize, then the kernels' run: split at the first K6 launch
+    on the card). None if the profiler recorded no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from direct_stereo_slam_tpu_torch.loop import pose_graph as pg
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pg.optimize_plain(final, PG_ITERS)
+        torch.cuda.synchronize()
+        pg.optimize(final, PG_ITERS)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    k6 = [e.time_range.start for e in evs if "edges_kernel" in e.name]
+    if not evs or not k6:
+        return None
+    split = min(k6)
+    mem = lambda e: e.name.startswith(("Memcpy", "Memset"))
+    count = lambda part: (sum(1 for e in part if not mem(e)), sum(1 for e in part if mem(e)))
+    return (count([e for e in evs if e.time_range.start < split]),
+            count([e for e in evs if e.time_range.start >= split]))
+
+
+def pose_graph_phase(torch, dev, final):
+    """Ring graphs at PG_RINGS' buckets through optimize and optimize_plain
+    (within 1e-4, CG at 1024 within 2e-3 x scale; two kernel runs
+    bit-equal; launches per optimize; ms of both), then K6 and K7 at the
+    loop phase's final graph and K8 at bucket 1024 against their plain
+    versions, timed. Returns the kernel rows."""
+    from direct_stereo_slam_tpu_torch.geometry import lie
+    from direct_stereo_slam_tpu_torch.io.synthetic_graphs import ring_graph
+    from direct_stereo_slam_tpu_torch.loop import pose_graph as pg
+    from direct_stereo_slam_tpu_torch.ops import pose_graph as pgk
+
+    graphs = {}
+    for bucket, (n, every) in PG_RINGS.items():
+        data = pg.build_data(*ring_graph(n, seed=bucket, loop_every=every), device=dev)
+        graphs[bucket] = data
+        T1, made = pg_launches(lambda: pg.optimize(data, PG_ITERS))
+        T2 = pg.optimize(data, PG_ITERS)
+        if not torch.equal(T1, T2):
+            fail(f"pose graph bucket {bucket}: two runs of optimize differ")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T0 = pg.optimize_plain(data, PG_ITERS)
+        torch.cuda.synchronize()
+        pms = 1e3 * (time.perf_counter() - t0)
+        err = float(torch.max(torch.abs(T1 - T0)))
+        tol = 1e-4 if bucket <= 512 else 2e-3 * float(torch.max(torch.abs(T0[:, :3, 3])))
+        if not err < tol:
+            fail(f"pose graph bucket {bucket}: optimize differs from the plain path by "
+                 f"{err:.3g} (tolerance {tol:.3g})")
+        kms = call_ms(torch, lambda: pg.optimize(data, PG_ITERS), 5)
+        print(f"pose graph bucket {bucket} ({n} nodes, {int(data.edge_valid.sum())} edges in "
+              f"{data.edge_a.shape[0]}, {'dense' if bucket <= 512 else 'CG'}): optimize "
+              f"{statistics.median(kms):.3f} ms (kernels, median of 5) vs {pms:.3f} ms "
+              f"(plain, the call checked against); max |kernels - plain| "
+              f"{err:.3g} (tolerance {tol:.3g}); two runs bit-equal; kernel launches per "
+              f"optimize {made}", flush=True)
+
+    rows = []
+    N, E = final.T_wc.shape[0], final.edge_a.shape[0]
+    Ev = int(final.edge_valid.sum())
+    tag = f"final loop graph N={N},E={E}"
+    T = final.T_wc
+    _, H, g = pgk.pose_graph_edges_cuda(T, None, final, 1.0)
+    Hd, rhs = pgk.pose_graph_assemble_cuda(final, H, g, pg.LAM)
+    x = torch.linalg.solve_ex(Hd, rhs)[0]
+
+    # ---- K6 at the update's poses
+    k6 = lambda: pgk.pose_graph_edges_cuda(T, x, final, 1.0)
+    k6_plain = lambda: pg._edge_system(final, T @ lie.se3_exp(x.reshape(-1, 6)), 1.0)
+    _, Hk, gk = k6()
+    Hp, gp = k6_plain()
+    rel = max(rel_err(torch, Hk, Hp), rel_err(torch, gk, gp))
+    f64 = final._replace(**{k: getattr(final, k).double()
+                            for k in ("T_wc", "edge_Z", "edge_w_t", "edge_w_r")})
+    H6, g6 = pg._edge_system(f64, T.double() @ lie.se3_exp(x.reshape(-1, 6).double()), 1.0)
+    k64 = max(rel_err(torch, Hk.double(), H6), rel_err(torch, gk.double(), g6))
+    p64 = max(rel_err(torch, Hp.double(), H6), rel_err(torch, gp.double(), g6))
+    if not (rel < 1e-4 or k64 <= 2 * p64):
+        fail(f"K6 at the {tag}: H / b rel {rel:.3g} from the plain version, {k64:.3g} from "
+             f"float64 (the plain version {p64:.3g})")
+    ms, pms = ab_ms(torch, k6, k6_plain, plain_kw=dict(repeats=5, inner=2))
+    dms = device_ms(torch, k6)
+    print(f"K6 pose_graph_edges {tag}: H / b rel {rel:.2e} from the plain version "
+          f"(float64: kernel {k64:.2e}, plain {p64:.2e}); kernel {ms:.4f} ms (on the card "
+          f"{dms} ms), plain (se3_exp update + jvp) {pms:.4f} ms", flush=True)
+    rows.append(row(f"pose_graph_edges[N={N},E={E}]", "pose_graph.cu",
+                    "direct_stereo_slam_tpu/loop/pose_graph.py:68",
+                    max(float(torch.max(torch.abs(Hk - Hp))), float(torch.max(torch.abs(gk - gp)))),
+                    ms, pms, E * (64 + 16 + 8 + 1 + 576 + 48) + N * (64 + 24 + 64),
+                    E * PG_EDGE_OPS + N * PG_NODE_OPS))
+    rows[-1]["device_ms"] = dms
+
+    # ---- K7, and solve_ex (the library call after it)
+    k7 = lambda: pgk.pose_graph_assemble_cuda(final, H, g, pg.LAM)
+    k7_plain = lambda: pg._assemble_dense(final, H, g, pg.LAM)
+    Hk7, rk7 = k7()
+    Hp7, rp7 = k7_plain()
+    Hf7, rf7 = pg._assemble_dense_fixed(final, H, g, pg.LAM)
+    # b near convergence is the difference of large opposite terms: its
+    # order of sums is held against the sum of the terms' magnitudes
+    b_scale = float(pg._scatter_b(final, g.abs(), N).max())
+    e7 = max(rel_err(torch, Hk7, Hp7), float(torch.max(torch.abs(rk7 - rp7))) / b_scale)
+    if not e7 < 1e-4 or not (torch.equal(Hk7, Hf7) and torch.equal(rk7, rf7)):
+        fail(f"K7 at the {tag}: rel {e7:.3g} from the plain version, bit-equal to the "
+             f"fixed-order form: {torch.equal(Hk7, Hf7) and torch.equal(rk7, rf7)}")
+    ms, pms = ab_ms(torch, k7, k7_plain)
+    dms = device_ms(torch, k7)
+    lib = median_ms(torch, lambda: torch.linalg.solve_ex(Hd, rhs))
+    print(f"K7 pose_graph_assemble {tag}: rel {e7:.2e} from index_add_, bit-equal to the "
+          f"fixed-order plain form; kernel {ms:.4f} ms (on the card {dms} ms), plain "
+          f"{pms:.4f} ms; torch.linalg.solve_ex on its output {lib:.4f} ms", flush=True)
+    rows.append(row(f"pose_graph_assemble[N={N},E={E}]", "pose_graph.cu",
+                    "direct_stereo_slam_tpu/loop/pose_graph.py:96",
+                    max(float(torch.max(torch.abs(Hk7 - Hp7))),
+                        float(torch.max(torch.abs(rk7 - rp7)))),
+                    ms, pms, E * (576 + 48 + 17) + N * 9 + 36 * N * N * 4 + 24 * N,
+                    Ev * 156))
+    rows[-1].update(device_ms=dms, library_ms=lib,
+                    library="torch.linalg.solve_ex on K7's output (the solve that follows it)")
+
+    # ---- K8 at bucket 1024
+    d = graphs[1024]
+    N8, E8 = d.T_wc.shape[0], d.edge_a.shape[0]
+    Ev8 = int(d.edge_valid.sum())
+    _, H8, g8 = pgk.pose_graph_edges_cuda(d.T_wc, None, d, 1.0)
+    inc = pgk.incidence(d)
+    steps = torch.zeros(1, dtype=torch.int32, device=dev)
+    k8 = lambda: pgk.pose_graph_pcg_cuda(d, H8, g8, inc, pg.LAM + 1e-6, 100, steps)
+    k8_plain = lambda: pg._solve_cg(d, H8, g8, pg.LAM, 100)
+    x8, x8p = k8(), k8_plain()
+    e8 = rel_err(torch, x8, x8p)
+    if not e8 < 1e-3:
+        fail(f"K8 at bucket 1024: x rel {e8:.3g} from _solve_cg")
+    n_steps = int(steps)
+    ms, pms = ab_ms(torch, k8, k8_plain, plain_kw=dict(repeats=3, inner=1))
+    dms = device_ms(torch, k8)
+    print(f"K8 pose_graph_pcg N={N8},E={E8} ({Ev8} valid edges): x rel {e8:.2e} from "
+          f"_solve_cg; {n_steps} CG steps; kernel {ms:.4f} ms (on the card {dms} ms), "
+          f"plain {pms:.4f} ms", flush=True)
+    rows.append(row(f"pose_graph_pcg[N={N8},E={E8}]", "pose_graph.cu",
+                    "direct_stereo_slam_tpu/loop/pose_graph.py:122",
+                    float(torch.max(torch.abs(x8 - x8p))), ms, pms,
+                    E8 * (576 + 48 + 17 + 8) + N8 * (1 + 24 + 4) + 8,
+                    n_steps * (312 * Ev8 + 156 * N8) + 156 * Ev8 + 800 * N8))
+    rows[-1].update(device_ms=dms, cg_steps=n_steps)
+
+    counts = device_kernels_per_optimize(torch, final)
+    if counts is None:
+        print(f"pose graph: device kernels per optimize at the {tag}: not measured (the "
+              f"profiler recorded no device event)", flush=True)
+    else:
+        (pk, pm), (kk, km) = counts
+        print(f"pose graph: device kernels per optimize at the {tag} (torch.profiler): plain "
+              f"{pk} kernels + {pm} copies/sets, kernels {kk} kernels + {km} copies/sets",
+              flush=True)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -2522,15 +2809,19 @@ def main() -> int:
     elapsed("bag, live, resume, observe, native, eval")
     batch_per_step = batch_phase(torch, dev)
     elapsed("batch")
-    loop_launches, loop_scale_calls = loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN)
+    loop_launches, loop_scale_calls, final_graph = loop_phase(torch, dev, LOOP_FRAMES,
+                                                              LOOP_MARGIN)
     elapsed("loop")
+    rows += pose_graph_phase(torch, dev, final_graph)
+    elapsed("pose graph")
     if args.long:
         mono_sweep(torch, dev)
         loop_phase(torch, dev, LOOP_FRAMES, LOOP_MARGIN, gate=False, pipelined=True)
         loop_phase(torch, dev, 320, 100, gate=False)
         long_phase(torch, dev)
-    launches.update(loop_pose_lm=loop_launches["loop_pose_lm"],
-                    pose3d_residual_pass=loop_launches["pose3d_residual_pass"])
+    launches.update({k: loop_launches[k] for k in (
+        "loop_pose_lm", "pose3d_residual_pass", "pose_graph_edges", "pose_graph_assemble",
+        "pose_graph_pcg")})
     for r in rows:
         name = r["name"].split("[")[0]
         r["launches"] = launches[name]
@@ -2540,6 +2831,7 @@ def main() -> int:
         for phase, counts in io_launches.items():
             r[f"{phase}_launches"] = counts[name]
         r["batch_launches_per_step"] = batch_per_step[name]
+        r["loop_launches_per_frame"] = loop_launches[name] / LOOP_FRAMES
         if name == "scale_lm":
             r["path_calls"] = dict(e2e=e2e_scale_calls, loop=loop_scale_calls)
     leaked = sorted(m for m in sys.modules

@@ -10,7 +10,8 @@ and records both trajectories (sodso / dslam).
 
 Synchronous with ``threaded=False``; otherwise a background thread serves
 a queue, like the reference's ``run()`` loop. On a card, that thread
-launches K4 and the pose-graph solve on its current stream, which is the
+launches K4-LM and the pose graph's kernels (K6 and K7 or K8, and the
+dense solve) on its current stream, which is the
 default stream, the one the tracking thread uses too: the two threads'
 device work is ordered on one stream, which is correct, though it does
 not overlap. Each queued keyframe pins its pyramid (about 7 MB at

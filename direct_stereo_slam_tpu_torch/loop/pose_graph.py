@@ -5,20 +5,25 @@ odometry and loop constraints with a Huber kernel and block-diagonal
 information (translation weight on r[0:3], rotation weight on r[3:6]),
 the newest vertex fixed, Gauss-Newton with a light constant damping.
 
-Per-edge residuals r = log(Z^-1 T_a^-1 T_b) and their Jacobians with
-respect to right-multiplied tangents come from forward-mode autodiff
-through the port's Lie ops at xi = 0 (``torch.func.jvp``, as the
-reference uses ``jax.jacfwd``); the series branches of ``lie`` keep them
-finite there. Two solvers, on bucketed problem sizes:
+On the card ``optimize`` runs the hand-written kernels
+(``ops/pose_graph.py``, ``csrc/pose_graph.cu``): per Gauss-Newton
+iteration K6 (the edges' blocks, after the previous update) then K7 (the
+dense system, every entry summed in ascending edge index) and
+``torch.linalg.solve_ex``, or K6 then K8 (a whole block-Jacobi PCG solve
+in one launch). No host read and no atomics: the same data gives the same
+bits. For CPU tensors it runs the plain versions below
+(``optimize_plain``):
 
+- per-edge residuals r = log(Z^-1 T_a^-1 T_b) and their Jacobians with
+  respect to right-multiplied tangents from forward-mode autodiff through
+  the port's Lie ops at xi = 0 (``torch.func.jvp``, as the reference uses
+  ``jax.jacfwd``); the series branches of ``lie`` keep them finite there;
 - "dense": the [6N, 6N] system assembled with ``index_add_`` and solved
-  with ``torch.linalg.solve`` (the reference calls ``jnp.linalg.solve``).
+  with ``torch.linalg.solve`` (the reference calls ``jnp.linalg.solve``);
 - "cg": matrix-free block-Jacobi preconditioned conjugate gradients; a
-  system that has converged keeps its iterate (a masked update, no host
-  read per iteration).
+  system that has converged keeps its iterate (a masked update).
 
-"auto" is dense up to 512 nodes and CG above. On the card ``index_add_``
-adds with atomics, so results differ from run to run in the last bits.
+"auto" is dense up to 512 nodes and CG above.
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ import numpy as np
 import torch
 
 from ..geometry import lie
+from ..ops import pose_graph as pgk
+
+LAM = 1e-4      # the reference's constant damping
 
 
 class PoseGraphData(NamedTuple):
@@ -97,8 +105,10 @@ def _scatter_b(data, bblk, N):
     return b
 
 
-def _solve_dense(data, Hblk, bblk, lam):
-    """Materialized [6N, 6N] solve."""
+def _assemble_dense(data, Hblk, bblk, lam):
+    """The damped [6N, 6N] system and its right-hand side -b (the plain
+    version of K7): fixed and invalid nodes eliminated (unit diagonal),
+    ``lam`` on the free diagonal, then + 1e-6 I."""
     N = data.T_wc.shape[0]
     dev = Hblk.device
     ar = torch.arange(6, device=dev)
@@ -111,18 +121,47 @@ def _solve_dense(data, Hblk, bblk, lam):
         c = 6 * cols[:, None, None] + ar[None, None, :]          # [E, 1, 6]
         H.index_add_(0, (r * (6 * N) + c).reshape(-1),
                      Hblk[:, lo_r:lo_r + 6, lo_c:lo_c + 6].reshape(-1))
-    Hd = H.reshape(6 * N, 6 * N)
-    bd = _scatter_b(data, bblk, N).reshape(6 * N)
+    return _mask_and_damp(data, H.reshape(6 * N, 6 * N),
+                          _scatter_b(data, bblk, N).reshape(6 * N), lam)
 
+
+def _mask_and_damp(data, Hd, bd, lam):
     # fix the newest vertex and invalid nodes: eliminate their variables
     free = torch.repeat_interleave(_free_mask(data), 6)
     Hd = torch.where(free[:, None] & free[None, :], Hd, torch.zeros_like(Hd))
     # light LM damping on free vars; unit diagonal keeps fixed vars solvable
     Hd = Hd + torch.diag(torch.where(free, torch.full_like(bd, lam),
                                      torch.ones_like(bd)))
-    Hd = Hd + 1e-6 * torch.eye(6 * N, dtype=Hd.dtype, device=dev)
+    Hd = Hd + 1e-6 * torch.eye(Hd.shape[0], dtype=Hd.dtype, device=Hd.device)
     bd = torch.where(free, bd, torch.zeros_like(bd))
-    return torch.linalg.solve(Hd, -bd).reshape(N, 6)
+    return Hd, -bd
+
+
+def _assemble_dense_fixed(data, Hblk, bblk, lam):
+    """``_assemble_dense`` with K7's order of sums, in plain PyTorch (for
+    tests): every entry adds its valid edges' sub-blocks in ascending edge
+    index (an edge's aa, ab, ba, bb in that order); an invalid edge's blocks
+    are zero and are skipped."""
+    N = data.T_wc.shape[0]
+    H = torch.zeros(N, 6, N, 6, dtype=Hblk.dtype, device=Hblk.device)
+    b = torch.zeros(N, 6, dtype=bblk.dtype, device=bblk.device)
+    for e, (a, c, ok) in enumerate(zip(data.edge_a.tolist(), data.edge_b.tolist(),
+                                       data.edge_valid.tolist())):
+        if not ok:
+            continue
+        H[a, :, a, :] += Hblk[e, :6, :6]
+        H[a, :, c, :] += Hblk[e, :6, 6:]
+        H[c, :, a, :] += Hblk[e, 6:, :6]
+        H[c, :, c, :] += Hblk[e, 6:, 6:]
+        b[a] += bblk[e, :6]
+        b[c] += bblk[e, 6:]
+    return _mask_and_damp(data, H.reshape(6 * N, 6 * N), b.reshape(6 * N), lam)
+
+
+def _solve_dense(data, Hblk, bblk, lam):
+    """Materialized [6N, 6N] solve."""
+    Hd, rhs = _assemble_dense(data, Hblk, bblk, lam)
+    return torch.linalg.solve(Hd, rhs).reshape(-1, 6)
 
 
 def _edge_Hx(ea, eb, Hblk, x):
@@ -188,21 +227,49 @@ def _solve_cg(data, Hblk, bblk, lam, cg_iters):
                 lam + 1e-6, cg_iters)
 
 
+def edge_system(data: PoseGraphData, T, huber_delta):
+    """(Hblk [E, 12, 12], bblk [E, 12]) at T: K6 on the card, the plain
+    ``_edge_system`` for CPU tensors."""
+    if T.is_cuda:
+        return pgk.pose_graph_edges_cuda(T, None, data, huber_delta)[1:]
+    return _edge_system(data, T, huber_delta)
+
+
 def optimize(data: PoseGraphData, iterations: int = 25, huber_delta: float = 1.0,
              solver: str = "auto", cg_iters: int = 100) -> torch.Tensor:
     """Returns optimized [N, 4, 4] poses. solver: "dense", "cg", or "auto"
-    (dense up to 512 nodes, CG beyond)."""
+    (dense up to 512 nodes, CG beyond). On the card: the kernels K6-K8
+    (no host read); for CPU tensors ``optimize_plain``."""
     N = data.T_wc.shape[0]
     if solver == "auto":
         solver = "dense" if N <= 512 else "cg"
-    lam = 1e-4
+    if not data.T_wc.is_cuda:
+        return optimize_plain(data, iterations, huber_delta, solver, cg_iters)
+    T, x = data.T_wc, None
+    inc = pgk.incidence(data) if solver == "cg" else None
+    for _ in range(iterations):
+        # K6 applies the previous iteration's update, then linearizes
+        T, Hblk, bblk = pgk.pose_graph_edges_cuda(T, x, data, huber_delta)
+        if solver == "cg":
+            x = pgk.pose_graph_pcg_cuda(data, Hblk, bblk, inc, LAM + 1e-6, cg_iters)
+        else:
+            x = torch.linalg.solve_ex(*pgk.pose_graph_assemble_cuda(data, Hblk, bblk, LAM))[0]
+    return pgk.pose_graph_edges_cuda(T, x)
+
+
+def optimize_plain(data: PoseGraphData, iterations: int = 25, huber_delta: float = 1.0,
+                   solver: str = "auto", cg_iters: int = 100) -> torch.Tensor:
+    """``optimize`` in plain PyTorch, on any device (the kernels' plain
+    version)."""
+    if solver == "auto":
+        solver = "dense" if data.T_wc.shape[0] <= 512 else "cg"
     T = data.T_wc
     for _ in range(iterations):
         Hblk, bblk = _edge_system(data, T, huber_delta)
         if solver == "cg":
-            x = _solve_cg(data, Hblk, bblk, lam, cg_iters)
+            x = _solve_cg(data, Hblk, bblk, LAM, cg_iters)
         else:
-            x = _solve_dense(data, Hblk, bblk, lam)
+            x = _solve_dense(data, Hblk, bblk, LAM)
         T = T @ lie.se3_exp(x)
     return T
 

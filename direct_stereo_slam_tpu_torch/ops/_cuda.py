@@ -61,6 +61,16 @@ _SIGNATURES = {
     "dsslam_scale_lm": [_P, _P],
     # H, g, lam, mode_a, mode_b, n, inc, piv, stream
     "dsslam_lm_solve": [_P, _P, _P, _F, _F, _I, _P, _P, _P],
+    # T, x, T_out, N, Z, a, b, w_t, w_r, valid, E, delta, delta_sq, H, g,
+    # stream
+    "dsslam_pose_graph_edges": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P,
+                                _P, _P],
+    # H, g, a, b, valid, E, node_valid, fixed, N, lam, Hd, rhs, stream
+    "dsslam_pose_graph_assemble": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _P, _P, _P],
+    # H, g, a, b, valid, E, inc_off, inc_ent, node_valid, fixed, N, damp,
+    # cg_iters, work, x, steps, stream
+    "dsslam_pose_graph_pcg": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P, _P,
+                              _P, _P],
 }
 
 
@@ -141,15 +151,15 @@ def call(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+def require_cuda(name: str, *tensors: torch.Tensor,
+                 dtypes=(torch.float32, torch.uint8)) -> None:
     """The kernels take contiguous CUDA tensors on one device, read as f32
-    (data) or uint8 (masks)."""
+    (data) or uint8 (masks), or as the ``dtypes`` a kernel names (indices)."""
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-        if t.dtype not in (torch.float32, torch.uint8):
-            raise TypeError(f"{name}: tensors must be float32 (masks uint8), "
-                            f"got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: tensors must be one of {dtypes}, got {t.dtype}")

@@ -254,7 +254,7 @@ def shard_posegraph_optimize(mesh: Mesh, iterations: int = 25, huber_delta: floa
                     edge_Z=data.edge_Z[sl].to(dev), edge_w_t=data.edge_w_t[sl].to(dev),
                     edge_w_r=data.edge_w_r[sl].to(dev), edge_valid=data.edge_valid[sl].to(dev),
                     fixed_node=data.fixed_node)
-                shards.append((local, *pg._edge_system(local, local.T_wc, huber_delta)))
+                shards.append((local, *pg.edge_system(local, local.T_wc, huber_delta)))
 
             def psum(part):
                 """part(shard's data, Hblk, bblk) [N, ...] of every shard,

@@ -56,6 +56,8 @@ def test_importing_the_port_loads_no_jax():
         "import direct_stereo_slam_tpu_torch.run_batch\n"
         "import direct_stereo_slam_tpu_torch.gen_longseq\n"
         "import direct_stereo_slam_tpu_torch.eval_kitti\n"
+        "import direct_stereo_slam_tpu_torch.io.synthetic_graphs\n"
+        "import direct_stereo_slam_tpu_torch.ab_policies\n"
         "import torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'direct_stereo_slam_tpu'))\n"
