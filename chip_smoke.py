@@ -135,6 +135,43 @@ Phases, each of which must pass (any fault exits non-zero):
    device kernels per optimize of both paths (torch.profiler, one
    session).
 
+13. the windowed BA (K9-K11, csrc/ba.cu), on the e2e run's fullest
+   keyframe window (its ``optimize_keyframe`` arguments kept during the
+   timed pass), at the compact view of 2560 points and the full pool:
+   K9 against ``linearize_plain`` (Hff, bf, Hfd, Hdd, bd within 1e-4 x
+   max|entry| or, where a sum cancels, x the largest sum of its terms'
+   magnitudes, ``linearize_plain(magnitudes=True)``; pair_good / pair_in equal except on lanes within 1e-5 of
+   their energy threshold, two calls bit-equal), K10 against
+   ``solve_step`` / ``_step_converged`` / ``apply_step`` on K9's
+   linearization (x, x_d within 1e-3 x max|entry|, the same convergence),
+   K11's starting energy against ``total_energy`` (rel 1e-5) and its
+   decision on the candidate (the same, unless the margin is within 1e-5),
+   each timed with its bound (``solve_ex`` on the damped system as K10's
+   library time); then the whole ``optimize_keyframe`` on the card
+   against the plain BA (the loop and ``linearize_plain``, no K9-K11) on
+   the same card state (poses within 1e-3 per
+   entry, rmse rel 1e-3, the same ok; or the same against the plain loop
+   on the reversed point pool, where the plain loop's own accept margins
+   decide), two card runs bit-equal, one under
+   ``set_sync_debug_mode("error")``, its launches and ms (run right
+   after phase 4);
+14. ``ab_policies`` as a new process at the JAX package's 320x96, 80
+   frames (``AB_CHILD``, each arm's launches counted in it): exit 0 within
+   600 s (the force-accept arm's NaN poses reach K9-K11 without a crash or
+   a hang), K2-LM, K3-LM and K9-K11 launched in every arm, the
+   fast-rotation arms' K4-LM / K6 launches printed, the table beside the
+   JAX package's; then two witnesses of the force-accept fast-rotation
+   arm, printed beside it, not gated: the port with the plain BA on the
+   card, and the port on the host CPU (run with phase 10).
+
+The e2e phase also counts the host's blocking waits per call and times
+the path with ``torch.use_deterministic_algorithms`` off and on in turns;
+the loop phase runs three more times after its gated run (deterministic
+algorithms on, off with the waits counted, on): the FPS of each mode, the
+waits per keyframe call, and whether two runs of one mode agree. Every
+path that makes keyframes gates K9-K11 launched (the e2e, pipelined,
+mono, bag, live, resume, observe, native, eval and loop phases).
+
 K3-LM's calls on the e2e and loop paths are counted by the number of
 guesses and by whether a level doubled its cutoff (read after each run).
 
@@ -147,6 +184,10 @@ sequence at the same size with the error of every frame (reported, not
 gated), each of those also through the port on the host CPU, frame by
 frame against the card, and the 320-frame protocol through disk
 (``gen_longseq`` -> ``eval_kitti --config both``, reported).
+--fps [--root DIR] only times the e2e and loop sequences (FPS, the BA's
+stages with a synchronize at the end of each span, the waits per
+keyframe call), not gated; with --root, of the port in another checkout,
+so that a tree and its parent run in turns in one call.
 --lm-digest [--root DIR] only prints digests of K2-LM's and K3-LM's
 single-sequence outputs on seeded inputs and the card's time per call
 (with --root, of the port in another checkout: two forms of the kernels
@@ -171,6 +212,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from functools import partial
 
 import numpy as np
@@ -917,7 +959,9 @@ def e2e_profile(torch, run_once, out_dir: str) -> None:
           f"{sum(e.count for e in kernels)} kernel launches", flush=True)
     ours = [e for e in kernels if "(anonymous namespace)::" in e.key and any(
         k in e.key for k in ("pose_partial", "pose3d_partial", "pose_final", "scale_partial",
-                             "scale_final", "distance_kernel", "lm_kernel"))]
+                             "scale_final", "distance_kernel", "lm_kernel", "lin_tile_kernel",
+                             "lin_finish_kernel", "schur_kernel", "solve_kernel",
+                             "backsub_kernel", "accept_kernel"))]
     for e in sorted(ours, key=dev_ms, reverse=True):
         print(f"profile:   ours {dev_ms(e):9.3f} ms  x{e.count:6d}  {e.key[:60]}", flush=True)
     for e in sorted(kernels, key=dev_ms, reverse=True)[:12]:
@@ -997,7 +1041,7 @@ def e2e_phase(torch, dev, profile_dir=None):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     # the timed pass: no per-span synchronize, as a user runs the node
-    with ScaleTraffic() as traffic:
+    with ScaleTraffic() as traffic, BaTraffic() as ba_traffic:
         node, shells, resets, dt = run_sequence(torch, SLAMNode, cfg, intr, ds,
                                                 frames, dev)
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1043,10 +1087,307 @@ def e2e_phase(torch, dev, profile_dir=None):
     if not ate < 0.02 * path:
         fail(f"e2e: ATE {ate:.4f} m >= 2% of {path:.2f} m")
     gate_launches("e2e", launches, E2E_KERNELS)
+    n_kf = node.timers.count("dso_opt")
+    print(f"e2e: BA launches per keyframe ({n_kf} optimize_keyframe calls): " + ", ".join(
+        f"{k} {launches[k] / max(n_kf, 1):.2f}" for k in BA_KERNELS), flush=True)
+    print(f"e2e: blocking waits per call: "
+          f"{count_waits(torch, cfg, intr, ds, frames, dev)}", flush=True)
+    deterministic_turns(torch, "e2e", E2E_FRAMES, lambda: run_sequence(
+        torch, SLAMNode, cfg, intr, ds, frames, dev)[3])
     if profile_dir:
         e2e_profile(torch, lambda: run_sequence(torch, SLAMNode, cfg, intr, ds,
                                                 frames, dev), profile_dir)
-    return launches, scale_calls
+    return launches, scale_calls, ba_traffic.calls, n_kf
+
+
+def deterministic_turns(torch, tag, n_frames, run) -> dict:
+    """FPS of ``run()`` (its seconds) with torch.use_deterministic_algorithms
+    off and on, in turns off, on, on, off: what the deterministic mode
+    costs on the path."""
+    fps = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        torch.use_deterministic_algorithms(mode == "on")
+        try:
+            fps[mode].append(n_frames / run())
+        finally:
+            torch.use_deterministic_algorithms(False)
+    off, on = np.mean(fps["off"]), np.mean(fps["on"])
+    print(f"{tag}: FPS with torch.use_deterministic_algorithms off "
+          f"{' / '.join(f'{x:.3f}' for x in fps['off'])}, on "
+          f"{' / '.join(f'{x:.3f}' for x in fps['on'])} (turns off, on, on, off): the "
+          f"deterministic mode costs {100 * (off - on) / off:.1f}% of the FPS", flush=True)
+    return fps
+
+
+# ---------------------------------------------------------------------------
+# the windowed BA: K9 (linearize), K10 (the LM step), K11 (accept)
+# ---------------------------------------------------------------------------
+
+# f32 operations a residual of K9 needs: its warp and bilinear sample
+# (~60), the 20-wide Jacobian row (~110), the 210 + 20 products of its
+# block and b (~460) and the 22 sums toward Hfd, Hdd, bd (~44)
+BA_RES_OPS = 650
+BA_COMPACT = 2560                 # cfg.ba.compact_budget at KITTI size
+
+
+class BaTraffic:
+    """The front end's ``optimize_keyframe`` calls on a path: the function
+    is wrapped for the run and each call's arguments kept (states are
+    never mutated), to be replayed after it."""
+
+    def __init__(self):
+        from direct_stereo_slam_tpu_torch.models import ba
+
+        self.ba, self.calls = ba, []
+
+    def __enter__(self):
+        self.wrapped = self.ba.optimize_keyframe
+
+        def kept(*a, **kw):
+            self.calls.append((a, kw))
+            return self.wrapped(*a, **kw)
+
+        self.ba.optimize_keyframe = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.ba.optimize_keyframe = self.wrapped
+
+
+def ba_bytes_ops(st, D, n_pairs):
+    """(bytes, f32 operations) K9 needs on a window: 4 bilinear corners of
+    12 B per residual of a live pair (8 per pair), the point data, and the
+    outputs; BA_RES_OPS per residual."""
+    NP, W = st.num_points, st.num_slots
+    point = NP * (4 * 5 + 8 + 2 * 8 * 4 + W)
+    out = NP * D * 4 + NP * 8 + NP * W * 6 + D * D * 4 + D * 4 + 8
+    return n_pairs * 8 * 4 * 12 + point + out, n_pairs * 8 * BA_RES_OPS
+
+
+def ba_step_ops(NP: int, D: int) -> int:
+    """f32 operations K10's function needs: Hfd x inv_Hdd once (NP x D),
+    one multiply-add per point for each entry of the Schur sums (the
+    U = D(D+1)/2 entries of Hfd^T diag(inv_Hdd) Hfd and the D of its b),
+    the D x D solve (2 D^3 / 3) and the back-substitution of x_d
+    (a D-long dot product a point)."""
+    U = D * (D + 1) // 2
+    return NP * D + 2 * NP * (U + D) + 2 * D ** 3 // 3 + 2 * NP * D
+
+
+def live_pairs(torch, st) -> int:
+    W = st.num_slots
+    t = torch.arange(W, device=st.p_host.device)[None, :]
+    mask = (st.p_valid[:, None] & st.frame_valid[None, :] & (t != st.p_host[:, None])
+            & st.p_res_good)
+    return int(mask.sum())
+
+
+@contextmanager
+def plain_ba():
+    """The BA's plain versions on any device while inside: the LM loop
+    with its host reads and ``linearize_plain`` in place of K9-K11."""
+    from direct_stereo_slam_tpu_torch.models import ba
+
+    saved = ba._optimize_loop_device, ba.linearize
+    ba._optimize_loop_device, ba.linearize = ba._optimize_loop_plain, ba.linearize_plain
+    try:
+        yield
+    finally:
+        ba._optimize_loop_device, ba.linearize = saved
+
+
+def reordered(st, ba):
+    """The window with its point pool reversed: the same problem, every sum
+    over points taken in another order."""
+    return st._replace(**{f: getattr(st, f).flip(0) for f in ba._POINT_FIELDS})
+
+
+def ba_phase(torch, dev, calls):
+    """K9-K11 against their plain versions on the e2e run's fullest window
+    (the keyframe call with the most valid slots), at the compact view of
+    BA_COMPACT points and at the full pool, then the whole
+    ``optimize_keyframe`` on the card against the plain BA on the same
+    card state, two runs bit-equal, and one run with no host read.
+    Returns the kernel rows."""
+    from direct_stereo_slam_tpu_torch.models import ba
+    from direct_stereo_slam_tpu_torch.ops import ba as kb
+
+    nvalid = [int(a[0].frame_valid.sum()) for a, _ in calls]
+    pick = max(range(len(calls)), key=lambda i: (nvalid[i], i))
+    a, kw = calls[pick]
+    st_full, cfg, iters, slot = a[:4]
+    budget = a[4] if len(a) > 4 else kw.get("compact_budget")
+    W = st_full.num_slots
+    D = 4 + 8 * W
+    print(f"ba: the e2e run's keyframe call {pick + 1} of {len(calls)}: "
+          f"{nvalid[pick]} of {W} slots valid, "
+          f"{int(st_full.p_valid.sum())} valid points in a pool of {st_full.num_points}, "
+          f"{iters} iterations, compact budget {budget}", flush=True)
+    rows = []
+    windows = {BA_COMPACT: ba._compact_points(st_full, BA_COMPACT)[0],
+               st_full.num_points: st_full}
+    lam = 0.1
+    for NP, st in windows.items():
+        tag = f"NP={NP},W={W}"
+        n_pairs = live_pairs(torch, st)
+        # ---- K9
+        params = kb.make_params(st, cfg)
+        k9 = lambda: kb.ba_linearize_cuda(params, 0)
+        k9()
+        lk = ba.Linearization(**{f: params.bufs.lin[f][0].clone() for f in kb.LIN_FIELDS})
+        lp = ba.linearize_plain(st, cfg)
+        # each sum within 1e-4 x max|entry|, or, where it cancels, within
+        # 1e-4 x the largest sum of its terms' magnitudes
+        mag = ba.linearize_plain(st, cfg, magnitudes=True)
+        errs = {n: min(rel_err(torch, getattr(lk, n), getattr(lp, n)),
+                       float(torch.max(torch.abs(getattr(lk, n) - getattr(lp, n))))
+                       / float(torch.max(getattr(mag, n)).clamp(min=1e-30)))
+                for n in ("Hff", "bf", "Hfd", "Hdd", "bd")}
+        errs["pair_energy"] = rel_err(torch, lk.pair_energy, lp.pair_energy)
+        th = torch.maximum(st.energy_th[st.p_host][:, None], st.energy_th[None, :])
+        near = torch.abs(lp.pair_energy - th) <= 1e-5 * th
+        flips = {n: int((getattr(lk, n) != getattr(lp, n)).sum()) for n in ("pair_good",
+                                                                          "pair_in")}
+        far = sum(int(((getattr(lk, n) != getattr(lp, n)) & ~near).sum()) for n in flips)
+        again = ba.linearize(st, cfg)
+        same = all(torch.equal(x, y) for x, y in zip(lk, again))
+        print(f"K9 ba_linearize {tag}: {n_pairs} live pairs; from linearize_plain (x "
+              f"max|entry| or, where smaller, x the largest sum of the terms' magnitudes) "
+              + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f"; energy {float(lk.energy):.6g} vs {float(lp.energy):.6g}; num_terms "
+              f"{float(lk.num_terms):.0f} vs {float(lp.num_terms):.0f}; pair flips {flips} "
+              f"({int(near.sum())} lanes within 1e-5 of their threshold, {far} flips "
+              f"outside them); linearize() twice bit-equal: {same}", flush=True)
+        if not max(errs.values()) < 1e-4 or far or not same:
+            fail(f"K9 at {tag}: rel {errs}, flips outside the threshold band {far}, "
+                 f"bit-equal {same}")
+        ms, pms = ab_ms(torch, k9, lambda: ba.linearize_plain(st, cfg),
+                        plain_kw=dict(repeats=5, inner=2))
+        dms = device_ms(torch, k9)
+        call = statistics.median(call_ms(torch, lambda: ba.linearize(st, cfg), 10))
+        nb, no = ba_bytes_ops(st, D, n_pairs)
+        print(f"K9 ba_linearize {tag}: kernel {ms:.4f} ms (queued on the card {dms} ms; "
+              f"linearize() with its parameter block built per call {call:.4f} ms), plain "
+              f"(index_add_) {pms:.4f} ms", flush=True)
+        rows.append(row(f"ba_linearize[{tag}]", "ba.cu",
+                        "direct_stereo_slam_tpu/models/ba.py:198",
+                        max(float(torch.max(torch.abs(getattr(lk, n) - getattr(lp, n))))
+                            for n in ("Hff", "bf", "Hfd", "Hdd", "bd")), ms, pms, nb, no))
+        rows[-1].update(device_ms=dms, live_pairs=n_pairs,
+                        pair_flips_near_threshold=sum(flips.values()))
+
+        # ---- K10 on K9's linearization
+        states = {f: torch.stack([getattr(st, f)] * 2) for f in kb.STATE_FIELDS}
+        lins = {f: torch.stack([getattr(lk, f)] * 2) for f in kb.LIN_FIELDS}
+        p10 = kb.make_params(st, cfg, states, lins)
+        p10.bufs.ctrl_f[0] = lam
+        k10 = lambda: kb.ba_step_cuda(p10)
+        k10()
+        lam_t = torch.tensor(lam, device=dev)
+
+        def k10_plain():
+            x, x_d = ba.solve_step(st, lk, lam_t, cfg)
+            return x, x_d, ba._step_converged(x, x_d, st, cfg), ba.apply_step(st, x, x_d)
+
+        x, x_d, conv, _ = k10_plain()
+        xk, xdk = p10.bufs.scratch["x"].clone(), p10.bufs.scratch["x_d"].clone()
+        ex, exd = rel_err(torch, xk, x), rel_err(torch, xdk, x_d)
+        ck = bool(p10.bufs.ctrl_i[2])
+        print(f"K10 ba_step {tag}: x rel {ex:.2e}, x_d rel {exd:.2e} from solve_step "
+              f"(LU with partial pivoting vs solve_ex), converged {ck} vs {bool(conv)}",
+              flush=True)
+        if not (ex < 1e-3 and exd < 1e-3 and ck == bool(conv)):
+            fail(f"K10 at {tag}: x rel {ex:.3g}, x_d rel {exd:.3g}, converged {ck} vs "
+                 f"{bool(conv)}")
+        ms, pms = ab_ms(torch, k10, k10_plain, plain_kw=dict(repeats=5, inner=2))
+        dms = device_ms(torch, k10)
+        Hp, bp, _, _ = ba.damped_system(st, lk, lam_t, cfg)
+        lib = median_ms(torch, lambda: torch.linalg.solve_ex(Hp, -bp[:, None]))
+        print(f"K10 ba_step {tag}: kernel {ms:.4f} ms (queued on the card {dms} ms), plain "
+              f"{pms:.4f} ms; torch.linalg.solve_ex on the {D}x{D} system {lib:.4f} ms",
+              flush=True)
+        rows.append(row(f"ba_step[{tag}]", "ba.cu",
+                        "direct_stereo_slam_tpu/models/ba.py:551",
+                        max(float(torch.max(torch.abs(xk - x))),
+                            float(torch.max(torch.abs(xdk - x_d)))), ms, pms,
+                        NP * (D * 4 + 17) + 2 * D * D * 4 + NP * 8 + D * 8,
+                        ba_step_ops(NP, D)))
+        rows[-1].update(device_ms=dms, library_ms=lib,
+                        library=f"torch.linalg.solve_ex on the {D}x{D} damped system")
+
+        # ---- K11 after one K10 -> K9 on the candidate
+        kb.ba_accept_cuda(p10, -1)
+        e0 = float(p10.bufs.ctrl_f[1])
+        e0_plain = float(ba.total_energy(st, lk, cfg))
+        kb.ba_linearize_cuda(p10, 1)
+        kb.ba_accept_cuda(p10, 0)
+        cand = st._replace(**{f: p10.bufs.state[f][1] for f in kb.STATE_FIELDS})
+        lin1 = ba.Linearization(**{f: p10.bufs.lin[f][1] for f in kb.LIN_FIELDS})
+        e1 = float(ba.total_energy(cand, lin1, cfg))
+        accept = e1 < e0_plain and float(lin1.num_terms) >= 0.3 * float(lk.num_terms)
+        margin = abs(e1 - e0_plain) / abs(e0_plain)
+        cur, lam1 = int(p10.bufs.ctrl_i[0]), float(p10.bufs.ctrl_f[0])
+        print(f"K11 ba_accept {tag}: e_old {e0:.7g} vs total_energy {e0_plain:.7g}; the "
+              f"candidate's {e1:.7g} (margin {margin:.2e}): kernel {'accepts' if cur else 'rejects'}"
+              f" (lam {lam1:.4g}), plain {'accepts' if accept else 'rejects'}", flush=True)
+        if abs(e0 - e0_plain) > 1e-5 * abs(e0_plain) or (
+                bool(cur) != accept and margin > 1e-5):
+            fail(f"K11 at {tag}: e_old {e0} vs {e0_plain}, decision {cur} vs {accept}")
+        k11 = lambda: kb.ba_accept_cuda(p10, -1)
+        k11_plain = lambda: ba.total_energy(st, lk, cfg) < ba.total_energy(cand, lin1, cfg)
+        ms, pms = ab_ms(torch, k11, k11_plain)
+        dms = device_ms(torch, k11)
+        rows.append(row(f"ba_accept[{tag}]", "ba.cu",
+                        "direct_stereo_slam_tpu/models/ba.py:645",
+                        abs(e0 - e0_plain), ms, pms, D * D * 4 + 3 * D * 4 + 64,
+                        2 * D * D + 6 * D))
+        rows[-1].update(device_ms=dms)
+        print(f"K11 ba_accept {tag}: kernel {ms:.4f} ms (queued on the card {dms} ms), plain "
+              f"(two total energies) {pms:.4f} ms", flush=True)
+
+    # ---- the whole optimize_keyframe: card against the plain loop
+    args = (st_full, cfg, iters, slot, budget)
+    counters = (kb.ba_linearize_cuda, kb.ba_step_cuda, kb.ba_accept_cuda)
+    before = [fn.launches for fn in counters]
+    card = ba.optimize_keyframe(*args)
+    made = [fn.launches - b for fn, b in zip(counters, before)]
+    card2 = ba.optimize_keyframe(*args)
+    same = all(torch.equal(x, y) for x, y in zip(list(card[0]) + list(card[1:]),
+                                                  list(card2[0]) + list(card2[1:])))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ba.optimize_keyframe(*args)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with plain_ba():
+        plain = ba.optimize_keyframe(*args)
+        plain_rev = ba.optimize_keyframe(reordered(st_full, ba), *args[1:])
+        pms = statistics.median(call_ms(torch, lambda: ba.optimize_keyframe(*args), 3))
+    kms = statistics.median(call_ms(torch, lambda: ba.optimize_keyframe(*args), 10))
+
+    def gap(ref):
+        dT = float(torch.max(torch.abs(card[0].T_current() - ref[0].T_current())))
+        dr = abs(float(card[1]) - float(ref[1])) / float(ref[1])
+        return dT, dr, bool(card[2]) == bool(ref[2])
+
+    g, g_rev = gap(plain), gap(plain_rev)
+    spread = float(torch.max(torch.abs(plain[0].T_current() - plain_rev[0].T_current())))
+    ok = lambda gg: gg[0] < 1e-3 and gg[1] < 1e-3 and gg[2]
+    print(f"ba optimize_keyframe ({iters} iterations, compact budget {budget}): card vs the "
+          f"plain loop on the same card state: poses {g[0]:.2e}, rmse rel {g[1]:.2e}, same ok "
+          f"{g[2]} (vs the plain loop on the reversed pool: {g_rev[0]:.2e}, {g_rev[1]:.2e}; "
+          f"the plain loop's own spread {spread:.2e}); two card runs bit-equal {same}; no "
+          f"host read under set_sync_debug_mode('error'); launches K9 / K10 / K11 {made}; "
+          f"{kms:.3f} ms on the card vs {pms:.3f} ms plain (synchronized calls)", flush=True)
+    if not (ok(g) or ok(g_rev)) or not same:
+        fail(f"optimize_keyframe on the card: {g} / {g_rev} from the plain loop, bit-equal "
+             f"{same}")
+    for r in rows:
+        r["optimize_keyframe_ms"] = kms
+        r["optimize_keyframe_plain_ms"] = pms
+    return rows
 
 
 def with_runtime(cfg, **runtime):
@@ -1126,6 +1467,51 @@ class WaitCounter:
         return out
 
 
+def count_waits(torch, cfg, intr, ds, frames, dev) -> dict:
+    """One pass of a fresh SLAMNode over the frames with the host's
+    blocking waits on the card counted per call (``WaitCounter``): the
+    summary by kind of call (benign, keyframe, other), with the sites."""
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    counter = WaitCounter(torch)
+    run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev, per_call=counter)
+    return counter.summary()
+
+
+def fps_only(torch, dev) -> None:
+    """``--fps``: the e2e sequence (a warm-up pass, a timed pass, a pass
+    with a device synchronize at the end of every span, one with the
+    waits counted) and the 160-frame loop phase (a timed run, then a
+    synchronized one), not gated. For comparing two trees in turns in one
+    call, since host-bound spans move between calls: with ``--root``, the
+    port of another checkout (the parent commit, whose kernels this
+    script's counters may not know). Prints one line ``fps {...}``."""
+    import direct_stereo_slam_tpu_torch as port
+    from direct_stereo_slam_tpu_torch.runtime.eval import run_sequence as run_loop
+    from direct_stereo_slam_tpu_torch.runtime.eval import timing_table
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    stages = ("dso_opt", "point_marg", "frame_marg", "per_frame")
+    table = lambda timers: {k: v for k, v in timing_table(timers).items() if k in stages}
+    ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
+    run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
+    e2e_dt = run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)[3]
+    synced = run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev, sync_timers=True)[0]
+    waits = count_waits(torch, cfg, intr, ds, frames, dev)
+    lds, lframes, lcfg = loop_setup(dev, LOOP_FRAMES, LOOP_MARGIN)
+    loop = {}
+    for mode in ("timed", "synchronized"):
+        node, handler, dt = run_loop(lframes, lcfg, lds.K, lds.t_cam1_cam0, levels=LEVELS,
+                                     device=dev, sync_timers=mode == "synchronized")
+        handler.close()
+        loop[mode] = dict(fps=LOOP_FRAMES / dt, stages=table(node.timers),
+                          loops=handler.direct_loop_count + handler.icp_loop_count)
+    print("fps " + json.dumps(dict(
+        root=os.path.dirname(os.path.dirname(os.path.abspath(port.__file__))), e2e_fps=E2E_FRAMES / e2e_dt,
+        e2e_synchronized_stages=table(synced.timers),
+        e2e_keyframe_waits=waits.get("keyframe"), loop=loop)), flush=True)
+
+
 def pipelined_phase(torch, dev):
     """The e2e sequence again in both tracking modes, in turns synchronous,
     pipelined, pipelined, synchronous, twice; then one pass of each with
@@ -1148,9 +1534,7 @@ def pipelined_phase(torch, dev):
     fps = {mode: [E2E_FRAMES / r[3] for r in rs] for mode, rs in runs.items()}
     waits = {}
     for mode, c in cfgs.items():
-        counter = WaitCounter(torch)
-        run_sequence(torch, SLAMNode, c, intr, ds, frames, dev, per_call=counter)
-        waits[mode] = counter.summary()
+        waits[mode] = count_waits(torch, c, intr, ds, frames, dev)
 
     node_s, shells_s, _, _ = runs["synchronous"][0]
     node, shells, resets, dt = runs["pipelined"][-1]
@@ -1799,12 +2183,13 @@ def observe_phase(torch, dev, seq, tmp: str):
 # the kernels each path must launch; the per-pass K2, K3 and K4 must not
 # (the tracker, the scale optimizer and the loop estimator run K2-LM,
 # K3-LM and K4-LM on the card)
-E2E_KERNELS = ("distance_map", "track_lm", "scale_lm")
+BA_KERNELS = ("ba_linearize", "ba_step", "ba_accept")
+E2E_KERNELS = ("distance_map", "track_lm", "scale_lm") + BA_KERNELS
 # the loop thread's pose graph stays at or below 512 nodes here: K6 and
 # K7 (K8 above 512, in the pose-graph phase)
 LOOP_KERNELS = E2E_KERNELS + ("loop_pose_lm", "pose_graph_edges", "pose_graph_assemble")
 # DSO mode makes no stereo scale optimization
-MONO_KERNELS = ("distance_map", "track_lm")
+MONO_KERNELS = ("distance_map", "track_lm") + BA_KERNELS
 OFF_PATH = ("pose_residual_pass", "scale_residual_pass", "pose3d_residual_pass")
 
 
@@ -1871,6 +2256,7 @@ class GraphTraffic:
 
 
 def kernel_counters():
+    from direct_stereo_slam_tpu_torch.ops import ba as kb
     from direct_stereo_slam_tpu_torch.ops import distance_map as dm
     from direct_stereo_slam_tpu_torch.ops import pose_graph as pgk
     from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
@@ -1885,7 +2271,10 @@ def kernel_counters():
             "loop_pose_lm": rlm.loop_pose_lm_cuda,
             "pose_graph_edges": pgk.pose_graph_edges_cuda,
             "pose_graph_assemble": pgk.pose_graph_assemble_cuda,
-            "pose_graph_pcg": pgk.pose_graph_pcg_cuda}
+            "pose_graph_pcg": pgk.pose_graph_pcg_cuda,
+            "ba_linearize": kb.ba_linearize_cuda,
+            "ba_step": kb.ba_step_cuda,
+            "ba_accept": kb.ba_accept_cuda}
 
 
 def gate_launches(tag, launches, needed):
@@ -1913,18 +2302,13 @@ class QuantisedFrames:
         return self.frames[i]
 
 
-def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
-               pipelined: bool = False):
-    """The port's SLAMNode + threaded LoopHandler over the loop room.
-    Returns the launch count of each kernel during the run, K3-LM's calls
-    and the final pose graph (``handler.graph_data()``)."""
+def loop_setup(dev, n_frames: int, loop_margin: int, pipelined: bool = False):
+    """(dataset, frames cut to uint8, config) of the loop room's lap."""
     import dataclasses
 
     from direct_stereo_slam_tpu_torch.config import make_config
     from direct_stereo_slam_tpu_torch.io.synthetic import (
         SyntheticStereoDataset, _loop_scene, loop_trajectory)
-    from direct_stereo_slam_tpu_torch.runtime.eval import (
-        run_sequence, score_rows, timing_table)
 
     ds = SyntheticStereoDataset(n_frames=n_frames, width=W, height=H,
                                 scene=_loop_scene(), device=dev)
@@ -1937,7 +2321,18 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
     cfg = make_config(W, H, preset=0, mode=1)
     cfg = cfg.replace(loop=dataclasses.replace(cfg.loop, loop_margin=loop_margin),
                       runtime=dataclasses.replace(cfg.runtime, pipelined_tracking=pipelined))
+    return ds, frames, cfg
 
+
+def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
+               pipelined: bool = False):
+    """The port's SLAMNode + threaded LoopHandler over the loop room.
+    Returns the launch count of each kernel during the run, K3-LM's calls
+    and the final pose graph (``handler.graph_data()``)."""
+    from direct_stereo_slam_tpu_torch.runtime.eval import (
+        run_sequence, score_rows, timing_table)
+
+    ds, frames, cfg = loop_setup(dev, n_frames, loop_margin, pipelined)
     counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -1997,7 +2392,66 @@ def loop_phase(torch, dev, n_frames: int, loop_margin: int, gate: bool = True,
     if not ate_d < ate_o:
         fail(f"{tag}: dslam ATE {ate_d:.4f} m is not below sodso ATE {ate_o:.4f} m")
     gate_launches(tag, launches, LOOP_KERNELS)
+    loop_repeats(torch, tag, n_frames, lambda: run_sequence(
+        frames, cfg, ds.K, ds.t_cam1_cam0, levels=LEVELS, device=dev), handler, dt)
     return launches, scale_calls, final
+
+
+def trajectory(handler):
+    """(odometry rows, loop-closed rows, loops) of a drained loop handler."""
+    return (np.asarray(handler.odometry_rows(), np.float64),
+            np.asarray(handler.optimized_rows(), np.float64),
+            handler.direct_loop_count + handler.icp_loop_count)
+
+
+def loop_repeats(torch, tag, n_frames, run_once, first, first_dt) -> None:
+    """The loop run three more times after the gated one, in turns:
+    deterministic algorithms on, off (with the host's blocking waits per
+    call counted, which also catches the loop thread's), on. Prints the
+    FPS of each mode, the waits per keyframe call, and whether two runs of
+    one mode give the same trajectories and loops."""
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    runs = {"off": [(first_dt, trajectory(first))], "on": []}
+    waits = None
+    for mode in ("on", "off", "on"):
+        counter = WaitCounter(torch) if mode == "off" else None
+        process = SLAMNode.process
+        if counter is not None:
+            SLAMNode.process = lambda self, *a, **kw: counter(self, partial(process, self, *a,
+                                                                            **kw))
+        torch.use_deterministic_algorithms(mode == "on")
+        try:
+            _, handler, dt = run_once()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            SLAMNode.process = process
+        handler.close()
+        runs[mode].append((dt, trajectory(handler)))
+        if counter is not None:
+            waits = counter.summary()
+    fps = {m: [n_frames / dt for dt, _ in r] for m, r in runs.items()}
+    off, on = fps["off"][0], float(np.mean(fps["on"]))
+    print(f"{tag}: FPS with torch.use_deterministic_algorithms off {fps['off'][0]:.3f} (the "
+          f"gated run; {fps['off'][1]:.3f} with the waits counted), on "
+          f"{' / '.join(f'{x:.3f}' for x in fps['on'])} (turns off, on, off, on): the "
+          f"deterministic mode costs {100 * (off - on) / off:.1f}% of the FPS", flush=True)
+    print(f"{tag}: blocking waits per call (the loop thread's included): {waits}", flush=True)
+    for mode, r in runs.items():
+        (_, (o1, d1, l1)), (_, (o2, d2, l2)) = r
+
+        def gap(a, b):
+            """'bit-equal', or the largest position difference over the
+            keyframes both runs made (rows: frame id, x, y, z)."""
+            if a.shape == b.shape and np.array_equal(a, b):
+                return "bit-equal"
+            ids, ia, ib = np.intersect1d(a[:, 0], b[:, 0], return_indices=True)
+            d = np.max(np.abs(a[ia, 1:] - b[ib, 1:])) if len(ids) else float("nan")
+            return f"differs by up to {d:.3g} m over the {len(ids)} keyframes of both"
+
+        print(f"{tag}: two runs with deterministic algorithms {mode}: loops {l1} / {l2}, "
+              f"keyframes {len(o1)} / {len(o2)}, odometry {gap(o1, o2)}, loop-closed "
+              f"{gap(d1, d2)}", flush=True)
 
 
 def long_phase(torch, dev) -> None:
@@ -2059,6 +2513,101 @@ rc = eval_kitti.main(sys.argv[1:])
 print("launches " + json.dumps(read_counters(counters)), flush=True)
 sys.exit(rc)
 """
+
+
+# the ab_policies phase's process: the script as a user runs it, each
+# arm's launches counted from 0 and printed (one line per arm)
+AB_CHILD = """import json, sys
+from chip_smoke import read_counters, zero_counters
+from direct_stereo_slam_tpu_torch import ab_policies
+run_one = ab_policies.run_one
+def counted(scenario, variant, *a, **kw):
+    counters = zero_counters()
+    out = run_one(scenario, variant, *a, **kw)
+    print("launches " + json.dumps(dict(scenario=scenario, variant=variant,
+                                        **read_counters(counters))), flush=True)
+    return out
+ab_policies.run_one = counted
+sys.exit(ab_policies.main(sys.argv[1:]))
+"""
+AB_FRAMES, AB_W, AB_H = 80, 320, 96     # the JAX package's table (PARITY.md:92-112)
+# PARITY.md:98-107: (KFs, ATE m, endpoint m, lost, loops) of the JAX package
+AB_JAX = {("nominal", "baseline"): (18, 0.073, 0.116, "no", "—"),
+          ("nominal", "serial_winner"): (18, 0.069, 0.101, "no", "—"),
+          ("nominal", "force_accept"): (18, 0.060, 0.097, "no", "—"),
+          ("brightness_jump", "baseline"): (19, 0.100, 0.149, "no", "—"),
+          ("brightness_jump", "serial_winner"): (19, 0.098, 0.159, "no", "—"),
+          ("brightness_jump", "force_accept"): (18, 0.073, 0.135, "no", "—"),
+          ("fast_rotation", "baseline"): (78, 1.153, 0.683, "no", 1),
+          ("fast_rotation", "serial_winner"): (78, 0.781, 0.423, "no", 2),
+          ("fast_rotation", "force_accept"): (70, "NaN", "NaN", "yes", 0),
+          ("fast_rotation", "reference_loop"): (78, 1.153, 0.683, "no", 3)}
+
+
+def ab_phase(torch, dev, tmp: str) -> dict:
+    """``python -m direct_stereo_slam_tpu_torch.ab_policies`` as a new
+    process at the JAX package's 320x96, 80 frames (AB_CHILD: each arm's
+    launches counted in that process). Gated: exit 0 within its time
+    limit (the force-accept arm's NaN poses reach K9-K11 without a crash
+    or a hang) and K2-LM, K3-LM and K9-K11 launched in every arm; the
+    fast-rotation arms' K4-LM / K6 launches and loops are printed, not
+    gated. Prints the table beside the JAX package's. Returns the
+    launches summed over the arms."""
+    from direct_stereo_slam_tpu_torch.ab_policies import GRID
+
+    out = os.path.join(tmp, "ab_policies.md")
+    cmd = [sys.executable, "-c", AB_CHILD, "--frames", str(AB_FRAMES), "--width", str(AB_W),
+           "--height", str(AB_H), "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"ab_policies exited {proc.returncode}:\n{(proc.stdout + proc.stderr)[-3000:]}")
+    arms = [json.loads(l[len("launches "):]) for l in proc.stdout.splitlines()
+            if l.startswith("launches ")]
+    if len(arms) != sum(len(variants) for _, variants in GRID):
+        fail(f"ab_policies: {len(arms)} arms reported their launches")
+    print(f"ab_policies: exit 0 in {wall:.1f} s as a new process ({AB_FRAMES} frames "
+          f"{AB_W}x{AB_H})", flush=True)
+    for line in proc.stdout.splitlines():
+        if line.startswith("["):
+            print(f"ab_policies: {line}", flush=True)
+    with open(out) as f:
+        rows = [l for l in f.read().splitlines() if l.startswith("| ") and "---" not in l][1:]
+    print("ab_policies: the port on the card | the JAX package (PARITY.md:98-107: KFs, ATE, "
+          "endpoint, lost, loops)", flush=True)
+    for line in rows:
+        cells = [c.strip() for c in line.strip("|").split("|")]
+        print(f"ab_policies:   {line}   JAX: {AB_JAX.get((cells[0], cells[1]))}", flush=True)
+    total = {}
+    for arm in arms:
+        tag = f"ab_policies {arm['scenario']}/{arm['variant']}"
+        for name in ("track_lm", "scale_lm") + BA_KERNELS:
+            if arm[name] <= 0:
+                fail(f"{tag}: kernel {name} was never launched")
+        if arm["scenario"] == "fast_rotation":
+            print(f"{tag}: K4-LM {arm['loop_pose_lm']}, K6 {arm['pose_graph_edges']} "
+                  f"launches", flush=True)
+        for k, v in arm.items():
+            if isinstance(v, int):
+                total[k] = total.get(k, 0) + v
+    print(f"ab_policies: launches over the arms {total}", flush=True)
+    # the JAX package loses this arm at frame ~70; the port on the card
+    # did not: two witnesses without K9-K11 tell a fault of theirs from
+    # the lap's own divergence
+    from direct_stereo_slam_tpu_torch.ab_policies import run_one
+
+    arm, size = ("fast_rotation", "force_accept", AB_FRAMES), dict(width=AB_W, height=AB_H)
+    for tag, device in (("the plain BA on the card", dev), ("the port on the host CPU", "cpu")):
+        t0 = time.perf_counter()
+        with plain_ba():
+            r = run_one(*arm, device=device, **size)
+        print(f"ab_policies fast_rotation/force_accept, {tag}: frames {r['frames']}, "
+              f"keyframes {r['kfs']}, lost {r['lost']}, ATE {r['ate']:.3f} m, endpoint "
+              f"{r['endpoint']:.3f} m, loops {r.get('loops')} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    return total
 
 
 def seq_lm_rows(torch, dev):
@@ -2738,7 +3287,12 @@ def main() -> int:
     ap.add_argument("--lm-digest", action="store_true",
                     help="only print digests of K2-LM's and K3-LM's single-sequence "
                          "outputs on seeded inputs (with --root: of another checkout)")
-    ap.add_argument("--root", help="with --lm-digest: the checkout whose port to load")
+    ap.add_argument("--fps", action="store_true",
+                    help="only time the e2e and 160-frame loop sequences (FPS, the BA's "
+                         "synchronized stages, waits per keyframe call), to compare "
+                         "this tree with another checkout (--root) in turns in one call")
+    ap.add_argument("--root", help="with --lm-digest or --fps: the checkout whose port "
+                                   "to load")
     args = ap.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -2775,6 +3329,9 @@ def main() -> int:
     if args.lm_digest:
         lm_digest(torch, dev)
         return 0
+    if args.fps:
+        fps_only(torch, dev)
+        return 0
     usage = lm_usage(lib.build_log)
     print(f"resident LM kernels (registers, bytes spilled, 8-block clusters resident at "
           f"once): {usage}", flush=True)
@@ -2791,7 +3348,9 @@ def main() -> int:
     # each path's kernels count in that path's run: K1, K2-LM and K3-LM in
     # the e2e pass, K4-LM in the loop phase; the per-pass K2, K3 and K4 run
     # on none of the paths (every phase gates that they stay at 0)
-    launches, e2e_scale_calls = e2e_phase(torch, dev, args.profile)
+    launches, e2e_scale_calls, ba_calls, e2e_kfs = e2e_phase(torch, dev, args.profile)
+    rows += ba_phase(torch, dev, ba_calls)
+    elapsed("e2e, ba")
     pl_launches = pipelined_phase(torch, dev)
     mono_launches = mono_phase(torch, dev)
     undistort_phase(torch, dev)
@@ -2803,10 +3362,11 @@ def main() -> int:
                        "resume": resume_phase(torch, dev, seq, tmp),
                        "observe": observe_phase(torch, dev, seq, tmp),
                        "native": native_phase(torch, dev, seq, tmp),
-                       "eval": eval_phase(torch, dev, tmp)}
+                       "eval": eval_phase(torch, dev, tmp),
+                       "ab_policies": ab_phase(torch, dev, tmp)}
         if args.long:
             eval_phase(torch, dev, tmp, 320, "both", gate=False)
-    elapsed("bag, live, resume, observe, native, eval")
+    elapsed("bag, live, resume, observe, native, eval, ab_policies")
     batch_per_step = batch_phase(torch, dev)
     elapsed("batch")
     loop_launches, loop_scale_calls, final_graph = loop_phase(torch, dev, LOOP_FRAMES,
@@ -2834,6 +3394,8 @@ def main() -> int:
         r["loop_launches_per_frame"] = loop_launches[name] / LOOP_FRAMES
         if name == "scale_lm":
             r["path_calls"] = dict(e2e=e2e_scale_calls, loop=loop_scale_calls)
+        if name in BA_KERNELS:
+            r["e2e_launches_per_keyframe"] = launches[name] / max(e2e_kfs, 1)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "direct_stereo_slam_tpu"))
     if leaked:

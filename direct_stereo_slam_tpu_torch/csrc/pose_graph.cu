@@ -66,13 +66,26 @@
 
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "lie.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 using dsslam::clamp_min;
+using dsslam::compose;
+using dsslam::hat;
+using dsslam::inverse;
+using dsslam::kEps;
+using dsslam::load_pose;
+using dsslam::mat3;
+using dsslam::Pose;
+using dsslam::se3_exp;
+using dsslam::sinc_coeffs;
+using dsslam::val;
+using dsslam::sqrt_;
+using dsslam::sin_;
+using dsslam::cos_;
 
 // ---------------------------------------------------------------------------
 // Dual numbers and the Lie functions of geometry/lie.py on them
@@ -102,16 +115,12 @@ __device__ __forceinline__ Dual operator*(Dual a, float s) { return {a.v * s, a.
 __device__ __forceinline__ Dual operator*(float s, Dual a) { return {s * a.v, s * a.d}; }
 __device__ __forceinline__ Dual operator/(Dual a, float s) { return {a.v / s, a.d / s}; }
 
-__device__ __forceinline__ float val(float x) { return x; }
 __device__ __forceinline__ float val(Dual x) { return x.v; }
-__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
 __device__ __forceinline__ Dual sqrt_(Dual x) {
   const float s = sqrtf(x.v);
   return {s, x.d / (2.f * s)};
 }
-__device__ __forceinline__ float sin_(float x) { return sinf(x); }
 __device__ __forceinline__ Dual sin_(Dual x) { return {sinf(x.v), cosf(x.v) * x.d}; }
-__device__ __forceinline__ float cos_(float x) { return cosf(x); }
 __device__ __forceinline__ Dual cos_(Dual x) { return {cosf(x.v), -sinf(x.v) * x.d}; }
 __device__ __forceinline__ Dual atan2_(Dual y, Dual x) {
   const float den = y.v * y.v + x.v * x.v;
@@ -126,99 +135,7 @@ __device__ __forceinline__ Dual clamp_min_(Dual x, float lo) {
   return {x.v < lo ? lo : x.v, x.v >= lo ? x.d : 0.f};
 }
 
-constexpr float kEps = 1e-4f;                              // lie._EPS
 constexpr float kNearPi = static_cast<float>(3.141592653589793 - 1e-2);
-
-// A rigid transform as its top three rows, row-major [3][4].
-template <typename S>
-struct Pose {
-  S m[12];
-};
-
-// lie._sinc_coeffs: (sin t / t, (1 - cos t) / t^2, (t - sin t) / t^3)
-template <typename S>
-__device__ __forceinline__ void sinc_coeffs(S t2, S& A, S& B, S& C) {
-  if (val(t2) < kEps) {
-    A = 1.f - t2 / 6.f + t2 * t2 / 120.f;
-    B = 0.5f - t2 / 24.f + t2 * t2 / 720.f;
-    C = static_cast<float>(1.0 / 6.0) - t2 / 120.f + t2 * t2 / 5040.f;
-  } else {
-    const S t = sqrt_(t2);
-    A = sin_(t) / t;
-    B = (1.f - cos_(t)) / t2;
-    C = (t - sin_(t)) / (t2 * t);
-  }
-}
-
-template <typename S>
-__device__ __forceinline__ void hat(const S* w, S (&W)[9]) {
-  W[0] = S(0.f); W[1] = -w[2]; W[2] = w[1];
-  W[3] = w[2];   W[4] = S(0.f); W[5] = -w[0];
-  W[6] = -w[1];  W[7] = w[0];  W[8] = S(0.f);
-}
-
-template <typename S>
-__device__ __forceinline__ void mat3(const S (&A)[9], const S (&B)[9], S (&C)[9]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      C[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] + A[3 * i + 2] * B[6 + j];
-}
-
-// lie.se3_exp: xi = (t, w) -> [R | V t]
-template <typename S>
-__device__ __forceinline__ Pose<S> se3_exp(const S (&xi)[6]) {
-  const S* t = xi;
-  const S* w = xi + 3;
-  S A, B, C;
-  sinc_coeffs(w[0] * w[0] + w[1] * w[1] + w[2] * w[2], A, B, C);
-  S W[9], W2[9];
-  hat(w, W);
-  mat3(W, W, W2);
-  Pose<S> T;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    S V[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float e = i == j ? 1.f : 0.f;
-      T.m[4 * i + j] = e + A * W[3 * i + j] + B * W2[3 * i + j];
-      V[j] = e + B * W[3 * i + j] + C * W2[3 * i + j];
-    }
-    T.m[4 * i + 3] = V[0] * t[0] + V[1] * t[1] + V[2] * t[2];
-  }
-  return T;
-}
-
-// A @ B of two 4x4 rigid transforms (bottom rows 0 0 0 1)
-template <typename S>
-__device__ __forceinline__ Pose<S> compose(const Pose<S>& A, const Pose<S>& B) {
-  Pose<S> C;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      C.m[4 * i + j] = A.m[4 * i] * B.m[j] + A.m[4 * i + 1] * B.m[4 + j] +
-                       A.m[4 * i + 2] * B.m[8 + j];
-    C.m[4 * i + 3] = A.m[4 * i] * B.m[3] + A.m[4 * i + 1] * B.m[7] +
-                     A.m[4 * i + 2] * B.m[11] + A.m[4 * i + 3];
-  }
-  return C;
-}
-
-// lie.se3_inverse: [R^T | -R^T t]
-template <typename S>
-__device__ __forceinline__ Pose<S> inverse(const Pose<S>& T) {
-  Pose<S> I;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) I.m[4 * i + j] = T.m[4 * j + i];
-    I.m[4 * i + 3] = -(T.m[i] * T.m[3] + T.m[4 + i] * T.m[7] + T.m[8 + i] * T.m[11]);
-  }
-  return I;
-}
 
 // lie.so3_log: inverse Rodrigues with its small-angle and near-pi branches
 __device__ __forceinline__ void so3_log(const Pose<Dual>& T, Dual (&out)[3]) {
@@ -292,15 +209,6 @@ __device__ __forceinline__ void se3_log(const Pose<Dual>& T, Dual (&xi)[6]) {
     xi[i] = u;
     xi[3 + i] = w[i];
   }
-}
-
-template <typename S>
-__device__ __forceinline__ Pose<S> load_pose(const float* __restrict__ T, long long n) {
-  Pose<S> P;
-  const float* src = T + 16 * n;
-#pragma unroll
-  for (int k = 0; k < 12; ++k) P.m[k] = S(src[k]);
-  return P;
 }
 
 // T[n] exp(x[n]): the pose node n takes after the previous iteration's

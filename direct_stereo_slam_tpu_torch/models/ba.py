@@ -13,9 +13,17 @@ Frame states: worldToCam FEJ pose ``T_zero`` and additive tangent
 dimension ``D = 4 + 8 W`` (calib first). In this port the per-point
 (host, target) transforms are a plain index (the reference's one-hot
 einsum was a TPU gather workaround), and the 20-column per-pair blocks
-are placed into the D x D system by index. The small dense solves go to
-``torch.linalg``. The LM loop is a Python loop with one host read of its
-exit condition per iteration.
+are placed into the D x D system by index.
+
+On the card the linearization and the LM loop are the hand-written
+kernels of ``csrc/ba.cu`` (``ops/ba.py``): K9 ``linearize``, and per LM
+iteration K10 (the step) -> K9 (at the candidate) -> K11 (accept or
+reject), queued a fixed number of times with no host read; sums in a
+fixed order, so two runs give the same bits. For a CPU state the plain
+versions run: ``linearize_plain`` and ``_optimize_loop_plain`` (a Python
+loop with one read of its exit condition per iteration). The
+marginalization's small dense solves and Schur products stay on
+``torch.linalg`` and matmuls.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 from ..config import (PATTERN_OFFSETS, SCALE_A, SCALE_B, SCALE_C, SCALE_F,
                       SCALE_XI_ROT, SCALE_XI_TRANS, SLAMConfig)
 from ..geometry import lie
+from ..ops import ba as kb
 from ..ops.interp import bilinear_gather_frames
 from ..utils.device import constant
 
@@ -114,9 +123,11 @@ def empty_state(n_slots: int, n_points: int, h: int, w: int, calib,
 
 
 def _precond(n_slots: int, device) -> torch.Tensor:
-    per_frame = [SCALE_XI_TRANS] * 3 + [SCALE_XI_ROT] * 3 + [SCALE_A, SCALE_B]
-    return torch.tensor([SCALE_F, SCALE_F, SCALE_C, SCALE_C] + per_frame * n_slots,
-                        dtype=torch.float32, device=device)
+    """[D] preconditioner, a cached device constant (building it from a
+    host list per call would wait for the stream)."""
+    per_frame = (SCALE_XI_TRANS,) * 3 + (SCALE_XI_ROT,) * 3 + (SCALE_A, SCALE_B)
+    return constant((SCALE_F, SCALE_F, SCALE_C, SCALE_C) + per_frame * n_slots,
+                    torch.device(device))
 
 
 class Linearization(NamedTuple):
@@ -132,9 +143,15 @@ class Linearization(NamedTuple):
     num_terms: torch.Tensor    # scalar
 
 
+def _pattern(device) -> tuple:
+    """([8] u, [8] v) offsets of the residual pattern, cached device
+    constants."""
+    return tuple(constant(tuple(o[i] for o in PATTERN_OFFSETS), torch.device(device))
+                 for i in (0, 1))
+
+
 def _pattern_uv(u, v):
-    du = constant(tuple(o[0] for o in PATTERN_OFFSETS), u.device)
-    dv = constant(tuple(o[1] for o in PATTERN_OFFSETS), u.device)
+    du, dv = _pattern(u.device)
     return u[..., None] + du, v[..., None] + dv
 
 
@@ -152,7 +169,22 @@ def _block_columns(W: int, device) -> torch.Tensor:
 def linearize(state: BAState, cfg: SLAMConfig) -> Linearization:
     """Linearize all (point, target) residuals at the current state with
     first-estimate Jacobians (geometry at zero states, photometric residual
-    at current states)."""
+    at current states): K9 on the card, ``linearize_plain`` for a CPU
+    state."""
+    if not state.images.is_cuda:
+        return linearize_plain(state, cfg)
+    params = kb.make_params(state, cfg)
+    kb.ba_linearize_cuda(params, 0)
+    return Linearization(**{f: params.bufs.lin[f][0] for f in kb.LIN_FIELDS})
+
+
+def linearize_plain(state: BAState, cfg: SLAMConfig,
+                    magnitudes: bool = False) -> Linearization:
+    """``linearize`` in plain PyTorch, on any device (K9's plain version;
+    the per-(host, target) blocks placed with ``index_add_``).
+    ``magnitudes``: H, b and the idepth terms summed from the magnitudes
+    of every pixel's terms instead, the scale that a sum which cancels is
+    compared against."""
     W = state.num_slots
     NP = state.num_points
     D = 4 + 8 * W
@@ -277,6 +309,8 @@ def linearize(state: BAState, cfg: SLAMConfig) -> Linearization:
     w_pix = torch.where(is_good[..., None] & pix_ok, hw * wp * wp, torch.zeros_like(hw))
     J20 = torch.cat([Jcalib, Jh, Ja_h[..., None], Jb_h[..., None],
                      Jt, Ja_t[..., None], Jb_t[..., None]], dim=-1)   # [NP, W, 8, 20]
+    if magnitudes:
+        J20, Jd, residual = J20.abs(), Jd.abs(), residual.abs()
     Jw = J20 * w_pix[..., None]
     # per (host, target) 20x20 blocks: sum over the host's points (one-hot
     # matmul over the pool: a fixed-order reduction)
@@ -302,7 +336,8 @@ def linearize(state: BAState, cfg: SLAMConfig) -> Linearization:
     Hdd = torch.sum(w_pix * Jd * Jd, dim=(1, 2))
     bd = torch.sum(w_pix * Jd * residual, dim=(1, 2))
     Hdd = Hdd + state.p_prior
-    bd = bd + state.p_prior * (state.p_idepth - state.p_idepth_zero)
+    d_prior = state.p_prior * (state.p_idepth - state.p_idepth_zero)
+    bd = bd + (d_prior.abs() if magnitudes else d_prior)
 
     e_contrib = torch.where(is_good, pair_energy,
                             torch.where(pair_mask, th, torch.zeros_like(th)))
@@ -374,9 +409,10 @@ def _project_out_nullspace(x: torch.Tensor, N: torch.Tensor) -> torch.Tensor:
     return x - (N @ coef)[:, 0]
 
 
-def solve_step(state: BAState, lin: Linearization, lam, cfg: SLAMConfig):
-    """One GN/LM step: Schur over idepths, solve the frame system, project
-    the gauge nullspace out, back-substitute idepths. Returns (x [D], x_d [NP])."""
+def damped_system(state: BAState, lin: Linearization, lam, cfg: SLAMConfig):
+    """An LM step's frame system: the Schur complement over idepths, the
+    priors, the anchor eliminated, preconditioned and damped. Returns
+    (Hp [D, D], bp [D], P [D], inv_Hdd [NP]); the step solves Hp xp = -bp."""
     W = state.num_slots
     D = 4 + 8 * W
     dev = state.delta.device
@@ -399,6 +435,13 @@ def solve_step(state: BAState, lin: Linearization, lam, cfg: SLAMConfig):
     Hp = H * P[:, None] * P[None, :]
     bp = b * P
     Hp = Hp + lam * torch.diag(torch.diagonal(Hp)) + 1e-8 * torch.eye(D, dtype=torch.float32, device=dev)
+    return Hp, bp, P, inv_Hdd
+
+
+def solve_step(state: BAState, lin: Linearization, lam, cfg: SLAMConfig):
+    """One GN/LM step: Schur over idepths, solve the frame system, project
+    the gauge nullspace out, back-substitute idepths. Returns (x [D], x_d [NP])."""
+    Hp, bp, P, inv_Hdd = damped_system(state, lin, lam, cfg)
     xp = torch.linalg.solve_ex(Hp, -bp[:, None])[0][:, 0]
     x = xp * P
     x = _project_out_nullspace(x, _nullspaces(state))
@@ -438,19 +481,18 @@ def _select(pred: torch.Tensor, a, b):
     return type(a)(*[torch.where(pred, x, y) for x, y in zip(a, b)])
 
 
-def _optimize_impl(state: BAState, cfg: SLAMConfig, iterations: int):
-    """The windowed BA loop: LM with energy-gated accept/reject (or DSO's
-    force-accept), one linearization per iteration, early exit once the
-    step converges after min_opt_iterations. Returns (state, rmse,
-    energy_finite, final Linearization)."""
+def total_energy(st: BAState, lin: Linearization, cfg: SLAMConfig) -> torch.Tensor:
+    """The photometric energy plus the marginalization and state priors."""
+    x = _state_vector(st)
+    prior = _prior_diag(st, cfg)
+    return lin.energy + torch.dot(x, (st.HM @ x[:, None])[:, 0] + 2.0 * st.bM + prior * x)
 
-    def total_energy(st, lin):
-        x = _state_vector(st)
-        prior = _prior_diag(st, cfg)
-        return lin.energy + torch.dot(x, (st.HM @ x[:, None])[:, 0] + 2.0 * st.bM + prior * x)
 
+def _optimize_loop_plain(state: BAState, cfg: SLAMConfig, iterations: int):
+    """The LM loop in plain PyTorch (K9-K11's plain version; one host read
+    of the exit condition per iteration). Returns (state, lin)."""
     lin = linearize(state, cfg)
-    e_old = total_energy(state, lin)
+    e_old = total_energy(state, lin, cfg)
     lam = torch.full((), 1e-1, dtype=torch.float32, device=state.delta.device)
     for it in range(int(iterations)):
         x, x_d = solve_step(state, lin, lam, cfg)
@@ -464,7 +506,7 @@ def _optimize_impl(state: BAState, cfg: SLAMConfig, iterations: int):
             lam = lam * 0.25
         else:
             lin_new = linearize(st_new, cfg)
-            e_new = total_energy(st_new, lin_new)
+            e_new = total_energy(st_new, lin_new, cfg)
             accept = (e_new < e_old) & (lin_new.num_terms >= 0.3 * lin.num_terms)
             state = _select(accept, st_new, state)
             lin = _select(accept, lin_new, lin)
@@ -472,6 +514,40 @@ def _optimize_impl(state: BAState, cfg: SLAMConfig, iterations: int):
             e_old = torch.where(accept, e_new, e_old)
         if bool(done):
             break
+    return state, lin
+
+
+def _optimize_loop_device(state: BAState, cfg: SLAMConfig, iterations: int):
+    """The LM loop on the card: K9 and K11 once, then ``iterations``
+    rounds of K10 -> K9 -> K11 queued with no host read (each returns at
+    once when the done flag on the card is set). The state and the
+    linearization live in two buffers each; the accepted ones are picked
+    by the device index ctrl_i[0]. Returns (state, lin)."""
+    W, NP = state.num_slots, state.num_points
+    states = {f: torch.stack([getattr(state, f)] * 2) for f in kb.STATE_FIELDS}
+    lins = kb.empty_lin(2, NP, W, state.images.device)
+    params = kb.make_params(state, cfg, states, lins)
+    kb.ba_linearize_cuda(params, 0)
+    kb.ba_accept_cuda(params, -1)
+    for it in range(int(iterations)):
+        kb.ba_step_cuda(params)
+        kb.ba_linearize_cuda(params, 1)
+        kb.ba_accept_cuda(params, it)
+    cur = params.bufs.ctrl_i[:1].to(torch.int64)
+    state = state._replace(**{f: kb.pick(states[f], cur) for f in kb.STATE_FIELDS})
+    return state, Linearization(**{f: kb.pick(lins[f], cur) for f in kb.LIN_FIELDS})
+
+
+def _optimize_impl(state: BAState, cfg: SLAMConfig, iterations: int):
+    """The windowed BA loop: LM with energy-gated accept/reject (or DSO's
+    force-accept), one linearization per iteration, early exit once the
+    step converges after min_opt_iterations (on the card K9-K11, for a
+    CPU state the plain loop). Returns (state, rmse, energy_finite, final
+    Linearization)."""
+    if state.images.is_cuda:
+        state, lin = _optimize_loop_device(state, cfg, iterations)
+    else:
+        state, lin = _optimize_loop_plain(state, cfg, iterations)
 
     # isOOB bookkeeping at the fix pass
     W = state.num_slots
@@ -483,14 +559,16 @@ def _optimize_impl(state: BAState, cfg: SLAMConfig, iterations: int):
     pair_state = torch.where(lin.pair_good, c(RES_IN),
                              torch.where(lin.pair_in, c(RES_OUTLIER),
                                          torch.where(participated, c(RES_OOB), c(RES_NONE))))
+    # the two newest slots as device indices (indexing with them would
+    # read them back)
     fid = torch.where(state.frame_valid, state.frame_id, torch.full_like(state.frame_id, -1))
     newest = torch.argmax(fid)
-    fid2 = fid.clone()
-    fid2[newest] = -1
+    fid2 = torch.where(torch.arange(W, device=dev) == newest, torch.full_like(fid, -1), fid)
     second = torch.argmax(fid2)
-    has2 = fid2[second] >= 0
-    lr0 = torch.where(participated[:, newest], pair_state[:, newest], state.p_last_res[:, 0])
-    lr1 = torch.where(has2 & participated[:, second], pair_state[:, second],
+    has2 = torch.max(fid2) >= 0
+    col = lambda a, i: torch.index_select(a, 1, i.view(1))[:, 0]
+    lr0 = torch.where(col(participated, newest), col(pair_state, newest), state.p_last_res[:, 0])
+    lr1 = torch.where(has2 & col(participated, second), col(pair_state, second),
                       state.p_last_res[:, 1])
     state = state._replace(
         p_res_good=lin.pair_good,

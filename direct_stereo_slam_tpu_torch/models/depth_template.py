@@ -96,11 +96,15 @@ def build_template(proj_u, proj_v, proj_id, proj_w, ref_img, levels: int,
           & (proj_u < W) & (proj_v < H))
     wgt = torch.where(ok, proj_w, torch.zeros_like(proj_w))
 
-    flat_idx = vi * W + ui
-    idepth0 = torch.zeros(H * W, dtype=torch.float32, device=dev).index_add_(
-        0, flat_idx, proj_id * wgt).reshape(H, W)
-    weight0 = torch.zeros(H * W, dtype=torch.float32, device=dev).index_add_(
-        0, flat_idx, wgt).reshape(H, W)
+    # the per-pixel sums with index_put_(accumulate=True): on the card it
+    # sorts the indices (stably) and adds each pixel's points in their
+    # order, with no atomics, the order index_add_ takes on the CPU; two
+    # runs give the same bits
+    flat_idx = (vi * W + ui,)
+    idepth0 = torch.zeros(H * W, dtype=torch.float32, device=dev).index_put_(
+        flat_idx, proj_id * wgt, accumulate=True).reshape(H, W)
+    weight0 = torch.zeros(H * W, dtype=torch.float32, device=dev).index_put_(
+        flat_idx, wgt, accumulate=True).reshape(H, W)
 
     idepths, weights, imgs = [idepth0], [weight0], [ref_img]
     img = ref_img

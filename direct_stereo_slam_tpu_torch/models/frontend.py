@@ -1091,7 +1091,10 @@ class FrontEnd:
                     scale_out = dispatch_scale_optimization(
                         tuple(pyr1.data), tmpl, self.intr0, self.intr1,
                         self.t_cam1_cam0, cfg, self.scale_state)
-            return st, tmpl, scale_out, float(rmse), bool(ok), int(tmpl.pmask[0].sum()), int(ndrop)
+            # rmse, ok, the template's level-0 count and the compact view's
+            # overflow in one host read
+            rmse, ok, pmask_count, ndrop = to_host((rmse, ok, tmpl.pmask[0].sum(), ndrop))
+            return st, tmpl, scale_out, float(rmse), bool(ok), int(pmask_count), int(ndrop)
 
         cb = cfg.ba.compact_budget
         cb = cb if 0 < cb < self.pool else None
@@ -1172,15 +1175,13 @@ class FrontEnd:
                     self.immatures, self._upload(clear))
                 for mslot in flagged:
                     self.imm_slots.discard(mslot)
-        npy = lambda t: t.cpu().numpy()
-        bundle = (
-            self._views_np(),
-            tuple(npy(a) for a in (st.p_u, st.p_v, st.p_idepth, n_good, lin.Hdd,
-                                   lin.pair_good, lin.pair_energy, st.p_color,
-                                   st.p_num_good, st.p_last_res)),
-            int(sel_count),
-            {s: npy(c) for s, c in colors_by_slot.items()},
-        )
+        # the bundle's arrays, the selection count and the colours in one
+        # device-to-host copy
+        slots = list(colors_by_slot)
+        host = to_host((st.p_u, st.p_v, st.p_idepth, n_good, lin.Hdd, lin.pair_good,
+                        lin.pair_energy, st.p_color, st.p_num_good, st.p_last_res,
+                        sel_count) + tuple(colors_by_slot[s] for s in slots))
+        bundle = (self._views_np(), host[:10], int(host[10]), dict(zip(slots, host[11:])))
         self._finalize_keyframe_commit(bundle, lin, st, flagged, new_slot)
 
     def _finalize_keyframe_commit(self, bundle, lin, st, flagged: List[int],

@@ -1,10 +1,12 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
 All kernels live in ``direct_stereo_slam_tpu_torch/csrc/*.cu`` behind a
-plain C interface. On first use they are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library under ``build/torch_kernels/`` at
-the repository root, named by a digest of the sources and flags so an
-edited source is rebuilt; the library is loaded with ``ctypes``. Nothing
+plain C interface. On first use each source is compiled with ``nvcc`` for
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, and
+the objects are linked into one shared library under
+``build/torch_kernels/`` at the repository root, named by a digest of the
+sources and flags so an edited source is rebuilt; the library is loaded
+with ``ctypes``. Nothing
 here runs at import time, and there is no fallback: a missing toolkit, a
 failed build or a refused launch raises.
 """
@@ -31,7 +33,7 @@ torch.backends.cudnn.allow_tf32 = False
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,6 +73,10 @@ _SIGNATURES = {
     # cg_iters, work, x, steps, stream
     "dsslam_pose_graph_pcg": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P, _P,
                               _P, _P],
+    # &BaParams (ops/ba.py), mode / it, stream
+    "dsslam_ba_linearize": [_P, _I, _P],
+    "dsslam_ba_step": [_P, _P],
+    "dsslam_ba_accept": [_P, _I, _P],
 }
 
 
@@ -117,17 +123,27 @@ def load_library() -> KernelLibrary:
     log = ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cus = [str(s) for s in _sources() if s.suffix == ".cu"]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cus]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        path.with_suffix(".log").write_text(log)
-        os.replace(tmp, path)       # atomic: concurrent builders agree
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            objs, procs = [], []
+            for src in (s for s in _sources() if s.suffix == ".cu"):
+                obj = os.path.join(tmpdir, src.stem + ".o")
+                objs.append(obj)
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", obj, str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            outs = [(proc.communicate()[0], proc.returncode) for proc in procs]
+            log = "".join(out for out, _ in outs)
+            if any(rc != 0 for _, rc in outs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            tmp = os.path.join(tmpdir, path.name)
+            proc = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True,
+                                  text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to link ({proc.returncode}):\n{log}")
+            path.with_suffix(".log").write_text(log)
+            os.replace(tmp, path)       # atomic: concurrent builds agree
     elif path.with_suffix(".log").exists():
         log = path.with_suffix(".log").read_text()
     lib = ctypes.CDLL(str(path))

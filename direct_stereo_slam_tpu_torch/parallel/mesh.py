@@ -160,7 +160,8 @@ def shard_ba_optimize(cfg: SLAMConfig, mesh: Mesh, iterations: int = 2):
     BAState with a leading batch axis on every leaf) split over the mesh:
     ``models/ba.optimize`` per window, in order, the windows gathered on
     the first device. Returns step(states) -> (states, rmse [B], ok [B]).
-    The port's BA is plain PyTorch (no hand-written kernel yet)."""
+    On the card each window's LM loop is K9-K11 (``csrc/ba.cu``), on the
+    CPU the plain loop."""
     from ..models import ba as ba_mod
 
     def step(states):
@@ -236,10 +237,16 @@ def shard_posegraph_optimize(mesh: Mesh, iterations: int = 25, huber_delta: floa
     into the full node vectors, summed over the shards in device order on
     the first device (the JAX package's ``psum``) in every CG matvec.
     Returns step(data: PoseGraphData) -> [N, 4, 4]; the edge arrays are
-    padded to a multiple of the mesh size."""
+    padded to a multiple of the mesh size. One shard is the same system
+    with the same damping as ``loop/pose_graph.optimize``'s CG solver: it
+    runs there (on the card K6 -> K8 per iteration, no host read, the same
+    bits on two runs)."""
     from ..loop import pose_graph as pg
 
     def step(data):
+        if mesh.size == 1:
+            on = _tree(data, lambda x: x.to(mesh.devices[0]))
+            return pg.optimize(on, iterations, huber_delta, "cg", cg_iters).to(data.T_wc.device)
         T = data.T_wc
         N = T.shape[0]
         home = T.device
