@@ -153,8 +153,11 @@ Phases, each of which must pass (any fault exits non-zero):
    entry, rmse rel 1e-3, the same ok; or the same against the plain loop
    on the reversed point pool, where the plain loop's own accept margins
    decide), two card runs bit-equal, one under
-   ``set_sync_debug_mode("error")``, its launches and ms (run right
-   after phase 4);
+   ``set_sync_debug_mode("error")``, its launches and ms; and, in a new
+   process (``--ba-split``, one torch.profiler session of its own), the
+   card time of each of K9's and K10's sub-launches at both views of the
+   window, with the kernels' registers, shared memory and spills as
+   ptxas reported them (run right after phase 4);
 14. ``ab_policies`` as a new process at the JAX package's 320x96, 80
    frames (``AB_CHILD``, each arm's launches counted in it): exit 0 within
    600 s (the force-accept arm's NaN poses reach K9-K11 without a crash or
@@ -188,6 +191,12 @@ frame against the card, and the 320-frame protocol through disk
 stages with a synchronize at the end of each span, the waits per
 keyframe call), not gated; with --root, of the port in another checkout,
 so that a tree and its parent run in turns in one call.
+--ba-window FILE only runs the e2e sequence once and saves its fullest BA
+window to FILE; --ba-split FILE [--root DIR] only times K9's and K10's
+calls (``device_ms``) and sub-launches (torch.profiler) on that window,
+with the kernels' registers and spills (with --root, of the port in
+another checkout: the parent and a change in turns in one call, each a
+process of its own).
 --lm-digest [--root DIR] only prints digests of K2-LM's and K3-LM's
 single-sequence outputs on seeded inputs and the card's time per call
 (with --root, of the port in another checkout: two forms of the kernels
@@ -959,9 +968,8 @@ def e2e_profile(torch, run_once, out_dir: str) -> None:
           f"{sum(e.count for e in kernels)} kernel launches", flush=True)
     ours = [e for e in kernels if "(anonymous namespace)::" in e.key and any(
         k in e.key for k in ("pose_partial", "pose3d_partial", "pose_final", "scale_partial",
-                             "scale_final", "distance_kernel", "lm_kernel", "lin_tile_kernel",
-                             "lin_finish_kernel", "schur_kernel", "solve_kernel",
-                             "backsub_kernel", "accept_kernel"))]
+                             "scale_final", "distance_kernel", "lm_kernel", "lin_pair_kernel",
+                             "lin_finish_kernel", "step_kernel", "accept_kernel"))]
     for e in sorted(ours, key=dev_ms, reverse=True):
         print(f"profile:   ours {dev_ms(e):9.3f} ms  x{e.count:6d}  {e.key[:60]}", flush=True)
     for e in sorted(kernels, key=dev_ms, reverse=True)[:12]:
@@ -1202,6 +1210,182 @@ def reordered(st, ba):
     return st._replace(**{f: getattr(st, f).flip(0) for f in ba._POINT_FIELDS})
 
 
+def fullest_call(calls):
+    """(index, valid slots, (st, cfg, iterations, slot, compact budget)) of
+    the keyframe call with the most valid slots (the last of equals)."""
+    nvalid = [int(a[0].frame_valid.sum()) for a, _ in calls]
+    pick = max(range(len(calls)), key=lambda i: (nvalid[i], i))
+    a, kw = calls[pick]
+    budget = a[4] if len(a) > 4 else kw.get("compact_budget")
+    return pick, nvalid[pick], tuple(a[:4]) + (budget,)
+
+
+def ba_windows(st_full, ba):
+    """The BA phase's two views of a window: the compact view of BA_COMPACT
+    points and the full pool."""
+    return {BA_COMPACT: ba._compact_points(st_full, BA_COMPACT)[0],
+            st_full.num_points: st_full}
+
+
+def ba_window_only(torch, dev, path: str) -> None:
+    """``--ba-window FILE``: one pass of the e2e sequence; its fullest
+    keyframe window's ``optimize_keyframe`` arguments saved to FILE (the
+    state on the CPU), for ``--ba-split`` on two trees in turns."""
+    from direct_stereo_slam_tpu_torch.models import ba
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
+    with BaTraffic() as traffic:
+        run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
+    pick, nvalid, args = fullest_call(traffic.calls)
+    st = ba.BAState(*[x.cpu() for x in args[0]])
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save((st,) + args[1:], path)
+    print(f"ba window: keyframe call {pick + 1} of {len(traffic.calls)}, {nvalid} slots "
+          f"valid, {int(st.p_valid.sum())} valid points of {st.num_points} -> {path}",
+          flush=True)
+
+
+# K9 and K10's sub-launches, by kernel name, in launch order: this design's
+# (K9: lin_pair, lin_finish; K10: step) and the previous one's (K9:
+# lin_tile, lin_finish; K10: schur, solve, backsub), so that one list
+# times two checkouts in turns
+BA_SUB_KERNELS = ("lin_pair_kernel", "lin_tile_kernel", "lin_finish_kernel", "step_kernel",
+                  "schur_kernel", "solve_kernel", "backsub_kernel")
+
+
+def ptxas_usage(build_log: str, names) -> dict:
+    """Per kernel whose name a compiled entry holds: registers, shared
+    memory bytes, spill stores and loads, as ptxas reported them."""
+    found, current, spill = {}, None, (0, 0)
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            # the mangled name carries its length: 11step_kernel, not lm_step_kernel
+            current = next((n for n in names if f"{len(n)}{n}" in line), None)
+        elif current and "spill stores" in line:
+            part = line.split(",")
+            spill = tuple(int(p.split("bytes")[0]) for p in part[1:3])
+        elif current and "Used" in line and "registers" in line:
+            smem = [p for p in line.split(",") if "bytes smem" in p]
+            found[current] = dict(
+                registers=int(line.split("Used")[1].split("registers")[0]),
+                smem=int(smem[0].split("bytes")[0]) if smem else 0,
+                spill_stores=spill[0], spill_loads=spill[1])
+            current = None
+    return found
+
+
+# which of K9 (0) or K10 (1) a sub-launch belongs to, by kernel name
+BA_SUB_OF = {"lin_pair_kernel": 0, "lin_tile_kernel": 0, "lin_finish_kernel": 0,
+             "step_kernel": 1, "schur_kernel": 1, "solve_kernel": 1, "backsub_kernel": 1}
+
+
+def profile_groups(torch, groups, calls: int):
+    """Per group (label, fn), the groups alternating K9 and K10 calls: the
+    card's time per call of each kernel that ``calls`` calls of fn()
+    launch, us by kernel name, from one torch.profiler session. The groups
+    are told apart by runs of K9's and K10's kernels in launch order (a
+    spin of the card between them keeps the runs apart); None if the
+    profiler recorded no device event of the groups."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _, fn in groups:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and any(n in e.name for n in BA_SUB_KERNELS)),
+                 key=lambda e: e.time_range.start)
+    runs = []
+    for e in evs:
+        name = next(n for n in BA_SUB_KERNELS if n in e.name)
+        if not runs or runs[-1][0] != BA_SUB_OF[name]:
+            runs.append((BA_SUB_OF[name], {}))
+        runs[-1][1][name] = runs[-1][1].get(name, 0.0) + e.time_range.elapsed_us() / calls
+    if len(runs) != len(groups):
+        return None
+    return {label: run for (label, _), (_, run) in zip(groups, runs)}
+
+
+def ba_split(torch, dev, path: str, calls: int = 50) -> dict:
+    """``--ba-split FILE``: K9 (mode 0) and K10 on the window FILE holds
+    (``--ba-window``), at both views (``ba_windows``): each call's card time
+    (``device_ms``) and each sub-launch's (``profile_groups``), with the
+    kernels' registers and spills; with ``--root``, of another checkout's
+    kernels. Prints one line ``ba_split {...}`` and returns it."""
+    import direct_stereo_slam_tpu_torch as port
+    from direct_stereo_slam_tpu_torch.models import ba
+    from direct_stereo_slam_tpu_torch.ops import _cuda
+    from direct_stereo_slam_tpu_torch.ops import ba as kb
+
+    saved = torch.load(path, weights_only=False)
+    st_full = ba.BAState(*[x.to(dev) for x in saved[0]])
+    cfg = saved[1]
+    groups, whole, phases = [], {}, {}
+    for NP, st in ba_windows(st_full, ba).items():
+        params = kb.make_params(st, cfg)
+        k9 = partial(kb.ba_linearize_cuda, params, 0)
+        k9()
+        lin = {f: params.bufs.lin[f][0].clone() for f in kb.LIN_FIELDS}
+        states = {f: torch.stack([getattr(st, f)] * 2) for f in kb.STATE_FIELDS}
+        p10 = kb.make_params(st, cfg, states, {f: torch.stack([v] * 2)
+                                                for f, v in lin.items()})
+        p10.bufs.ctrl_f[0] = 0.1
+        k10 = partial(kb.ba_step_cuda, p10)
+        for name, fn in ((f"K9[NP={NP}]", k9), (f"K10[NP={NP}]", k10)):
+            groups.append((name, fn))
+            whole[name] = device_ms(torch, fn)
+        if hasattr(kb, "timer_buffer"):
+            # one call of each with the phase stamps on
+            buf = kb.timer_buffer(dev)
+            params.struct.timers = p10.struct.timers = buf.data_ptr()
+            k9()
+            k10()
+            torch.cuda.synchronize()
+            params.struct.timers = p10.struct.timers = None
+            D = 4 + 8 * st.num_slots
+            phases[f"NP={NP}"] = kb.phase_us(buf, st.num_slots, sm_clock_mhz(),
+                                             ((D * (D + 1) // 2 + D + 1) * 8 + 255) // 256)
+    split = profile_groups(torch, groups, calls)
+    out = dict(root=os.path.dirname(os.path.dirname(os.path.abspath(port.__file__))),
+               card=card_info(), window=st_full.num_points, device_ms=whole,
+               sub_launch_us=split if split is not None else "not measured",
+               phases_us=phases or "not measured",
+               host_sizes=[int(x) for x in torch.bincount(st_full.p_host[st_full.p_valid],
+                                                          minlength=st_full.num_slots)],
+               pool_hosts=[int(x) for x in torch.bincount(st_full.p_host,
+                                                          minlength=st_full.num_slots)],
+               ptxas=ptxas_usage(_cuda.load_library().build_log,
+                                 BA_SUB_KERNELS + ("accept_kernel",)))
+    print("ba_split " + json.dumps(out), flush=True)
+    return out
+
+
+def ba_split_child(torch, args) -> dict:
+    """``ba_split`` on this window as a new process (``--ba-split``: its
+    own torch.profiler session, which a process gets only once); its
+    ``ba_split`` line is printed and returned."""
+    from direct_stereo_slam_tpu_torch.models import ba
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ba_") as tmp:
+        path = os.path.join(tmp, "window.pt")
+        torch.save((ba.BAState(*[x.cpu() for x in args[0]]),) + tuple(args[1:]), path)
+        out = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"),
+                              "--ba-split", path], capture_output=True, text=True,
+                             timeout=600, cwd=here)
+    line = next((ln for ln in out.stdout.splitlines() if ln.startswith("ba_split ")), None)
+    if out.returncode != 0 or line is None:
+        fail(f"ba split: exit {out.returncode}\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    print(line, flush=True)
+    return json.loads(line[len("ba_split "):])
+
+
 def ba_phase(torch, dev, calls):
     """K9-K11 against their plain versions on the e2e run's fullest window
     (the keyframe call with the most valid slots), at the compact view of
@@ -1212,20 +1396,15 @@ def ba_phase(torch, dev, calls):
     from direct_stereo_slam_tpu_torch.models import ba
     from direct_stereo_slam_tpu_torch.ops import ba as kb
 
-    nvalid = [int(a[0].frame_valid.sum()) for a, _ in calls]
-    pick = max(range(len(calls)), key=lambda i: (nvalid[i], i))
-    a, kw = calls[pick]
-    st_full, cfg, iters, slot = a[:4]
-    budget = a[4] if len(a) > 4 else kw.get("compact_budget")
+    pick, nvalid, (st_full, cfg, iters, slot, budget) = fullest_call(calls)
     W = st_full.num_slots
     D = 4 + 8 * W
     print(f"ba: the e2e run's keyframe call {pick + 1} of {len(calls)}: "
-          f"{nvalid[pick]} of {W} slots valid, "
+          f"{nvalid} of {W} slots valid, "
           f"{int(st_full.p_valid.sum())} valid points in a pool of {st_full.num_points}, "
           f"{iters} iterations, compact budget {budget}", flush=True)
     rows = []
-    windows = {BA_COMPACT: ba._compact_points(st_full, BA_COMPACT)[0],
-               st_full.num_points: st_full}
+    windows = ba_windows(st_full, ba)
     lam = 0.1
     for NP, st in windows.items():
         tag = f"NP={NP},W={W}"
@@ -1345,8 +1524,25 @@ def ba_phase(torch, dev, calls):
         print(f"K11 ba_accept {tag}: kernel {ms:.4f} ms (queued on the card {dms} ms), plain "
               f"(two total energies) {pms:.4f} ms", flush=True)
 
-    # ---- the whole optimize_keyframe: card against the plain loop
+    # ---- K9's and K10's sub-launches and registers
     args = (st_full, cfg, iters, slot, budget)
+    split = ba_split_child(torch, args)
+    usage = split["ptxas"]
+    print("ba kernels (registers, shared memory bytes, spill stores / loads): " + "; ".join(
+        f"{k} {v['registers']} regs, {v['smem']} B smem, spills {v['spill_stores']} / "
+        f"{v['spill_loads']}" for k, v in usage.items()), flush=True)
+    if any(v["spill_stores"] or v["spill_loads"] for v in usage.values()):
+        print("ba kernels: ptxas spilled registers (see above)", flush=True)
+    for r in rows:
+        name, np_ = r["name"].split("[")[0], r["name"].split("NP=")[1].split(",")[0]
+        key = {"ba_linearize": "K9", "ba_step": "K10"}.get(name)
+        if key and isinstance(split["sub_launch_us"], dict):
+            r["sub_launch_us"] = split["sub_launch_us"][f"{key}[NP={np_}]"]
+        r["ptxas"] = {k: v for k, v in usage.items() if k in {
+            "ba_linearize": ("lin_pair_kernel", "lin_finish_kernel"),
+            "ba_step": ("step_kernel",), "ba_accept": ("accept_kernel",)}[name]}
+
+    # ---- the whole optimize_keyframe: card against the plain loop
     counters = (kb.ba_linearize_cuda, kb.ba_step_cuda, kb.ba_accept_cuda)
     before = [fn.launches for fn in counters]
     card = ba.optimize_keyframe(*args)
@@ -3291,8 +3487,14 @@ def main() -> int:
                     help="only time the e2e and 160-frame loop sequences (FPS, the BA's "
                          "synchronized stages, waits per keyframe call), to compare "
                          "this tree with another checkout (--root) in turns in one call")
-    ap.add_argument("--root", help="with --lm-digest or --fps: the checkout whose port "
-                                   "to load")
+    ap.add_argument("--ba-window", metavar="FILE",
+                    help="only run the e2e sequence once and save its fullest BA window "
+                         "to FILE")
+    ap.add_argument("--ba-split", metavar="FILE",
+                    help="only time K9's and K10's calls and sub-launches on the BA "
+                         "window FILE (--ba-window; with --root: another checkout's)")
+    ap.add_argument("--root", help="with --lm-digest, --fps or --ba-split: the checkout "
+                                   "whose port to load")
     args = ap.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -3331,6 +3533,12 @@ def main() -> int:
         return 0
     if args.fps:
         fps_only(torch, dev)
+        return 0
+    if args.ba_window:
+        ba_window_only(torch, dev, args.ba_window)
+        return 0
+    if args.ba_split:
+        ba_split(torch, dev, args.ba_split)
         return 0
     usage = lm_usage(lib.build_log)
     print(f"resident LM kernels (registers, bytes spilled, 8-block clusters resident at "

@@ -20,48 +20,76 @@
 // 230 products into the 20x20 block and b: ~1.6 us at 67 TFLOP/s), so it
 // is bound by bytes, then operations. K10 reads Hfd and the point terms
 // (0.8 MB, ~0.24 us) and needs ~13 M operations (one multiply-add per
-// point for each of the 2414 Schur entries, ~0.2 us): bound by bytes on
-// paper, in practice by its 68 x 68 solve's chain of dependent steps.
-// K11 is a 68 x 68 product. None has a product a tensor core could
-// take in f32 (the reference pins Precision.HIGHEST).
+// point for each of the Schur entries, ~0.2 us): bound by bytes on paper,
+// in practice by its damped solve's chain of 8W - 4 dependent pivot steps.
+// K11 is a 68 x 68 product. None has a product a tensor core could take
+// in f32 (the reference pins Precision.HIGHEST).
 //
-// Design.
-// - Fixed order, no atomics: every sum runs in an order fixed by point
-//   index and tile, so two runs give the same bits.
-//   K9 is two launches. The first has one block per (tile of 128 points,
-//   target frame t): 256 threads take 32 points x 8 pattern pixels at a
-//   time, each thread one pixel's residual, Huber weight and 20-wide
-//   Jacobian row, kept in shared memory; the pair sums (energy, all pixels
-//   in bounds) are 8-lane shuffles. Then thread e of the first 230 adds
-//   entry e of each point's 20x20 block (upper triangle) or b into its
-//   host's accumulator, point by point in index order; the per-(point,
-//   target) sums that feed Hfd, Hdd and bd go to a scratch [NP, W, 22].
-//   The second launch sums the tiles in order: one thread per entry of Hff
-//   (each (host s, target t) block's entries placed at calib 0:4, host
-//   4 + 8s, target 4 + 8t, in ascending s, t, tile: the sum index_add_
-//   forms), of bf, and of each point's Hfd row, Hdd and bd. The
-//   [NP, W, 8, 20] Jacobian and the [NP, W, 20, 20] products never reach
-//   memory.
-//   K10 is three launches: the Schur sums per tile of 64 points (each
-//   thread an entry of the upper triangle, points in order), one block that
-//   adds the tiles in order, assembles and solves the damped system, and
-//   the back-substitution of the idepth steps, one warp a point.
+// Design (fixed order and no atomics throughout: two runs give the same
+// bits).
+// - K9 is two launches. The first is one block per (chunk, target t, host
+//   s), in clusters of the kChunks chunks of one (s, t). The points are
+//   grouped by host once per parameter block (ops/ba.py::host_groups: a
+//   stable sort of p_host), and chunk c takes the c-th eighth of host s's
+//   list, so a block's 20x20 block and b belong to one (s, t) and need no
+//   per-point scatter. A round takes 32 points x 8 pattern pixels, a
+//   thread a pixel: its warp, bilinear sample, Huber weight, 20-wide
+//   Jacobian row, its pair's sums by 8-lane shuffles. Only the rows of a
+//   good pair (the pairs whose weights can be non-zero) are compacted into
+//   shared memory; 12 groups of 20 threads each hold a 4x4 tile of the
+//   upper triangle (or 4 entries of b) in registers across the rows, read
+//   as float4. A pair that is not good adds J * 0: nothing unless its
+//   Jacobian or residual is not finite, which its non-finite mask records
+//   (entry (i, j) is NaN iff bit i or bit j is set, as J_i * 0 * J_j).
+//   The chunks' partials are summed in rank order through distributed
+//   shared memory by the cluster's rank 0 into the (s, t) block. Per
+//   (point, target) the 22 sums that feed Hfd, Hdd and bd go to a scratch
+//   [NP, W, 22]. The second launch forms each point's Hfd row, Hdd and bd
+//   from it and assembles Hff and bf from the W x W reduced blocks, eight
+//   threads an entry (one per host s, over the targets t), summed in s
+//   order by shuffles.
+// - K10 is one launch of a cluster of 16 blocks (8 where 16 cannot be
+//   resident). Each block copies its range of Hfd rows into shared memory
+//   (cooperative_groups::memcpy_async; a loop over chunks where the range
+//   does not fit) and forms its Schur partial over the free unknowns (the
+//   anchor's 8 are frozen: 8W - 4 of them) with 3 groups of threads, each
+//   thread a 4x4 tile of the upper triangle or 4 entries of b. After a
+//   cluster barrier block 0 adds the partials in rank order through
+//   distributed shared memory, assembles the damped, preconditioned
+//   system (Hff, HM, bf and bM copied into its shared memory during the
+//   Schur sums) and solves it by LU with partial pivoting in two warps: a
+//   row in each lane's registers, shifted one column left per step so
+//   every index is static, the pivot the first row of largest |entry| (a
+//   warp max of a key of |entry| and the row, then one two-warp barrier),
+//   pivot rows kept in shared memory in pivot order, then a back-
+//   substitution a column at a time in one warp. (Gauss-Jordan, which needs
+//   no back-substitution, left x ~4e-3 from a float64 solve where lam is
+//   1e-6 and the scale direction nearly free; LU, like solve_ex, ~3e-6.)
+//   The nullspace projection and the convergence test are warp
+//   reductions. Block 0 pushes x into every block's shared memory; after a
+//   second cluster barrier every block back-substitutes x_d for its own
+//   points from the rows it holds and writes the candidate state.
 // - NaN as the plain version: a pair whose weight is 0 still adds J * 0,
 //   so a NaN pose makes H NaN as J20 * w_pix does; and the plain version's
 //   one-hot matmul spreads a NaN product to every host's block of that
-//   target, which each tile reproduces by adding (sum of products) * 0 to
-//   every host's accumulator. The solve is an LU with partial pivoting
-//   (the search is a fixed scan of the column, never a loop on data): a
-//   NaN in the system reaches x as it does through torch.linalg.solve_ex,
-//   and the nullspace projection spreads it to every entry. Bilinear
-//   samples clamp finite coordinates (common.cuh, sample3).
+//   target: the assembly adds, to every (s, t) term, the other hosts'
+//   blocks of t times 0 (read only where a block of t is not finite). The
+//   solve's pivot search never loops on data; a NaN in the system reaches
+//   x as it does through torch.linalg.solve_ex, and the nullspace
+//   projection spreads it to every entry. Bilinear samples clamp finite
+//   coordinates (common.cuh, sample3).
 // - No host read: each launch reads the device's done flag first and
 //   returns at once once it is set, so the host queues a fixed number of
 //   iterations. The state and the linearization live in two buffers each;
 //   ctrl_i[0] names the current one, and K11 moves it to the candidate on
 //   accept (or, in DSO's force-accept mode, whenever the step applies).
 
+#include <cooperative_groups.h>
+#include <cooperative_groups/memcpy_async.h>
+
 #include "lie.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -74,22 +102,40 @@ using dsslam::Pose;
 using dsslam::sample3;
 using dsslam::se3_exp;
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSlots = 8;
 constexpr int kMaxD = 4 + 8 * kMaxSlots;
 constexpr int kHU = 210;               // the 20x20 block's upper triangle
 constexpr int kHB = 230;               // ... and its b
-constexpr int kHE = 232;               // per (s, t) block in a tile's partial
+constexpr int kHE = 232;               // per (s, t) block: kHB | energy | good pairs
 constexpr int kG = 22;                 // per (point, target): G20 | Hdd | bd
+// K9's pixel pass
 constexpr int kLinThreads = 256;       // 32 points x 8 pattern pixels a round
 constexpr int kRoundPts = kLinThreads / 8;
-constexpr int kLinTile = 128;          // points per tile
-constexpr int kPix = 24;               // per pixel in shared memory: J20 | w | r | Jd
+constexpr int kChunks = 8;             // the cluster: chunks of one host's points
+constexpr int kRow = 24;               // a staged row: J20 | r, w, Jd, 0
+constexpr int kTiles = 20;             // 15 tiles of 4x4 (upper) + 5 of b
+constexpr int kGroups = 12;            // 12 x 20 threads hold the tiles
+constexpr int kTileFloats = 15 * 16 + 5 * 4;
 constexpr int kFinThreads = 256;
-constexpr int kSchurTile = 64;
-constexpr int kSchurThreads = 256;
-constexpr int kSolveThreads = 512;
-constexpr int kBackThreads = 256;      // 8 warps, a point each
+// K10
+constexpr int kStepThreads = 512;
+constexpr int kFreeMax = 64;           // free unknowns, 8 W - 4 <= 60, padded
+constexpr int kGroupsMax = 2 * kMaxSlots - 1;    // free float4 groups of a row
+constexpr int kSTiles = kGroupsMax * (kGroupsMax + 1) / 2 + kGroupsMax;   // 135
+constexpr int kSGroups = 3;            // 3 x 135 threads hold the tiles
+constexpr int kSchurFloats = (kSTiles - kGroupsMax) * 16 + kGroupsMax * 4;   // 1980
+// the groups' tiles; in block 0 afterwards the Schur sums, the system, the
+// rows' copies, the pivot keys and x (kSchurFloats + 4 + 64 x 65 + 64 x 68
+// + 256 + 64 = 10816)
+constexpr int kSlot = kFreeMax + 4;
+constexpr int kPartFloats = 10816;
+constexpr size_t kSmemLimit = 232448 - 4096;   // dynamic, beside the static arrays
+constexpr int kSysStride = kFreeMax + 1;
 constexpr int kAcceptThreads = 128;
+constexpr int kLinStamps = 8, kStepStamps = 10;
+constexpr int kLinTimerWords = kMaxSlots * kMaxSlots * kChunks * kLinStamps;
+constexpr int kFinStampBlocks = 1024;   // K9's second launch: start and end of its first blocks
 
 }  // namespace
 
@@ -124,6 +170,8 @@ struct BaParams {
   const float* precond;   // [D]: models/ba.py::_precond (config.py's SCALE_*)
   const float* pat_u;     // [8]: config.py's PATTERN_OFFSETS, u then v
   const float* pat_v;
+  const int* host_pts;    // [NP]: point indices grouped by host (ops/ba.py::host_groups)
+  const int* host_off;    // [W + 1]: host s's points are host_pts[host_off[s]:host_off[s + 1]]
   float* calib_delta[2];
   float* delta[2];
   float* idepth[2];
@@ -139,12 +187,18 @@ struct BaParams {
   unsigned char* pair_in[2];
   int* ctrl_i;
   float* ctrl_f;
-  float* lin_part;     // [tiles, W (t), W (s), kHE], then [tiles, W, 2]
+  float* lin_part;     // [W (s), W (t), kHE] reduced blocks, then [W, W] not-finite flags
   float* pt_part;      // [NP, W, kG]
-  float* sc_part;      // [schur tiles, U + D + 2]
-  float* inv_hdd;      // [NP]
   float* x;            // [D]
   float* x_d;          // [NP]
+  // phase stamps, null on the main path (ops/ba.py::timer_buffer): K9's
+  // pixel pass kLinStamps per block (%globaltimer ns at its start, set-up,
+  // rounds and end; then thread 0's clock64 cycles in the rounds' warp and
+  // sample, compaction, and rows and products, and its rounds), K10's
+  // kStepStamps per rank (ns at its phases' ends), then rank 0's solve's
+  // cycles per part of a pivot step (key, candidate row, barrier, factor,
+  // elimination)
+  unsigned long long* timers;
 };
 
 namespace {
@@ -157,9 +211,22 @@ __device__ __forceinline__ int current(const BaParams& p) {
   return p.ctrl_i != nullptr ? p.ctrl_i[0] : 0;
 }
 
+__device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
+
+__device__ __forceinline__ long long cycles() { return clock64(); }
+
+// phase stamp i of a block (thread 0 only, where timers is set)
+__device__ __forceinline__ void stamp(const BaParams& p, int base, int i) {
+  if (p.timers != nullptr && threadIdx.x == 0) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    p.timers[base + i] = ns;
+  }
+}
+
 // torch.maximum: NaN if either is NaN
 __device__ __forceinline__ float nanmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+  return (isnan(a) || isnan(b)) ? qnan() : fmaxf(a, b);
 }
 
 // BAState.T_current of frame f in buffer b: se3_exp(delta[:6]) @ T_zero
@@ -192,100 +259,203 @@ __device__ __forceinline__ void upper_ij(int e, int n, int& i, int& j) {
   j = i + e;
 }
 
+// index of tile (I, J), I <= J, of an n x n upper triangle of tiles
+__device__ __forceinline__ int tile_index(int I, int J, int n) {
+  return I * n - I * (I - 1) / 2 + (J - I);
+}
+
 // ---------------------------------------------------------------------------
-// K9, first launch: one block per (tile of points, target)
+// K9, first launch: one block per (chunk, target t, host s)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kLinThreads) lin_tile_kernel(const BaParams p, int mode) {
-  if (mode != 0 && is_done(p)) return;
+// where entry e (< kHB) of a block sits in a group's tiles (kTileFloats)
+__device__ __forceinline__ int tile_slot(int e) {
+  if (e >= kHU) {
+    const int i = e - kHU;
+    return 15 * 16 + (i >> 2) * 4 + (i & 3);
+  }
+  int i, j;
+  upper_ij(e, 20, i, j);
+  return tile_index(i >> 2, j >> 2, 5) * 16 + (i & 3) * 4 + (j & 3);
+}
+
+// a pixel's point inputs (point idx of a host's list, below hi, pattern
+// pixel k, target t)
+struct PixelIn {
+  int pt;
+  float u, v, idepth, idepth_zero, color, weight;
+  bool valid, res_good;
+};
+
+__device__ __forceinline__ PixelIn fetch_pixel(const BaParams& p, int b, int idx, int hi, int k,
+                                               int t) {
+  PixelIn in{};
+  if (idx < hi) {
+    const int pt = p.host_pts[idx];
+    in.pt = pt;
+    in.u = p.p_u[pt];
+    in.v = p.p_v[pt];
+    in.idepth = p.idepth[b][pt];
+    in.idepth_zero = p.p_idepth_zero[pt];
+    in.color = p.p_color[8 * pt + k];
+    in.weight = p.p_weight[8 * pt + k];
+    in.valid = p.p_valid[pt] != 0;
+    in.res_good = p.p_res_good[static_cast<size_t>(pt) * p.W + t] != 0;
+  }
+  return in;
+}
+
+// the non-finite bits of a pixel: J0..J19, the residual (bit 20), Jd (21)
+constexpr int kBitR = 20, kBitJd = 21;
+
+__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kLinThreads)
+    lin_pair_kernel(const BaParams p, int mode) {
+  if (mode != 0 && is_done(p)) return;            // the same for the whole cluster
   const int cur = current(p);
   const int b = mode != 0 ? 1 - cur : cur;
-  const int W = p.W, NP = p.NP;
-  const int t = blockIdx.y, tile = blockIdx.x, tid = threadIdx.x;
-  __shared__ float sTc[kMaxSlots][12], sTz[kMaxSlots][12];
-  __shared__ float sAth[kMaxSlots], sBth[kMaxSlots], sBh[kMaxSlots], sTh[kMaxSlots];
-  __shared__ float sCal[8];
-  __shared__ float sPix[kRoundPts][8][kPix];
-  __shared__ float sAcc[kMaxSlots][kHB];
-  __shared__ int sHost[kRoundPts];
+  const int W = p.W;
+  const int c = blockIdx.x, t = blockIdx.y, s = blockIdx.z, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float sTc[12], sTz[12], sPar[4], sCal[12], sPose[2][12];
+  __shared__ __align__(16) float sRows[kLinThreads][kRow];
+  __shared__ float sAcc[kGroups][kTileFloats];
+  __shared__ float sOut[kHE];                     // this chunk's partial (read by rank 0)
+  __shared__ int sPt[kRoundPts], sCnt[kLinThreads / 32];
+  __shared__ unsigned sMask[kLinThreads / 32];
+  const int tbase = ((s * kMaxSlots + t) * kChunks + c) * kLinStamps;
+  stamp(p, tbase, 0);
 
-  if (tid < W) {
-    const int h = tid;
-    const Pose<float> A = compose(current_pose(p, b, t), inverse(current_pose(p, b, h)));
-    const Pose<float> Z = compose(load_pose<float>(p.T_zero, t),
-                                  inverse(load_pose<float>(p.T_zero, h)));
+  // the set-up, spread over warps: the two current poses, the first
+  // estimates' relative pose, the affine terms, the calibration
+  if (tid == 0 || tid == 32) {
+    const Pose<float> P = current_pose(p, b, tid == 0 ? t : s);
 #pragma unroll
-    for (int k = 0; k < 12; ++k) {
-      sTc[h][k] = A.m[k];
-      sTz[h][k] = Z.m[k];
-    }
-    const float a_h = p.aff_zero[2 * h] + p.delta[b][8 * h + 6];
-    const float b_h = p.aff_zero[2 * h + 1] + p.delta[b][8 * h + 7];
+    for (int k = 0; k < 12; ++k) sPose[tid >> 5][k] = P.m[k];
+  } else if (tid == 96) {
+    const Pose<float> Z = compose(load_pose<float>(p.T_zero, t),
+                                  inverse(load_pose<float>(p.T_zero, s)));
+#pragma unroll
+    for (int k = 0; k < 12; ++k) sTz[k] = Z.m[k];
+  } else if (tid == 64) {
+    const float a_h = p.aff_zero[2 * s] + p.delta[b][8 * s + 6];
+    const float b_h = p.aff_zero[2 * s + 1] + p.delta[b][8 * s + 7];
     const float a_t = p.aff_zero[2 * t] + p.delta[b][8 * t + 6];
     const float b_t = p.aff_zero[2 * t + 1] + p.delta[b][8 * t + 7];
-    const float a_th = expf(a_t - a_h) * (p.exposure[t] / clamp_min(p.exposure[h], 1e-9f));
-    sAth[h] = a_th;
-    sBth[h] = b_t - a_th * b_h;
-    sBh[h] = b_h;
-    sTh[h] = nanmax(p.energy_th[h], p.energy_th[t]);
+    const float a_th = expf(a_t - a_h) * (p.exposure[t] / clamp_min(p.exposure[s], 1e-9f));
+    sPar[0] = a_th;
+    sPar[1] = b_t - a_th * b_h;
+    sPar[2] = b_h;
+    sPar[3] = nanmax(p.energy_th[s], p.energy_th[t]);
+  } else if (tid >= 128 && tid < 132) {
+    const int k = tid - 128;
+    const float c0 = p.calib_zero[k], cc = c0 + p.calib_delta[b][k];
+    sCal[k] = c0;
+    sCal[4 + k] = cc;
+    if (k < 2) {                         // 1 / fx, 1 / fy at zero and current
+      sCal[8 + k] = 1.f / c0;
+      sCal[10 + k] = 1.f / cc;
+    }
   }
-  if (tid < 4) {
-    sCal[tid] = p.calib_zero[tid];
-    sCal[4 + tid] = p.calib_zero[tid] + p.calib_delta[b][tid];
+  __syncthreads();
+  if (tid == 0) {
+    Pose<float> Pt, Ps;
+#pragma unroll
+    for (int k = 0; k < 12; ++k) {
+      Pt.m[k] = sPose[0][k];
+      Ps.m[k] = sPose[1][k];
+    }
+    const Pose<float> A = compose(Pt, inverse(Ps));
+#pragma unroll
+    for (int k = 0; k < 12; ++k) sTc[k] = A.m[k];
   }
-  for (int i = tid; i < kMaxSlots * kHB; i += kLinThreads) (&sAcc[0][0])[i] = 0.f;
   __syncthreads();
   const float fx0 = sCal[0], fy0 = sCal[1], cx0 = sCal[2], cy0 = sCal[3];
   const float fxc = sCal[4], fyc = sCal[5], cxc = sCal[6], cyc = sCal[7];
+  const float ifx0 = sCal[8], ify0 = sCal[9], ifxc = sCal[10], ifyc = sCal[11];
+  const float a_th = sPar[0], b_th = sPar[1], b_h = sPar[2], th = sPar[3];
   const float* img = p.images + static_cast<size_t>(t) * p.Himg * p.Wimg * 3;
+  const bool t_ok = p.frame_valid[t] && t != s;
+  stamp(p, tbase, 1);
 
-  float poison = 0.f;                    // thread e: sum of its products x 0
+  // this chunk of host s's points
+  const int off0 = p.host_off[s], n_s = p.host_off[s + 1] - off0;
+  const int cs = (n_s + kChunks - 1) / kChunks;
+  const int lo = off0 + min(c * cs, n_s), hi = off0 + min((c + 1) * cs, n_s);
+
+  // this thread's tile: group g takes rows g, g + kGroups, ...
+  const int g = tid / kTiles, tl = tid % kTiles;
+  const bool tiler = tid < kGroups * kTiles;
+  int I = 0, J = 0;
+  if (tl < 15) {
+    int e = tl;
+    while (e >= 5 - I) {
+      e -= 5 - I;
+      ++I;
+    }
+    J = I + e;
+  } else {
+    I = tl - 15;
+  }
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  unsigned blk_nf = 0;                   // warp leader: the masks of its pairs that are not good
   float e_sum = 0.f, n_good = 0.f;       // the 8-lane group's leader: its pairs
+
   const int q = tid >> 3, k = tid & 7;
-  for (int r0 = 0; r0 < kLinTile; r0 += kRoundPts) {
-    const int base = tile * kLinTile + r0;
-    const int pt = base + q;
-    const bool live = pt < NP;
-    float J[20], w = 0.f, res = 0.f, Jd = 0.f;
-    float pair_e = 0.f;
-    int h = 0, mask = 0, inb = 0, okpix = 0;
+  long long spent[3] = {0, 0, 0}, c0 = 0;
+  int rounds = 0;
+  // a pixel's point inputs, fetched a round ahead
+  const float du = p.pat_u[k], dv = p.pat_v[k];
+  PixelIn nx = fetch_pixel(p, b, lo + q, hi, k, t);
+  for (int r0 = lo; r0 < hi; r0 += kRoundPts) {
+    if (p.timers != nullptr && tid == 0) c0 = cycles();
+    ++rounds;
+    const int idx = r0 + q;
+    const bool live = idx < hi;
+    const PixelIn in = nx;
+    nx = fetch_pixel(p, b, idx + kRoundPts, hi, k, t);
+    const int pt = in.pt;
+    float J20[20], w = 0.f, res = 0.f, Jd = 0.f, pair_e = 0.f;
+    int mask = 0, inb = 0, okpix = 0;
     if (live) {
-      h = static_cast<int>(p.p_host[pt]);
-      const float pu = p.p_u[pt] + p.pat_u[k], pv = p.p_v[pt] + p.pat_v[k];
-      const float id_cur = clamp_min(p.idepth[b][pt], 1e-6f);
-      const float id_zero = clamp_min(p.p_idepth_zero[pt], 1e-6f);
-      const float Xc[3] = {(pu - cxc) / fxc / id_cur, (pv - cyc) / fyc / id_cur, 1.f / id_cur};
-      const float Xz[3] = {(pu - cx0) / fx0 / id_zero, (pv - cy0) / fy0 / id_zero,
-                           1.f / id_zero};
-      const float* Rc = sTc[h];
-      const float* Rz = sTz[h];
+      const float pu = in.u + du, pv = in.v + dv;
+      // products with reciprocals where the plain version divides (each
+      // within an ulp or two of the quotient)
+      const float iid = 1.f / clamp_min(in.idepth, 1e-6f);
+      const float iidz = 1.f / clamp_min(in.idepth_zero, 1e-6f);
+      const float xh_x = (pu - cx0) * ifx0, xh_y = (pv - cy0) * ify0;
+      const float Xc[3] = {(pu - cxc) * ifxc * iid, (pv - cyc) * ifyc * iid, iid};
+      const float Xz[3] = {xh_x * iidz, xh_y * iidz, iidz};
       float pc[3], pz[3];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        pc[i] = Rc[4 * i] * Xc[0] + Rc[4 * i + 1] * Xc[1] + Rc[4 * i + 2] * Xc[2] + Rc[4 * i + 3];
-        pz[i] = Rz[4 * i] * Xz[0] + Rz[4 * i + 1] * Xz[1] + Rz[4 * i + 2] * Xz[2] + Rz[4 * i + 3];
+        pc[i] = sTc[4 * i] * Xc[0] + sTc[4 * i + 1] * Xc[1] + sTc[4 * i + 2] * Xc[2] +
+                sTc[4 * i + 3];
+        pz[i] = sTz[4 * i] * Xz[0] + sTz[4 * i + 1] * Xz[1] + sTz[4 * i + 2] * Xz[2] +
+                sTz[4 * i + 3];
       }
-      const float z = pc[2];
-      const float Ku = fxc * (pc[0] / z) + cxc;
-      const float Kv = fyc * (pc[1] / z) + cyc;
+      const float z = pc[2], iz = 1.f / z;
+      const float Ku = fxc * (pc[0] * iz) + cxc;
+      const float Kv = fyc * (pc[1] * iz) + cyc;
       inb = Ku > 1.1f && Kv > 1.1f && Ku < p.u_hi && Kv < p.v_hi && z > 1e-4f;
       float hit, gx, gy;
       sample3(img, p.Wimg, p.umax, p.vmax, Ku, Kv, hit, gx, gy);
-      const float a_th = sAth[h];
-      const float color = p.p_color[8 * pt + k], wp = p.p_weight[8 * pt + k];
-      res = hit - (a_th * color + sBth[h]);
+      const float color = in.color, wp = in.weight;
+      res = hit - (a_th * color + b_th);
       const float abs_r = fabsf(res);
       const float huber = p.huber;
       const float hw = abs_r < huber ? 1.f : huber / clamp_min(abs_r, 1e-12f);
-      mask = p.p_valid[pt] && p.frame_valid[t] && t != h && p.p_res_good[pt * W + t];
+      mask = t_ok && in.valid && in.res_good;
       okpix = inb && isfinite(hit) && mask;
       const float pix_e = hw * res * res * (2.f - hw) * wp * wp;
       pair_e = okpix ? pix_e : 0.f;
       w = hw * wp * wp;                  // masked below, once the pair's sums are in
 
       // Jacobians at the first estimate
-      const float z0 = clamp_min(pz[2], 1e-6f);
-      const float un0 = pz[0] / z0, vn0 = pz[1] / z0, iz0 = 1.f / z0;
+      const float iz0 = 1.f / clamp_min(pz[2], 1e-6f);
+      const float un0 = pz[0] * iz0, vn0 = pz[1] * iz0;
       const float gxf = gx * fx0, gyf = gy * fy0;
       const float Jt[6] = {iz0 * gxf, iz0 * gyf, -iz0 * (un0 * gxf + vn0 * gyf),
                            -(un0 * vn0 * gxf + (1.f + vn0 * vn0) * gyf),
@@ -296,50 +466,52 @@ __global__ void __launch_bounds__(kLinThreads) lin_tile_kernel(const BaParams p,
                              {0.f, 0.f, 1.f, Xz[1], -Xz[0], 0.f}};
 #pragma unroll
       for (int l = 0; l < 6; ++l) {
-        float s = 0.f;
+        float sm = 0.f;
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
-          const float rg = Rz[4 * i] * G[0][l] + Rz[4 * i + 1] * G[1][l] + Rz[4 * i + 2] * G[2][l];
-          s = i == 0 ? Jt[0] * rg : s + Jt[i] * rg;
+          const float rg = sTz[4 * i] * G[0][l] + sTz[4 * i + 1] * G[1][l] +
+                           sTz[4 * i + 2] * G[2][l];
+          sm = i == 0 ? Jt[0] * rg : sm + Jt[i] * rg;
         }
-        J[4 + l] = -s;
+        J20[4 + l] = -sm;
       }
       float dd[3];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) dd[i] = -(pz[i] - Rz[4 * i + 3]) / id_zero;
+      for (int i = 0; i < 3; ++i) dd[i] = -(pz[i] - sTz[4 * i + 3]) * iidz;
       Jd = Jt[0] * dd[0] + Jt[1] * dd[1] + Jt[2] * dd[2];
-      const float xh_x = (pu - cx0) / fx0, xh_y = (pv - cy0) / fy0;
-      const float ffx = xh_x / fx0 / id_zero, ffy = xh_y / fy0 / id_zero;
-      const float fcx = 1.f / fx0 / id_zero, fcy = 1.f / fy0 / id_zero;
+      const float ffx = xh_x * ifx0 * iidz, ffy = xh_y * ify0 * iidz;
+      const float fcx = ifx0 * iidz, fcy = ify0 * iidz;
       float sfx = 0.f, sfy = 0.f, scx = 0.f, scy = 0.f;
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        sfx += Jt[i] * -(Rz[4 * i] * ffx);
-        sfy += Jt[i] * -(Rz[4 * i + 1] * ffy);
-        scx += Jt[i] * -(Rz[4 * i] * fcx);
-        scy += Jt[i] * -(Rz[4 * i + 1] * fcy);
+        sfx += Jt[i] * -(sTz[4 * i] * ffx);
+        sfy += Jt[i] * -(sTz[4 * i + 1] * ffy);
+        scx += Jt[i] * -(sTz[4 * i] * fcx);
+        scy += Jt[i] * -(sTz[4 * i + 1] * fcy);
       }
-      J[0] = gx * un0 + sfx;
-      J[1] = gy * vn0 + sfy;
-      J[2] = gx + scx;
-      J[3] = gy + scy;
-      const float cmb = color - sBh[h];
-      J[10] = a_th * cmb;
-      J[11] = a_th;
+      J20[0] = gx * un0 + sfx;
+      J20[1] = gy * vn0 + sfy;
+      J20[2] = gx + scx;
+      J20[3] = gy + scy;
+      const float cmb = color - b_h;
+      J20[10] = a_th * cmb;
+      J20[11] = a_th;
 #pragma unroll
-      for (int l = 0; l < 6; ++l) J[12 + l] = Jt[l];
-      J[18] = -a_th * cmb;
-      J[19] = -1.f;
+      for (int l = 0; l < 6; ++l) J20[12 + l] = Jt[l];
+      J20[18] = -a_th * cmb;
+      J20[19] = -1.f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 20; ++i) J20[i] = 0.f;
     }
     // the pair's sums over its 8 pixels (lanes k of one 8-lane group)
     int all_in = inb || !mask;
 #pragma unroll
     for (int off = 4; off > 0; off >>= 1) {
-      pair_e += __shfl_xor_sync(0xffffffffu, pair_e, off);
-      all_in &= __shfl_xor_sync(0xffffffffu, all_in, off);
+      pair_e += __shfl_xor_sync(kFull, pair_e, off);
+      all_in &= __shfl_xor_sync(kFull, all_in, off);
     }
-    const float th = live ? sTh[h] : 0.f;
-    const bool good = mask && all_in && pair_e < th;
+    const bool good = live && mask && all_in && pair_e < th;
     w = (good && okpix) ? w : 0.f;
     if (live && k == 0) {
       const size_t pw = static_cast<size_t>(pt) * W + t;
@@ -349,406 +521,789 @@ __global__ void __launch_bounds__(kLinThreads) lin_tile_kernel(const BaParams p,
       e_sum += good ? pair_e : (mask ? th : 0.f);
       n_good += good ? 1.f : 0.f;
     }
-    if (live) {
-      float* px = sPix[q][k];
+    // a pair that is not good adds J * 0: its non-finite bits
+    unsigned nf = 0;
+    if (live && !good) {
 #pragma unroll
-      for (int i = 0; i < 20; ++i) px[i] = J[i];
-      px[20] = w;
-      px[21] = res;
-      px[22] = Jd;
-      if (k == 0) sHost[q] = h;
+      for (int i = 0; i < 20; ++i) nf |= isfinite(J20[i]) ? 0u : (1u << i);
+      nf |= isfinite(res) ? 0u : (1u << kBitR);
+      nf |= isfinite(Jd) ? 0u : (1u << kBitJd);
+    }
+#pragma unroll
+    for (int off = 4; off > 0; off >>= 1) nf |= __shfl_xor_sync(kFull, nf, off);
+    if (live && !good && k < 3) {
+      // its G20 | Hdd | bd: (J_i w) Jd, (w Jd) Jd, (w Jd) r with w = 0
+      float* dst = p.pt_part + (static_cast<size_t>(pt) * W + t) * kG;
+      for (int cc = k; cc < kG; cc += 3) {
+        const unsigned bits = cc < 20 ? (1u << cc) | (1u << kBitJd)
+                                      : (cc == 20 ? (1u << kBitJd)
+                                                  : (1u << kBitJd) | (1u << kBitR));
+        dst[cc] = (nf & bits) ? qnan() : 0.f;
+      }
+    }
+    blk_nf |= __reduce_or_sync(kFull, nf);
+
+    long long c1 = 0;
+    if (p.timers != nullptr && tid == 0) c1 = cycles();
+    // the good pairs' rows, compacted in point order
+    const unsigned bal = __ballot_sync(kFull, good);
+    if (lane == 0) sCnt[warp] = __popc(bal) >> 3;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int v = 0; v < kLinThreads / 32; ++v) {
+      before += v < warp ? sCnt[v] : 0;
+      total += sCnt[v];
+    }
+    if (good) {
+      const int slot = before + (__popc(bal & ((1u << lane) - 1u)) >> 3);
+      float4* row = reinterpret_cast<float4*>(sRows[slot * 8 + k]);
+#pragma unroll
+      for (int i = 0; i < 5; ++i)
+        row[i] = make_float4(J20[4 * i], J20[4 * i + 1], J20[4 * i + 2], J20[4 * i + 3]);
+      row[5] = make_float4(res, w, Jd, 0.f);
+      if (k == 0) sPt[slot] = pt;
     }
     __syncthreads();
-    const int n = min(kRoundPts, NP - base);
-    // per (point, target): G20 = sum_k (J w) Jd, Hdd = sum_k (w Jd) Jd,
-    // bd = sum_k (w Jd) r
-    for (int idx = tid; idx < n * kG; idx += kLinThreads) {
-      const int qq = idx / kG, c = idx % kG;
+    long long c2 = 0;
+    if (p.timers != nullptr && tid == 0) c2 = cycles();
+    // per good pair: G20 = sum_k (J w) Jd, Hdd = sum_k (w Jd) Jd, bd = sum_k (w Jd) r
+    for (int e = tid; e < total * kG; e += kLinThreads) {
+      const int sl = e / kG, cc = e % kG;
       float v = 0.f;
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        const float* px = sPix[qq][kk];
-        const float f = c < 20 ? px[c] * px[20] : px[20] * px[22];
-        v += f * (c < 21 ? px[22] : px[21]);
+        const float* px = sRows[sl * 8 + kk];
+        const float f = cc < 20 ? px[cc] * px[21] : px[21] * px[22];
+        v += f * (cc < 21 ? px[22] : px[20]);
       }
-      p.pt_part[(static_cast<size_t>(base + qq) * W + t) * kG + c] = v;
+      p.pt_part[(static_cast<size_t>(sPt[sl]) * W + t) * kG + cc] = v;
     }
-    // entry e of each point's 20x20 block (upper triangle) or b, into its
-    // host's accumulator, in point order
-    if (tid < kHB) {
-      int i, j = 0;
-      if (tid < kHU) upper_ij(tid, 20, i, j);
-      else i = tid - kHU;
-      for (int qq = 0; qq < n; ++qq) {
-        float v = 0.f;
+    // the products: tile (I, J) of (J w) J^T, or b tile I of (J w) r
+    if (tiler) {
+      const int nrows = total * 8;
+#pragma unroll 4
+      for (int r = g; r < nrows; r += kGroups) {
+        const float4* row = reinterpret_cast<const float4*>(sRows[r]);
+        const float4 tail = row[5];
+        const float4 a = row[I];
+        const float av[4] = {a.x * tail.y, a.y * tail.y, a.z * tail.y, a.w * tail.y};
+        if (tl < 15) {
+          const float4 bq = row[J];
+          const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          const float* px = sPix[qq][kk];
-          v += (px[i] * px[20]) * (tid < kHU ? px[j] : px[21]);
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[4 * i + j] += av[i] * bv[j];
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i] += av[i] * tail.x;
         }
-        sAcc[sHost[qq]][tid] += v;
-        poison += v * 0.f;
       }
     }
     __syncthreads();
+    if (p.timers != nullptr && tid == 0) {
+      const long long c3 = cycles();
+      spent[0] += c1 - c0;
+      spent[1] += c2 - c1;
+      spent[2] += c3 - c2;
+    }
   }
-  // the tile's partial: every host's block of target t, each with the
-  // products' NaN (the one-hot matmul's 0 x NaN)
-  const size_t tb = static_cast<size_t>(tile) * W + t;
-  if (tid < kHB)
-    for (int s = 0; s < W; ++s) p.lin_part[(tb * W + s) * kHE + tid] = sAcc[s][tid] + poison;
-  const float acc[2] = {e_sum, n_good};
-  __shared__ float sums[2];
-  block_sum<2, kLinThreads>(acc, sums);
+
+  stamp(p, tbase, 2);
+  // the groups' tiles summed in group order, then the masks of the pairs
+  // that are not good
+  if (tiler) {
+    float* dst = sAcc[g] + (tl < 15 ? tl * 16 : 240 + (tl - 15) * 4);
+    const int n = tl < 15 ? 16 : 4;
+    for (int i = 0; i < n; ++i) dst[i] = acc[i];
+  }
+  if (lane == 0) sMask[warp] = blk_nf;
   __syncthreads();
-  const size_t ntiles = gridDim.x;
-  if (tid < 2) p.lin_part[ntiles * W * W * kHE + tb * 2 + tid] = sums[tid];
+  unsigned nf_all = 0;
+#pragma unroll
+  for (int v = 0; v < kLinThreads / 32; ++v) nf_all |= sMask[v];
+  for (int e = tid; e < kHB; e += kLinThreads) {
+    const int slot = tile_slot(e);
+    float v = 0.f;
+    for (int gg = 0; gg < kGroups; ++gg) v += sAcc[gg][slot];
+    int i, j;
+    if (e < kHU) upper_ij(e, 20, i, j);
+    else {
+      i = e - kHU;
+      j = kBitR;
+    }
+    sOut[e] = (nf_all & ((1u << i) | (1u << j))) ? v + qnan() : v;
+  }
+  const float es[2] = {e_sum, n_good};
+  block_sum<2, kLinThreads>(es, sOut + kHB);
+  cluster.sync();
+  if (c == 0) {
+    // the chunks in rank order into the (s, t) block
+    float* blk = p.lin_part + (static_cast<size_t>(s) * W + t) * kHE;
+    int bad = 0;
+    for (int e = tid; e < kHE; e += kLinThreads) {
+      float part[kChunks];
+#pragma unroll
+      for (int r = 0; r < kChunks; ++r) part[r] = cluster.map_shared_rank(sOut, r)[e];
+      float v = 0.f;
+#pragma unroll
+      for (int r = 0; r < kChunks; ++r) v += part[r];
+      blk[e] = v;
+      bad |= e < kHB && !isfinite(v);
+    }
+    bad = __syncthreads_or(bad);
+    if (tid == 0) p.lin_part[static_cast<size_t>(W) * W * kHE + s * W + t] = bad ? 1.f : 0.f;
+  }
+  cluster.sync();                        // no block leaves while rank 0 reads it
+  stamp(p, tbase, 3);
+  if (p.timers != nullptr && tid == 0) {
+    for (int i = 0; i < 3; ++i) p.timers[tbase + 4 + i] = spent[i];
+    p.timers[tbase + 7] = rounds;
+  }
 }
 
-// the columns of the D-vector a (host s, target t) block's 20 indices
-// reach: column c is index i when c's calib or frame part matches
-__device__ __forceinline__ int block_indices(int c, int s, int t, int (&idx)[2]) {
+// the indices of a (host s, target t) block's 20 that column c of the
+// D-vector gets: calib c (c < 4), else the frame part's index as host
+// (4 + k, when s is its frame) then as target (12 + k, when t is), -1 for
+// none; i0 the first
+__device__ __forceinline__ void block_indices(int c, int s, int t, int& i0, int& i1) {
   if (c < 4) {
-    idx[0] = c;
-    return 1;
+    i0 = c;
+    i1 = -1;
+    return;
   }
   const int f = (c - 4) >> 3, k = (c - 4) & 7;
-  int n = 0;
-  if (s == f) idx[n++] = 4 + k;
-  if (t == f) idx[n++] = 12 + k;
-  return n;
+  const int h = s == f ? 4 + k : -1, g = t == f ? 12 + k : -1;
+  i0 = h >= 0 ? h : g;
+  i1 = h >= 0 ? g : -1;
 }
 
-// K9, second launch: the tiles summed in order into Hff, bf, energy and
-// num_terms (blocks past the point rows), and each point's Hfd row, Hdd
-// and bd
+// (i, j) of entry e of an n x n upper triangle, row-major, in closed form
+__device__ __forceinline__ void upper_ij_fast(int e, int n, int& i, int& j) {
+  const float m = static_cast<float>(2 * n + 1);
+  i = static_cast<int>(0.5f * (m - sqrtf(m * m - 8.f * static_cast<float>(e))));
+  i = max(0, min(i, n - 1));
+  while (i > 0 && i * n - i * (i - 1) / 2 > e) --i;
+  while (i + 1 < n && (i + 1) * n - (i + 1) * i / 2 <= e) ++i;
+  j = i + (e - (i * n - i * (i - 1) / 2));
+}
+
+// the sum over targets t < W of G[t * kG + c], in t order (loads first)
+__device__ __forceinline__ float sum_targets(const float* __restrict__ G, int W, int c) {
+  float v[kMaxSlots];
+#pragma unroll
+  for (int t = 0; t < kMaxSlots; ++t) v[t] = t < W ? G[t * kG + c] : 0.f;
+  float acc = v[0];
+#pragma unroll
+  for (int t = 1; t < kMaxSlots; ++t)
+    if (t < W) acc += v[t];
+  return acc;
+}
+
+// K9, second launch: Hff, bf, energy and num_terms from the reduced
+// blocks, eight lanes an entry (host s = lane & 7, over the targets t), in
+// the first sum_blocks blocks, then each point's Hfd row, Hdd and bd
 __global__ void __launch_bounds__(kFinThreads) lin_finish_kernel(const BaParams p, int mode,
-                                                                 int ntiles, int row_blocks) {
+                                                                 int sum_blocks) {
   if (mode != 0 && is_done(p)) return;
   const int cur = current(p);
   const int b = mode != 0 ? 1 - cur : cur;
   const int W = p.W, NP = p.NP, D = 4 + 8 * W;
-  if (static_cast<int>(blockIdx.x) < row_blocks) {
-    const long long idx = static_cast<long long>(blockIdx.x) * kFinThreads + threadIdx.x;
-    if (idx >= static_cast<long long>(NP) * D) return;
-    const int pt = static_cast<int>(idx / D), d = static_cast<int>(idx % D);
-    const float* G = p.pt_part + static_cast<size_t>(pt) * W * kG;
-    float v;
-    if (d < 4) {
-      v = G[d];
-      for (int t = 1; t < W; ++t) v += G[t * kG + d];
-    } else {
-      const int f = (d - 4) >> 3, k = (d - 4) & 7;
-      v = G[f * kG + 12 + k];
-      if (f == static_cast<int>(p.p_host[pt])) {
-        float hs = G[4 + k];
-        for (int t = 1; t < W; ++t) hs += G[t * kG + 4 + k];
-        v += hs;
+  const int fbase = kLinTimerWords + 16 * kStepStamps + 8 + 2 * blockIdx.x;
+  const bool fin_timed = blockIdx.x < kFinStampBlocks;
+  if (fin_timed) stamp(p, fbase, 0);
+  if (static_cast<int>(blockIdx.x) >= sum_blocks) {
+    // a warp a point: its W x kG sums staged in shared memory, then its Hfd
+    // row, Hdd and bd
+    __shared__ float sG[kFinThreads / 32][kMaxSlots * kG];
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int pt = (blockIdx.x - sum_blocks) * (kFinThreads / 32) + w;
+    if (pt >= NP) return;                // the whole warp
+    const float* src = p.pt_part + static_cast<size_t>(pt) * W * kG;
+    float* G = sG[w];
+    for (int i = lane; i < W * kG; i += 32) G[i] = src[i];
+    __syncwarp();
+    const int host = static_cast<int>(p.p_host[pt]);
+    for (int d = lane; d < D; d += 32) {
+      float v;
+      if (d < 4) {
+        v = sum_targets(G, W, d);
+      } else {
+        const int f = (d - 4) >> 3, k = (d - 4) & 7;
+        v = G[f * kG + 12 + k];
+        if (f == host) v += sum_targets(G, W, 4 + k);
       }
+      p.Hfd[b][static_cast<size_t>(pt) * D + d] = v;
     }
-    p.Hfd[b][idx] = v;
-    if (d == 0) {
-      float hdd = G[20], bd = G[21];
-      for (int t = 1; t < W; ++t) {
-        hdd += G[t * kG + 20];
-        bd += G[t * kG + 21];
-      }
+    if (lane == 0) {
+      const float hdd = sum_targets(G, W, 20), bd = sum_targets(G, W, 21);
       const float prior = p.p_prior[pt];
       p.Hdd[b][pt] = hdd + prior;
       p.bd[b][pt] = bd + prior * (p.idepth[b][pt] - p.p_idepth_zero[pt]);
     }
+    __syncwarp();
+    if (fin_timed && threadIdx.x == 0) stamp(p, fbase, 1);
     return;
   }
-  const int e = (blockIdx.x - row_blocks) * kFinThreads + threadIdx.x;
+  __shared__ int sBad[kMaxSlots];
+  __shared__ float sFlag[kMaxSlots * kMaxSlots];
+  if (threadIdx.x < W * W)
+    sFlag[threadIdx.x] = p.lin_part[static_cast<size_t>(W) * W * kHE + threadIdx.x];
+  __syncthreads();
+  if (threadIdx.x < kMaxSlots) {
+    int bad = 0;
+    for (int h = 0; h < W && static_cast<int>(threadIdx.x) < W; ++h)
+      bad |= sFlag[h * W + threadIdx.x] != 0.f;
+    sBad[threadIdx.x] = bad;
+  }
+  __syncthreads();
+  const long long gid = static_cast<long long>(blockIdx.x) * kFinThreads + threadIdx.x;
+  const int e = static_cast<int>(gid >> 3), s = static_cast<int>(gid & 7);
+  const int lane = threadIdx.x & 31;
   const int U = D * (D + 1) / 2;
-  const size_t part_stride = static_cast<size_t>(W) * W * kHE;
-  if (e < U) {
-    int r, c;
-    upper_ij(e, D, r, c);
-    float v = 0.f;
-    for (int s = 0; s < W; ++s)
-      for (int t = 0; t < W; ++t) {
-        int ir[2], jc[2];
-        const int nr = block_indices(r, s, t, ir), nc = block_indices(c, s, t, jc);
-        for (int a = 0; a < nr; ++a)
-          for (int bb = 0; bb < nc; ++bb) {
-            const int i = min(ir[a], jc[bb]), j = max(ir[a], jc[bb]);
-            const int ent = i * 20 - i * (i - 1) / 2 + (j - i);
-            const float* src = p.lin_part + (static_cast<size_t>(t) * W + s) * kHE + ent;
-            for (int tl = 0; tl < ntiles; ++tl) v += src[tl * part_stride];
-          }
+  float v = 0.f, v2 = 0.f;
+  if (s < W && e < U + D) {
+    // each target's up to 2 x 2 terms in (t, row index, column index)
+    // order, every index a scalar (no local array: the loads stay in flight
+    // together)
+    int r, c = -1;
+    if (e < U) upper_ij_fast(e, D, r, c);
+    else r = e - U;
+#pragma unroll
+    for (int t = 0; t < kMaxSlots; ++t) {
+      const bool tv = t < W;             // predicated, no branch: the loads of every t fly together
+      int r0, r1, c0 = -1, c1 = -1;
+      block_indices(r, s, t, r0, r1);
+      if (c >= 0) block_indices(c, s, t, c0, c1);
+      const float* blk = p.lin_part + (static_cast<size_t>(s) * W + t) * kHE;
+      float q[4];
+      int ents[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int i = m < 2 ? r0 : r1, j = (m & 1) ? c1 : c0;
+        const bool ok = tv && i >= 0 && (c < 0 ? m % 2 == 0 : j >= 0);
+        const int lo = c < 0 ? i : min(i, j), hi = c < 0 ? i : max(i, j);
+        ents[m] = !ok ? -1 : (c < 0 ? kHU + i : lo * 20 - lo * (lo - 1) / 2 + (hi - lo));
+        q[m] = ok ? blk[ents[m]] : 0.f;
       }
-    p.Hff[b][r * D + c] = v;
-    p.Hff[b][c * D + r] = v;
-  } else if (e < U + D) {
-    const int r = e - U;
-    float v = 0.f;
-    for (int s = 0; s < W; ++s)
-      for (int t = 0; t < W; ++t) {
-        int ir[2];
-        const int nr = block_indices(r, s, t, ir);
-        for (int a = 0; a < nr; ++a) {
-          const float* src = p.lin_part + (static_cast<size_t>(t) * W + s) * kHE + kHU + ir[a];
-          for (int tl = 0; tl < ntiles; ++tl) v += src[tl * part_stride];
+      if (sBad[t]) {
+        // the other hosts' blocks of t times 0 (the one-hot matmul's 0 x NaN)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          if (ents[m] < 0) continue;
+          float z = 0.f;
+          for (int h = 0; h < W; ++h)
+            if (h != s) z += p.lin_part[(static_cast<size_t>(h) * W + t) * kHE + ents[m]] * 0.f;
+          q[m] += z;
         }
       }
-    p.bf[b][r] = v;
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (ents[m] >= 0) v += q[m];
+    }
+  } else if (s < W && e == U + D) {
+    for (int t = 0; t < W; ++t) {
+      const float* blk = p.lin_part + (static_cast<size_t>(s) * W + t) * kHE;
+      v += blk[kHB];
+      v2 += blk[kHB + 1];
+    }
+  }
+  // the hosts' sums in s order
+  float tot = 0.f, tot2 = 0.f;
+#pragma unroll
+  for (int ss = 0; ss < kMaxSlots; ++ss) {
+    tot += __shfl_sync(kFull, v, (lane & ~7) + ss);
+    tot2 += __shfl_sync(kFull, v2, (lane & ~7) + ss);
+  }
+  if (s != 0) return;
+  if (e < U) {
+    int r, c;
+    upper_ij_fast(e, D, r, c);
+    p.Hff[b][r * D + c] = tot;
+    p.Hff[b][c * D + r] = tot;
+  } else if (e < U + D) {
+    p.bf[b][e - U] = tot;
   } else if (e == U + D) {
-    const float* src = p.lin_part + static_cast<size_t>(ntiles) * part_stride;
-    float en = 0.f, ng = 0.f;
-    for (int i = 0; i < ntiles * W; ++i) {
-      en += src[2 * i];
-      ng += src[2 * i + 1];
-    }
-    *p.energy[b] = en;
-    *p.num_terms[b] = ng * 8.f;
+    *p.energy[b] = tot;
+    *p.num_terms[b] = tot2 * 8.f;
   }
+  if (fin_timed && threadIdx.x == 0) stamp(p, fbase, 1);
 }
 
 // ---------------------------------------------------------------------------
-// K10: Schur sums per tile, the solve, the back-substitution
+// K10: one cluster: the Schur sums, the solve, the back-substitution
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kSchurThreads) schur_kernel(const BaParams p) {
-  if (is_done(p)) return;
-  const int cur = current(p);
-  const int W = p.W, NP = p.NP, D = 4 + 8 * W, U = D * (D + 1) / 2;
-  const float lam = p.ctrl_f[0];
-  __shared__ float sH[kSchurTile][kMaxD + 1];
-  __shared__ float sInv[kSchurTile], sIB[kSchurTile];
-  const int p0 = blockIdx.x * kSchurTile, tid = threadIdx.x;
-  const int n = min(kSchurTile, NP - p0);
-  for (int i = tid; i < n * D; i += kSchurThreads)
-    sH[i / D][i % D] = p.Hfd[cur][static_cast<size_t>(p0) * D + i];
-  float acc[2] = {0.f, 0.f};
-  if (tid < n) {
-    const int pt = p0 + tid;
-    const float hdd = p.Hdd[cur][pt];
-    const float mult = hdd * (1.f + lam) + 1e-10f;
-    const float inv = hdd > 1e-10f ? 1.f / mult : 0.f;
-    sInv[tid] = inv;
-    sIB[tid] = inv * p.bd[cur][pt];
-    p.inv_hdd[pt] = inv;
-    if (p.p_valid[pt]) {
-      acc[0] = fabsf(p.idepth[cur][pt]);
-      acc[1] = 1.f;
-    }
-  }
-  __syncthreads();
-  const size_t stride = static_cast<size_t>(U + D + 2);
-  float* out = p.sc_part + blockIdx.x * stride;
-  for (int e = tid; e < U + D; e += kSchurThreads) {
-    float v = 0.f;
-    if (e < U) {
-      int i, j;
-      upper_ij(e, D, i, j);
-      for (int qq = 0; qq < n; ++qq) v += (sH[qq][i] * sInv[qq]) * sH[qq][j];
-    } else {
-      const int i = e - U;
-      for (int qq = 0; qq < n; ++qq) v += sH[qq][i] * sIB[qq];
-    }
-    out[e] = v;
-  }
-  __shared__ float sums[2];
-  block_sum<2, kSchurThreads>(acc, sums);
-  __syncthreads();
-  if (tid < 2) out[U + D + tid] = sums[tid];
+// cp.async of n floats (a multiple of 4, both ends 16-byte aligned) by the
+// whole block; cp_wait() completes them
+__device__ __forceinline__ void cp_floats(float* dst, const float* src, int n) {
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(base + 16u * i),
+                 "l"(src + 4 * i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kSolveThreads) solve_kernel(const BaParams p, int ntiles) {
-  if (is_done(p)) return;
-  const int cur = current(p);
-  const int W = p.W, D = 4 + 8 * W, U = D * (D + 1) / 2, tid = threadIdx.x;
-  const float lam = p.ctrl_f[0];
-  extern __shared__ float smem[];
-  float* sc = smem;                        // U + D + 2: H_sc upper, b_sc, |id| sum, count
-  float* A = sc + U + D + 2;               // [D][D + 1]
-  float* rhs = A + D * (D + 1);            // [D]
-  float* P = rhs + D;
-  float* x0 = P + D;
-  float* xs = x0 + D;
-  float* N = xs + D;
-  __shared__ int s_anchor, s_piv;
-  __shared__ float s_red[4];
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
 
-  const size_t stride = static_cast<size_t>(U + D + 2);
-  for (int e = tid; e < U + D + 2; e += kSolveThreads) {
-    float v = 0.f;
-    for (int tl = 0; tl < ntiles; ++tl) v += p.sc_part[tl * stride + e];
-    sc[e] = v;
+// The pivot search's key of row `row` (0..63) holding v in the column: a
+// row already used sorts below every other, a NaN above them, then |v| by
+// its bits with the low 6 bits replaced by 63 - row, so that one warp max
+// picks the largest |v| and, among values equal but for those bits
+// (within 2^-17 relative), the lowest row.
+__device__ __forceinline__ unsigned pivot_key(float v, bool used, int row) {
+  const unsigned k = used ? 0u : (isnan(v) ? 64u : __float_as_uint(fabsf(v)) + 128u);
+  return (k & ~63u) | static_cast<unsigned>(63 - row);
+}
+
+// LU with partial pivoting on the n x n system in sys (rows
+// [kFreeMax][kSysStride], column kFreeMax the right-hand side; rows n.. are
+// identity), by threads 0..63 (warps 0 and 1), a row per thread, shifted
+// one column left per step so that column k is always entry 0. Every row
+// not yet a pivot keeps a copy of itself (its live columns and its
+// right-hand side) in rows[thread]; per step each warp's max key names its
+// candidate, which writes its key and reciprocal to hdr[k][warp]; after
+// one two-warp barrier (named barrier 1) the larger key's row is pivot k,
+// read from its copy by every row not yet a pivot, which subtracts its
+// multiple and rewrites its copy. A pivot row's copy is never written
+// again: it is U's row k, in place. Then warp 0 back-substitutes a column
+// at a time, a lane two of U's rows, x_k broadcast by a shuffle:
+// x[k] = xf[k]. (Every division is a product with a correctly rounded
+// reciprocal.)
+__device__ __forceinline__ void lu_solve(const float* __restrict__ sys, int n,
+                                         float* __restrict__ rows,
+                                         float2* __restrict__ hdr,
+                                         float* __restrict__ xf,
+                                         unsigned long long* __restrict__ prof) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float r[kFreeMax];
+  const float* src = sys + tid * kSysStride;
+#pragma unroll
+  for (int j = 0; j < kFreeMax; ++j) r[j] = src[j];
+  float rhs = src[kFreeMax];
+  float* mine = rows + tid * kSlot;
+  float4* mine4 = reinterpret_cast<float4*>(mine);
+#pragma unroll
+  for (int j = 0; j < kFreeMax / 4; ++j)
+    mine4[j] = make_float4(r[4 * j], r[4 * j + 1], r[4 * j + 2], r[4 * j + 3]);
+  mine[kFreeMax] = rhs;
+  bool used = false;
+  long long cyc[5] = {0, 0, 0, 0, 0}, c0 = 0, c1 = 0;
+  const bool timed = prof != nullptr && tid == 0;
+  auto lap = [&](int i) {
+    if (timed) {
+      c1 = cycles();
+      cyc[i] += c1 - c0;
+      c0 = c1;
+    }
+  };
+  const float4* hdr4 = reinterpret_cast<const float4*>(hdr);
+  unsigned wmax = __reduce_max_sync(kFull, pivot_key(r[0], used, tid));
+  for (int k = 0; k < n; ++k) {
+    if (timed) c0 = cycles();
+    const int live = n - k;
+    if (tid == 63 - static_cast<int>(wmax & 63u))
+      hdr[2 * k + warp] = make_float2(__uint_as_float(wmax), __frcp_rn(r[0]));
+    lap(0);
+    asm volatile("bar.sync 1, 64;" ::: "memory");
+    lap(1);
+    const float4 h = hdr4[k];
+    const bool w1 = __float_as_uint(h.z) > __float_as_uint(h.x);   // ties: warp 0, the lower rows
+    const int prow = 63 - static_cast<int>(__float_as_uint(w1 ? h.z : h.x) & 63u);
+    if (tid == prow) used = true;
+    const float f = used ? 0.f : r[0] * (w1 ? h.w : h.y);
+    lap(2);
+    // every column, live or not: no branch between the loads and the
+    // products (the entries past the live ones are never read); the next
+    // column first, so that the next step's warp max is in flight while
+    // the rest of the row is updated and copied
+    const float* pv = rows + prow * kSlot;
+    const float4* pv4 = reinterpret_cast<const float4*>(pv);
+    const float4 q0 = pv4[0];
+    r[0] = fmaf(-f, q0.y, r[1]);
+    if (k + 1 < n) wmax = __reduce_max_sync(kFull, pivot_key(r[0], used, tid));
+    lap(3);
+    r[1] = fmaf(-f, q0.z, r[2]);
+    r[2] = fmaf(-f, q0.w, r[3]);
+#pragma unroll
+    for (int j = 1; j < kFreeMax / 4; ++j) {
+      const float4 q = pv4[j];
+      r[4 * j - 1] = fmaf(-f, q.x, r[4 * j]);
+      r[4 * j] = fmaf(-f, q.y, r[4 * j + 1]);
+      r[4 * j + 1] = fmaf(-f, q.z, r[4 * j + 2]);
+      r[4 * j + 2] = fmaf(-f, q.w, r[4 * j + 3]);
+    }
+    rhs = fmaf(-f, pv[kFreeMax], rhs);
+    if (!used) {
+#pragma unroll
+      for (int j = 0; j < kFreeMax / 4; ++j)
+        if (4 * j < live) mine4[j] = make_float4(r[4 * j], r[4 * j + 1], r[4 * j + 2], r[4 * j + 3]);
+      mine[kFreeMax] = rhs;
+    }
+    lap(4);
   }
-  if (tid == 0) {
-    int a = 0, best = 1 << 30;
-    for (int f = 0; f < W; ++f) {
-      const int fid = p.frame_valid[f] ? p.frame_id[f] : (1 << 30);
-      if (fid < best) {
-        best = fid;
-        a = f;
+  if (timed)
+    for (int i = 0; i < 5; ++i) prof[i] = cyc[i];
+  asm volatile("bar.sync 1, 64;" ::: "memory");   // the last copies written
+  if (warp != 0) return;
+  // back-substitution: lane holds U's rows a = lane and b = lane + 32
+  // (and the pivot's reciprocal): x_k = c_k / U_kk as c_k * (1 / U_kk)
+  auto urow = [&](int k, float& inv) {
+    const float4 hh = hdr4[k];
+    const bool up = __float_as_uint(hh.z) > __float_as_uint(hh.x);
+    inv = up ? hh.w : hh.y;
+    return rows + (63 - static_cast<int>(__float_as_uint(up ? hh.z : hh.x) & 63u)) * kSlot;
+  };
+  const int a = lane, bq = lane + 32;
+  float ia = 0.f, ib = 0.f;
+  const float* ua = a < n ? urow(a, ia) : nullptr;
+  const float* ub = bq < n ? urow(bq, ib) : nullptr;
+  float ca = ua ? ua[kFreeMax] : 0.f, cb = ub ? ub[kFreeMax] : 0.f;
+  for (int k = n - 1; k >= 0; --k) {
+    const bool lo = k < 32;
+    const float own = lo ? ca * ia : cb * ib;
+    const float xk = __shfl_sync(kFull, own, k & 31);
+    if (a < k) ca = fmaf(-ua[k - a], xk, ca);
+    if (bq < k) cb = fmaf(-ub[k - bq], xk, cb);
+    if (lane == 0) xf[k] = xk;
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p, int cap,
+                                                              int per) {
+  if (is_done(p)) return;                // the same for the whole cluster
+  cg::cluster_group cluster = cg::this_cluster();
+  const int R = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cur = current(p), nxt = 1 - cur;
+  const int W = p.W, NP = p.NP, D = 4 + 8 * W, D4 = D / 4, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const float lam = p.ctrl_f[0];
+  extern __shared__ float4 smem4[];
+  const int capr = (cap + 3) & ~3;
+  float* sRows = reinterpret_cast<float*>(smem4);           // [cap][D]
+  float* sInv = sRows + static_cast<size_t>(cap) * D;        // [cap]
+  float* sIB = sInv + capr;                                  // [cap]
+  float* sPart = sIB + capr;                                 // [kSGroups][kSTiles * 16]
+  float* sRed = sPart + kPartFloats;                         // [kSchurFloats + 4]
+  float* sX = sRed + kSchurFloats + 4;                       // [kMaxD]: x, pushed by rank 0
+  float* sHff = sX + kMaxD;                                  // rank 0: Hff, HM, bf, bM
+  float* sHM = sHff + D * D;
+  float* sbf = sHM + D * D;
+  float* sbM = sbf + D;
+  __shared__ int sFg[kGroupsMax], sMeta[2];
+  __shared__ float sSum[2], sP[kMaxD], sX0[kMaxD], sPrior[kMaxD], sN[kMaxD];
+  const int tbase = kLinTimerWords + rank * kStepStamps;
+  stamp(p, tbase, 0);
+  // this block's points, in chunks of at most cap rows; the first chunk's
+  // copy in flight from the start
+  const int r_lo = min(rank * per, NP), r_hi = min(r_lo + per, NP);
+  if (r_lo < r_hi)
+    cp_floats(sRows, p.Hfd[cur] + static_cast<size_t>(r_lo) * D, min(cap, r_hi - r_lo) * D);
+
+  // the anchor (warp 0: the oldest valid frame, the first of equals) and
+  // the free float4 groups of a row
+  if (warp == 0) {
+    const int fid = lane < W && p.frame_valid[lane] ? p.frame_id[lane] : (1 << 30);
+    const int best = __reduce_min_sync(kFull, fid);
+    const int a = min(__ffs(__ballot_sync(kFull, fid == best)) - 1, W - 1);
+    if (lane == 0) {
+      int n = 0;
+      for (int gi = 0; gi < D4; ++gi)
+        if (gi != 1 + 2 * a && gi != 2 + 2 * a) sFg[n++] = gi;
+      sMeta[0] = a;
+      sMeta[1] = n;
+    }
+  }
+  if (rank == 0) {
+    // the system's other terms, in flight during the Schur sums
+    cp_floats(sHff, p.Hff[cur], D * D);
+    cp_floats(sHM, p.HM, D * D);
+    cp_floats(sbf, p.bf[cur], D);
+    cp_floats(sbM, p.bM, D);
+    for (int d = tid; d < D; d += kStepThreads) {
+      sP[d] = p.precond[d];
+      sX0[d] = state_at(p, cur, d);
+      sPrior[d] = prior_at(p, d);
+    }
+  }
+  __syncthreads();
+  const int anchor = sMeta[0], ng = sMeta[1], n = 4 * ng;
+  const int nT = ng * (ng + 1) / 2;
+
+  // this thread's Schur tile: (I, J) of the upper triangle, or b tile I
+  const int g = tid / kSTiles, ti = tid % kSTiles;
+  const bool tiler = g < kSGroups && ti < nT + ng;
+  int I = 0, J = 0;
+  if (ti < nT) {
+    int e = ti;
+    while (e >= ng - I) {
+      e -= ng - I;
+      ++I;
+    }
+    J = I + e;
+  } else {
+    I = ti - nT;
+  }
+  const int gI = tiler ? sFg[I] : 0, gJ = tiler && ti < nT ? sFg[J] : 0;
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+
+  float id_sum = 0.f, id_cnt = 0.f;
+  int res_lo = r_lo;
+  for (int c0 = r_lo; c0 < r_hi; c0 += cap) {
+    const int cnt = min(cap, r_hi - c0);
+    res_lo = c0;
+    if (c0 > r_lo) cp_floats(sRows, p.Hfd[cur] + static_cast<size_t>(c0) * D, cnt * D);
+    for (int i = tid; i < cnt; i += kStepThreads) {
+      const int pt = c0 + i;
+      const float hdd = p.Hdd[cur][pt];
+      const float mult = hdd * (1.f + lam) + 1e-10f;
+      const float inv = hdd > 1e-10f ? 1.f / mult : 0.f;
+      sInv[i] = inv;
+      sIB[i] = inv * p.bd[cur][pt];
+      if (p.p_valid[pt]) {
+        id_sum += fabsf(p.idepth[cur][pt]);
+        id_cnt += 1.f;
       }
     }
-    s_anchor = a;
+    cp_wait();
+    __syncthreads();
+    stamp(p, tbase, 8);
+    if (tiler) {
+#pragma unroll 4
+      for (int i = g; i < cnt; i += kSGroups) {
+        const float4* row = reinterpret_cast<const float4*>(sRows + static_cast<size_t>(i) * D);
+        const float4 a = row[gI];
+        const float inv = sInv[i];
+        const float av[4] = {a.x * inv, a.y * inv, a.z * inv, a.w * inv};
+        if (ti < nT) {
+          const float4 bq = row[gJ];
+          const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[4 * u + v] += av[u] * bv[v];
+        } else {
+          const float ib = sIB[i];
+          const float aw[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[u] += aw[u] * ib;
+        }
+      }
+    }
+    __syncthreads();
   }
-  for (int d = tid; d < D; d += kSolveThreads) {
-    P[d] = p.precond[d];
-    x0[d] = state_at(p, cur, d);
+  if (r_lo >= r_hi) {                    // no rows: the prefetch alone
+    cp_wait();
+    __syncthreads();
   }
+  // the groups' tiles summed in group order: this block's partial
+  if (tiler) {
+    float* dst = sPart + g * kSTiles * 16 + ti * 16;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dst[i] = acc[i];
+  }
+  const float ids[2] = {id_sum, id_cnt};
+  block_sum<2, kStepThreads>(ids, sRed + kSchurFloats);
   __syncthreads();
-  const int a0 = 4 + 8 * s_anchor;
-  auto is_free = [&](int d) { return d < a0 || d >= a0 + 8; };
-  auto hsc = [&](int i, int j) {
-    const int r = min(i, j), c = max(i, j);
-    return sc[r * D - r * (r - 1) / 2 + (c - r)];
-  };
-  const float* Hff = p.Hff[cur];
-  for (int e = tid; e < D * D; e += kSolveThreads) {
-    const int i = e / D, j = e % D;
-    float h = Hff[e] - hsc(i, j) + p.HM[e] + (i == j ? prior_at(p, i) : 0.f);
-    h = (is_free(i) && is_free(j)) ? h : 0.f;
-    if (i == j) h += is_free(i) ? 0.f : 1.f;
-    float hp = h * P[i] * P[j];
-    if (i == j) hp = hp + lam * hp + 1e-8f;
-    A[i * (D + 1) + j] = hp;
+  stamp(p, tbase, 1);
+  const int nS = nT * 16 + ng * 4;
+  for (int e = tid; e < nS; e += kStepThreads) {
+    const int src = e < nT * 16 ? e : nT * 16 + ((e - nT * 16) >> 2) * 16 + (e & 3);
+    float v = 0.f;
+    for (int gg = 0; gg < kSGroups; ++gg) v += sPart[gg * kSTiles * 16 + src];
+    sRed[e] = v;
   }
-  for (int i = tid; i < D; i += kSolveThreads) {
-    float hx = 0.f;
-    for (int j = 0; j < D; ++j) hx += p.HM[i * D + j] * x0[j];
-    float bi = p.bf[cur][i] - sc[U + i] + p.bM[i] + hx + prior_at(p, i) * x0[i];
-    bi = is_free(i) ? bi : 0.f;
-    rhs[i] = -(bi * P[i]);
-  }
-  __syncthreads();
+  cluster.sync();
+  stamp(p, tbase, 2);
 
-  // LU with partial pivoting (the first row of largest |entry|), the
-  // eliminated rows' multipliers recomputed where they are used
-  for (int k = 0; k < D; ++k) {
-    if (tid < 32) {
-      float best = -1.f;
-      int arg = k;
-      for (int r = k + tid; r < D; r += 32) {
-        const float v = fabsf(A[r * (D + 1) + k]);
-        if (v > best) {
-          best = v;
-          arg = r;
+  if (rank == 0) {
+    // the ranks' partials in rank order (sPart is free now: the Schur sums
+    // then the system)
+    float* sSc = sPart;
+    float* sys = sPart + kSchurFloats + 4;
+    for (int e = tid; e < nS + 2; e += kStepThreads) {
+      const int src = e < nS ? e : kSchurFloats + (e - nS);
+      float part[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) part[r] = r < R ? cluster.map_shared_rank(sRed, r)[src] : 0.f;
+      float v = 0.f;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) v += r < R ? part[r] : 0.f;
+      if (e < nS) sSc[e] = v;
+      else sSum[e - nS] = v;
+    }
+    __syncthreads();
+    auto dof = [&](int fi) { return sFg[fi >> 2] * 4 + (fi & 3); };
+    auto schur = [&](int fi, int fj) {
+      const int a = fi >> 2, bq = fj >> 2;
+      return a <= bq ? sSc[tile_index(a, bq, ng) * 16 + (fi & 3) * 4 + (fj & 3)]
+                     : sSc[tile_index(bq, a, ng) * 16 + (fj & 3) * 4 + (fi & 3)];
+    };
+    // the damped, preconditioned system over the free unknowns
+    for (int e = tid; e < kFreeMax * kFreeMax; e += kStepThreads) {
+      const int i = e / kFreeMax, j = e % kFreeMax;
+      float hp;
+      if (i < n && j < n) {
+        const int di = dof(i), dj = dof(j);
+        const float h = sHff[di * D + dj] - schur(i, j) + sHM[di * D + dj] +
+                        (i == j ? sPrior[di] : 0.f);
+        hp = h * sP[di] * sP[dj];
+        if (i == j) hp = hp + lam * hp + 1e-8f;
+      } else {
+        hp = i == j ? 1.f : 0.f;
+      }
+      sys[i * kSysStride + j] = hp;
+    }
+    // the right-hand side: a warp a row, HM x0 from shared memory
+    for (int i = warp; i < kFreeMax; i += kStepThreads / 32) {
+      if (i >= n) {
+        if (lane == 0) sys[i * kSysStride + kFreeMax] = 0.f;
+        continue;
+      }
+      const int di = dof(i);
+      float hx = 0.f;
+      for (int j = lane; j < D; j += 32) hx += sHM[di * D + j] * sX0[j];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) hx += __shfl_xor_sync(kFull, hx, off);
+      if (lane == 0) {
+        const float bsc = sSc[nT * 16 + (i >> 2) * 4 + (i & 3)];
+        const float bi = sbf[di] - bsc + sbM[di] + hx + sPrior[di] * sX0[di];
+        sys[i * kSysStride + kFreeMax] = -(bi * sP[di]);
+      }
+    }
+    __syncthreads();
+    stamp(p, tbase, 3);
+    float* rows = sys + kFreeMax * kSysStride;                    // [kFreeMax][kSlot]
+    float2* hdr = reinterpret_cast<float2*>(rows + kFreeMax * kSlot);   // [kFreeMax][2]
+    float* xf = rows + kFreeMax * kSlot + 4 * kFreeMax;           // [kFreeMax]
+    if (tid < 64) {
+      lu_solve(sys, n, rows, hdr, xf,
+               p.timers != nullptr ? p.timers + kLinTimerWords + 16 * kStepStamps : nullptr);
+    } else if (warp == 2) {
+      // meanwhile the scale nullspace: the valid frames' translations but
+      // the anchor's
+      for (int d = lane; d < D; d += 32) {
+        const int f = (d - 4) >> 3, k = (d - 4) & 7;
+        float v = 0.f;
+        if (d >= 4 && k < 3 && p.frame_valid[f] && f != anchor)
+          v = current_pose(p, cur, f).m[4 * k + 3];
+        sN[d] = v;
+      }
+    }
+    __syncthreads();
+    stamp(p, tbase, 4);
+    // x = xp P (the anchor's 0), the nullspace projected out, and DSO's
+    // doStepFromBackup convergence test: warp 0
+    if (warp == 0) {
+      float xs[3], N[3];
+      float ntn = 0.f, ntx = 0.f;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const int d = lane + 32 * m;
+        xs[m] = 0.f;
+        N[m] = 0.f;
+        if (d < D) {
+          const int f = (d - 4) >> 3;
+          const bool is_anchor = d >= 4 && f == anchor;
+          const int fi = d < 4 ? d : (f < anchor ? d : d - 8);
+          xs[m] = (is_anchor ? 0.f : xf[fi]) * sP[d];
+          N[m] = sN[d];
+          ntn += N[m] * N[m];
+          ntx += N[m] * xs[m];
         }
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) {
-        const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
-        if (ob > best || (ob == best && oa < arg)) {
-          best = ob;
-          arg = oa;
+        ntn += __shfl_xor_sync(kFull, ntn, off);
+        ntx += __shfl_xor_sync(kFull, ntx, off);
+      }
+      const float coef = ntx / (ntn + 1e-6f);
+      float sT = 0.f, sR = 0.f, sA = 0.f, sB = 0.f;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const int d = lane + 32 * m;
+        if (d < D) {
+          const float xd = xs[m] - N[m] * coef;
+          sX[d] = xd;
+          p.x[d] = xd;
+          if (d < 4) {
+            p.calib_delta[nxt][d] = sX0[d] + xd;
+          } else {
+            p.delta[nxt][d - 4] = sX0[d] + xd;
+            const int f = (d - 4) >> 3, k = (d - 4) & 7;
+            const float msk = p.frame_valid[f] ? 1.f : 0.f;
+            const float sq = msk * (xd * xd);
+            if (k < 3) sT += sq;
+            else if (k < 6) sR += sq;
+            else if (k == 6) sA += sq;
+            else sB += sq;
+          }
         }
       }
-      if (tid == 0) s_piv = arg;
-    }
-    __syncthreads();
-    const int pr = s_piv;
-    if (pr != k) {
-      for (int c = k + tid; c <= D; c += kSolveThreads) {
-        float* ra = c < D ? &A[k * (D + 1) + c] : &rhs[k];
-        float* rb = c < D ? &A[pr * (D + 1) + c] : &rhs[pr];
-        const float tmp = *ra;
-        *ra = *rb;
-        *rb = tmp;
+      float nf = lane < W && p.frame_valid[lane] ? 1.f : 0.f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        sT += __shfl_xor_sync(kFull, sT, off);
+        sR += __shfl_xor_sync(kFull, sR, off);
+        sA += __shfl_xor_sync(kFull, sA, off);
+        sB += __shfl_xor_sync(kFull, sB, off);
+        nf += __shfl_xor_sync(kFull, nf, off);
       }
-      __syncthreads();
-    }
-    const float piv = A[k * (D + 1) + k];
-    const int rows = D - k - 1, cols = D - k;     // columns k+1 .. D-1 and rhs
-    for (int e = tid; e < rows * cols; e += kSolveThreads) {
-      const int r = k + 1 + e / cols, c = k + 1 + e % cols;
-      const float f = A[r * (D + 1) + k] / piv;
-      if (c < D) A[r * (D + 1) + c] -= f * A[k * (D + 1) + c];
-      else rhs[r] -= f * rhs[k];
+      if (lane == 0) {
+        nf = fmaxf(nf, 1.f);
+        const float nid = fmaxf(sSum[1], 1.f);
+        const float sum_nid = sSum[0] / nid;
+        const bool conv = sqrtf(sA / nf) < p.th_a && sqrtf(sB / nf) < p.th_b &&
+                          sqrtf(sR / nf) < p.th_r && sqrtf(sT / nf) * sum_nid < p.th_t;
+        p.ctrl_i[2] = conv ? 1 : 0;
+      }
     }
     __syncthreads();
+    // x into every block's shared memory
+    for (int i = tid; i < R * D; i += kStepThreads)
+      cluster.map_shared_rank(sX, i / D)[i % D] = sX[i % D];
+    stamp(p, tbase, 5);
   }
-  // back-substitution, a column at a time
-  for (int k = D - 1; k >= 0; --k) {
-    if (tid == 0) xs[k] = rhs[k] / A[k * (D + 1) + k];
-    __syncthreads();
-    const float xk = xs[k];
-    for (int r = tid; r < k; r += kSolveThreads) rhs[r] -= A[r * (D + 1) + k] * xk;
-    __syncthreads();
-  }
-  // x = xp P, then the scale nullspace projected out
-  if (tid < W) {
-    const int f = tid;
-    const Pose<float> T = current_pose(p, cur, f);
-    const float blk = (p.frame_valid[f] && f != s_anchor) ? 1.f : 0.f;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) N[4 + 8 * f + k] = T.m[4 * k + 3] * blk;
-#pragma unroll
-    for (int k = 3; k < 8; ++k) N[4 + 8 * f + k] = 0.f;
-  }
-  if (tid < 4) N[tid] = 0.f;
-  for (int d = tid; d < D; d += kSolveThreads) xs[d] = xs[d] * P[d];
-  __syncthreads();
-  if (tid == 0) {
-    float ntn = 0.f, ntx = 0.f;
-    for (int d = 0; d < D; ++d) {
-      ntn += N[d] * N[d];
-      ntx += N[d] * xs[d];
-    }
-    s_red[0] = ntx / (ntn + 1e-6f);
-  }
-  __syncthreads();
-  for (int d = tid; d < D; d += kSolveThreads) {
-    const float xd = xs[d] - N[d] * s_red[0];
-    xs[d] = xd;
-    p.x[d] = xd;
-  }
-  __syncthreads();
-  // DSO's doStepFromBackup convergence test
-  if (tid == 0) {
-    float nf = 0.f, sT = 0.f, sR = 0.f, sA = 0.f, sB = 0.f;
-    for (int f = 0; f < W; ++f) {
-      const float m = p.frame_valid[f] ? 1.f : 0.f;
-      const float* xf = xs + 4 + 8 * f;
-      nf += m;
-      sT += m * (xf[0] * xf[0]) + m * (xf[1] * xf[1]) + m * (xf[2] * xf[2]);
-      sR += m * (xf[3] * xf[3]) + m * (xf[4] * xf[4]) + m * (xf[5] * xf[5]);
-      sA += m * (xf[6] * xf[6]);
-      sB += m * (xf[7] * xf[7]);
-    }
-    nf = fmaxf(nf, 1.f);
-    const float nid = fmaxf(sc[U + D + 1], 1.f);
-    const float sum_nid = sc[U + D] / nid;
-    const bool conv = sqrtf(sA / nf) < p.th_a && sqrtf(sB / nf) < p.th_b &&
-                      sqrtf(sR / nf) < p.th_r && sqrtf(sT / nf) * sum_nid < p.th_t;
-    p.ctrl_i[2] = conv ? 1 : 0;
-  }
-}
+  cluster.sync();
+  stamp(p, tbase, 6);
 
-// the idepth steps x_d = inv_Hdd (-bd - Hfd x), one warp a point, and the
-// candidate state (buffer 1 - cur)
-__global__ void __launch_bounds__(kBackThreads) backsub_kernel(const BaParams p) {
-  if (is_done(p)) return;
-  const int cur = current(p), nxt = 1 - cur;
-  const int W = p.W, D = 4 + 8 * W;
-  __shared__ float sx[kMaxD];
-  for (int d = threadIdx.x; d < D; d += kBackThreads) sx[d] = p.x[d];
-  __syncthreads();
-  if (blockIdx.x == 0)
-    for (int d = threadIdx.x; d < D; d += kBackThreads) {
-      if (d < 4) p.calib_delta[nxt][d] = p.calib_delta[cur][d] + sx[d];
-      else p.delta[nxt][d - 4] = p.delta[cur][d - 4] + sx[d];
+  // the idepth steps x_d = inv_Hdd (-bd - Hfd x), 8 lanes a point, from the
+  // rows this block holds, and the candidate state (buffer 1 - cur)
+  const float4* x4 = reinterpret_cast<const float4*>(sX);
+  const int l8 = tid & 7;
+  for (int base = r_lo; base < r_hi; base += kStepThreads / 8) {
+    const int pt = base + (tid >> 3);
+    const bool live = pt < r_hi;
+    float sdot = 0.f;
+    if (live) {
+      const float* row = pt >= res_lo ? sRows + static_cast<size_t>(pt - res_lo) * D
+                                      : p.Hfd[cur] + static_cast<size_t>(pt) * D;
+      const float4* row4 = reinterpret_cast<const float4*>(row);
+      for (int gi = l8; gi < D4; gi += 8) {
+        const float4 h = row4[gi], xv = x4[gi];
+        sdot += h.x * xv.x + h.y * xv.y + h.z * xv.z + h.w * xv.w;
+      }
     }
-  const int lane = threadIdx.x & 31;
-  const int pt = blockIdx.x * (kBackThreads / 32) + (threadIdx.x >> 5);
-  if (pt >= p.NP) return;
-  const float* row = p.Hfd[cur] + static_cast<size_t>(pt) * D;
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += row[d] * sx[d];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) {
-    const float xd = p.inv_hdd[pt] * (-p.bd[cur][pt] - s);
-    p.x_d[pt] = xd;
-    const float id = p.idepth[cur][pt];
-    p.idepth[nxt][pt] = p.p_valid[pt] ? id + xd : id;
+    for (int off = 4; off > 0; off >>= 1) sdot += __shfl_xor_sync(kFull, sdot, off);
+    if (live && l8 == 0) {
+      const float hdd = p.Hdd[cur][pt];
+      const float inv = hdd > 1e-10f ? 1.f / (hdd * (1.f + lam) + 1e-10f) : 0.f;
+      const float xd = inv * (-p.bd[cur][pt] - sdot);
+      p.x_d[pt] = xd;
+      const float id = p.idepth[cur][pt];
+      p.idepth[nxt][pt] = p.p_valid[pt] ? id + xd : id;
+    }
   }
+  stamp(p, tbase, 7);
 }
 
 // ---------------------------------------------------------------------------
@@ -797,10 +1352,85 @@ __global__ void __launch_bounds__(kAcceptThreads) accept_kernel(const BaParams p
   p.ctrl_i[1] = (conv && it + 1 >= p.min_opt_iterations) ? 1 : 0;
 }
 
-int lin_tiles(const BaParams& p) { return (p.NP + kLinTile - 1) / kLinTile; }
-
 bool sizes_ok(const BaParams& p) {
   return p.W >= 1 && p.W <= kMaxSlots && p.NP >= 1;
+}
+
+// K10's dynamic shared memory for blocks of at most cap rows
+size_t step_smem(int cap, int D) {
+  const size_t capr = (static_cast<size_t>(cap) + 3) & ~static_cast<size_t>(3);
+  return sizeof(float) * (static_cast<size_t>(cap) * D + 2 * capr + kPartFloats +
+                          kSchurFloats + 4 + kMaxD + 2 * D * D + 2 * D);
+}
+
+cudaLaunchConfig_t step_config(int R, size_t smem, cudaStream_t stream,
+                               cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(R, 1, 1);
+  cfg.blockDim = dim3(kStepThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = R;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// K10's cluster: 16 blocks (a non-portable size) where the card holds such
+// a cluster of these blocks, else 8; each block takes per = NP / R points
+// (rounded up), at most cap rows at a time. Planned once per device, NP
+// and W.
+struct StepPlan {
+  int device = -1, NP = -1, W = -1, R = 0, cap = 0, per = 0;
+  size_t smem = 0;
+};
+
+cudaError_t plan_step(const BaParams& p, StepPlan& plan) {
+  static StepPlan cached;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (cached.device == device && cached.NP == p.NP && cached.W == p.W) {
+    plan = cached;
+    return cudaSuccess;
+  }
+  const int D = 4 + 8 * p.W;
+  err = cudaFuncSetAttribute(step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemLimit));
+  if (err != cudaSuccess) return err;
+  const int cap_max = static_cast<int>((kSmemLimit - step_smem(0, D)) / sizeof(float) - 6) /
+                      (D + 2);
+  const int sizes[2] = {16, 8};
+  for (const int R : sizes) {
+    const int per = (p.NP + R - 1) / R;
+    const int cap = per < cap_max ? per : cap_max;
+    const size_t smem = step_smem(cap, D);
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = step_config(R, smem, nullptr, attr);
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, step_kernel, &cfg);
+    if (err != cudaSuccess) {
+      cudaGetLastError();                // a refused size is not the launch's error
+      continue;
+    }
+    if (n >= 1) {
+      cached.device = device;
+      cached.NP = p.NP;
+      cached.W = p.W;
+      cached.R = R;
+      cached.cap = cap;
+      cached.per = per;
+      cached.smem = smem;
+      plan = cached;
+      return cudaSuccess;
+    }
+  }
+  return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
 }
 
 }  // namespace
@@ -810,15 +1440,11 @@ bool sizes_ok(const BaParams& p) {
 // same index.
 DSSLAM_API int dsslam_ba_linearize(const BaParams* p, int mode, cudaStream_t stream) {
   if (!sizes_ok(*p)) return cudaErrorInvalidValue;
-  const int ntiles = lin_tiles(*p);
-  const int D = 4 + 8 * p->W;
-  const long long rows = static_cast<long long>(p->NP) * D;
-  const int row_blocks = static_cast<int>((rows + kFinThreads - 1) / kFinThreads);
-  const int sum_blocks = (D * (D + 1) / 2 + D + 1 + kFinThreads - 1) / kFinThreads;
-  const dim3 grid(ntiles, p->W);
-  lin_tile_kernel<<<grid, kLinThreads, 0, stream>>>(*p, mode);
-  lin_finish_kernel<<<row_blocks + sum_blocks, kFinThreads, 0, stream>>>(*p, mode, ntiles,
-                                                                        row_blocks);
+  const int D = 4 + 8 * p->W, U = D * (D + 1) / 2;
+  const int row_blocks = (p->NP + kFinThreads / 32 - 1) / (kFinThreads / 32);
+  const int sum_blocks = ((U + D + 1) * kMaxSlots + kFinThreads - 1) / kFinThreads;
+  lin_pair_kernel<<<dim3(kChunks, p->W, p->W), kLinThreads, 0, stream>>>(*p, mode);
+  lin_finish_kernel<<<sum_blocks + row_blocks, kFinThreads, 0, stream>>>(*p, mode, sum_blocks);
   return cudaGetLastError();
 }
 
@@ -826,18 +1452,13 @@ DSSLAM_API int dsslam_ba_linearize(const BaParams* p, int mode, cudaStream_t str
 // convergence flag, and the candidate state in buffer 1 - cur.
 DSSLAM_API int dsslam_ba_step(const BaParams* p, cudaStream_t stream) {
   if (!sizes_ok(*p) || !p->ctrl_i || !p->ctrl_f) return cudaErrorInvalidValue;
-  const int D = 4 + 8 * p->W, U = D * (D + 1) / 2;
-  const int ntiles = (p->NP + kSchurTile - 1) / kSchurTile;
-  const size_t smem = sizeof(float) * (U + D + 2 + D * (D + 1) + 5 * D);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  schur_kernel<<<ntiles, kSchurThreads, 0, stream>>>(*p);
-  solve_kernel<<<1, kSolveThreads, smem, stream>>>(*p, ntiles);
-  const int back_blocks = (p->NP + kBackThreads / 32 - 1) / (kBackThreads / 32);
-  backsub_kernel<<<back_blocks, kBackThreads, 0, stream>>>(*p);
+  StepPlan plan;
+  const cudaError_t err = plan_step(*p, plan);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = step_config(plan.R, plan.smem, stream, attr);
+  const cudaError_t lerr = cudaLaunchKernelEx(&cfg, step_kernel, *p, plan.cap, plan.per);
+  if (lerr != cudaSuccess) return lerr;
   return cudaGetLastError();
 }
 

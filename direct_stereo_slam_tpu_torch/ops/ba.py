@@ -26,9 +26,9 @@ from . import _cuda
 _P = ctypes.c_void_p
 _P2 = ctypes.c_void_p * 2
 
-# csrc/ba.cu's tiles: points per block of K9's first launch, per block of
-# K10's Schur sums; floats per (s, t) block and per (point, target)
-LIN_TILE, SCHUR_TILE, HE, G = 128, 64, 232, 22
+# csrc/ba.cu's scratch: floats per reduced (host, target) block (its 230
+# entries, energy, good pairs) and per (point, target) (G20, Hdd, bd)
+HE, G = 232, 22
 
 
 class BaParams(ctypes.Structure):
@@ -39,11 +39,11 @@ class BaParams(ctypes.Structure):
         [(n, _P) for n in ("images", "T_zero", "aff_zero", "exposure", "energy_th",
                            "calib_zero", "frame_valid", "frame_id", "HM", "bM", "p_valid",
                            "p_host", "p_u", "p_v", "p_idepth_zero", "p_color", "p_weight",
-                           "p_prior", "p_res_good", "precond", "pat_u", "pat_v")] + \
+                           "p_prior", "p_res_good", "precond", "pat_u", "pat_v",
+                           "host_pts", "host_off")] + \
         [(n, _P2) for n in ("calib_delta", "delta", "idepth", "Hff", "bf", "Hfd", "Hdd", "bd",
                             "energy", "num_terms", "pair_energy", "pair_good", "pair_in")] + \
-        [(n, _P) for n in ("ctrl_i", "ctrl_f", "lin_part", "pt_part", "sc_part", "inv_hdd",
-                           "x", "x_d")]
+        [(n, _P) for n in ("ctrl_i", "ctrl_f", "lin_part", "pt_part", "x", "x_d", "timers")]
 
 
 STATE_FIELDS = ("calib_delta", "delta", "p_idepth")
@@ -79,6 +79,92 @@ class Params(NamedTuple):
     bufs: Buffers
 
 
+# phase stamps (csrc/ba.cu, BaParams::timers): K9's pixel pass LIN_STAMPS
+# per block of an [8, 8, 8] (host, target, chunk) grid, then K10's
+# STEP_STAMPS per cluster rank (at most 16), then 5 counters of K10's solve
+LIN_STAMPS, STEP_STAMPS, CHUNKS = 8, 10, 8
+_LIN_WORDS = 8 * 8 * CHUNKS * LIN_STAMPS
+_STEP_WORDS = 16 * STEP_STAMPS
+
+
+_FIN_BLOCKS = 1024
+
+
+def timer_buffer(dev) -> torch.Tensor:
+    """A zeroed buffer for ``Params.struct.timers`` (null on the main
+    path)."""
+    return torch.zeros(_LIN_WORDS + _STEP_WORDS + 8 + 2 * _FIN_BLOCKS, dtype=torch.int64,
+                       device=dev)
+
+
+def phase_us(timers: torch.Tensor, W: int, clock_mhz: float, fin_split: int = 0) -> dict:
+    """One K9 and one K10 call's stamps. K9's pixel pass: its span (the
+    first block's start to the last block's end, us), per block the
+    set-up, the rounds and the end (mean and largest, us), and thread 0's
+    us per round in the warp and sample, the compaction and the products
+    (at ``clock_mhz``); K9's second launch: the span and the longest
+    block of its assembly blocks (the first ``fin_split``) and of its row
+    blocks. K10: its span, each rank's copy and Schur sums, and
+    rank 0's barrier, reduction and assembly, solve, projection and push,
+    second barrier and back-substitution (us); the solve's cycles per
+    pivot step by part (the pivot key's row, the barrier, the factor,
+    the next column and its warp max, the rest of the row)."""
+    t = timers.cpu().numpy().astype("float64")
+    lin = t[:_LIN_WORDS].reshape(8, 8, CHUNKS, LIN_STAMPS)[:W, :W].reshape(-1, LIN_STAMPS)
+    lin = lin[lin[:, 0] > 0]
+    d = (lin[:, 1:4] - lin[:, 0:3]) / 1e3
+    rounds = max(float(lin[:, 7].sum()), 1.0)
+    per_round = {k: float(lin[:, 4 + i].sum() / rounds / clock_mhz)
+                 for i, k in enumerate(("warp_sample", "compaction", "products"))}
+    step = t[_LIN_WORDS:_LIN_WORDS + _STEP_WORDS].reshape(16, STEP_STAMPS)
+    step = step[step[:, 0] > 0]
+    us = lambda a, b: (step[:, b] - step[:, a]) / 1e3
+    order = (0, 8, 1, 2, 3, 4, 5, 6, 7)
+    names = ("copy", "schur", "barrier", "reduce_assemble", "solve", "project_push",
+             "barrier2", "backsub")
+    gj = t[_LIN_WORDS + _STEP_WORDS:_LIN_WORDS + _STEP_WORDS + 5]
+    fin = t[_LIN_WORDS + _STEP_WORDS + 8:].reshape(_FIN_BLOCKS, 2)
+    fin_parts = {}
+    for name, part in (("assembly", fin[:fin_split]), ("rows", fin[fin_split:])):
+        part = part[part[:, 0] > 0]
+        if len(part):
+            fin_parts[name] = {"blocks": int(len(part)),
+                               "span": float((part[:, 1].max() - part[:, 0].min()) / 1e3),
+                               "block_max": float((part[:, 1] - part[:, 0]).max() / 1e3)}
+    if len(fin[fin[:, 0] > 0]):
+        live = fin[fin[:, 0] > 0]
+        fin_parts["span"] = float((live[:, 1].max() - live[:, 0].min()) / 1e3)
+    n_steps = max(8 * W - 4, 1)
+    return {"K9_pixel_pass": {
+                "span": float((lin[:, 3].max() - lin[:, 0].min()) / 1e3),
+                "blocks": int(len(lin)), "rounds": int(rounds),
+                "rounds_largest_block": int(lin[:, 7].max()),
+                **{k: {"mean": float(d[:, i].mean()), "max": float(d[:, i].max())}
+                   for i, k in enumerate(("setup", "rounds", "end"))},
+                "us_per_round": per_round},
+            "K9_finish": fin_parts,
+            "K10": {"span": float((step[:, 7].max() - step[:, 0].min()) / 1e3),
+                    "ranks": int(len(step)),
+                    "copy_max": float(us(0, 8).max()), "schur_max": float(us(8, 1).max()),
+                    "rank0": {k: float(us(a, b)[0]) for k, a, b in
+                              zip(names, order[:-1], order[1:])},
+                    "solve_cycles_per_step": {k: float(v / n_steps) for k, v in zip(
+                        ("key_row", "barrier", "factor", "next_key", "elimination"), gj)}}}
+
+
+def host_groups(p_host: torch.Tensor, W: int):
+    """The points grouped by host for K9: (pts [NP] int32, off [W + 1]
+    int32), host s's points pts[off[s]:off[s + 1]] in ascending index. A
+    stable sort and a count per host on the tensors' device: no atomics,
+    no host read."""
+    pts = torch.sort(p_host, stable=True).indices.to(torch.int32)
+    hosts = torch.arange(W, device=p_host.device)
+    counts = (p_host[None, :] == hosts[:, None]).sum(1)
+    off = torch.cat([torch.zeros(1, dtype=counts.dtype, device=p_host.device),
+                     torch.cumsum(counts, 0)]).to(torch.int32)
+    return pts.contiguous(), off
+
+
 def empty_lin(n: int, NP: int, W: int, dev) -> dict:
     D = 4 + 8 * W
     f = dict(dtype=torch.float32, device=dev)
@@ -109,15 +195,11 @@ def make_params(state, cfg, states=None, lins=None) -> Params:
         states = {f: getattr(state, f).contiguous()[None] for f in STATE_FIELDS}
     if lins is None:
         lins = empty_lin(1, NP, W, dev)
-    ntiles = (NP + LIN_TILE - 1) // LIN_TILE
-    nschur = (NP + SCHUR_TILE - 1) // SCHUR_TILE
-    U = D * (D + 1) // 2
+    consts += host_groups(state.p_host, W)
     f = dict(dtype=torch.float32, device=dev)
-    scratch = {"lin_part": torch.empty(ntiles * W * (W * HE + 2), **f),
+    scratch = {"lin_part": torch.empty(W * W * (HE + 1), **f),
                "pt_part": torch.empty(NP * W * G, **f),
-               "sc_part": torch.empty(nschur * (U + D + 2), **f),
-               "inv_hdd": torch.empty(NP, **f), "x": torch.empty(D, **f),
-               "x_d": torch.empty(NP, **f)}
+               "x": torch.empty(D, **f), "x_d": torch.empty(NP, **f)}
     ctrl_i = torch.zeros(3, dtype=torch.int32, device=dev)
     ctrl_f = torch.zeros(2, **f)
     for name, t in zip(_INPUTS, inputs):
@@ -143,7 +225,10 @@ def make_params(state, cfg, states=None, lins=None) -> Params:
                  th_r=_f32(0.00005 * th), th_t=_f32(0.00005 * th),
                  min_opt_iterations=ba.min_opt_iterations,
                  force_accept=int(bool(ba.solver_force_accept_step)))
-    for name, t in zip(_INPUTS + ("precond", "pat_u", "pat_v"), inputs + consts):
+    if any(t.data_ptr() % 16 for t in (lins["Hfd"][0], lins["Hfd"][-1])):
+        raise ValueError("ba kernels: Hfd's buffers must be 16-byte aligned")
+    for name, t in zip(_INPUTS + ("precond", "pat_u", "pat_v", "host_pts", "host_off"),
+                       inputs + consts):
         setattr(s, name, t.data_ptr())
     pair = lambda t: _P2(t[0].data_ptr(), t[t.shape[0] - 1].data_ptr())
     s.calib_delta = pair(states["calib_delta"])
@@ -152,6 +237,7 @@ def make_params(state, cfg, states=None, lins=None) -> Params:
     for name in LIN_FIELDS:
         setattr(s, name, pair(lins[name]))
     s.ctrl_i, s.ctrl_f = ctrl_i.data_ptr(), ctrl_f.data_ptr()
+    s.timers = None
     for name, t in scratch.items():
         setattr(s, name, t.data_ptr())
     return Params(s, Buffers(inputs + consts, states, lins, ctrl_i, ctrl_f, scratch))

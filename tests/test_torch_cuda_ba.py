@@ -3,20 +3,24 @@ PyTorch versions on the card (models/ba.py), on windows built with the
 port alone (``torch_ba_window.py``, 96x48):
 
 - K9 (``linearize`` on a CUDA state) against ``linearize_plain`` at edge
-  shapes: 200 points (a multiple of neither K9's tile of 128 nor K10's of
-  64), 2 / 4 / 8 slots, a point whose pattern projects out of the image,
-  a NaN pose. Hff, bf, Hfd, Hdd and bd within 1e-4 x max|entry|, or,
+  shapes: 1 to 8 slots, 129 / 200 / 300 points (no multiple of K9's
+  rounds of 32 points or its 8 chunks of a host's points), a pool in
+  random order (not grouped by host), a pool of 12500 (K10's rows beyond
+  what one cluster's shared memory holds), a point whose pattern projects
+  out of the image, a NaN pose. Hff, bf, Hfd, Hdd and bd within 1e-4 x max|entry|, or,
   where a sum cancels, x the largest sum of its terms' magnitudes
   (``linearize_plain(magnitudes=True)``; sums of ~10^4 products in
   another order), the energy within rel 1e-5, the same
   num_terms; pair_good / pair_in equal except on lanes within 1e-5
   relative of their energy threshold; the same NaN pattern;
 - K10 against ``solve_step`` / ``apply_step`` / ``_step_converged``: x
-  and x_d within 1e-3 x max|entry| (an LU with partial pivoting against
-  torch.linalg.solve_ex on a system damped by lam: 0.1, and 1e-6 where
-  the scale direction is nearly free), the same convergence flag, with
-  the anchor moved to slot 1 (slot 0 invalid, frozen at 1e12) and an
-  empty slot frozen at 1e12;
+  and x_d within 1e-3 x max|entry| (Gauss-Jordan with partial pivoting
+  against torch.linalg.solve_ex on a system damped by lam: 0.1, and 1e-6
+  where the scale direction is nearly free), the same convergence flag,
+  at 1 to 8 slots (the padded system of 8 W - 4 free unknowns), the
+  anchor moved to slot 1 (slot 0 invalid, frozen at 1e12), an empty slot
+  frozen at 1e12, a pool in random order, 12500 points (each block's rows
+  in chunks) and a NaN pose (x all NaN); two launches bit-equal;
 - ``optimize_keyframe`` with the LM loop on the card against the same
   call with the plain loop on the same card state: rmse within rel 1e-3, poses within 1e-3 per
   entry, the same ok; energy-gated at 6 and 20 iterations, DSO's
@@ -93,13 +97,30 @@ def _same_lin(got, want, st, cfg):
         assert float(got.num_terms) == float(want.num_terms)
 
 
+def _shuffled(st, seed=0):
+    """The window with its point pool in a random order: the hosts' points
+    interleaved, every sum over points taken in another order."""
+    perm = torch.as_tensor(np.random.RandomState(seed).permutation(st.num_points),
+                           device=st.p_host.device)
+    return st._replace(**{f: getattr(st, f)[perm] for f in ba._POINT_FIELDS})
+
+
+def _case(st, case):
+    if case == "nan_pose":
+        return with_nan_pose(st)
+    if case == "shuffled":
+        return _shuffled(st)
+    return st
+
+
 @pytest.mark.parametrize("n_slots,n_points,case", [
     (4, 256, "base"), (4, 200, "base"), (2, 200, "base"), (8, 200, "base"),
-    (8, 256, "base"), (4, 200, "outside"), (4, 256, "nan_pose")])
+    (8, 256, "base"), (4, 200, "outside"), (4, 256, "nan_pose"), (1, 200, "base"),
+    (3, 200, "base"), (5, 300, "base"), (6, 129, "base"), (7, 200, "base"),
+    (8, 256, "shuffled"), (8, 256, "nan_pose"), (8, 12500, "base")])
 def test_k9_matches_linearize_plain(dev, n_slots, n_points, case):
     st, cfg = _window(dev, n_slots, n_points, outside=case == "outside")
-    if case == "nan_pose":
-        st = with_nan_pose(st)
+    st = _case(st, case)
     got, want = ba.linearize(st, cfg), ba.linearize_plain(st, cfg)
     _same_lin(got, want, st, cfg)
     if case == "nan_pose":
@@ -118,23 +139,33 @@ def _k10(st, lin, lam, cfg):
     return params
 
 
-@pytest.mark.parametrize("case", ["base", "lam_small", "anchor_moved", "nan_pose"])
-def test_k10_matches_solve_step(dev, case):
-    st, cfg = _window(dev)
+@pytest.mark.parametrize("n_slots,n_points,case", [
+    (4, 256, "base"), (4, 256, "lam_small"), (4, 256, "anchor_moved"), (4, 256, "nan_pose"),
+    (1, 200, "base"), (2, 200, "base"), (3, 200, "base"), (5, 300, "base"),
+    (6, 129, "base"), (7, 200, "base"), (8, 256, "base"), (8, 256, "shuffled"),
+    (8, 256, "nan_pose"), (8, 12500, "base")])
+def test_k10_matches_solve_step(dev, n_slots, n_points, case):
+    st, cfg = _window(dev, n_slots, n_points)
     lam = 1e-6 if case == "lam_small" else 0.1
     if case == "anchor_moved":
         fv = st.frame_valid.clone()
         fv[0] = False
         st = st._replace(frame_valid=fv, p_valid=st.p_valid & (st.p_host != 0))
-    if case == "nan_pose":
-        st = with_nan_pose(st)
-    assert not bool(st.frame_valid[3])          # an empty slot, frozen at 1e12
+    st = _case(st, case)
+    if n_slots == 4:
+        assert not bool(st.frame_valid[3])      # an empty slot, frozen at 1e12
     lin = ba.linearize_plain(st, cfg)
     x, x_d = ba.solve_step(st, lin, torch.tensor(lam, device=dev), cfg)
     conv = ba._step_converged(x, x_d, st, cfg)
     new = ba.apply_step(st, x, x_d)
     p = _k10(st, lin, lam, cfg)
     xk, xdk = p.bufs.scratch["x"], p.bufs.scratch["x_d"]
+    again = _k10(st, lin, lam, cfg)
+    for a, b in ((xk, again.bufs.scratch["x"]), (xdk, again.bufs.scratch["x_d"]),
+                 (p.bufs.state["p_idepth"][1], again.bufs.state["p_idepth"][1]),
+                 (p.bufs.state["delta"][1], again.bufs.state["delta"][1]),
+                 (p.bufs.ctrl_i, again.bufs.ctrl_i)):
+        assert torch.equal(torch.nan_to_num(a.float(), 7.0), torch.nan_to_num(b.float(), 7.0))
     if case == "nan_pose":
         assert bool(torch.isnan(x).all()) and bool(torch.isnan(xk).all())
         return
@@ -147,9 +178,11 @@ def test_k10_matches_solve_step(dev, case):
 
 
 @pytest.mark.parametrize("case,iters", [("gated", 6), ("gated", 20), ("force", 6),
-                                        ("nan_pose", 6), ("nan_force", 6)])
+                                        ("nan_pose", 6), ("nan_force", 6), ("w8_shuffled", 6)])
 def test_device_loop_matches_plain_loop(dev, case, iters, monkeypatch):
-    st, cfg = _window(dev)
+    st, cfg = _window(dev, 8, 256) if case == "w8_shuffled" else _window(dev)
+    if case == "w8_shuffled":
+        st = _shuffled(st)
     if case in ("force", "nan_force"):
         cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, solver_force_accept_step=True))
     if case.startswith("nan"):

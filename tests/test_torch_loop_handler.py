@@ -52,13 +52,23 @@ def test_funnel_and_loops_identical(handlers):
 
 def test_try_log_gates_identical(handlers):
     """Per direct try: seeds passing, ok_res, ok_inlier, ok_aff and the
-    frame pair; the best seed's error within 1e-3 relative where it passed."""
+    frame pair; the best seed's error within 1e-3 relative, or 2e-4 gray
+    levels, where it passed.
+
+    The absolute term is the JAX package's own spread on the same inputs:
+    a passing seed's error at level 0 (0.016-0.08 gray levels, intensities
+    ~100 cancelling) moves by up to 1.9e-4 (2.4e-3 relative) between its
+    jitted single-seed ``estimate`` and its jitted vmapped
+    ``estimate_batch``, and by up to 1.2e-3 relative between ``jit`` and
+    ``jax.disable_jit()``. Both packages take the same passes, accepts and
+    counts; the iterates part at ~1e-6 from the 8x8 LU's rounding (LAPACK
+    against MKL, the same pivots) on systems of condition ~2e5."""
     _, _, _, ref, port = handlers
     assert len(port.try_log) == len(ref.try_log) > 0
     for r, p in zip(ref.try_log, port.try_log):
         assert p[2:6] == r[2:6] and p[8:] == r[8:], (r, p)
         if r[3]:
-            assert p[0] == pytest.approx(r[0], rel=1e-3)
+            assert p[0] == pytest.approx(r[0], rel=1e-3, abs=2e-4)
 
 
 def test_optimized_trajectory_agrees(handlers):
