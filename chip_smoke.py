@@ -93,9 +93,9 @@ Phases, each of which must pass (any fault exits non-zero):
    ``run_slam`` runs them) over 160 frames (2 laps at 4.5 deg/frame) of
    the loop room at 1232x368, images quantised to uint8, loop_margin 40:
    at least one verified loop, the loop-closed (dslam) ATE below the
-   odometry (sodso) ATE, K1, K2-LM, K3-LM, K4-LM and the pose graph's K6
-   and K7 each launched during the run and the per-pass K2, K3 and K4
-   never; ``direct_est`` per try, ``scale_opt`` per keyframe. A failure
+   odometry (sodso) ATE, K1, K2-LM, K3-LM, K4-LM and the pose graph's K7
+   (one launch a dense optimize) each launched during the run and the
+   per-pass K2, K3 and K4 never; ``direct_est`` per try, ``scale_opt`` per keyframe. A failure
    in the loop thread fails the run (the handler re-raises it when it is
    drained). Then the final pose graph alone, optimized by the plain
    version and by the kernels in turns (plain, kernels, kernels, plain:
@@ -121,19 +121,27 @@ Phases, each of which must pass (any fault exits non-zero):
    every sequence; aggregate and per-sequence FPS, the median and range of
    the passes' FPS, median translation and rotation errors;
 12. the pose graph (K6-K8, csrc/pose_graph.cu): ring graphs at buckets
-   16, 128, 256 (K6 -> K7 -> solve_ex) and 1024 (K6 -> K8), each
-   ``optimize`` within 1e-4 of ``optimize_plain`` (1024, both CG: 2e-3 x
-   the translation scale), two runs bit-equal, launches per optimize, ms
-   of both; then each kernel against its plain version at the loop
-   phase's final graph (K6, K7; K6's blocks within 1e-4 x max|entry|, or,
-   where f32 cancels next to a Lie branch point, no further from the
-   float64 blocks than 2x the plain version; K7's H within 1e-4 x
-   max|entry| and its b within 1e-4 x the largest sum of its terms'
-   magnitudes of the index_add_ form, and bit-equal to its fixed-order
-   plain form) and at bucket 1024 (K8, within 1e-3 of
-   ``_solve_cg``), timed, with ``solve_ex`` as K7's library time, and the
-   device kernels per optimize of both paths (torch.profiler, one
-   session).
+   16, 128, 256, 512 (dense: one K7 launch an optimize) and 1024 (K6 ->
+   K8), each ``optimize`` within 1e-4 of ``optimize_plain`` (1024, both
+   CG: 2e-3 x the translation scale), two runs bit-equal, launches per
+   optimize, ms of both (the card's ms of K7 too), and K7's phase split
+   per iteration (``ops/pose_graph.GN_STAMPS``: edges, assembly, panel
+   factorization, trailing update, the solves, the grid barriers, by
+   %globaltimer stamps) beside the dense optimize as one K7 launch per
+   iteration (in turns); the cost of one grid barrier; then each kernel
+   against its plain version at the loop phase's final graph (K6's blocks
+   within 1e-4 x max|entry|, or, where f32 cancels next to a Lie branch
+   point, no further from the float64 blocks than 2x the plain version;
+   K7 stopped after an iteration's assembly: its edge phase bit-equal to
+   K6, the system's H within 1e-4 x max|entry| and its b within 1e-4 x
+   the largest sum of its terms' magnitudes of the index_add_ form, and
+   bit-equal to its fixed-order plain form; stopped after the solve at
+   the final graph and at buckets 16, 128 and 512: x within 1e-5 x max|x|
+   of ``_solve_dense_fixed`` and no further from a float64 solve than 2x
+   ``solve_ex``'s error) and at bucket 1024 (K8, within 1e-3 of
+   ``_solve_cg``), timed, with ``solve_ex`` on the same systems as K7's
+   library time, and the device kernels per optimize of both paths
+   (torch.profiler, one session: the dense path is one K7 launch).
 
 13. the windowed BA (K9-K11, csrc/ba.cu), on the e2e run's fullest
    keyframe window (its ``optimize_keyframe`` arguments kept during the
@@ -188,9 +196,13 @@ gated), each of those also through the port on the host CPU, frame by
 frame against the card, and the 320-frame protocol through disk
 (``gen_longseq`` -> ``eval_kitti --config both``, reported).
 --fps [--root DIR] only times the e2e and loop sequences (FPS, the BA's
-stages with a synchronize at the end of each span, the waits per
-keyframe call), not gated; with --root, of the port in another checkout,
-so that a tree and its parent run in turns in one call.
+stages with a synchronize at the end of each span, ``pose_graph_opt``,
+the waits per keyframe call), not gated; with --root, of the port in
+another checkout, so that a tree and its parent run in turns in one call.
+--pg-split [--root DIR] only times the dense ``optimize`` on the ring
+graphs of buckets 16 ... 512 (host ms per call and the card's ms), and,
+where the port has K7's phase stamps, their split (with --root, of the
+port in another checkout).
 --ba-window FILE only runs the e2e sequence once and saves its fullest BA
 window to FILE; --ba-split FILE [--root DIR] only times K9's and K10's
 calls (``device_ms``) and sub-launches (torch.profiler) on that window,
@@ -216,6 +228,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1687,7 +1700,7 @@ def fps_only(torch, dev) -> None:
     from direct_stereo_slam_tpu_torch.runtime.eval import timing_table
     from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
 
-    stages = ("dso_opt", "point_marg", "frame_marg", "per_frame")
+    stages = ("dso_opt", "point_marg", "frame_marg", "pose_graph_opt", "per_frame")
     table = lambda timers: {k: v for k, v in timing_table(timers).items() if k in stages}
     ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
     run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
@@ -2381,9 +2394,9 @@ def observe_phase(torch, dev, seq, tmp: str):
 # K3-LM and K4-LM on the card)
 BA_KERNELS = ("ba_linearize", "ba_step", "ba_accept")
 E2E_KERNELS = ("distance_map", "track_lm", "scale_lm") + BA_KERNELS
-# the loop thread's pose graph stays at or below 512 nodes here: K6 and
-# K7 (K8 above 512, in the pose-graph phase)
-LOOP_KERNELS = E2E_KERNELS + ("loop_pose_lm", "pose_graph_edges", "pose_graph_assemble")
+# the loop thread's pose graph stays at or below 512 nodes here: K7, one
+# launch a dense optimize (K6 and K8 above 512, in the pose-graph phase)
+LOOP_KERNELS = E2E_KERNELS + ("loop_pose_lm", "pose_graph_gn")
 # DSO mode makes no stereo scale optimization
 MONO_KERNELS = ("distance_map", "track_lm") + BA_KERNELS
 OFF_PATH = ("pose_residual_pass", "scale_residual_pass", "pose3d_residual_pass")
@@ -2466,7 +2479,7 @@ def kernel_counters():
             "scale_lm": rlm.scale_lm_cuda,
             "loop_pose_lm": rlm.loop_pose_lm_cuda,
             "pose_graph_edges": pgk.pose_graph_edges_cuda,
-            "pose_graph_assemble": pgk.pose_graph_assemble_cuda,
+            "pose_graph_gn": pgk.pose_graph_gn_cuda,
             "pose_graph_pcg": pgk.pose_graph_pcg_cuda,
             "ba_linearize": kb.ba_linearize_cuda,
             "ba_step": kb.ba_step_cuda,
@@ -2783,8 +2796,8 @@ def ab_phase(torch, dev, tmp: str) -> dict:
             if arm[name] <= 0:
                 fail(f"{tag}: kernel {name} was never launched")
         if arm["scenario"] == "fast_rotation":
-            print(f"{tag}: K4-LM {arm['loop_pose_lm']}, K6 {arm['pose_graph_edges']} "
-                  f"launches", flush=True)
+            print(f"{tag}: K4-LM {arm['loop_pose_lm']}, K6 {arm['pose_graph_edges']}, K7 "
+                  f"{arm['pose_graph_gn']} launches", flush=True)
         for k, v in arm.items():
             if isinstance(v, int):
                 total[k] = total.get(k, 0) + v
@@ -3226,13 +3239,15 @@ def lm_digest(torch, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the loop closure's pose graph: K6 (edges), K7 (dense assembly), K8 (PCG)
+# the loop closure's pose graph: K6 (edges), K7 (a dense optimize), K8 (PCG)
 # ---------------------------------------------------------------------------
 
 PG_ITERS = 25                     # cfg.loop.pgo_iterations
 # ring graphs per bucket (io/synthetic_graphs.py): (nodes, loop
-# edge spacing); 1024 takes K8
-PG_RINGS = {16: (12, 0), 128: (100, 10), 256: (200, 12), 1024: (700, 25)}
+# edge spacing); 512 is the largest dense bucket (6N = 3072), 1024 takes K8
+PG_RINGS = {16: (12, 0), 128: (100, 10), 256: (200, 12), 512: (400, 20), 1024: (700, 25)}
+# --pg-split's graphs: the dense buckets, 64 and 128 those of the loop run
+PG_SPLIT_RINGS = {16: (12, 0), 64: (50, 8), 128: (100, 10), 256: (200, 12), 512: (400, 20)}
 PG_REPLAYS = 3                    # the loop run's graphs replayed, spread over it
 # f32 operations the edge system needs per edge (not the dual-number
 # design's 12 evaluations): two SE(3) inverse-products (~160), se3_log
@@ -3240,6 +3255,67 @@ PG_REPLAYS = 3                    # the loop run's graphs replayed, spread over 
 # (~700), the Huber weight (~20), J^T W J (~1,700) and J^T W r (~150)
 PG_EDGE_OPS = 3_000
 PG_NODE_OPS = 300                 # T exp(x) per node
+PG_ASM_OPS = 156                  # an edge's four 6x6 sub-blocks and two 6-vectors added
+
+
+def gn_ops(N: int, Ev: int) -> float:
+    """f32 operations of one dense Gauss-Newton iteration: the update, the
+    valid edges' blocks, their assembly, and the factorization and the two
+    triangular solves of the 6N system (n^3 / 3 + 2 n^2)."""
+    n = 6 * N
+    return N * PG_NODE_OPS + Ev * (PG_EDGE_OPS + PG_ASM_OPS) + n ** 3 / 3 + 2 * n ** 2
+
+
+def gn_split(torch, pgk, data, iterations: int = PG_ITERS) -> dict:
+    """One K7 launch of ``iterations`` with its phase stamps: us per
+    iteration of each phase of block 0 and of its waits at the grid
+    barriers, the barriers an iteration and the launch's span (ms)."""
+    from direct_stereo_slam_tpu_torch.loop import pose_graph as pg
+
+    timers = torch.zeros(len(pgk.GN_STAMPS), dtype=torch.int64, device=data.T_wc.device)
+    pgk.pose_graph_gn_cuda(data, iterations, 1.0, pg.LAM, timers=timers)
+    st = dict(zip(pgk.GN_STAMPS, timers.tolist()))
+    out = {k: st[k] / 1e3 / iterations for k in pgk.GN_STAMPS
+           if k not in ("barriers", "total", "final")}
+    out.update(barriers_per_iteration=st["barriers"] / iterations, span_ms=st["total"] / 1e6)
+    return out
+
+
+def gn_per_iteration(pgk, data, iterations: int = PG_ITERS):
+    """The dense optimize as one K7 launch per iteration (each from the
+    previous launch's poses and update), then K6's last update: the form
+    the resident launch is measured against."""
+    from direct_stereo_slam_tpu_torch.loop import pose_graph as pg
+
+    T, x = data.T_wc, None
+    for _ in range(iterations):
+        w = pgk.pose_graph_gn_cuda(data, 1, 1.0, pg.LAM, T=T, x=x, stop="solve")
+        T, x = w.T, w.x.reshape(-1)
+    return pgk.pose_graph_edges_cuda(T, x)
+
+
+def pg_split(torch, dev) -> dict:
+    """``--pg-split``: the dense ``optimize`` on PG_SPLIT_RINGS (host ms a
+    call, synchronized, the median of 5; the card's ms by ``device_ms``)
+    and, where the port has K7's stamps, their split; with ``--root``, of
+    another checkout's port. Prints one line ``pg_split {...}``."""
+    import direct_stereo_slam_tpu_torch as port
+    from direct_stereo_slam_tpu_torch.io.synthetic_graphs import ring_graph
+    from direct_stereo_slam_tpu_torch.loop import pose_graph as pg
+    from direct_stereo_slam_tpu_torch.ops import pose_graph as pgk
+
+    out = {}
+    for bucket, (n, every) in PG_SPLIT_RINGS.items():
+        data = pg.build_data(*ring_graph(n, seed=bucket, loop_every=every), device=dev)
+        fn = lambda: pg.optimize(data, PG_ITERS, solver="dense")
+        row = dict(ms=statistics.median(call_ms(torch, fn, 5)), device_ms=device_ms(torch, fn))
+        if hasattr(pgk, "GN_STAMPS"):
+            row["split_us_per_iteration"] = gn_split(torch, pgk, data)
+        out[bucket] = row
+    line = dict(root=os.path.dirname(os.path.dirname(os.path.abspath(port.__file__))),
+                card=card_info(), iterations=PG_ITERS, buckets=out)
+    print("pg_split " + json.dumps(line), flush=True)
+    return line
 
 
 def call_ms(torch, fn, calls: int):
@@ -3258,7 +3334,7 @@ def call_ms(torch, fn, calls: int):
 def pg_launches(fn):
     """(result of fn(), the K6 / K7 / K8 launches it made)."""
     counters = kernel_counters()
-    names = ("pose_graph_edges", "pose_graph_assemble", "pose_graph_pcg")
+    names = ("pose_graph_edges", "pose_graph_gn", "pose_graph_pcg")
     before = [counters[k].launches for k in names]
     out = fn()
     return out, {k: counters[k].launches - b for k, b in zip(names, before)}
@@ -3309,8 +3385,9 @@ def pose_graph_report(torch, tag, final, calls, iterations):
 def device_kernels_per_optimize(torch, final):
     """Device kernels (and memory copies / sets) of one optimize_plain and
     one optimize on ``final``, from one torch.profiler session (the plain
-    run, a synchronize, then the kernels' run: split at the first K6 launch
-    on the card). None if the profiler recorded no device event."""
+    run, a synchronize, then the kernels' run: split at the first K6 or K7
+    launch on the card), and the kernels' run's kernel names. None if the
+    profiler recorded no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3323,25 +3400,48 @@ def device_kernels_per_optimize(torch, final):
         pg.optimize(final, PG_ITERS)
         torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    k6 = [e.time_range.start for e in evs if "edges_kernel" in e.name]
-    if not evs or not k6:
+    # the port's K6 / K7 (not at::native::sign_kernel, whose name holds "gn_kernel")
+    ours = [e.time_range.start for e in evs
+            if re.search(r"(?<![A-Za-z0-9_])(edges_kernel|gn_kernel)", e.name)]
+    if not evs or not ours:
         return None
-    split = min(k6)
+    split = min(ours)
     mem = lambda e: e.name.startswith(("Memcpy", "Memset"))
     count = lambda part: (sum(1 for e in part if not mem(e)), sum(1 for e in part if mem(e)))
-    return (count([e for e in evs if e.time_range.start < split]),
-            count([e for e in evs if e.time_range.start >= split]))
+    after = [e for e in evs if e.time_range.start >= split]
+    return (count([e for e in evs if e.time_range.start < split]), count(after),
+            sorted({e.name[:60] for e in after}))
+
+
+def k7_solve_gate(torch, pg, pgk, data, tag):
+    """K7 stopped after one iteration's solve against ``_solve_dense_fixed``
+    (rel 1e-5) and a float64 solve of the same f32 system (no further than
+    2x ``solve_ex``'s error). Returns (x's error, solve_ex's error), both
+    relative to max|x|, and the system."""
+    n = 6 * data.T_wc.shape[0]
+    w = pgk.pose_graph_gn_cuda(data, 1, 1.0, pg.LAM, stop="solve")
+    Hd, rhs = w.A[:n], w.A[n]
+    rel = rel_err(torch, w.x, pg._solve_dense_fixed(data, w.H, w.g, pg.LAM))
+    x64 = torch.linalg.solve(Hd.double(), rhs.double())
+    err = lambda x: float((x.double().reshape(-1) - x64).abs().max() / x64.abs().max())
+    e_k, e_lib = err(w.x), err(torch.linalg.solve_ex(Hd, rhs)[0])
+    if not (rel < 1e-5 and e_k <= 2 * e_lib):
+        fail(f"K7 at {tag}: x rel {rel:.3g} from _solve_dense_fixed, {e_k:.3g} from float64 "
+             f"(solve_ex {e_lib:.3g})")
+    return e_k, e_lib, Hd, rhs
 
 
 def pose_graph_phase(torch, dev, final):
     """Ring graphs at PG_RINGS' buckets through optimize and optimize_plain
     (within 1e-4, CG at 1024 within 2e-3 x scale; two kernel runs
-    bit-equal; launches per optimize; ms of both), then K6 and K7 at the
-    loop phase's final graph and K8 at bucket 1024 against their plain
-    versions, timed. Returns the kernel rows."""
+    bit-equal; launches per optimize; ms of both; the dense path's split
+    and its form as a launch per iteration), the grid barrier's cost, then
+    K6 and K7 at the loop phase's final graph and K8 at bucket 1024
+    against their plain versions, timed. Returns the kernel rows."""
     from direct_stereo_slam_tpu_torch.geometry import lie
     from direct_stereo_slam_tpu_torch.io.synthetic_graphs import ring_graph
     from direct_stereo_slam_tpu_torch.loop import pose_graph as pg
+    from direct_stereo_slam_tpu_torch.ops import _cuda
     from direct_stereo_slam_tpu_torch.ops import pose_graph as pgk
 
     graphs = {}
@@ -3369,15 +3469,40 @@ def pose_graph_phase(torch, dev, final):
               f"(plain, the call checked against); max |kernels - plain| "
               f"{err:.3g} (tolerance {tol:.3g}); two runs bit-equal; kernel launches per "
               f"optimize {made}", flush=True)
+        if bucket > 512:
+            continue
+        # the resident launch against one K7 launch per iteration (the same
+        # code: the same bits), card ms in turns
+        resident = lambda: pg.optimize(data, PG_ITERS)
+        per_it = lambda: gn_per_iteration(pgk, data)
+        if not torch.equal(per_it(), T1):
+            fail(f"pose graph bucket {bucket}: a launch per iteration differs from one launch")
+        turns = [device_ms(torch, f, calls=3, samples=3)
+                 for f in (resident, per_it, per_it, resident)]
+        split = gn_split(torch, pgk, data)
+        print(f"pose graph bucket {bucket}: K7 on the card, in turns one launch / a launch "
+              f"per iteration / per iteration / one launch: "
+              f"{' / '.join(str(t) for t in turns)} ms an optimize; one launch's split, us "
+              f"an iteration (block 0's phase stamps): "
+              f"{json.dumps({k: round(v, 3) for k, v in split.items()})}", flush=True)
+
+    timers = torch.zeros(len(pgk.GN_STAMPS), dtype=torch.int64, device=dev)
+    pgk.gn_barriers_cuda(10_000, timers)
+    st = dict(zip(pgk.GN_STAMPS, timers.tolist()))
+    grid = pgk.gn_grid(final.T_wc.shape[0], final.edge_a.shape[0])
+    print(f"pose graph: K7's grid barrier {st['total'] / 1e3 / st['barriers']:.3f} us "
+          f"(10,000 in one launch; block 0 waits {st['barrier'] / 1e3 / st['barriers']:.3f} "
+          f"us of it); grid {grid}; ptxas "
+          f"{ptxas_usage(_cuda.load_library().build_log, ('gn_kernel', 'edges_kernel', 'pcg_kernel'))}",
+          flush=True)
 
     rows = []
     N, E = final.T_wc.shape[0], final.edge_a.shape[0]
+    n = 6 * N
     Ev = int(final.edge_valid.sum())
     tag = f"final loop graph N={N},E={E}"
     T = final.T_wc
-    _, H, g = pgk.pose_graph_edges_cuda(T, None, final, 1.0)
-    Hd, rhs = pgk.pose_graph_assemble_cuda(final, H, g, pg.LAM)
-    x = torch.linalg.solve_ex(Hd, rhs)[0]
+    x = pgk.pose_graph_gn_cuda(final, 1, 1.0, pg.LAM, stop="solve").x.reshape(-1)
 
     # ---- K6 at the update's poses
     k6 = lambda: pgk.pose_graph_edges_cuda(T, x, final, 1.0)
@@ -3405,33 +3530,47 @@ def pose_graph_phase(torch, dev, final):
                     E * PG_EDGE_OPS + N * PG_NODE_OPS))
     rows[-1]["device_ms"] = dms
 
-    # ---- K7, and solve_ex (the library call after it)
-    k7 = lambda: pgk.pose_graph_assemble_cuda(final, H, g, pg.LAM)
-    k7_plain = lambda: pg._assemble_dense(final, H, g, pg.LAM)
-    Hk7, rk7 = k7()
-    Hp7, rp7 = k7_plain()
-    Hf7, rf7 = pg._assemble_dense_fixed(final, H, g, pg.LAM)
+    # ---- K7: its edge phase and assembly, its solve, the whole optimize
+    w1 = pgk.pose_graph_gn_cuda(final, 1, 1.0, pg.LAM, stop="assembly")
+    _, H0, g0 = pgk.pose_graph_edges_cuda(T, None, final, 1.0)
+    w2 = pgk.pose_graph_gn_cuda(final, 2, 1.0, pg.LAM, stop="assembly")
+    T1, H1, g1 = pgk.pose_graph_edges_cuda(T, x, final, 1.0)
+    if not (torch.equal(w1.H, H0) and torch.equal(w1.g, g0) and torch.equal(w2.T, T1)
+            and torch.equal(w2.H, H1) and torch.equal(w2.g, g1)):
+        fail(f"K7 at the {tag}: its edge phase differs from K6 at the same poses")
+    Hk7, rk7 = w1.A[:n], w1.A[n]
+    Hp7, rp7 = pg._assemble_dense(final, w1.H, w1.g, pg.LAM)
+    Hf7, rf7 = pg._assemble_dense_fixed(final, w1.H, w1.g, pg.LAM)
     # b near convergence is the difference of large opposite terms: its
     # order of sums is held against the sum of the terms' magnitudes
-    b_scale = float(pg._scatter_b(final, g.abs(), N).max())
+    b_scale = float(pg._scatter_b(final, w1.g.abs(), N).max())
     e7 = max(rel_err(torch, Hk7, Hp7), float(torch.max(torch.abs(rk7 - rp7))) / b_scale)
     if not e7 < 1e-4 or not (torch.equal(Hk7, Hf7) and torch.equal(rk7, rf7)):
-        fail(f"K7 at the {tag}: rel {e7:.3g} from the plain version, bit-equal to the "
-             f"fixed-order form: {torch.equal(Hk7, Hf7) and torch.equal(rk7, rf7)}")
-    ms, pms = ab_ms(torch, k7, k7_plain)
-    dms = device_ms(torch, k7)
-    lib = median_ms(torch, lambda: torch.linalg.solve_ex(Hd, rhs))
-    print(f"K7 pose_graph_assemble {tag}: rel {e7:.2e} from index_add_, bit-equal to the "
-          f"fixed-order plain form; kernel {ms:.4f} ms (on the card {dms} ms), plain "
-          f"{pms:.4f} ms; torch.linalg.solve_ex on its output {lib:.4f} ms", flush=True)
-    rows.append(row(f"pose_graph_assemble[N={N},E={E}]", "pose_graph.cu",
-                    "direct_stereo_slam_tpu/loop/pose_graph.py:96",
-                    max(float(torch.max(torch.abs(Hk7 - Hp7))),
-                        float(torch.max(torch.abs(rk7 - rp7)))),
-                    ms, pms, E * (576 + 48 + 17) + N * 9 + 36 * N * N * 4 + 24 * N,
-                    Ev * 156))
-    rows[-1].update(device_ms=dms, library_ms=lib,
-                    library="torch.linalg.solve_ex on K7's output (the solve that follows it)")
+        fail(f"K7 at the {tag}: its system rel {e7:.3g} from the plain version, bit-equal to "
+             f"the fixed-order form: {torch.equal(Hk7, Hf7) and torch.equal(rk7, rf7)}")
+    solve_errs = {"final": k7_solve_gate(torch, pg, pgk, final, f"the {tag}")[:2]}
+    for bucket in (16, 128, 512):
+        solve_errs[bucket] = k7_solve_gate(torch, pg, pgk, graphs[bucket], f"bucket {bucket}")[:2]
+    k7 = lambda: pg.optimize(final, PG_ITERS)
+    k7_plain = lambda: pg.optimize_plain(final, PG_ITERS, solver="dense")
+    ms, pms = ab_ms(torch, k7, k7_plain, plain_kw=dict(repeats=2, inner=1, warmup=1))
+    dms = device_ms(torch, k7, calls=5, samples=3)
+    e_opt = float(torch.max(torch.abs(k7() - k7_plain())))
+    lib = median_ms(torch, lambda: torch.linalg.solve_ex(Hk7, rk7))
+    print(f"K7 pose_graph_gn {tag}: edge phase bit-equal to K6; system rel {e7:.2e} from "
+          f"index_add_, bit-equal to the fixed-order plain form; one iteration's x from "
+          f"float64 (relative to max|x|), kernel / solve_ex: "
+          f"{ {k: f'{a:.2e} / {b:.2e}' for k, (a, b) in solve_errs.items()} }; optimize "
+          f"({PG_ITERS} iterations, one launch) {ms:.4f} ms (on the card {dms} ms), plain "
+          f"{pms:.4f} ms, max |kernel - plain| {e_opt:.3g}; torch.linalg.solve_ex on one "
+          f"iteration's system {lib:.4f} ms", flush=True)
+    rows.append(row(f"pose_graph_gn[N={N},E={E},iterations={PG_ITERS}]", "pose_graph.cu",
+                    "direct_stereo_slam_tpu/loop/pose_graph.py:96", e_opt, ms, pms,
+                    E * (64 + 16 + 8 + 1) + N * (64 + 1 + 64) + 8,
+                    PG_ITERS * gn_ops(N, Ev)))
+    rows[-1].update(device_ms=dms, library_ms=PG_ITERS * lib, solve_errs=solve_errs,
+                    library=f"{PG_ITERS} x torch.linalg.solve_ex on one iteration's system "
+                            f"(the solves a dense optimize needs)")
 
     # ---- K8 at bucket 1024
     d = graphs[1024]
@@ -3464,10 +3603,13 @@ def pose_graph_phase(torch, dev, final):
         print(f"pose graph: device kernels per optimize at the {tag}: not measured (the "
               f"profiler recorded no device event)", flush=True)
     else:
-        (pk, pm), (kk, km) = counts
+        (pk, pm), (kk, km), names = counts
         print(f"pose graph: device kernels per optimize at the {tag} (torch.profiler): plain "
-              f"{pk} kernels + {pm} copies/sets, kernels {kk} kernels + {km} copies/sets",
-              flush=True)
+              f"{pk} kernels + {pm} copies/sets, kernels {kk} kernels + {km} copies/sets "
+              f"({names})", flush=True)
+        if kk != 1 or km != 0:
+            fail(f"pose graph: a dense optimize ran {kk} kernels + {km} copies/sets on the "
+                 f"card, not one K7 launch: {names}")
     return rows
 
 
@@ -3493,8 +3635,12 @@ def main() -> int:
     ap.add_argument("--ba-split", metavar="FILE",
                     help="only time K9's and K10's calls and sub-launches on the BA "
                          "window FILE (--ba-window; with --root: another checkout's)")
-    ap.add_argument("--root", help="with --lm-digest, --fps or --ba-split: the checkout "
-                                   "whose port to load")
+    ap.add_argument("--pg-split", action="store_true",
+                    help="only time the dense pose-graph optimize on ring graphs and, where "
+                         "the port has K7's stamps, its split (with --root: another "
+                         "checkout's)")
+    ap.add_argument("--root", help="with --lm-digest, --fps, --ba-split or --pg-split: the "
+                                   "checkout whose port to load")
     args = ap.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -3539,6 +3685,9 @@ def main() -> int:
         return 0
     if args.ba_split:
         ba_split(torch, dev, args.ba_split)
+        return 0
+    if args.pg_split:
+        pg_split(torch, dev)
         return 0
     usage = lm_usage(lib.build_log)
     print(f"resident LM kernels (registers, bytes spilled, 8-block clusters resident at "
@@ -3588,7 +3737,7 @@ def main() -> int:
         loop_phase(torch, dev, 320, 100, gate=False)
         long_phase(torch, dev)
     launches.update({k: loop_launches[k] for k in (
-        "loop_pose_lm", "pose3d_residual_pass", "pose_graph_edges", "pose_graph_assemble",
+        "loop_pose_lm", "pose3d_residual_pass", "pose_graph_edges", "pose_graph_gn",
         "pose_graph_pcg")})
     for r in rows:
         name = r["name"].split("[")[0]

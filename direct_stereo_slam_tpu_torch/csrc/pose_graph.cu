@@ -1,25 +1,30 @@
-// K6-K8: the loop closure's SE(3) pose graph on the card. One Gauss-Newton
-// iteration of loop/pose_graph.py::optimize is K6 -> K7 -> a dense solve
-// (up to 512 nodes) or K6 -> K8 (above), with no host read between.
+// K6-K8: the loop closure's SE(3) pose graph on the card. A dense
+// optimize (up to 512 nodes) of loop/pose_graph.py is one K7 launch that
+// runs every Gauss-Newton iteration; above, one iteration is K6 -> K8,
+// with no host read between.
 //
 // They replace the jitted JAX program
 // direct_stereo_slam_tpu/loop/pose_graph.py::optimize (:187, 25 GN
 // iterations in a lax.scan):
-//   K6 dsslam_pose_graph_edges    <- :68 _edge_system (+ :56 _edge_res_jac)
-//   K7 dsslam_pose_graph_assemble <- :96 _solve_dense, up to its solve
-//   K8 dsslam_pose_graph_pcg      <- :122 _solve_cg (its while_loop)
+//   K6 dsslam_pose_graph_edges <- :68 _edge_system (+ :56 _edge_res_jac)
+//   K7 dsslam_pose_graph_gn    <- :96 _solve_dense (assembly and solve),
+//                                 with K6's edge phase, the whole scan
+//   K8 dsslam_pose_graph_pcg   <- :122 _solve_cg (its while_loop)
 // The port's plain versions are loop/pose_graph.py::_edge_system,
-// _assemble_dense and _solve_cg.
+// _solve_dense_fixed (K7's arithmetic, in its order) and _solve_cg.
 //
 // What bounds them on the H100. K6 reads two poses and a measurement per
 // edge (~200 B) and writes a 12x12 block and a 12-vector (624 B): at the
 // loop phase's E <= 1024 edges well under a microsecond at 3.35 TB/s; its
-// ~3k f32 operations per edge are less. K7 writes the dense [6N, 6N]
-// system: 2.4 MB at N = 128, 38 MB at N = 512, so bytes bound it (0.7 / 11
-// us). K8 is a chain of ~100 CG steps, each a pass over the edge blocks
-// (E x 576 B from L2) and two global dot products: latency bound, by its
-// barriers. None has a product a tensor core could take (6x6 and 12x12
-// blocks, f32 pinned by the reference).
+// ~3k f32 operations per edge are less. K7's factorization and solves
+// take n^3 / 3 + 2 n^2 f32 operations at n = 6N (2.3 us at n = 768, 144
+// us at 3072 over 67 TFLOP/s); its system (2.4 MB at N = 128, 38 MB at
+// N = 512) stays in the 50 MB L2. What it really pays is latency: the
+// factorization is n / 32 dependent panel steps, each behind grid
+// barriers. K8 is a chain of ~100 CG steps, each a pass over the edge
+// blocks (E x 576 B from L2) and two global dot products: latency bound,
+// by its barriers. None has a product a tensor core could take (6x6 and
+// 12x12 blocks, panels of 32, f32 pinned by the reference).
 //
 // Design.
 // - K6, forward-mode dual numbers, 16 lanes an edge (lanes 0-11 one
@@ -38,15 +43,37 @@
 //   so the pose an edge linearizes at and the one written out are the same
 //   bits), which takes the ~30 plain launches of se3_exp off every
 //   iteration; called with no edges it only updates (the last update).
-// - K7, one block per node row: it lists the row node's valid edges in
-//   ascending edge index (a block-wide ordered compaction) and marks the
-//   nodes they reach; each thread then owns columns of the row's six rows
-//   and adds the edges' sub-blocks into each entry in that order, writes a
-//   zero where no edge reaches, masks fixed and invalid nodes and adds the
-//   damping. No atomics: the same input gives the same bits. An invalid
-//   edge's blocks are zero (its weight is 0), so skipping it changes no
-//   sum (unless its Jacobian is not finite, which a padding edge's, at the
-//   identity, never is).
+//   The edge body is __noinline__ too: K7's edge phase runs the same code.
+// - K7, a persistent grid (a cooperative launch, one block of 256 threads
+//   an SM, all resident; cg::this_grid().sync() between phases, ~1.4 us).
+//   An iteration: K6's edge phase and the update (a warp two edges); the
+//   assembly, one block a node row: the row node's valid edges in
+//   ascending edge index (a block-wide ordered compaction), each thread
+//   owning columns of the six rows and adding the edges' sub-blocks in
+//   that order, the fixed and invalid nodes masked, then lam and 1e-6 on
+//   the diagonal (the bits of _assemble_dense_fixed), into A whole and L's
+//   lower triangle, -b into both border rows; a right-looking Cholesky of
+//   L in panels of 32 columns (the system is J^T W J with W >= 0, masked
+//   rows with a unit diagonal, and damping: symmetric positive definite,
+//   so no pivoting; no entry is skipped, so a NaN spreads as LU spreads
+//   it): a panel phase, a warp a chunk of 32 rows (each warp factors the
+//   diagonal block itself, in registers, a shuffle and a __syncwarp a
+//   column), and an update phase of 32x32 tiles on and below the
+//   diagonal, every entry an FMA chain over the panel's columns in
+//   ascending order, owned by one thread: no atomics, the same bits every
+//   run. The border row turns the forward solve into a row of the
+//   factorization; the panel phase also writes L^T above the diagonal, so
+//   the solves read rows. Then the solves as wavefronts over the grid, a
+//   warp a chunk of 32 unknowns, each waiting only for the chunks it needs
+//   (an unknown is published with its solve's epoch in one 64-bit word):
+//   x = L^-T y, the residual r = -b - A x on the whole matrix (a warp a
+//   row, in twice f32's precision: Dot2), and x += L^-T L^-1 r. The f32
+//   blocks are symmetric only to rounding and the Cholesky reads the
+//   lower triangle, the reference's LU the whole: the refinement takes x
+//   to the whole system's solution, ~1e-8 x max|x| from float64 where the
+//   plain Cholesky was more than 2x LU's error on small graphs
+//   (loop/pose_graph.py _solve_dense_fixed). Barriers an iteration:
+//   2 n / 32 + 4.
 // - K8, one 8-block cluster of 512 threads for the whole solve, the
 //   reference's while_loop (it < cg_iters and |r|^2 > 1e-10 |b|^2) run on
 //   the card. The per-node incidence lists (valid edges' sides in
@@ -259,23 +286,14 @@ struct EdgeArgs {
   int edge_blocks;
 };
 
-__global__ void __launch_bounds__(kEdgeThreads) edges_kernel(const EdgeArgs p) {
-  if (static_cast<int>(blockIdx.x) >= p.edge_blocks) {
-    // the update of every node
-    const long long n = static_cast<long long>(blockIdx.x - p.edge_blocks) * kEdgeThreads +
-                        threadIdx.x;
-    if (n >= p.N) return;
-    const Pose<float> P = updated_pose(p.T, p.x, n);
-    float* dst = p.T_out + 16 * n;
-#pragma unroll
-    for (int k = 0; k < 12; ++k) dst[k] = P.m[k];
-    dst[12] = 0.f; dst[13] = 0.f; dst[14] = 0.f; dst[15] = 1.f;
-    return;
-  }
-  const int lane = threadIdx.x & 15;
-  const int e_raw = blockIdx.x * kEdgesPerBlock + (threadIdx.x >> 4);
+// Edge e_raw's 12x12 block and 12-vector at T exp(x), on the 16 lanes
+// of a half warp (lane: this thread's lane among them; e_raw >= E: the
+// half warp only takes part in the shuffles). Every lane of the warp
+// calls it. Not inlined, so K6 and the dense kernel's edge phase run the
+// same code and write the same bits.
+__device__ __noinline__ void edge_lanes(const EdgeArgs& p, int e_raw, int lane) {
   const bool live = e_raw < p.E && lane < 12;
-  const int e = min(e_raw, p.E - 1);     // a whole warp takes part in the shuffles
+  const int e = min(e_raw, p.E - 1);
   const int j = lane < 12 ? lane : 0;    // this lane's tangent direction
 
   const long long na = p.a[e], nb = p.b[e];
@@ -323,49 +341,122 @@ __global__ void __launch_bounds__(kEdgeThreads) edges_kernel(const EdgeArgs p) {
   if (live) p.g[static_cast<size_t>(e) * 12 + j] = bj;
 }
 
+// T_out[n] = T[n] exp(x[n]), the bottom row [0 0 0 1]
+__device__ __forceinline__ void write_updated(const float* __restrict__ T,
+                                              const float* __restrict__ x, float* T_out,
+                                              long long n) {
+  const Pose<float> P = updated_pose(T, x, n);
+  float* dst = T_out + 16 * n;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) dst[k] = P.m[k];
+  dst[12] = 0.f; dst[13] = 0.f; dst[14] = 0.f; dst[15] = 1.f;
+}
+
+__global__ void __launch_bounds__(kEdgeThreads) edges_kernel(const __grid_constant__ EdgeArgs p) {
+  if (static_cast<int>(blockIdx.x) >= p.edge_blocks) {
+    // the update of every node
+    const long long n = static_cast<long long>(blockIdx.x - p.edge_blocks) * kEdgeThreads +
+                        threadIdx.x;
+    if (n < p.N) write_updated(p.T, p.x, p.T_out, n);
+    return;
+  }
+  edge_lanes(p, blockIdx.x * kEdgesPerBlock + (threadIdx.x >> 4), threadIdx.x & 15);
+}
+
 // ---------------------------------------------------------------------------
-// K7
+// K7: the whole Gauss-Newton loop of a dense optimize in one launch
 // ---------------------------------------------------------------------------
 
-constexpr int kAsmThreads = 256;
+constexpr int kGnThreads = 256;
+constexpr int kGnWarps = kGnThreads / 32;
+constexpr int kPanel = 32;                         // loop/pose_graph.py PANEL
+constexpr int kGnBlocksPerSm = 1;
 
-struct AssembleArgs {
-  const float* H;          // [E, 12, 12]
-  const float* g;          // [E, 12]
-  const long long* a;
-  const long long* b;
-  const unsigned char* valid;
-  int E;
-  const unsigned char* node_valid;  // [N]
-  const long long* fixed;           // the fixed node (on the card)
-  int N;
+// phase stamps (ops/pose_graph.py GN_STAMPS): block 0's thread 0 adds
+// the %globaltimer ns it spends in each phase, and waiting at the grid
+// barriers, over the whole launch
+enum GnPhase {
+  kStampEdges, kStampAssembly, kStampPanel, kStampUpdate, kStampSolve, kStampResidual,
+  kStampRefine, kStampFinal, kStampBarrier, kStampBarriers, kStampTotal, kGnStamps
+};
+
+struct GnArgs {
+  EdgeArgs e;              // T, x: the poses and the update the first iteration starts from
+  const unsigned char* node_valid;
+  const long long* fixed;
   float lam;
-  float* Hd;               // [6N, 6N]
-  float* rhs;              // [6N]
+  int iterations;
+  int stop;                // 0 all; 1 / 2 the last iteration stops after its assembly / solve;
+                           // 3 only `iterations` grid barriers
+  float* P;                // [2, N, 16] iteration k's poses in P[k & 1]
+  float* x;                // [6N] the update
+  float* A;                // [6N + 1, 6N] the damped system, -b in its last row
+  float* L;                // [6N + 1, 6N] its Cholesky factor (lower; L^T above the diagonal),
+                           // L^-1 (-b) in the last row
+  float* r;                // [6N] the residual and its solve
+  unsigned long long* words;    // [6N] the solves' published unknowns
+  float* T_out;            // [N, 16]
+  unsigned long long* timers;   // kGnStamps words, or null
+};
+
+struct Stamps {
+  unsigned long long* t;
+  unsigned long long last;
+  __device__ static unsigned long long now() {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    return ns;
+  }
+  __device__ explicit Stamps(unsigned long long* timers)
+      : t(blockIdx.x == 0 && threadIdx.x == 0 ? timers : nullptr), last(t ? now() : 0) {}
+  __device__ void mark(int phase) {
+    if (t) {
+      const unsigned long long ns = now();
+      t[phase] += ns - last;
+      last = ns;
+    }
+  }
+  // the end of a phase, then a grid barrier
+  __device__ void sync(cg::grid_group& grid, int phase) {
+    mark(phase);
+    grid.sync();
+    mark(kStampBarrier);
+    if (t) t[kStampBarriers] += 1;
+  }
 };
 
 __device__ __forceinline__ bool node_free(const unsigned char* nv, long long fixed, long long n) {
   return nv[n] != 0 && n != fixed;
 }
 
-__global__ void __launch_bounds__(kAsmThreads) assemble_kernel(const AssembleArgs p) {
-  extern __shared__ int smem[];
-  int* list = smem;                                  // [E]: the row node's valid edges
-  unsigned* reach = reinterpret_cast<unsigned*>(smem + p.E);   // [ceil(N / 32)]
-  __shared__ int warp_count[kAsmThreads / 32];
+// Rows 6 nd ... 6 nd + 5 of the damped system (block-wide): the row
+// node's valid edges listed in ascending edge index (an ordered
+// compaction), the nodes they reach marked; each thread then owns
+// columns of the six rows and adds the edges' sub-blocks into each entry
+// in that order, writes a zero where no edge reaches, masks fixed and
+// invalid nodes and adds the damping: loop/pose_graph.py
+// _assemble_dense_fixed's bits. An invalid edge's blocks are zero (its
+// weight is 0), so skipping it changes no sum (unless its Jacobian is
+// not finite, which a padding edge's, at the identity, never is). The
+// rows go to A whole and to L below the diagonal; -b to both last rows.
+__device__ void assemble_rows(const GnArgs& p, int nd, int* list, unsigned* reach) {
+  __shared__ int warp_count[kGnWarps];
   __shared__ int list_len;
-  const int n = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int N = p.e.N, E = p.e.E, n = 6 * N;
+  const long long* ea = p.e.a;
+  const long long* eb = p.e.b;
   const long long fixed = *p.fixed;
-  const bool row_free = node_free(p.node_valid, fixed, n);
-  const int words = (p.N + 31) / 32;
-  for (int w = tid; w < words; w += kAsmThreads) reach[w] = 0u;
+  const bool row_free = node_free(p.node_valid, fixed, nd);
+  const int words = (N + 31) / 32;
+  __syncthreads();                                   // the previous row's list is read
+  for (int w = tid; w < words; w += kGnThreads) reach[w] = 0u;
   if (tid == 0) list_len = 0;
   __syncthreads();
   if (row_free) {
-    // the valid edges at n, in ascending edge index
-    for (int base = 0; base < p.E; base += kAsmThreads) {
+    for (int base = 0; base < E; base += kGnThreads) {
       const int e = base + tid;
-      const bool inc = e < p.E && p.valid[e] && (p.a[e] == n || p.b[e] == n);
+      const bool inc = e < E && p.e.valid[e] && (ea[e] == nd || eb[e] == nd);
       const unsigned ballot = __ballot_sync(0xffffffffu, inc);
       if (lane == 0) warp_count[warp] = __popc(ballot);
       __syncthreads();
@@ -373,31 +464,35 @@ __global__ void __launch_bounds__(kAsmThreads) assemble_kernel(const AssembleArg
       for (int w = 0; w < warp; ++w) off += warp_count[w];
       if (inc) {
         list[off + __popc(ballot & ((1u << lane) - 1u))] = e;
-        const long long ea = p.a[e], eb = p.b[e];
-        atomicOr(&reach[ea >> 5], 1u << (ea & 31));    // OR commutes: no order
-        atomicOr(&reach[eb >> 5], 1u << (eb & 31));
+        atomicOr(&reach[ea[e] >> 5], 1u << (ea[e] & 31));    // OR commutes: no order
+        atomicOr(&reach[eb[e] >> 5], 1u << (eb[e] & 31));
       }
       __syncthreads();
       if (tid == 0) {
         int total = 0;
-        for (int w = 0; w < kAsmThreads / 32; ++w) total += warp_count[w];
+        for (int w = 0; w < kGnWarps; ++w) total += warp_count[w];
         list_len += total;
       }
       __syncthreads();
     }
   }
-  const int L = list_len;
-  const int six_n = 6 * p.N;
+  const int len = list_len;
+  const float* Hb = p.e.H;
+  const float* g = p.e.g;
+  float* A_last = p.A + static_cast<size_t>(n) * n;
+  float* L_last = p.L + static_cast<size_t>(n) * n;
   if (tid < 6) {
     float s = 0.f;
-    for (int q = 0; q < L; ++q) {
+    for (int q = 0; q < len; ++q) {
       const int e = list[q];
-      if (p.a[e] == n) s += p.g[12 * e + tid];
-      if (p.b[e] == n) s += p.g[12 * e + 6 + tid];
+      if (ea[e] == nd) s += g[12 * e + tid];
+      if (eb[e] == nd) s += g[12 * e + 6 + tid];
     }
-    p.rhs[6 * n + tid] = -(row_free ? s : 0.f);
+    const float rhs = -(row_free ? s : 0.f);
+    A_last[6 * nd + tid] = rhs;
+    L_last[6 * nd + tid] = rhs;
   }
-  for (int c = tid; c < six_n; c += kAsmThreads) {
+  for (int c = tid; c < n; c += kGnThreads) {
     const int m = c / 6, jj = c - 6 * m;
     const bool live = row_free && ((reach[m >> 5] >> (m & 31)) & 1u) &&
                       node_free(p.node_valid, fixed, m);
@@ -405,20 +500,406 @@ __global__ void __launch_bounds__(kAsmThreads) assemble_kernel(const AssembleArg
     for (int i = 0; i < 6; ++i) {
       float v = 0.f;
       if (live) {
-        for (int q = 0; q < L; ++q) {
+        for (int q = 0; q < len; ++q) {
           const int e = list[q];
-          const long long ea = p.a[e], eb = p.b[e];
-          const float* Hb = p.H + static_cast<size_t>(e) * 144;
-          if (ea == n && ea == m) v += Hb[12 * i + jj];
-          if (ea == n && eb == m) v += Hb[12 * i + 6 + jj];
-          if (eb == n && ea == m) v += Hb[12 * (6 + i) + jj];
-          if (eb == n && eb == m) v += Hb[12 * (6 + i) + 6 + jj];
+          const long long a = ea[e], b = eb[e];
+          const float* B = Hb + static_cast<size_t>(e) * 144;
+          if (a == nd && a == m) v += B[12 * i + jj];
+          if (a == nd && b == m) v += B[12 * i + 6 + jj];
+          if (b == nd && a == m) v += B[12 * (6 + i) + jj];
+          if (b == nd && b == m) v += B[12 * (6 + i) + 6 + jj];
         }
       }
-      const int r = 6 * n + i;
+      const int r = 6 * nd + i;
       if (r == c) v = (v + (row_free ? p.lam : 1.f)) + 1e-6f;
-      p.Hd[static_cast<size_t>(r) * six_n + c] = v;
+      p.A[static_cast<size_t>(r) * n + c] = v;
+      if (c <= r) p.L[static_cast<size_t>(r) * n + c] = v;
     }
+  }
+}
+
+// A warp's 32x32 tile from its registers (lane i: row i) to rows r0 ...
+// of L at column k0, through its shared buffer so that every global store
+// is a coalesced row; rows past `rows`, columns past w and, with lower,
+// entries above the diagonal are not written.
+__device__ __forceinline__ void tile_store(float* L, int n, int r0, int k0, int rows, int w,
+                                           bool lower, float (*tile)[kPanel + 1],
+                                           const float (&R)[kPanel]) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < kPanel; ++c) tile[lane][c] = R[c];
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kPanel; ++r)
+    if (r < rows && lane < w && (!lower || lane <= r))
+      L[static_cast<size_t>(r0 + r) * n + k0 + lane] = tile[r][lane];
+}
+
+// One warp's part of panel k0 (width w, kFull: w = 32): the 32x32
+// diagonal block and the chunk of `rows` rows from r0, a row of each a
+// lane in registers (lane i: D = diagonal row k0 + i, C = chunk row
+// r0 + i), loaded as coalesced rows through the warp's two tiles,
+// factored a column at a time with no block barrier: the pivot's
+// reciprocal square root r (rsqrt; L_jj = d r), the column times r, the
+// column's diagonal-block entries through the warp's shared buffer
+// (double-buffered: one __syncwarp a column), then the rank-1 update of
+// both rows' later entries (an FMA each); the next pivot goes first, from
+// the next lane's own entries, so its latency hides behind the update.
+// The factor goes below the diagonal and, transposed, above it (the
+// solves read both a row at a time); one warp (`diag`) writes the
+// diagonal block.
+template <bool kFull>
+__device__ __forceinline__ void panel_chunk(float* L, int n, int k0, int w_rt, int r0, int rows,
+                                            bool diag, float (*buf)[kPanel],
+                                            float (*tile)[kPanel + 1]) {
+  const int lane = threadIdx.x & 31;
+  const int w = kFull ? kPanel : w_rt;
+  float (*tile2)[kPanel + 1] = tile + kPanel;
+  float D[kPanel], C[kPanel];
+  __syncwarp();                                   // the tiles are free
+#pragma unroll
+  for (int r = 0; r < kPanel; ++r) {
+    tile[r][lane] = r < w && lane < w && lane <= r
+                        ? L[static_cast<size_t>(k0 + r) * n + k0 + lane] : 0.f;
+    tile2[r][lane] = r < rows && lane < w ? L[static_cast<size_t>(r0 + r) * n + k0 + lane] : 0.f;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < kPanel; ++c) {
+    D[c] = tile[lane][c];
+    C[c] = tile2[lane][c];
+  }
+  float d = __shfl_sync(0xffffffffu, D[0], 0);
+  float inv = rsqrtf(d), piv = d * inv;
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j) {
+    if (j < w) {
+      D[j] = lane == j ? piv : (lane > j ? D[j] * inv : D[j]);
+      C[j] *= inv;
+      if (j + 1 < w) {
+        // the next pivot first: lane j + 1's diagonal takes its own L_(j+1)j
+        // (the same FMA the update below gives it), so the pivot chain
+        // waits for no exchange but the broadcast
+        d = __shfl_sync(0xffffffffu, fmaf(-D[j], D[j], D[j + 1]), j + 1);
+        inv = rsqrtf(d);
+        piv = d * inv;
+      }
+      buf[j & 1][lane] = D[j];                    // L[k0 + lane][k0 + j]
+      __syncwarp();
+#pragma unroll
+      for (int c = j + 1; c < kPanel; ++c) {
+        if (c < w) {
+          const float lc = buf[j & 1][c];
+          if (lane >= c) D[c] = fmaf(-D[j], lc, D[c]);
+          C[c] = fmaf(-C[j], lc, C[c]);
+        }
+      }
+    }
+  }
+  tile_store(L, n, r0, k0, rows, w, false, tile2, C);
+#pragma unroll
+  for (int c = 0; c < kPanel; ++c)                // L^T: row k0 + c, the chunk's columns
+    if (c < w && lane < rows && r0 + lane < n)
+      L[static_cast<size_t>(k0 + c) * n + r0 + lane] = C[c];
+  if (diag) {
+    tile_store(L, n, k0, k0, w, w, true, tile, D);
+#pragma unroll
+    for (int c = 0; c < kPanel; ++c)
+      if (c < lane && lane < w) L[static_cast<size_t>(k0 + c) * n + k0 + lane] = D[c];
+  }
+}
+
+// Panel k0's columns of L, rows k0 ... n (the border row n included),
+// chunks of 32 rows below the diagonal block, a warp each.
+__device__ void panel_phase(float* L, int n, int k0, float (*wbuf)[2][kPanel],
+                            float (*tiles)[kPanel][kPanel + 1]) {
+  float (*buf)[kPanel] = wbuf[threadIdx.x >> 5];
+  float (*tile)[kPanel + 1] = tiles[2 * (threadIdx.x >> 5)];
+  const int w = min(kPanel, n - k0);
+  const int first = k0 + w;                       // the first row below the diagonal block
+  const int chunks = (n + 1 - first + kPanel - 1) / kPanel;
+  const int nwarps = gridDim.x * kGnWarps;
+  for (int ch = (blockIdx.x * kGnThreads + threadIdx.x) >> 5; ch < chunks; ch += nwarps) {
+    const int r0 = first + ch * kPanel, rows = min(kPanel, n + 1 - r0);
+    // the last chunk (the border row's, the fewest rows) writes the diagonal block
+    const bool diag = ch == chunks - 1;
+    if (w == kPanel) panel_chunk<true>(L, n, k0, w, r0, rows, diag, buf, tile);
+    else panel_chunk<false>(L, n, k0, w, r0, rows, diag, buf, tile);
+  }
+}
+
+// The trailing update of panel k0: every 32x32 tile on or below the
+// diagonal of the rows and columns after it, and the border row's tiles,
+// L_ij -= sum_k L_ik L_jk over the panel's columns in ascending order
+// (one thread an entry, an FMA chain; no atomics). A block's next tile is
+// loaded into registers while it computes the current one.
+struct UpdateTile {
+  int I, J, ri, cj, nrows, ncols;
+  bool border;
+};
+
+__device__ __forceinline__ UpdateTile update_tile(int t, int T, int lower, int k1, int n) {
+  UpdateTile u;
+  u.border = t >= lower;
+  u.I = T;
+  u.J = t - lower;
+  if (!u.border) {
+    int I = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+    while ((I + 1) * (I + 2) / 2 <= t) ++I;
+    while (I * (I + 1) / 2 > t) --I;
+    u.I = I;
+    u.J = t - I * (I + 1) / 2;
+  }
+  u.ri = k1 + kPanel * u.I;
+  u.cj = k1 + kPanel * u.J;
+  u.nrows = u.border ? 1 : min(kPanel, n - u.ri);
+  u.ncols = min(kPanel, n - u.cj);
+  return u;
+}
+
+__device__ void update_phase(float* L, int n, int k0, float (*sa)[kPanel + 1],
+                             float (*sb)[kPanel + 1]) {
+  constexpr int kRows = kPanel / kGnWarps;        // the entries of a thread: rows i, i + 8, ...
+  const int tid = threadIdx.x, j = tid % kPanel, i0 = tid / kPanel;
+  const int w = min(kPanel, n - k0), k1 = k0 + w;
+  const int T = (n - k1 + kPanel - 1) / kPanel;
+  const int lower = T * (T + 1) / 2;
+  float pa[kRows], pb[kRows];
+  auto fetch = [&](const UpdateTile& u) {
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = i0 + kGnWarps * q;            // row i of the tile, column j of the panel
+      pa[q] = i < u.nrows && j < w
+                  ? L[static_cast<size_t>(u.border ? n : u.ri + i) * n + k0 + j] : 0.f;
+      pb[q] = i < u.ncols && j < w ? L[static_cast<size_t>(u.cj + i) * n + k0 + j] : 0.f;
+    }
+  };
+  int t = blockIdx.x;
+  if (t < lower + T) fetch(update_tile(t, T, lower, k1, n));
+  for (; t < lower + T; t += gridDim.x) {
+    const UpdateTile u = update_tile(t, T, lower, k1, n);
+    __syncthreads();                              // the previous tile's reads are done
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      sa[i0 + kGnWarps * q][j] = pa[q];
+      sb[i0 + kGnWarps * q][j] = pb[q];
+    }
+    __syncthreads();
+    if (t + static_cast<int>(gridDim.x) < lower + T)
+      fetch(update_tile(t + gridDim.x, T, lower, k1, n));
+    float acc[kRows];
+    bool live[kRows];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = i0 + kGnWarps * q;
+      live[q] = i < u.nrows && j < u.ncols && (u.border || u.I != u.J || j <= i);
+      acc[q] = live[q] ? L[static_cast<size_t>(u.border ? n : u.ri + i) * n + u.cj + j] : 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kPanel; ++kk) {
+      const float bj = sb[j][kk];
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) acc[q] = fmaf(-sa[i0 + kGnWarps * q][kk], bj, acc[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < kRows; ++q)
+      if (live[q])
+        L[static_cast<size_t>(u.border ? n : u.ri + i0 + kGnWarps * q) * n + u.cj + j] = acc[q];
+  }
+}
+
+// A sum carried as hi + lo in f32 (Ogita, Rump and Oishi's Dot2): every
+// product and sum adds its rounding error (an FMA for the product, the
+// two-sum for the sum) to lo, so the result is as if accumulated in
+// twice f32's precision. The refinement's residual needs it: rounded in
+// f32, r's error is cond(A) eps, and a step of refinement gains nothing on
+// a small well-conditioned graph.
+struct Dot2 {
+  float hi, lo;
+  __device__ __forceinline__ void add(Dot2 o) {
+    const float t = hi + o.hi, z = t - hi;
+    lo += (hi - (t - z)) + (o.hi - z) + o.lo;
+    hi = t;
+  }
+  __device__ __forceinline__ void add_product(float a, float b) {
+    const float prod = a * b;
+    add(Dot2{prod, fmaf(a, b, -prod)});
+  }
+};
+
+// A solved unknown and the epoch of the solve that wrote it, in one
+// 64-bit word: a single store publishes both, so a reader that sees its
+// epoch sees its value (no flag, no fence).
+__device__ __forceinline__ unsigned long long ld_word(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_word(unsigned long long* p, unsigned epoch, float x) {
+  const unsigned long long v =
+      (static_cast<unsigned long long>(epoch) << 32) | __float_as_uint(x);
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// v := L^-1 v (forward) or L^-T v (backward) over the grid, a warp a
+// chunk of 32 unknowns (in place; src, if set, is read instead of v's
+// chunk, and add, if set, gets the result added to it). A chunk's warp
+// takes the solved chunks' pushes in order (forward: ascending, from L^T
+// above the diagonal; backward: descending, from L below it: a row of the
+// factor a step, its block loaded before it waits), each once the
+// chunk's words (unknown, epoch) carry this solve's epoch, then solves
+// its 32x32 diagonal block in registers, a column a step (the unknown
+// times the diagonal's reciprocal, broadcast, an FMA into each lane still
+// to solve), and publishes its words. No grid barrier: a chunk waits only
+// for the chunks it needs; every entry's sum has a fixed order.
+template <bool kForward, bool kFull>
+__device__ __forceinline__ void wave_chunk(const float* __restrict__ L, int n, int m, int P,
+                                           float* v, const float* src, float* add,
+                                           unsigned long long* words, unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = kPanel * m, w = kFull ? kPanel : min(kPanel, n - r0);
+  float D[kPanel], B[kPanel];
+#pragma unroll
+  for (int c = 0; c < kPanel; ++c) {
+    const bool in = lane < w && c < w && (kForward ? c < lane : c > lane);
+    D[c] = in ? L[static_cast<size_t>(r0 + c) * n + r0 + lane] : 0.f;
+  }
+  const float dg = lane < w ? L[static_cast<size_t>(r0 + lane) * n + r0 + lane] : 1.f;
+  float t = lane < w ? (src ? src[r0 + lane] : v[r0 + lane]) : 0.f;
+  for (int s = 0; s < (kForward ? m : P - 1 - m); ++s) {
+    const int k = kForward ? s : P - 1 - s;
+    const int k0 = kPanel * k, wk = kFull ? kPanel : min(kPanel, n - k0);
+#pragma unroll
+    for (int c = 0; c < kPanel; ++c)
+      B[c] = c < wk && lane < w ? L[static_cast<size_t>(k0 + c) * n + r0 + lane] : 0.f;
+    // lane 0 waits for the chunk's first word, then every lane reads its own
+    if (lane == 0) {
+      while (static_cast<unsigned>(ld_word(words + k0) >> 32) != epoch) __nanosleep(32);
+    }
+    __syncwarp();
+    unsigned long long word = 0;
+    if (lane < wk) {
+      do {
+        word = ld_word(words + k0 + lane);
+      } while (static_cast<unsigned>(word >> 32) != epoch);
+    }
+    __syncwarp();
+    const float xk = __uint_as_float(static_cast<unsigned>(word));
+#pragma unroll
+    for (int c = 0; c < kPanel; ++c)
+      if (c < wk) t = fmaf(-B[c], __shfl_sync(0xffffffffu, xk, c), t);
+  }
+  const float inv = 1.f / dg;
+#pragma unroll
+  for (int qq = 0; qq < kPanel; ++qq) {
+    const int c = kForward ? qq : kPanel - 1 - qq;
+    if (c < w) {
+      const float xc = __shfl_sync(0xffffffffu, t * inv, c);
+      if (lane == c) t = xc;
+      else if (kForward ? lane > c : lane < c) t = fmaf(-D[c], xc, t);
+    }
+  }
+  if (lane < w) {
+    st_word(words + r0 + lane, epoch, t);
+    v[r0 + lane] = t;
+    if (add) add[r0 + lane] += t;
+  }
+}
+
+template <bool kForward>
+__device__ void wave_solve(const float* __restrict__ L, int n, float* v, const float* src,
+                           float* add, unsigned long long* words, unsigned epoch) {
+  const int P = (n + kPanel - 1) / kPanel;
+  const int nw = gridDim.x * kGnWarps, gw = (blockIdx.x * kGnThreads + threadIdx.x) >> 5;
+  // this warp's chunks gw, gw + nw, ...: ascending forward, descending
+  // backward (the same warp owns a chunk in both directions)
+  const int mine = gw < P ? (P - 1 - gw) / nw + 1 : 0;
+  for (int q = 0; q < mine; ++q) {
+    const int m = gw + nw * (kForward ? q : mine - 1 - q);
+    if (n % kPanel == 0) wave_chunk<kForward, true>(L, n, m, P, v, src, add, words, epoch);
+    else wave_chunk<kForward, false>(L, n, m, P, v, src, add, words, epoch);
+  }
+}
+
+// iterations x (T <- T exp(x), K6's edge phase, the assembly, the panel
+// Cholesky with the forward solve, the back substitution, one step of
+// refinement), then the last update, separated by grid barriers of a
+// cooperative launch (every block resident).
+__global__ void __launch_bounds__(kGnThreads) gn_kernel(const __grid_constant__ GnArgs p) {
+  extern __shared__ __align__(16) unsigned char gsm[];
+  cg::grid_group grid = cg::this_grid();
+  Stamps st(p.timers);
+  const int N = p.e.N, n = 6 * N;
+  const int gtid = blockIdx.x * kGnThreads + threadIdx.x, gthreads = gridDim.x * kGnThreads;
+  const int lane = threadIdx.x & 31;
+  const unsigned long long t0 = st.last;
+  if (p.stop == 3) {
+    for (int it = 0; it < p.iterations; ++it) st.sync(grid, kStampFinal);
+    if (st.t) st.t[kStampTotal] += Stamps::now() - t0;
+    return;
+  }
+  float (*sa)[kPanel + 1] = reinterpret_cast<float (*)[kPanel + 1]>(gsm);
+  float (*sb)[kPanel + 1] = sa + kPanel;
+  float (*tiles)[kPanel][kPanel + 1] = reinterpret_cast<float (*)[kPanel][kPanel + 1]>(gsm);
+  float (*wbuf)[2][kPanel] = reinterpret_cast<float (*)[2][kPanel]>(tiles + 2 * kGnWarps);
+  int* list = reinterpret_cast<int*>(gsm);
+  unsigned* reach = reinterpret_cast<unsigned*>(list + p.e.E);
+
+  for (int k = gtid; k < n; k += gthreads) p.words[k] = 0ull;
+  const float* Tprev = p.e.T;
+  const float* xprev = p.e.x;
+  for (int it = 0; it < p.iterations; ++it) {
+    const bool last = it == p.iterations - 1;
+    EdgeArgs ea = p.e;
+    ea.T = Tprev;
+    ea.x = xprev;
+    ea.T_out = p.P + static_cast<size_t>(it & 1) * 16 * N;
+    for (int e0 = 2 * (gtid >> 5); e0 < ea.E; e0 += 2 * (gthreads >> 5))
+      edge_lanes(ea, e0 + (lane >> 4), lane & 15);
+    if (xprev) {
+      for (int nd = gtid; nd < N; nd += gthreads) write_updated(Tprev, xprev, ea.T_out, nd);
+      Tprev = ea.T_out;
+    }
+    xprev = p.x;
+    st.sync(grid, kStampEdges);
+    for (int nd = blockIdx.x; nd < N; nd += gridDim.x) assemble_rows(p, nd, list, reach);
+    st.sync(grid, kStampAssembly);
+    if (p.stop == 1 && last) return;
+    for (int k0 = 0; k0 < n; k0 += kPanel) {
+      panel_phase(p.L, n, k0, wbuf, tiles);
+      st.sync(grid, kStampPanel);
+      if (k0 + kPanel >= n) break;
+      update_phase(p.L, n, k0, sa, sb);
+      st.sync(grid, kStampUpdate);
+    }
+    // x = L^-T y, y = L^-1 (-b) from the border row
+    wave_solve<false>(p.L, n, p.x, p.L + static_cast<size_t>(n) * n, nullptr, p.words,
+                      3 * it + 1);
+    st.sync(grid, kStampSolve);
+    // r = -b - A x, a warp a row, in twice f32's precision
+    for (int row = gtid >> 5; row < n; row += gthreads >> 5) {
+      const float* Ar = p.A + static_cast<size_t>(row) * n;
+      Dot2 acc{lane == 0 ? p.A[static_cast<size_t>(n) * n + row] : 0.f, 0.f};
+      for (int c = lane; c < n; c += 32) acc.add_product(-Ar[c], p.x[c]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc.add(Dot2{__shfl_down_sync(0xffffffffu, acc.hi, off),
+                     __shfl_down_sync(0xffffffffu, acc.lo, off)});
+      if (lane == 0) p.r[row] = acc.hi + acc.lo;
+    }
+    st.sync(grid, kStampResidual);
+    // x += L^-T L^-1 r
+    wave_solve<true>(p.L, n, p.r, nullptr, nullptr, p.words, 3 * it + 2);
+    wave_solve<false>(p.L, n, p.r, nullptr, p.x, p.words, 3 * it + 3);
+    st.sync(grid, kStampRefine);
+    if (p.stop == 2 && last) return;
+  }
+  for (int nd = gtid; nd < N; nd += gthreads) write_updated(Tprev, p.x, p.T_out, nd);
+  if (st.t) {
+    st.mark(kStampFinal);
+    st.t[kStampTotal] += Stamps::now() - t0;
   }
 }
 
@@ -637,6 +1118,33 @@ pcg_kernel(const PcgArgs p) {
   cg::this_cluster().sync();    // no block leaves while another reads its slots
 }
 
+// Dynamic shared memory of K7's block: the assembly's edge list and
+// reach bits, or two tiles and a column buffer a warp (the panel phase;
+// the update phase takes two tiles of it).
+size_t gn_smem(int N, int E) {
+  const size_t assembly = sizeof(int) * (static_cast<size_t>(E) + (N + 31) / 32);
+  const size_t tiles = sizeof(float) * kGnWarps * (2 * kPanel * (kPanel + 1) + 2 * kPanel);
+  return assembly > tiles ? assembly : tiles;
+}
+
+// The cooperative grid: kGnBlocksPerSm blocks an SM (fewer if fewer fit),
+// every block resident.
+cudaError_t gn_grid(size_t smem, int* grid) {
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(gn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gn_kernel, kGnThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *grid = sms * (per_sm < kGnBlocksPerSm ? per_sm : kGnBlocksPerSm);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // K6: per edge the Gauss-Newton blocks at T exp(x) (x null: at T), and
@@ -656,23 +1164,58 @@ DSSLAM_API int dsslam_pose_graph_edges(const float* T, const float* x, float* T_
   return cudaGetLastError();
 }
 
-// K7: the damped, masked [6N, 6N] system and its right-hand side -b.
-DSSLAM_API int dsslam_pose_graph_assemble(const float* H, const float* g, const long long* a,
-                                          const long long* b, const unsigned char* valid,
-                                          int E, const unsigned char* node_valid,
-                                          const long long* fixed, int N, float lam,
-                                          float* Hd, float* rhs, cudaStream_t stream) {
-  if (N < 1 || E < 0) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(int) * (static_cast<size_t>(E) + (N + 31) / 32);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        assemble_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  AssembleArgs p{H, g, a, b, valid, E, node_valid, fixed, N, lam, Hd, rhs};
-  assemble_kernel<<<N, kAsmThreads, smem, stream>>>(p);
+// K7: `iterations` Gauss-Newton steps of a dense optimize in one
+// cooperative launch (every block resident), from the poses T exp(x) (x
+// null: T); T_out the optimized poses. The workspace: P [2, N, 16], x and
+// r [6N], words [6N] 64-bit, H [E, 12, 12], g [E, 12], A and L
+// [6N + 1, 6N]. stop 1 / 2: the
+// last iteration stops after its assembly / its solve (T_out untouched);
+// 3: only `iterations` grid barriers. timers: kGnStamps words added to, or
+// null.
+DSSLAM_API int dsslam_pose_graph_gn(const float* T, const float* x, int N, const float* Z,
+                                    const long long* a, const long long* b, const float* w_t,
+                                    const float* w_r, const unsigned char* valid, int E,
+                                    float delta, float delta_sq,
+                                    const unsigned char* node_valid, const long long* fixed,
+                                    float lam, int iterations, int stop, float* P, float* xw,
+                                    float* r, unsigned long long* words, float* H,
+                                    float* g, float* A, float* L, float* T_out,
+                                    unsigned long long* timers,
+                                    cudaStream_t stream) {
+  if (N < 1 || E < 0 || iterations < 0 || stop < 0 || stop > 3) return cudaErrorInvalidValue;
+  if (iterations == 0) return cudaSuccess;
+  const size_t smem = gn_smem(N, E);
+  int grid = 0;
+  cudaError_t err = gn_grid(smem, &grid);
+  if (err != cudaSuccess) return err;
+  GnArgs p{EdgeArgs{T, x, nullptr, N, Z, a, b, w_t, w_r, valid, E, delta, delta_sq, H, g, 0},
+           node_valid, fixed, lam, iterations, stop, P, xw, A, L, r, words, T_out, timers};
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(gn_kernel), dim3(grid),
+                                    dim3(kGnThreads), args, smem, stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// K7's grid: the blocks of one launch at these sizes, the blocks an SM
+// holds, the registers and the dynamic shared memory of a block.
+DSSLAM_API int dsslam_pose_graph_gn_grid(int N, int E, int* out) {
+  if (N < 1 || E < 0) return cudaErrorInvalidValue;
+  const size_t smem = gn_smem(N, E);
+  int grid = 0;
+  cudaError_t err = gn_grid(smem, &grid);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, gn_kernel);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gn_kernel, kGnThreads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = grid;
+  out[1] = per_sm;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(smem);
+  return cudaSuccess;
 }
 
 // K8: block-Jacobi PCG on the free nodes, one cluster, x [N, 6] out (and

@@ -6,13 +6,14 @@ information (translation weight on r[0:3], rotation weight on r[3:6]),
 the newest vertex fixed, Gauss-Newton with a light constant damping.
 
 On the card ``optimize`` runs the hand-written kernels
-(``ops/pose_graph.py``, ``csrc/pose_graph.cu``): per Gauss-Newton
-iteration K6 (the edges' blocks, after the previous update) then K7 (the
-dense system, every entry summed in ascending edge index) and
-``torch.linalg.solve_ex``, or K6 then K8 (a whole block-Jacobi PCG solve
-in one launch). No host read and no atomics: the same data gives the same
-bits. For CPU tensors it runs the plain versions below
-(``optimize_plain``):
+(``ops/pose_graph.py``, ``csrc/pose_graph.cu``): the dense solver is one
+K7 launch for all iterations (each: K6's edge phase after the previous
+update, the dense system with every entry summed in ascending edge
+index, a panel Cholesky and one step of refinement: ``_solve_dense_fixed``
+in plain PyTorch); the CG solver is, per iteration, K6 (the edges' blocks)
+then K8 (a whole block-Jacobi PCG solve in one launch). No host read, no
+library solve and no atomics: the same data gives the same bits. For CPU
+tensors it runs the plain versions below (``optimize_plain``):
 
 - per-edge residuals r = log(Z^-1 T_a^-1 T_b) and their Jacobians with
   respect to right-multiplied tangents from forward-mode autodiff through
@@ -164,6 +165,87 @@ def _solve_dense(data, Hblk, bblk, lam):
     return torch.linalg.solve(Hd, rhs).reshape(-1, 6)
 
 
+PANEL = 32      # the dense kernel's panel width (csrc/pose_graph.cu kPanel)
+
+
+def _cholesky_bordered(Hd, rhs, nb=PANEL):
+    """Right-looking Cholesky of the system's lower triangle in panels of
+    ``nb`` columns, with -b as a border row: returns [n + 1, n] holding L
+    (lower, diagonal included) and, in row n, L^-1 rhs. Each panel is
+    factored a column at a time (the pivot's reciprocal square root r,
+    L_jj = d r, the column times r, a rank-1 update of the panel's later
+    columns), then the trailing rows take its product."""
+    n = Hd.shape[0]
+    A = torch.cat([Hd, rhs[None]], 0)
+    for k0 in range(0, n, nb):
+        k1 = min(k0 + nb, n)
+        P = A[k0:, k0:k1]
+        d = torch.diagonal(P[:k1 - k0]).clone()
+        for j in range(k1 - k0):
+            inv = torch.rsqrt(d[j])
+            P[j + 1:, j] = P[j + 1:, j] * inv
+            P[j, j] = d[j] * inv
+            col = P[j + 1:, j]
+            P[j + 1:, j + 1:] -= col[:, None] * col[None, :k1 - k0 - j - 1]
+            d[j + 1:] -= col[:k1 - k0 - j - 1] * col[:k1 - k0 - j - 1]
+        A[k1:, k1:] -= A[k1:, k0:k1] @ A[k1:n, k0:k1].T
+    return A
+
+
+def _forward_sub(L, v, nb=PANEL):
+    """L^-1 v by panels in ascending order, as the kernel solves it: a
+    panel's unknowns a column at a time (times the diagonal's
+    reciprocal), then pushed into the later rows."""
+    n = L.shape[1]
+    z = v.clone()
+    for k0 in range(0, n, nb):
+        k1 = min(k0 + nb, n)
+        t = z[k0:k1]
+        for c in range(k1 - k0):
+            t[c] = t[c] * (1 / L[k0 + c, k0 + c])
+            t[c + 1:] -= L[k0 + c + 1:k1, k0 + c] * t[c]
+        z[k1:] -= L[k1:n, k0:k1] @ t
+    return z
+
+
+def _back_sub(L, v, nb=PANEL):
+    """L^-T v by panels from the last, as the kernel solves it: a panel's
+    unknowns a column at a time, then pushed into the earlier columns."""
+    n = L.shape[1]
+    x = v.clone()
+    for k0 in reversed(range(0, n, nb)):
+        k1 = min(k0 + nb, n)
+        t = x[k0:k1]
+        for c in reversed(range(k1 - k0)):
+            t[c] = t[c] * (1 / L[k0 + c, k0 + c])
+            t[:c] -= L[k0 + c, k0:k0 + c] * t[c]
+        x[:k0] -= L[k0:k1, :k0].T @ t
+    return x
+
+
+def _solve_dense_fixed(data, Hblk, bblk, lam):
+    """``_solve_dense`` as the dense kernel (K7) computes it, in plain
+    PyTorch (for tests): K7's fixed-order assembly, a panel Cholesky of its
+    lower triangle with -b as a border row (the forward solve), the back
+    substitution, then one step of refinement on the whole assembled
+    matrix: r = rhs - Hd x in twice f32's precision (the kernel carries
+    each sum as a pair of floats; here float64, rounded once), x +=
+    L^-T L^-1 r. The system is symmetric positive definite by
+    construction, but the f32 blocks J^T W J are symmetric only to
+    rounding: the refinement takes x to the solution of the whole system,
+    as LU solves it, and from the Cholesky's f32 error (more than 2x LU's
+    on small, well-conditioned graphs) to ~1e-8 x max|x| of a float64
+    solve."""
+    Hd, rhs = _assemble_dense_fixed(data, Hblk, bblk, lam)
+    n = Hd.shape[0]
+    F = _cholesky_bordered(Hd.clone(), rhs.clone())
+    L = torch.tril(F[:n])
+    x = _back_sub(L, F[n])
+    r = (rhs.double() - Hd.double() @ x.double()).float()
+    x = x + _back_sub(L, _forward_sub(L, r))
+    return x.reshape(-1, 6)
+
+
 def _edge_Hx(ea, eb, Hblk, x):
     """The edges' Gauss-Newton blocks times x [N, 6], summed per node."""
     xa, xb = x[ea][..., None], x[eb][..., None]
@@ -245,15 +327,14 @@ def optimize(data: PoseGraphData, iterations: int = 25, huber_delta: float = 1.0
         solver = "dense" if N <= 512 else "cg"
     if not data.T_wc.is_cuda:
         return optimize_plain(data, iterations, huber_delta, solver, cg_iters)
+    if solver != "cg":
+        return pgk.pose_graph_gn_cuda(data, iterations, huber_delta, LAM)
     T, x = data.T_wc, None
-    inc = pgk.incidence(data) if solver == "cg" else None
+    inc = pgk.incidence(data)
     for _ in range(iterations):
         # K6 applies the previous iteration's update, then linearizes
         T, Hblk, bblk = pgk.pose_graph_edges_cuda(T, x, data, huber_delta)
-        if solver == "cg":
-            x = pgk.pose_graph_pcg_cuda(data, Hblk, bblk, inc, LAM + 1e-6, cg_iters)
-        else:
-            x = torch.linalg.solve_ex(*pgk.pose_graph_assemble_cuda(data, Hblk, bblk, LAM))[0]
+        x = pgk.pose_graph_pcg_cuda(data, Hblk, bblk, inc, LAM + 1e-6, cg_iters)
     return pgk.pose_graph_edges_cuda(T, x)
 
 

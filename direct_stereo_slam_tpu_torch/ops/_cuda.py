@@ -67,8 +67,13 @@ _SIGNATURES = {
     # stream
     "dsslam_pose_graph_edges": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P,
                                 _P, _P],
-    # H, g, a, b, valid, E, node_valid, fixed, N, lam, Hd, rhs, stream
-    "dsslam_pose_graph_assemble": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _F, _P, _P, _P],
+    # T, x, N, Z, a, b, w_t, w_r, valid, E, delta, delta_sq, node_valid,
+    # fixed, lam, iterations, stop, P, x, r, words, H, g, A, L, T_out,
+    # timers, stream
+    "dsslam_pose_graph_gn": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P, _P, _F, _I,
+                             _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # N, E, out[4] (host only: no stream)
+    "dsslam_pose_graph_gn_grid": [_I, _I, _P],
     # H, g, a, b, valid, E, inc_off, inc_ent, node_valid, fixed, N, damp,
     # cg_iters, work, x, steps, stream
     "dsslam_pose_graph_pcg": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P, _P,

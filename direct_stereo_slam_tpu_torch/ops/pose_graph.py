@@ -1,19 +1,21 @@
 """Launch wrappers of the pose-graph kernels (``csrc/pose_graph.cu``):
 K6 ``dsslam_pose_graph_edges``, the edges' Gauss-Newton blocks (and the
-previous iteration's update T <- T exp(x)); K7
-``dsslam_pose_graph_assemble``, the dense damped system in a fixed order;
-K8 ``dsslam_pose_graph_pcg``, a whole block-Jacobi PCG solve in one
-launch. None reads the card from the host.
+previous iteration's update T <- T exp(x)); K7 ``dsslam_pose_graph_gn``,
+every Gauss-Newton iteration of a dense optimize in one cooperative
+launch (K6's edge phase, the fixed-order assembly, a panel Cholesky, the
+solves and one step of refinement); K8 ``dsslam_pose_graph_pcg``, a whole
+block-Jacobi PCG solve in one launch. None reads the card from the host.
 
 ``loop/pose_graph.optimize`` calls them for CUDA tensors; for CPU tensors
-it takes the plain versions there (``_edge_system``, ``_assemble_dense``,
+it takes the plain versions there (``_edge_system``, ``_solve_dense``,
 ``_solve_cg``). Each wrapper counts its launches in ``.launches`` (K6's
 update-only call counts as a K6 launch).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -86,23 +88,94 @@ def _graph_tensors(data):
             _u8(data.node_valid), data.fixed_node.contiguous())
 
 
-def pose_graph_assemble_cuda(data, Hblk: torch.Tensor, bblk: torch.Tensor, lam: float):
-    """K7: (Hd [6N, 6N], rhs [6N]) of ``_assemble_dense``, every entry's
-    edges added in ascending edge index."""
-    N, E = data.T_wc.shape[0], data.edge_a.shape[0]
+class GnWork(NamedTuple):
+    """K7's workspace after a launch that stopped early (``stop``): the
+    poses the last iteration linearized at, its edge blocks, the system
+    A [6N + 1, 6N] (-b in the last row), its factor L (lower triangle,
+    and once factored L^T above the diagonal and L^-1 (-b) in the last
+    row), and x [N, 6] (after ``stop=1``: the previous iteration's)."""
+
+    T: torch.Tensor
+    H: torch.Tensor
+    g: torch.Tensor
+    A: torch.Tensor
+    L: torch.Tensor
+    x: torch.Tensor
+
+
+STOPS = {None: 0, "assembly": 1, "solve": 2}
+# K7's phase stamps (csrc/pose_graph.cu GnPhase): ns that block 0 spends in
+# each phase over a launch, the ns it waits at grid barriers, their count,
+# and the launch's span
+GN_STAMPS = ("edges", "assembly", "panel", "update", "solve", "residual", "refine", "final",
+             "barrier", "barriers", "total")
+
+
+def pose_graph_gn_cuda(data, iterations: int, huber_delta: float = 1.0, lam: float = 1e-4,
+                       T: Optional[torch.Tensor] = None, x: Optional[torch.Tensor] = None,
+                       stop: Optional[str] = None, timers: Optional[torch.Tensor] = None):
+    """K7: ``iterations`` Gauss-Newton steps of the dense solver in one
+    launch, from the poses ``T`` exp(``x``) (default: ``data.T_wc``, x
+    None: as they are). Returns the optimized poses [N, 4, 4]; with
+    ``stop`` ("assembly" or "solve") the last iteration stops there and a
+    ``GnWork`` is returned. ``timers``: an int64 [len(GN_STAMPS)] tensor on
+    the card that the launch adds its phase stamps to."""
+    T = data.T_wc if T is None else T
+    N, E = T.shape[0], data.edge_a.shape[0]
+    if iterations == 0 and stop is None and x is None:
+        return T                                  # nothing to optimize: no launch
+    if iterations < 1:
+        raise ValueError("pose_graph_gn: needs an iteration")
+    T = T.contiguous()
+    x = None if x is None else x.contiguous()
     ea, eb, valid, nvalid, fixed = _graph_tensors(data)
-    Hblk, bblk = Hblk.contiguous(), bblk.contiguous()
-    _require("pose_graph_assemble", f32=(Hblk, bblk), u8=(valid, nvalid), i64=(ea, eb, fixed))
-    Hd = torch.empty(6 * N, 6 * N, dtype=torch.float32, device=Hblk.device)
-    rhs = torch.empty(6 * N, dtype=torch.float32, device=Hblk.device)
-    _cuda.call("dsslam_pose_graph_assemble", Hblk.data_ptr(), bblk.data_ptr(), ea.data_ptr(),
-               eb.data_ptr(), valid.data_ptr(), E, nvalid.data_ptr(), fixed.data_ptr(), N,
-               float(lam), Hd.data_ptr(), rhs.data_ptr())
-    pose_graph_assemble_cuda.launches += 1
-    return Hd, rhs
+    Z, wt, wr = data.edge_Z.contiguous(), data.edge_w_t.contiguous(), data.edge_w_r.contiguous()
+    _require("pose_graph_gn", f32=(T, Z, wt, wr) + (() if x is None else (x,)),
+             u8=(valid, nvalid), i64=(ea, eb, fixed) + (() if timers is None else (timers,)))
+    n = 6 * N
+    f32 = dict(dtype=torch.float32, device=T.device)
+    P = torch.empty(2, N, 4, 4, **f32)
+    xw = torch.empty(N, 6, **f32)
+    r = torch.empty(n, **f32)
+    words = torch.empty(n, dtype=torch.int64, device=T.device)
+    H = torch.empty(E, 12, 12, **f32)
+    g = torch.empty(E, 12, **f32)
+    A = torch.empty(n + 1, n, **f32)
+    L = torch.empty(n + 1, n, **f32)
+    T_out = torch.empty_like(T)
+    _cuda.call("dsslam_pose_graph_gn", T.data_ptr(), _ptr(x), N, Z.data_ptr(), ea.data_ptr(),
+               eb.data_ptr(), wt.data_ptr(), wr.data_ptr(), valid.data_ptr(), E,
+               float(huber_delta), float(huber_delta) ** 2, nvalid.data_ptr(), fixed.data_ptr(),
+               float(lam), int(iterations), STOPS[stop], P.data_ptr(), xw.data_ptr(),
+               r.data_ptr(), words.data_ptr(), H.data_ptr(), g.data_ptr(), A.data_ptr(),
+               L.data_ptr(), T_out.data_ptr(), _ptr(timers))
+    pose_graph_gn_cuda.launches += 1
+    if stop is None:
+        return T_out
+    k = iterations - 1
+    return GnWork(T if k == 0 and x is None else P[k & 1], H, g, A, L, xw)
 
 
-pose_graph_assemble_cuda.launches = 0
+pose_graph_gn_cuda.launches = 0
+
+
+def gn_barriers_cuda(count: int, timers: torch.Tensor) -> None:
+    """``count`` of K7's grid barriers and nothing else, in one launch on
+    ``timers``' card (their cost; not counted as a K7 launch)."""
+    _require("pose_graph_gn", i64=(timers,))
+    _cuda.call("dsslam_pose_graph_gn", None, None, 1, None, None, None, None, None, None, 0,
+               1.0, 1.0, None, None, 1.0, int(count), 3, None, None, None, None, None, None,
+               None, None, None, timers.data_ptr())
+
+
+def gn_grid(N: int, E: int) -> dict:
+    """K7's launch at these sizes: blocks, blocks an SM, registers, dynamic
+    shared memory bytes (host calls only)."""
+    out = (ctypes.c_int * 4)()
+    err = _cuda.load_library().lib.dsslam_pose_graph_gn_grid(int(N), int(E), out)
+    if err != 0:
+        raise RuntimeError(f"dsslam_pose_graph_gn_grid: CUDA error {err}")
+    return dict(zip(("blocks", "blocks_per_sm", "registers", "smem"), list(out)))
 
 
 def incidence(data):

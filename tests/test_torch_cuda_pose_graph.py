@@ -12,28 +12,43 @@ PyTorch versions on the card (loop/pose_graph.py):
   and no further from the float64 blocks than 2x the plain version's
   distance. Its update T exp(x) against ``T @ lie.se3_exp(x)`` within
   1e-6 per entry;
-- K7 (the dense system in a fixed order) against ``_assemble_dense``,
-  H within the same bound and b within 1e-4 x the largest sum of its
-  terms' magnitudes (near convergence b is a difference of large terms),
-  and bit-equal to ``_assemble_dense_fixed``, the same order in plain
-  PyTorch;
-- ``optimize`` through K6 / K7 / ``solve_ex`` against ``optimize_plain``
-  within 1e-4 per pose entry after 25 iterations at buckets 16, 128 and
-  512; through K6 / K8 at bucket 1024 within 2e-3 x scale of the dense
-  plain result (test_pose_graph_cg_matches_dense's bound), one K8 solve
-  within 1e-3 x max|x| of ``_solve_cg`` (the CG iterates' order of sums);
+- K7 (a dense optimize in one cooperative launch), stopped after an
+  iteration's assembly: its edge phase bit-equal to K6 at the same poses
+  (the first iteration's, and the second's after the first update), the
+  system against ``_assemble_dense``, H within the same bound and b within
+  1e-4 x the largest sum of its terms' magnitudes (near convergence b is a
+  difference of large terms), and bit-equal to ``_assemble_dense_fixed``,
+  the same order in plain PyTorch; stopped after an iteration's solve at
+  buckets 16, 128 and 512: x within 1e-5 x max|x| of ``_solve_dense_fixed``
+  (the same arithmetic, other roundings; both refine with a residual in
+  twice f32's precision, so both sit ~1e-8 from float64) and no further
+  from a float64
+  solve of the same f32 system than 2x ``torch.linalg.solve_ex``'s error,
+  L L^T the system's lower triangle within 1e-5 x max|entry|; a NaN pose
+  makes x NaN wherever the plain ``_solve_dense``'s LU makes it NaN
+  (``solve_ex``: ``torch.linalg.solve`` raises on the card's NaN system);
+- ``optimize`` through K7 against ``optimize_plain`` within 1e-4 per pose
+  entry after 25 iterations at buckets 16, 128, 256 and 512, and at 10
+  and 40 nodes not padded to a bucket (K7's partial panels); through K6 /
+  K8 at bucket 1024 within 2e-3 x scale of the dense plain result
+  (test_pose_graph_cg_matches_dense's bound), one K8 solve within 1e-3 x
+  max|x| of ``_solve_cg`` (the CG iterates' order of sums);
 - an empty edge list (all padding, and zero-length edge arrays, where
-  the first K6 call launches nothing), all-invalid padding, a fixed node
-  that is not the last, each wrapper's dtype checks, a wrong loop edge
-  whose residual is near pi; two runs bit-equal without
-  ``torch.use_deterministic_algorithms``; one ``optimize`` with no host
-  read (``torch.cuda.set_sync_debug_mode("error")``) and its launches.
+  K6 launches nothing), all-invalid padding, a fixed node that is not the
+  last, each wrapper's dtype checks, a wrong loop edge whose residual is
+  near pi; two runs bit-equal without ``torch.use_deterministic_algorithms``;
+  one ``optimize`` with no host read
+  (``torch.cuda.set_sync_debug_mode("error")``) and its launches: one K7
+  launch a dense optimize, and the profiler's device kernels of it only
+  that one (no library solve, copy or fill).
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_pose_graph.py
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -48,7 +63,7 @@ from direct_stereo_slam_tpu_torch.ops import pose_graph as pgk
 pytestmark = pytest.mark.cuda
 
 # ring graphs per bucket: (nodes, loop edge spacing); buckets 16 ... 1024
-RINGS = {16: (12, 0), 128: (100, 10), 512: (400, 20), 1024: (700, 25)}
+RINGS = {16: (12, 0), 128: (100, 10), 256: (200, 12), 512: (400, 20), 1024: (700, 25)}
 # f32 cancellation next to a branch point (see the module docstring)
 LOOSE = {"taylor_over", "near_pi_under"}
 
@@ -117,8 +132,10 @@ def test_k6_update_matches_se3_exp(dev):
 @pytest.mark.parametrize("bucket", [16, 128, 512])
 def test_k7_matches_assembly(dev, bucket):
     data = _ring(bucket, dev)
-    _, H, g = pgk.pose_graph_edges_cuda(data.T_wc, None, data, 1.0)
-    Hd, rhs = pgk.pose_graph_assemble_cuda(data, H, g, pg.LAM)
+    n = 6 * data.T_wc.shape[0]
+    w = pgk.pose_graph_gn_cuda(data, 1, 1.0, pg.LAM, stop="assembly")
+    H, g = w.H, w.g
+    Hd, rhs = w.A[:n], w.A[n]
     Hi, ri = pg._assemble_dense(data, H, g, pg.LAM)
     # b can be a difference of large opposite terms (a converged graph):
     # its order of sums is held against the sum of the terms' magnitudes
@@ -126,9 +143,72 @@ def test_k7_matches_assembly(dev, bucket):
     assert _rel(Hd, Hi) < 1e-4 and float((rhs - ri).abs().max()) < 1e-4 * b_scale
     Hf, rf = pg._assemble_dense_fixed(data, H, g, pg.LAM)
     assert torch.equal(Hd, Hf) and torch.equal(rhs, rf)
+    # the factor's input: the same lower triangle and border row
+    assert torch.equal(torch.tril(w.L[:n]), torch.tril(Hd)) and torch.equal(w.L[n], rhs)
+
+
+@pytest.mark.parametrize("bucket", [16, 128])
+def test_k7_edge_phase_is_k6(dev, bucket):
+    """K7's edge phase and update are K6's code: the same bits at the first
+    iteration's poses and, after one update, at the second's."""
+    data = _ring(bucket, dev)
+    w0 = pgk.pose_graph_gn_cuda(data, 1, 1.0, pg.LAM, stop="assembly")
+    T0, H0, g0 = pgk.pose_graph_edges_cuda(data.T_wc, None, data, 1.0)
+    assert w0.T is data.T_wc and torch.equal(w0.H, H0) and torch.equal(w0.g, g0)
+    w1 = pgk.pose_graph_gn_cuda(data, 2, 1.0, pg.LAM, stop="assembly")
+    x0 = pgk.pose_graph_gn_cuda(data, 1, 1.0, pg.LAM, stop="solve").x
+    assert torch.equal(w1.x, x0)                  # the first iteration's update
+    T1, H1, g1 = pgk.pose_graph_edges_cuda(data.T_wc, x0.reshape(-1), data, 1.0)
+    assert torch.equal(w1.T, T1) and torch.equal(w1.H, H1) and torch.equal(w1.g, g1)
 
 
 @pytest.mark.parametrize("bucket", [16, 128, 512])
+def test_k7_solve_matches_plain_and_float64(dev, bucket):
+    data = _ring(bucket, dev)
+    n = 6 * data.T_wc.shape[0]
+    w = pgk.pose_graph_gn_cuda(data, 1, 1.0, pg.LAM, stop="solve")
+    Hd, rhs = w.A[:n], w.A[n]
+    x_plain = pg._solve_dense_fixed(data, w.H, w.g, pg.LAM)
+    assert torch.isfinite(w.x).all() and _rel(w.x, x_plain) < 1e-5
+    x64 = torch.linalg.solve(Hd.double(), rhs.double())
+    err = lambda x: float((x.double().reshape(-1) - x64).abs().max() / x64.abs().max())
+    lib = torch.linalg.solve_ex(Hd, rhs)[0]
+    assert err(w.x) <= 2 * err(lib), (err(w.x), err(lib))
+    L = torch.tril(w.L[:n]).double()
+    sym = torch.tril(Hd.double()) + torch.tril(Hd.double(), -1).T
+    assert float((L @ L.T - sym).abs().max()) < 1e-5 * float(sym.abs().max())
+
+
+def test_k7_spreads_a_nan_pose(dev):
+    data = _ring(128, dev)
+    T = data.T_wc.clone()
+    T[7, 0, 3] = float("nan")
+    data = data._replace(T_wc=T)
+    w = pgk.pose_graph_gn_cuda(data, 1, 1.0, pg.LAM, stop="solve")
+    # _solve_dense's LU without its singularity check, which raises here
+    lu = torch.isnan(torch.linalg.solve_ex(*pg._assemble_dense(data, w.H, w.g, pg.LAM))[0])
+    assert lu.any() and bool((torch.isnan(w.x.reshape(-1)) | ~lu).all())
+
+
+@pytest.mark.parametrize("n", [10, 40])
+def test_k7_at_a_size_off_the_buckets(dev, n):
+    """A graph of n nodes not padded to a bucket (6n = 60, 240: a last
+    panel and chunk narrower than 32) through K7's partial-width paths."""
+    poses, edges, fixed = ring_graph(n, seed=n, loop_every=8)
+    data = pg.build_data(poses, edges, fixed, device=dev)
+    data = data._replace(T_wc=data.T_wc[:n].contiguous(), node_valid=data.node_valid[:n])
+    T = pg.optimize(data, 25)
+    assert T.shape == (n, 4, 4)
+    assert float(torch.max(torch.abs(T - pg.optimize_plain(data, 25)))) < 1e-4
+    w = pgk.pose_graph_gn_cuda(data, 1, 1.0, pg.LAM, stop="solve")
+    Hd, rhs = w.A[:6 * n], w.A[6 * n]
+    assert torch.equal(Hd, pg._assemble_dense_fixed(data, w.H, w.g, pg.LAM)[0])
+    x64 = torch.linalg.solve(Hd.double(), rhs.double())
+    err = lambda x: float((x.double().reshape(-1) - x64).abs().max() / x64.abs().max())
+    assert err(w.x) <= 2 * err(torch.linalg.solve_ex(Hd, rhs)[0])
+
+
+@pytest.mark.parametrize("bucket", [16, 128, 256, 512])
 def test_optimize_dense_matches_plain(dev, bucket):
     data = _ring(bucket, dev)
     T = pg.optimize(data, 25)
@@ -158,17 +238,20 @@ def test_empty_edge_list_leaves_the_poses(dev):
 
 
 def test_no_edges_counts_only_launches(dev):
-    """With zero-length edge arrays K6 has nothing to linearize: the first
-    iteration launches nothing, the 24 updates and the last update do."""
+    """With zero-length edge arrays K6 has nothing to linearize and
+    launches nothing; the CG path's 24 updates and its last update do, and
+    the dense path is one K7 launch."""
     poses, _, _ = ring_graph(10, seed=1)
     data = pg.build_data(poses, [], 9, device=dev)
     data = data._replace(**{k: getattr(data, k)[:0] for k in (
         "edge_a", "edge_b", "edge_Z", "edge_w_t", "edge_w_r", "edge_valid")})
-    n = pgk.pose_graph_edges_cuda.launches
+    n, n7 = pgk.pose_graph_edges_cuda.launches, pgk.pose_graph_gn_cuda.launches
     T, H, g = pgk.pose_graph_edges_cuda(data.T_wc, None, data)
     assert pgk.pose_graph_edges_cuda.launches == n
     assert T is data.T_wc and H.shape == (0, 12, 12) and g.shape == (0, 12)
     assert torch.equal(pg.optimize(data, 25), data.T_wc)
+    assert pgk.pose_graph_edges_cuda.launches == n and pgk.pose_graph_gn_cuda.launches == n7 + 1
+    assert torch.equal(pg.optimize(data, 25, solver="cg"), data.T_wc)
     assert pgk.pose_graph_edges_cuda.launches == n + 25
 
 
@@ -182,9 +265,9 @@ def test_wrappers_check_each_dtype(dev):
     with pytest.raises(TypeError):
         pgk.pose_graph_edges_cuda(data.T_wc.double(), None, data)
     with pytest.raises(TypeError):
-        pgk.pose_graph_assemble_cuda(data, H.to(torch.int32), g, pg.LAM)
+        pgk.pose_graph_gn_cuda(data._replace(edge_Z=data.edge_Z.double()), 1)
     with pytest.raises(TypeError):
-        pgk.pose_graph_assemble_cuda(data._replace(edge_a=data.edge_a.int()), H, g, pg.LAM)
+        pgk.pose_graph_gn_cuda(data._replace(edge_a=data.edge_a.int()), 1)
     with pytest.raises(TypeError):
         pgk.pose_graph_pcg_cuda(data, H, g.to(torch.int64), pgk.incidence(data), 1e-4, 10)
 
@@ -227,7 +310,7 @@ def test_optimize_makes_no_host_read(dev, bucket):
     data = _ring(bucket, dev)
     pg.optimize(data, 2)                  # build and load the kernels first
     torch.cuda.synchronize()
-    counts = {f: f.launches for f in (pgk.pose_graph_edges_cuda, pgk.pose_graph_assemble_cuda,
+    counts = {f: f.launches for f in (pgk.pose_graph_edges_cuda, pgk.pose_graph_gn_cuda,
                                       pgk.pose_graph_pcg_cuda)}
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -235,5 +318,36 @@ def test_optimize_makes_no_host_read(dev, bucket):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     made = [f.launches - n for f, n in counts.items()]
-    assert made == ([26, 25, 0] if bucket <= 512 else [26, 0, 25])
+    assert made == ([0, 1, 0] if bucket <= 512 else [26, 0, 25])
     assert torch.isfinite(T).all()
+
+
+def test_dense_optimize_is_one_device_kernel(dev):
+    """The profiler's device work of one dense optimize: K7's launch and
+    nothing else (no library solve, copy or fill)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    data = _ring(128, dev)
+    pg.optimize(data, 2)                  # build and load the kernels first
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pg.optimize(data, 25)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not names:
+        pytest.skip("the profiler recorded no device event in this process")
+    assert len(names) == 1 and re.search(r"(?<![A-Za-z0-9_])gn_kernel", names[0]), names
+
+
+def test_k7_grid_is_resident(dev):
+    """K7's cooperative grid: every block resident, at most kGnBlocksPerSm
+    blocks an SM, at the largest dense bucket too."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for N, E in ((16, 16), (128, 256), (512, 1024)):
+        grid = pgk.gn_grid(N, E)
+        assert grid["blocks_per_sm"] >= 1 and grid["blocks"] == sms * min(grid["blocks_per_sm"], 1)
+    timers = torch.zeros(len(pgk.GN_STAMPS), dtype=torch.int64, device=dev)
+    pgk.gn_barriers_cuda(100, timers)
+    stamps = dict(zip(pgk.GN_STAMPS, timers.tolist()))
+    assert stamps["barriers"] == 100 and stamps["total"] > 0

@@ -17,6 +17,17 @@
   in ascending edge index) against the ``index_add_`` assembly
   (``_assemble_dense``): within 1e-6 x max|entry| (the order of the f32
   sums), and the same masked, damped diagonal.
+- K7's solve (``_solve_dense_fixed``: a panel Cholesky of the fixed-order
+  system with -b as a border row, the back substitution and one step of
+  refinement on the whole matrix with its residual in twice f32's
+  precision, in the kernel's block order) on the same graphs and a ring
+  with a wrong near-pi loop: x no further from a float64 solve of the
+  same f32 system than 2x ``torch.linalg.solve``'s own f32 error (the
+  reference's LU; without the refinement the Cholesky is more than 2x it
+  on small graphs, which a test shows), and within 2x the JAX package's
+  own f32 error of its ``_solve_dense`` (LU, given the same blocks); the
+  factor's pieces (L L^T the lower triangle, the border row L^-1 (-b), the
+  substitutions); a NaN pose makes x NaN wherever ``_solve_dense``'s is.
 - K8's incidence lists (``ops/pose_graph.incidence``, plain PyTorch that
   the card runs too) and the CPU dispatch of ``optimize`` and
   ``edge_system``.
@@ -30,7 +41,8 @@ import torch
 
 from direct_stereo_slam_tpu.loop import pose_graph as pg_j
 from direct_stereo_slam_tpu_torch.io.synthetic_graphs import (BRANCH_CASES, branch_edges,
-                                                              branch_graph, ring_graph)
+                                                              branch_graph, ring_graph,
+                                                              with_bad_loop)
 from direct_stereo_slam_tpu_torch.loop import pose_graph as pg_t
 from direct_stereo_slam_tpu_torch.ops import pose_graph as pgk
 from test_torch_loop_components import GRAPHS
@@ -106,6 +118,85 @@ def test_fixed_order_assembly_matches_index_add(name):
     assert (off[pinned] == 0).all() and (off[:, pinned] == 0).all()
     np.testing.assert_array_equal(np.diag(Hn)[pinned], np.float32(1.0) + np.float32(1e-6))
     np.testing.assert_array_equal(rf.numpy()[pinned], 0)
+
+
+SOLVE_GRAPHS = {
+    **FIXED_ORDER_GRAPHS,
+    "ring_16": lambda: ring_graph(12, seed=16),
+    "bad_loop": lambda: with_bad_loop(ring_graph(12, seed=16), 11, 5,
+                                      BRANCH_CASES["near_pi_under"]),
+}
+
+
+def _system(name):
+    data, (Hblk, bblk) = _blocks(*SOLVE_GRAPHS[name]())
+    Hd, rhs = pg_t._assemble_dense_fixed(data, Hblk, bblk, pg_t.LAM)
+    return data, Hblk, bblk, Hd, rhs
+
+
+@pytest.mark.parametrize("name", list(SOLVE_GRAPHS))
+def test_solve_dense_fixed_matches_float64_and_jax(name):
+    data, Hblk, bblk, Hd, rhs = _system(name)
+    x64 = torch.linalg.solve(Hd.double(), rhs.double()).numpy()
+    scale = np.abs(x64).max()
+    err = lambda x: np.abs(np.asarray(x, np.float64).reshape(-1) - x64).max() / scale
+    x = pg_t._solve_dense_fixed(data, Hblk, bblk, pg_t.LAM)
+    assert x.shape == (data.T_wc.shape[0], 6) and x.dtype == torch.float32
+    e_fixed, e_lu = err(x.numpy()), err(torch.linalg.solve(Hd, rhs).numpy())
+    assert e_fixed <= 2 * e_lu, (e_fixed, e_lu)
+    poses, edges, fixed = SOLVE_GRAPHS[name]()
+    xj = np.asarray(pg_j._solve_dense(pg_j.build_data(poses, edges, fixed),
+                                      jnp.asarray(Hblk.numpy()), jnp.asarray(bblk.numpy()),
+                                      pg_t.LAM))
+    e_jax = err(xj)
+    assert np.abs(x.numpy() - xj).max() / scale <= 2 * e_jax, (e_fixed, e_jax)
+
+
+@pytest.mark.parametrize("name", ["ring_loops", "fixed_inside", "near_pi"])
+def test_bordered_cholesky_pieces(name):
+    """L L^T is the system's lower triangle, the border row L^-1 (-b), and
+    the substitutions invert L and L^T (float64 checks of the f32 form)."""
+    _, _, _, Hd, rhs = _system(name)
+    n = Hd.shape[0]
+    F = pg_t._cholesky_bordered(Hd.clone(), rhs.clone())
+    L = torch.tril(F[:n]).double()
+    sym = torch.tril(Hd.double()) + torch.tril(Hd.double(), -1).T
+    assert float((L @ L.T - sym).abs().max()) < 1e-5 * float(sym.abs().max())
+    y = torch.linalg.solve_triangular(L, rhs.double()[:, None], upper=False)[:, 0]
+    assert float((F[n].double() - y).abs().max()) < 1e-4 * float(y.abs().max())
+    Lf = torch.tril(F[:n])
+    z = pg_t._forward_sub(Lf, rhs)
+    assert float((L @ z.double() - rhs.double()).abs().max()) < 1e-5 * float(rhs.abs().max())
+    x = pg_t._back_sub(Lf, z)
+    assert float((L.T @ x.double() - z.double()).abs().max()) < 1e-5 * float(z.abs().max())
+
+
+def test_solve_dense_fixed_needs_its_refinement():
+    """Why the kernel refines: the panel Cholesky alone (the lower triangle,
+    f32) is further from float64 than 2x LU's f32 error on small graphs,
+    and one step of refinement with a residual in twice f32's precision
+    brings it below LU's."""
+    ratios = {}
+    for name in ("chain", "info_r", "near_pi"):
+        data, Hblk, bblk, Hd, rhs = _system(name)
+        n = Hd.shape[0]
+        x64 = torch.linalg.solve(Hd.double(), rhs.double())
+        err = lambda x: float((x.double().reshape(-1) - x64).abs().max() / x64.abs().max())
+        F = pg_t._cholesky_bordered(Hd.clone(), rhs.clone())
+        e_lu = err(torch.linalg.solve(Hd, rhs))
+        ratios[name] = err(pg_t._back_sub(torch.tril(F[:n]), F[n])) / e_lu
+        assert err(pg_t._solve_dense_fixed(data, Hblk, bblk, pg_t.LAM)) <= e_lu
+    assert max(ratios.values()) > 2, ratios
+
+
+def test_solve_dense_fixed_spreads_a_nan_pose():
+    data = pg_t.build_data(*ring_graph(40, seed=3, loop_every=8))
+    T = data.T_wc.clone()
+    T[7, 0, 3] = float("nan")
+    Hblk, bblk = pg_t._edge_system(data, T, 1.0)
+    lu = torch.isnan(pg_t._solve_dense(data, Hblk, bblk, pg_t.LAM))
+    fixed = torch.isnan(pg_t._solve_dense_fixed(data, Hblk, bblk, pg_t.LAM))
+    assert lu.any() and bool((fixed | ~lu).all())
 
 
 @pytest.mark.parametrize("name", ["chain", "ring"])
