@@ -121,8 +121,9 @@ Phases, each of which must pass (any fault exits non-zero):
    every sequence; aggregate and per-sequence FPS, the median and range of
    the passes' FPS, median translation and rotation errors;
 12. the pose graph (K6-K8, csrc/pose_graph.cu): ring graphs at buckets
-   16, 128, 256, 512 (dense: one K7 launch an optimize) and 1024 (K6 ->
-   K8), each ``optimize`` within 1e-4 of ``optimize_plain`` (1024, both
+   16, 128, 256, 512 (dense: one K7 launch an optimize) and 1024 (CG: one
+   launch of K8's redesign, the resident CG optimize), each ``optimize``
+   within 1e-4 of ``optimize_plain`` (1024, both
    CG: 2e-3 x the translation scale), two runs bit-equal, launches per
    optimize, ms of both (the card's ms of K7 too), and K7's phase split
    per iteration (``ops/pose_graph.GN_STAMPS``: edges, assembly, panel
@@ -139,9 +140,16 @@ Phases, each of which must pass (any fault exits non-zero):
    the final graph and at buckets 16, 128 and 512: x within 1e-5 x max|x|
    of ``_solve_dense_fixed`` and no further from a float64 solve than 2x
    ``solve_ex``'s error) and at bucket 1024 (K8, within 1e-3 of
-   ``_solve_cg``), timed, with ``solve_ex`` on the same systems as K7's
-   library time, and the device kernels per optimize of both paths
-   (torch.profiler, one session: the dense path is one K7 launch).
+   ``_solve_cg``, with its phase stamps: set-up, edge pass, node pass,
+   update, cluster barriers), timed, with ``solve_ex`` on the same systems
+   as K7's library time; the resident CG optimize at bucket 1024, 16 runs
+   bit-equal (poses and CG steps), bit-equal to the queued K6 -> K8 chain
+   and within 1e-3 x the translation scale of
+   ``optimize_plain(solver="cg")``, the card's ms in turns (one launch
+   against the chain), its phase stamps per CG step and
+   its CG steps; and the device kernels per optimize of the plain, dense
+   and CG paths (torch.profiler, one session: the dense path is one K7
+   launch, the CG path one launch).
 
 13. the windowed BA (K9-K11, csrc/ba.cu), on the e2e run's fullest
    keyframe window (its ``optimize_keyframe`` arguments kept during the
@@ -161,15 +169,22 @@ Phases, each of which must pass (any fault exits non-zero):
    entry, rmse rel 1e-3, the same ok; or the same against the plain loop
    on the reversed point pool, where the plain loop's own accept margins
    decide), two card runs bit-equal, one under
-   ``set_sync_debug_mode("error")``, its launches and ms; and, in a new
-   process (``--ba-split``, one torch.profiler session of its own), the
-   card time of each of K9's and K10's sub-launches at both views of the
-   window, with the kernels' registers, shared memory and spills as
-   ptxas reported them (run right after phase 4);
+   ``set_sync_debug_mode("error")``, its launches (one resident launch,
+   no queued K9-K11) and ms; the resident launch (``dsslam_ba_optimize``)
+   at both views bit-equal to the queued K9 / K11, K10 -> K9 -> K11 chain
+   and ``_finish_optimize`` (state, linearization, bookkeeping, control),
+   the card's ms of the two in turns, its grid and its phase stamps; and,
+   in a new process
+   (``--ba-split``, one torch.profiler session of its own), the card time
+   of each of K9's and K10's sub-launches at both views of the window,
+   with the kernels' registers, shared memory and spills as ptxas
+   reported them, and ``optimize_keyframe``'s host split (run right
+   after phase 4);
 14. ``ab_policies`` as a new process at the JAX package's 320x96, 80
    frames (``AB_CHILD``, each arm's launches counted in it): exit 0 within
-   600 s (the force-accept arm's NaN poses reach K9-K11 without a crash or
-   a hang), K2-LM, K3-LM and K9-K11 launched in every arm, the
+   600 s (the force-accept arm's NaN poses reach the BA's kernels without
+   a crash or a hang), K2-LM, K3-LM, K9 and the resident BA launch
+   launched in every arm, the
    fast-rotation arms' K4-LM / K6 launches printed, the table beside the
    JAX package's; then two witnesses of the force-accept fast-rotation
    arm, printed beside it, not gated: the port with the plain BA on the
@@ -180,8 +195,9 @@ the path with ``torch.use_deterministic_algorithms`` off and on in turns;
 the loop phase runs three more times after its gated run (deterministic
 algorithms on, off with the waits counted, on): the FPS of each mode, the
 waits per keyframe call, and whether two runs of one mode agree. Every
-path that makes keyframes gates K9-K11 launched (the e2e, pipelined,
-mono, bag, live, resume, observe, native, eval and loop phases).
+path that makes keyframes gates K9 and the resident BA launch launched
+(the e2e, pipelined, mono, bag, live, resume, observe, native, eval and
+loop phases).
 
 K3-LM's calls on the e2e and loop paths are counted by the number of
 guesses and by whether a level doubled its cutoff (read after each run).
@@ -200,15 +216,18 @@ stages with a synchronize at the end of each span, ``pose_graph_opt``,
 the waits per keyframe call), not gated; with --root, of the port in
 another checkout, so that a tree and its parent run in turns in one call.
 --pg-split [--root DIR] only times the dense ``optimize`` on the ring
-graphs of buckets 16 ... 512 (host ms per call and the card's ms), and,
-where the port has K7's phase stamps, their split (with --root, of the
+graphs of buckets 16 ... 512 and the CG ``optimize`` at 1024 (host ms
+per call and the card's ms), and, where the port has K7's, K8's and the
+resident CG optimize's phase stamps, their split (with --root, of the
 port in another checkout).
 --ba-window FILE only runs the e2e sequence once and saves its fullest BA
 window to FILE; --ba-split FILE [--root DIR] only times K9's and K10's
 calls (``device_ms``) and sub-launches (torch.profiler) on that window,
-with the kernels' registers and spills (with --root, of the port in
-another checkout: the parent and a change in turns in one call, each a
-process of its own).
+with the kernels' registers and spills, ``optimize_keyframe``'s host
+split and card time, and, where the port has it, the resident launch
+against the queued chain (with --root, of the port in another checkout:
+the parent and a change in turns in one call, each a process of its
+own).
 --lm-digest [--root DIR] only prints digests of K2-LM's and K3-LM's
 single-sequence outputs on seeded inputs and the card's time per call
 (with --root, of the port in another checkout: two forms of the kernels
@@ -441,6 +460,13 @@ def row(name, source, replaces, err, ms, plain_ms, n_bytes, n_ops):
                 replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(b_ms, o_ms), bound_by="bytes" if b_ms >= o_ms else "operations",
                 library_ms=None)
+
+
+def bits(t):
+    """A tensor's bits, for equality (NaN equal to the same NaN)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
 def rel_err(torch, a, b) -> float:
@@ -1110,7 +1136,7 @@ def e2e_phase(torch, dev, profile_dir=None):
     gate_launches("e2e", launches, E2E_KERNELS)
     n_kf = node.timers.count("dso_opt")
     print(f"e2e: BA launches per keyframe ({n_kf} optimize_keyframe calls): " + ", ".join(
-        f"{k} {launches[k] / max(n_kf, 1):.2f}" for k in BA_KERNELS), flush=True)
+        f"{k} {launches[k] / max(n_kf, 1):.2f}" for k in BA_ROWS), flush=True)
     print(f"e2e: blocking waits per call: "
           f"{count_waits(torch, cfg, intr, ds, frames, dev)}", flush=True)
     deterministic_turns(torch, "e2e", E2E_FRAMES, lambda: run_sequence(
@@ -1206,15 +1232,18 @@ def live_pairs(torch, st) -> int:
 @contextmanager
 def plain_ba():
     """The BA's plain versions on any device while inside: the LM loop
-    with its host reads and ``linearize_plain`` in place of K9-K11."""
+    with its host reads, ``_finish_optimize`` and ``linearize_plain`` in
+    place of the resident launch and K9."""
     from direct_stereo_slam_tpu_torch.models import ba
 
-    saved = ba._optimize_loop_device, ba.linearize
-    ba._optimize_loop_device, ba.linearize = ba._optimize_loop_plain, ba.linearize_plain
+    saved = ba._optimize_device, ba.linearize
+    ba._optimize_device = lambda st, cfg, it: ba._finish_optimize(
+        *ba._optimize_loop_plain(st, cfg, it))
+    ba.linearize = ba.linearize_plain
     try:
         yield
     finally:
-        ba._optimize_loop_device, ba.linearize = saved
+        ba._optimize_device, ba.linearize = saved
 
 
 def reordered(st, ba):
@@ -1325,6 +1354,80 @@ def profile_groups(torch, groups, calls: int):
     return {label: run for (label, _), (_, run) in zip(groups, runs)}
 
 
+# optimize_keyframe's parts, timed by wrapping them in their modules (the
+# ones a tree has): the host's ms in each per call, no synchronize inside
+BA_SPLIT_PARTS = {
+    "models": ("_compact_points", "_optimize_impl", "_optimize_loop_device",
+               "_optimize_device", "_finish_optimize", "set_new_frame_energy_th_from_lin",
+               "reset_fej_newest", "_scatter_points"),
+    "ops": ("optimize_params", "make_params", "empty_lin", "host_groups", "ba_linearize_cuda",
+            "ba_step_cuda", "ba_accept_cuda", "ba_optimize_cuda", "pick"),
+    "cuda": ("require_cuda",)}
+
+
+def ba_host_split(torch, args, calls: int = 20) -> dict:
+    """``optimize_keyframe(*args)``'s split: the synchronized call (ms,
+    the median of ``calls``), the card's time of it (``device_ms``), and
+    the host's ms per call in each of its parts (BA_SPLIT_PARTS, each
+    inclusive of the parts it calls; "epilogue": ``_optimize_impl`` less
+    the loop, the tree's Python bookkeeping after it; "wrapper_calls": the
+    kernel wrappers' calls per optimize_keyframe)."""
+    from direct_stereo_slam_tpu_torch.models import ba
+    from direct_stereo_slam_tpu_torch.ops import _cuda
+    from direct_stereo_slam_tpu_torch.ops import ba as kb
+
+    mods = {"models": ba, "ops": kb, "cuda": _cuda}
+    spent, count, saved = {}, {}, []
+
+    def timed(name, fn):
+        def inner(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+                count[name] = count.get(name, 0) + 1
+        inner.launches = getattr(fn, "launches", 0)
+        return inner
+
+    for key, names in BA_SPLIT_PARTS.items():
+        for name in names:
+            if hasattr(mods[key], name):
+                saved.append((mods[key], name, getattr(mods[key], name)))
+                setattr(mods[key], name, timed(name, getattr(mods[key], name)))
+    try:
+        ba.optimize_keyframe(*args)
+        spent.clear()
+        count.clear()
+        total = call_ms(torch, lambda: ba.optimize_keyframe(*args), calls)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    card = device_ms(torch, lambda: ba.optimize_keyframe(*args), calls=5, samples=3)
+    parts = {k: 1e3 * v / calls for k, v in spent.items()}
+    loop = parts.get("_optimize_loop_device", parts.get("_optimize_device", 0.0))
+    if "_optimize_impl" in parts:
+        parts["epilogue"] = parts["_optimize_impl"] - loop
+    wrappers = ("ba_linearize_cuda", "ba_step_cuda", "ba_accept_cuda", "ba_optimize_cuda")
+    return dict(ms=statistics.median(total), card_ms=card, host_ms=parts,
+                wrapper_calls=sum(count.get(w, 0) for w in wrappers) / calls,
+                picks=count.get("pick", 0) / calls)
+
+
+def ba_resident_turns(torch, st, cfg, iters, samples: int = 3) -> dict:
+    """The resident launch against the queued chain on one window, both
+    whole (the device work of ``_optimize_device`` and of
+    ``_optimize_loop_queued`` + ``_finish_optimize``), the card's ms of each
+    in turns resident / chain / chain / resident (``device_ms``)."""
+    from direct_stereo_slam_tpu_torch.models import ba
+
+    resident = lambda: ba._optimize_device(st, cfg, iters)
+    chain = lambda: ba._finish_optimize(*ba._optimize_loop_queued(st, cfg, iters)[:2])
+    return {"resident_chain_chain_resident": [
+        device_ms(torch, f, calls=5, samples=samples)
+        for f in (resident, chain, chain, resident)]}
+
+
 def ba_split(torch, dev, path: str, calls: int = 50) -> dict:
     """``--ba-split FILE``: K9 (mode 0) and K10 on the window FILE holds
     (``--ba-window``), at both views (``ba_windows``): each call's card time
@@ -1365,8 +1468,17 @@ def ba_split(torch, dev, path: str, calls: int = 50) -> dict:
             phases[f"NP={NP}"] = kb.phase_us(buf, st.num_slots, sm_clock_mhz(),
                                              ((D * (D + 1) // 2 + D + 1) * 8 + 255) // 256)
     split = profile_groups(torch, groups, calls)
+    # the whole optimize_keyframe: its host split and card time, and where
+    # the tree has it the resident launch against the queued chain
+    args = (st_full,) + tuple(saved[1:])
+    host = ba_host_split(torch, args)
+    resident = {}
+    if hasattr(kb, "ba_optimize_cuda"):
+        for NP, st in ba_windows(st_full, ba).items():
+            resident[f"NP={NP}"] = ba_resident_turns(torch, st, cfg, args[2])
     out = dict(root=os.path.dirname(os.path.dirname(os.path.abspath(port.__file__))),
                card=card_info(), window=st_full.num_points, device_ms=whole,
+               optimize_keyframe=host, resident_vs_chain=resident or "not in this tree",
                sub_launch_us=split if split is not None else "not measured",
                phases_us=phases or "not measured",
                host_sizes=[int(x) for x in torch.bincount(st_full.p_host[st_full.p_valid],
@@ -1374,7 +1486,7 @@ def ba_split(torch, dev, path: str, calls: int = 50) -> dict:
                pool_hosts=[int(x) for x in torch.bincount(st_full.p_host,
                                                           minlength=st_full.num_slots)],
                ptxas=ptxas_usage(_cuda.load_library().build_log,
-                                 BA_SUB_KERNELS + ("accept_kernel",)))
+                                 BA_SUB_KERNELS + ("accept_kernel", "optimize_kernel")))
     print("ba_split " + json.dumps(out), flush=True)
     return out
 
@@ -1537,6 +1649,59 @@ def ba_phase(torch, dev, calls):
         print(f"K11 ba_accept {tag}: kernel {ms:.4f} ms (queued on the card {dms} ms), plain "
               f"(two total energies) {pms:.4f} ms", flush=True)
 
+    # ---- the resident launch against the queued chain, and against the plain loop
+    for NP, st in windows.items():
+        tag = f"NP={NP},W={W}"
+        params = kb.optimize_params(st, cfg)
+        got = ba._optimize_device(st, cfg, iters, params)
+        q_state, q_lin, q_params = ba._optimize_loop_queued(st, cfg, iters)
+        want = ba._finish_optimize(q_state, q_lin)
+        diff = [n for n in kb.STATE_FIELDS + ("p_res_good", "p_num_good", "p_last_res")
+                if not torch.equal(bits(getattr(got[0], n)), bits(getattr(want[0], n)))]
+        diff += [n for n in kb.LIN_FIELDS
+                 if not torch.equal(bits(getattr(got[3], n)), bits(getattr(want[3], n)))]
+        diff += [n for n, a, b in (("rmse", got[1], want[1]), ("ok", got[2], want[2]),
+                                   ("ctrl_i", params.bufs.ctrl_i, q_params.bufs.ctrl_i),
+                                   ("ctrl_f", params.bufs.ctrl_f, q_params.bufs.ctrl_f))
+                 if not torch.equal(bits(a), bits(b))]
+        rounds = int(params.bufs.ctrl_i[3])
+        if diff:
+            fail(f"the resident BA launch at {tag} differs from the queued chain in {diff}")
+        timers = kb.timer_buffer(dev)
+        p2 = kb.optimize_params(st, cfg)
+        p2.struct.timers = timers.data_ptr()
+        again = ba._optimize_device(st, cfg, iters, p2)
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(list(got[0]) + list(got[1:3]),
+                                                                 list(again[0]) + list(again[1:3]))):
+            fail(f"the resident BA launch at {tag}: the phase stamps changed its output")
+        phases = kb.optimize_phases(timers, rounds)
+        grid = kb.optimize_grid(W, NP)
+        turns = ba_resident_turns(torch, st, cfg, iters)["resident_chain_chain_resident"]
+        def plain_loop():
+            with plain_ba():
+                return ba._optimize_device(st, cfg, iters)
+
+        plain = plain_loop()
+        err = float(torch.max(torch.abs(got[0].T_current() - plain[0].T_current())))
+        ms, pms = ab_ms(torch, lambda: ba._optimize_device(st, cfg, iters), plain_loop,
+                        plain_kw=dict(repeats=3, inner=1))
+        print(f"ba resident launch {tag}: bit-equal to the queued chain and _finish_optimize "
+              f"(state, linearization, bookkeeping, control); {rounds} rounds of {iters}; "
+              f"poses {err:.2e} from the plain loop; the card's ms in turns resident / chain / "
+              f"chain / resident {turns}; one launch {ms:.4f} ms, the plain loop {pms:.4f} ms; "
+              f"grid {grid}; phase stamps (block 0, us per round) {json.dumps(phases)}",
+              flush=True)
+        nb9, no9 = ba_bytes_ops(st, D, live_pairs(torch, st))
+        n_bytes = (1 + rounds) * nb9 + rounds * (NP * (D * 4 + 17) + 2 * D * D * 4)
+        n_ops = (1 + rounds) * (no9 + 2 * D * D + 6 * D) + rounds * ba_step_ops(NP, D)
+        rows.append(row(f"ba_optimize[{tag}]", "ba.cu",
+                        "direct_stereo_slam_tpu/models/ba.py:645", err, ms, pms, n_bytes,
+                        n_ops))
+        mine = [t for t in (turns[0], turns[3]) if t is not None]
+        rows[-1].update(device_ms=sum(mine) / len(mine) if mine else None,
+                        chain_device_ms=[turns[1], turns[2]], rounds=rounds, grid=grid,
+                        phases_us=phases, iterations=iters)
+
     # ---- K9's and K10's sub-launches and registers
     args = (st_full, cfg, iters, slot, budget)
     split = ba_split_child(torch, args)
@@ -1553,13 +1718,19 @@ def ba_phase(torch, dev, calls):
             r["sub_launch_us"] = split["sub_launch_us"][f"{key}[NP={np_}]"]
         r["ptxas"] = {k: v for k, v in usage.items() if k in {
             "ba_linearize": ("lin_pair_kernel", "lin_finish_kernel"),
-            "ba_step": ("step_kernel",), "ba_accept": ("accept_kernel",)}[name]}
+            "ba_step": ("step_kernel",), "ba_accept": ("accept_kernel",),
+            "ba_optimize": ("optimize_kernel",)}[name]}
+    print(f"ba optimize_keyframe's split (the e2e window, {iters} iterations, compact budget "
+          f"{budget}): {json.dumps(split['optimize_keyframe'])}", flush=True)
 
     # ---- the whole optimize_keyframe: card against the plain loop
-    counters = (kb.ba_linearize_cuda, kb.ba_step_cuda, kb.ba_accept_cuda)
+    counters = (kb.ba_linearize_cuda, kb.ba_step_cuda, kb.ba_accept_cuda, kb.ba_optimize_cuda)
     before = [fn.launches for fn in counters]
     card = ba.optimize_keyframe(*args)
     made = [fn.launches - b for fn, b in zip(counters, before)]
+    if made != [0, 0, 0, 1]:
+        fail(f"optimize_keyframe on the card made launches K9 / K10 / K11 / resident {made}, "
+             f"not one resident launch")
     card2 = ba.optimize_keyframe(*args)
     same = all(torch.equal(x, y) for x, y in zip(list(card[0]) + list(card[1:]),
                                                   list(card2[0]) + list(card2[1:])))
@@ -1588,7 +1759,8 @@ def ba_phase(torch, dev, calls):
           f"plain loop on the same card state: poses {g[0]:.2e}, rmse rel {g[1]:.2e}, same ok "
           f"{g[2]} (vs the plain loop on the reversed pool: {g_rev[0]:.2e}, {g_rev[1]:.2e}; "
           f"the plain loop's own spread {spread:.2e}); two card runs bit-equal {same}; no "
-          f"host read under set_sync_debug_mode('error'); launches K9 / K10 / K11 {made}; "
+          f"host read under set_sync_debug_mode('error'); launches K9 / K10 / K11 / "
+          f"resident {made}; "
           f"{kms:.3f} ms on the card vs {pms:.3f} ms plain (synchronized calls)", flush=True)
     if not (ok(g) or ok(g_rev)) or not same:
         fail(f"optimize_keyframe on the card: {g} / {g_rev} from the plain loop, bit-equal "
@@ -2392,7 +2564,11 @@ def observe_phase(torch, dev, seq, tmp: str):
 # the kernels each path must launch; the per-pass K2, K3 and K4 must not
 # (the tracker, the scale optimizer and the loop estimator run K2-LM,
 # K3-LM and K4-LM on the card)
-BA_KERNELS = ("ba_linearize", "ba_step", "ba_accept")
+# the BA's kernels on every keyframe path: K9 (linearize, marginalization)
+# and the resident launch (optimize_keyframe's LM loop); K10 and K11 queued
+# are its bit reference, held to it in phase 13, and make no launch on a path
+BA_KERNELS = ("ba_linearize", "ba_optimize")
+BA_ROWS = ("ba_linearize", "ba_step", "ba_accept", "ba_optimize")
 E2E_KERNELS = ("distance_map", "track_lm", "scale_lm") + BA_KERNELS
 # the loop thread's pose graph stays at or below 512 nodes here: K7, one
 # launch a dense optimize (K6 and K8 above 512, in the pose-graph phase)
@@ -2481,9 +2657,11 @@ def kernel_counters():
             "pose_graph_edges": pgk.pose_graph_edges_cuda,
             "pose_graph_gn": pgk.pose_graph_gn_cuda,
             "pose_graph_pcg": pgk.pose_graph_pcg_cuda,
+            "pose_graph_cg": pgk.pose_graph_cg_cuda,
             "ba_linearize": kb.ba_linearize_cuda,
             "ba_step": kb.ba_step_cuda,
-            "ba_accept": kb.ba_accept_cuda}
+            "ba_accept": kb.ba_accept_cuda,
+            "ba_optimize": kb.ba_optimize_cuda}
 
 
 def gate_launches(tag, launches, needed):
@@ -3249,6 +3427,7 @@ PG_RINGS = {16: (12, 0), 128: (100, 10), 256: (200, 12), 512: (400, 20), 1024: (
 # --pg-split's graphs: the dense buckets, 64 and 128 those of the loop run
 PG_SPLIT_RINGS = {16: (12, 0), 64: (50, 8), 128: (100, 10), 256: (200, 12), 512: (400, 20)}
 PG_REPLAYS = 3                    # the loop run's graphs replayed, spread over it
+CG_RUNS = 16                      # resident CG optimizes held bit-equal (steps too)
 # f32 operations the edge system needs per edge (not the dual-number
 # design's 12 evaluations): two SE(3) inverse-products (~160), se3_log
 # (~100), the closed-form 6x12 Jacobian, J_r^-1 and the adjoint product
@@ -3312,8 +3491,32 @@ def pg_split(torch, dev) -> dict:
         if hasattr(pgk, "GN_STAMPS"):
             row["split_us_per_iteration"] = gn_split(torch, pgk, data)
         out[bucket] = row
+    # the CG optimize at 1024 (KITTI 00's length): one launch here, K6 -> K8
+    # an iteration in the parent
+    n, every = PG_RINGS[1024]
+    d = pg.build_data(*ring_graph(n, seed=1024, loop_every=every), device=dev)
+    fn = lambda: pg.optimize(d, PG_ITERS, solver="cg")
+    cg = dict(ms=statistics.median(call_ms(torch, fn, 3)),
+              device_ms=device_ms(torch, fn, calls=3, samples=3))
+    if hasattr(pgk, "CG_STAMPS"):
+        steps = torch.zeros(PG_ITERS, dtype=torch.int32, device=dev)
+        t = torch.zeros(len(pgk.CG_STAMPS), dtype=torch.int64, device=dev)
+        pgk.pose_graph_cg_cuda(d, PG_ITERS, steps=steps, timers=t)
+        s = dict(zip(pgk.CG_STAMPS, t.tolist()))
+        cg["cg_steps"] = int(steps.sum())
+        cg["split_us_per_step"] = {k: s[k] / 1e3 / max(cg["cg_steps"], 1)
+                                   for k in ("node_pass", "update", "barrier")}
+    if hasattr(pgk, "PCG_STAMPS"):
+        _, H, g = pgk.pose_graph_edges_cuda(d.T_wc, None, d, 1.0)
+        steps = torch.zeros(1, dtype=torch.int32, device=dev)
+        t = torch.zeros(len(pgk.PCG_STAMPS), dtype=torch.int64, device=dev)
+        pgk.pose_graph_pcg_cuda(d, H, g, pgk.incidence(d), pg.LAM + 1e-6, 100, steps, t)
+        s = dict(zip(pgk.PCG_STAMPS, t.tolist()))
+        cg["k8_split_us_per_step"] = {k: s[k] / 1e3 / max(int(steps), 1) for k in (
+            "edge_pass", "node_pass", "update", "barrier")}
+        cg["k8_steps"] = int(steps)
     line = dict(root=os.path.dirname(os.path.dirname(os.path.abspath(port.__file__))),
-                card=card_info(), iterations=PG_ITERS, buckets=out)
+                card=card_info(), iterations=PG_ITERS, buckets=out, cg_1024=cg)
     print("pg_split " + json.dumps(line), flush=True)
     return line
 
@@ -3332,9 +3535,9 @@ def call_ms(torch, fn, calls: int):
 
 
 def pg_launches(fn):
-    """(result of fn(), the K6 / K7 / K8 launches it made)."""
+    """(result of fn(), the K6 / K7 / K8 / resident CG launches it made)."""
     counters = kernel_counters()
-    names = ("pose_graph_edges", "pose_graph_gn", "pose_graph_pcg")
+    names = ("pose_graph_edges", "pose_graph_gn", "pose_graph_pcg", "pose_graph_cg")
     before = [counters[k].launches for k in names]
     out = fn()
     return out, {k: counters[k].launches - b for k, b in zip(names, before)}
@@ -3382,12 +3585,14 @@ def pose_graph_report(torch, tag, final, calls, iterations):
           f"{np.mean(after):.3f})", flush=True)
 
 
-def device_kernels_per_optimize(torch, final):
+def device_kernels_per_optimize(torch, final, cg_data):
     """Device kernels (and memory copies / sets) of one optimize_plain and
-    one optimize on ``final``, from one torch.profiler session (the plain
-    run, a synchronize, then the kernels' run: split at the first K6 or K7
-    launch on the card), and the kernels' run's kernel names. None if the
-    profiler recorded no device event."""
+    one optimize on ``final``, and of one CG optimize on ``cg_data``, from
+    one torch.profiler session (the plain run, a synchronize, the dense
+    kernels' run, a synchronize, the CG run: split at the first K6 or K7
+    launch and at the first resident CG launch on the card), and the two
+    kernel runs' kernel names. None if the profiler recorded no device
+    event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3399,18 +3604,23 @@ def device_kernels_per_optimize(torch, final):
         torch.cuda.synchronize()
         pg.optimize(final, PG_ITERS)
         torch.cuda.synchronize()
+        pg.optimize(cg_data, PG_ITERS, solver="cg")
+        torch.cuda.synchronize()
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     # the port's K6 / K7 (not at::native::sign_kernel, whose name holds "gn_kernel")
     ours = [e.time_range.start for e in evs
             if re.search(r"(?<![A-Za-z0-9_])(edges_kernel|gn_kernel)", e.name)]
-    if not evs or not ours:
+    cg = [e.time_range.start for e in evs if "cg_opt_kernel" in e.name]
+    if not evs or not ours or not cg:
         return None
-    split = min(ours)
+    split, split2 = min(ours), min(cg)
     mem = lambda e: e.name.startswith(("Memcpy", "Memset"))
     count = lambda part: (sum(1 for e in part if not mem(e)), sum(1 for e in part if mem(e)))
-    after = [e for e in evs if e.time_range.start >= split]
-    return (count([e for e in evs if e.time_range.start < split]), count(after),
-            sorted({e.name[:60] for e in after}))
+    dense = [e for e in evs if split <= e.time_range.start < split2]
+    cg_part = [e for e in evs if e.time_range.start >= split2]
+    return (count([e for e in evs if e.time_range.start < split]), count(dense),
+            sorted({e.name[:60] for e in dense}), count(cg_part),
+            sorted({e.name[:60] for e in cg_part}))
 
 
 def k7_solve_gate(torch, pg, pgk, data, tag):
@@ -3493,7 +3703,7 @@ def pose_graph_phase(torch, dev, final):
     print(f"pose graph: K7's grid barrier {st['total'] / 1e3 / st['barriers']:.3f} us "
           f"(10,000 in one launch; block 0 waits {st['barrier'] / 1e3 / st['barriers']:.3f} "
           f"us of it); grid {grid}; ptxas "
-          f"{ptxas_usage(_cuda.load_library().build_log, ('gn_kernel', 'edges_kernel', 'pcg_kernel'))}",
+          f"{ptxas_usage(_cuda.load_library().build_log, ('gn_kernel', 'edges_kernel', 'pcg_kernel', 'cg_opt_kernel'))}",
           flush=True)
 
     rows = []
@@ -3597,19 +3807,87 @@ def pose_graph_phase(torch, dev, final):
                     E8 * (576 + 48 + 17 + 8) + N8 * (1 + 24 + 4) + 8,
                     n_steps * (312 * Ev8 + 156 * N8) + 156 * Ev8 + 800 * N8))
     rows[-1].update(device_ms=dms, cg_steps=n_steps)
+    # K8's phase stamps (block 0): us per CG step of each phase
+    t8 = torch.zeros(len(pgk.PCG_STAMPS), dtype=torch.int64, device=dev)
+    x8t = pgk.pose_graph_pcg_cuda(d, H8, g8, inc, pg.LAM + 1e-6, 100, steps, t8)
+    if not torch.equal(x8t, x8):
+        fail("K8: the phase stamps changed its output")
+    s8 = dict(zip(pgk.PCG_STAMPS, t8.tolist()))
+    k8_split = {k: s8[k] / 1e3 / max(n_steps, 1) for k in ("edge_pass", "node_pass", "update",
+                                                           "barrier")}
+    k8_split.update(setup_us=s8["setup"] / 1e3, barriers=s8["barriers"],
+                    span_us=s8["total"] / 1e3)
+    rows[-1]["phases_us_per_step"] = k8_split
+    print(f"K8 pose_graph_pcg N={N8}: phase stamps (block 0, us per CG step; the cluster "
+          f"barriers' waits apart): {json.dumps(k8_split)}", flush=True)
 
-    counts = device_kernels_per_optimize(torch, final)
+    # ---- the resident CG optimize (K8's redesign): CG_RUNS runs bit-equal
+    # (steps too), the queued chain, the plain optimize
+    cg_steps = torch.zeros(CG_RUNS, PG_ITERS, dtype=torch.int32, device=dev)
+    runs = [pgk.pose_graph_cg_cuda(d, PG_ITERS, 1.0, pg.LAM + 1e-6, 100, steps=cg_steps[k])
+            for k in range(CG_RUNS)]
+    if not (all(torch.equal(T, runs[0]) for T in runs)
+            and torch.equal(cg_steps, cg_steps[:1].expand_as(cg_steps))):
+        fail(f"the resident CG optimize at bucket 1024: {CG_RUNS} runs differ")
+    cg_steps = cg_steps[0]
+    T_chain = pg.optimize_cg_queued(d, PG_ITERS)
+    if not torch.equal(runs[0], T_chain):
+        fail("the resident CG optimize at bucket 1024 differs from the queued K6 -> K8 chain")
+    T_res = pg.optimize(d, PG_ITERS, solver="cg")
+    T_plain = pg.optimize_plain(d, PG_ITERS, solver="cg")
+    e_cg = float(torch.max(torch.abs(T_res - T_plain)))
+    scale = float(torch.max(torch.abs(T_plain[:, :3, 3])))
+    if not e_cg < 1e-3 * scale:
+        fail(f"the resident CG optimize at bucket 1024: {e_cg:.3g} from optimize_plain "
+             f"(solver cg), more than 1e-3 x the translation scale {scale:.3g}")
+    total_steps = int(cg_steps.sum())
+    chain_turns = [device_ms(torch, f, calls=3, samples=3) for f in (
+        lambda: pg.optimize(d, PG_ITERS, solver="cg"), lambda: pg.optimize_cg_queued(d, PG_ITERS),
+        lambda: pg.optimize_cg_queued(d, PG_ITERS), lambda: pg.optimize(d, PG_ITERS, solver="cg"))]
+    tcg = torch.zeros(len(pgk.CG_STAMPS), dtype=torch.int64, device=dev)
+    if not torch.equal(pgk.pose_graph_cg_cuda(d, PG_ITERS, timers=tcg), T_res):
+        fail("the resident CG optimize: the phase stamps changed its output")
+    scg = dict(zip(pgk.CG_STAMPS, tcg.tolist()))
+    cg_split = {k: scg[k] / 1e3 / max(total_steps, 1) for k in ("node_pass", "update",
+                                                               "barrier")}
+    cg_split.update({f"{k}_us_per_iteration": scg[k] / 1e3 / PG_ITERS
+                     for k in ("edges", "setup")},
+                    incidence_us=scg["incidence"] / 1e3, barriers=scg["barriers"],
+                    span_ms=scg["total"] / 1e6)
+    ms, pms = ab_ms(torch, lambda: pg.optimize(d, PG_ITERS, solver="cg"),
+                    lambda: pg.optimize_plain(d, PG_ITERS, solver="cg"),
+                    plain_kw=dict(repeats=2, inner=1, warmup=1))
+    print(f"pose graph CG optimize N={N8},E={E8} ({PG_ITERS} iterations, {total_steps} CG "
+          f"steps, per iteration {cg_steps.tolist()}): one launch, {CG_RUNS} runs bit-equal, "
+          f"bit-equal to the queued K6 -> K8 chain; {e_cg:.3g} from optimize_plain (scale "
+          f"{scale:.3g}); card ms in turns one launch / chain / chain / one launch "
+          f"{chain_turns}; {ms:.4f} ms a call, plain {pms:.4f} ms; "
+          f"phase stamps (block 0, us per CG step unless named) {json.dumps(cg_split)}",
+          flush=True)
+    rows.append(row(f"pose_graph_cg[N={N8},E={E8},iterations={PG_ITERS}]", "pose_graph.cu",
+                    "direct_stereo_slam_tpu/loop/pose_graph.py:122", e_cg, ms, pms,
+                    E8 * (64 + 16 + 8 + 1) + N8 * (64 + 1 + 64) + 8,
+                    PG_ITERS * (Ev8 * PG_EDGE_OPS + N8 * (PG_NODE_OPS + 800) + 156 * Ev8)
+                    + total_steps * (312 * Ev8 + 156 * N8)))
+    rows[-1].update(device_ms=chain_turns[0], chain_device_ms=[chain_turns[1], chain_turns[2]],
+                    cg_steps=total_steps, phases_us_per_step=cg_split)
+
+    counts = device_kernels_per_optimize(torch, final, d)
     if counts is None:
         print(f"pose graph: device kernels per optimize at the {tag}: not measured (the "
               f"profiler recorded no device event)", flush=True)
     else:
-        (pk, pm), (kk, km), names = counts
+        (pk, pm), (kk, km), names, (ck, cm), cg_names = counts
         print(f"pose graph: device kernels per optimize at the {tag} (torch.profiler): plain "
               f"{pk} kernels + {pm} copies/sets, kernels {kk} kernels + {km} copies/sets "
-              f"({names})", flush=True)
+              f"({names}); a CG optimize at bucket 1024: {ck} kernels + {cm} copies/sets "
+              f"({cg_names})", flush=True)
         if kk != 1 or km != 0:
             fail(f"pose graph: a dense optimize ran {kk} kernels + {km} copies/sets on the "
                  f"card, not one K7 launch: {names}")
+        if ck != 1 or cm != 0:
+            fail(f"pose graph: a CG optimize ran {ck} kernels + {cm} copies/sets on the "
+                 f"card, not one launch: {cg_names}")
     return rows
 
 
@@ -3738,7 +4016,7 @@ def main() -> int:
         long_phase(torch, dev)
     launches.update({k: loop_launches[k] for k in (
         "loop_pose_lm", "pose3d_residual_pass", "pose_graph_edges", "pose_graph_gn",
-        "pose_graph_pcg")})
+        "pose_graph_pcg", "pose_graph_cg")})
     for r in rows:
         name = r["name"].split("[")[0]
         r["launches"] = launches[name]
@@ -3751,7 +4029,7 @@ def main() -> int:
         r["loop_launches_per_frame"] = loop_launches[name] / LOOP_FRAMES
         if name == "scale_lm":
             r["path_calls"] = dict(e2e=e2e_scale_calls, loop=loop_scale_calls)
-        if name in BA_KERNELS:
+        if name in BA_ROWS:
             r["e2e_launches_per_keyframe"] = launches[name] / max(e2e_kfs, 1)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "direct_stereo_slam_tpu"))

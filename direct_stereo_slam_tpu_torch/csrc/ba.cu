@@ -1,7 +1,10 @@
-// K9-K11: the windowed photometric BA (models/ba.py) on the card. One
-// Levenberg-Marquardt iteration of optimize_keyframe is K10 (the step) ->
-// K9 (the linearization at the candidate) -> K11 (accept or reject), all
-// queued by the host with no read of the card between them.
+// K9-K11: the windowed photometric BA (models/ba.py) on the card.
+// optimize_keyframe's whole Levenberg-Marquardt loop is one resident launch
+// (dsslam_ba_optimize): K9 and K11's start, then rounds of K10 (the step)
+// -> K9 (the linearization at the candidate) -> K11 (accept or reject),
+// and the loop's bookkeeping. The queued entry points run the same code one
+// launch at a time (K9 alone serves linearize; K10 and K11 queued are the
+// bit reference of the resident launch).
 //
 // They replace the JAX package's jitted windowed BA,
 // direct_stereo_slam_tpu/models/ba.py (no Pallas kernel there: XLA
@@ -11,8 +14,10 @@
 //                              :602 _step_converged
 //   K11 dsslam_ba_accept    <- :645-700, total_energy and the while_loop
 //                              body's accept / reject
+//   dsslam_ba_optimize      <- :645-732, _optimize_impl whole (its loop and
+//                              the isOOB bookkeeping after it)
 // The port's plain versions are models/ba.py::linearize_plain, solve_step,
-// apply_step, _step_converged and the loop of _optimize_plain.
+// apply_step, _step_converged, _optimize_loop_plain and _finish_optimize.
 //
 // What bounds them on the H100. K9 samples 4 bilinear corners of 12 bytes
 // for each of NP x W x 8 residuals (7.9 MB at NP = 2560, W = 8: ~2.4 us at
@@ -77,12 +82,41 @@
 //   solve's pivot search never loops on data; a NaN in the system reaches
 //   x as it does through torch.linalg.solve_ex, and the nullspace
 //   projection spreads it to every entry. Bilinear samples clamp finite
-//   coordinates (common.cuh, sample3).
-// - No host read: each launch reads the device's done flag first and
-//   returns at once once it is set, so the host queues a fixed number of
-//   iterations. The state and the linearization live in two buffers each;
-//   ctrl_i[0] names the current one, and K11 moves it to the candidate on
-//   accept (or, in DSO's force-accept mode, whenever the step applies).
+//   coordinates (common.cuh, sample3). The JAX package gathers each point's
+//   relative poses toward t by a one-hot matmul (the plain version mirrors
+//   it, _host_blocks), so a block toward t that is not finite for any host
+//   makes every pair toward t non-finite: every finite entry of the pass's
+//   relative poses is NaN then.
+// - No host read: each queued launch reads the device's done flag first
+//   and returns at once once it is set, so the host queues a fixed number
+//   of iterations. The state and the linearization live in two buffers
+//   each; ctrl_i[0] names the current one, and K11 moves it to the
+//   candidate on accept (or, in DSO's force-accept mode, whenever the step
+//   applies).
+// - The resident launch (K11's redesign: the loop's control on the card,
+//   where the host issued ~3 launches an iteration) is a cooperative grid
+//   of 512-thread blocks, one an SM, every block resident, and the same
+//   device functions as the queued launches. Work is fixed by the data, not
+//   by the grid: K9's (chunk, target, host) items run on the blocks'
+//   256-thread halves (named barriers), their partials go through global
+//   scratch (L2) instead of a cluster's shared memory and are summed in
+//   rank order after a grid barrier; K10 runs as the queued plan's R ranks
+//   (blocks 0 .. R - 1), its partials summed by rank 0 in rank order. So
+//   every sum has the queued order and the result is the same bits on any
+//   SM count. K11 runs in every block from the same sums (each block forms
+//   the energy as K9's assembly writes it), so all blocks take the same
+//   branch and leave the loop together, and no barrier follows it; the
+//   assembly's Hff and bf are left running beside the next step's Schur
+//   sums, which read them only after their first barrier; the prior part
+//   of the energy is formed by one block that holds no rank while the
+//   ranks back-substitute. Five grid barriers an iteration (Schur
+//   partials, x, the candidate, the pixel pass, the chunks' sums). The
+//   pixel pass's items go to the blocks' halves heaviest host first, in a
+//   snake (the halves in order, then in reverse), as the queued launch's
+//   block scheduler balances them; its and K10's phases are calls of
+//   their own, so that the values the loop keeps do not crowd their
+//   registers. The accepted buffers and the bookkeeping (p_num_good,
+//   p_last_res, rmse, ok) are written by the launch itself.
 
 #include <cooperative_groups.h>
 #include <cooperative_groups/memcpy_async.h>
@@ -136,12 +170,22 @@ constexpr int kAcceptThreads = 128;
 constexpr int kLinStamps = 8, kStepStamps = 10;
 constexpr int kLinTimerWords = kMaxSlots * kMaxSlots * kChunks * kLinStamps;
 constexpr int kFinStampBlocks = 1024;   // K9's second launch: start and end of its first blocks
+constexpr int kPartStride = kSchurFloats + 4;
+constexpr int kMaxRanks = 16;
+// the resident launch: its phases (block 0's ns in each, ops/ba.py OPT_STAMPS)
+enum OptPhase {
+  kOptPixel, kOptReduce, kOptFinish, kOptSchur, kOptSolve, kOptBacksub, kOptEpilogue,
+  kOptBarrier, kOptBarriers, kOptTotal, kOptStamps
+};
+constexpr int kOptBase = kLinTimerWords + 16 * kStepStamps + 8 + 2 * kFinStampBlocks;
 
 }  // namespace
 
 // The parameter block every entry point reads (ops/ba.py::BaParams mirrors
-// it field for field). Buffers [2]: the current state / linearization and
-// the candidate; ctrl_i = {cur, done, converged}, ctrl_f = {lam, e_old}.
+// it field for field). Buffers [3]: 0 and 1 the current state /
+// linearization and the candidate, 2 the resident launch's output (the
+// accepted ones); ctrl_i = {cur, done, converged, rounds run}, ctrl_f =
+// {lam, e_old}.
 struct BaParams {
   int W, NP, Himg, Wimg;
   float umax, vmax, u_hi, v_hi;
@@ -172,32 +216,44 @@ struct BaParams {
   const float* pat_v;
   const int* host_pts;    // [NP]: point indices grouped by host (ops/ba.py::host_groups)
   const int* host_off;    // [W + 1]: host s's points are host_pts[host_off[s]:host_off[s + 1]]
-  float* calib_delta[2];
-  float* delta[2];
-  float* idepth[2];
-  float* Hff[2];
-  float* bf[2];
-  float* Hfd[2];
-  float* Hdd[2];
-  float* bd[2];
-  float* energy[2];
-  float* num_terms[2];
-  float* pair_energy[2];
-  unsigned char* pair_good[2];
-  unsigned char* pair_in[2];
+  const float* p_num_good;        // [NP]
+  const int* p_last_res;          // [NP, 2]
+  float* calib_delta[3];
+  float* delta[3];
+  float* idepth[3];
+  float* Hff[3];
+  float* bf[3];
+  float* Hfd[3];
+  float* Hdd[3];
+  float* bd[3];
+  float* energy[3];
+  float* num_terms[3];
+  float* pair_energy[3];
+  unsigned char* pair_good[3];
+  unsigned char* pair_in[3];
   int* ctrl_i;
   float* ctrl_f;
   float* lin_part;     // [W (s), W (t), kHE] reduced blocks, then [W, W] not-finite flags
   float* pt_part;      // [NP, W, kG]
   float* x;            // [D]
   float* x_d;          // [NP]
+  float* chunk_part;   // [W (s), W (t), kChunks, kHE]: the resident launch's chunk partials
+  float* schur_part;   // [16, kSchurFloats + 4]: ... its Schur partials per rank, then
+                       // the prior part of the energy of the state it linearizes
+  // the resident launch's bookkeeping (models/ba.py::_finish_optimize):
+  // p_num_good, p_last_res, rmse, ok of the accepted linearization
+  float* out_num_good;            // [NP]
+  int* out_last_res;              // [NP, 2]
+  float* out_rmse;                // [1]
+  unsigned char* out_ok;          // [1]
   // phase stamps, null on the main path (ops/ba.py::timer_buffer): K9's
   // pixel pass kLinStamps per block (%globaltimer ns at its start, set-up,
   // rounds and end; then thread 0's clock64 cycles in the rounds' warp and
   // sample, compaction, and rows and products, and its rounds), K10's
   // kStepStamps per rank (ns at its phases' ends), then rank 0's solve's
   // cycles per part of a pivot step (key, candidate row, barrier, factor,
-  // elimination)
+  // elimination), K9's second launch's stamps, then the resident launch's
+  // kOptStamps (block 0's ns per phase, at its grid barriers, their count)
   unsigned long long* timers;
 };
 
@@ -308,75 +364,117 @@ __device__ __forceinline__ PixelIn fetch_pixel(const BaParams& p, int b, int idx
 // the non-finite bits of a pixel: J0..J19, the residual (bit 20), Jd (21)
 constexpr int kBitR = 20, kBitJd = 21;
 
-__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kLinThreads)
-    lin_pair_kernel(const BaParams p, int mode) {
-  if (mode != 0 && is_done(p)) return;            // the same for the whole cluster
-  const int cur = current(p);
-  const int b = mode != 0 ? 1 - cur : cur;
+// A 256-thread group's barrier: the whole block of a queued launch, or one
+// half of the resident launch's 512-thread block (named barrier `bar`).
+__device__ __forceinline__ void group_sync(int bar) {
+  asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(kLinThreads) : "memory");
+}
+
+// K9's pixel pass's shared memory, one per 256-thread group
+struct __align__(16) PixSmem {
+  float rows[kLinThreads][kRow];         // the compacted rows (first: 16-byte aligned)
+  float acc[kGroups][kTileFloats];
+  float out[kHE];                        // this chunk's partial
+  float tc[12], tz[12], par[4], cal[12], pose[2][12];
+  unsigned nf[kMaxSlots];                // poses not finite, by slot
+  float red[kLinThreads / 32][2];
+  int pt[kRoundPts], cnt[kLinThreads / 32];
+  unsigned mask[kLinThreads / 32];
+};
+
+// K9's pixel pass of chunk c of host s's points toward target t, from
+// state buffer b, by a group of 256 threads (tid its thread): the pairs'
+// energies and flags and the (point, target) sums into buffer b and
+// pt_part, this chunk's 20x20 block, b, energy and good pairs into sm.out
+// (complete behind one more group_sync). timers: the queued launch's
+// stamps, or null.
+__device__ __forceinline__ void pixel_pass(const BaParams& p, int b, int c, int t, int s,
+                                           int tid, PixSmem& sm, int bar,
+                                           unsigned long long* timers) {
   const int W = p.W;
-  const int c = blockIdx.x, t = blockIdx.y, s = blockIdx.z, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  cg::cluster_group cluster = cg::this_cluster();
-  __shared__ float sTc[12], sTz[12], sPar[4], sCal[12], sPose[2][12];
-  __shared__ __align__(16) float sRows[kLinThreads][kRow];
-  __shared__ float sAcc[kGroups][kTileFloats];
-  __shared__ float sOut[kHE];                     // this chunk's partial (read by rank 0)
-  __shared__ int sPt[kRoundPts], sCnt[kLinThreads / 32];
-  __shared__ unsigned sMask[kLinThreads / 32];
   const int tbase = ((s * kMaxSlots + t) * kChunks + c) * kLinStamps;
-  stamp(p, tbase, 0);
+  auto mark = [&](int i) {
+    if (timers != nullptr && tid == 0) {
+      unsigned long long ns;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+      timers[tbase + i] = ns;
+    }
+  };
+  mark(0);
 
   // the set-up, spread over warps: the two current poses, the first
   // estimates' relative pose, the affine terms, the calibration
   if (tid == 0 || tid == 32) {
     const Pose<float> P = current_pose(p, b, tid == 0 ? t : s);
 #pragma unroll
-    for (int k = 0; k < 12; ++k) sPose[tid >> 5][k] = P.m[k];
+    for (int k = 0; k < 12; ++k) sm.pose[tid >> 5][k] = P.m[k];
   } else if (tid == 96) {
     const Pose<float> Z = compose(load_pose<float>(p.T_zero, t),
                                   inverse(load_pose<float>(p.T_zero, s)));
 #pragma unroll
-    for (int k = 0; k < 12; ++k) sTz[k] = Z.m[k];
+    for (int k = 0; k < 12; ++k) sm.tz[k] = Z.m[k];
   } else if (tid == 64) {
     const float a_h = p.aff_zero[2 * s] + p.delta[b][8 * s + 6];
     const float b_h = p.aff_zero[2 * s + 1] + p.delta[b][8 * s + 7];
     const float a_t = p.aff_zero[2 * t] + p.delta[b][8 * t + 6];
     const float b_t = p.aff_zero[2 * t + 1] + p.delta[b][8 * t + 7];
     const float a_th = expf(a_t - a_h) * (p.exposure[t] / clamp_min(p.exposure[s], 1e-9f));
-    sPar[0] = a_th;
-    sPar[1] = b_t - a_th * b_h;
-    sPar[2] = b_h;
-    sPar[3] = nanmax(p.energy_th[s], p.energy_th[t]);
+    sm.par[0] = a_th;
+    sm.par[1] = b_t - a_th * b_h;
+    sm.par[2] = b_h;
+    sm.par[3] = nanmax(p.energy_th[s], p.energy_th[t]);
+  } else if (tid >= 160 && tid < 160 + W) {
+    // whether slot h's current (bit 0) and first-estimate (bit 1) poses
+    // are finite: a relative pose toward t is not finite for some host
+    // exactly when one of them is not (barring a finite product that
+    // overflows, which _host_blocks would see), and the reference's
+    // one-hot gather spreads it (times 0) to every host's
+    const int h = tid - 160;
+    const Pose<float> C = current_pose(p, b, h);
+    const Pose<float> Z = load_pose<float>(p.T_zero, h);
+    unsigned nf = 0;
+#pragma unroll
+    for (int k = 0; k < 12; ++k)
+      nf |= (isfinite(C.m[k]) ? 0u : 1u) | (isfinite(Z.m[k]) ? 0u : 2u);
+    sm.nf[h] = nf;
   } else if (tid >= 128 && tid < 132) {
     const int k = tid - 128;
     const float c0 = p.calib_zero[k], cc = c0 + p.calib_delta[b][k];
-    sCal[k] = c0;
-    sCal[4 + k] = cc;
+    sm.cal[k] = c0;
+    sm.cal[4 + k] = cc;
     if (k < 2) {                         // 1 / fx, 1 / fy at zero and current
-      sCal[8 + k] = 1.f / c0;
-      sCal[10 + k] = 1.f / cc;
+      sm.cal[8 + k] = 1.f / c0;
+      sm.cal[10 + k] = 1.f / cc;
     }
   }
-  __syncthreads();
+  group_sync(bar);
   if (tid == 0) {
     Pose<float> Pt, Ps;
 #pragma unroll
     for (int k = 0; k < 12; ++k) {
-      Pt.m[k] = sPose[0][k];
-      Ps.m[k] = sPose[1][k];
+      Pt.m[k] = sm.pose[0][k];
+      Ps.m[k] = sm.pose[1][k];
     }
     const Pose<float> A = compose(Pt, inverse(Ps));
+    unsigned nf = 0;
+    for (int h = 0; h < W; ++h) nf |= sm.nf[h];
 #pragma unroll
-    for (int k = 0; k < 12; ++k) sTc[k] = A.m[k];
+    for (int k = 0; k < 12; ++k) {
+      sm.tc[k] = (nf & 1u) && isfinite(A.m[k]) ? qnan() : A.m[k];
+      if ((nf & 2u) && isfinite(sm.tz[k])) sm.tz[k] = qnan();
+    }
   }
-  __syncthreads();
-  const float fx0 = sCal[0], fy0 = sCal[1], cx0 = sCal[2], cy0 = sCal[3];
-  const float fxc = sCal[4], fyc = sCal[5], cxc = sCal[6], cyc = sCal[7];
-  const float ifx0 = sCal[8], ify0 = sCal[9], ifxc = sCal[10], ifyc = sCal[11];
-  const float a_th = sPar[0], b_th = sPar[1], b_h = sPar[2], th = sPar[3];
+  group_sync(bar);
+  const float* sTc = sm.tc;
+  const float* sTz = sm.tz;
+  const float fx0 = sm.cal[0], fy0 = sm.cal[1], cx0 = sm.cal[2], cy0 = sm.cal[3];
+  const float fxc = sm.cal[4], fyc = sm.cal[5], cxc = sm.cal[6], cyc = sm.cal[7];
+  const float ifx0 = sm.cal[8], ify0 = sm.cal[9], ifxc = sm.cal[10], ifyc = sm.cal[11];
+  const float a_th = sm.par[0], b_th = sm.par[1], b_h = sm.par[2], th = sm.par[3];
   const float* img = p.images + static_cast<size_t>(t) * p.Himg * p.Wimg * 3;
   const bool t_ok = p.frame_valid[t] && t != s;
-  stamp(p, tbase, 1);
+  mark(1);
 
   // this chunk of host s's points
   const int off0 = p.host_off[s], n_s = p.host_off[s + 1] - off0;
@@ -410,7 +508,7 @@ __global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kLinThreads)
   const float du = p.pat_u[k], dv = p.pat_v[k];
   PixelIn nx = fetch_pixel(p, b, lo + q, hi, k, t);
   for (int r0 = lo; r0 < hi; r0 += kRoundPts) {
-    if (p.timers != nullptr && tid == 0) c0 = cycles();
+    if (timers != nullptr && tid == 0) c0 = cycles();
     ++rounds;
     const int idx = r0 + q;
     const bool live = idx < hi;
@@ -466,14 +564,14 @@ __global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kLinThreads)
                              {0.f, 0.f, 1.f, Xz[1], -Xz[0], 0.f}};
 #pragma unroll
       for (int l = 0; l < 6; ++l) {
-        float sm = 0.f;
+        float sm_ = 0.f;
 #pragma unroll
         for (int i = 0; i < 3; ++i) {
           const float rg = sTz[4 * i] * G[0][l] + sTz[4 * i + 1] * G[1][l] +
                            sTz[4 * i + 2] * G[2][l];
-          sm = i == 0 ? Jt[0] * rg : sm + Jt[i] * rg;
+          sm_ = i == 0 ? Jt[0] * rg : sm_ + Jt[i] * rg;
         }
-        J20[4 + l] = -sm;
+        J20[4 + l] = -sm_;
       }
       float dd[3];
 #pragma unroll
@@ -544,47 +642,47 @@ __global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kLinThreads)
     blk_nf |= __reduce_or_sync(kFull, nf);
 
     long long c1 = 0;
-    if (p.timers != nullptr && tid == 0) c1 = cycles();
+    if (timers != nullptr && tid == 0) c1 = cycles();
     // the good pairs' rows, compacted in point order
     const unsigned bal = __ballot_sync(kFull, good);
-    if (lane == 0) sCnt[warp] = __popc(bal) >> 3;
-    __syncthreads();
+    if (lane == 0) sm.cnt[warp] = __popc(bal) >> 3;
+    group_sync(bar);
     int before = 0, total = 0;
 #pragma unroll
     for (int v = 0; v < kLinThreads / 32; ++v) {
-      before += v < warp ? sCnt[v] : 0;
-      total += sCnt[v];
+      before += v < warp ? sm.cnt[v] : 0;
+      total += sm.cnt[v];
     }
     if (good) {
       const int slot = before + (__popc(bal & ((1u << lane) - 1u)) >> 3);
-      float4* row = reinterpret_cast<float4*>(sRows[slot * 8 + k]);
+      float4* row = reinterpret_cast<float4*>(sm.rows[slot * 8 + k]);
 #pragma unroll
       for (int i = 0; i < 5; ++i)
         row[i] = make_float4(J20[4 * i], J20[4 * i + 1], J20[4 * i + 2], J20[4 * i + 3]);
       row[5] = make_float4(res, w, Jd, 0.f);
-      if (k == 0) sPt[slot] = pt;
+      if (k == 0) sm.pt[slot] = pt;
     }
-    __syncthreads();
+    group_sync(bar);
     long long c2 = 0;
-    if (p.timers != nullptr && tid == 0) c2 = cycles();
+    if (timers != nullptr && tid == 0) c2 = cycles();
     // per good pair: G20 = sum_k (J w) Jd, Hdd = sum_k (w Jd) Jd, bd = sum_k (w Jd) r
     for (int e = tid; e < total * kG; e += kLinThreads) {
       const int sl = e / kG, cc = e % kG;
       float v = 0.f;
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
-        const float* px = sRows[sl * 8 + kk];
+        const float* px = sm.rows[sl * 8 + kk];
         const float f = cc < 20 ? px[cc] * px[21] : px[21] * px[22];
         v += f * (cc < 21 ? px[22] : px[20]);
       }
-      p.pt_part[(static_cast<size_t>(sPt[sl]) * W + t) * kG + cc] = v;
+      p.pt_part[(static_cast<size_t>(sm.pt[sl]) * W + t) * kG + cc] = v;
     }
     // the products: tile (I, J) of (J w) J^T, or b tile I of (J w) r
     if (tiler) {
       const int nrows = total * 8;
 #pragma unroll 4
       for (int r = g; r < nrows; r += kGroups) {
-        const float4* row = reinterpret_cast<const float4*>(sRows[r]);
+        const float4* row = reinterpret_cast<const float4*>(sm.rows[r]);
         const float4 tail = row[5];
         const float4 a = row[I];
         const float av[4] = {a.x * tail.y, a.y * tail.y, a.z * tail.y, a.w * tail.y};
@@ -601,8 +699,8 @@ __global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kLinThreads)
         }
       }
     }
-    __syncthreads();
-    if (p.timers != nullptr && tid == 0) {
+    group_sync(bar);
+    if (timers != nullptr && tid == 0) {
       const long long c3 = cycles();
       spent[0] += c1 - c0;
       spent[1] += c2 - c1;
@@ -610,45 +708,83 @@ __global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kLinThreads)
     }
   }
 
-  stamp(p, tbase, 2);
+  mark(2);
   // the groups' tiles summed in group order, then the masks of the pairs
   // that are not good
   if (tiler) {
-    float* dst = sAcc[g] + (tl < 15 ? tl * 16 : 240 + (tl - 15) * 4);
+    float* dst = sm.acc[g] + (tl < 15 ? tl * 16 : 240 + (tl - 15) * 4);
     const int n = tl < 15 ? 16 : 4;
     for (int i = 0; i < n; ++i) dst[i] = acc[i];
   }
-  if (lane == 0) sMask[warp] = blk_nf;
-  __syncthreads();
+  if (lane == 0) sm.mask[warp] = blk_nf;
+  group_sync(bar);
   unsigned nf_all = 0;
 #pragma unroll
-  for (int v = 0; v < kLinThreads / 32; ++v) nf_all |= sMask[v];
+  for (int v = 0; v < kLinThreads / 32; ++v) nf_all |= sm.mask[v];
   for (int e = tid; e < kHB; e += kLinThreads) {
     const int slot = tile_slot(e);
     float v = 0.f;
-    for (int gg = 0; gg < kGroups; ++gg) v += sAcc[gg][slot];
+    for (int gg = 0; gg < kGroups; ++gg) v += sm.acc[gg][slot];
     int i, j;
     if (e < kHU) upper_ij(e, 20, i, j);
     else {
       i = e - kHU;
       j = kBitR;
     }
-    sOut[e] = (nf_all & ((1u << i) | (1u << j))) ? v + qnan() : v;
+    sm.out[e] = (nf_all & ((1u << i) | (1u << j))) ? v + qnan() : v;
   }
+  // the energy and the good pairs: warp shuffles, then the warps in order
+  // (common.cuh's block_sum over the group)
   const float es[2] = {e_sum, n_good};
-  block_sum<2, kLinThreads>(es, sOut + kHB);
+#pragma unroll
+  for (int kq = 0; kq < 2; ++kq) {
+    float sv = es[kq];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sv += __shfl_down_sync(kFull, sv, off);
+    if (lane == 0) sm.red[warp][kq] = sv;
+  }
+  group_sync(bar);
+  if (tid < 2) {
+    float sv = 0.f;
+    for (int v = 0; v < kLinThreads / 32; ++v) sv += sm.red[v][tid];
+    sm.out[kHB + tid] = sv;
+  }
+  if (timers != nullptr && tid == 0) {
+    for (int i = 0; i < 3; ++i) timers[tbase + 4 + i] = spent[i];
+    timers[tbase + 7] = rounds;
+  }
+}
+
+// The chunks' partials of a (host s, target t) block in rank order (part(r)
+// the rank's kHE floats), its entry e: 0 + p_0 + ... + p_7
+template <class Part>
+__device__ __forceinline__ float chunk_sum(Part part, int e) {
+  float v8[kChunks];
+#pragma unroll
+  for (int r = 0; r < kChunks; ++r) v8[r] = part(r)[e];
+  float v = 0.f;
+#pragma unroll
+  for (int r = 0; r < kChunks; ++r) v += v8[r];
+  return v;
+}
+
+__global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kLinThreads)
+    lin_pair_kernel(const BaParams p, int mode) {
+  if (mode != 0 && is_done(p)) return;            // the same for the whole cluster
+  const int cur = current(p);
+  const int b = mode != 0 ? 1 - cur : cur;
+  const int W = p.W;
+  const int c = blockIdx.x, t = blockIdx.y, s = blockIdx.z, tid = threadIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ PixSmem sm;
+  pixel_pass(p, b, c, t, s, tid, sm, 1, p.timers);
   cluster.sync();
   if (c == 0) {
     // the chunks in rank order into the (s, t) block
     float* blk = p.lin_part + (static_cast<size_t>(s) * W + t) * kHE;
     int bad = 0;
     for (int e = tid; e < kHE; e += kLinThreads) {
-      float part[kChunks];
-#pragma unroll
-      for (int r = 0; r < kChunks; ++r) part[r] = cluster.map_shared_rank(sOut, r)[e];
-      float v = 0.f;
-#pragma unroll
-      for (int r = 0; r < kChunks; ++r) v += part[r];
+      const float v = chunk_sum([&](int r) { return cluster.map_shared_rank(sm.out, r); }, e);
       blk[e] = v;
       bad |= e < kHB && !isfinite(v);
     }
@@ -656,11 +792,7 @@ __global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kLinThreads)
     if (tid == 0) p.lin_part[static_cast<size_t>(W) * W * kHE + s * W + t] = bad ? 1.f : 0.f;
   }
   cluster.sync();                        // no block leaves while rank 0 reads it
-  stamp(p, tbase, 3);
-  if (p.timers != nullptr && tid == 0) {
-    for (int i = 0; i < 3; ++i) p.timers[tbase + 4 + i] = spent[i];
-    p.timers[tbase + 7] = rounds;
-  }
+  stamp(p, ((s * kMaxSlots + t) * kChunks + c) * kLinStamps, 3);
 }
 
 // the indices of a (host s, target t) block's 20 that column c of the
@@ -701,24 +833,32 @@ __device__ __forceinline__ float sum_targets(const float* __restrict__ G, int W,
   return acc;
 }
 
-// K9, second launch: Hff, bf, energy and num_terms from the reduced
-// blocks, eight lanes an entry (host s = lane & 7, over the targets t), in
-// the first sum_blocks blocks, then each point's Hfd row, Hdd and bd
-__global__ void __launch_bounds__(kFinThreads) lin_finish_kernel(const BaParams p, int mode,
-                                                                 int sum_blocks) {
-  if (mode != 0 && is_done(p)) return;
-  const int cur = current(p);
-  const int b = mode != 0 ? 1 - cur : cur;
+// K9's second pass, virtual block vb of sum_blocks + row blocks of 256
+// threads (tid its thread; warp-level synchronization only): Hff, bf,
+// energy and num_terms from the reduced blocks, eight lanes an entry (host
+// s = lane & 7, over the targets t), in the first sum_blocks, then each
+// point's Hfd row, Hdd and bd, a warp a point (its sums staged in sG[warp]).
+// timers: the queued launch's stamps, or null.
+__device__ __forceinline__ void finish_block(const BaParams& p, int b, int vb, int sum_blocks,
+                                             int tid, float (*sG)[kMaxSlots * kG],
+                                             unsigned long long* timers) {
   const int W = p.W, NP = p.NP, D = 4 + 8 * W;
-  const int fbase = kLinTimerWords + 16 * kStepStamps + 8 + 2 * blockIdx.x;
-  const bool fin_timed = blockIdx.x < kFinStampBlocks;
-  if (fin_timed) stamp(p, fbase, 0);
-  if (static_cast<int>(blockIdx.x) >= sum_blocks) {
+  const int lane = tid & 31;
+  const int fbase = kLinTimerWords + 16 * kStepStamps + 8 + 2 * vb;
+  const bool fin_timed = timers != nullptr && vb < kFinStampBlocks;
+  auto mark = [&](int i) {
+    if (fin_timed && tid == 0) {
+      unsigned long long ns;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+      timers[fbase + i] = ns;
+    }
+  };
+  mark(0);
+  if (vb >= sum_blocks) {
     // a warp a point: its W x kG sums staged in shared memory, then its Hfd
     // row, Hdd and bd
-    __shared__ float sG[kFinThreads / 32][kMaxSlots * kG];
-    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int pt = (blockIdx.x - sum_blocks) * (kFinThreads / 32) + w;
+    const int w = tid >> 5;
+    const int pt = (vb - sum_blocks) * (kFinThreads / 32) + w;
     if (pt >= NP) return;                // the whole warp
     const float* src = p.pt_part + static_cast<size_t>(pt) * W * kG;
     float* G = sG[w];
@@ -743,24 +883,18 @@ __global__ void __launch_bounds__(kFinThreads) lin_finish_kernel(const BaParams 
       p.bd[b][pt] = bd + prior * (p.idepth[b][pt] - p.p_idepth_zero[pt]);
     }
     __syncwarp();
-    if (fin_timed && threadIdx.x == 0) stamp(p, fbase, 1);
+    mark(1);
     return;
   }
-  __shared__ int sBad[kMaxSlots];
-  __shared__ float sFlag[kMaxSlots * kMaxSlots];
-  if (threadIdx.x < W * W)
-    sFlag[threadIdx.x] = p.lin_part[static_cast<size_t>(W) * W * kHE + threadIdx.x];
-  __syncthreads();
-  if (threadIdx.x < kMaxSlots) {
-    int bad = 0;
-    for (int h = 0; h < W && static_cast<int>(threadIdx.x) < W; ++h)
-      bad |= sFlag[h * W + threadIdx.x] != 0.f;
-    sBad[threadIdx.x] = bad;
-  }
-  __syncthreads();
-  const long long gid = static_cast<long long>(blockIdx.x) * kFinThreads + threadIdx.x;
+  // bit t: a block of target t is not finite (the W x W blocks' flags)
+  const float* flags = p.lin_part + static_cast<size_t>(W) * W * kHE;
+  const unsigned lo_bad = __ballot_sync(kFull, lane < W * W && flags[lane] != 0.f);
+  const unsigned hi_bad = __ballot_sync(kFull, lane + 32 < W * W && flags[lane + 32] != 0.f);
+  unsigned bad_t = 0;
+  for (int i = 0; i < W * W; ++i)
+    if (((i < 32 ? lo_bad >> i : hi_bad >> (i - 32)) & 1u) != 0) bad_t |= 1u << (i % W);
+  const long long gid = static_cast<long long>(vb) * kFinThreads + tid;
   const int e = static_cast<int>(gid >> 3), s = static_cast<int>(gid & 7);
-  const int lane = threadIdx.x & 31;
   const int U = D * (D + 1) / 2;
   float v = 0.f, v2 = 0.f;
   if (s < W && e < U + D) {
@@ -787,7 +921,7 @@ __global__ void __launch_bounds__(kFinThreads) lin_finish_kernel(const BaParams 
         ents[m] = !ok ? -1 : (c < 0 ? kHU + i : lo * 20 - lo * (lo - 1) / 2 + (hi - lo));
         q[m] = ok ? blk[ents[m]] : 0.f;
       }
-      if (sBad[t]) {
+      if (tv && ((bad_t >> t) & 1u)) {
         // the other hosts' blocks of t times 0 (the one-hot matmul's 0 x NaN)
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
@@ -828,7 +962,40 @@ __global__ void __launch_bounds__(kFinThreads) lin_finish_kernel(const BaParams 
     *p.energy[b] = tot;
     *p.num_terms[b] = tot2 * 8.f;
   }
-  if (fin_timed && threadIdx.x == 0) stamp(p, fbase, 1);
+  mark(1);
+}
+
+// The energy and the good pairs' count of a linearization, as
+// finish_block writes them (the same sums in the same order), by one warp
+// (lane l < 8: host l): every block of the resident launch computes them
+// itself, so none waits for the block that writes them.
+__device__ __forceinline__ void energy_terms(const BaParams& p, int lane, float& energy,
+                                            float& num_terms) {
+  const int W = p.W, s = lane & 7;
+  float v = 0.f, v2 = 0.f;
+  if (s < W) {
+    for (int t = 0; t < W; ++t) {
+      const float* blk = p.lin_part + (static_cast<size_t>(s) * W + t) * kHE;
+      v += blk[kHB];
+      v2 += blk[kHB + 1];
+    }
+  }
+  float tot = 0.f, tot2 = 0.f;
+#pragma unroll
+  for (int ss = 0; ss < kMaxSlots; ++ss) {
+    tot += __shfl_sync(kFull, v, (lane & ~7) + ss);
+    tot2 += __shfl_sync(kFull, v2, (lane & ~7) + ss);
+  }
+  energy = tot;
+  num_terms = tot2 * 8.f;
+}
+
+__global__ void __launch_bounds__(kFinThreads) lin_finish_kernel(const BaParams p, int mode,
+                                                                 int sum_blocks) {
+  if (mode != 0 && is_done(p)) return;
+  const int cur = current(p);
+  __shared__ float sG[kFinThreads / 32][kMaxSlots * kG];
+  finish_block(p, mode != 0 ? 1 - cur : cur, blockIdx.x, sum_blocks, threadIdx.x, sG, p.timers);
 }
 
 // ---------------------------------------------------------------------------
@@ -974,17 +1141,35 @@ __device__ __forceinline__ void lu_solve(const float* __restrict__ sys, int n,
   __syncwarp();
 }
 
-__global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p, int cap,
-                                                              int per) {
-  if (is_done(p)) return;                // the same for the whole cluster
-  cg::cluster_group cluster = cg::this_cluster();
-  const int R = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int cur = current(p), nxt = 1 - cur;
+// How K10's ranks exchange their Schur partials and x: in the queued
+// launch, one cluster's distributed shared memory and cluster barriers.
+// (kLateSums: Hff and bf are copied by rank 0 only once the partials are
+// in, not while it sums its rows.)
+struct ClusterExchange {
+  static constexpr bool kLateSums = false;
+  cg::cluster_group cl;
+  __device__ void parts_ready(const float*, int, int) { cl.sync(); }
+  __device__ float part(float* sRed, int r, int src) { return cl.map_shared_rank(sRed, r)[src]; }
+  __device__ void push_x(float* sX, int R, int D) {
+    for (int i = threadIdx.x; i < R * D; i += kStepThreads)
+      cl.map_shared_rank(sX, i / D)[i % D] = sX[i % D];
+  }
+  __device__ void x_ready(float*, const BaParams&, int) { cl.sync(); }
+};
+
+// K10 as rank `rank` of R, from buffer cur at lambda lam (smem4: the
+// dynamic shared memory, step_smem(cap, D) bytes): the Schur partials of
+// this rank's per points, exchanged by ex; rank 0's solve, the
+// convergence flag and the candidate's calibration and frame states; then
+// the idepth steps of this rank's points and their candidate idepths.
+// timers: the queued launch's stamps, or null.
+template <class Ex>
+__device__ __forceinline__ void step_body(const BaParams& p, int cur, float lam, int rank, int R,
+                                          int cap, int per, float4* smem4, Ex& ex,
+                                          unsigned long long* timers) {
+  const int nxt = 1 - cur;
   const int W = p.W, NP = p.NP, D = 4 + 8 * W, D4 = D / 4, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const float lam = p.ctrl_f[0];
-  extern __shared__ float4 smem4[];
   const int capr = (cap + 3) & ~3;
   float* sRows = reinterpret_cast<float*>(smem4);           // [cap][D]
   float* sInv = sRows + static_cast<size_t>(cap) * D;        // [cap]
@@ -999,7 +1184,14 @@ __global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p,
   __shared__ int sFg[kGroupsMax], sMeta[2];
   __shared__ float sSum[2], sP[kMaxD], sX0[kMaxD], sPrior[kMaxD], sN[kMaxD];
   const int tbase = kLinTimerWords + rank * kStepStamps;
-  stamp(p, tbase, 0);
+  auto mark = [&](int i) {
+    if (timers != nullptr && tid == 0) {
+      unsigned long long ns;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+      timers[tbase + i] = ns;
+    }
+  };
+  mark(0);
   // this block's points, in chunks of at most cap rows; the first chunk's
   // copy in flight from the start
   const int r_lo = min(rank * per, NP), r_hi = min(r_lo + per, NP);
@@ -1022,9 +1214,9 @@ __global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p,
   }
   if (rank == 0) {
     // the system's other terms, in flight during the Schur sums
-    cp_floats(sHff, p.Hff[cur], D * D);
+    if (!Ex::kLateSums) cp_floats(sHff, p.Hff[cur], D * D);
     cp_floats(sHM, p.HM, D * D);
-    cp_floats(sbf, p.bf[cur], D);
+    if (!Ex::kLateSums) cp_floats(sbf, p.bf[cur], D);
     cp_floats(sbM, p.bM, D);
     for (int d = tid; d < D; d += kStepThreads) {
       sP[d] = p.precond[d];
@@ -1075,7 +1267,7 @@ __global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p,
     }
     cp_wait();
     __syncthreads();
-    stamp(p, tbase, 8);
+    mark(8);
     if (tiler) {
 #pragma unroll 4
       for (int i = g; i < cnt; i += kSGroups) {
@@ -1113,7 +1305,7 @@ __global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p,
   const float ids[2] = {id_sum, id_cnt};
   block_sum<2, kStepThreads>(ids, sRed + kSchurFloats);
   __syncthreads();
-  stamp(p, tbase, 1);
+  mark(1);
   const int nS = nT * 16 + ng * 4;
   for (int e = tid; e < nS; e += kStepThreads) {
     const int src = e < nT * 16 ? e : nT * 16 + ((e - nT * 16) >> 2) * 16 + (e & 3);
@@ -1121,25 +1313,30 @@ __global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p,
     for (int gg = 0; gg < kSGroups; ++gg) v += sPart[gg * kSTiles * 16 + src];
     sRed[e] = v;
   }
-  cluster.sync();
-  stamp(p, tbase, 2);
+  ex.parts_ready(sRed, rank, nS);
+  mark(2);
 
   if (rank == 0) {
     // the ranks' partials in rank order (sPart is free now: the Schur sums
     // then the system)
     float* sSc = sPart;
     float* sys = sPart + kSchurFloats + 4;
+    if (Ex::kLateSums) {                 // in flight while the partials are summed
+      cp_floats(sHff, p.Hff[cur], D * D);
+      cp_floats(sbf, p.bf[cur], D);
+    }
     for (int e = tid; e < nS + 2; e += kStepThreads) {
       const int src = e < nS ? e : kSchurFloats + (e - nS);
       float part[16];
 #pragma unroll
-      for (int r = 0; r < 16; ++r) part[r] = r < R ? cluster.map_shared_rank(sRed, r)[src] : 0.f;
+      for (int r = 0; r < 16; ++r) part[r] = r < R ? ex.part(sRed, r, src) : 0.f;
       float v = 0.f;
 #pragma unroll
       for (int r = 0; r < 16; ++r) v += r < R ? part[r] : 0.f;
       if (e < nS) sSc[e] = v;
       else sSum[e - nS] = v;
     }
+    if (Ex::kLateSums) cp_wait();
     __syncthreads();
     auto dof = [&](int fi) { return sFg[fi >> 2] * 4 + (fi & 3); };
     auto schur = [&](int fi, int fj) {
@@ -1180,13 +1377,13 @@ __global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p,
       }
     }
     __syncthreads();
-    stamp(p, tbase, 3);
+    mark(3);
     float* rows = sys + kFreeMax * kSysStride;                    // [kFreeMax][kSlot]
     float2* hdr = reinterpret_cast<float2*>(rows + kFreeMax * kSlot);   // [kFreeMax][2]
     float* xf = rows + kFreeMax * kSlot + 4 * kFreeMax;           // [kFreeMax]
     if (tid < 64) {
       lu_solve(sys, n, rows, hdr, xf,
-               p.timers != nullptr ? p.timers + kLinTimerWords + 16 * kStepStamps : nullptr);
+               timers != nullptr ? timers + kLinTimerWords + 16 * kStepStamps : nullptr);
     } else if (warp == 2) {
       // meanwhile the scale nullspace: the valid frames' translations but
       // the anchor's
@@ -1199,7 +1396,7 @@ __global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p,
       }
     }
     __syncthreads();
-    stamp(p, tbase, 4);
+    mark(4);
     // x = xp P (the anchor's 0), the nullspace projected out, and DSO's
     // doStepFromBackup convergence test: warp 0
     if (warp == 0) {
@@ -1268,12 +1465,11 @@ __global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p,
     }
     __syncthreads();
     // x into every block's shared memory
-    for (int i = tid; i < R * D; i += kStepThreads)
-      cluster.map_shared_rank(sX, i / D)[i % D] = sX[i % D];
-    stamp(p, tbase, 5);
+    ex.push_x(sX, R, D);
+    mark(5);
   }
-  cluster.sync();
-  stamp(p, tbase, 6);
+  ex.x_ready(sX, p, D);
+  mark(6);
 
   // the idepth steps x_d = inv_Hdd (-bd - Hfd x), 8 lanes a point, from the
   // rows this block holds, and the candidate state (buffer 1 - cur)
@@ -1303,53 +1499,393 @@ __global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p,
       p.idepth[nxt][pt] = p.p_valid[pt] ? id + xd : id;
     }
   }
-  stamp(p, tbase, 7);
+  mark(7);
+}
+
+__global__ void __launch_bounds__(kStepThreads, 1) step_kernel(const BaParams p, int cap,
+                                                              int per) {
+  if (is_done(p)) return;                // the same for the whole cluster
+  extern __shared__ float4 smem4[];
+  ClusterExchange ex{cg::this_cluster()};
+  step_body(p, current(p), p.ctrl_f[0], static_cast<int>(ex.cl.block_rank()),
+            static_cast<int>(ex.cl.num_blocks()), cap, per, smem4, ex, p.timers);
 }
 
 // ---------------------------------------------------------------------------
 // K11: total energy of a state and its linearization; accept / reject
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kAcceptThreads) accept_kernel(const BaParams p, int it) {
-  if (it >= 0 && is_done(p)) return;
-  const int cur = current(p);
-  const int sb = it < 0 ? cur : 1 - cur;
-  const int W = p.W, D = 4 + 8 * W, tid = threadIdx.x;
-  __shared__ float sx[kMaxD], sv[kMaxD];
-  for (int d = tid; d < D; d += kAcceptThreads) sx[d] = state_at(p, sb, d);
+// The LM loop's control: ctrl_i = {cur, done, conv, rounds}, ctrl_f =
+// {lam, e_old}; num: the current linearization's good pairs x 8.
+struct LmCtrl {
+  int cur, done, conv, rounds;
+  float lam, e_old, num;
+};
+
+// The prior part of state buffer sb's total energy, x . (HM x + 2 bM +
+// prior x), by a block of nthreads (every thread calls it): each row's
+// product in column order, the entries summed in index order by thread 0,
+// which returns it.
+__device__ __forceinline__ float prior_energy(const BaParams& p, int sb, float* sx, float* sv,
+                                              int nthreads) {
+  const int D = 4 + 8 * p.W, tid = threadIdx.x;
+  for (int d = tid; d < D; d += nthreads) sx[d] = state_at(p, sb, d);
   __syncthreads();
-  for (int i = tid; i < D; i += kAcceptThreads) {
+  for (int i = tid; i < D; i += nthreads) {
     float hx = 0.f;
     for (int j = 0; j < D; ++j) hx += p.HM[i * D + j] * sx[j];
     sv[i] = sx[i] * (hx + 2.f * p.bM[i] + prior_at(p, i) * sx[i]);
   }
   __syncthreads();
-  if (tid != 0) return;
   float dot = 0.f;
-  for (int d = 0; d < D; ++d) dot += sv[d];
+  if (tid == 0)
+    for (int d = 0; d < D; ++d) dot += sv[d];
+  return dot;
+}
+
+// The accept / reject of iteration it's candidate (buffer 1 - cur) of
+// total energy e and num_sb good pairs x 8 (c.conv: its step's
+// convergence flag)
+__device__ __forceinline__ void lm_accept(const BaParams& p, LmCtrl& c, int it, float e,
+                                          float num_sb) {
+  const int sb = 1 - c.cur;
+  float lam = c.lam;
+  if (p.force_accept) {
+    if (!c.conv || it < p.min_opt_iterations) c.cur = sb;
+    lam = lam * 0.25f;
+  } else {
+    const bool accept = e < c.e_old && num_sb >= 0.3f * c.num;
+    if (accept) {
+      c.cur = sb;
+      c.e_old = e;
+    }
+    lam = accept ? lam * 0.25f : fminf(lam * 100.f, 1e4f);
+  }
+  if (c.cur == sb) c.num = num_sb;
+  c.lam = lam;
+  c.done = (c.conv && it + 1 >= p.min_opt_iterations) ? 1 : 0;
+  c.rounds = it + 1;
+}
+
+__global__ void __launch_bounds__(kAcceptThreads) accept_kernel(const BaParams p, int it) {
+  if (it >= 0 && is_done(p)) return;
+  const int cur = current(p);
+  const int sb = it < 0 ? cur : 1 - cur;
+  __shared__ float sx[kMaxD], sv[kMaxD];
+  const float dot = prior_energy(p, sb, sx, sv, kAcceptThreads);
+  if (threadIdx.x != 0) return;
   const float e = *p.energy[sb] + dot;
-  float lam = p.ctrl_f[0];
   if (it < 0) {
     p.ctrl_f[0] = 0.1f;
     p.ctrl_f[1] = e;
     p.ctrl_i[1] = 0;
     p.ctrl_i[2] = 0;
+    p.ctrl_i[3] = 0;
     return;
   }
-  const bool conv = p.ctrl_i[2] != 0;
-  if (p.force_accept) {
-    if (!conv || it < p.min_opt_iterations) p.ctrl_i[0] = sb;
-    lam = lam * 0.25f;
-  } else {
-    const bool accept = e < p.ctrl_f[1] && *p.num_terms[sb] >= 0.3f * *p.num_terms[cur];
-    if (accept) {
-      p.ctrl_i[0] = sb;
-      p.ctrl_f[1] = e;
-    }
-    lam = accept ? lam * 0.25f : fminf(lam * 100.f, 1e4f);
+  LmCtrl c{cur, 0, p.ctrl_i[2], 0, p.ctrl_f[0], p.ctrl_f[1], *p.num_terms[cur]};
+  lm_accept(p, c, it, e, *p.num_terms[sb]);
+  p.ctrl_i[0] = c.cur;
+  p.ctrl_i[1] = c.done;
+  p.ctrl_i[3] = c.rounds;
+  p.ctrl_f[0] = c.lam;
+  p.ctrl_f[1] = c.e_old;
+}
+
+// ---------------------------------------------------------------------------
+// The resident launch: optimize_keyframe's whole LM loop (K9, K11's start,
+// rounds of K10 -> K9 -> K11) and _finish_optimize's bookkeeping
+// ---------------------------------------------------------------------------
+
+// Block 0's thread 0 adds the %globaltimer ns it spends in each phase,
+// and waiting at the grid barriers, over the launch (kOptStamps words of
+// the timers from kOptBase; null: nothing).
+struct OptStamps {
+  unsigned long long* t;
+  unsigned long long last;
+  __device__ static unsigned long long now() {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    return ns;
   }
-  p.ctrl_f[0] = lam;
-  p.ctrl_i[1] = (conv && it + 1 >= p.min_opt_iterations) ? 1 : 0;
+  __device__ explicit OptStamps(unsigned long long* timers)
+      : t(timers != nullptr && blockIdx.x == 0 && threadIdx.x == 0 ? timers + kOptBase
+                                                                   : nullptr),
+        last(t ? now() : 0) {}
+  __device__ void mark(int phase) {
+    if (t) {
+      const unsigned long long ns = now();
+      t[phase] += ns - last;
+      last = ns;
+    }
+  }
+  // the end of a phase, then a grid barrier
+  __device__ void sync(cg::grid_group& grid, int phase) {
+    mark(phase);
+    grid.sync();
+    mark(kOptBarrier);
+    if (t) t[kOptBarriers] += 1;
+  }
+};
+
+// How K10's ranks exchange their Schur partials and x in the resident
+// launch: global scratch (in L2) behind grid barriers; rank 0 sums the
+// partials in rank order as the cluster does. Hff and bf are read only
+// after the first barrier: the blocks that assemble them run beside the
+// ranks' Schur sums.
+struct GridExchange {
+  static constexpr bool kLateSums = true;
+  cg::grid_group& grid;
+  OptStamps& st;
+  float* gpart;
+  __device__ void parts_ready(const float* sRed, int rank, int nS) {
+    for (int e = threadIdx.x; e < nS + 2; e += kStepThreads) {
+      const int src = e < nS ? e : kSchurFloats + (e - nS);
+      gpart[rank * kPartStride + src] = sRed[src];
+    }
+    st.sync(grid, kOptSchur);
+  }
+  __device__ float part(float*, int r, int src) { return gpart[r * kPartStride + src]; }
+  __device__ void push_x(float*, int, int) {}
+  __device__ void x_ready(float* sX, const BaParams& p, int D) {
+    st.sync(grid, kOptSolve);
+    for (int d = threadIdx.x; d < D; d += kStepThreads) sX[d] = p.x[d];
+    __syncthreads();
+  }
+  // a block that holds no rank: the same barriers
+  __device__ void idle() {
+    st.sync(grid, kOptSchur);
+    st.sync(grid, kOptSolve);
+  }
+};
+
+__device__ __forceinline__ void copy_floats(float* dst, const float* src, long long n,
+                                            long long i0, long long step) {
+  for (long long i = i0; i < n; i += step) dst[i] = src[i];
+}
+
+// RES_* (models/ba.py) of point pt's pair toward target t in the accepted
+// linearization (buffer cur), where it took part
+__device__ __forceinline__ int pair_state(const BaParams& p, int cur, int pt, int t) {
+  const size_t pw = static_cast<size_t>(pt) * p.W + t;
+  return p.pair_good[cur][pw] ? 0 : (p.pair_in[cur][pw] ? 2 : 1);
+}
+
+__device__ __forceinline__ bool participated(const BaParams& p, int pt, int t) {
+  return p.p_valid[pt] && p.frame_valid[t] && t != p.p_host[pt] &&
+         p.p_res_good[static_cast<size_t>(pt) * p.W + t];
+}
+
+// The resident launch's heavy phases, each a call of its own (not
+// inlined): the kernel's values live across the LM loop are saved around
+// the call instead of crowding the phase's registers (the LU's row, the
+// pixel pass's tiles). Their shared memory is the kernel's dynamic array,
+// named here so that every access stays a shared-memory one.
+__device__ __noinline__ void resident_pixel(const BaParams& p, int b, int item, int half,
+                                            int htid) {
+  extern __shared__ float4 dyn4[];
+  PixSmem& sm = reinterpret_cast<PixSmem*>(dyn4)[half];
+  const int W = p.W;
+  const int c = item % kChunks, t = (item / kChunks) % W, s = item / (kChunks * W);
+  pixel_pass(p, b, c, t, s, htid, sm, 2 + half, nullptr);
+  group_sync(2 + half);
+  float* dst = p.chunk_part + static_cast<size_t>(item) * kHE;
+  for (int i = htid; i < kHE; i += kLinThreads) dst[i] = sm.out[i];
+}
+
+__device__ __noinline__ void resident_step(const BaParams& p, int cur, float lam, int R, int cap,
+                                           int per, GridExchange& ex) {
+  extern __shared__ float4 dyn4[];
+  if (static_cast<int>(blockIdx.x) < R)
+    step_body(p, cur, lam, blockIdx.x, R, cap, per, dyn4, ex, p.timers);
+  else
+    ex.idle();
+}
+
+// One cooperative launch of kStepThreads-thread blocks, one an SM, every
+// block resident: the linearization's pixel pass in two 256-thread halves
+// a block (work items (chunk, target, host)), the chunks' partials and
+// the points' rows, the assembly's sums (left to run beside K10's Schur
+// sums), K10 as ranks 0 .. R - 1 (the queued plan's R, cap, per), and
+// K11 in every block from the same sums (the same decision bits
+// everywhere: every block leaves the loop at once). Barriers: 2 for the
+// first linearization, 5 an iteration (Schur partials, x, the candidate,
+// the pixel pass, the chunks' sums), 1 before the bookkeeping.
+__global__ void __launch_bounds__(kStepThreads, 1)
+    optimize_kernel(const __grid_constant__ BaParams p, int iterations, int R, int cap,
+                    int per) {
+  extern __shared__ float4 smem4[];
+  __shared__ float sx[kMaxD], sv[kMaxD];
+  __shared__ LmCtrl sCtrl;
+  __shared__ int sOrder[kMaxSlots];
+  cg::grid_group grid = cg::this_grid();
+  OptStamps st(p.timers);
+  const unsigned long long t0 = st.last;
+  GridExchange ex{grid, st, p.schur_part};
+  const int W = p.W, NP = p.NP, D = 4 + 8 * W, tid = threadIdx.x;
+  const int half = tid >> 8, htid = tid & (kLinThreads - 1), lane = tid & 31, warp = tid >> 5;
+  const int nblk = gridDim.x;
+  const long long gtid = static_cast<long long>(blockIdx.x) * kStepThreads + tid;
+  const long long gthreads = static_cast<long long>(nblk) * kStepThreads;
+  float (*sG)[kMaxSlots * kG] =
+      reinterpret_cast<float (*)[kMaxSlots * kG]>(smem4) + half * (kFinThreads / 32);
+  const int U = D * (D + 1) / 2;
+  const int sum_blocks = ((U + D + 1) * kMaxSlots + kFinThreads - 1) / kFinThreads;
+  const int row_blocks = (NP + kFinThreads / 32 - 1) / (kFinThreads / 32);
+  const int items = kChunks * W * W;
+  if (tid == 0) {
+    // the hosts by their points, most first (the first of equals first)
+    for (int s = 0; s < W; ++s) sOrder[s] = s;
+    for (int a = 0; a < W; ++a)
+      for (int b2 = a + 1; b2 < W; ++b2) {
+        const int na = p.host_off[sOrder[a] + 1] - p.host_off[sOrder[a]];
+        const int nb = p.host_off[sOrder[b2] + 1] - p.host_off[sOrder[b2]];
+        if (nb > na || (nb == na && sOrder[b2] < sOrder[a])) {
+          const int tmp = sOrder[a];
+          sOrder[a] = sOrder[b2];
+          sOrder[b2] = tmp;
+        }
+      }
+  }
+  __syncthreads();
+
+  // the prior part of the energy of the state being linearized: one block
+  // that holds no rank forms it where it waits (prior_energy's order) and
+  // leaves it behind a barrier
+  float* prior_dot = p.schur_part + kMaxRanks * kPartStride;
+  const bool dot_block = static_cast<int>(blockIdx.x) == R % nblk;
+  auto prior = [&](int b) {
+    const float dot = prior_energy(p, b, sx, sv, kStepThreads);
+    if (tid == 0) *prior_dot = dot;
+  };
+
+  // K9 of state buffer b into linearization b; returns (thread 0) its
+  // total energy (the prior part from prior_dot) and good pairs x 8. The
+  // assembly's sums are left running (read after the next barrier).
+  auto linearize = [&](int b, float& e, float& num) {
+    // the items heaviest host first, dealt to the halves in a snake (round
+    // r: the halves in order, then in reverse), so that a half with a heavy
+    // item gets a light one next
+    const int halves = 2 * nblk, h = 2 * blockIdx.x + half;
+    for (int r = 0; r * halves < items; ++r) {
+      const int k = r * halves + ((r & 1) ? halves - 1 - h : h);
+      if (k >= items) continue;
+      const int s = sOrder[k / (kChunks * W)], rest = k % (kChunks * W);
+      resident_pixel(p, b, s * kChunks * W + rest, half, htid);
+    }
+    st.sync(grid, kOptPixel);
+    // the chunks in rank order into the (s, t) blocks (a block a block,
+    // an entry a thread, as the queued cluster's rank 0)
+    for (int st_ = blockIdx.x; st_ < W * W; st_ += nblk) {
+      const float* part = p.chunk_part + static_cast<size_t>(st_) * kChunks * kHE;
+      int bad = 0;
+      if (tid < kHE) {
+        const float v = chunk_sum([&](int r) { return part + r * kHE; }, tid);
+        p.lin_part[static_cast<size_t>(st_) * kHE + tid] = v;
+        bad = tid < kHB && !isfinite(v);
+      }
+      bad = __syncthreads_or(bad);
+      if (tid == 0) p.lin_part[static_cast<size_t>(W) * W * kHE + st_] = bad ? 1.f : 0.f;
+    }
+    // the points' Hfd rows, Hdd and bd
+    for (int rb = 2 * blockIdx.x + half; rb < row_blocks; rb += 2 * nblk)
+      finish_block(p, b, sum_blocks + rb, sum_blocks, htid, sG, nullptr);
+    st.sync(grid, kOptReduce);
+    if (warp == 0) {
+      float en, nt;
+      energy_terms(p, lane, en, nt);
+      e = en + *prior_dot;
+      num = nt;
+    }
+    // Hff, bf, energy, num_terms: from block R on, so that the ranks start
+    // their Schur sums first
+    const int first = (blockIdx.x + nblk - R % nblk) % nblk;
+    for (int vb = 2 * first + half; vb < sum_blocks; vb += 2 * nblk)
+      finish_block(p, b, vb, sum_blocks, htid, sG, nullptr);
+    st.mark(kOptFinish);
+  };
+
+  float e = 0.f, num = 0.f;
+  if (dot_block) prior(0);
+  linearize(0, e, num);
+  if (tid == 0) sCtrl = LmCtrl{0, 0, 0, 0, 0.1f, e, num};
+  __syncthreads();
+  LmCtrl c = sCtrl;
+  for (int it = 0; it < iterations && !c.done; ++it) {
+    resident_step(p, c.cur, c.lam, R, cap, per, ex);
+    if (dot_block) prior(1 - c.cur);     // the candidate's calibration and frames are in
+    st.sync(grid, kOptBacksub);
+    linearize(1 - c.cur, e, num);
+    if (tid == 0) {
+      c.conv = p.ctrl_i[2];
+      lm_accept(p, c, it, e, num);
+      sCtrl = c;
+    }
+    __syncthreads();
+    c = sCtrl;
+  }
+  st.sync(grid, kOptFinish);             // the last assembly's sums are in
+
+  // the accepted buffer into buffer 2, and the bookkeeping
+  const int cur = c.cur;
+  copy_floats(p.calib_delta[2], p.calib_delta[cur], 4, gtid, gthreads);
+  copy_floats(p.delta[2], p.delta[cur], 8 * W, gtid, gthreads);
+  copy_floats(p.idepth[2], p.idepth[cur], NP, gtid, gthreads);
+  copy_floats(p.Hff[2], p.Hff[cur], D * D, gtid, gthreads);
+  copy_floats(p.bf[2], p.bf[cur], D, gtid, gthreads);
+  copy_floats(p.Hfd[2], p.Hfd[cur], static_cast<long long>(NP) * D, gtid, gthreads);
+  copy_floats(p.Hdd[2], p.Hdd[cur], NP, gtid, gthreads);
+  copy_floats(p.bd[2], p.bd[cur], NP, gtid, gthreads);
+  copy_floats(p.energy[2], p.energy[cur], 1, gtid, gthreads);
+  copy_floats(p.num_terms[2], p.num_terms[cur], 1, gtid, gthreads);
+  copy_floats(p.pair_energy[2], p.pair_energy[cur], static_cast<long long>(NP) * W, gtid,
+              gthreads);
+  for (long long i = gtid; i < static_cast<long long>(NP) * W; i += gthreads) {
+    p.pair_good[2][i] = p.pair_good[cur][i];
+    p.pair_in[2][i] = p.pair_in[cur][i];
+  }
+  // the two newest valid slots (torch.argmax: the first of equals)
+  int newest = 0, second = 0, best = -1, best2 = -1;
+  for (int f = 0; f < W; ++f) {
+    const int fid = p.frame_valid[f] ? p.frame_id[f] : -1;
+    if (fid > best) {
+      best = fid;
+      newest = f;
+    }
+  }
+  for (int f = 0; f < W; ++f) {
+    const int fid = f == newest ? -1 : (p.frame_valid[f] ? p.frame_id[f] : -1);
+    if (fid > best2) {
+      best2 = fid;
+      second = f;
+    }
+  }
+  for (long long q = gtid; q < NP; q += gthreads) {
+    const int pt = static_cast<int>(q);
+    int good = 0;
+    for (int t = 0; t < W; ++t) good += p.pair_good[cur][static_cast<size_t>(pt) * W + t];
+    p.out_num_good[pt] = p.p_num_good[pt] + static_cast<float>(good);
+    p.out_last_res[2 * pt] = participated(p, pt, newest) ? pair_state(p, cur, pt, newest)
+                                                         : p.p_last_res[2 * pt];
+    p.out_last_res[2 * pt + 1] = best2 >= 0 && participated(p, pt, second)
+                                     ? pair_state(p, cur, pt, second)
+                                     : p.p_last_res[2 * pt + 1];
+  }
+  if (blockIdx.x == 0 && tid == 0) {
+    const float en = *p.energy[cur];
+    *p.out_rmse = sqrtf(en / clamp_min(*p.num_terms[cur], 1.f));
+    *p.out_ok = isfinite(en) ? 1 : 0;
+    p.ctrl_i[0] = c.cur;
+    p.ctrl_i[1] = c.done;
+    p.ctrl_i[2] = c.conv;
+    p.ctrl_i[3] = c.rounds;
+    p.ctrl_f[0] = c.lam;
+    p.ctrl_f[1] = c.e_old;
+  }
+  if (st.t) {
+    st.mark(kOptEpilogue);
+    st.t[kOptTotal] += OptStamps::now() - t0;
+  }
 }
 
 bool sizes_ok(const BaParams& p) {
@@ -1433,6 +1969,51 @@ cudaError_t plan_step(const BaParams& p, StepPlan& plan) {
   return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
 }
 
+// The resident launch's grid (one kStepThreads block an SM, all resident,
+// at least K10's R of them) and its dynamic shared memory (the largest of
+// K10's, two pixel passes' and two halves' staged point sums), planned
+// once per device, NP and W with K10's plan.
+struct OptPlan {
+  int device = -1, NP = -1, W = -1, grid = 0, per_sm = 0;
+  size_t smem = 0;
+  StepPlan step;
+};
+
+cudaError_t plan_optimize(const BaParams& p, OptPlan& plan) {
+  static OptPlan cached;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (cached.device == device && cached.NP == p.NP && cached.W == p.W) {
+    plan = cached;
+    return cudaSuccess;
+  }
+  OptPlan o;
+  if ((err = plan_step(p, o.step)) != cudaSuccess) return err;
+  const size_t pix = 2 * sizeof(PixSmem);
+  const size_t fin = sizeof(float) * 2 * (kFinThreads / 32) * kMaxSlots * kG;
+  o.smem = o.step.smem;
+  if (pix > o.smem) o.smem = pix;
+  if (fin > o.smem) o.smem = fin;
+  err = cudaFuncSetAttribute(optimize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(o.smem));
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o.per_sm, optimize_kernel, kStepThreads,
+                                                      o.smem);
+  if (err != cudaSuccess) return err;
+  o.grid = sms * (o.per_sm < 1 ? o.per_sm : 1);
+  if (o.grid < o.step.R) return cudaErrorCooperativeLaunchTooLarge;
+  o.device = device;
+  o.NP = p.NP;
+  o.W = p.W;
+  cached = o;
+  plan = o;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // K9: the linearization of state buffer cur (mode 0) or of the candidate
@@ -1468,4 +2049,47 @@ DSSLAM_API int dsslam_ba_accept(const BaParams* p, int it, cudaStream_t stream) 
   if (!sizes_ok(*p) || !p->ctrl_i || !p->ctrl_f) return cudaErrorInvalidValue;
   accept_kernel<<<1, kAcceptThreads, 0, stream>>>(*p, it);
   return cudaGetLastError();
+}
+
+// The resident launch: optimize_keyframe's whole LM loop from state
+// buffer 0 (K9, K11's start, then up to `iterations` rounds of K10 -> K9 ->
+// K11, leaving once done) and _finish_optimize's bookkeeping, in one
+// cooperative launch: the accepted state and linearization in buffer 2,
+// p_num_good, p_last_res, rmse and ok in the out_* fields, the final
+// control in ctrl_i / ctrl_f.
+DSSLAM_API int dsslam_ba_optimize(const BaParams* p, int iterations, cudaStream_t stream) {
+  if (!sizes_ok(*p) || iterations < 0 || !p->ctrl_i || !p->ctrl_f || !p->chunk_part ||
+      !p->schur_part || !p->out_num_good || !p->out_last_res || !p->out_rmse || !p->out_ok)
+    return cudaErrorInvalidValue;
+  OptPlan plan;
+  cudaError_t err = plan_optimize(*p, plan);
+  if (err != cudaSuccess) return err;
+  int R = plan.step.R, cap = plan.step.cap, per = plan.step.per;
+  void* args[] = {const_cast<BaParams*>(p), &iterations, &R, &cap, &per};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(optimize_kernel),
+                                    dim3(plan.grid), dim3(kStepThreads), args, plan.smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The resident launch at these sizes: blocks, blocks an SM, registers,
+// dynamic shared memory bytes, K10's ranks, local (spill) bytes a thread
+// (host calls only).
+DSSLAM_API int dsslam_ba_optimize_grid(int W, int NP, int* out) {
+  BaParams p{};
+  p.W = W;
+  p.NP = NP;
+  if (!sizes_ok(p)) return cudaErrorInvalidValue;
+  OptPlan plan;
+  cudaError_t err = plan_optimize(p, plan);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, optimize_kernel)) != cudaSuccess) return err;
+  out[0] = plan.grid;
+  out[1] = plan.per_sm;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(plan.smem);
+  out[4] = plan.step.R;
+  out[5] = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
 }

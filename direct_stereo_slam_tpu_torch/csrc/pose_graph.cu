@@ -1,7 +1,8 @@
 // K6-K8: the loop closure's SE(3) pose graph on the card. A dense
 // optimize (up to 512 nodes) of loop/pose_graph.py is one K7 launch that
-// runs every Gauss-Newton iteration; above, one iteration is K6 -> K8,
-// with no host read between.
+// runs every Gauss-Newton iteration; above, a CG optimize is one launch of
+// K8's redesign (dsslam_pose_graph_cg) that runs them all, K6's edge phase
+// included. The queued K6 -> K8 form stays as its bit reference.
 //
 // They replace the jitted JAX program
 // direct_stereo_slam_tpu/loop/pose_graph.py::optimize (:187, 25 GN
@@ -10,6 +11,8 @@
 //   K7 dsslam_pose_graph_gn    <- :96 _solve_dense (assembly and solve),
 //                                 with K6's edge phase, the whole scan
 //   K8 dsslam_pose_graph_pcg   <- :122 _solve_cg (its while_loop)
+//      dsslam_pose_graph_cg    <- :187 optimize's CG scan whole (with K6's
+//                                 edge phase and the update)
 // The port's plain versions are loop/pose_graph.py::_edge_system,
 // _solve_dense_fixed (K7's arithmetic, in its order) and _solve_cg.
 //
@@ -74,7 +77,7 @@
 //   plain Cholesky was more than 2x LU's error on small graphs
 //   (loop/pose_graph.py _solve_dense_fixed). Barriers an iteration:
 //   2 n / 32 + 4.
-// - K8, one 8-block cluster of 512 threads for the whole solve, the
+// - K8 (queued), one 8-block cluster of 512 threads for the whole solve, the
 //   reference's while_loop (it < cg_iters and |r|^2 > 1e-10 |b|^2) run on
 //   the card. The per-node incidence lists (valid edges' sides in
 //   ascending edge index, ops/pose_graph.py::incidence, made once per
@@ -90,6 +93,26 @@
 //   so a step takes three cluster barriers. The state (x, r, z, p, H p:
 //   [N, 6]; Dinv [N, 6, 6]; the edge products [E, 12]) stays in global
 //   memory, in L2 at these sizes.
+// - The resident CG optimize (K8's redesign, cg_opt_kernel): every
+//   Gauss-Newton iteration of optimize(solver="cg") in one launch: the
+//   update and K6's edge phase (edge_lanes, as K7), K8's per-node set-up,
+//   and a CG step of two barriers: a node pass that forms p and gathers
+//   H p from the rows of its own edges (each edge side's rows are needed by
+//   that side's node only, so nothing is computed twice and no edge pass or
+//   barrier sits before it; p is double-buffered), then the update, each
+//   eight lanes a node (a lane a row: the node's loads and FMA chains
+//   split six ways, the entries read from records made with the incidence
+//   lists: 2 e + side, both ends, their free bits). Every
+//   dot product is summed in an order fixed by node index, which is K8's
+//   for N <= 4096, through chunk partials in global memory that every warp
+//   sums itself: the bits do not depend on the grid, and every block takes
+//   the same branch. It is a cooperative grid, one block an SM, with grid
+//   barriers: at N = 1024 a node pass is one round of its 132 blocks. (One
+//   8-block cluster with cluster barriers, the same code at two rounds a
+//   pass, measured slower: PERF.md.) A partial buffer is written again
+//   only after a barrier that follows every read of it, so the set-up's
+//   b.b has a buffer of its own: the first node pass writes its p.Hp
+//   partials while slower blocks may still read the set-up's.
 
 #include <cooperative_groups.h>
 
@@ -904,35 +927,132 @@ __global__ void __launch_bounds__(kGnThreads) gn_kernel(const __grid_constant__ 
 }
 
 // ---------------------------------------------------------------------------
-// K8
+// K8, and the resident CG optimize
 // ---------------------------------------------------------------------------
 
 constexpr int kPcgCluster = 8;
 constexpr int kPcgThreads = 512;
 constexpr int kPcgWarps = kPcgThreads / 32;
 
-struct PcgArgs {
+// K8's phase stamps (ops/pose_graph.py PCG_STAMPS): block 0's thread 0
+// adds the ns it spends in each phase and at the cluster barriers
+enum PcgPhase {
+  kPcgSetup, kPcgEdgePass, kPcgNodePass, kPcgUpdate, kPcgBarrier, kPcgBarriers, kPcgSteps,
+  kPcgTotal, kPcgStamps
+};
+
+// The per-node state of a block-Jacobi PCG solve (K8 and the resident CG
+// optimize): the edges' blocks, the incidence lists, the free nodes, and
+// r, z, H p [N, 6], the inverses [N, 36] and x [N, 6].
+struct CgNodes {
   const float* H;          // [E, 12, 12]
   const float* g;          // [E, 12]
   const long long* a;
   const long long* b;
-  const unsigned char* valid;
-  int E;
   const int* inc_off;      // [N + 1]
   const int* inc_ent;      // 2 e + side, per node in ascending edge index
   const unsigned char* node_valid;
-  const long long* fixed;
-  int N;
+  long long fixed;         // the fixed node (each kernel reads it from the card first)
   float damp;
-  int cg_iters;
-  float* r;                // [N, 6] each
+  float* r;
   float* z;
-  float* pv;
   float* Hp;
-  float* Dinv;             // [N, 36]
+  float* Dinv;
+  float* x;
+  __device__ float free_(long long n) const { return node_free(node_valid, fixed, n) ? 1.f : 0.f; }
+};
+
+// Node n's set-up: b from its edges, its damped diagonal block inverted by
+// Gauss-Jordan (symmetric positive definite: no pivot), r = b, z = M r,
+// p = 0, x = 0; acc += its terms of b.b, r.z, r.r.
+__device__ __forceinline__ void cg_node_setup(const CgNodes& c, int n, float* pv,
+                                              float (&acc)[3]) {
+  const float f = c.free_(n);
+  float bs[6], A[36], B[36];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) bs[i] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 36; ++k) { A[k] = 0.f; B[k] = (k % 7 == 0) ? 1.f : 0.f; }
+  for (int q = c.inc_off[n]; q < c.inc_off[n + 1]; ++q) {
+    const int ent = c.inc_ent[q], e = ent >> 1, side = 6 * (ent & 1);
+    const float* Hb = c.H + static_cast<size_t>(e) * 144;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      bs[i] += c.g[12 * e + side + i];
+#pragma unroll
+      for (int jj = 0; jj < 6; ++jj) A[6 * i + jj] += Hb[12 * (side + i) + side + jj];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) A[7 * i] += c.damp;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float inv = 1.f / A[7 * k];
+#pragma unroll
+    for (int jj = 0; jj < 6; ++jj) { A[6 * k + jj] *= inv; B[6 * k + jj] *= inv; }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      if (i == k) continue;
+      const float m = A[6 * i + k];
+#pragma unroll
+      for (int jj = 0; jj < 6; ++jj) {
+        A[6 * i + jj] -= m * A[6 * k + jj];
+        B[6 * i + jj] -= m * B[6 * k + jj];
+      }
+    }
+  }
+  float* Dn = c.Dinv + 36 * n;
+#pragma unroll
+  for (int k = 0; k < 36; ++k) Dn[k] = B[k];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float bi = -bs[i] * f;
+    float zi = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 6; ++jj) zi += B[6 * i + jj] * (-bs[jj] * f);
+    zi *= f;
+    c.r[6 * n + i] = bi;
+    c.z[6 * n + i] = zi;
+    pv[6 * n + i] = 0.f;
+    c.x[6 * n + i] = 0.f;
+    acc[0] += bi * bi;
+    acc[1] += bi * zi;
+    acc[2] += bi * bi;
+  }
+}
+
+struct PcgArgs {
+  CgNodes c;
+  const long long* fixed;
+  const unsigned char* valid;
+  int E;
+  int N;
+  int cg_iters;
+  float* pv;               // [N, 6]
   float* ye;               // [E, 12]
-  float* x;                // [N, 6] the solution
   int* steps;              // the CG steps run, or null
+  unsigned long long* timers;   // kPcgStamps words added to, or null
+};
+
+// Block 0's thread 0 adds the %globaltimer ns it spends in each phase
+// (t: the phase words, or null).
+struct PhaseClock {
+  unsigned long long* t;
+  unsigned long long last;
+  __device__ static unsigned long long now() {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    return ns;
+  }
+  __device__ explicit PhaseClock(unsigned long long* timers)
+      : t(blockIdx.x == 0 && threadIdx.x == 0 ? timers : nullptr), last(t ? now() : 0) {}
+  __device__ void mark(int phase) {
+    if (t) {
+      const unsigned long long ns = now();
+      t[phase] += ns - last;
+      last = ns;
+    }
+  }
 };
 
 // The cluster's sums of K per-thread values: warp shuffles, the block's
@@ -941,7 +1061,8 @@ struct PcgArgs {
 // order, so every block holds the same bits.
 template <int K>
 __device__ __forceinline__ void cluster_sum(float (&v)[K], float (*slot)[4],
-                                            float (*wsum)[4], int rank) {
+                                            float (*wsum)[4], int rank, PhaseClock& clk,
+                                            int phase) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -961,7 +1082,10 @@ __device__ __forceinline__ void cluster_sum(float (&v)[K], float (*slot)[4],
 #pragma unroll
     for (int k = 0; k < K; ++k) dst[k] = s[k];
   }
+  clk.mark(phase);
   cg::this_cluster().sync();
+  clk.mark(kPcgBarrier);
+  if (clk.t) clk.t[kPcgBarriers] += 1;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     v[k] = slot[0][k];
@@ -974,70 +1098,24 @@ __global__ void __cluster_dims__(kPcgCluster, 1, 1) __launch_bounds__(kPcgThread
 pcg_kernel(const PcgArgs p) {
   __shared__ float slot[2][kPcgCluster][4];
   __shared__ float wsum[kPcgWarps][4];
+  PhaseClock clk(p.timers);
+  const unsigned long long t0 = clk.last;
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int gtid = rank * kPcgThreads + threadIdx.x;
   const int stride = kPcgCluster * kPcgThreads;
-  const long long fixed = *p.fixed;
-  auto fr = [&](long long n) { return node_free(p.node_valid, fixed, n) ? 1.f : 0.f; };
+  CgNodes c = p.c;
+  c.fixed = *p.fixed;
+  auto barrier = [&](int phase) {
+    clk.mark(phase);
+    cg::this_cluster().sync();
+    clk.mark(kPcgBarrier);
+    if (clk.t) clk.t[kPcgBarriers] += 1;
+  };
 
   // b, the block-Jacobi inverses, r = b, z = M r, x = 0
   float acc[3] = {0.f, 0.f, 0.f};          // b.b, r.z, r.r
-  for (int n = gtid; n < p.N; n += stride) {
-    const float f = fr(n);
-    float bs[6], A[36], B[36];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) bs[i] = 0.f;
-#pragma unroll
-    for (int k = 0; k < 36; ++k) { A[k] = 0.f; B[k] = (k % 7 == 0) ? 1.f : 0.f; }
-    for (int q = p.inc_off[n]; q < p.inc_off[n + 1]; ++q) {
-      const int ent = p.inc_ent[q], e = ent >> 1, side = 6 * (ent & 1);
-      const float* Hb = p.H + static_cast<size_t>(e) * 144;
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        bs[i] += p.g[12 * e + side + i];
-#pragma unroll
-        for (int jj = 0; jj < 6; ++jj) A[6 * i + jj] += Hb[12 * (side + i) + side + jj];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 6; ++i) A[7 * i] += p.damp;
-    // Gauss-Jordan on the symmetric positive definite block
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const float inv = 1.f / A[7 * k];
-#pragma unroll
-      for (int jj = 0; jj < 6; ++jj) { A[6 * k + jj] *= inv; B[6 * k + jj] *= inv; }
-#pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        if (i == k) continue;
-        const float m = A[6 * i + k];
-#pragma unroll
-        for (int jj = 0; jj < 6; ++jj) {
-          A[6 * i + jj] -= m * A[6 * k + jj];
-          B[6 * i + jj] -= m * B[6 * k + jj];
-        }
-      }
-    }
-    float* Dn = p.Dinv + 36 * n;
-#pragma unroll
-    for (int k = 0; k < 36; ++k) Dn[k] = B[k];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      const float bi = -bs[i] * f;
-      float zi = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 6; ++jj) zi += B[6 * i + jj] * (-bs[jj] * f);
-      zi *= f;
-      p.r[6 * n + i] = bi;
-      p.z[6 * n + i] = zi;
-      p.pv[6 * n + i] = 0.f;
-      p.x[6 * n + i] = 0.f;
-      acc[0] += bi * bi;
-      acc[1] += bi * zi;
-      acc[2] += bi * bi;
-    }
-  }
-  cluster_sum<3>(acc, slot[0], wsum, rank);
+  for (int n = gtid; n < p.N; n += stride) cg_node_setup(c, n, p.pv, acc);
+  cluster_sum<3>(acc, slot[0], wsum, rank, clk, kPcgSetup);
   const float bb = fmaxf(acc[0], 1e-20f);
   float rz = acc[1], rr = acc[2], beta = 0.f;
 
@@ -1047,75 +1125,402 @@ pcg_kernel(const PcgArgs p) {
     for (int q = gtid; q < 12 * p.E; q += stride) {
       const int e = q / 12, row = q - 12 * e;
       if (!p.valid[e]) continue;
-      const long long na = p.a[e], nb = p.b[e];
-      const float fa = fr(na), fb = fr(nb);
-      const float* Hr = p.H + static_cast<size_t>(e) * 144 + 12 * row;
+      const long long na = c.a[e], nb = c.b[e];
+      const float fa = c.free_(na), fb = c.free_(nb);
+      const float* Hr = c.H + static_cast<size_t>(e) * 144 + 12 * row;
       float ya = 0.f, yb = 0.f;
 #pragma unroll
       for (int jj = 0; jj < 6; ++jj) {
-        const float pa = (p.z[6 * na + jj] + beta * p.pv[6 * na + jj]) * fa;
-        const float pb = (p.z[6 * nb + jj] + beta * p.pv[6 * nb + jj]) * fb;
+        const float pa = (c.z[6 * na + jj] + beta * p.pv[6 * na + jj]) * fa;
+        const float pb = (c.z[6 * nb + jj] + beta * p.pv[6 * nb + jj]) * fb;
         ya += Hr[jj] * pa;
         yb += Hr[6 + jj] * pb;
       }
       p.ye[q] = ya + yb;
     }
-    cg::this_cluster().sync();
+    barrier(kPcgEdgePass);
     // node pass: p, H p = (sum of the edges' rows + damp p) on free nodes
     float pHp[1] = {0.f};
     for (int n = gtid; n < p.N; n += stride) {
-      const float f = fr(n);
+      const float f = c.free_(n);
       float y[6], pn[6];
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
-        pn[i] = p.z[6 * n + i] + beta * p.pv[6 * n + i];
+        pn[i] = c.z[6 * n + i] + beta * p.pv[6 * n + i];
         y[i] = 0.f;
       }
-      for (int q = p.inc_off[n]; q < p.inc_off[n + 1]; ++q) {
-        const int ent = p.inc_ent[q], e = ent >> 1, side = 6 * (ent & 1);
+      for (int q = c.inc_off[n]; q < c.inc_off[n + 1]; ++q) {
+        const int ent = c.inc_ent[q], e = ent >> 1, side = 6 * (ent & 1);
 #pragma unroll
         for (int i = 0; i < 6; ++i) y[i] += p.ye[12 * e + side + i];
       }
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
-        const float hp = (y[i] + p.damp * (pn[i] * f)) * f;
+        const float hp = (y[i] + c.damp * (pn[i] * f)) * f;
         p.pv[6 * n + i] = pn[i];
-        p.Hp[6 * n + i] = hp;
+        c.Hp[6 * n + i] = hp;
         pHp[0] += pn[i] * hp;
       }
     }
-    cluster_sum<1>(pHp, slot[1], wsum, rank);
+    cluster_sum<1>(pHp, slot[1], wsum, rank, clk, kPcgNodePass);
     const float alpha = rz / fmaxf(pHp[0], 1e-20f);
     // x += alpha p, r -= alpha H p, z = M r
     float sums[2] = {0.f, 0.f};              // r.z, r.r
     for (int n = gtid; n < p.N; n += stride) {
-      const float f = fr(n);
+      const float f = c.free_(n);
       float rn[6];
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
-        p.x[6 * n + i] += alpha * p.pv[6 * n + i];
-        rn[i] = p.r[6 * n + i] - alpha * p.Hp[6 * n + i];
-        p.r[6 * n + i] = rn[i];
+        c.x[6 * n + i] += alpha * p.pv[6 * n + i];
+        rn[i] = c.r[6 * n + i] - alpha * c.Hp[6 * n + i];
+        c.r[6 * n + i] = rn[i];
       }
-      const float* Dn = p.Dinv + 36 * n;
+      const float* Dn = c.Dinv + 36 * n;
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
         float zi = 0.f;
 #pragma unroll
         for (int jj = 0; jj < 6; ++jj) zi += Dn[6 * i + jj] * rn[jj];
         zi *= f;
-        p.z[6 * n + i] = zi;
+        c.z[6 * n + i] = zi;
         sums[0] += rn[i] * zi;
         sums[1] += rn[i] * rn[i];
       }
     }
-    cluster_sum<2>(sums, slot[0], wsum, rank);
+    cluster_sum<2>(sums, slot[0], wsum, rank, clk, kPcgUpdate);
     beta = sums[0] / fmaxf(rz, 1e-20f);
     rz = sums[0];
     rr = sums[1];
   }
   if (p.steps && gtid == 0) *p.steps = it;
   cg::this_cluster().sync();    // no block leaves while another reads its slots
+  if (clk.t) {
+    clk.t[kPcgSteps] += it;
+    clk.t[kPcgTotal] += PhaseClock::now() - t0;
+  }
+}
+
+// The resident CG optimize (K8's redesign): optimize(solver="cg") whole in
+// one launch, `iterations` x (T <- T exp(x) and K6's edge phase, the
+// block-Jacobi set-up, the CG while_loop), then the last update. Its CG
+// step is two barriers: a node pass that forms p and gathers H p from the
+// node's edges' rows itself (K8's edge pass and node pass in one), and the
+// update. Each dot product is summed in an order fixed by node index: a
+// warp's shuffle tree over 32 consecutive nodes (a chunk), 16 chunks to a
+// group in order, the groups in order (at least kPcgCluster of them): K8's
+// order wherever N <= 4096 (a chunk is one of its warps, a group one of
+// its blocks). Every warp sums the chunks' partials itself, so all take
+// the same branch, on any grid: a cooperative grid of kPcgThreads-thread
+// blocks, one an SM, and grid barriers.
+enum CgPhase {
+  kCgEdges, kCgIncidence, kCgSetup, kCgNodePass, kCgUpdate, kCgFinal, kCgBarrier, kCgBarriers,
+  kCgSteps, kCgTotal, kCgStamps
+};
+
+struct CgOptArgs {
+  EdgeArgs e;              // T: the start poses; H, g: the edges' blocks (workspace)
+  CgNodes c;               // damp, r, z, Hp, Dinv, x (x: each iteration's update)
+  const long long* fixed;
+  int iterations;
+  int cg_iters;
+  int groups;              // chunk groups: max(kPcgCluster, ceil(N / 512))
+  int* inc;                // [2E] int4 records (2 e + side, a, b, free bits), [N] counts,
+                           // [N + 1] offsets, [2E] entries: the incidence lists
+  float* P;                // [2, N, 16] iteration k's poses in P[k & 1]
+  float* pv;               // [2, N, 6] p, double-buffered by CG step
+  float* part;             // [4, 16 * groups] the chunks' partials: p.Hp (and
+                           // the set-up's r.z), r.z, r.r, the set-up's b.b
+  float* T_out;            // [N, 16]
+  int* steps;              // [iterations] CG steps run, or null
+  unsigned long long* timers;   // kCgStamps words added to, or null
+};
+
+// The total of one dot product from its chunks' partials, by one warp:
+// lane g sums group g's 16 in order, then the groups in order. The chunks
+// from `real` on hold no node: their partials are +0 (a shuffle tree of
+// zeros), added without being stored.
+__device__ __forceinline__ float chunk_total(const float* part, int groups, int real,
+                                             int lane) {
+  float total = 0.f;
+  for (int g0 = 0; g0 < groups; g0 += 32) {
+    float G = 0.f;
+    if (g0 + lane < groups) {
+      const int c0 = 16 * (g0 + lane);
+      float v[16];
+#pragma unroll
+      for (int k = 0; k < 16; ++k) v[k] = c0 + k < real ? part[c0 + k] : 0.f;
+      G = v[0];
+#pragma unroll
+      for (int k = 1; k < 16; ++k) G += v[k];
+    }
+    for (int k = 0; k < 32 && g0 + k < groups; ++k) {
+      const float gk = __shfl_sync(0xffffffffu, G, k);
+      total = g0 + k == 0 ? gk : total + gk;
+    }
+  }
+  return total;
+}
+
+// a warp's shuffle tree of its lanes' values, lane 0's result into dst
+__device__ __forceinline__ void chunk_partial(float v, float* dst, int lane) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if (lane == 0) *dst = v;
+}
+
+// A CG step's node phases, eight lanes a node (lane i < 6: row i; a warp
+// four nodes, a block of kPcgThreads 64 nodes a round): each row's sums in
+// K8's order, the node's terms of a dot product gathered by its first lane
+// and added in row order as K8's thread adds them, then the block's two
+// chunks of 32 nodes through shared memory to the shuffle tree of a warp
+// each. sval: the block's [2][32] node values.
+constexpr int kCgRowLanes = 8;
+constexpr int kCgNodesPerBlock = kPcgThreads / kCgRowLanes;
+
+// the node pass: p = z + beta p_old into pnew, H p, and p.Hp's chunk
+// partials into part. rec: each incidence entry's (2 e + side, a, b, the
+// ends' free bits). Per entry lane i loads entry i of each end's z and
+// p_old and its row of the block (three float4), forms p_a[i] and p_b[i]
+// and passes them to the node's other lanes by shuffles (the node's eight
+// lanes run its entries together; lanes 6 and 7 shadow row 5).
+__device__ __forceinline__ void cg_rows_apply(const CgNodes& c, const int4* rec, int N,
+                                              float beta, const float* pold, float* pnew,
+                                              float* part, int real, float* sval) {
+  const int tid = threadIdx.x, lane = tid & 31, i = lane & (kCgRowLanes - 1);
+  const int lead = lane & ~(kCgRowLanes - 1);
+  const unsigned gmask = 0xffu << lead;
+  const int ir = i < 6 ? i : 5;
+  for (int r = blockIdx.x; r * 2 < real; r += gridDim.x) {
+    const int n = r * kCgNodesPerBlock + tid / kCgRowLanes;
+    float pn = 0.f, hp = 0.f;
+    if (n < N) {
+      const float f = c.free_(n);
+      pn = c.z[6 * n + ir] + beta * pold[6 * n + ir];
+      float y = 0.f;
+      const int lo = c.inc_off[n], hi = c.inc_off[n + 1];
+      for (int q = lo; q < hi; ++q) {
+        const int4 rv = rec[q];
+        const long long na = rv.y, nb = rv.z;
+        const float fa = (rv.w & 1) ? 1.f : 0.f, fb = (rv.w & 2) ? 1.f : 0.f;
+        const float pa = (c.z[6 * na + ir] + beta * pold[6 * na + ir]) * fa;
+        const float pb = (c.z[6 * nb + ir] + beta * pold[6 * nb + ir]) * fb;
+        const float4* Hr = reinterpret_cast<const float4*>(
+            c.H + static_cast<size_t>(rv.x >> 1) * 144 + 12 * (6 * (rv.x & 1) + ir));
+        const float4 h0 = Hr[0], h1 = Hr[1], h2 = Hr[2];
+        const float hv[12] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w,
+                              h2.x, h2.y, h2.z, h2.w};
+        // K8's edge pass's sums, in its order
+        float ya = 0.f, yb = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 6; ++jj) {
+          ya += hv[jj] * __shfl_sync(gmask, pa, lead + jj);
+          yb += hv[6 + jj] * __shfl_sync(gmask, pb, lead + jj);
+        }
+        y += ya + yb;
+      }
+      hp = (y + c.damp * (pn * f)) * f;
+      if (i < 6) {
+        pnew[6 * n + i] = pn;
+        c.Hp[6 * n + i] = hp;
+      }
+    }
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      v += __shfl_sync(0xffffffffu, pn, lead + k) * __shfl_sync(0xffffffffu, hp, lead + k);
+    __syncthreads();                     // the previous round's values are read
+    if (i == 0) sval[tid / kCgRowLanes] = n < N ? v : 0.f;
+    __syncthreads();
+    const int w = tid >> 5;
+    if (w < 2 && 2 * r + w < real) chunk_partial(sval[32 * w + lane], part + 2 * r + w, lane);
+  }
+}
+
+// the update: x += alpha p, r -= alpha H p, z = M r, and r.z's and r.r's
+// chunk partials into part1, part2
+__device__ __forceinline__ void cg_rows_update(const CgNodes& c, int N, float alpha,
+                                               const float* pv, float* part1, float* part2,
+                                               int real, float (*sval)[kCgNodesPerBlock]) {
+  const int tid = threadIdx.x, lane = tid & 31, i = lane & (kCgRowLanes - 1);
+  const int lead = lane & ~(kCgRowLanes - 1);
+  for (int r = blockIdx.x; r * 2 < real; r += gridDim.x) {
+    const int n = r * kCgNodesPerBlock + tid / kCgRowLanes;
+    const bool live = n < N && i < 6;
+    float rn = 0.f;
+    if (live) {
+      c.x[6 * n + i] += alpha * pv[6 * n + i];
+      rn = c.r[6 * n + i] - alpha * c.Hp[6 * n + i];
+      c.r[6 * n + i] = rn;
+    }
+    float rj[6];
+#pragma unroll
+    for (int jj = 0; jj < 6; ++jj) rj[jj] = __shfl_sync(0xffffffffu, rn, lead + jj);
+    float zi = 0.f;
+    if (live) {
+      const float* Dn = c.Dinv + 36 * n;
+#pragma unroll
+      for (int jj = 0; jj < 6; ++jj) zi += Dn[6 * i + jj] * rj[jj];
+      zi *= c.free_(n);
+      c.z[6 * n + i] = zi;
+    }
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const float zk = __shfl_sync(0xffffffffu, zi, lead + k);
+      s0 += rj[k] * zk;
+      s1 += rj[k] * rj[k];
+    }
+    __syncthreads();
+    if (i == 0) {
+      sval[0][tid / kCgRowLanes] = n < N ? s0 : 0.f;
+      sval[1][tid / kCgRowLanes] = n < N ? s1 : 0.f;
+    }
+    __syncthreads();
+    const int w = tid >> 5;
+    if (w < 2 && 2 * r + w < real) {
+      chunk_partial(sval[0][32 * w + lane], part1 + 2 * r + w, lane);
+      chunk_partial(sval[1][32 * w + lane], part2 + 2 * r + w, lane);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kPcgThreads) cg_opt_kernel(const __grid_constant__ CgOptArgs p) {
+  PhaseClock clk(p.timers);
+  const unsigned long long t0 = clk.last;
+  const int N = p.e.N;
+  const int gtid = blockIdx.x * kPcgThreads + threadIdx.x, gthreads = gridDim.x * kPcgThreads;
+  const int lane = threadIdx.x & 31, gwarp = gtid >> 5, nwarps = gthreads >> 5;
+  const int chunks = 16 * p.groups;
+  const int real = (N + 31) / 32;          // the chunks that hold nodes
+  __shared__ float sval[2][kCgNodesPerBlock];
+  float* part0 = p.part;
+  float* part1 = p.part + chunks;
+  float* part2 = p.part + 2 * chunks;
+  float* part3 = p.part + 3 * chunks;
+  auto barrier = [&](int phase) {
+    clk.mark(phase);
+    cg::this_grid().sync();
+    clk.mark(kCgBarrier);
+    if (clk.t) clk.t[kCgBarriers] += 1;
+  };
+  CgNodes c = p.c;
+  c.fixed = *p.fixed;
+  const int E = p.e.E;
+  int4* rec = reinterpret_cast<int4*>(p.inc);
+  int* cnt = p.inc + 8 * E;
+  int* off = cnt + N;
+  int* ent = off + N + 1;
+  c.inc_off = off;
+  c.inc_ent = ent;
+  const unsigned lt = (1u << lane) - 1u;
+  // node n's valid edge ends among the 32 edges from base: (a side, b side)
+  auto ends = [&](int n, int base, unsigned& ba, unsigned& bb) {
+    const int e = base + lane;
+    const bool v = e < E && p.e.valid[e];
+    ba = __ballot_sync(0xffffffffu, v && p.e.a[e] == n);
+    bb = __ballot_sync(0xffffffffu, v && p.e.b[e] == n);
+  };
+  const float* Tprev = p.e.T;
+  const float* xprev = nullptr;
+  for (int it = 0; it < p.iterations; ++it) {
+    // the previous update and K6's edge phase at the updated poses
+    EdgeArgs ea = p.e;
+    ea.T = Tprev;
+    ea.x = xprev;
+    ea.T_out = p.P + static_cast<size_t>(it & 1) * 16 * N;
+    for (int e0 = 2 * gwarp; e0 < ea.E; e0 += 2 * nwarps)
+      edge_lanes(ea, e0 + (lane >> 4), lane & 15);
+    if (xprev) {
+      for (int nd = gtid; nd < N; nd += gthreads) write_updated(Tprev, xprev, ea.T_out, nd);
+      Tprev = ea.T_out;
+    }
+    xprev = c.x;
+    if (it == 0) {
+      // the incidence lists (ops/pose_graph.py::incidence's), made once:
+      // each node's valid edge ends counted, a warp a node
+      for (int n = gwarp; n < N; n += nwarps) {
+        int k = 0;
+        for (int base = 0; base < E; base += 32) {
+          unsigned ba, bb;
+          ends(n, base, ba, bb);
+          k += __popc(ba) + __popc(bb);
+        }
+        if (lane == 0) cnt[n] = k;
+      }
+    }
+    barrier(kCgEdges);
+    if (it == 0) {
+      // each node's offset (the counts before it, exact integers) and its
+      // entries 2 e + side in ascending order
+      for (int n = gwarp; n < N; n += nwarps) {
+        int s = 0;
+        for (int m = lane; m < n; m += 32) s += cnt[m];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane == 0) {
+          off[n] = s;
+          if (n == N - 1) off[N] = s + cnt[n];
+        }
+        for (int base = 0; base < E; base += 32) {
+          unsigned ba, bb;
+          ends(n, base, ba, bb);
+          const int pos = s + __popc(ba & lt) + __popc(bb & lt);
+          const int e = base + lane;
+          const int ha = (ba >> lane) & 1u;
+          if (ha || ((bb >> lane) & 1u)) {
+            const long long na = p.e.a[e], nb = p.e.b[e];
+            const int fr = (c.free_(na) != 0.f ? 1 : 0) | (c.free_(nb) != 0.f ? 2 : 0);
+            if (ha) {
+              ent[pos] = 2 * e;
+              rec[pos] = make_int4(2 * e, static_cast<int>(na), static_cast<int>(nb), fr);
+            }
+            if ((bb >> lane) & 1u) {
+              ent[pos + ha] = 2 * e + 1;
+              rec[pos + ha] = make_int4(2 * e + 1, static_cast<int>(na), static_cast<int>(nb), fr);
+            }
+          }
+          s += __popc(ba) + __popc(bb);
+        }
+      }
+      barrier(kCgIncidence);
+    }
+    // the block-Jacobi set-up, a chunk a warp (b.b into part3: the first
+    // node pass writes part0 with no barrier after these reads)
+    for (int ch = gwarp; ch < real; ch += nwarps) {
+      const int n = 32 * ch + lane;
+      float acc[3] = {0.f, 0.f, 0.f};
+      if (n < N) cg_node_setup(c, n, p.pv, acc);
+      chunk_partial(acc[0], part3 + ch, lane);
+      chunk_partial(acc[1], part1 + ch, lane);
+      chunk_partial(acc[2], part2 + ch, lane);
+    }
+    barrier(kCgSetup);
+    const float bb = fmaxf(chunk_total(part3, p.groups, real, lane), 1e-20f);
+    float rz = chunk_total(part1, p.groups, real, lane);
+    float rr = chunk_total(part2, p.groups, real, lane);
+    float beta = 0.f;
+    int k = 0;
+    for (; k < p.cg_iters && rr > 1e-10f * bb; ++k) {
+      const float* pold = p.pv + static_cast<size_t>(k & 1) * 6 * N;
+      float* pnew = p.pv + static_cast<size_t>((k + 1) & 1) * 6 * N;
+      cg_rows_apply(c, rec, N, beta, pold, pnew, part0, real, sval[0]);
+      barrier(kCgNodePass);
+      const float alpha = rz / fmaxf(chunk_total(part0, p.groups, real, lane), 1e-20f);
+      cg_rows_update(c, N, alpha, pnew, part1, part2, real, sval);
+      barrier(kCgUpdate);
+      const float rz_new = chunk_total(part1, p.groups, real, lane);
+      rr = chunk_total(part2, p.groups, real, lane);
+      beta = rz_new / fmaxf(rz, 1e-20f);
+      rz = rz_new;
+    }
+    if (gtid == 0 && p.steps) p.steps[it] = k;
+    if (clk.t) clk.t[kCgSteps] += k;
+  }
+  for (int nd = gtid; nd < N; nd += gthreads) write_updated(Tprev, c.x, p.T_out, nd);
+  if (clk.t) {
+    clk.mark(kCgFinal);
+    clk.t[kCgTotal] += PhaseClock::now() - t0;
+  }
 }
 
 // Dynamic shared memory of K7's block: the assembly's edge list and
@@ -1220,18 +1625,66 @@ DSSLAM_API int dsslam_pose_graph_gn_grid(int N, int E, int* out) {
 
 // K8: block-Jacobi PCG on the free nodes, one cluster, x [N, 6] out (and
 // the number of CG steps it ran, if steps is set); work holds 4 x [N, 6] +
-// [N, 36] + [E, 12] floats.
+// [N, 36] + [E, 12] floats. timers: kPcgStamps words added to, or null.
 DSSLAM_API int dsslam_pose_graph_pcg(const float* H, const float* g, const long long* a,
                                      const long long* b, const unsigned char* valid, int E,
                                      const int* inc_off, const int* inc_ent,
                                      const unsigned char* node_valid, const long long* fixed,
                                      int N, float damp, int cg_iters, float* work, float* x,
-                                     int* steps, cudaStream_t stream) {
+                                     int* steps, unsigned long long* timers,
+                                     cudaStream_t stream) {
   if (N < 1 || E < 0 || cg_iters < 0) return cudaErrorInvalidValue;
   const size_t n6 = 6 * static_cast<size_t>(N);
-  PcgArgs p{H, g, a, b, valid, E, inc_off, inc_ent, node_valid, fixed, N, damp, cg_iters,
-            work, work + n6, work + 2 * n6, work + 3 * n6, work + 4 * n6,
-            work + 4 * n6 + 36 * static_cast<size_t>(N), x, steps};
+  PcgArgs p{CgNodes{H, g, a, b, inc_off, inc_ent, node_valid, 0, damp, work, work + n6,
+                    work + 3 * n6, work + 4 * n6, x},
+            fixed, valid, E, N, cg_iters, work + 2 * n6,
+            work + 4 * n6 + 36 * static_cast<size_t>(N), steps, timers};
   pcg_kernel<<<kPcgCluster, kPcgThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The resident CG optimize: `iterations` Gauss-Newton steps of
+// optimize(solver="cg") from the poses T in one cooperative launch; T_out
+// the optimized poses, x
+// [N, 6] the last iteration's update. The workspace: H [E, 12, 12], g
+// [E, 12], work of dsslam_pose_graph_cg_work(N) floats and inc of
+// 2N + 1 + 10E ints (16-byte aligned). steps: [iterations] CG steps run, or null; timers:
+// kCgStamps words added to, or null.
+DSSLAM_API int dsslam_pose_graph_cg_work(int N) {
+  const int groups = (N + 511) / 512 > kPcgCluster ? (N + 511) / 512 : kPcgCluster;
+  return 6 * N * 3 + 36 * N + 32 * N + 12 * N + 4 * 16 * groups;
+}
+
+DSSLAM_API int dsslam_pose_graph_cg(const float* T, int N, const float* Z, const long long* a,
+                                    const long long* b, const float* w_t, const float* w_r,
+                                    const unsigned char* valid, int E, float delta,
+                                    float delta_sq, const unsigned char* node_valid,
+                                    const long long* fixed, float damp, int iterations,
+                                    int cg_iters, float* work, int* inc, float* H,
+                                    float* g, float* x, float* T_out, int* steps,
+                                    unsigned long long* timers, cudaStream_t stream) {
+  if (N < 1 || E < 0 || iterations < 1 || cg_iters < 0) return cudaErrorInvalidValue;
+  const size_t n6 = 6 * static_cast<size_t>(N);
+  const int groups = (N + 511) / 512 > kPcgCluster ? (N + 511) / 512 : kPcgCluster;
+  CgOptArgs p{EdgeArgs{T, nullptr, nullptr, N, Z, a, b, w_t, w_r, valid, E, delta, delta_sq,
+                       H, g, 0},
+              CgNodes{H, g, a, b, nullptr, nullptr, node_valid, 0, damp, work, work + n6,
+                      work + 2 * n6, work + 3 * n6, x},
+              fixed, iterations, cg_iters, groups, inc,
+              work + 3 * n6 + 36 * static_cast<size_t>(N),
+              work + 3 * n6 + 68 * static_cast<size_t>(N),
+              work + 3 * n6 + 80 * static_cast<size_t>(N), T_out, steps, timers};
+  cudaError_t err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cg_opt_kernel, kPcgThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(cg_opt_kernel), dim3(sms),
+                                    dim3(kPcgThreads), args, 0, stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -10,10 +10,11 @@ On the card ``optimize`` runs the hand-written kernels
 K7 launch for all iterations (each: K6's edge phase after the previous
 update, the dense system with every entry summed in ascending edge
 index, a panel Cholesky and one step of refinement: ``_solve_dense_fixed``
-in plain PyTorch); the CG solver is, per iteration, K6 (the edges' blocks)
-then K8 (a whole block-Jacobi PCG solve in one launch). No host read, no
-library solve and no atomics: the same data gives the same bits. For CPU
-tensors it runs the plain versions below (``optimize_plain``):
+in plain PyTorch); the CG solver is one launch too (K8's redesign: each
+iteration the update, K6's edge phase and a whole block-Jacobi PCG
+solve). No host read, no library solve and no atomics: the same data
+gives the same bits. For CPU tensors it runs the plain versions below
+(``optimize_plain``):
 
 - per-edge residuals r = log(Z^-1 T_a^-1 T_b) and their Jacobians with
   respect to right-multiplied tangents from forward-mode autodiff through
@@ -320,8 +321,9 @@ def edge_system(data: PoseGraphData, T, huber_delta):
 def optimize(data: PoseGraphData, iterations: int = 25, huber_delta: float = 1.0,
              solver: str = "auto", cg_iters: int = 100) -> torch.Tensor:
     """Returns optimized [N, 4, 4] poses. solver: "dense", "cg", or "auto"
-    (dense up to 512 nodes, CG beyond). On the card: the kernels K6-K8
-    (no host read); for CPU tensors ``optimize_plain``."""
+    (dense up to 512 nodes, CG beyond). On the card one launch either way
+    (K7, or the resident CG optimize; no host read); for CPU tensors
+    ``optimize_plain``."""
     N = data.T_wc.shape[0]
     if solver == "auto":
         solver = "dense" if N <= 512 else "cg"
@@ -329,6 +331,15 @@ def optimize(data: PoseGraphData, iterations: int = 25, huber_delta: float = 1.0
         return optimize_plain(data, iterations, huber_delta, solver, cg_iters)
     if solver != "cg":
         return pgk.pose_graph_gn_cuda(data, iterations, huber_delta, LAM)
+    return pgk.pose_graph_cg_cuda(data, iterations, huber_delta, LAM + 1e-6, cg_iters)
+
+
+def optimize_cg_queued(data: PoseGraphData, iterations: int = 25, huber_delta: float = 1.0,
+                       cg_iters: int = 100) -> torch.Tensor:
+    """``optimize(solver="cg")`` as queued launches, K6 -> K8 an iteration
+    and K6's last update: not the main path (one launch runs the same
+    arithmetic), its bit reference where N <= 4096, for tests and
+    ``chip_smoke.py``."""
     T, x = data.T_wc, None
     inc = pgk.incidence(data)
     for _ in range(iterations):

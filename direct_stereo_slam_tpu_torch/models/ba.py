@@ -178,6 +178,19 @@ def linearize(state: BAState, cfg: SLAMConfig) -> Linearization:
     return Linearization(**{f: params.bufs.lin[f][0] for f in kb.LIN_FIELDS})
 
 
+def _host_blocks(Tth: torch.Tensor, h_idx: torch.Tensor) -> torch.Tensor:
+    """Tth[t, h_idx[p]] as [NP, W, 4, 4]. The JAX package gathers it by a
+    one-hot matmul, which spreads a block toward target t that is not
+    finite for some host (times 0) to every point's block toward t; here
+    every finite entry of such a block is NaN, as in K9. (The matmul
+    spreads entry by entry; any NaN entry makes the warp non-finite, so the
+    pairs' flags and energies are the same.)"""
+    ph = Tth[:, h_idx].transpose(0, 1)
+    spread = ~torch.isfinite(Tth).flatten(1).all(dim=1)         # [W] targets
+    return torch.where(spread[None, :, None, None] & torch.isfinite(ph),
+                       torch.full_like(ph, float("nan")), ph)
+
+
 def linearize_plain(state: BAState, cfg: SLAMConfig,
                     magnitudes: bool = False) -> Linearization:
     """``linearize`` in plain PyTorch, on any device (K9's plain version;
@@ -202,8 +215,8 @@ def linearize_plain(state: BAState, cfg: SLAMConfig,
     Tth_cur = torch.einsum("tij,hjk->thik", T_cur, lie.se3_inverse(T_cur))
     Tth_zero = torch.einsum("tij,hjk->thik", T_zero, lie.se3_inverse(T_zero))
     h_idx = state.p_host
-    Tth_cur_ph = Tth_cur[:, h_idx].transpose(0, 1)              # [NP, W, 4, 4]
-    Tth_zero_ph = Tth_zero[:, h_idx].transpose(0, 1)
+    Tth_cur_ph = _host_blocks(Tth_cur, h_idx)                   # [NP, W, 4, 4]
+    Tth_zero_ph = _host_blocks(Tth_zero, h_idx)
     Rth_cur, tth_cur = Tth_cur_ph[..., :3, :3], Tth_cur_ph[..., :3, 3]
     Rth_zero, tth_zero = Tth_zero_ph[..., :3, :3], Tth_zero_ph[..., :3, 3]
 
@@ -489,8 +502,9 @@ def total_energy(st: BAState, lin: Linearization, cfg: SLAMConfig) -> torch.Tens
 
 
 def _optimize_loop_plain(state: BAState, cfg: SLAMConfig, iterations: int):
-    """The LM loop in plain PyTorch (K9-K11's plain version; one host read
-    of the exit condition per iteration). Returns (state, lin)."""
+    """The LM loop in plain PyTorch (the resident launch's plain version;
+    one host read of the exit condition per iteration). Returns (state,
+    lin)."""
     lin = linearize(state, cfg)
     e_old = total_energy(state, lin, cfg)
     lam = torch.full((), 1e-1, dtype=torch.float32, device=state.delta.device)
@@ -517,12 +531,14 @@ def _optimize_loop_plain(state: BAState, cfg: SLAMConfig, iterations: int):
     return state, lin
 
 
-def _optimize_loop_device(state: BAState, cfg: SLAMConfig, iterations: int):
-    """The LM loop on the card: K9 and K11 once, then ``iterations``
-    rounds of K10 -> K9 -> K11 queued with no host read (each returns at
-    once when the done flag on the card is set). The state and the
-    linearization live in two buffers each; the accepted ones are picked
-    by the device index ctrl_i[0]. Returns (state, lin)."""
+def _optimize_loop_queued(state: BAState, cfg: SLAMConfig, iterations: int):
+    """The LM loop as queued launches: K9 and K11 once, then ``iterations``
+    rounds of K10 -> K9 -> K11 with no host read (each returns at once
+    when the done flag on the card is set); the accepted state and
+    linearization picked by the device index ctrl_i[0]. Not the main path
+    (``_optimize_device`` runs the same code in one launch): its bit
+    reference, for tests and ``chip_smoke.py``. Returns (state, lin,
+    params)."""
     W, NP = state.num_slots, state.num_points
     states = {f: torch.stack([getattr(state, f)] * 2) for f in kb.STATE_FIELDS}
     lins = kb.empty_lin(2, NP, W, state.images.device)
@@ -535,21 +551,31 @@ def _optimize_loop_device(state: BAState, cfg: SLAMConfig, iterations: int):
         kb.ba_accept_cuda(params, it)
     cur = params.bufs.ctrl_i[:1].to(torch.int64)
     state = state._replace(**{f: kb.pick(states[f], cur) for f in kb.STATE_FIELDS})
-    return state, Linearization(**{f: kb.pick(lins[f], cur) for f in kb.LIN_FIELDS})
+    return state, Linearization(**{f: kb.pick(lins[f], cur) for f in kb.LIN_FIELDS}), params
 
 
-def _optimize_impl(state: BAState, cfg: SLAMConfig, iterations: int):
-    """The windowed BA loop: LM with energy-gated accept/reject (or DSO's
-    force-accept), one linearization per iteration, early exit once the
-    step converges after min_opt_iterations (on the card K9-K11, for a
-    CPU state the plain loop). Returns (state, rmse, energy_finite, final
-    Linearization)."""
-    if state.images.is_cuda:
-        state, lin = _optimize_loop_device(state, cfg, iterations)
-    else:
-        state, lin = _optimize_loop_plain(state, cfg, iterations)
+def _optimize_device(state: BAState, cfg: SLAMConfig, iterations: int, params=None):
+    """``_optimize_impl`` on the card: one resident launch
+    (``kb.ba_optimize_cuda``) runs the LM loop, leaves it once done, and
+    writes the accepted state and linearization and
+    ``_finish_optimize``'s bookkeeping; nothing is read back or picked on
+    the host. ``params``: a block from ``kb.optimize_params`` (default: a new
+    one). Returns (state, rmse, ok, lin)."""
+    if params is None:
+        params = kb.optimize_params(state, cfg)
+    kb.ba_optimize_cuda(params, iterations)
+    b = params.bufs
+    state = state._replace(**{f: b.state[f][2] for f in kb.STATE_FIELDS},
+                           p_res_good=b.lin["pair_good"][2], p_num_good=b.out["num_good"],
+                           p_last_res=b.out["last_res"])
+    return (state, b.out["rmse"], b.out["ok"],
+            Linearization(**{f: b.lin[f][2] for f in kb.LIN_FIELDS}))
 
-    # isOOB bookkeeping at the fix pass
+
+def _finish_optimize(state: BAState, lin: Linearization):
+    """The isOOB bookkeeping after the loop (the resident launch's last
+    phase): the residuals' states toward the two newest frames, the good
+    residual counts, rmse and ok. Returns (state, rmse, ok, lin)."""
     W = state.num_slots
     dev = state.delta.device
     t_idx = torch.arange(W, device=dev)[None, :]
@@ -576,6 +602,18 @@ def _optimize_impl(state: BAState, cfg: SLAMConfig, iterations: int):
         p_last_res=torch.stack([lr0, lr1], -1))
     rmse = torch.sqrt(lin.energy / torch.clamp(lin.num_terms, min=1.0))
     return state, rmse, torch.isfinite(lin.energy), lin
+
+
+def _optimize_impl(state: BAState, cfg: SLAMConfig, iterations: int):
+    """The windowed BA loop: LM with energy-gated accept/reject (or DSO's
+    force-accept), one linearization per iteration, early exit once the
+    step converges after min_opt_iterations, then the isOOB bookkeeping
+    (on the card one resident launch, for a CPU state the plain loop and
+    ``_finish_optimize``). Returns (state, rmse, energy_finite, final
+    Linearization)."""
+    if state.images.is_cuda:
+        return _optimize_device(state, cfg, iterations)
+    return _finish_optimize(*_optimize_loop_plain(state, cfg, iterations))
 
 
 def optimize(state: BAState, cfg: SLAMConfig, iterations: int):

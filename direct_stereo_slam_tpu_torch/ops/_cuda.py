@@ -75,13 +75,24 @@ _SIGNATURES = {
     # N, E, out[4] (host only: no stream)
     "dsslam_pose_graph_gn_grid": [_I, _I, _P],
     # H, g, a, b, valid, E, inc_off, inc_ent, node_valid, fixed, N, damp,
-    # cg_iters, work, x, steps, stream
+    # cg_iters, work, x, steps, timers, stream
     "dsslam_pose_graph_pcg": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P, _P,
-                              _P, _P],
+                              _P, _P, _P],
+    # T, N, Z, a, b, w_t, w_r, valid, E, delta, delta_sq, node_valid, fixed,
+    # damp, iterations, cg_iters, work, inc, H, g, x, T_out, steps, timers,
+    # stream
+    "dsslam_pose_graph_cg": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _P, _P, _F, _I, _I,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # N (host only: no stream)
+    "dsslam_pose_graph_cg_work": [_I],
     # &BaParams (ops/ba.py), mode / it, stream
     "dsslam_ba_linearize": [_P, _I, _P],
     "dsslam_ba_step": [_P, _P],
     "dsslam_ba_accept": [_P, _I, _P],
+    # &BaParams, iterations, stream
+    "dsslam_ba_optimize": [_P, _I, _P],
+    # W, NP, out[6] (host only: no stream)
+    "dsslam_ba_optimize_grid": [_I, _I, _P],
 }
 
 

@@ -1,17 +1,20 @@
-"""Launch wrappers of the windowed BA's kernels (``csrc/ba.cu``): K9
-``dsslam_ba_linearize``, the linearization of a state; K10
-``dsslam_ba_step``, the LM step and the candidate state; K11
-``dsslam_ba_accept``, the accept / reject of the candidate. None reads the
-card from the host.
+"""Launch wrappers of the windowed BA's kernels (``csrc/ba.cu``):
+``dsslam_ba_optimize``, optimize_keyframe's whole LM loop and its
+bookkeeping in one resident launch; K9 ``dsslam_ba_linearize``, the
+linearization of a state; K10 ``dsslam_ba_step``, the LM step and the
+candidate state; K11 ``dsslam_ba_accept``, the accept / reject of the
+candidate (K10 and K11 queued: the resident launch's bit reference). None
+reads the card from the host.
 
 Every entry point reads one parameter block (``BaParams``, the C struct
 field for field): the window's constant inputs, the state and the
-linearization as two buffers each (the current one and the candidate),
-and a control pair ``ctrl_i`` = (cur, done, converged), ``ctrl_f`` =
-(lam, e_old) on the card. ``models/ba.py`` calls them for CUDA states
-(``linearize``; ``optimize_keyframe`` through ``_optimize_loop_device``); for CPU
-states it takes the plain versions there. Each wrapper counts its
-launches in ``.launches``.
+linearization as up to three buffers each (the current one, the
+candidate, and the resident launch's output), and a control pair
+``ctrl_i`` = (cur, done, converged, rounds run), ``ctrl_f`` = (lam, e_old)
+on the card. ``models/ba.py`` calls them for CUDA states (``linearize``;
+``optimize_keyframe`` through ``_optimize_device``); for CPU states it
+takes the plain versions there. Each wrapper counts its launches in
+``.launches``.
 """
 
 from __future__ import annotations
@@ -24,11 +27,14 @@ import torch
 from . import _cuda
 
 _P = ctypes.c_void_p
-_P2 = ctypes.c_void_p * 2
+_P3 = ctypes.c_void_p * 3
 
 # csrc/ba.cu's scratch: floats per reduced (host, target) block (its 230
-# entries, energy, good pairs) and per (point, target) (G20, Hdd, bd)
+# entries, energy, good pairs) and per (point, target) (G20, Hdd, bd); the
+# resident launch's Schur partials per rank (kSchurFloats + 4, 16 ranks),
+# then the prior part of an energy
 HE, G = 232, 22
+SCHUR_STRIDE, MAX_RANKS = 1984, 16
 
 
 class BaParams(ctypes.Structure):
@@ -40,10 +46,12 @@ class BaParams(ctypes.Structure):
                            "calib_zero", "frame_valid", "frame_id", "HM", "bM", "p_valid",
                            "p_host", "p_u", "p_v", "p_idepth_zero", "p_color", "p_weight",
                            "p_prior", "p_res_good", "precond", "pat_u", "pat_v",
-                           "host_pts", "host_off")] + \
-        [(n, _P2) for n in ("calib_delta", "delta", "idepth", "Hff", "bf", "Hfd", "Hdd", "bd",
+                           "host_pts", "host_off", "p_num_good", "p_last_res")] + \
+        [(n, _P3) for n in ("calib_delta", "delta", "idepth", "Hff", "bf", "Hfd", "Hdd", "bd",
                             "energy", "num_terms", "pair_energy", "pair_good", "pair_in")] + \
-        [(n, _P) for n in ("ctrl_i", "ctrl_f", "lin_part", "pt_part", "x", "x_d", "timers")]
+        [(n, _P) for n in ("ctrl_i", "ctrl_f", "lin_part", "pt_part", "x", "x_d", "chunk_part",
+                           "schur_part", "out_num_good", "out_last_res", "out_rmse", "out_ok",
+                           "timers")]
 
 
 STATE_FIELDS = ("calib_delta", "delta", "p_idepth")
@@ -51,9 +59,10 @@ LIN_FIELDS = ("Hff", "bf", "Hfd", "Hdd", "bd", "energy", "num_terms", "pair_ener
               "pair_good", "pair_in")
 _INPUTS = ("images", "T_zero", "aff_zero", "exposure", "energy_th", "calib_zero",
            "frame_valid", "frame_id", "HM", "bM", "p_valid", "p_host", "p_u", "p_v",
-           "p_idepth_zero", "p_color", "p_weight", "p_prior", "p_res_good")
+           "p_idepth_zero", "p_color", "p_weight", "p_prior", "p_res_good", "p_num_good",
+           "p_last_res")
 _DTYPES = {"frame_valid": torch.bool, "p_valid": torch.bool, "p_res_good": torch.bool,
-           "frame_id": torch.int32, "p_host": torch.int64}
+           "frame_id": torch.int32, "p_host": torch.int64, "p_last_res": torch.int32}
 
 
 def _f32(x) -> float:
@@ -63,8 +72,10 @@ def _f32(x) -> float:
 
 class Buffers(NamedTuple):
     """The card-side arrays one parameter block points at (kept alive with
-    it): the two states [2, ...], the two linearizations [2, ...], the
-    control pair and the scratch."""
+    it): the states [n, ...], the linearizations [n, ...], the control pair,
+    the scratch and the resident launch's bookkeeping outputs (``out``:
+    num_good [NP], last_res [NP, 2], rmse and ok 0-dim; empty for the
+    queued entry points)."""
 
     inputs: tuple
     state: dict
@@ -72,6 +83,7 @@ class Buffers(NamedTuple):
     ctrl_i: torch.Tensor
     ctrl_f: torch.Tensor
     scratch: dict
+    out: dict
 
 
 class Params(NamedTuple):
@@ -81,20 +93,36 @@ class Params(NamedTuple):
 
 # phase stamps (csrc/ba.cu, BaParams::timers): K9's pixel pass LIN_STAMPS
 # per block of an [8, 8, 8] (host, target, chunk) grid, then K10's
-# STEP_STAMPS per cluster rank (at most 16), then 5 counters of K10's solve
+# STEP_STAMPS per cluster rank (at most 16), then 5 counters of K10's solve,
+# K9's second launch's stamps, then the resident launch's OPT_STAMPS (block
+# 0's ns in each phase, at the grid barriers, their count, the span)
 LIN_STAMPS, STEP_STAMPS, CHUNKS = 8, 10, 8
 _LIN_WORDS = 8 * 8 * CHUNKS * LIN_STAMPS
 _STEP_WORDS = 16 * STEP_STAMPS
+OPT_STAMPS = ("pixel", "reduce", "finish", "schur", "solve", "backsub", "epilogue", "barrier",
+              "barriers", "total")
 
 
 _FIN_BLOCKS = 1024
+_OPT_BASE = _LIN_WORDS + _STEP_WORDS + 8 + 2 * _FIN_BLOCKS
 
 
 def timer_buffer(dev) -> torch.Tensor:
     """A zeroed buffer for ``Params.struct.timers`` (null on the main
     path)."""
-    return torch.zeros(_LIN_WORDS + _STEP_WORDS + 8 + 2 * _FIN_BLOCKS, dtype=torch.int64,
-                       device=dev)
+    return torch.zeros(_OPT_BASE + len(OPT_STAMPS), dtype=torch.int64, device=dev)
+
+
+def optimize_phases(timers: torch.Tensor, rounds: int) -> dict:
+    """One resident launch's stamps (``timer_buffer``): block 0's us in
+    each phase per LM round (the first linearization and the bookkeeping
+    once), the us it waited at grid barriers per round, the barriers per
+    round and the launch's span (us)."""
+    t = dict(zip(OPT_STAMPS, timers[_OPT_BASE:].tolist()))
+    per = max(int(rounds), 1)
+    out = {k: t[k] / 1e3 / per for k in OPT_STAMPS[:-3] + ("barrier",)}
+    out.update(barriers=t["barriers"], span_us=t["total"] / 1e3, rounds=int(rounds))
+    return out
 
 
 def phase_us(timers: torch.Tensor, W: int, clock_mhz: float, fin_split: int = 0) -> dict:
@@ -123,7 +151,7 @@ def phase_us(timers: torch.Tensor, W: int, clock_mhz: float, fin_split: int = 0)
     names = ("copy", "schur", "barrier", "reduce_assemble", "solve", "project_push",
              "barrier2", "backsub")
     gj = t[_LIN_WORDS + _STEP_WORDS:_LIN_WORDS + _STEP_WORDS + 5]
-    fin = t[_LIN_WORDS + _STEP_WORDS + 8:].reshape(_FIN_BLOCKS, 2)
+    fin = t[_LIN_WORDS + _STEP_WORDS + 8:_OPT_BASE].reshape(_FIN_BLOCKS, 2)
     fin_parts = {}
     for name, part in (("assembly", fin[:fin_split]), ("rows", fin[fin_split:])):
         part = part[part[:, 0] > 0]
@@ -176,12 +204,13 @@ def empty_lin(n: int, NP: int, W: int, dev) -> dict:
             "pair_good": torch.empty(n, NP, W, **b), "pair_in": torch.empty(n, NP, W, **b)}
 
 
-def make_params(state, cfg, states=None, lins=None) -> Params:
-    """The parameter block of a window: ``states`` / ``lins`` hold the two
-    buffers of each state field ([2, ...] tensors; default: the state's
-    own tensors as buffer 0 and no buffer 1), ``lins`` the linearization's
-    (default: new [1, ...] outputs). Checks every tensor (one CUDA device,
-    its dtype, contiguous)."""
+def make_params(state, cfg, states=None, lins=None, resident: bool = False) -> Params:
+    """The parameter block of a window: ``states`` holds the buffers of
+    each state field ([n, ...] tensors, n <= 3; default: the state's own
+    tensors as buffer 0 alone), ``lins`` the linearization's (default: new
+    [1, ...] outputs). ``resident``: with the resident launch's scratch and
+    bookkeeping outputs. Checks every tensor (one CUDA device, its dtype,
+    contiguous)."""
     W, NP = state.num_slots, state.num_points
     D = 4 + 8 * W
     if not 1 <= W <= 8:
@@ -200,14 +229,21 @@ def make_params(state, cfg, states=None, lins=None) -> Params:
     scratch = {"lin_part": torch.empty(W * W * (HE + 1), **f),
                "pt_part": torch.empty(NP * W * G, **f),
                "x": torch.empty(D, **f), "x_d": torch.empty(NP, **f)}
-    ctrl_i = torch.zeros(3, dtype=torch.int32, device=dev)
+    out = {}
+    if resident:
+        scratch.update(chunk_part=torch.empty(W * W * CHUNKS * HE, **f),
+                       schur_part=torch.empty(MAX_RANKS * SCHUR_STRIDE + 4, **f))
+        out = {"num_good": torch.empty(NP, **f),
+               "last_res": torch.empty(NP, 2, dtype=torch.int32, device=dev),
+               "rmse": torch.empty((), **f), "ok": torch.empty((), dtype=torch.bool, device=dev)}
+    ctrl_i = torch.zeros(4, dtype=torch.int32, device=dev)
     ctrl_f = torch.zeros(2, **f)
     for name, t in zip(_INPUTS, inputs):
         want = _DTYPES.get(name, torch.float32)
         if t.dtype != want:
             raise TypeError(f"ba kernels: {name} must be {want}, got {t.dtype}")
     everything = (inputs + consts + tuple(states.values()) + tuple(lins.values())
-                  + tuple(scratch.values()) + (ctrl_i, ctrl_f))
+                  + tuple(scratch.values()) + tuple(out.values()) + (ctrl_i, ctrl_f))
     _cuda.require_cuda("ba", *everything,
                        dtypes=(torch.float32, torch.bool, torch.int32, torch.int64))
 
@@ -230,17 +266,54 @@ def make_params(state, cfg, states=None, lins=None) -> Params:
     for name, t in zip(_INPUTS + ("precond", "pat_u", "pat_v", "host_pts", "host_off"),
                        inputs + consts):
         setattr(s, name, t.data_ptr())
-    pair = lambda t: _P2(t[0].data_ptr(), t[t.shape[0] - 1].data_ptr())
-    s.calib_delta = pair(states["calib_delta"])
-    s.delta = pair(states["delta"])
-    s.idepth = pair(states["p_idepth"])
+    # buffers 0, 1, 2 (a buffer that is not there: the last one)
+    bufs = lambda t: _P3(*(t[min(k, t.shape[0] - 1)].data_ptr() for k in range(3)))
+    s.calib_delta = bufs(states["calib_delta"])
+    s.delta = bufs(states["delta"])
+    s.idepth = bufs(states["p_idepth"])
     for name in LIN_FIELDS:
-        setattr(s, name, pair(lins[name]))
+        setattr(s, name, bufs(lins[name]))
     s.ctrl_i, s.ctrl_f = ctrl_i.data_ptr(), ctrl_f.data_ptr()
     s.timers = None
     for name, t in scratch.items():
         setattr(s, name, t.data_ptr())
-    return Params(s, Buffers(inputs + consts, states, lins, ctrl_i, ctrl_f, scratch))
+    for name, t in out.items():
+        setattr(s, "out_" + name, t.data_ptr())
+    return Params(s, Buffers(inputs + consts, states, lins, ctrl_i, ctrl_f, scratch, out))
+
+
+def optimize_params(state, cfg) -> Params:
+    """The resident launch's parameter block: three buffers of the state
+    (buffer 0 a copy of ``state``'s) and of the linearization, the scratch
+    and the bookkeeping outputs."""
+    states = {f: torch.stack([getattr(state, f)] * 3) for f in STATE_FIELDS}
+    lins = empty_lin(3, state.num_points, state.num_slots, state.images.device)
+    return make_params(state, cfg, states, lins, resident=True)
+
+
+def ba_optimize_cuda(params: Params, iterations: int) -> None:
+    """The resident launch: optimize_keyframe's whole LM loop (K9, K11's
+    start, up to ``iterations`` rounds of K10 -> K9 -> K11) and its
+    bookkeeping from state buffer 0 of ``params`` (``optimize_params``): the
+    accepted state and linearization in buffer 2, ``params.bufs.out``, and
+    the final control (ctrl_i = cur, done, converged, rounds run)."""
+    _cuda.call("dsslam_ba_optimize", ctypes.addressof(params.struct), int(iterations))
+    ba_optimize_cuda.launches += 1
+
+
+ba_optimize_cuda.launches = 0
+
+
+def optimize_grid(W: int, NP: int) -> dict:
+    """The resident launch at these sizes: blocks, blocks an SM, registers,
+    dynamic shared memory bytes, K10's ranks, local (spill) bytes a thread
+    (host calls only)."""
+    out = (ctypes.c_int * 6)()
+    err = _cuda.load_library().lib.dsslam_ba_optimize_grid(int(W), int(NP), out)
+    if err != 0:
+        raise RuntimeError(f"dsslam_ba_optimize_grid: CUDA error {err}")
+    return dict(zip(("blocks", "blocks_per_sm", "registers", "smem", "ranks", "local_bytes"),
+                    list(out)))
 
 
 def ba_linearize_cuda(params: Params, mode: int = 0) -> None:

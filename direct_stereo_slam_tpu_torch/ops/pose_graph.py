@@ -3,8 +3,12 @@ K6 ``dsslam_pose_graph_edges``, the edges' Gauss-Newton blocks (and the
 previous iteration's update T <- T exp(x)); K7 ``dsslam_pose_graph_gn``,
 every Gauss-Newton iteration of a dense optimize in one cooperative
 launch (K6's edge phase, the fixed-order assembly, a panel Cholesky, the
-solves and one step of refinement); K8 ``dsslam_pose_graph_pcg``, a whole
-block-Jacobi PCG solve in one launch. None reads the card from the host.
+solves and one step of refinement); ``dsslam_pose_graph_cg``, K8's
+redesign, every Gauss-Newton iteration of a CG optimize in one launch
+(K6's edge phase, the block-Jacobi set-up, the PCG loop); K8
+``dsslam_pose_graph_pcg``, one block-Jacobi PCG solve in one launch (with
+K6, the queued form: the resident one's bit reference). None reads the
+card from the host.
 
 ``loop/pose_graph.optimize`` calls them for CUDA tensors; for CPU tensors
 it takes the plain versions there (``_edge_system``, ``_solve_dense``,
@@ -192,16 +196,26 @@ def incidence(data):
     return off.to(torch.int32), order.to(torch.int32)
 
 
+# K8's phase stamps (csrc/pose_graph.cu PcgPhase): block 0's ns in each
+# phase and at the cluster barriers, their count, the CG steps, the span
+PCG_STAMPS = ("setup", "edge_pass", "node_pass", "update", "barrier", "barriers", "steps",
+              "total")
+
+
 def pose_graph_pcg_cuda(data, Hblk: torch.Tensor, bblk: torch.Tensor, inc, damp: float,
-                        cg_iters: int, steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        cg_iters: int, steps: Optional[torch.Tensor] = None,
+                        timers: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K8: ``_solve_cg``'s block-Jacobi PCG in one launch; ``inc`` is
     ``incidence(data)``. Returns x [N, 6]; writes the number of CG steps
-    it ran into ``steps`` (an int32 [1] tensor on the card) when given."""
+    it ran into ``steps`` (an int32 [1] tensor on the card) when given;
+    ``timers`` (int64 [len(PCG_STAMPS)] on the card) gets its phase stamps
+    added."""
     N, E = data.T_wc.shape[0], data.edge_a.shape[0]
     ea, eb, valid, nvalid, fixed = _graph_tensors(data)
     Hblk, bblk = Hblk.contiguous(), bblk.contiguous()
     off, ent = (t.contiguous() for t in inc)
-    _require("pose_graph_pcg", f32=(Hblk, bblk), u8=(valid, nvalid), i64=(ea, eb, fixed),
+    _require("pose_graph_pcg", f32=(Hblk, bblk), u8=(valid, nvalid),
+             i64=(ea, eb, fixed) + (() if timers is None else (timers,)),
              i32=(off, ent) + (() if steps is None else (steps,)))
     dev = Hblk.device
     work = torch.empty(4 * 6 * N + 36 * N + 12 * E, dtype=torch.float32, device=dev)
@@ -209,9 +223,60 @@ def pose_graph_pcg_cuda(data, Hblk: torch.Tensor, bblk: torch.Tensor, inc, damp:
     _cuda.call("dsslam_pose_graph_pcg", Hblk.data_ptr(), bblk.data_ptr(), ea.data_ptr(),
                eb.data_ptr(), valid.data_ptr(), E, off.data_ptr(), ent.data_ptr(),
                nvalid.data_ptr(), fixed.data_ptr(), N, float(damp), int(cg_iters),
-               work.data_ptr(), x.data_ptr(), _ptr(steps))
+               work.data_ptr(), x.data_ptr(), _ptr(steps), _ptr(timers))
     pose_graph_pcg_cuda.launches += 1
     return x
 
 
 pose_graph_pcg_cuda.launches = 0
+
+
+# the resident CG optimize's phase stamps (csrc/pose_graph.cu CgPhase):
+# block 0's ns in each phase and at the barriers, their count, the CG steps
+# over all iterations, the span
+CG_STAMPS = ("edges", "incidence", "setup", "node_pass", "update", "final", "barrier",
+             "barriers", "steps", "total")
+
+
+def pose_graph_cg_cuda(data, iterations: int, huber_delta: float = 1.0, damp: float = 1e-4 + 1e-6,
+                       cg_iters: int = 100,
+                       steps: Optional[torch.Tensor] = None,
+                       timers: Optional[torch.Tensor] = None,
+                       x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The resident CG optimize: ``iterations`` Gauss-Newton steps of
+    ``optimize(solver="cg")`` in one launch (each: the previous update and
+    K6's edge phase, then the block-Jacobi PCG at damping ``damp``), then
+    the last update; the launch makes ``incidence(data)``'s lists itself
+    (so an optimize is one device kernel). Returns the optimized poses
+    [N, 4, 4]. ``steps``: an int32 [iterations] tensor
+    that gets each iteration's CG steps; ``timers``: an int64
+    [len(CG_STAMPS)] tensor that gets the phase stamps added; ``x``: an f32
+    [N, 6] tensor that gets the last iteration's update."""
+    T = data.T_wc.contiguous()
+    N, E = T.shape[0], data.edge_a.shape[0]
+    if iterations == 0:
+        return T                                  # nothing to optimize: no launch
+    ea, eb, valid, nvalid, fixed = _graph_tensors(data)
+    Z, wt, wr = data.edge_Z.contiguous(), data.edge_w_t.contiguous(), data.edge_w_r.contiguous()
+    dev = T.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    x = torch.empty(N, 6, **f32) if x is None else x
+    _require("pose_graph_cg", f32=(T, Z, wt, wr, x), u8=(valid, nvalid),
+             i64=(ea, eb, fixed) + (() if timers is None else (timers,)),
+             i32=() if steps is None else (steps,))
+    lib = _cuda.load_library().lib
+    work = torch.empty(lib.dsslam_pose_graph_cg_work(N), **f32)
+    inc = torch.empty(2 * N + 1 + 10 * E, dtype=torch.int32, device=dev)
+    H = torch.empty(E, 12, 12, **f32)
+    g = torch.empty(E, 12, **f32)
+    T_out = torch.empty_like(T)
+    _cuda.call("dsslam_pose_graph_cg", T.data_ptr(), N, Z.data_ptr(), ea.data_ptr(),
+               eb.data_ptr(), wt.data_ptr(), wr.data_ptr(), valid.data_ptr(), E,
+               float(huber_delta), float(huber_delta) ** 2, nvalid.data_ptr(), fixed.data_ptr(),
+               float(damp), int(iterations), int(cg_iters), work.data_ptr(), inc.data_ptr(), H.data_ptr(), g.data_ptr(), x.data_ptr(),
+               T_out.data_ptr(), _ptr(steps), _ptr(timers))
+    pose_graph_cg_cuda.launches += 1
+    return T_out
+
+
+pose_graph_cg_cuda.launches = 0

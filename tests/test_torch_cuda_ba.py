@@ -25,15 +25,23 @@ port alone (``torch_ba_window.py``, 96x48):
   call with the plain loop on the same card state: rmse within rel 1e-3, poses within 1e-3 per
   entry, the same ok; energy-gated at 6 and 20 iterations, DSO's
   force-accept, and a NaN pose (the same NaN pattern and ok);
+- the resident launch (``optimize_keyframe``'s LM loop and bookkeeping
+  in one launch) bit-equal to the queued K9 -> K11, K10 -> K9 -> K11
+  chain and ``_finish_optimize`` (state, linearization, p_res_good,
+  p_num_good, p_last_res, rmse, ok, the final control and the rounds
+  run) at 1 to 8 slots and pools of 129 to 12500 points (2560 and 4096:
+  the keyframe path's sizes), energy-gated and force-accept, at 0, 1, 6
+  and 20 iterations (20: the loop leaves early), with a NaN pose and a
+  shuffled pool; its grid every block resident;
 - two runs bit-equal (K9, and ``optimize_keyframe``) without
   ``torch.use_deterministic_algorithms``; ``optimize_keyframe`` with no
   host read (``torch.cuda.set_sync_debug_mode("error")``) and its
-  launches: K9 and K11 1 + iterations times, K10 iterations times;
+  launches: one resident launch, no queued K9, K10 or K11;
 - the ``parallel/mesh.py`` shard functions on ``make_mesh(1)`` against
   the same call on CPU tensors (BA windows as above; the candidate
   re-track's ok equal, residuals within rel 2e-3; the scale grid within
-  rel 1e-3; the one-shard pose graph, now K6 -> K8, within 2e-3 x the
-  translation scale of the CPU's CG and the same bits on two runs).
+  rel 1e-3; the one-shard pose graph, one resident CG launch, within 2e-3
+  x the translation scale of the CPU's CG and the same bits on two runs).
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
@@ -189,7 +197,8 @@ def test_device_loop_matches_plain_loop(dev, case, iters, monkeypatch):
         st = with_nan_pose(st)
     state, rmse, ok, _, _ = ba.optimize_keyframe(st, cfg, iters, 2, None)
     with monkeypatch.context() as m:
-        m.setattr(ba, "_optimize_loop_device", ba._optimize_loop_plain)
+        m.setattr(ba, "_optimize_device",
+                  lambda s, c, it: ba._finish_optimize(*ba._optimize_loop_plain(s, c, it)))
         sp, rmse_p, ok_p, _, _ = ba.optimize_keyframe(st, cfg, iters, 2, None)
     assert bool(ok) == bool(ok_p)
     Tc, Tp = state.T_current(), sp.T_current()
@@ -204,7 +213,7 @@ def test_device_loop_matches_plain_loop(dev, case, iters, monkeypatch):
 
 def test_two_runs_bit_equal_no_host_read_and_launches(dev):
     st, cfg = _window(dev)
-    counters = (kb.ba_linearize_cuda, kb.ba_step_cuda, kb.ba_accept_cuda)
+    counters = (kb.ba_linearize_cuda, kb.ba_step_cuda, kb.ba_accept_cuda, kb.ba_optimize_cuda)
     first = ba.optimize_keyframe(st, cfg, 6, 2, 160)
     torch.cuda.synchronize()
     before = [fn.launches for fn in counters]
@@ -213,9 +222,59 @@ def test_two_runs_bit_equal_no_host_read_and_launches(dev):
         second = ba.optimize_keyframe(st, cfg, 6, 2, 160)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [7, 6, 7]
+    # the whole LM loop is one resident launch (the queued form's 7 / 6 / 7)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 0, 0, 1]
     for a, b in zip(list(first[0]) + list(first[1:]), list(second[0]) + list(second[1:])):
         assert torch.equal(a, b)
+
+
+def _bits(t):
+    """A tensor's bits (NaN equal to the same NaN)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("n_slots,n_points,mode,iters,case", [
+    (1, 200, "gated", 6, "base"), (2, 200, "gated", 6, "base"), (3, 200, "gated", 6, "base"),
+    (4, 256, "gated", 0, "base"), (4, 256, "gated", 1, "base"), (4, 256, "gated", 6, "base"),
+    (4, 256, "gated", 20, "base"), (5, 300, "gated", 6, "base"), (6, 129, "gated", 6, "base"),
+    (7, 200, "gated", 6, "base"), (8, 256, "gated", 6, "base"), (8, 2560, "gated", 6, "base"),
+    (8, 4096, "gated", 20, "base"), (8, 12500, "gated", 6, "base"),
+    (4, 256, "force", 6, "base"), (8, 4096, "force", 20, "base"),
+    (4, 256, "gated", 6, "nan_pose"), (4, 256, "force", 6, "nan_pose"),
+    (8, 256, "gated", 6, "shuffled")])
+def test_resident_launch_bit_equal_to_queued_chain(dev, n_slots, n_points, mode, iters, case):
+    st, cfg = _window(dev, n_slots, n_points)
+    st = _case(st, case)
+    if mode == "force":
+        cfg = cfg.replace(ba=dataclasses.replace(cfg.ba, solver_force_accept_step=True))
+    params = kb.optimize_params(st, cfg)
+    got = ba._optimize_device(st, cfg, iters, params)
+    q_state, q_lin, q_params = ba._optimize_loop_queued(st, cfg, iters)
+    want = ba._finish_optimize(q_state, q_lin)
+    for name in kb.STATE_FIELDS + ("p_res_good", "p_num_good", "p_last_res"):
+        assert torch.equal(_bits(getattr(got[0], name)), _bits(getattr(want[0], name))), name
+    for name in kb.LIN_FIELDS:
+        assert torch.equal(_bits(getattr(got[3], name)), _bits(getattr(want[3], name))), name
+    assert torch.equal(_bits(got[1]), _bits(want[1])) and bool(got[2]) == bool(want[2])
+    assert torch.equal(params.bufs.ctrl_i, q_params.bufs.ctrl_i)
+    assert torch.equal(_bits(params.bufs.ctrl_f), _bits(q_params.bufs.ctrl_f))
+    rounds = int(params.bufs.ctrl_i[3])
+    if case == "nan_pose":
+        assert bool(torch.isnan(got[0].delta).any())
+    elif mode == "gated" and iters == 20 and n_points == 256:
+        assert 0 < rounds < iters and bool(params.bufs.ctrl_i[1])   # left early, done
+    else:
+        assert rounds == iters or bool(params.bufs.ctrl_i[1])
+
+
+def test_resident_grid_is_resident(dev):
+    """The resident launch's grid: one block an SM, every block resident,
+    at least K10's ranks, at the keyframe path's sizes."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for W, NP in ((4, 256), (8, 2560), (8, 4096), (8, 12500)):
+        grid = kb.optimize_grid(W, NP)
+        assert grid["blocks_per_sm"] >= 1 and grid["blocks"] == sms
+        assert grid["ranks"] in (8, 16) and grid["blocks"] >= grid["ranks"]
 
 
 # ---- the shard functions on a one-card mesh ----------------------------------
@@ -325,9 +384,11 @@ def test_shard_posegraph_optimize_one_card(dev):
     step_g = mt.shard_posegraph_optimize(mt.make_mesh(1), iterations=4, cg_iters=50)
     want = step_c(pg.build_data(*graph, device="cpu"))
     data = pg.build_data(*graph, device=dev)
-    before = pgk.pose_graph_pcg_cuda.launches
+    before = pgk.pose_graph_pcg_cuda.launches, pgk.pose_graph_cg_cuda.launches
     got = step_g(data)
-    assert pgk.pose_graph_pcg_cuda.launches - before == 4
+    # the four iterations are one resident CG launch (the queued form: 4 x K6 -> K8)
+    assert (pgk.pose_graph_pcg_cuda.launches - before[0],
+            pgk.pose_graph_cg_cuda.launches - before[1]) == (0, 1)
     assert torch.equal(got, step_g(data))
     scale = float(torch.max(torch.abs(want[:, :3, 3])))
     assert float(torch.max(torch.abs(got.cpu() - want))) < 2e-3 * scale

@@ -29,18 +29,26 @@ PyTorch versions on the card (loop/pose_graph.py):
   (``solve_ex``: ``torch.linalg.solve`` raises on the card's NaN system);
 - ``optimize`` through K7 against ``optimize_plain`` within 1e-4 per pose
   entry after 25 iterations at buckets 16, 128, 256 and 512, and at 10
-  and 40 nodes not padded to a bucket (K7's partial panels); through K6 /
-  K8 at bucket 1024 within 2e-3 x scale of the dense plain result
-  (test_pose_graph_cg_matches_dense's bound), one K8 solve within 1e-3 x
-  max|x| of ``_solve_cg`` (the CG iterates' order of sums);
+  and 40 nodes not padded to a bucket (K7's partial panels); through the
+  resident CG launch at bucket 1024 within 2e-3 x scale of the dense plain
+  result (test_pose_graph_cg_matches_dense's bound), one K8 solve within
+  1e-3 x max|x| of ``_solve_cg`` (the CG iterates' order of sums), with its
+  phase stamps on the same bits;
+- the resident CG optimize (``solver="cg"``, one launch) in both its forms
+  (one cluster, a cooperative grid) bit-equal to the queued K6 -> K8 chain
+  (``optimize_cg_queued``: the same order of sums while N <= 4096) on
+  rings at buckets 256 and 1024, a padded graph and a fixed node inside,
+  within 1e-3 x the translation scale of ``optimize_plain(solver="cg")``;
+  its CG steps per iteration and its phase stamps;
 - an empty edge list (all padding, and zero-length edge arrays, where
   K6 launches nothing), all-invalid padding, a fixed node that is not the
   last, each wrapper's dtype checks, a wrong loop edge whose residual is
   near pi; two runs bit-equal without ``torch.use_deterministic_algorithms``;
   one ``optimize`` with no host read
   (``torch.cuda.set_sync_debug_mode("error")``) and its launches: one K7
-  launch a dense optimize, and the profiler's device kernels of it only
-  that one (no library solve, copy or fill).
+  launch a dense optimize, one resident CG launch a CG optimize, and the
+  profiler's device kernels of each only that one (no library solve,
+  copy or fill).
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
@@ -224,7 +232,14 @@ def test_k8_matches_cg(dev):
     x = pgk.pose_graph_pcg_cuda(data, H, g, pgk.incidence(data), pg.LAM + 1e-6, 100)
     x0 = pg._solve_cg(data, H, g, pg.LAM, 100)
     assert _rel(x, x0) < 1e-3
-    T = pg.optimize(data, 25)                      # "auto": K8 above 512 nodes
+    steps = torch.zeros(1, dtype=torch.int32, device=dev)
+    timers = torch.zeros(len(pgk.PCG_STAMPS), dtype=torch.int64, device=dev)
+    x2 = pgk.pose_graph_pcg_cuda(data, H, g, pgk.incidence(data), pg.LAM + 1e-6, 100, steps,
+                                 timers)
+    stamps = dict(zip(pgk.PCG_STAMPS, timers.tolist()))
+    assert torch.equal(x2, x) and stamps["steps"] == int(steps) and stamps["total"] > 0
+    assert stamps["barriers"] == 1 + 3 * int(steps)
+    T = pg.optimize(data, 25)                      # "auto": CG above 512 nodes
     T_dense = pg.optimize_plain(data, 25, solver="dense")
     scale = float(torch.max(torch.abs(T_dense[:, :3, 3])))
     assert float(torch.max(torch.abs(T - T_dense))) < 2e-3 * scale
@@ -251,8 +266,10 @@ def test_no_edges_counts_only_launches(dev):
     assert T is data.T_wc and H.shape == (0, 12, 12) and g.shape == (0, 12)
     assert torch.equal(pg.optimize(data, 25), data.T_wc)
     assert pgk.pose_graph_edges_cuda.launches == n and pgk.pose_graph_gn_cuda.launches == n7 + 1
+    n8 = pgk.pose_graph_cg_cuda.launches
     assert torch.equal(pg.optimize(data, 25, solver="cg"), data.T_wc)
-    assert pgk.pose_graph_edges_cuda.launches == n + 25
+    # one resident CG launch, no K6 (the queued form: 24 updates and the last)
+    assert pgk.pose_graph_edges_cuda.launches == n and pgk.pose_graph_cg_cuda.launches == n8 + 1
 
 
 def test_wrappers_check_each_dtype(dev):
@@ -311,33 +328,96 @@ def test_optimize_makes_no_host_read(dev, bucket):
     pg.optimize(data, 2)                  # build and load the kernels first
     torch.cuda.synchronize()
     counts = {f: f.launches for f in (pgk.pose_graph_edges_cuda, pgk.pose_graph_gn_cuda,
-                                      pgk.pose_graph_pcg_cuda)}
+                                      pgk.pose_graph_pcg_cuda, pgk.pose_graph_cg_cuda)}
     torch.cuda.set_sync_debug_mode("error")
     try:
         T = pg.optimize(data, 25)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     made = [f.launches - n for f, n in counts.items()]
-    assert made == ([0, 1, 0] if bucket <= 512 else [26, 0, 25])
+    # a dense optimize is one K7 launch, a CG one one resident CG launch
+    # (the queued CG form: 26 K6 and 25 K8)
+    assert made == ([0, 1, 0, 0] if bucket <= 512 else [0, 0, 0, 1])
     assert torch.isfinite(T).all()
 
 
 def test_dense_optimize_is_one_device_kernel(dev):
     """The profiler's device work of one dense optimize: K7's launch and
-    nothing else (no library solve, copy or fill)."""
+    nothing else (no library solve, copy or fill); and of one CG optimize
+    in the same session (a process records device events in its first
+    session only): the resident CG launch alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    data = _ring(128, dev)
+    data, cg_data = _ring(128, dev), _ring(1024, dev)
     pg.optimize(data, 2)                  # build and load the kernels first
+    pg.optimize(cg_data, 2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pg.optimize(data, 25)
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        pg.optimize(cg_data, 25)
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    names = [e.name for e in evs]
     if not names:
         pytest.skip("the profiler recorded no device event in this process")
-    assert len(names) == 1 and re.search(r"(?<![A-Za-z0-9_])gn_kernel", names[0]), names
+    assert len(names) == 2, names
+    assert re.search(r"(?<![A-Za-z0-9_])gn_kernel", names[0]), names
+    assert "cg_opt_kernel" in names[1], names
+
+
+def _cg_graph(name, dev):
+    if name == "padded":
+        poses, edges, _ = ring_graph(3, seed=5)
+        return pg.build_data(poses, edges, 2, device=dev)
+    if name == "fixed_inside":
+        return pg.build_data(*ring_graph(40, seed=3, loop_every=8, fixed=5), device=dev)
+    return _ring(int(name.split("_")[1]), dev)
+
+
+@pytest.mark.parametrize("name", ["ring_1024", "ring_256", "padded", "fixed_inside"])
+def test_cg_optimize_is_the_queued_chain(dev, name):
+    data = _cg_graph(name, dev)
+    steps = torch.zeros(25, dtype=torch.int32, device=dev)
+    T = pgk.pose_graph_cg_cuda(data, 25, 1.0, pg.LAM + 1e-6, 100, steps=steps)
+    assert torch.equal(T, pg.optimize_cg_queued(data, 25))
+    assert torch.equal(T, pg.optimize(data, 25, solver="cg"))
+    T0 = pg.optimize_plain(data, 25, solver="cg")
+    scale = max(float(T0[:, :3, 3].abs().max()), 1.0)
+    assert float(torch.max(torch.abs(T - T0))) < 1e-3 * scale
+    s = steps.tolist()
+    assert all(0 <= k <= 100 for k in s) and s[0] > 0, s
+    fixed = int(data.fixed_node)
+    assert torch.equal(T[fixed], data.T_wc[fixed])
+
+
+@pytest.mark.parametrize("name", ["ring_1024", "fixed_inside"])
+def test_cg_optimize_many_runs_are_bit_equal(dev, name):
+    """Many resident CG optimizes back to back give the same poses and the
+    same CG steps: every block reads each dot product's partials before
+    any block writes them again, so no warp leaves the loop on other bits
+    (which would hang the grid or change the result)."""
+    data = _cg_graph(name, dev)
+    steps = torch.zeros(64, 25, dtype=torch.int32, device=dev)
+    Ts = [pgk.pose_graph_cg_cuda(data, 25, steps=steps[k]) for k in range(64)]
+    for k in range(1, 64):
+        assert torch.equal(Ts[k], Ts[0]), k
+    assert torch.equal(steps, steps[:1].expand_as(steps))
+
+
+def test_cg_optimize_stamps(dev):
+    """The resident CG optimize's phase stamps on the same bits (two
+    barriers a CG step, two an iteration, one for the incidence lists)."""
+    data = _ring(1024, dev)
+    steps = torch.zeros(25, dtype=torch.int32, device=dev)
+    timers = torch.zeros(len(pgk.CG_STAMPS), dtype=torch.int64, device=dev)
+    T = pgk.pose_graph_cg_cuda(data, 25, steps=steps, timers=timers)
+    stamps = dict(zip(pgk.CG_STAMPS, timers.tolist()))
+    assert torch.equal(T, pg.optimize(data, 25, solver="cg"))
+    assert stamps["steps"] == int(steps.sum()) and stamps["total"] > 0
+    assert stamps["barriers"] == 2 * 25 + 1 + 2 * stamps["steps"]
 
 
 def test_k7_grid_is_resident(dev):

@@ -29,8 +29,9 @@
   factor's pieces (L L^T the lower triangle, the border row L^-1 (-b), the
   substitutions); a NaN pose makes x NaN wherever ``_solve_dense``'s is.
 - K8's incidence lists (``ops/pose_graph.incidence``, plain PyTorch that
-  the card runs too) and the CPU dispatch of ``optimize`` and
-  ``edge_system``.
+  the queued K8 reads; the resident CG launch makes the same lists itself)
+  and the CPU dispatch of ``optimize`` (dense and CG: no kernel entry
+  point is reached) and ``edge_system``.
 """
 
 import jax
@@ -215,10 +216,22 @@ def test_incidence_lists_each_nodes_valid_edges_in_order(name):
     assert int(off[-1]) == 2 * len(edges)
 
 
-def test_optimize_on_the_cpu_is_the_plain_version():
+@pytest.mark.parametrize("solver", ["auto", "cg"])
+def test_optimize_on_the_cpu_is_the_plain_version(solver, monkeypatch):
     poses, edges, fixed, iters = GRAPHS["ring"]()
     data = pg_t.build_data(poses, edges, fixed)
-    assert torch.equal(pg_t.optimize(data, iters), pg_t.optimize_plain(data, iters))
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CPU graph reached the kernel library")
+
+    monkeypatch.setattr(pgk._cuda, "call", refuse)
+    monkeypatch.setattr(pgk._cuda, "load_library", refuse)
+    counters = (pgk.pose_graph_edges_cuda, pgk.pose_graph_gn_cuda, pgk.pose_graph_pcg_cuda,
+                pgk.pose_graph_cg_cuda)
+    before = [f.launches for f in counters]
+    assert torch.equal(pg_t.optimize(data, iters, solver=solver),
+                       pg_t.optimize_plain(data, iters, solver=solver))
+    assert [f.launches for f in counters] == before
     H, b = pg_t.edge_system(data, data.T_wc, 1.0)
     H0, b0 = pg_t._edge_system(data, data.T_wc, 1.0)
     assert torch.equal(H, H0) and torch.equal(b, b0)
