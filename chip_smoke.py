@@ -46,8 +46,18 @@ Phases, each of which must pass (any fault exits non-zero):
    translation ATE < 2% of the path length, K1, K2-LM and K3-LM each
    launched during the timed pass and the per-pass K2 and K3 never. A
    first pass with a device synchronize at the end of every span gives
-   the per-stage table; FPS, ``track`` per frame and ``scale_opt`` per
-   keyframe come from the second pass, without them;
+   the per-stage table; FPS, ``track`` per frame, ``scale_opt`` and
+   ``activate`` per keyframe come from the second pass, without them; a
+   third pass counts the blocking waits per call (a keyframe call may
+   wait a median of 3 times at most: the tracker's read and bundle 3);
+   then the activation kernels (csrc/activate.cu) on that pass's fullest
+   activation (the call with the most valid candidates: 8 slots of 1024,
+   budget 256, a pool of 4096): K12 against its plain version (``drop``
+   and ``lane`` equal; ``ok`` and the accepted idepths, rel 1e-4, equal
+   but on edge lanes, counted, at most 1% of the accepted lanes), K13
+   bit-equal to its plain version on that call, with every participating
+   slot's own segment full and with the pool all but full, two runs of
+   each bit-equal, each timed with its bound and the card's own time;
 5. pipelined tracking: the e2e sequence in turns synchronous, pipelined,
    pipelined, synchronous, twice (FPS of each mode from the same
    process), then one pass of each with the host's blocking waits on the
@@ -190,7 +200,8 @@ Phases, each of which must pass (any fault exits non-zero):
    arm, printed beside it, not gated: the port with the plain BA on the
    card, and the port on the host CPU (run with phase 10).
 
-The e2e phase also counts the host's blocking waits per call and times
+The e2e phase also counts the host's blocking waits per call (every
+site of a keyframe call's waits printed) and times
 the path with ``torch.use_deterministic_algorithms`` off and on in turns;
 the loop phase runs three more times after its gated run (deterministic
 algorithms on, off with the waits counted, on): the FPS of each mode, the
@@ -211,10 +222,18 @@ sequence at the same size with the error of every frame (reported, not
 gated), each of those also through the port on the host CPU, frame by
 frame against the card, and the 320-frame protocol through disk
 (``gen_longseq`` -> ``eval_kitti --config both``, reported).
---fps [--root DIR] only times the e2e and loop sequences (FPS, the BA's
-stages with a synchronize at the end of each span, ``pose_graph_opt``,
-the waits per keyframe call), not gated; with --root, of the port in
-another checkout, so that a tree and its parent run in turns in one call.
+--fps [--root DIR] only times the e2e and loop sequences (FPS, the
+spans ``activate``, ``trace``, ``template`` and the BA's stages, timed
+and with a synchronize at the end of each span, ``pose_graph_opt``,
+``icp`` and ``direct_est``, the waits per keyframe call by site, and the
+loop phase's loops, keyframes and translation ATE of the odometry and of
+the loop-closed trajectory), not gated; with --root, of the port in
+another checkout, so that a tree and its parent run in turns in one call;
+--fps-variant plain_activation / eager_tail / idepth_ulp_up /
+idepth_ulp_down (repeatable, applied in order) times this tree's port
+with K12 and K13 replaced by their plain versions on the card, with each
+keyframe tail committed at once, or with the activation's idepths moved
+one f32 step.
 --pg-split [--root DIR] only times the dense ``optimize`` on the ring
 graphs of buckets 16 ... 512 and the CG ``optimize`` at 1024 (host ms
 per call and the card's ms), and, where the port has K7's, K8's and the
@@ -1088,7 +1107,7 @@ def e2e_phase(torch, dev, profile_dir=None):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     # the timed pass: no per-span synchronize, as a user runs the node
-    with ScaleTraffic() as traffic, BaTraffic() as ba_traffic:
+    with ScaleTraffic() as traffic, BaTraffic() as ba_traffic, ActTraffic() as act_traffic:
         node, shells, resets, dt = run_sequence(torch, SLAMNode, cfg, intr, ds,
                                                 frames, dev)
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1137,14 +1156,23 @@ def e2e_phase(torch, dev, profile_dir=None):
     n_kf = node.timers.count("dso_opt")
     print(f"e2e: BA launches per keyframe ({n_kf} optimize_keyframe calls): " + ", ".join(
         f"{k} {launches[k] / max(n_kf, 1):.2f}" for k in BA_ROWS), flush=True)
-    print(f"e2e: blocking waits per call: "
-          f"{count_waits(torch, cfg, intr, ds, frames, dev)}", flush=True)
+    print(f"e2e: activate {node.timers.average_ms('activate'):.3f} ms per keyframe x "
+          f"{node.timers.count('activate')} (timed pass; synchronized first pass: "
+          f"{node1.timers.average_ms('activate'):.3f} ms); launches per keyframe: "
+          + ", ".join(f"{k} {launches[k] / max(n_kf, 1):.2f}"
+                      for k in ("distance_map",) + ACT_KERNELS), flush=True)
+    waits = count_waits(torch, cfg, intr, ds, frames, dev)
+    print(f"e2e: blocking waits per call: {waits}", flush=True)
+    # the reference's design: a keyframe call waits for the tracker's read
+    # and bundle 3 only (the tail's read hides behind the next frame's)
+    if waits.get("keyframe", {}).get("median", 0) > 3:
+        fail(f"e2e: a keyframe call waits a median {waits['keyframe']['median']} times (> 3)")
     deterministic_turns(torch, "e2e", E2E_FRAMES, lambda: run_sequence(
         torch, SLAMNode, cfg, intr, ds, frames, dev)[3])
     if profile_dir:
         e2e_profile(torch, lambda: run_sequence(torch, SLAMNode, cfg, intr, ds,
                                                 frames, dev), profile_dir)
-    return launches, scale_calls, ba_traffic.calls, n_kf
+    return launches, scale_calls, ba_traffic.calls, n_kf, act_traffic
 
 
 def deterministic_turns(torch, tag, n_frames, run) -> dict:
@@ -1199,6 +1227,200 @@ class BaTraffic:
 
     def __exit__(self, *exc):
         self.ba.optimize_keyframe = self.wrapped
+
+
+class ActTraffic:
+    """The front end's activation calls on a path: K12's and K13's entry
+    points wrapped for the run, each call's arguments kept (states and
+    candidate sets are replaced, never written in place)."""
+
+    def __init__(self):
+        from direct_stereo_slam_tpu_torch.ops import activate as act
+
+        self.act, self.gate, self.alloc = act, [], []
+
+    def __enter__(self):
+        act = self.act
+        self.wrapped = act.gate_compact_activate, act.allocate_insert_consume
+
+        def gate(*a):
+            self.gate.append(a)
+            return self.wrapped[0](*a)
+
+        def alloc(*a):
+            self.alloc.append(a)
+            return self.wrapped[1](*a)
+
+        act.gate_compact_activate, act.allocate_insert_consume = gate, alloc
+        return self
+
+    def __exit__(self, *exc):
+        self.act.gate_compact_activate, self.act.allocate_insert_consume = self.wrapped
+
+
+# f32 operations of K12: a valid candidate's gate, and a (lane, frame,
+# pattern pixel) term of a residual pass: the warp, the bilinear sample
+# (3 channels x 3 lerps), the residual, Huber, the idepth Jacobian and the
+# sums
+ACT_GATE_OPS, ACT_TERM_OPS = 60, 80
+# bytes K12 reads of a valid candidate for its gate (u, v, the idepth
+# range, quality, type, pixel interval, status) and of a survivor for its
+# LM (8 colours, 8 weights); bytes of a pool row K13 copies (valid, host,
+# 4 floats, 8 colours, 8 weights, prior, num_good, 2 states; + W flags)
+ACT_GATE_BYTES, ACT_LM_BYTES = 28 + 4, 64
+POOL_ROW_BYTES = 1 + 8 + 16 + 64 + 4 + 4 + 8
+
+
+def act_bytes_ops(torch, act, a):
+    """(bytes, f32 operations, footprint) K12 needs on a call, from the
+    call's own data, each byte it must read counted once: every
+    candidate's valid flag, a valid candidate's gate inputs, the distance
+    map's distinct cells read for the candidates the gate can pass, the
+    survivors' colours and weights, and the distinct image pixels (3
+    floats) under the 4 bilinear taps of the in-bounds samples of a
+    survivor in each frame it is tested against, over the 4 residual
+    passes (the samples recorded from the plain version's run on the same
+    inputs; a sample behind the camera that lands in the image is counted);
+    the window's poses and the outputs once. ACT_GATE_OPS a valid
+    candidate, ACT_TERM_OPS a term of a survivor's (frame, pattern pixel)
+    pairs in each pass."""
+    from direct_stereo_slam_tpu_torch.models import immature
+    from direct_stereo_slam_tpu_torch.ops.interp import _corners
+
+    imm, dist, images, frame_valid, cfg, w2, h2 = a[0], a[1], a[6], a[7], a[13], a[14], a[15]
+    S, NI = imm.valid.shape
+    Wn, Hi, Wi = images.shape[:3]
+    bud = min(a[16], NI)
+    dev = dist.device
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    KRKi1, Kt1 = f32(a[2]), f32(a[3])
+    can = immature.can_activate(imm, cfg)
+    _, gu, gv, in_b = act.halfres_cells(imm, KRKi1, Kt1, w2, h2)
+    cells = torch.unique((gv * w2 + gu)[can & in_b]).numel()
+    gate_ok, _ = act._gate_impl(imm, dist, KRKi1, Kt1, f32(a[4]),
+                                torch.as_tensor(np.asarray(a[5], bool), device=dev), cfg, w2, h2)
+    # the compaction puts a slot's survivors first
+    n_surv = torch.clamp(gate_ok.sum(1), max=bud)
+    surv = torch.arange(bud, device=dev)[None, :] < n_surv[:, None]            # [S, bud]
+    frames = torch.arange(Wn, device=dev)
+    t_ok = frame_valid[None, :] & (frames[None, :] != torch.arange(S, device=dev)[:, None])
+    need = surv[:, None, :, None] & t_ok[:, :, None, None]                    # [S, Wn, bud, 1]
+    samples, real = [], immature.bilinear_gather_frames
+
+    def kept(images_, fidx, u, v):
+        samples.append((u, v))
+        return real(images_, fidx, u, v)
+
+    immature.bilinear_gather_frames = kept
+    try:
+        act.gate_compact_activate_plain(*a)
+    finally:
+        immature.bilinear_gather_frames = real
+    taps, n_samples, terms = [], 0, 0
+    for u, v in samples:                                                       # [S, Wn, bud, 8]
+        m = need & (u > 2) & (v > 2) & (u < Wi - 3) & (v < Hi - 3)
+        ix, iy, _, _ = _corners(Hi, Wi, u, v)
+        base = ((frames[None, :, None, None] * Hi + iy) * Wi + ix)[m]
+        taps += [base, base + 1, base + Wi, base + Wi + 1]
+        n_samples += base.numel()
+        terms += int(need.sum()) * u.shape[-1]
+    pixels = torch.unique(torch.cat(taps)).numel() if taps else 0
+    n_valid, n_lm = int(imm.valid.sum()), int(n_surv.sum())
+    nb = (S * NI + n_valid * ACT_GATE_BYTES + cells * 4 + n_lm * ACT_LM_BYTES + pixels * 12
+          + Wn * (16 + 2 + 1) * 4 + 16 + S * bud * (1 + 4 + 8) + S * NI)
+    footprint = dict(survivors=n_lm, samples=n_samples, tap_reads=4 * n_samples,
+                     image_pixels=pixels, image_bytes=12 * pixels, map_cells=cells)
+    return nb, n_valid * ACT_GATE_OPS + terms * ACT_TERM_OPS, footprint
+
+
+def act_phase(torch, dev, traffic):
+    """K12 and K13 against their plain versions on the e2e run's fullest
+    activation (the call with the most valid candidates), two runs of each
+    bit-equal, K13 at the pool's overflow (every participating slot's own
+    segment full; the pool all but full), each timed with its bound.
+    Returns the kernel rows."""
+    act = traffic.act
+    n_valid = [int(a[0].valid.sum()) for a in traffic.gate]
+    pick = max(range(len(n_valid)), key=lambda i: (n_valid[i], i))
+    g, al = traffic.gate[pick], traffic.alloc[pick]
+    S, NI = g[0].valid.shape
+    print(f"act: the e2e run's activation {pick + 1} of {len(n_valid)}: {n_valid[pick]} "
+          f"valid candidates in {S} x {NI}, budget {min(g[16], NI)}, window of "
+          f"{g[6].shape[0]} frames, pool of {al[0].num_points}", flush=True)
+    rows = []
+    # ---- K12
+    got, want = act.gate_compact_activate_cuda(*g), act.gate_compact_activate_plain(*g)
+    again = act.gate_compact_activate_cuda(*g)
+    ok_k, id_k, lane_k, drop_k = got
+    ok_p, id_p, lane_p, drop_p = want
+    same_masks = torch.equal(drop_k, drop_p) and torch.equal(lane_k, lane_p)
+    close = torch.isclose(id_k, id_p, rtol=1e-4, atol=1e-5)
+    edge = (ok_k != ok_p) | ((ok_k & ok_p) & ~close)
+    n_acc, n_edge = int((ok_k | ok_p).sum()), int(edge.sum())
+    both = ok_k & ok_p
+    err = float(torch.max(torch.abs(id_k - id_p)[both])) if bool(both.any()) else 0.0
+    bit_equal = all(torch.equal(x, y) for x, y in zip(got, again))
+    print(f"K12 gate_compact_activate: drop and lane equal to the plain version: "
+          f"{same_masks}; {n_acc} accepted lanes, {n_edge} edge lanes ({int((ok_k != ok_p).sum())} "
+          f"accepts differ; idepth of the lanes both accept within rel 1e-4: max abs "
+          f"{err:.3g}); two runs bit-equal: {bit_equal}", flush=True)
+    if not same_masks or n_edge > max(1, n_acc // 100) or not bit_equal:
+        fail(f"K12: masks equal {same_masks}, edge lanes {n_edge} of {n_acc}, "
+             f"bit-equal {bit_equal}")
+    k12 = lambda: act.gate_compact_activate_cuda(*g)
+    ms, pms = ab_ms(torch, k12, lambda: act.gate_compact_activate_plain(*g),
+                    plain_kw=dict(repeats=5, inner=2))
+    dms = device_ms(torch, k12)
+    nb, no, fp = act_bytes_ops(torch, act, g)
+    print(f"K12 gate_compact_activate: kernel {ms:.4f} ms (queued on the card {dms} ms), "
+          f"plain {pms:.4f} ms; the call needs {nb} bytes and {no} f32 operations: "
+          f"{fp['image_pixels']} distinct image pixels ({fp['image_bytes']} bytes) under "
+          f"{fp['tap_reads']} tap reads of {fp['samples']} in-bounds samples of "
+          f"{fp['survivors']} survivors over 4 passes, {fp['map_cells']} map cells", flush=True)
+    rows.append(row("gate_compact_activate", "activate.cu",
+                    "direct_stereo_slam_tpu/models/frontend.py:149", err, ms, pms, nb, no))
+    rows[-1].update(device_ms=dms, edge_lanes=n_edge, accepted_lanes=n_acc, **fp)
+    # ---- K13, on the recorded call and at the pool's overflow
+    st, participate, P = al[0], al[6], al[7]
+    cases = {"recorded": st}
+    own = st.p_valid.clone()
+    for s_ in np.nonzero(participate)[0]:
+        own[s_ * P:(s_ + 1) * P] = True
+    cases["own_segment_full"] = st._replace(p_valid=own)
+    full = torch.ones_like(st.p_valid)
+    full[3::401] = False
+    cases["pool_full"] = st._replace(p_valid=full)
+    for case, st_c in cases.items():
+        a = (st_c,) + tuple(al[1:])
+        k = act.allocate_insert_consume_cuda(*a)
+        p = act.allocate_insert_consume_plain(*a)
+        k2 = act.allocate_insert_consume_cuda(*a)
+        flat = lambda r: [getattr(r[0], f) for f in act.POOL_FIELDS] + [r[1].valid, *r[2]]
+        equal = all(torch.equal(x, y) for x, y in zip(flat(k), flat(p)))
+        twice = all(torch.equal(x, y) for x, y in zip(flat(k), flat(k2)))
+        print(f"K13 allocate_insert {case}: {int(p[2][5].sum())} placed of "
+              f"{int(al[2].cpu().numpy()[participate].sum())} accepted, "
+              f"{int((~st_c.p_valid).sum())} free rows; bit-equal to the plain version: "
+              f"{equal}; two runs bit-equal: {twice}", flush=True)
+        if not (equal and twice):
+            fail(f"K13 {case}: bit-equal to plain {equal}, two runs {twice}")
+    k13 = lambda: act.allocate_insert_consume_cuda(*al)
+    ms, pms = ab_ms(torch, k13, lambda: act.allocate_insert_consume_plain(*al),
+                    plain_kw=dict(repeats=5, inner=2))
+    dms = device_ms(torch, k13)
+    B, W_ = st.p_res_good.shape
+    placed = int(act.allocate_insert_consume_plain(*al)[2][5].sum())
+    # reads ok, lane and idepth, drop and the candidates' validity, the
+    # placed candidates' u, v, colours and weights, the pool; writes the
+    # pool, the validity, the allocation and the consumed mask
+    nb = (S * min(g[16], NI) * (1 + 8 + 4) + 3 * S * NI + placed * 72
+          + 2 * B * (POOL_ROW_BYTES + W_) + 5 * B * 8 + B + S * NI)
+    print(f"K13 allocate_insert: kernel {ms:.4f} ms (queued on the card {dms} ms), plain "
+          f"{pms:.4f} ms; {placed} rows placed", flush=True)
+    rows.append(row("allocate_insert", "activate.cu",
+                    "direct_stereo_slam_tpu/models/frontend.py:190", 0.0, ms, pms, nb, 0))
+    rows[-1].update(device_ms=dms, placed=placed)
+    return rows
 
 
 def ba_bytes_ops(st, D, n_pairs):
@@ -1842,7 +2064,8 @@ class WaitCounter:
         for kind in ("benign", "keyframe", "other"):
             w = [n for k, n in self.calls if k == kind]
             if w:
-                top = sorted(self.sites.get(kind, {}).items(), key=lambda kv: -kv[1])[:6]
+                top = sorted(self.sites.get(kind, {}).items(), key=lambda kv: -kv[1])
+                top = top if kind == "keyframe" else top[:6]
                 out[kind] = dict(calls=len(w), median=float(np.median(w)),
                                  mean=float(np.mean(w)), max=int(max(w)), sites=dict(top))
         return out
@@ -1859,24 +2082,71 @@ def count_waits(torch, cfg, intr, ds, frames, dev) -> dict:
     return counter.summary()
 
 
-def fps_only(torch, dev) -> None:
+FPS_VARIANTS = ("plain_activation", "eager_tail", "idepth_ulp_up", "idepth_ulp_down")
+
+
+def fps_variant(name: str) -> None:
+    """A variant of the port for ``--fps``, to split what moved a run:
+    ``plain_activation`` sends the front end's K12 and K13 calls to their
+    plain versions on the card (the same function, its sums in another
+    order); ``eager_tail`` commits each keyframe tail in the call that
+    made the keyframe instead of after the next tracker read;
+    ``idepth_ulp_up`` / ``_down`` move every idepth the activation returns
+    one f32 step up / down (a perturbation of the size of K12's rounding,
+    applied to whichever activation the variants before it left)."""
+    if name.startswith("idepth_ulp_"):
+        import torch
+
+        from direct_stereo_slam_tpu_torch.ops import activate as act
+
+        inner = act.gate_compact_activate
+        to = float("inf") if name.endswith("up") else float("-inf")
+
+        def nudged(*a):
+            ok, idepth, lane, drop = inner(*a)
+            return ok, torch.nextafter(idepth, torch.full_like(idepth, to)), lane, drop
+
+        act.gate_compact_activate = nudged
+    elif name == "plain_activation":
+        from direct_stereo_slam_tpu_torch.ops import activate as act
+
+        act.gate_compact_activate = act.gate_compact_activate_plain
+        act.allocate_insert_consume = act.allocate_insert_consume_plain
+    elif name == "eager_tail":
+        from direct_stereo_slam_tpu_torch.models.frontend import FrontEnd
+
+        dispatch = FrontEnd._finalize_keyframe
+
+        def eager(self, *a):
+            dispatch(self, *a)
+            self.flush_pending()
+
+        FrontEnd._finalize_keyframe = eager
+
+
+def fps_only(torch, dev, variants=()) -> None:
     """``--fps``: the e2e sequence (a warm-up pass, a timed pass, a pass
     with a device synchronize at the end of every span, one with the
     waits counted) and the 160-frame loop phase (a timed run, then a
-    synchronized one), not gated. For comparing two trees in turns in one
-    call, since host-bound spans move between calls: with ``--root``, the
-    port of another checkout (the parent commit, whose kernels this
-    script's counters may not know). Prints one line ``fps {...}``."""
+    synchronized one: FPS, stages, loops, translation ATE of the odometry
+    and of the loop-closed trajectory), not gated. For comparing two trees
+    in turns in one call, since host-bound spans move between calls: with
+    ``--root``, the port of another checkout (the parent commit, whose
+    kernels this script's counters may not know); ``variants`` from
+    FPS_VARIANTS. Prints one line ``fps {...}``."""
     import direct_stereo_slam_tpu_torch as port
     from direct_stereo_slam_tpu_torch.runtime.eval import run_sequence as run_loop
-    from direct_stereo_slam_tpu_torch.runtime.eval import timing_table
+    from direct_stereo_slam_tpu_torch.runtime.eval import score_rows, timing_table
     from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
 
-    stages = ("dso_opt", "point_marg", "frame_marg", "pose_graph_opt", "per_frame")
+    for name in variants:
+        fps_variant(name)
+    stages = ("activate", "trace", "template", "dso_opt", "point_marg", "frame_marg",
+              "pose_graph_opt", "icp", "direct_est", "per_frame")
     table = lambda timers: {k: v for k, v in timing_table(timers).items() if k in stages}
     ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
     run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
-    e2e_dt = run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)[3]
+    timed, _, _, e2e_dt = run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
     synced = run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev, sync_timers=True)[0]
     waits = count_waits(torch, cfg, intr, ds, frames, dev)
     lds, lframes, lcfg = loop_setup(dev, LOOP_FRAMES, LOOP_MARGIN)
@@ -1885,11 +2155,17 @@ def fps_only(torch, dev) -> None:
         node, handler, dt = run_loop(lframes, lcfg, lds.K, lds.t_cam1_cam0, levels=LEVELS,
                                      device=dev, sync_timers=mode == "synchronized")
         handler.close()
+        gt = lds.poses[:, :3, 3]
         loop[mode] = dict(fps=LOOP_FRAMES / dt, stages=table(node.timers),
-                          loops=handler.direct_loop_count + handler.icp_loop_count)
+                          loops=handler.direct_loop_count + handler.icp_loop_count,
+                          direct_loops=handler.direct_loop_count,
+                          icp_loops=handler.icp_loop_count, keyframes=node.frontend.num_kfs,
+                          ate_sodso=score_rows(handler.odometry_rows(), gt),
+                          ate_dslam=score_rows(handler.optimized_rows(), gt))
     print("fps " + json.dumps(dict(
-        root=os.path.dirname(os.path.dirname(os.path.abspath(port.__file__))), e2e_fps=E2E_FRAMES / e2e_dt,
-        e2e_synchronized_stages=table(synced.timers),
+        root=os.path.dirname(os.path.dirname(os.path.abspath(port.__file__))),
+        variants=list(variants), e2e_fps=E2E_FRAMES / e2e_dt,
+        e2e_stages=table(timed.timers), e2e_synchronized_stages=table(synced.timers),
         e2e_keyframe_waits=waits.get("keyframe"), loop=loop)), flush=True)
 
 
@@ -2569,12 +2845,14 @@ def observe_phase(torch, dev, seq, tmp: str):
 # are its bit reference, held to it in phase 13, and make no launch on a path
 BA_KERNELS = ("ba_linearize", "ba_optimize")
 BA_ROWS = ("ba_linearize", "ba_step", "ba_accept", "ba_optimize")
-E2E_KERNELS = ("distance_map", "track_lm", "scale_lm") + BA_KERNELS
+# a keyframe's activation: K12 (gate, compaction, idepth LM), K13 (pool rows)
+ACT_KERNELS = ("gate_compact_activate", "allocate_insert")
+E2E_KERNELS = ("distance_map", "track_lm", "scale_lm") + BA_KERNELS + ACT_KERNELS
 # the loop thread's pose graph stays at or below 512 nodes here: K7, one
 # launch a dense optimize (K6 and K8 above 512, in the pose-graph phase)
 LOOP_KERNELS = E2E_KERNELS + ("loop_pose_lm", "pose_graph_gn")
 # DSO mode makes no stereo scale optimization
-MONO_KERNELS = ("distance_map", "track_lm") + BA_KERNELS
+MONO_KERNELS = ("distance_map", "track_lm") + BA_KERNELS + ACT_KERNELS
 OFF_PATH = ("pose_residual_pass", "scale_residual_pass", "pose3d_residual_pass")
 
 
@@ -2641,6 +2919,7 @@ class GraphTraffic:
 
 
 def kernel_counters():
+    from direct_stereo_slam_tpu_torch.ops import activate as act
     from direct_stereo_slam_tpu_torch.ops import ba as kb
     from direct_stereo_slam_tpu_torch.ops import distance_map as dm
     from direct_stereo_slam_tpu_torch.ops import pose_graph as pgk
@@ -2648,6 +2927,8 @@ def kernel_counters():
     from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
 
     return {"distance_map": dm.build_distance_map_cuda,
+            "gate_compact_activate": act.gate_compact_activate_cuda,
+            "allocate_insert": act.allocate_insert_consume_cuda,
             "pose_residual_pass": rh.pose_residual_pass_cuda,
             "scale_residual_pass": rh.scale_residual_pass_cuda,
             "pose3d_residual_pass": rh.pose3d_residual_pass_cuda,
@@ -3907,6 +4188,8 @@ def main() -> int:
                     help="only time the e2e and 160-frame loop sequences (FPS, the BA's "
                          "synchronized stages, waits per keyframe call), to compare "
                          "this tree with another checkout (--root) in turns in one call")
+    ap.add_argument("--fps-variant", action="append", default=[], choices=FPS_VARIANTS,
+                    help="with --fps: time a variant of this tree's port (repeatable)")
     ap.add_argument("--ba-window", metavar="FILE",
                     help="only run the e2e sequence once and save its fullest BA window "
                          "to FILE")
@@ -3956,7 +4239,7 @@ def main() -> int:
         lm_digest(torch, dev)
         return 0
     if args.fps:
-        fps_only(torch, dev)
+        fps_only(torch, dev, args.fps_variant)
         return 0
     if args.ba_window:
         ba_window_only(torch, dev, args.ba_window)
@@ -3983,9 +4266,11 @@ def main() -> int:
     # each path's kernels count in that path's run: K1, K2-LM and K3-LM in
     # the e2e pass, K4-LM in the loop phase; the per-pass K2, K3 and K4 run
     # on none of the paths (every phase gates that they stay at 0)
-    launches, e2e_scale_calls, ba_calls, e2e_kfs = e2e_phase(torch, dev, args.profile)
+    launches, e2e_scale_calls, ba_calls, e2e_kfs, act_calls = e2e_phase(torch, dev,
+                                                                        args.profile)
+    rows += act_phase(torch, dev, act_calls)
     rows += ba_phase(torch, dev, ba_calls)
-    elapsed("e2e, ba")
+    elapsed("e2e, act, ba")
     pl_launches = pipelined_phase(torch, dev)
     mono_launches = mono_phase(torch, dev)
     undistort_phase(torch, dev)
@@ -4029,7 +4314,7 @@ def main() -> int:
         r["loop_launches_per_frame"] = loop_launches[name] / LOOP_FRAMES
         if name == "scale_lm":
             r["path_calls"] = dict(e2e=e2e_scale_calls, loop=loop_scale_calls)
-        if name in BA_ROWS:
+        if name in BA_ROWS + ACT_KERNELS:
             r["e2e_launches_per_keyframe"] = launches[name] / max(e2e_kfs, 1)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "direct_stereo_slam_tpu"))

@@ -269,6 +269,13 @@ __device__ __forceinline__ int current(const BaParams& p) {
 
 __device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
 
+// a (host, target) block's not-finite flag: kFlagH for an entry of its H,
+// kFlagB for one of its b (0: finite), kept as a float beside the blocks
+constexpr int kFlagH = 1, kFlagB = 2;
+__device__ __forceinline__ float block_flag(int hbad, int bbad) {
+  return static_cast<float>((hbad ? kFlagH : 0) | (bbad ? kFlagB : 0));
+}
+
 __device__ __forceinline__ long long cycles() { return clock64(); }
 
 // phase stamp i of a block (thread 0 only, where timers is set)
@@ -782,14 +789,16 @@ __global__ void __cluster_dims__(kChunks, 1, 1) __launch_bounds__(kLinThreads)
   if (c == 0) {
     // the chunks in rank order into the (s, t) block
     float* blk = p.lin_part + (static_cast<size_t>(s) * W + t) * kHE;
-    int bad = 0;
+    int hbad = 0, bbad = 0;
     for (int e = tid; e < kHE; e += kLinThreads) {
       const float v = chunk_sum([&](int r) { return cluster.map_shared_rank(sm.out, r); }, e);
       blk[e] = v;
-      bad |= e < kHB && !isfinite(v);
+      hbad |= e < kHU && !isfinite(v);
+      bbad |= e >= kHU && e < kHB && !isfinite(v);
     }
-    bad = __syncthreads_or(bad);
-    if (tid == 0) p.lin_part[static_cast<size_t>(W) * W * kHE + s * W + t] = bad ? 1.f : 0.f;
+    hbad = __syncthreads_or(hbad);
+    bbad = __syncthreads_or(bbad);
+    if (tid == 0) p.lin_part[static_cast<size_t>(W) * W * kHE + s * W + t] = block_flag(hbad, bbad);
   }
   cluster.sync();                        // no block leaves while rank 0 reads it
   stamp(p, ((s * kMaxSlots + t) * kChunks + c) * kLinStamps, 3);
@@ -888,8 +897,14 @@ __device__ __forceinline__ void finish_block(const BaParams& p, int b, int vb, i
   }
   // bit t: a block of target t is not finite (the W x W blocks' flags)
   const float* flags = p.lin_part + static_cast<size_t>(W) * W * kHE;
-  const unsigned lo_bad = __ballot_sync(kFull, lane < W * W && flags[lane] != 0.f);
-  const unsigned hi_bad = __ballot_sync(kFull, lane + 32 < W * W && flags[lane + 32] != 0.f);
+  const int f_lo = lane < W * W ? static_cast<int>(flags[lane]) : 0;
+  const int f_hi = lane + 32 < W * W ? static_cast<int>(flags[lane + 32]) : 0;
+  const unsigned lo_bad = __ballot_sync(kFull, f_lo != 0);
+  const unsigned hi_bad = __ballot_sync(kFull, f_hi != 0);
+  // the JAX package places the blocks by one einsum with 0/1 matrices, so
+  // one non-finite entry of a block's H (b) makes all of Hff (bf) NaN
+  const bool h_nan = __any_sync(kFull, ((f_lo | f_hi) & kFlagH) != 0);
+  const bool b_nan = __any_sync(kFull, ((f_lo | f_hi) & kFlagB) != 0);
   unsigned bad_t = 0;
   for (int i = 0; i < W * W; ++i)
     if (((i < 32 ? lo_bad >> i : hi_bad >> (i - 32)) & 1u) != 0) bad_t |= 1u << (i % W);
@@ -954,10 +969,10 @@ __device__ __forceinline__ void finish_block(const BaParams& p, int b, int vb, i
   if (e < U) {
     int r, c;
     upper_ij_fast(e, D, r, c);
-    p.Hff[b][r * D + c] = tot;
-    p.Hff[b][c * D + r] = tot;
+    p.Hff[b][r * D + c] = h_nan ? qnan() : tot;
+    p.Hff[b][c * D + r] = h_nan ? qnan() : tot;
   } else if (e < U + D) {
-    p.bf[b][e - U] = tot;
+    p.bf[b][e - U] = b_nan ? qnan() : tot;
   } else if (e == U + D) {
     *p.energy[b] = tot;
     *p.num_terms[b] = tot2 * 8.f;
@@ -1778,14 +1793,16 @@ __global__ void __launch_bounds__(kStepThreads, 1)
     // an entry a thread, as the queued cluster's rank 0)
     for (int st_ = blockIdx.x; st_ < W * W; st_ += nblk) {
       const float* part = p.chunk_part + static_cast<size_t>(st_) * kChunks * kHE;
-      int bad = 0;
+      int hbad = 0, bbad = 0;
       if (tid < kHE) {
         const float v = chunk_sum([&](int r) { return part + r * kHE; }, tid);
         p.lin_part[static_cast<size_t>(st_) * kHE + tid] = v;
-        bad = tid < kHB && !isfinite(v);
+        hbad = tid < kHU && !isfinite(v);
+        bbad = tid >= kHU && tid < kHB && !isfinite(v);
       }
-      bad = __syncthreads_or(bad);
-      if (tid == 0) p.lin_part[static_cast<size_t>(W) * W * kHE + st_] = bad ? 1.f : 0.f;
+      hbad = __syncthreads_or(hbad);
+      bbad = __syncthreads_or(bbad);
+      if (tid == 0) p.lin_part[static_cast<size_t>(W) * W * kHE + st_] = block_flag(hbad, bbad);
     }
     // the points' Hfd rows, Hdd and bd
     for (int rb = 2 * blockIdx.x + half; rb < row_blocks; rb += 2 * nblk)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import (PATTERN_OFFSETS, SCALE_A, SCALE_B, SCALE_C, SCALE_F,
@@ -37,7 +38,7 @@ from ..config import (PATTERN_OFFSETS, SCALE_A, SCALE_B, SCALE_C, SCALE_F,
 from ..geometry import lie
 from ..ops import ba as kb
 from ..ops.interp import bilinear_gather_frames
-from ..utils.device import constant
+from ..utils.device import constant, to_device
 
 RES_IN = 0
 RES_OOB = 1
@@ -338,6 +339,11 @@ def linearize_plain(state: BAState, cfg: SLAMConfig,
         0, flat, H20.reshape(-1)).reshape(D, D)
     bf = torch.zeros(D, dtype=torch.float32, device=dev).index_add_(
         0, cols.reshape(-1), b20.reshape(-1))
+    # the JAX package places the blocks by one einsum with 0/1 matrices, so
+    # one non-finite block entry makes all of Hff (bf) NaN, as in K9
+    nan = torch.full((), float("nan"), device=dev)
+    Hff = torch.where(torch.isfinite(H20).all(), Hff, nan)
+    bf = torch.where(torch.isfinite(b20).all(), bf, nan)
 
     # Schur blocks per point: calib, the host frame's 8 and each target's 8
     G20 = torch.einsum("pwki,pwk->pwi", Jw, Jd)                   # [NP, W, 20]
@@ -706,10 +712,12 @@ def marginalize_frame(state: BAState, slot: int) -> BAState:
     HM_new = torch.where(mask2d, HM_new, torch.zeros_like(HM_new))
     bM_new = torch.where(keep, bM_new, torch.zeros_like(bM_new))
 
+    # (a host number assigned to one element would be copied from the host,
+    # a wait for the card: filled in place instead)
     frame_valid = state.frame_valid.clone()
-    frame_valid[slot] = False
+    frame_valid[slot].fill_(False)
     frame_id = state.frame_id.clone()
-    frame_id[slot] = -1
+    frame_id[slot].fill_(-1)
     p_res_good = state.p_res_good.clone()
     p_res_good[:, slot] = False
     delta = state.delta.clone()
@@ -808,12 +816,23 @@ def add_frame(state: BAState, slot: int, frame_id: int, T_cw, aff, exposure: flo
     """Insert a keyframe into a free slot; residuals toward it activate
     through the dense [NP, W] grid."""
     dev = state.delta.device
-    f32 = dict(dtype=torch.float32, device=dev)
 
     def put(a, v):
+        # a host number is filled in place: assigned through an index it
+        # would be copied from the host, a wait for the card
         a = a.clone()
-        a[slot] = v
+        if isinstance(v, torch.Tensor):
+            a[slot] = v
+        else:
+            a[slot].fill_(v)
         return a
+
+    def upload(x):
+        # a host array through pinned memory: a pageable copy waits for
+        # the card
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=torch.float32)
+        return to_device(np.asarray(x, np.float32), dev)
 
     p_res_good = state.p_res_good.clone()
     p_res_good[:, slot] = True
@@ -821,9 +840,9 @@ def add_frame(state: BAState, slot: int, frame_id: int, T_cw, aff, exposure: flo
     return state._replace(
         frame_valid=put(state.frame_valid, True),
         frame_id=put(state.frame_id, int(frame_id)),
-        T_zero=put(state.T_zero, torch.as_tensor(T_cw, **f32)),
+        T_zero=put(state.T_zero, upload(T_cw)),
         delta=put(state.delta, 0.0),
-        aff_zero=put(state.aff_zero, torch.as_tensor(aff, **f32)),
+        aff_zero=put(state.aff_zero, upload(aff)),
         exposure=put(state.exposure, float(exposure)),
         images=put(state.images, image_planes),
         energy_th=put(state.energy_th, 12.0 * 12.0 * 8.0),
@@ -838,30 +857,40 @@ def add_points(state: BAState, free_idx: torch.Tensor, host_slot, u, v, idepth,
                color, weight, valid: torch.Tensor, prior=None) -> BAState:
     """Insert points into the pool at ``free_idx``; lanes with
     valid=False are dropped (fixed-length padded batches). ``host_slot``
-    is an int or a per-lane tensor."""
+    is an int or a per-lane tensor. A dropped lane writes a scratch row
+    past the pool's end, and every value written is a tensor on the
+    state's device: no boolean-mask indexing and no host value through a
+    tensor index, which would wait for the card."""
     dev = state.delta.device
+    NP = state.num_points
+    keep = valid.to(torch.bool)
+    n = keep.shape[0]
     if prior is None:
         prior = torch.zeros_like(u)
-    keep = valid.to(torch.bool)
-    idx = free_idx.to(torch.int64)[keep]
-    host = torch.as_tensor(host_slot, dtype=torch.int64, device=dev).expand(keep.shape)[keep]
+    idx = torch.where(keep, free_idx.to(torch.int64),
+                      torch.full((n,), NP, dtype=torch.int64, device=dev))
+    host = (host_slot.to(torch.int64).expand(n) if isinstance(host_slot, torch.Tensor)
+            else torch.full((n,), int(host_slot), dtype=torch.int64, device=dev))
 
     def put(a, vals):
-        a = a.clone()
-        a[idx] = vals
-        return a
+        out = torch.cat([a, a[:1]])
+        out[idx] = vals.to(a.dtype).expand((n,) + a.shape[1:])
+        return out[:NP]
+
+    def const(a, value):
+        return torch.full((1,) + a.shape[1:], value, dtype=a.dtype, device=dev)
 
     return state._replace(
-        p_valid=put(state.p_valid, True),
+        p_valid=put(state.p_valid, const(state.p_valid, True)),
         p_host=put(state.p_host, host),
-        p_u=put(state.p_u, u[keep]),
-        p_v=put(state.p_v, v[keep]),
-        p_idepth=put(state.p_idepth, idepth[keep]),
-        p_idepth_zero=put(state.p_idepth_zero, idepth[keep]),
-        p_color=put(state.p_color, color[keep]),
-        p_weight=put(state.p_weight, weight[keep]),
-        p_prior=put(state.p_prior, prior[keep]),
-        p_res_good=put(state.p_res_good, True),
-        p_num_good=put(state.p_num_good, 0.0),
-        p_last_res=put(state.p_last_res, RES_IN),
+        p_u=put(state.p_u, u),
+        p_v=put(state.p_v, v),
+        p_idepth=put(state.p_idepth, idepth),
+        p_idepth_zero=put(state.p_idepth_zero, idepth),
+        p_color=put(state.p_color, color),
+        p_weight=put(state.p_weight, weight),
+        p_prior=put(state.p_prior, prior),
+        p_res_good=put(state.p_res_good, const(state.p_res_good, True)),
+        p_num_good=put(state.p_num_good, const(state.p_num_good, 0.0)),
+        p_last_res=put(state.p_last_res, const(state.p_last_res, RES_IN)),
     )

@@ -15,14 +15,14 @@ track is launched before frame N-1 is consumed, see
 
 Host arrays reach the card through pinned memory without waiting for the
 stream (``utils.device.to_device``), so the device's results are read at
-a few chosen points only: on a frame that makes no keyframe, the one read
-of the tracker's outputs.
-
-Differences from the reference's orchestration, all without effect on
-the numbers: the keyframe tail commits at once (the reference defers it
-to the next frame's tracker pull only to hide a device round trip;
-``flush_pending`` stays as a no-op), and host views of the window are
-read fresh after each state change instead of being patched.
+a few chosen points only, as the reference's design has it: on every
+frame the one read of the tracker's outputs; on a keyframe, bundle 3 (the
+BA's gates, the post-BA views, the template's count and the scale LM's
+results). The activation (K1, K12, K13) reads nothing; the keyframe tail
+is dispatched with its copy to the host started, and committed
+(``flush_pending``) right after the next frame's tracker read. The host
+views of the window are patched after the rescale and the tail, not read
+again.
 """
 
 from __future__ import annotations
@@ -36,11 +36,12 @@ import torch
 
 from ..config import SLAMConfig
 from ..geometry.camera import PyramidIntrinsics
+from ..ops import activate
 from ..ops.distance_map import build_distance_map
 from ..ops.interp import bilinear_gather, bilinear_gather_scalar
 from ..ops.pyramid import Pyramid, build_pyramid
 from ..ops.select import adapt_potential, make_selection_map
-from ..utils.device import DEFAULT_DEVICE, resolve_device, to_device, to_host
+from ..utils.device import DEFAULT_DEVICE, HostCopy, resolve_device, to_device, to_host
 from ..utils.timing import StageTimers
 from . import ba, immature, initializer, mono_init
 from .depth_template import (TrackerTemplate, build_template, default_budgets,
@@ -90,19 +91,15 @@ def _host_aff(ab) -> AffLight:
     return AffLight(_host_f32(ab[0]), _host_f32(ab[1]))
 
 
-def _to_int(x: torch.Tensor) -> torch.Tensor:
-    """Float -> int64 as the reference's f32 -> int32 cast behaves on the
-    values that matter (NaN reads as 0, out-of-range saturates)."""
-    return torch.nan_to_num(x, nan=0.0).clamp(-2.0 ** 30, 2.0 ** 30).to(torch.int64)
-
-
 def _halfres_distance_map(state: ba.BAState, new_slot: int, K1: torch.Tensor,
-                          h2: int, w2: int) -> torch.Tensor:
+                          h2: int, w2: int, T_all: torch.Tensor, T_inv: torch.Tensor,
+                          calib: torch.Tensor):
     """Project every active point into the new KF at half resolution and
-    build the activation distance map (kernel K1 on the card)."""
-    fx0, fy0, cx0, cy0 = state.calib_current().unbind(0)
-    T_all = state.T_current()
-    T_nh = torch.einsum("ij,hjk->hik", T_all[new_slot], torch.linalg.inv_ex(T_all)[0])
+    build the activation distance map (kernel K1 on the card); ``T_all``,
+    ``T_inv`` and ``calib`` are the state's current poses, their inverses
+    and the intrinsics."""
+    fx0, fy0, cx0, cy0 = calib.unbind(0)
+    T_nh = torch.einsum("ij,hjk->hik", T_all[new_slot], T_inv)
     Xh = torch.stack([(state.p_u - cx0) / fx0, (state.p_v - cy0) / fy0,
                       torch.ones_like(state.p_u)], -1) / torch.clamp(state.p_idepth, min=1e-6)[:, None]
     R = T_nh[state.p_host, :3, :3]
@@ -112,111 +109,6 @@ def _halfres_distance_map(state: ba.BAState, new_slot: int, K1: torch.Tensor,
     pv2 = K1[1, 1] * pt[:, 1] / pt[:, 2] + K1[1, 2]
     proj_ok = state.p_valid & (pt[:, 2] > 0)
     return build_distance_map(pu2, pv2, proj_ok, h2, w2)
-
-
-def _gate_impl(pts: immature.ImmaturePoints, dist_map, KRKi1, Kt1, min_act_dist,
-               host_flagged, cfg: SLAMConfig, w2: int, h2: int):
-    """Activation gate over the stacked [S, NI] candidates: project each
-    candidate into the new KF at half res with its mid idepth, look up the
-    distance map; returns (gate_ok, drop) masks (see the reference for the
-    deletion policy and the frac() dither quirk)."""
-    can = immature.can_activate(pts, cfg)
-    u1 = (pts.u + 0.5) / 2.0 - 0.5
-    v1 = (pts.v + 0.5) / 2.0 - 0.5
-    id_mid = 0.5 * (pts.idepth_min + torch.clamp(pts.idepth_max, max=1e3))
-    xyz = torch.stack([u1, v1, torch.ones_like(u1)], -1)             # [S, NI, 3]
-    ptp = xyz @ KRKi1.transpose(1, 2) + Kt1[:, None, :] * id_mid[..., None]
-    z = ptp[..., 2]
-    zs = torch.where(z == 0, torch.full_like(z, 1e-9), z)
-    gu_raw = _to_int(torch.floor(ptp[..., 0] / zs + 0.5))
-    gv_raw = _to_int(torch.floor(ptp[..., 1] / zs + 0.5))
-    gu = torch.clamp(gu_raw, 0, w2 - 1)
-    gv = torch.clamp(gv_raw, 0, h2 - 1)
-    in_b = ((z > 0) & (gu_raw > 0) & (gv_raw > 0) & (gu_raw < w2 - 1)
-            & (gv_raw < h2 - 1))
-    dither = ptp[..., 0] - torch.floor(ptp[..., 0])
-    gate = dist_map[gv, gu] + dither >= min_act_dist * pts.my_type
-    gate_ok = can & in_b & gate
-    never_traced = ~torch.isfinite(pts.idepth_max) & (pts.status != immature.IPS_UNINITIALIZED)
-    drop = pts.valid & (
-        never_traced
-        | (pts.status == immature.IPS_OUTLIER)
-        | (~can & (host_flagged[:, None] | (pts.status == immature.IPS_OOB)))
-        | (can & ~in_b))
-    return gate_ok, drop
-
-
-def _gate_compact_activate(imm, dist_map, KRKi1, Kt1, min_act_dist, host_flagged,
-                           images, frame_valid, T_cw, aff, calib, exposure,
-                           cfg: SLAMConfig, w2: int, h2: int, budget: int):
-    """Cheap gates on all lanes, then the idepth LM only on the first
-    ``budget`` survivors of each slot (lane order). Returns (ok [S,B],
-    idepth [S,B], lane [S,B], drop [S,NI])."""
-    gate_ok, drop = _gate_impl(imm, dist_map, KRKi1, Kt1, min_act_dist,
-                               host_flagged, cfg, w2, h2)
-    lane = torch.sort((~gate_ok).to(torch.int8), dim=1, stable=True).indices[:, :budget]
-    sel_ok = torch.gather(gate_ok, 1, lane)
-
-    def take(a):
-        idx = lane
-        while idx.dim() < a.dim():
-            idx = idx[..., None]
-        return torch.gather(a, 1, idx.expand(idx.shape[:2] + a.shape[2:]))
-
-    sub = immature.ImmaturePoints(*[take(a) for a in imm])
-    S = gate_ok.shape[0]
-    acts = immature.activate_points_all(
-        sub, torch.arange(S, device=images.device), images, frame_valid, T_cw,
-        aff, calib, exposure, cfg)
-    return sel_ok & acts.ok, acts.idepth, lane, drop
-
-
-def _allocate_candidates(ok, lane, drop, p_valid, participate: np.ndarray, P: int):
-    """Activation insertion allocator: slots in ascending order; each
-    slot's accepted candidates (compacted lane order) take the slot's own
-    free pool segment rows first, then any other free rows, capped by the
-    remaining capacity. Accepted-but-unplaced candidates stay immature;
-    dropped candidates are consumed regardless. Returns (src_slot,
-    src_sub, src_lane, dst, host, valid) each [B] plus consumed [S, NI]."""
-    S, BUD = ok.shape
-    NI = drop.shape[1]
-    B = p_valid.shape[0]
-    dev = ok.device
-    i64 = dict(dtype=torch.int64, device=dev)
-    rows = torch.arange(B, **i64)
-    free = torch.cat([~p_valid, torch.zeros(1, dtype=torch.bool, device=dev)])
-    n_fill = torch.zeros((), **i64)
-    out = {k: torch.zeros(B + 1, **i64) for k in ("slot", "sub", "lane", "dst", "host")}
-    valid = torch.zeros(B + 1, dtype=torch.bool, device=dev)
-    consumed = torch.zeros(S, NI, dtype=torch.bool, device=dev)
-    sub = torch.arange(BUD, **i64)
-    for s in range(S):
-        if not participate[s]:
-            continue
-        accs = ok[s]
-        n_acc = torch.sum(accs)
-        outside = (rows < s * P) | (rows >= (s + 1) * P)
-        key = rows + outside.to(torch.int64) * B + (~free[:B]).to(torch.int64) * (4 * B)
-        order = torch.argsort(key)
-        n_free = torch.sum(free[:B])
-        k = torch.minimum(torch.minimum(n_free, n_acc), B - n_fill)
-        rank = torch.cumsum(accs.to(torch.int64), 0) - 1
-        take = accs & (rank < k)
-        gpos = torch.where(take, n_fill + rank, torch.full_like(rank, B))
-        dstrow = order[torch.clamp(rank, 0, B - 1)]
-        out["slot"][gpos] = s
-        out["sub"][gpos] = sub
-        out["lane"][gpos] = lane[s]
-        out["dst"][gpos] = dstrow
-        out["host"][gpos] = s
-        valid[gpos] = True
-        free[torch.where(take, dstrow, torch.full_like(dstrow, B))] = False
-        row = torch.cat([drop[s], torch.zeros(1, dtype=torch.bool, device=dev)])
-        row[torch.where(take, lane[s], torch.full_like(lane[s], NI))] = True
-        consumed[s] = row[:NI]
-        n_fill = n_fill + k
-    return (out["slot"][:B], out["sub"][:B], out["lane"][:B], out["dst"][:B],
-            out["host"][:B], valid[:B], consumed)
 
 
 def _flag_points_for_removal(p_valid, pid_a, n_good, Hdd, pair_good, p_num_good,
@@ -350,6 +242,8 @@ class FrontEnd:
         self.pot = 5
 
         self.marginalized_queue: List[MarginalizedKF] = []
+        # a keyframe tail dispatched and not yet committed (flush_pending)
+        self._pending_finalize = None
         self._trace_overflow_acc = None
         self._frames_since_kf = 0
         self._marg_export_acc: Dict[int, list] = {}
@@ -396,9 +290,28 @@ class FrontEnd:
         identity is a sound key)."""
         st = self.ba_state
         if self._views_cache_key is not st:
-            self._views_cache = to_host(ba.current_views(st))
-            self._views_cache_key = st
+            self._set_views(st, to_host(ba.current_views(st)))
         return self._views_cache
+
+    def _set_views(self, st, views, pose=None, frames_out=(), points_out=None):
+        """Key the host views cache to ``st`` without a read: ``views``, a
+        host copy of ``ba.current_views`` of ``st`` or of the state it was
+        made from, with what that change moved: ``pose`` (slot, T_cw), a
+        slot's new current pose; ``frames_out``, the slots marginalized
+        (invalid, id -1; their pose and affine rows go stale, and nothing
+        reads an invalid slot's); ``points_out`` [NP], the points removed."""
+        T, aff, calib, frame_valid, frame_id, p_valid, p_host = views
+        if pose is not None:
+            T = T.copy()
+            T[pose[0]] = pose[1]
+        if len(frames_out):
+            frame_valid, frame_id = frame_valid.copy(), frame_id.copy()
+            frame_valid[list(frames_out)] = False
+            frame_id[list(frames_out)] = -1
+        if points_out is not None:
+            p_valid = p_valid & ~points_out
+        self._views_cache = (T, aff, calib, frame_valid, frame_id, p_valid, p_host)
+        self._views_cache_key = st
 
     def _free_slot(self) -> int:
         valid = self._views_np()[3]
@@ -651,6 +564,9 @@ class FrontEnd:
                     _host_f32(self._cur_exposure))
                 r_np, self._track_imm_counts = self._read_track(r)
                 self._track_imm_counts_key = self.immatures
+                # the previous keyframe's tail: its copy landed before this
+                # track ran, so the commit waits for nothing
+                self.flush_pending()
                 i, g = selector(r_np, self.last_coarse_rmse, self.cfg)
                 return r_np, i, g
 
@@ -777,30 +693,19 @@ class FrontEnd:
         self._pl_state = (r.T[0], Tl, AffLight(r.aff.a[0], r.aff.b[0]))
         return inf
 
-    def _pl_transfer(self, packed: torch.Tensor):
-        """Start the copy of a dispatch's packed outputs to the host: on
-        the card into the next of two pinned buffers (frame N's copy is
-        queued while frame N-1's buffer may still be read), then an event;
-        on the CPU the tensor itself. Returns (buffer, event or None)."""
-        if packed.device.type != "cuda":
-            return packed, None
+    def _pl_transfer(self, packed: torch.Tensor) -> HostCopy:
+        """Start the copy of a dispatch's packed outputs to the host, on the
+        card into the next of two pinned buffers (frame N's copy is queued
+        while frame N-1's buffer may still be read)."""
         i = self._pl_next_buf
         self._pl_next_buf ^= 1
-        buf = self._pl_bufs[i]
-        if buf is None or buf.shape != packed.shape:
-            buf = self._pl_bufs[i] = torch.empty(packed.shape, dtype=torch.float32,
-                                                 pin_memory=True)
-        buf.copy_(packed, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return buf, event
+        copy = HostCopy([packed], buf=self._pl_bufs[i])
+        self._pl_bufs[i] = copy.buf
+        return copy
 
-    def _pl_read(self, out):
+    def _pl_read(self, out: HostCopy):
         """Wait for a transfer and unpack it: (TrackResultNp, counts)."""
-        buf, event = out
-        if event is not None:
-            event.synchronize()
-        return _unpack_track(buf.numpy().copy(), self.levels, self.n_slots)
+        return _unpack_track(out.wait()[0], self.levels, self.n_slots)
 
     def _pl_consume(self, inf, retrack: bool = False) -> bool:
         """Complete a pipelined frame: read its track result, accept or
@@ -986,6 +891,7 @@ class FrontEnd:
     # ------------------------------------------------------------------
 
     def _make_non_keyframe(self, shell: FrameShell, pyr0: Pyramid):
+        self.flush_pending()        # a no-op unless no tracker read ran
         self._frames_since_kf += 1
         tc = self.cfg.trace
         steady = tc.steady_after > 0 and self._frames_since_kf >= tc.steady_after
@@ -1030,6 +936,7 @@ class FrontEnd:
 
     def _make_keyframe(self, shell: FrameShell, pyr0: Pyramid, img1):
         cfg = self.cfg
+        self.flush_pending()        # a no-op unless no tracker read ran
         shell.is_kf = True
         self._frames_since_kf = 0
         self.kf_shells.append(shell)
@@ -1084,24 +991,29 @@ class FrontEnd:
                 ti = ba.template_inputs(st, cfg, slot, hdd)
                 tmpl = build_template(ti[0], ti[1], ti[2], ti[3], pyr0.data[0][..., 0],
                                       self.levels, self.budgets, valid=ti[4])
-            scale_out = None
+            scale = ()
             if scale_enabled:
                 with self.timers.span("scale_opt"):
                     pyr1 = build_pyramid(self._image(img1), self.levels)
-                    scale_out = dispatch_scale_optimization(
+                    out = dispatch_scale_optimization(
                         tuple(pyr1.data), tmpl, self.intr0, self.intr1,
                         self.t_cam1_cam0, cfg, self.scale_state)
-            # rmse, ok, the template's level-0 count and the compact view's
-            # overflow in one host read
-            rmse, ok, pmask_count, ndrop = to_host((rmse, ok, tmpl.pmask[0].sum(), ndrop))
-            return st, tmpl, scale_out, float(rmse), bool(ok), int(pmask_count), int(ndrop)
+                    scale = (out.scale, out.error)
+            # bundle 3, the keyframe's one blocking read: rmse, ok, the
+            # template's level-0 count, the compact view's overflow, the
+            # post-BA views and the scale LM's results
+            host = to_host((rmse, ok, tmpl.pmask[0].sum(), ndrop)
+                           + ba.current_views(st) + scale)
+            return st, tmpl, host
 
         cb = cfg.ba.compact_budget
         cb = cb if 0 < cb < self.pool else None
-        st, tmpl, scale_out, rmse, ok, pmask_count, ndrop = run_ba_chain(cb)
-        if cb is not None and ndrop > 0:
-            st, tmpl, scale_out, rmse, ok, pmask_count, ndrop = run_ba_chain(None)
+        st, tmpl, host = run_ba_chain(cb)
+        if cb is not None and int(host[3]) > 0:
+            st, tmpl, host = run_ba_chain(None)
+        rmse, ok, pmask_count = float(host[0]), bool(host[1]), int(host[2])
         self.ba_state = st
+        self._set_views(st, host[4:11])
 
         # ---- init-failure / lost gates ------------------------------------------
         gates = self.cfg.runtime.init_rmse_gates
@@ -1133,11 +1045,9 @@ class FrontEnd:
 
         # ---- stereo scale decision ---------------------------------------------
         scale_error = -1.0
-        if scale_out is not None:
-            # the one host read of the scale LM
-            scales, errors = torch.stack([scale_out.scale, scale_out.error]).cpu().numpy()
+        if scale_enabled:
             accepted, new_scale, scale_error, self.scale_state = decide_scale_optimization(
-                scales, errors, cfg, self.scale_state)
+                host[11], host[12], cfg, self.scale_state)
             if accepted:
                 self._apply_scale(new_scale, slot)
         self.scale_errors[slot] = scale_error
@@ -1147,13 +1057,28 @@ class FrontEnd:
     # ------------------------------------------------------------------
 
     def flush_pending(self):
-        """The keyframe tail commits at once in this port: nothing is ever
-        pending (kept for callers of the reference's API)."""
+        """Commit a deferred keyframe tail (``_finalize_keyframe``); a no-op
+        when nothing is pending. Runs right after the next frame's tracker
+        read, by which time the tail's copy has landed, and before any host
+        read of the tail's outputs (the node's hand-off of marginalized
+        keyframes, the end of a run, checkpoints)."""
+        pending = self._pending_finalize
+        if pending is None:
+            return
+        self._pending_finalize = None
+        copy, slots, lin, st, flagged, new_slot = pending
+        host = copy.wait()
+        bundle = (host[:7], host[7:17], int(host[17]), dict(zip(slots, host[18:])))
+        self._finalize_keyframe_commit(bundle, lin, st, flagged, new_slot)
 
     def _finalize_keyframe(self, flagged: List[int], new_slot: int, pyr0: Pyramid):
-        """Keyframe tail: one linearization of the post-BA/post-scale state
-        feeds point flagging, dso_error and the marginalized-point exports;
-        new immature traces for the new KF; flagged frames marginalize."""
+        """Keyframe tail, dispatch half: one linearization of the
+        post-BA/post-scale state feeds point flagging, dso_error and the
+        marginalized-point exports; new immature traces for the new KF. The
+        device work is queued, the immature updates (which the next frame's
+        trace and counts read) are made at once, and the bundle starts its
+        copy to the host without a wait; ``flush_pending`` commits it at
+        the next frame's tracker read, as the reference does."""
         cfg = self.cfg
         st = self.ba_state
         lin = ba.linearize(st, cfg)
@@ -1175,19 +1100,20 @@ class FrontEnd:
                     self.immatures, self._upload(clear))
                 for mslot in flagged:
                     self.imm_slots.discard(mslot)
-        # the bundle's arrays, the selection count and the colours in one
-        # device-to-host copy
+        # the views, the bundle's arrays, the selection count and the
+        # colours in one device-to-host copy, started now
         slots = list(colors_by_slot)
-        host = to_host((st.p_u, st.p_v, st.p_idepth, n_good, lin.Hdd, lin.pair_good,
-                        lin.pair_energy, st.p_color, st.p_num_good, st.p_last_res,
-                        sel_count) + tuple(colors_by_slot[s] for s in slots))
-        bundle = (self._views_np(), host[:10], int(host[10]), dict(zip(slots, host[11:])))
-        self._finalize_keyframe_commit(bundle, lin, st, flagged, new_slot)
+        copy = HostCopy(ba.current_views(st)
+                        + (st.p_u, st.p_v, st.p_idepth, n_good, lin.Hdd, lin.pair_good,
+                           lin.pair_energy, st.p_color, st.p_num_good, st.p_last_res,
+                           sel_count) + tuple(colors_by_slot[s] for s in slots))
+        self._pending_finalize = (copy, slots, lin, st, flagged, new_slot)
 
     def _finalize_keyframe_commit(self, bundle, lin, st, flagged: List[int],
                                   new_slot: int):
         """Host bookkeeping half of the keyframe tail."""
         cfg = self.cfg
+        assert st is self.ba_state, "BA state replaced while the keyframe tail was pending"
         views = bundle[0]
         (pu_a, pv_a, pid_a, n_good, Hdd, pair_good, pair_e, p_color,
          p_num_good, p_last_res) = bundle[1]
@@ -1290,6 +1216,10 @@ class FrontEnd:
                 self.scale_errors.pop(mslot, None)
                 self.slot_exposure.pop(mslot, None)
 
+        # the host views of the new state, patched instead of read: the
+        # tail changes validity only
+        self._set_views(self.ba_state, views, frames_out=flagged, points_out=removed)
+
     # ------------------------------------------------------------------
 
     def _flag_frames_for_marginalization(self, shell, imm_counts) -> List[int]:
@@ -1340,8 +1270,9 @@ class FrontEnd:
 
     def _activate_points(self, new_slot: int, T_cw_new: np.ndarray, pre_views,
                          flagged_slots=()):
-        """Density-adaptive distance-map gating (kernel K1 on the card) +
-        batched 1-D idepth optimization + insertion into the point pool."""
+        """Density-adaptive distance-map gating (K1 on the card), the gate,
+        compaction and batched 1-D idepth optimization (K12) and the pool-row
+        allocation with the insertion (K13): no host read."""
         cfg = self.cfg
         want = cfg.ba.desired_point_density
         have = int(np.asarray(pre_views[5]).sum())
@@ -1364,14 +1295,11 @@ class FrontEnd:
             d += 0.1
         self.current_min_act_dist = float(np.clip(d, 0.0, 4.0))
 
+        # host 4x4 math from the pre-insert snapshot (the old slots' poses
+        # have not moved since) and the new KF's host-known pose
         K = np.asarray(self.intr0.K(1), np.float32)   # level-1 intrinsics
         h2, w2 = self.intr0.h[1], self.intr0.w[1]
-        st = self.ba_state
-        dist_map = _halfres_distance_map(st, new_slot, self._upload(K),
-                                         h2, w2)
         slots_todo = [s for s in self.imm_slots if s != new_slot]
-        if not slots_todo:
-            return
         S = self.n_slots
         T_all_old = pre_views[0]
         K1i = np.linalg.inv(K)
@@ -1383,24 +1311,25 @@ class FrontEnd:
             Kt1[slot] = K @ T_nh1[:3, 3]
         host_flagged = np.zeros(S, bool)
         host_flagged[list(flagged_slots)] = True
-        views = ba.current_views(st)
-        t = self._upload
-        ok_d, idepth_d, lane_d, drop_d = _gate_compact_activate(
-            self.immatures, dist_map, t(KRKi1), t(Kt1),
-            self._f32(self.current_min_act_dist), t(host_flagged), st.images,
-            st.frame_valid, views[0], views[1], views[2], st.exposure, cfg, w2, h2,
-            cfg.ba.act_budget)
         participate = np.zeros(S, bool)
         participate[slots_todo] = True
-        (src_slot, src_sub, src_lane, dst_idx, host, valid,
-         consumed) = _allocate_candidates(ok_d, lane_d, drop_d, st.p_valid, participate,
-                                          cfg.ba.max_points_per_frame)
-        imm = self.immatures
-        self.ba_state = ba.add_points(
-            self.ba_state, dst_idx, host, imm.u[src_slot, src_lane],
-            imm.v[src_slot, src_lane], idepth_d[src_slot, src_sub],
-            imm.color[src_slot, src_lane], imm.weight[src_slot, src_lane], valid)
-        self.immatures = imm._replace(valid=imm.valid & ~consumed)
+
+        # on the card: K1, then K12 (gate, compaction, idepth LM) and K13
+        # (pool rows, insertion, consumption), with no host read
+        if not slots_todo:
+            return
+        st = self.ba_state
+        T_all, aff, calib = st.T_current(), st.aff_current(), st.calib_current()
+        T_inv = torch.linalg.inv_ex(T_all)[0]
+        dist_map = _halfres_distance_map(st, new_slot, self._upload(K), h2, w2, T_all, T_inv,
+                                         calib)
+        ok_d, idepth_d, lane_d, drop_d = activate.gate_compact_activate(
+            self.immatures, dist_map, KRKi1, Kt1, self.current_min_act_dist, host_flagged,
+            st.images, st.frame_valid, T_all, T_inv, aff, calib, st.exposure, cfg, w2, h2,
+            cfg.ba.act_budget)
+        self.ba_state, self.immatures, _ = activate.allocate_insert_consume(
+            st, self.immatures, ok_d, idepth_d, lane_d, drop_d, participate,
+            cfg.ba.max_points_per_frame)
 
     # ------------------------------------------------------------------
 
@@ -1434,11 +1363,13 @@ class FrontEnd:
         to its tracking reference."""
         s = float(new_scale)
         self.template = scale_template_idepth(self.template, self._f32(s))
+        views = self._views_np()     # bundle 3's: the poses before the rescale
         st = self.ba_state
         new_idepth = torch.where(st.p_valid, st.p_idepth / s, st.p_idepth)
         st = st._replace(p_idepth=new_idepth, p_idepth_zero=new_idepth)
         shell = self.kf_shells[-1]
         ref_kf = shell.tracking_ref_kf - self.prev_kf_count
+        pose = None
         if 0 <= ref_kf < len(self.kf_shells) - 1:
             T_w_ref = self.kf_shells[ref_kf].T_wc
             T_ref_new = np.linalg.inv(T_w_ref) @ shell.T_wc
@@ -1451,7 +1382,11 @@ class FrontEnd:
             delta[newest_slot, :6] = 0.0
             st = st._replace(T_zero=T_zero, delta=delta)
             self.cur_pose = shell.T_wc
+            # its delta is zero, so its current pose is T_cw itself
+            pose = (newest_slot, T_cw)
         self.ba_state = st
+        # the rescale moves only the newest slot's pose among the views
+        self._set_views(st, views, pose=pose)
 
     def _make_new_traces(self, slot: int, pyr0: Pyramid):
         """makeNewTraces with density feedback (initialization path)."""

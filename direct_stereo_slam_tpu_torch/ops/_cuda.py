@@ -93,6 +93,9 @@ _SIGNATURES = {
     "dsslam_ba_optimize": [_P, _I, _P],
     # W, NP, out[6] (host only: no stream)
     "dsslam_ba_optimize_grid": [_I, _I, _P],
+    # &GateParams / &AllocParams (ops/activate.py), stream
+    "dsslam_gate_activate": [_P, _P],
+    "dsslam_allocate_insert": [_P, _P],
 }
 
 

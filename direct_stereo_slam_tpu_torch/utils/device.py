@@ -30,20 +30,65 @@ def to_device(a, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes as a flat uint8 view (a copy where its layout is
+    not plain: a one-element view of a wider row keeps its row's stride)."""
+    x = t.reshape(-1)
+    if x.numel() and x.stride(0) != 1:
+        x = x.clone(memory_format=torch.contiguous_format)
+    return x.view(torch.uint8)
+
+
+class HostCopy:
+    """A device-to-host copy of several tensors in flight: their bytes
+    packed into one uint8 tensor, copied into pinned memory without
+    waiting (on the card), then an event. ``ready()`` asks whether it has
+    landed without waiting; ``wait()`` waits for it (only if it has not)
+    and returns host numpy copies of the tensors. On the CPU the copy is
+    made at once. ``buf``, a pinned uint8 tensor of an earlier copy whose
+    result has been read, is reused when its size fits (``self.buf`` is
+    the buffer the copy went into)."""
+
+    def __init__(self, tensors, buf: torch.Tensor = None):
+        self.meta = [(t.dtype, tuple(t.shape)) for t in tensors]
+        flat = [_bytes(t) for t in tensors]
+        on_card = bool(flat) and flat[0].device.type == "cuda"
+        if on_card and len(flat) == 1:
+            packed = flat[0]
+        else:
+            packed = torch.cat(flat) if flat else torch.zeros(0, dtype=torch.uint8)
+        self.event = None
+        if on_card:
+            if buf is None or buf.shape != packed.shape:
+                buf = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+            self.buf = buf
+            self.buf.copy_(packed, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.buf = packed
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def wait(self) -> tuple:
+        if not self.ready():
+            self.event.synchronize()
+        host = self.buf.numpy()
+        out, off = [], 0
+        for dtype, shape in self.meta:
+            n = int(np.prod(shape, dtype=np.int64)) * torch.empty(0, dtype=dtype).element_size()
+            np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+            out.append(host[off:off + n].view(np_dtype).reshape(shape).copy())
+            off += n
+        return tuple(out)
+
+
 def to_host(tensors) -> tuple:
     """Host numpy copies of ``tensors`` (any dtypes and shapes, on one
-    device) through one device-to-host copy: their bytes are packed into
-    one uint8 tensor on the device, so the card is waited for once, not
-    once per tensor."""
-    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-    host = torch.cat(flat).cpu().numpy() if flat else np.zeros(0, np.uint8)
-    out, off = [], 0
-    for t, f in zip(tensors, flat):
-        n = f.numel()
-        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
-        out.append(host[off:off + n].view(dtype).reshape(t.shape).copy())
-        off += n
-    return tuple(out)
+    device) through one device-to-host copy: the card is waited for once,
+    not once per tensor."""
+    return HostCopy(tensors).wait()
 
 
 def resolve_device(device=DEFAULT_DEVICE) -> torch.device:

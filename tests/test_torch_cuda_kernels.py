@@ -1059,7 +1059,7 @@ def test_pipelined_dispatch_does_not_wait(pl_frames):
     t0 = time.perf_counter()
     inf = fe._pl_dispatch(pyrs[2])
     host = time.perf_counter() - t0
-    assert not inf["out"][1].query() and host < 0.05, host
+    assert not inf["out"].ready() and host < 0.05, host
     fe._pl_read(inf["out"])
 
 
@@ -1082,8 +1082,8 @@ def test_two_dispatches_before_a_consume(pl_frames):
                            tr.AffLight(ra_dev.aff.a[0], ra_dev.aff.b[0]))
     ia = fe._pl_dispatch(pyrs[0])
     ib = fe._pl_dispatch(pyrs[1])
-    assert ia["out"][0].data_ptr() != ib["out"][0].data_ptr()
-    assert ia["out"][0].is_pinned() and ib["out"][0].is_pinned()
+    assert ia["out"].buf.data_ptr() != ib["out"].buf.data_ptr()
+    assert ia["out"].buf.is_pinned() and ib["out"].buf.is_pinned()
     (got_a, got_counts), (got_b, _) = fe._pl_read(ia["out"]), fe._pl_read(ib["out"])
     for got, want in ((got_a, want_a), (got_b, want_b)):
         for field in ("res_per_level", "flow", "T", "aff", "ok"):

@@ -258,7 +258,7 @@ def test_activation_allocator_matches():
     """The activation insertion allocator (own pool segment first, then any
     free row, capped by capacity) picks the same rows as the reference's."""
     from direct_stereo_slam_tpu.models import frontend as fe_j
-    from direct_stereo_slam_tpu_torch.models import frontend as fe_t
+    from direct_stereo_slam_tpu_torch.ops import activate as act_t
 
     rng = np.random.RandomState(4)
     S, BUD, NI, P = 4, 24, 32, 16
@@ -271,8 +271,8 @@ def test_activation_allocator_matches():
     out_j = fe_j._allocate_candidates(jnp.asarray(ok), jnp.asarray(lane, jnp.int32),
                                       jnp.asarray(drop), jnp.asarray(p_valid),
                                       jnp.asarray(participate), P)
-    out_t = fe_t._allocate_candidates(torch.tensor(ok), torch.tensor(lane), torch.tensor(drop),
-                                      torch.tensor(p_valid), participate, P)
+    out_t = act_t.allocate_candidates(torch.tensor(ok), torch.tensor(lane), torch.tensor(drop),
+                                     torch.tensor(p_valid), participate, P)
     valid = np.asarray(out_j[5])
     np.testing.assert_array_equal(out_t[5].numpy(), valid)
     assert valid.sum() > 0
