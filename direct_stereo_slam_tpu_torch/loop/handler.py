@@ -37,7 +37,7 @@ import torch
 from ..config import SLAMConfig
 from ..geometry.camera import PyramidIntrinsics
 from ..models.frontend import MarginalizedKF
-from ..utils.device import DEFAULT_DEVICE, resolve_device
+from ..utils.device import DEFAULT_DEVICE, resolve_device, upload
 from ..utils.timing import StageTimers
 from . import icp as icp_mod
 from . import pose_estimator, pose_graph, retrieval, scan, scancontext
@@ -312,6 +312,26 @@ class LoopHandler:
         """Direct multi-seed estimate of the matched KF's points against the
         current KF's pyramid. Returns the best seed's values on the host and
         the number of seeds that passed."""
+        bres = self._direct_launch(mkf, lf, matched, tfm_pca, tfm_icp, tfm_odo, icp_ok,
+                                   ref_mode)
+        b = bres.best
+        # one host read of everything the policy and the log need
+        vals = torch.cat([b.pose_error[None], b.inlier_ratio[None],
+                          b.aff.a[None], b.aff.b[None],
+                          torch.stack([b.ok, b.ok_res, b.ok_inlier, b.ok_aff]).float(),
+                          bres.seed_ok.float().sum()[None],
+                          b.T.reshape(16)]).cpu().numpy()
+        res = dict(pose_error=float(vals[0]), inlier_ratio=float(vals[1]),
+                   aff_a=float(vals[2]), aff_b=float(vals[3]),
+                   ok=bool(vals[4]), ok_res=bool(vals[5]), ok_inlier=bool(vals[6]),
+                   ok_aff=bool(vals[7]), T=vals[9:].reshape(4, 4))
+        return res, int(vals[8])
+
+    def _direct_launch(self, mkf, lf, matched, tfm_pca, tfm_icp, tfm_odo, icp_ok,
+                       ref_mode):
+        """A try's inputs on the host, uploaded in one pinned copy, and the
+        seed stack's estimate (``estimate_batch``) queued on the keyframe
+        pyramid's device; nothing waits for the card."""
         lp = self.cfg.loop
         K = matched.pts_cam
         kmax = lp.max_loop_points
@@ -340,23 +360,8 @@ class LoopHandler:
         if self.debug_seed_hook is not None:
             extras = tuple(extras) + tuple(self.debug_seed_hook(lf, matched))
         stack = pose_estimator.make_seed_stack(primary, extras, perturb)
-        dev = mkf.pyr[0].device
-        t = lambda a: torch.as_tensor(a, device=dev)
-        bres = pose_estimator.estimate_batch(
-            tuple(mkf.pyr), t(px), t(py), t(pz), t(cols), t(mask), t(stack),
-            self.intr, self.cfg)
-        b = bres.best
-        # one host read of everything the policy and the log need
-        vals = torch.cat([b.pose_error[None], b.inlier_ratio[None],
-                          b.aff.a[None], b.aff.b[None],
-                          torch.stack([b.ok, b.ok_res, b.ok_inlier, b.ok_aff]).float(),
-                          bres.seed_ok.float().sum()[None],
-                          b.T.reshape(16)]).cpu().numpy()
-        res = dict(pose_error=float(vals[0]), inlier_ratio=float(vals[1]),
-                   aff_a=float(vals[2]), aff_b=float(vals[3]),
-                   ok=bool(vals[4]), ok_res=bool(vals[5]), ok_inlier=bool(vals[6]),
-                   ok_aff=bool(vals[7]), T=vals[9:].reshape(4, 4))
-        return res, int(vals[8])
+        inputs = upload((px, py, pz, cols, mask, stack), mkf.pyr[0].device)
+        return pose_estimator.estimate_batch(tuple(mkf.pyr), *inputs, self.intr, self.cfg)
 
     def graph_data(self):
         """(PoseGraphData of every frame and edge, the f32 poses it holds)."""

@@ -221,9 +221,33 @@ def _gated(T, aff: AffLight, E0, n0, pmask, cfg: SLAMConfig, ref_exposure,
                           ok_aff=ok_aff)
 
 
-def _index(res: LoopPoseResult, i) -> LoopPoseResult:
+def _index(res: LoopPoseResult, i: int) -> LoopPoseResult:
     return LoopPoseResult(*[AffLight(f.a[i], f.b[i]) if isinstance(f, AffLight)
                             else f[i] for f in res])
+
+
+def _take(res: LoopPoseResult, idx: torch.Tensor) -> LoopPoseResult:
+    """Seed ``idx`` (a [1] device tensor) of every field, on the device:
+    ``index_select`` and a squeeze, the bits of ``_index(res, int(idx))``.
+    Indexing with a 0-d device tensor would read it to the host, a wait
+    for the stream."""
+    pick = lambda f: f.index_select(0, idx).squeeze(0)
+    return LoopPoseResult(*[AffLight(pick(f.a), pick(f.b)) if isinstance(f, AffLight)
+                            else pick(f) for f in res])
+
+
+def best_seed(res: LoopPoseResult, cfg: SLAMConfig) -> torch.Tensor:
+    """The reference's choice among the seeds, as a [1] device tensor: the
+    passing seed with the lowest pose_error; with none passing, the seed
+    closest to acceptance (visibility-passing seeds by error, then any
+    seed that sees a point). Ties go to the first index."""
+    inf = torch.full_like(res.pose_error, float("inf"))
+    best_ok = torch.argmin(torch.where(res.ok, res.pose_error, inf))
+    vis_key = torch.where(res.inlier_ratio > cfg.loop.inner_percent, res.pose_error,
+                          torch.where(res.inlier_ratio > 0.0, res.pose_error + 1e3,
+                                      inf))
+    best_err = torch.argmin(vis_key)
+    return torch.where(torch.any(res.ok), best_ok, best_err).reshape(1)
 
 
 def estimate(pyr_cur: Tuple[torch.Tensor, ...], px, py, pz, pcolors, pmask,
@@ -241,20 +265,11 @@ def estimate_batch(pyr_cur: Tuple[torch.Tensor, ...], px, py, pz, pcolors, pmask
                    T_inits: torch.Tensor, intr: PyramidIntrinsics, cfg: SLAMConfig,
                    ref_exposure=1.0, new_exposure=1.0) -> LoopPoseBatchResult:
     """Multi-seed direct alignment over the seed stack ``T_inits`` [S, 4, 4],
-    then the reference's choice: the passing seed with the lowest
-    pose_error; with none passing, the seed closest to acceptance
-    (visibility-passing seeds by error, then any seed that sees a point).
-    Ties go to the first index."""
+    then the reference's choice (``best_seed``), taken on the device."""
     res = estimate_seeds(pyr_cur, px, py, pz, pcolors, pmask, T_inits, intr, cfg,
                          ref_exposure, new_exposure)
-    inf = torch.full_like(res.pose_error, float("inf"))
-    best_ok = torch.argmin(torch.where(res.ok, res.pose_error, inf))
-    vis_key = torch.where(res.inlier_ratio > cfg.loop.inner_percent, res.pose_error,
-                          torch.where(res.inlier_ratio > 0.0, res.pose_error + 1e3,
-                                      inf))
-    best_err = torch.argmin(vis_key)
-    idx = torch.where(torch.any(res.ok), best_ok, best_err)
-    return LoopPoseBatchResult(best=_index(res, idx), seed_errors=res.pose_error,
+    return LoopPoseBatchResult(best=_take(res, best_seed(res, cfg)),
+                               seed_errors=res.pose_error,
                                seed_inliers=res.inlier_ratio, seed_ok=res.ok)
 
 

@@ -30,6 +30,33 @@ def to_device(a, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+_ALIGN = 256       # each uploaded array starts where cudaMalloc's would
+
+
+def upload(arrays, device) -> tuple:
+    """Host arrays (or numbers) as tensors on ``device``, their dtypes
+    kept, through ONE pinned buffer and one ``non_blocking`` copy on the
+    card: the arrays' bytes are packed into a pinned uint8 tensor (each at
+    a 256-byte offset), copied, and viewed back. Nothing waits for the
+    stream, and one copy replaces one per array. On the CPU each result is
+    a copy of its array."""
+    arrays = [np.array(a, order="C") for a in arrays]
+    device = torch.device(device)
+    if device.type != "cuda":
+        return tuple(torch.from_numpy(a) for a in arrays)
+    offs, n = [], 0
+    for a in arrays:
+        offs.append(n)
+        n += -(-a.nbytes // _ALIGN) * _ALIGN
+    host = torch.empty(max(n, 1), dtype=torch.uint8, pin_memory=True)
+    hv = host.numpy()
+    for a, off in zip(arrays, offs):
+        hv[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
+    dev = host.to(device, non_blocking=True)
+    return tuple(dev[off:off + a.nbytes].view(torch.from_numpy(a.reshape(-1)[:0]).dtype)
+                 .reshape(a.shape) for a, off in zip(arrays, offs))
+
+
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     """A tensor's bytes as a flat uint8 view (a copy where its layout is
     not plain: a one-element view of a wider row keeps its row's stride)."""
