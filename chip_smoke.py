@@ -1163,6 +1163,7 @@ def e2e_phase(torch, dev, profile_dir=None):
                       for k in ("distance_map",) + ACT_KERNELS), flush=True)
     waits = count_waits(torch, cfg, intr, ds, frames, dev)
     print(f"e2e: blocking waits per call: {waits}", flush=True)
+    act_traffic.split = activate_split(torch, dev, cfg, intr, ds, frames)
     # the reference's design: a keyframe call waits for the tracker's read
     # and bundle 3 only (the tail's read hides behind the next frame's)
     if waits.get("keyframe", {}).get("median", 0) > 3:
@@ -1237,7 +1238,7 @@ class ActTraffic:
     def __init__(self):
         from direct_stereo_slam_tpu_torch.ops import activate as act
 
-        self.act, self.gate, self.alloc = act, [], []
+        self.act, self.gate, self.alloc, self.split = act, [], [], None
 
     def __enter__(self):
         act = self.act
@@ -1333,24 +1334,79 @@ def act_bytes_ops(torch, act, a):
     return nb, n_valid * ACT_GATE_OPS + terms * ACT_TERM_OPS, footprint
 
 
-def act_phase(torch, dev, traffic):
-    """K12 and K13 against their plain versions on the e2e run's fullest
-    activation (the call with the most valid candidates), two runs of each
-    bit-equal, K13 at the pool's overflow (every participating slot's own
-    segment full; the pool all but full), each timed with its bound.
-    Returns the kernel rows."""
+# K12 / K13 and their first forms (the redesigns' bit references), by the
+# names ptxas compiles them under
+ACT_PTXAS = {"gate_compact_activate": "gate_cluster_kernel",
+             "gate_compact_activate_first": "gate_activate_kernel",
+             "allocate_insert": "alloc_cluster_kernel",
+             "allocate_insert_first": "allocate_insert_kernel"}
+
+
+def turns_ms(torch, first, new):
+    """The card's ms per call (``device_ms``) of the first form and of the
+    redesign in turns first, new, new, first: (new, first, the four)."""
+    t = [device_ms(torch, f) for f in (first, new, new, first)]
+    if None in t:
+        return None, None, t
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
+def gate_phases(c, mhz: float) -> dict:
+    """K12's phase stamps (cycles [S, ranks, 6]: rank 0's gate, compaction
+    and writes; each block's cluster barrier; its warp 0's first LM:
+    set-up, first pass, the 3 steps; the block's LM warps to the last) in
+    us: rank 0's front, the median over the slots; the LM's parts, the
+    largest over the blocks that ran one; the longest block from its
+    start to its end."""
+    us = np.asarray(c, np.float64) / mhz
+    ran = us[:, :, 5] > 0
+    lm = lambda k: float(us[:, :, k][ran].max()) if ran.any() else 0.0
+    span = us[:, :, 1] + us[:, :, 5]
+    span[:, 0] += us[:, 0, 0]
+    return dict(front_rank0=float(np.median(us[:, 0, 0])),
+                barrier_rank0=float(np.median(us[:, 0, 1])), barrier_max=float(us[:, :, 1].max()),
+                lm_setup_max=lm(2), lm_first_pass_max=lm(3), lm_steps_max=lm(4),
+                lm_block_max=float(us[:, :, 5].max()), span_max=float(span.max()))
+
+
+def pool_phases(c, mhz: float) -> dict:
+    """K13's phase stamps (cycles [ranks, 4]: rank 0's tables and walk,
+    each block's start to the barrier and the rest) in us."""
+    us = np.asarray(c, np.float64) / mhz
+    return dict(tables=float(us[0, 0]), walk=float(us[0, 1]),
+                to_barrier_max=float(us[:, 2].max()), after_barrier_max=float(us[:, 3].max()),
+                span_max=float((us[:, 2] + us[:, 3]).max()))
+
+
+def act_phase(torch, dev, traffic, build_log):
+    """K12 and K13 against their plain versions and their first forms on
+    the e2e run's fullest activation (the call with the most valid
+    candidates): K12's masks equal to the plain version's (edge lanes
+    counted), ok, drop, lane and the accepted idepths bit-equal to the
+    first form, its LM warps the sum over slots of min(survivors,
+    budget); K13 bit-equal to both, also at the pool's overflow (every
+    participating slot's own segment full; the pool all but full); two
+    runs of each bit-equal; each timed (the card's time in turns with the
+    first form) with its bound and ptxas's registers, shared memory and
+    spills. Returns the kernel rows."""
     act = traffic.act
     n_valid = [int(a[0].valid.sum()) for a in traffic.gate]
     pick = max(range(len(n_valid)), key=lambda i: (n_valid[i], i))
     g, al = traffic.gate[pick], traffic.alloc[pick]
     S, NI = g[0].valid.shape
+    bud = min(g[16], NI)
     print(f"act: the e2e run's activation {pick + 1} of {len(n_valid)}: {n_valid[pick]} "
-          f"valid candidates in {S} x {NI}, budget {min(g[16], NI)}, window of "
+          f"valid candidates in {S} x {NI}, budget {bud}, window of "
           f"{g[6].shape[0]} frames, pool of {al[0].num_points}", flush=True)
+    usage = ptxas_usage(build_log, tuple(ACT_PTXAS.values()))
+    print(f"act: ptxas (registers, shared memory, spill stores / loads): {usage}", flush=True)
     rows = []
     # ---- K12
-    got, want = act.gate_compact_activate_cuda(*g), act.gate_compact_activate_plain(*g)
+    ran = torch.zeros((S, bud), dtype=torch.uint8, device=dev)
+    got = act.gate_compact_activate_cuda(*g, lm_ran=ran)
+    want = act.gate_compact_activate_plain(*g)
     again = act.gate_compact_activate_cuda(*g)
+    first = act.gate_compact_activate_first_cuda(*g)
     ok_k, id_k, lane_k, drop_k = got
     ok_p, id_p, lane_p, drop_p = want
     same_masks = torch.equal(drop_k, drop_p) and torch.equal(lane_k, lane_p)
@@ -1359,27 +1415,56 @@ def act_phase(torch, dev, traffic):
     n_acc, n_edge = int((ok_k | ok_p).sum()), int(edge.sum())
     both = ok_k & ok_p
     err = float(torch.max(torch.abs(id_k - id_p)[both])) if bool(both.any()) else 0.0
-    bit_equal = all(torch.equal(x, y) for x, y in zip(got, again))
+    bit_equal = all(torch.equal(bits(x), bits(y)) for x, y in zip(got, again))
+    as_first = (torch.equal(ok_k, first[0]) and torch.equal(lane_k, first[2])
+                and torch.equal(drop_k, first[3])
+                and torch.equal(bits(id_k[ok_k]), bits(first[1][ok_k])))
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    gate_ok, _ = act._gate_impl(g[0], g[1], f32(g[2]), f32(g[3]), f32(g[4]),
+                                torch.as_tensor(np.asarray(g[5], bool), device=dev), g[13],
+                                g[14], g[15])
+    survivors = gate_ok.sum(1)
+    lm_warps, want_warps = int(ran.sum()), int(torch.clamp(survivors, max=bud).sum())
     print(f"K12 gate_compact_activate: drop and lane equal to the plain version: "
           f"{same_masks}; {n_acc} accepted lanes, {n_edge} edge lanes ({int((ok_k != ok_p).sum())} "
           f"accepts differ; idepth of the lanes both accept within rel 1e-4: max abs "
-          f"{err:.3g}); two runs bit-equal: {bit_equal}", flush=True)
-    if not same_masks or n_edge > max(1, n_acc // 100) or not bit_equal:
+          f"{err:.3g}); two runs bit-equal: {bit_equal}; ok, drop, lane and the accepted "
+          f"idepths bit-equal to the first form: {as_first}; survivors per slot "
+          f"{survivors.tolist()}, LM warps {lm_warps} (the sum of min(survivors, {bud}): "
+          f"{want_warps}; the first form runs {S * bud})", flush=True)
+    if (not same_masks or n_edge > max(1, n_acc // 100) or not bit_equal or not as_first
+            or lm_warps != want_warps):
         fail(f"K12: masks equal {same_masks}, edge lanes {n_edge} of {n_acc}, "
-             f"bit-equal {bit_equal}")
+             f"bit-equal {bit_equal}, as the first form {as_first}, LM warps {lm_warps} "
+             f"(want {want_warps})")
     k12 = lambda: act.gate_compact_activate_cuda(*g)
+    k12_first = lambda: act.gate_compact_activate_first_cuda(*g)
     ms, pms = ab_ms(torch, k12, lambda: act.gate_compact_activate_plain(*g),
                     plain_kw=dict(repeats=5, inner=2))
-    dms = device_ms(torch, k12)
+    first_ms = median_ms(torch, k12_first)
+    dms, first_dms, turns = turns_ms(torch, k12_first, k12)
+    stamps = torch.zeros((S, act.RANKS, act.GATE_STAMPS), dtype=torch.int64, device=dev)
+    act.gate_compact_activate_cuda(*g, stamps=stamps)
+    torch.cuda.synchronize()
+    clock = sm_clock_mhz()
+    k12_phases = gate_phases(stamps.cpu().numpy(), clock)
+    print(f"K12 gate_compact_activate phases (us at {clock:.0f} MHz): {k12_phases}", flush=True)
     nb, no, fp = act_bytes_ops(torch, act, g)
-    print(f"K12 gate_compact_activate: kernel {ms:.4f} ms (queued on the card {dms} ms), "
-          f"plain {pms:.4f} ms; the call needs {nb} bytes and {no} f32 operations: "
+    print(f"K12 gate_compact_activate: kernel {ms:.4f} ms, first form {first_ms:.4f} ms; on "
+          f"the card (turns first, new, new, first) {turns} ms; plain {pms:.4f} ms; the call "
+          f"needs {nb} bytes and {no} f32 operations: "
           f"{fp['image_pixels']} distinct image pixels ({fp['image_bytes']} bytes) under "
           f"{fp['tap_reads']} tap reads of {fp['samples']} in-bounds samples of "
           f"{fp['survivors']} survivors over 4 passes, {fp['map_cells']} map cells", flush=True)
-    rows.append(row("gate_compact_activate", "activate.cu",
-                    "direct_stereo_slam_tpu/models/frontend.py:149", err, ms, pms, nb, no))
-    rows[-1].update(device_ms=dms, edge_lanes=n_edge, accepted_lanes=n_acc, **fp)
+    rep = "direct_stereo_slam_tpu/models/frontend.py:149"
+    rows.append(row("gate_compact_activate", "activate.cu", rep, err, ms, pms, nb, no))
+    rows[-1].update(device_ms=dms, device_ms_turns=turns, phases_us=k12_phases, edge_lanes=n_edge,
+                    accepted_lanes=n_acc, lm_warps=lm_warps, ptxas=usage.get(ACT_PTXAS[
+                        "gate_compact_activate"]), activate_split=traffic.split, **fp)
+    rows.append(row("gate_compact_activate_first", "activate.cu", rep, err, first_ms, pms, nb,
+                    no))
+    rows[-1].update(device_ms=first_dms, lm_warps=S * bud,
+                    ptxas=usage.get(ACT_PTXAS["gate_compact_activate_first"]))
     # ---- K13, on the recorded call and at the pool's overflow
     st, participate, P = al[0], al[6], al[7]
     cases = {"recorded": st}
@@ -1390,37 +1475,120 @@ def act_phase(torch, dev, traffic):
     full = torch.ones_like(st.p_valid)
     full[3::401] = False
     cases["pool_full"] = st._replace(p_valid=full)
+    flat = lambda r: [bits(x) for x in [getattr(r[0], f) for f in act.POOL_FIELDS]
+                      + [r[1].valid, *r[2]]]
     for case, st_c in cases.items():
         a = (st_c,) + tuple(al[1:])
         k = act.allocate_insert_consume_cuda(*a)
         p = act.allocate_insert_consume_plain(*a)
         k2 = act.allocate_insert_consume_cuda(*a)
-        flat = lambda r: [getattr(r[0], f) for f in act.POOL_FIELDS] + [r[1].valid, *r[2]]
+        kf = act.allocate_insert_consume_first_cuda(*a)
         equal = all(torch.equal(x, y) for x, y in zip(flat(k), flat(p)))
         twice = all(torch.equal(x, y) for x, y in zip(flat(k), flat(k2)))
+        as_first = all(torch.equal(x, y) for x, y in zip(flat(k), flat(kf)))
         print(f"K13 allocate_insert {case}: {int(p[2][5].sum())} placed of "
               f"{int(al[2].cpu().numpy()[participate].sum())} accepted, "
               f"{int((~st_c.p_valid).sum())} free rows; bit-equal to the plain version: "
-              f"{equal}; two runs bit-equal: {twice}", flush=True)
-        if not (equal and twice):
-            fail(f"K13 {case}: bit-equal to plain {equal}, two runs {twice}")
+              f"{equal}, to the first form: {as_first}; two runs bit-equal: {twice}",
+              flush=True)
+        if not (equal and twice and as_first):
+            fail(f"K13 {case}: bit-equal to plain {equal}, to the first form {as_first}, "
+                 f"two runs {twice}")
     k13 = lambda: act.allocate_insert_consume_cuda(*al)
+    k13_first = lambda: act.allocate_insert_consume_first_cuda(*al)
     ms, pms = ab_ms(torch, k13, lambda: act.allocate_insert_consume_plain(*al),
                     plain_kw=dict(repeats=5, inner=2))
-    dms = device_ms(torch, k13)
+    first_ms = median_ms(torch, k13_first)
+    dms, first_dms, turns = turns_ms(torch, k13_first, k13)
+    stamps = torch.zeros((act.RANKS, act.POOL_STAMPS), dtype=torch.int64, device=dev)
+    act.allocate_insert_consume_cuda(*al, stamps=stamps)
+    torch.cuda.synchronize()
+    clock = sm_clock_mhz()
+    k13_phases = pool_phases(stamps.cpu().numpy(), clock)
+    print(f"K13 allocate_insert phases (us at {clock:.0f} MHz): {k13_phases}", flush=True)
     B, W_ = st.p_res_good.shape
     placed = int(act.allocate_insert_consume_plain(*al)[2][5].sum())
     # reads ok, lane and idepth, drop and the candidates' validity, the
     # placed candidates' u, v, colours and weights, the pool; writes the
     # pool, the validity, the allocation and the consumed mask
-    nb = (S * min(g[16], NI) * (1 + 8 + 4) + 3 * S * NI + placed * 72
+    nb = (S * bud * (1 + 8 + 4) + 3 * S * NI + placed * 72
           + 2 * B * (POOL_ROW_BYTES + W_) + 5 * B * 8 + B + S * NI)
-    print(f"K13 allocate_insert: kernel {ms:.4f} ms (queued on the card {dms} ms), plain "
-          f"{pms:.4f} ms; {placed} rows placed", flush=True)
-    rows.append(row("allocate_insert", "activate.cu",
-                    "direct_stereo_slam_tpu/models/frontend.py:190", 0.0, ms, pms, nb, 0))
-    rows[-1].update(device_ms=dms, placed=placed)
+    print(f"K13 allocate_insert: kernel {ms:.4f} ms, first form {first_ms:.4f} ms; on the "
+          f"card (turns first, new, new, first) {turns} ms; plain {pms:.4f} ms; {placed} "
+          f"rows placed", flush=True)
+    rep = "direct_stereo_slam_tpu/models/frontend.py:190"
+    rows.append(row("allocate_insert", "activate.cu", rep, 0.0, ms, pms, nb, 0))
+    rows[-1].update(device_ms=dms, device_ms_turns=turns, phases_us=k13_phases, placed=placed,
+                    ptxas=usage.get(ACT_PTXAS["allocate_insert"]))
+    rows.append(row("allocate_insert_first", "activate.cu", rep, 0.0, first_ms, pms, nb, 0))
+    rows[-1].update(device_ms=first_dms, placed=placed,
+                    ptxas=usage.get(ACT_PTXAS["allocate_insert_first"]))
     return rows
+
+
+# the activate span's parts, timed by wrapping them in their modules:
+# (label, module, function); "projection" is _halfres_distance_map less K1
+ACT_SPLIT = (("host_pose_math", "frontend", "_activation_warps"),
+             ("state_reads_inv_ex", "frontend", "_activation_state"),
+             ("projection_and_k1", "frontend", "_halfres_distance_map"),
+             ("k1", "frontend", "build_distance_map"),
+             ("k12_wrapper", "activate", "gate_compact_activate"),
+             ("k13_wrapper", "activate", "allocate_insert_consume"))
+
+
+def act_only(torch, dev, build_log) -> None:
+    """``--act``: the e2e sequence (a warm-up pass, then a pass with the
+    activation calls recorded), the ``activate`` span's split, then the
+    act phase on the fullest call (K12 / K13 against their plain versions
+    and first forms, timed in turns, phase stamps, ptxas)."""
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
+    run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
+    with ActTraffic() as traffic:
+        run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
+    traffic.split = activate_split(torch, dev, cfg, intr, ds, frames)
+    print("act_rows " + json.dumps(act_phase(torch, dev, traffic, build_log)), flush=True)
+
+
+def activate_split(torch, dev, cfg, intr, ds, frames) -> dict:
+    """The e2e sequence once more, no synchronize, with the ``activate``
+    span's parts wrapped in their modules (ACT_SPLIT): the span's host ms
+    per keyframe and each part's (host pose math, the state reads and
+    ``inv_ex``, the projection's plain launches, K1's, K12's and K13's
+    wrappers; "other" the rest of the span)."""
+    from direct_stereo_slam_tpu_torch.models import frontend
+    from direct_stereo_slam_tpu_torch.ops import activate as act
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    mods = {"frontend": frontend, "activate": act}
+    spent, saved = {}, []
+
+    def timed(label, fn):
+        def inner(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[label] = spent.get(label, 0.0) + time.perf_counter() - t0
+        return inner
+
+    for label, mod, name in ACT_SPLIT:
+        saved.append((mods[mod], name, getattr(mods[mod], name)))
+        setattr(mods[mod], name, timed(label, getattr(mods[mod], name)))
+    try:
+        node = run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)[0]
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    n = max(node.timers.count("activate"), 1)
+    parts = {label: 1e3 * spent.get(label, 0.0) / n for label, _, _ in ACT_SPLIT}
+    parts["projection"] = parts.pop("projection_and_k1") - parts["k1"]
+    span = node.timers.average_ms("activate")
+    parts["other"] = span - sum(parts.values())
+    out = dict(activate_ms=span, keyframes=node.timers.count("activate"), parts_ms=parts)
+    print("act_split " + json.dumps(out), flush=True)
+    return out
 
 
 def ba_bytes_ops(st, D, n_pairs):
@@ -2929,6 +3097,8 @@ def kernel_counters():
     return {"distance_map": dm.build_distance_map_cuda,
             "gate_compact_activate": act.gate_compact_activate_cuda,
             "allocate_insert": act.allocate_insert_consume_cuda,
+            "gate_compact_activate_first": act.gate_compact_activate_first_cuda,
+            "allocate_insert_first": act.allocate_insert_consume_first_cuda,
             "pose_residual_pass": rh.pose_residual_pass_cuda,
             "scale_residual_pass": rh.scale_residual_pass_cuda,
             "pose3d_residual_pass": rh.pose3d_residual_pass_cuda,
@@ -3105,6 +3275,14 @@ def loop_repeats(torch, tag, n_frames, run_once, first, first_dt) -> None:
           f"{' / '.join(f'{x:.3f}' for x in fps['on'])} (turns off, on, off, on): the "
           f"deterministic mode costs {100 * (off - on) / off:.1f}% of the FPS", flush=True)
     print(f"{tag}: blocking waits per call (the loop thread's included): {waits}", flush=True)
+    # the loop thread's designed reads: a try's best seed and an optimize's
+    # result (loop/handler.py); none in the estimator or the graph's build
+    kf = (waits or {}).get("keyframe", {})
+    stray = [w for w in kf.get("sites", {}) if w.startswith(("pose_estimator.py",
+                                                             "pose_graph.py"))]
+    if kf.get("mean", 0.0) > 2 or stray:
+        fail(f"{tag}: a keyframe call waits a mean {kf.get('mean')} times (> 2) or at "
+             f"{stray}")
     for mode, r in runs.items():
         (_, (o1, d1, l1)), (_, (o2, d2, l2)) = r
 
@@ -4196,6 +4374,9 @@ def main() -> int:
     ap.add_argument("--ba-split", metavar="FILE",
                     help="only time K9's and K10's calls and sub-launches on the BA "
                          "window FILE (--ba-window; with --root: another checkout's)")
+    ap.add_argument("--act", action="store_true",
+                    help="only run the e2e sequence, the activate span's split and the act "
+                         "phase (K12 / K13 against their plain versions and first forms)")
     ap.add_argument("--pg-split", action="store_true",
                     help="only time the dense pose-graph optimize on ring graphs and, where "
                          "the port has K7's stamps, its split (with --root: another "
@@ -4250,6 +4431,9 @@ def main() -> int:
     if args.pg_split:
         pg_split(torch, dev)
         return 0
+    if args.act:
+        act_only(torch, dev, lib.build_log)
+        return 0
     usage = lm_usage(lib.build_log)
     print(f"resident LM kernels (registers, bytes spilled, 8-block clusters resident at "
           f"once): {usage}", flush=True)
@@ -4268,7 +4452,7 @@ def main() -> int:
     # on none of the paths (every phase gates that they stay at 0)
     launches, e2e_scale_calls, ba_calls, e2e_kfs, act_calls = e2e_phase(torch, dev,
                                                                         args.profile)
-    rows += act_phase(torch, dev, act_calls)
+    rows += act_phase(torch, dev, act_calls, lib.build_log)
     rows += ba_phase(torch, dev, ba_calls)
     elapsed("e2e, act, ba")
     pl_launches = pipelined_phase(torch, dev)

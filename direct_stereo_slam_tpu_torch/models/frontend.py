@@ -91,6 +91,27 @@ def _host_aff(ab) -> AffLight:
     return AffLight(_host_f32(ab[0]), _host_f32(ab[1]))
 
 
+def _activation_warps(K: np.ndarray, T_cw_new: np.ndarray, T_all_old, slots, S: int):
+    """Per slot, the warp of its candidates into the new keyframe at half
+    resolution (host 4x4 math): (KRKi1 [S, 3, 3], Kt1 [S, 3]); the
+    identity for a slot not in ``slots``."""
+    K1i = np.linalg.inv(K)
+    KRKi1 = np.tile(np.eye(3, dtype=np.float32), (S, 1, 1))
+    Kt1 = np.zeros((S, 3), np.float32)
+    for slot in slots:
+        T_nh1 = T_cw_new @ np.linalg.inv(T_all_old[slot])
+        KRKi1[slot] = K @ T_nh1[:3, :3] @ K1i
+        Kt1[slot] = K @ T_nh1[:3, 3]
+    return KRKi1, Kt1
+
+
+def _activation_state(st: ba.BAState):
+    """The window's current poses, their inverses (``inv_ex``), affine
+    parameters and intrinsics, on the state's device."""
+    T_all = st.T_current()
+    return T_all, torch.linalg.inv_ex(T_all)[0], st.aff_current(), st.calib_current()
+
+
 def _halfres_distance_map(state: ba.BAState, new_slot: int, K1: torch.Tensor,
                           h2: int, w2: int, T_all: torch.Tensor, T_inv: torch.Tensor,
                           calib: torch.Tensor):
@@ -1301,14 +1322,7 @@ class FrontEnd:
         h2, w2 = self.intr0.h[1], self.intr0.w[1]
         slots_todo = [s for s in self.imm_slots if s != new_slot]
         S = self.n_slots
-        T_all_old = pre_views[0]
-        K1i = np.linalg.inv(K)
-        KRKi1 = np.tile(np.eye(3, dtype=np.float32), (S, 1, 1))
-        Kt1 = np.zeros((S, 3), np.float32)
-        for slot in slots_todo:
-            T_nh1 = T_cw_new @ np.linalg.inv(T_all_old[slot])
-            KRKi1[slot] = K @ T_nh1[:3, :3] @ K1i
-            Kt1[slot] = K @ T_nh1[:3, 3]
+        KRKi1, Kt1 = _activation_warps(K, T_cw_new, pre_views[0], slots_todo, S)
         host_flagged = np.zeros(S, bool)
         host_flagged[list(flagged_slots)] = True
         participate = np.zeros(S, bool)
@@ -1319,8 +1333,7 @@ class FrontEnd:
         if not slots_todo:
             return
         st = self.ba_state
-        T_all, aff, calib = st.T_current(), st.aff_current(), st.calib_current()
-        T_inv = torch.linalg.inv_ex(T_all)[0]
+        T_all, T_inv, aff, calib = _activation_state(st)
         dist_map = _halfres_distance_map(st, new_slot, self._upload(K), h2, w2, T_all, T_inv,
                                          calib)
         ok_d, idepth_d, lane_d, drop_d = activate.gate_compact_activate(

@@ -96,6 +96,8 @@ _SIGNATURES = {
     # &GateParams / &AllocParams (ops/activate.py), stream
     "dsslam_gate_activate": [_P, _P],
     "dsslam_allocate_insert": [_P, _P],
+    "dsslam_gate_activate_first": [_P, _P],
+    "dsslam_allocate_insert_first": [_P, _P],
 }
 
 

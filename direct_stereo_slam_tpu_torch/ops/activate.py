@@ -8,7 +8,9 @@ models/immature.py ``activate_points_all``).
   candidate lane, the stable lane-order compaction of each slot's
   survivors into ``budget`` lanes, and the 1-D inverse-depth LM on those
   lanes. Returns (ok [S, budget], idepth [S, budget], lane [S, budget],
-  drop [S, NI]).
+  drop [S, NI]). On the card the LM runs on the survivors only, and a
+  position past them has idepth NaN (the plain version's LM result there
+  is discarded by its ``ok`` = 0 as well).
 - K13 ``allocate_insert_consume``: the accepted lanes into free rows of
   the point pool (slots in ascending order, a slot's own segment first,
   capped by the pool), the rows written, the consumed candidates out of
@@ -16,12 +18,14 @@ models/immature.py ``activate_points_all``).
   allocation as ``allocate_candidates`` returns it.
 
 For CUDA tensors each entry point launches its kernel (and counts it in
-``.launches`` of the ``*_cuda`` wrapper); the ``*_plain`` versions, the
+``.launches`` of the ``*_cuda`` wrapper); ``*_first_cuda`` launch the
+kernels' first forms, kept as the redesigns' bit references for the card
+tests and chip_smoke.py (no path calls them); the ``*_plain`` versions, the
 front end's former PyTorch code, run for CPU tensors and, called by name,
 on the card. The host-known inputs (the relative warps ``KRKi1`` / ``Kt1``,
 the threshold, the flagged and participating slots) are host values: the
-kernels take them by value or through one pinned upload, so neither entry
-point reads the card.
+kernels take them by value, in the launch's parameters, so neither entry
+point reads the card or uploads anything.
 """
 
 from __future__ import annotations
@@ -116,6 +120,10 @@ def gate_compact_activate_plain(imm, dist_map, KRKi1: np.ndarray, Kt1: np.ndarra
     return sel_ok & acts.ok, acts.idepth, lane, drop
 
 
+MAX_SLOTS = 32          # csrc/activate.cu's kMaxSlots: the slot bitmasks' width
+GATE_STAMPS, POOL_STAMPS, RANKS = 6, 4, 8   # kGateStamps, kPoolStamps, kRanks
+
+
 class GateParams(ctypes.Structure):
     """csrc/activate.cu's ``GateParams``, field for field."""
 
@@ -124,9 +132,11 @@ class GateParams(ctypes.Structure):
         [(n, ctypes.c_float) for n in ("min_act_dist", "min_trace_quality", "th", "min_h_act",
                                        "umax", "vmax")] + \
         [(n, _P) for n in ("valid", "u", "v", "idepth_min", "idepth_max", "color", "weight",
-                           "quality", "my_type", "status", "pixel_interval", "dist", "proj",
+                           "quality", "my_type", "status", "pixel_interval", "dist",
                            "images", "frame_valid", "T_cw", "T_wc", "aff", "calib", "exposure",
-                           "pat_u", "pat_v", "ok", "idepth", "lane", "drop")]
+                           "pat_u", "pat_v", "ok", "idepth", "lane", "drop", "lm_ran",
+                           "stamps")] + \
+        [("proj", ctypes.c_float * (MAX_SLOTS * 12))]
 
 
 # the point pool's fields K13 copies and writes, in AllocParams' order
@@ -142,13 +152,13 @@ class AllocParams(ctypes.Structure):
                                             "participate")] + \
         [(n, _P) for n in ("ok", "lane", "drop", "idepth", "u", "v", "color", "weight",
                            "imm_valid") + POOL_FIELDS + tuple("o_" + f[2:] for f in POOL_FIELDS)
-         + ("o_imm_valid",) + ALLOC_FIELDS]
+         + ("o_imm_valid",) + ALLOC_FIELDS + ("stamps",)]
 
 
 def _bitmask(flags) -> int:
     flags = np.asarray(flags, bool)
-    if flags.shape[0] > 32:
-        raise ValueError(f"at most 32 slots, got {flags.shape[0]}")
+    if flags.shape[0] > MAX_SLOTS:
+        raise ValueError(f"at most {MAX_SLOTS} slots, got {flags.shape[0]}")
     return int(sum(1 << i for i in np.nonzero(flags)[0]))
 
 
@@ -168,12 +178,9 @@ def _check(name, tensors: dict, dtypes: dict, dev) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def gate_compact_activate_cuda(imm, dist_map, KRKi1: np.ndarray, Kt1: np.ndarray,
-                               min_act_dist: float, host_flagged: np.ndarray, images,
-                               frame_valid, T_cw, T_wc, aff, calib, exposure, cfg: SLAMConfig,
-                               w2: int, h2: int, budget: int):
-    """Launch K12 (``dsslam_gate_activate``): one launch for the gate, the
-    compaction and the idepth LM; the outputs as the plain version's."""
+def _gate_launch(entry: str, imm, dist_map, KRKi1, Kt1, min_act_dist, host_flagged, images,
+                 frame_valid, T_cw, T_wc, aff, calib, exposure, cfg: SLAMConfig, w2: int,
+                 h2: int, budget: int, lm_ran=None, stamps=None):
     S, NI = imm.valid.shape
     Wn, Himg, Wimg = images.shape[0], images.shape[1], images.shape[2]
     budget = min(int(budget), NI)
@@ -185,13 +192,25 @@ def gate_compact_activate_cuda(imm, dist_map, KRKi1: np.ndarray, Kt1: np.ndarray
            "frame_valid": frame_valid, "T_cw": T_cw, "T_wc": T_wc, "aff": aff,
            "calib": calib, "exposure": exposure}
     ins = {k: t.contiguous() for k, t in ins.items()}
+    for key, t, shape in (("lm_ran", lm_ran, (S, budget)), ("stamps", stamps,
+                                                             (S, RANKS, GATE_STAMPS))):
+        if t is not None:
+            if tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(f"gate_compact_activate: {key} must be a contiguous {shape}")
+            ins[key] = t
     _check("gate_compact_activate", ins, {"valid": torch.bool, "status": torch.int32,
-                                          "frame_valid": torch.bool}, dev)
+                                          "frame_valid": torch.bool, "lm_ran": torch.uint8,
+                                          "stamps": torch.int64}, dev)
     if (tuple(dist_map.shape) != (h2, w2) or tuple(T_cw.shape) != (Wn, 4, 4)
             or T_wc.shape != T_cw.shape):
         raise ValueError("gate_compact_activate: dist_map [h2, w2], T_cw and T_wc [W, 4, 4]")
-    proj = to_device(np.concatenate([np.asarray(KRKi1, np.float32).reshape(S, 9),
-                                     np.asarray(Kt1, np.float32).reshape(S, 3)], 1), dev)
+    if S > MAX_SLOTS:
+        raise ValueError(f"gate_compact_activate: at most {MAX_SLOTS} slots, got {S}")
+    # the warps go in by value, in the launch's parameters: no upload
+    proj = (ctypes.c_float * (MAX_SLOTS * 12))()
+    proj[:S * 12] = np.concatenate([np.asarray(KRKi1, np.float32).reshape(S, 9),
+                                    np.asarray(Kt1, np.float32).reshape(S, 3)],
+                                   1).reshape(-1).tolist()
     pat_u, pat_v = immature._pattern(dev)
     ok = torch.empty(S, budget, dtype=torch.bool, device=dev)
     idepth = torch.empty(S, budget, dtype=torch.float32, device=dev)
@@ -206,14 +225,50 @@ def gate_compact_activate_cuda(imm, dist_map, KRKi1: np.ndarray, Kt1: np.ndarray
         th=float(np.float32(8.0 * cfg.trace.outlier_th)),
         min_h_act=float(np.float32(cfg.ba.min_idepth_h_act)),
         umax=float(np.float32(Wimg - 1.001)), vmax=float(np.float32(Himg - 1.001)),
-        proj=proj.data_ptr(), pat_u=pat_u.data_ptr(), pat_v=pat_v.data_ptr(),
+        proj=proj, pat_u=pat_u.data_ptr(), pat_v=pat_v.data_ptr(),
         ok=ok.data_ptr(), idepth=idepth.data_ptr(), lane=lane.data_ptr(),
         drop=drop.data_ptr(), **ptr)
-    _cuda.call("dsslam_gate_activate", ctypes.addressof(p))
-    gate_compact_activate_cuda.launches += 1
+    _cuda.call(entry, ctypes.addressof(p))
     return ok, idepth, lane, drop
 
 
+def gate_compact_activate_cuda(imm, dist_map, KRKi1: np.ndarray, Kt1: np.ndarray,
+                               min_act_dist: float, host_flagged: np.ndarray, images,
+                               frame_valid, T_cw, T_wc, aff, calib, exposure, cfg: SLAMConfig,
+                               w2: int, h2: int, budget: int, lm_ran=None, stamps=None):
+    """Launch K12 (``dsslam_gate_activate``, one 8-block cluster a slot):
+    the gate and the compaction once a slot, the idepth LM on the gate's
+    survivors only; the outputs as the plain version's, except the idepth
+    of a position past the slot's survivors, which is NaN (its ``ok`` is
+    0: nothing reads it). ``lm_ran``, a uint8 [S, budget] tensor, gets 1
+    where a warp ran the LM and 0 elsewhere: its sum is the LM warps of
+    the launch, the sum over slots of min(survivors, budget). ``stamps``,
+    an int64 [S, RANKS, GATE_STAMPS] tensor, gets each block's phase
+    cycles (``csrc/activate.cu``'s kGateStamps)."""
+    out = _gate_launch("dsslam_gate_activate", imm, dist_map, KRKi1, Kt1, min_act_dist,
+                       host_flagged, images, frame_valid, T_cw, T_wc, aff, calib, exposure,
+                       cfg, w2, h2, budget, lm_ran, stamps)
+    gate_compact_activate_cuda.launches += 1
+    return out
+
+
+def gate_compact_activate_first_cuda(imm, dist_map, KRKi1: np.ndarray, Kt1: np.ndarray,
+                                     min_act_dist: float, host_flagged: np.ndarray, images,
+                                     frame_valid, T_cw, T_wc, aff, calib, exposure,
+                                     cfg: SLAMConfig, w2: int, h2: int, budget: int):
+    """K12's first form (``dsslam_gate_activate_first``: a block per slot
+    and 16 compacted positions, each recomputing the slot's gate; the LM
+    on every compacted position), the redesign's bit reference: ``ok``,
+    ``drop``, ``lane`` and every accepted idepth are its bits. Called only
+    by the card tests and chip_smoke.py; no path launches it."""
+    out = _gate_launch("dsslam_gate_activate_first", imm, dist_map, KRKi1, Kt1, min_act_dist,
+                       host_flagged, images, frame_valid, T_cw, T_wc, aff, calib, exposure,
+                       cfg, w2, h2, budget)
+    gate_compact_activate_first_cuda.launches += 1
+    return out
+
+
+gate_compact_activate_first_cuda.launches = 0
 gate_compact_activate_cuda.launches = 0
 
 
@@ -292,11 +347,8 @@ def allocate_insert_consume_plain(state: ba.BAState, imm: immature.ImmaturePoint
     return state, imm._replace(valid=imm.valid & ~consumed), alloc
 
 
-def allocate_insert_consume_cuda(state: ba.BAState, imm: immature.ImmaturePoints, ok,
-                                 idepth, lane, drop, participate: np.ndarray, P: int):
-    """Launch K13 (``dsslam_allocate_insert``, one block): the allocation,
-    the pool's new rows and the immature set's new validity in one launch,
-    into new tensors (states are replaced, never written in place)."""
+def _alloc_launch(entry: str, state: ba.BAState, imm: immature.ImmaturePoints, ok, idepth,
+                  lane, drop, participate: np.ndarray, P: int, stamps=None):
     S, BUD = ok.shape
     NI = drop.shape[1]
     B, W = state.p_res_good.shape
@@ -305,10 +357,15 @@ def allocate_insert_consume_cuda(state: ba.BAState, imm: immature.ImmaturePoints
     ins = {"ok": ok, "lane": lane, "drop": drop, "idepth": idepth, "u": imm.u, "v": imm.v,
            "color": imm.color, "weight": imm.weight, "imm_valid": imm.valid}
     ins = {**{k: t.contiguous() for k, t in ins.items()}, **pool}
+    if stamps is not None:
+        if tuple(stamps.shape) != (RANKS, POOL_STAMPS) or not stamps.is_contiguous():
+            raise ValueError(f"allocate_insert_consume: stamps must be a contiguous "
+                             f"{(RANKS, POOL_STAMPS)}")
+        ins["stamps"] = stamps
     _check("allocate_insert_consume", ins,
            {"ok": torch.bool, "lane": torch.int64, "drop": torch.bool,
             "imm_valid": torch.bool, "p_valid": torch.bool, "p_host": torch.int64,
-            "p_res_good": torch.bool, "p_last_res": torch.int32}, dev)
+            "p_res_good": torch.bool, "p_last_res": torch.int32, "stamps": torch.int64}, dev)
     if imm.valid.shape != drop.shape or idepth.shape != ok.shape or lane.shape != ok.shape:
         raise ValueError("allocate_insert_consume: mismatched shapes")
     new = {f: torch.empty_like(t) for f, t in pool.items()}
@@ -324,11 +381,37 @@ def allocate_insert_consume_cuda(state: ba.BAState, imm: immature.ImmaturePoints
                     **{k: addr(t) for k, t in ins.items()},
                     **{"o_" + f[2:]: addr(t) for f, t in new.items()},
                     **dict(zip(ALLOC_FIELDS, map(addr, alloc))))
-    _cuda.call("dsslam_allocate_insert", ctypes.addressof(p))
-    allocate_insert_consume_cuda.launches += 1
+    _cuda.call(entry, ctypes.addressof(p))
     return state._replace(**new), imm._replace(valid=imm_valid), tuple(alloc)
 
 
+def allocate_insert_consume_cuda(state: ba.BAState, imm: immature.ImmaturePoints, ok,
+                                 idepth, lane, drop, participate: np.ndarray, P: int,
+                                 stamps=None):
+    """Launch K13 (``dsslam_allocate_insert``, one 8-block cluster: one
+    warp's walk of the slots over bit masks, the pool's rows written by
+    all 8 blocks): the allocation, the pool's new rows and the immature
+    set's new validity in one launch, into new tensors (states are
+    replaced, never written in place). ``stamps``, an int64 [RANKS,
+    POOL_STAMPS] tensor, gets each block's phase cycles (kPoolStamps)."""
+    out = _alloc_launch("dsslam_allocate_insert", state, imm, ok, idepth, lane, drop,
+                        participate, P, stamps)
+    allocate_insert_consume_cuda.launches += 1
+    return out
+
+
+def allocate_insert_consume_first_cuda(state: ba.BAState, imm: immature.ImmaturePoints, ok,
+                                       idepth, lane, drop, participate: np.ndarray, P: int):
+    """K13's first form (``dsslam_allocate_insert_first``, one block), the
+    redesign's bit reference; called only by the card tests and
+    chip_smoke.py."""
+    out = _alloc_launch("dsslam_allocate_insert_first", state, imm, ok, idepth, lane, drop,
+                        participate, P)
+    allocate_insert_consume_first_cuda.launches += 1
+    return out
+
+
+allocate_insert_consume_first_cuda.launches = 0
 allocate_insert_consume_cuda.launches = 0
 
 

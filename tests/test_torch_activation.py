@@ -348,7 +348,7 @@ def _c_fields(struct: str):
     body = re.search(r"struct %s \{(.*?)\n\};" % struct, CSRC.read_text(), re.S).group(1)
     names = []
     for line in body.splitlines():
-        decl = line.split("//")[0].strip().rstrip(";")
+        decl = re.sub(r"\[.*?\]", "", line.split("//")[0]).strip().rstrip(";")
         if not decl:
             continue
         first, *rest = decl.split(",")

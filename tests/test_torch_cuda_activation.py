@@ -17,7 +17,15 @@ slots of 1024 candidates, a budget of 256, a pool of 4096 rows):
 - two runs of each bit-equal (no atomics);
 - one front-end ``_activate_points`` call with no host read
   (``torch.cuda.set_sync_debug_mode("error")``): one launch each of K1,
-  K12 and K13.
+  K12 and K13;
+- the redesigns against the first forms (``*_first_cuda``, their bit
+  references) and K13 against the plain version, on the recorded calls
+  and on edge cases (GATE_CASES, ALLOC_CASES: a slot's survivors past the
+  budget, no survivor, a slot without survivors, a slot that does not
+  participate, a full pool, S = 1, NI = 1000, no own segment): K12's
+  ``ok``, ``drop``, ``lane`` and accepted idepths bit-equal to the first
+  form, its LM-warp count the sum over slots of min(survivors, budget);
+  K13 bit-equal to both; two runs bit-equal.
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
@@ -32,6 +40,7 @@ import torch
 from direct_stereo_slam_tpu_torch.config import make_config
 from direct_stereo_slam_tpu_torch.geometry.camera import make_pyramid_intrinsics
 from direct_stereo_slam_tpu_torch.io.synthetic import SyntheticStereoDataset
+from direct_stereo_slam_tpu_torch.models import immature
 from direct_stereo_slam_tpu_torch.models.frontend import FrontEnd
 from direct_stereo_slam_tpu_torch.ops import activate as act
 from direct_stereo_slam_tpu_torch.ops import distance_map as dm
@@ -150,7 +159,7 @@ def test_two_runs_are_bit_equal(calls):
     three, four = act.allocate_insert_consume_cuda(*a), act.allocate_insert_consume_cuda(*a)
     torch.cuda.synchronize()
     for x, y in zip(one, two):
-        assert torch.equal(x, y)
+        assert torch.equal(_bits(x), _bits(y))       # the idepth past the survivors is NaN
     for x, y in zip(list(three[0]) + [three[1].valid, *three[2]],
                     list(four[0]) + [four[1].valid, *four[2]]):
         assert torch.equal(x, y)
@@ -172,3 +181,138 @@ def test_activate_points_reads_nothing_from_the_card(calls):
     torch.cuda.synchronize()
     assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1, 1]
     assert int(fe.ba_state.p_valid.sum()) >= int(state.p_valid.sum())
+
+
+# K12's edge cases, made from the recorded call with the most valid
+# candidates (argument 4 the activation distance, 16 the budget)
+GATE_CASES = ("recorded_first", "recorded_fullest", "overflow", "no_survivor",
+              "slot_without_survivors", "one_slot", "ni_1000")
+
+
+def _fullest_gate(calls):
+    return max(calls["gate"], key=lambda a: int(a[0].valid.sum()))
+
+
+def _slots(a, sl):
+    """The gate arguments of slots ``sl`` only."""
+    imm = immature.ImmaturePoints(*[f[sl] for f in a[0]])
+    return (imm, a[1], a[2][sl], a[3][sl], a[4], np.asarray(a[5])[sl]) + tuple(a[6:])
+
+
+def _gate_case(calls, case):
+    a = calls["gate"][0] if case == "recorded_first" else _fullest_gate(calls)
+    if case == "overflow":                  # every gate-passing lane survives; budget 32
+        a = a[:4] + (0.0,) + a[5:16] + (32,)
+    elif case == "no_survivor":
+        a = a[:4] + (1e9,) + a[5:]
+    elif case == "slot_without_survivors":
+        valid = a[0].valid.clone()
+        valid[int(torch.argmax(valid.sum(1)))] = False
+        a = (a[0]._replace(valid=valid),) + a[1:]
+    elif case == "one_slot":
+        s = int(torch.argmax(a[0].valid.sum(1)))
+        a = _slots(a, slice(s, s + 1))
+    elif case == "ni_1000":
+        a = (immature.ImmaturePoints(*[f[:, :1000].contiguous() for f in a[0]]),) + a[1:]
+    return a
+
+
+def _survivors(a):
+    """Per slot, the lanes that pass the gate (the plain version's gate)."""
+    dev = a[1].device
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    gate_ok, _ = act._gate_impl(a[0], a[1], f32(a[2]), f32(a[3]), f32(a[4]),
+                                torch.as_tensor(np.asarray(a[5], bool), device=dev), a[13],
+                                a[14], a[15])
+    return gate_ok.sum(1)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("case", GATE_CASES)
+def test_gate_cluster_is_the_first_form(calls, case):
+    a = _gate_case(calls, case)
+    S, NI = a[0].valid.shape
+    bud = min(a[16], NI)
+    ran = torch.full((S, bud), 7, dtype=torch.uint8, device=a[1].device)
+    new = act.gate_compact_activate_cuda(*a, lm_ran=ran)
+    again = act.gate_compact_activate_cuda(*a)
+    first = act.gate_compact_activate_first_cuda(*a)
+    n_ok = _survivors(a)
+    torch.cuda.synchronize()
+    ok, idepth, lane, drop = new
+    assert torch.equal(ok, first[0]) and torch.equal(drop, first[3])
+    assert torch.equal(lane, first[2])
+    assert torch.equal(_bits(idepth[ok]), _bits(first[1][ok]))
+    for x, y in zip(new, again):
+        assert torch.equal(_bits(x), _bits(y))
+    n_lm = torch.clamp(n_ok, max=bud)
+    assert int(ran.sum()) == int(n_lm.sum())
+    pos = torch.arange(bud, device=ran.device)[None, :]
+    assert torch.equal(ran.bool(), pos < n_lm[:, None])
+    # a position past the survivors: not accepted, idepth NaN
+    assert not bool(ok[pos >= n_lm[:, None]].any())
+    assert bool(torch.isnan(idepth[pos >= n_ok[:, None]]).all())
+    print(f"K12 {case}: survivors {n_ok.tolist()}, budget {bud}, LM warps {int(ran.sum())}, "
+          f"accepted {int(ok.sum())}")
+    if case == "overflow":
+        assert int(n_ok.max()) > bud
+    if case == "no_survivor":
+        assert int(n_ok.sum()) == 0 and int(ran.sum()) == 0
+    if case == "slot_without_survivors":
+        assert int(n_ok.min()) == 0 < int(n_ok.max())
+
+
+ALLOC_CASES = ("recorded", "own_segment_full", "pool_full", "slot_not_participating",
+               "no_own_segment", "one_slot", "ni_1000", "overflow")
+
+
+def _alloc_case(calls, case):
+    if case in ("recorded", "own_segment_full", "pool_full"):
+        return _alloc_args(calls, case)
+    state, imm, ok, idepth, lane, drop, participate, P = _alloc_args(calls, "recorded")
+    if case == "slot_not_participating":
+        participate = participate.copy()
+        participate[int(np.argmax(ok.sum(1).cpu().numpy() * participate))] = False
+    elif case == "no_own_segment":
+        P = 0
+    elif case == "one_slot":
+        s = int(np.argmax(ok.sum(1).cpu().numpy() * participate))
+        sl = slice(s, s + 1)
+        imm = immature.ImmaturePoints(*[f[sl] for f in imm])
+        ok, idepth, lane, drop = ok[sl], idepth[sl], lane[sl], drop[sl]
+        participate = np.ones(1, bool)
+    elif case in ("ni_1000", "overflow"):
+        g = _gate_case(calls, case)
+        imm = g[0]
+        ok, idepth, lane, drop = act.gate_compact_activate_cuda(*g)
+    return state, imm, ok, idepth, lane, drop, participate, P
+
+
+def _alloc_flat(r):
+    return [getattr(r[0], f) for f in act.POOL_FIELDS] + [r[1].valid, *r[2]]
+
+
+@pytest.mark.parametrize("case", ALLOC_CASES)
+def test_allocate_cluster_matches_plain_and_first_form(calls, case):
+    a = _alloc_case(calls, case)
+    new = _alloc_flat(act.allocate_insert_consume_cuda(*a))
+    again = _alloc_flat(act.allocate_insert_consume_cuda(*a))
+    first = _alloc_flat(act.allocate_insert_consume_first_cuda(*a))
+    plain = act.allocate_insert_consume_plain(*a)
+    torch.cuda.synchronize()
+    names = list(act.POOL_FIELDS) + ["imm_valid"] + list(act.ALLOC_FIELDS)
+    for name, x, y, z, w in zip(names, new, again, first, _alloc_flat(plain)):
+        assert torch.equal(_bits(x), _bits(y)), name
+        assert torch.equal(_bits(x), _bits(z)), name
+        assert torch.equal(_bits(x), _bits(w)), name
+    placed = int(plain[2][5].sum())
+    accepted = int(a[2].cpu().numpy()[a[6]].sum())
+    print(f"K13 {case}: {placed} placed of {accepted} accepted, "
+          f"{int((~a[0].p_valid).sum())} free rows")
+    if case == "pool_full":
+        assert placed == int((~a[0].p_valid).sum()) < accepted
+    elif case != "slot_not_participating":
+        assert placed > 0
