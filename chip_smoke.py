@@ -49,15 +49,22 @@ Phases, each of which must pass (any fault exits non-zero):
    the per-stage table; FPS, ``track`` per frame, ``scale_opt`` and
    ``activate`` per keyframe come from the second pass, without them; a
    third pass counts the blocking waits per call (a keyframe call may
-   wait a median of 3 times at most: the tracker's read and bundle 3);
-   then the activation kernels (csrc/activate.cu) on that pass's fullest
+   wait a median of 3 times at most: the tracker's read and bundle 3); a
+   fourth splits the ``activate`` span into its parts (``act_split``:
+   the host pose math, the state reads and ``inv_ex``, the projection's
+   plain launches, K1's, K12's and K13's wrappers, the rest); then the
+   activation kernels (csrc/activate.cu) on that pass's fullest
    activation (the call with the most valid candidates: 8 slots of 1024,
    budget 256, a pool of 4096): K12 against its plain version (``drop``
    and ``lane`` equal; ``ok`` and the accepted idepths, rel 1e-4, equal
-   but on edge lanes, counted, at most 1% of the accepted lanes), K13
-   bit-equal to its plain version on that call, with every participating
-   slot's own segment full and with the pool all but full, two runs of
-   each bit-equal, each timed with its bound and the card's own time;
+   but on edge lanes, counted, at most 1% of the accepted lanes) and
+   bit-equal to its first form (``ok``, ``drop``, ``lane``, accepted
+   idepths), its LM warps the sum over slots of min(survivors, budget);
+   K13 bit-equal to its plain version and its first form on that call,
+   with every participating slot's own segment full and with the pool
+   all but full; two runs of each bit-equal; each timed on the card in
+   turns with its first form, with its bound, its phase stamps and
+   ptxas's registers, shared memory and spills;
 5. pipelined tracking: the e2e sequence in turns synchronous, pipelined,
    pipelined, synchronous, twice (FPS of each mode from the same
    process), then one pass of each with the host's blocking waits on the
@@ -205,7 +212,10 @@ site of a keyframe call's waits printed) and times
 the path with ``torch.use_deterministic_algorithms`` off and on in turns;
 the loop phase runs three more times after its gated run (deterministic
 algorithms on, off with the waits counted, on): the FPS of each mode, the
-waits per keyframe call, and whether two runs of one mode agree. Every
+waits per keyframe call by site (it fails when a keyframe call waits a
+mean of more than 2 times, or at all in the loop estimator or the pose
+graph's build: the loop thread's designed reads are the try's and the
+optimize's, in loop/handler.py), and whether two runs of one mode agree. Every
 path that makes keyframes gates K9 and the resident BA launch launched
 (the e2e, pipelined, mono, bag, live, resume, observe, native, eval and
 loop phases).
@@ -234,6 +244,9 @@ idepth_ulp_down (repeatable, applied in order) times this tree's port
 with K12 and K13 replaced by their plain versions on the card, with each
 keyframe tail committed at once, or with the activation's idepths moved
 one f32 step.
+--act only runs the e2e sequence, the ``activate`` span's split and the
+activation kernels' part of phase 4 (K12 / K13 against their plain
+versions and first forms, in turns, with phase stamps).
 --pg-split [--root DIR] only times the dense ``optimize`` on the ring
 graphs of buckets 16 ... 512 and the CG ``optimize`` at 1024 (host ms
 per call and the card's ms), and, where the port has K7's, K8's and the
