@@ -380,7 +380,8 @@ __device__ __forceinline__ void residual_pass(const GateParams& p, const Pair* p
 // one residual pass at the clamped mid idepth, then 3 damped steps with a
 // pass each. Returns the LM's accept (n_good >= 1, H above the threshold,
 // idepth above 1e-5, a finite energy) and the idepth, the same on every
-// lane.
+// lane. `stamp`, K12's stamps of the block, gets the set-up, the first
+// pass and the 3 steps in its entries 2-4.
 __device__ __forceinline__ bool lane_lm(const GateParams& p, const Pair* pairs, size_t k,
                                         int lane, float& idep, long long* stamp = nullptr) {
   const long long t0 = stamp ? clock64() : 0;
