@@ -22,7 +22,8 @@ slots of 1024 candidates, a budget of 256, a pool of 4096 rows):
   references) and K13 against the plain version, on the recorded calls
   and on edge cases (GATE_CASES, ALLOC_CASES: a slot's survivors past the
   budget, no survivor, a slot without survivors, a slot that does not
-  participate, a full pool, S = 1, NI = 1000, no own segment): K12's
+  participate, a full pool, S = 1, NI = 1000 and 1500, no own segment,
+  20 flags a pool row): K12's
   ``ok``, ``drop``, ``lane`` and accepted idepths bit-equal to the first
   form, its LM-warp count the sum over slots of min(survivors, budget);
   K13 bit-equal to both; two runs bit-equal.
@@ -186,7 +187,7 @@ def test_activate_points_reads_nothing_from_the_card(calls):
 # K12's edge cases, made from the recorded call with the most valid
 # candidates (argument 4 the activation distance, 16 the budget)
 GATE_CASES = ("recorded_first", "recorded_fullest", "overflow", "no_survivor",
-              "slot_without_survivors", "one_slot", "ni_1000")
+              "slot_without_survivors", "one_slot", "ni_1000", "ni_1500")
 
 
 def _fullest_gate(calls):
@@ -214,6 +215,8 @@ def _gate_case(calls, case):
         a = _slots(a, slice(s, s + 1))
     elif case == "ni_1000":
         a = (immature.ImmaturePoints(*[f[:, :1000].contiguous() for f in a[0]]),) + a[1:]
+    elif case == "ni_1500":                 # more lanes than a block: the gate in two passes
+        a = (immature.ImmaturePoints(*[torch.cat([f, f[:, :476]], 1) for f in a[0]]),) + a[1:]
     return a
 
 
@@ -266,7 +269,7 @@ def test_gate_cluster_is_the_first_form(calls, case):
 
 
 ALLOC_CASES = ("recorded", "own_segment_full", "pool_full", "slot_not_participating",
-               "no_own_segment", "one_slot", "ni_1000", "overflow")
+               "no_own_segment", "one_slot", "ni_1000", "ni_1500", "overflow", "wide_window")
 
 
 def _alloc_case(calls, case):
@@ -284,10 +287,13 @@ def _alloc_case(calls, case):
         imm = immature.ImmaturePoints(*[f[sl] for f in imm])
         ok, idepth, lane, drop = ok[sl], idepth[sl], lane[sl], drop[sl]
         participate = np.ones(1, bool)
-    elif case in ("ni_1000", "overflow"):
+    elif case in ("ni_1000", "ni_1500", "overflow"):
         g = _gate_case(calls, case)
         imm = g[0]
         ok, idepth, lane, drop = act.gate_compact_activate_cuda(*g)
+    elif case == "wide_window":             # more res_good flags a row than K13 holds in registers
+        state = state._replace(p_res_good=torch.cat([state.p_res_good,
+                                                     ~state.p_res_good[:, :12]], 1))
     return state, imm, ok, idepth, lane, drop, participate, P
 
 
