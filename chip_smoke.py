@@ -1367,24 +1367,24 @@ def turns_ms(torch, first, new):
 def gate_phases(c, mhz: float) -> dict:
     """K12's phase stamps (cycles [S, ranks, 6]: rank 0's gate, compaction
     and writes; each block's cluster barrier; its warp 0's first LM:
-    set-up, first pass, the 3 steps; the block's LM warps to the last) in
-    us: rank 0's front, the median over the slots; the LM's parts, the
-    largest over the blocks that ran one; the longest block from its
-    start to its end."""
+    set-up, first pass, the 3 steps; warp 0's LM positions, all of them)
+    in us: rank 0's front, the median over the slots; the LM's parts, the
+    largest over the blocks; warp 0 from the block's start to its end, the
+    longest."""
     us = np.asarray(c, np.float64) / mhz
-    ran = us[:, :, 5] > 0
-    lm = lambda k: float(us[:, :, k][ran].max()) if ran.any() else 0.0
     span = us[:, :, 1] + us[:, :, 5]
     span[:, 0] += us[:, 0, 0]
     return dict(front_rank0=float(np.median(us[:, 0, 0])),
                 barrier_rank0=float(np.median(us[:, 0, 1])), barrier_max=float(us[:, :, 1].max()),
-                lm_setup_max=lm(2), lm_first_pass_max=lm(3), lm_steps_max=lm(4),
-                lm_block_max=float(us[:, :, 5].max()), span_max=float(span.max()))
+                lm_setup_max=float(us[:, :, 2].max()), lm_first_pass_max=float(us[:, :, 3].max()),
+                lm_steps_max=float(us[:, :, 4].max()), lm_warp0_max=float(us[:, :, 5].max()),
+                span_max=float(span.max()))
 
 
 def pool_phases(c, mhz: float) -> dict:
-    """K13's phase stamps (cycles [ranks, 4]: rank 0's tables and walk,
-    each block's start to the barrier and the rest) in us."""
+    """K13's phase stamps (cycles [ranks, 4]: rank 0's tables and its warp
+    0's part of the walk, each block's start to the barrier and the rest)
+    in us."""
     us = np.asarray(c, np.float64) / mhz
     return dict(tables=float(us[0, 0]), walk=float(us[0, 1]),
                 to_barrier_max=float(us[:, 2].max()), after_barrier_max=float(us[:, 3].max()),

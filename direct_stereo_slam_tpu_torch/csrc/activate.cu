@@ -109,11 +109,12 @@ constexpr int kActWarps = kActThreads / 32;
 constexpr int kPoolThreads = 512;        // K13's cluster blocks
 constexpr int kMaxSmem = 227 * 1024;
 constexpr int kMaxSlots = 32;            // the slot bitmasks' width
-// phase stamps (clock64 deltas of thread 0 of a block), with `stamps` set:
+// phase stamps (clock64 deltas of thread 0 of a block), with `stamps` set;
+// a stamped launch runs the same barriers as one without:
 // K12 per (slot, block): rank 0's gate, compaction and writes; the cluster
-// barrier; warp 0's first LM: its set-up, first pass and the 3 steps; the
-// block's LM warps to the last; K13 per block: tables, walk (rank 0),
-// start to the barrier, the rest
+// barrier; warp 0's first LM: its set-up, first pass and the 3 steps; warp
+// 0's LM positions, all of them; K13 per block: tables, warp 0's part of
+// the walk (rank 0), start to the barrier, the rest
 constexpr int kGateStamps = 6, kPoolStamps = 4;
 
 // DSO's IPS_* states (models/immature.py)
@@ -739,10 +740,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kActThreads, 1)
       if (p.lm_ran) p.lm_ran[o] = 1;
     }
   }
-  if (p.stamps) {                        // the block's last LM warp
-    __syncthreads();
-    if (stamp) stamp[5] = clock64() - t0;
-  }
+  if (stamp) stamp[5] = clock64() - t0;
 }
 
 // K13's shared memory (rank 0's tables; every rank has the same size):
@@ -850,7 +848,9 @@ __device__ __forceinline__ int slot_take(const AllocParams& p, const PoolSmem& s
       take |= b & (~b + 1u);
       pick[r_oth++] = 32 * w + __ffs(b) - 1;
     }
-    if (take) sm.free[w] = f & ~take;
+    // (with `own_only` no later step reads the mask, and a word that two
+    // slots' segments share is left alone)
+    if (take && !own_only) sm.free[w] = f & ~take;
   }
   // the accepted lanes in compacted order take them: a lane a bit of
   // each ok word, ranked by the words' prefix counts
@@ -1031,6 +1031,7 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kPoolThreads)
       const unsigned bits = __ballot_sync(kFull, jj < BUD && sm.okbytes[s * BUD + jj] != 0);
       if (lane == 0) sm.okw[w] = bits;
     }
+    __syncthreads();                     // every word written before another warp reads it
     // each slot's free rows in its own segment and accepted lanes, a warp
     // a slot: when every participating slot's own segment holds its
     // accepted lanes, no slot takes another's rows and the slots go in
@@ -1076,8 +1077,6 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kPoolThreads)
       copier = tid - busy;
       copiers = kPoolThreads - busy;
       late_copy = copiers == 0;
-      if (p.stamps && tid < busy)        // the slot warps only: the others copy
-        asm volatile("bar.sync 1, %0;" ::"r"(busy) : "memory");
     } else {
       if (warp == 0) {
         int n_fill = 0;

@@ -23,10 +23,11 @@ slots of 1024 candidates, a budget of 256, a pool of 4096 rows):
   and on edge cases (GATE_CASES, ALLOC_CASES: a slot's survivors past the
   budget, no survivor, a slot without survivors, a slot that does not
   participate, a full pool, S = 1, NI = 1000 and 1500, no own segment,
-  20 flags a pool row): K12's
-  ``ok``, ``drop``, ``lane`` and accepted idepths bit-equal to the first
-  form, its LM-warp count the sum over slots of min(survivors, budget);
-  K13 bit-equal to both; two runs bit-equal.
+  20 flags a pool row, own segments that are not whole free-mask words):
+  K12's ``ok``, ``drop``, ``lane`` and accepted idepths bit-equal to the
+  first form, its LM-warp count the sum over slots of min(survivors,
+  budget); K13 bit-equal to both; two runs bit-equal; K13 64 times, each
+  the plain version's bits.
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
@@ -269,7 +270,8 @@ def test_gate_cluster_is_the_first_form(calls, case):
 
 
 ALLOC_CASES = ("recorded", "own_segment_full", "pool_full", "slot_not_participating",
-               "no_own_segment", "one_slot", "ni_1000", "ni_1500", "overflow", "wide_window")
+               "no_own_segment", "one_slot", "ni_1000", "ni_1500", "overflow", "wide_window",
+               "unaligned_segments")
 
 
 def _alloc_case(calls, case):
@@ -294,6 +296,8 @@ def _alloc_case(calls, case):
     elif case == "wide_window":             # more res_good flags a row than K13 holds in registers
         state = state._replace(p_res_good=torch.cat([state.p_res_good,
                                                      ~state.p_res_good[:, :12]], 1))
+    elif case == "unaligned_segments":      # neighbouring slots' own segments share free-mask words
+        P = P - 5
     return state, imm, ok, idepth, lane, drop, participate, P
 
 
@@ -316,9 +320,26 @@ def test_allocate_cluster_matches_plain_and_first_form(calls, case):
         assert torch.equal(_bits(x), _bits(w)), name
     placed = int(plain[2][5].sum())
     accepted = int(a[2].cpu().numpy()[a[6]].sum())
+    if case == "unaligned_segments":
+        assert a[7] % 32 != 0
     print(f"K13 {case}: {placed} placed of {accepted} accepted, "
           f"{int((~a[0].p_valid).sum())} free rows")
     if case == "pool_full":
         assert placed == int((~a[0].p_valid).sum()) < accepted
     elif case != "slot_not_participating":
         assert placed > 0
+
+
+@pytest.mark.parametrize("case", ["recorded", "own_segment_full", "unaligned_segments"])
+def test_allocate_cluster_many_runs_are_bit_equal(calls, case):
+    # rank 0's walk shares its bit words between warps: 64 launches, each
+    # the plain version's bits (a race would show as a launch that differs;
+    # only the barriers' order proves one absent)
+    a = _alloc_case(calls, case)
+    want = _alloc_flat(act.allocate_insert_consume_plain(*a))
+    runs = [_alloc_flat(act.allocate_insert_consume_cuda(*a)) for _ in range(64)]
+    torch.cuda.synchronize()
+    names = list(act.POOL_FIELDS) + ["imm_valid"] + list(act.ALLOC_FIELDS)
+    for got in runs:
+        for name, x, w in zip(names, got, want):
+            assert torch.equal(_bits(x), _bits(w)), name
