@@ -7,8 +7,13 @@ seed, and the optimize's result):
   ``index_select``) under ``torch.cuda.set_sync_debug_mode("error")``,
   equal to the per-field indexing of the seeds' results;
 - the pose graph's ``build_data`` (``graph_data``) and ``optimize`` (one
-  K7 launch) under the same mode, equal to an optimize of the same graph
-  built from pageable copies.
+  K7 launch) under the same mode: every field equal to the graph's
+  arrays uploaded as pageable copies, and the optimize equal to one of
+  that pageable graph;
+- ``utils/device.upload`` on the card (one pinned buffer, each array at
+  a 256-byte offset, viewed back by dtype): mixed dtypes, a 0-d int64,
+  an empty array and sizes that are not multiples of 256, against the
+  numpy arrays.
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
@@ -30,6 +35,7 @@ from direct_stereo_slam_tpu_torch.loop.handler import LoopFrame, LoopHandler
 from direct_stereo_slam_tpu_torch.ops import pose_graph as pgk
 from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
 from direct_stereo_slam_tpu_torch.ops.pyramid import build_pyramid
+from direct_stereo_slam_tpu_torch.utils.device import upload
 
 pytestmark = pytest.mark.cuda
 
@@ -124,7 +130,34 @@ def test_graph_build_and_optimize_make_no_host_read(setup):
     before = pgk.pose_graph_gn_cuda.launches
     T_opt = _raising_on_sync(lambda: pg.optimize(h.graph_data()[0], 25))
     assert pgk.pose_graph_gn_cuda.launches - before == 1
-    pageable = pg.PoseGraphData(*[torch.as_tensor(np.asarray(x.cpu()), device=setup.dev)
-                                  for x in data])
+    # the same graph's arrays (build_data on the CPU packs nothing) as
+    # pageable copies
+    poses32 = np.stack([lf.T_wc for lf in h.frames]).astype(np.float32)
+    edges = [(i, j, np.asarray(Z, np.float32), w_t, w_r)
+             for i, lf in enumerate(h.frames) for (j, Z, w_t, w_r) in lf.edges]
+    arrays = pg.build_data(poses32, edges, len(h.frames) - 1, device="cpu")
+    pageable = pg.PoseGraphData(*[torch.as_tensor(x.numpy(), device=setup.dev)
+                                  for x in arrays])
+    for name, got, want in zip(pg.PoseGraphData._fields, data, pageable):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert torch.equal(got, want), name
     assert torch.equal(T_opt, pg.optimize(pageable, 25))
     assert torch.isfinite(T_opt).all()
+
+
+def test_upload_on_the_card_keeps_values_dtypes_and_shapes(setup):
+    rng = np.random.default_rng(11)
+    arrays = (rng.normal(size=7).astype(np.float32), np.array([True, False, True]),
+              np.arange(6, dtype=np.int64).reshape(2, 3), np.int64(-5),
+              np.zeros((0, 4), np.float32), rng.normal(size=(3, 4, 4)).astype(np.float32),
+              rng.integers(0, 255, 300, dtype=np.uint8), rng.normal(size=65),
+              rng.integers(-9, 9, (5, 13), dtype=np.int32), np.float32(2.5))
+    got = _raising_on_sync(lambda: upload(arrays, setup.dev))
+    base = got[0].untyped_storage().data_ptr()
+    for a, t in zip(arrays, got):
+        a = np.asarray(a)
+        assert t.device.type == "cuda" and t.untyped_storage().data_ptr() == base
+        assert (t.data_ptr() - base) % 256 == 0
+        assert t.dtype == torch.from_numpy(a.reshape(-1)[:0]).dtype
+        assert tuple(t.shape) == a.shape
+        assert np.array_equal(t.cpu().numpy(), a)
