@@ -13,9 +13,14 @@ as both packages' readers convert a frame).
 
 Per run it reports whether the first window passed its RMSE gates (a
 front end that fails one, ``init_failed``, is reset by the node), the
-frame that made keyframe 0, keyframes, resets and the Sim(3)-aligned
+frame that made keyframe 0, keyframes, resets, the first keyframe BAs'
+RMSEs (frame, RMSE: what the gates compare) and the Sim(3)-aligned
 translation ATE of the tracked frames (the bootstrap hand-off frame left
-out, as chip_smoke.py's mono phase). One JSON line per run, then a summary.
+out, as chip_smoke.py's mono phase). One JSON line per run; with both
+packages, one per input saying where their camera positions part; then a
+summary. The port's runs on the CPU depend on torch's thread count
+(``torch.get_num_threads()``, printed: it orders the f32 sums): compare
+runs at one ``OMP_NUM_THREADS``.
 
     JAX_PLATFORMS=cpu python scripts/dso_mode_parity.py [--dithers 6] [--frames 40]
         [--only "uint8 dither 2,uint8 dither 5"] [--offsets 0,1e-3]
@@ -95,11 +100,27 @@ def make_node(pkg: str, K, t_stereo):
 
 
 def run(pkg: str, left, gt, K, t_stereo) -> dict:
+    import importlib
+
+    import torch
+
     from direct_stereo_slam_tpu_torch.runtime.eval import ate_rmse
 
     node = make_node(pkg, K, t_stereo)
     zeros = np.zeros(left[0].shape, np.float32)
-    shells, resets, snap = [], [], None
+    shells, resets, snap, rmses = [], [], None, []
+    # each keyframe BA's RMSE (what the first window's gates compare), read
+    # on the host after the call: the arithmetic is unchanged
+    ba = importlib.import_module(("direct_stereo_slam_tpu" if pkg == "jax"
+                                  else "direct_stereo_slam_tpu_torch") + ".models.ba")
+    optimize_keyframe = ba.optimize_keyframe
+
+    def recorded(*a, **k):
+        out = optimize_keyframe(*a, **k)
+        rmses.append([i, float(np.asarray(out[1]))])
+        return out
+
+    ba.optimize_keyframe = recorded
     t0 = time.perf_counter()
     for i, img in enumerate(left):
         fe = node.frontend
@@ -113,11 +134,25 @@ def run(pkg: str, left, gt, K, t_stereo) -> dict:
     if len(idx) >= 3:
         est = np.stack([np.asarray(shells[i].T_wc)[:3, 3] for i in idx])[1:].astype(np.float64)
         ate = ate_rmse(est, gt[idx][1:, :3, 3].astype(np.float64), align="sim3")
+    ba.optimize_keyframe = optimize_keyframe
     failed = [i for i, why in resets if why == "init failed"]
     return dict(package=pkg, gate_passed=not failed and snap is not None,
                 init_failed_at=failed, resets=resets, snap=snap,
                 keyframes=len(node.frontend.kf_shells), ate_sim3_m=ate,
-                seconds=time.perf_counter() - t0)
+                ba_rmse_first=rmses[:6], seconds=time.perf_counter() - t0,
+                torch_threads=torch.get_num_threads(),
+                t_wc=[np.asarray(sh.T_wc, np.float64)[:3, 3] for sh in shells])
+
+
+def parted(a: dict, b: dict) -> dict:
+    """Where two packages' runs on one input part: per frame the distance
+    between their camera positions (m), and the first frame past 1e-4 m
+    and past 1e-2 m (both runs' frames up to the first reset of either)."""
+    n = min([len(a["t_wc"])] + [i for i, _ in a["resets"] + b["resets"]])
+    d = [float(np.linalg.norm(a["t_wc"][i] - b["t_wc"][i])) for i in range(n)]
+    first = lambda th: next((i for i, x in enumerate(d) if x > th), None)
+    return dict(pose_gap_m=[float(f"{x:.3g}") for x in d], first_past_1e4=first(1e-4),
+                first_past_1e2=first(1e-2))
 
 
 def main(argv=None) -> int:
@@ -142,12 +177,16 @@ def main(argv=None) -> int:
         if only and tag not in only:
             continue
         for off in (float(o) for o in args.offsets.split(",")):
+            pair = []
             for pkg in args.packages.split(","):
                 r = dict(input=tag, offset=off,
                          **run(pkg, (left + np.float32(off)).astype(np.float32), gt, K,
                                t_stereo))
-                print(json.dumps(r), flush=True)
+                pair.append(r)
+                print(json.dumps({k: v for k, v in r.items() if k != "t_wc"}), flush=True)
                 results.append(r)
+            if len(pair) == 2:
+                print(json.dumps(dict(input=tag, offset=off, **parted(*pair))), flush=True)
     summary = {}
     for pkg in args.packages.split(","):
         for kind in ("float", "float dither", "uint8 dither"):
