@@ -57,14 +57,23 @@ Phases, each of which must pass (any fault exits non-zero):
    activation (the call with the most valid candidates: 8 slots of 1024,
    budget 256, a pool of 4096): K12 against its plain version (``drop``
    and ``lane`` equal; ``ok`` and the accepted idepths, rel 1e-4, equal
-   but on edge lanes, counted, at most 1% of the accepted lanes) and
-   bit-equal to its first form (``ok``, ``drop``, ``lane``, accepted
-   idepths), its LM warps the sum over slots of min(survivors, budget);
-   K13 bit-equal to its plain version and its first form on that call,
-   with every participating slot's own segment full and with the pool
-   all but full; two runs of each bit-equal; each timed on the card in
-   turns with its first form, with its bound, its phase stamps and
-   ptxas's registers, shared memory and spills;
+   but on edge lanes, counted, at most 1% of the accepted lanes), its
+   LM warps the sum over slots of min(survivors, budget); K13 bit-equal
+   to its plain version on that call, with every participating slot's
+   own segment full and with the pool all but full; two runs of each
+   bit-equal; each timed (its card time too) with its bound, its phase
+   stamps and ptxas's registers, shared memory and spills; then the
+   trace and template kernels on that pass's calls (the pass gates one
+   K14 launch a traced frame and one K15 launch a template): K14
+   (csrc/trace.cu) on the fullest full-shape trace, the fullest
+   steady-tier trace and the full one with its budget at half its
+   searching lanes (an overflow), K15 (csrc/template.cu) on the fullest
+   template, each against its plain version (K14: the statuses, the
+   compacted lanes, n_search and n_overflow equal, idepth_min,
+   idepth_max, quality and pixel_interval bit-equal; K15: every level's
+   lists bit-equal), two runs bit-equal, timed (the wrapper, the card's
+   own time, the plain version) with its bound from the call's own data,
+   its phase stamps and ptxas's registers and spills;
 5. pipelined tracking: the e2e sequence in turns synchronous, pipelined,
    pipelined, synchronous, twice (FPS of each mode from the same
    process), then one pass of each with the host's blocking waits on the
@@ -244,9 +253,10 @@ idepth_ulp_down (repeatable, applied in order) times this tree's port
 with K12 and K13 replaced by their plain versions on the card, with each
 keyframe tail committed at once, or with the activation's idepths moved
 one f32 step.
---act only runs the e2e sequence, the ``activate`` span's split and the
-activation kernels' part of phase 4 (K12 / K13 against their plain
-versions and first forms, in turns, with phase stamps).
+--act [--root DIR] only runs the e2e sequence, the ``activate`` span's
+split and the activation kernels' part of phase 4 (K12 / K13 against
+their plain versions, timed, with phase stamps; with --root, of the port
+in another checkout).
 --pg-split [--root DIR] only times the dense ``optimize`` on the ring
 graphs of buckets 16 ... 512 and the CG ``optimize`` at 1024 (host ms
 per call and the card's ms), and, where the port has K7's, K8's and the
@@ -1120,10 +1130,20 @@ def e2e_phase(torch, dev, profile_dir=None):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     # the timed pass: no per-span synchronize, as a user runs the node
-    with ScaleTraffic() as traffic, BaTraffic() as ba_traffic, ActTraffic() as act_traffic:
+    with ScaleTraffic() as traffic, BaTraffic() as ba_traffic, ActTraffic() as act_traffic, \
+            TraceTraffic() as trace_traffic:
         node, shells, resets, dt = run_sequence(torch, SLAMNode, cfg, intr, ds,
                                                 frames, dev)
     launches = {name: fn.launches for name, fn in counters.items()}
+    n_trace, n_tmpl = len(trace_traffic.trace), len(trace_traffic.template)
+    print(f"e2e: K14 launches {launches['trace_points_all_compact']} for {n_trace} traced "
+          f"frames ({node.timers.count('trace')} trace spans, "
+          f"{sum('max_reach' in kw for _, kw in trace_traffic.trace)} on the steady tier), "
+          f"{launches['trace_points_all_compact'] / E2E_FRAMES:.3f} per frame; K15 launches "
+          f"{launches['build_template']} for {n_tmpl} templates", flush=True)
+    if launches["trace_points_all_compact"] != n_trace or launches["build_template"] != n_tmpl:
+        fail(f"e2e: K14 {launches['trace_points_all_compact']} launches for {n_trace} traces, "
+             f"K15 {launches['build_template']} for {n_tmpl} templates (one a call)")
     scale_calls = traffic.summary()
 
     fe = node.frontend
@@ -1186,7 +1206,7 @@ def e2e_phase(torch, dev, profile_dir=None):
     if profile_dir:
         e2e_profile(torch, lambda: run_sequence(torch, SLAMNode, cfg, intr, ds,
                                                 frames, dev), profile_dir)
-    return launches, scale_calls, ba_traffic.calls, n_kf, act_traffic
+    return launches, scale_calls, ba_traffic.calls, n_kf, act_traffic, trace_traffic
 
 
 def deterministic_turns(torch, tag, n_frames, run) -> dict:
@@ -1272,6 +1292,35 @@ class ActTraffic:
         self.act.gate_compact_activate, self.act.allocate_insert_consume = self.wrapped
 
 
+class TraceTraffic:
+    """The front end's trace and template calls on a path: the entry points
+    wrapped for the run (the front end's own name of ``build_template``),
+    each call's arguments kept (candidate sets are replaced, never written
+    in place)."""
+
+    def __init__(self):
+        from direct_stereo_slam_tpu_torch.models import frontend, immature
+
+        self.fe, self.imm, self.trace, self.template = frontend, immature, [], []
+
+    def __enter__(self):
+        self.wrapped = self.imm.trace_points_all_compact, self.fe.build_template
+
+        def trace(*a, **kw):
+            self.trace.append((a, kw))
+            return self.wrapped[0](*a, **kw)
+
+        def template(*a, **kw):
+            self.template.append((a, kw))
+            return self.wrapped[1](*a, **kw)
+
+        self.imm.trace_points_all_compact, self.fe.build_template = trace, template
+        return self
+
+    def __exit__(self, *exc):
+        self.imm.trace_points_all_compact, self.fe.build_template = self.wrapped
+
+
 # f32 operations of K12: a valid candidate's gate, and a (lane, frame,
 # pattern pixel) term of a residual pass: the warp, the bilinear sample
 # (3 channels x 3 lerps), the residual, Huber, the idepth Jacobian and the
@@ -1347,21 +1396,9 @@ def act_bytes_ops(torch, act, a):
     return nb, n_valid * ACT_GATE_OPS + terms * ACT_TERM_OPS, footprint
 
 
-# K12 / K13 and their first forms (the redesigns' bit references), by the
-# names ptxas compiles them under
+# K12 / K13 by the names ptxas compiles them under
 ACT_PTXAS = {"gate_compact_activate": "gate_cluster_kernel",
-             "gate_compact_activate_first": "gate_activate_kernel",
-             "allocate_insert": "alloc_cluster_kernel",
-             "allocate_insert_first": "allocate_insert_kernel"}
-
-
-def turns_ms(torch, first, new):
-    """The card's ms per call (``device_ms``) of the first form and of the
-    redesign in turns first, new, new, first: (new, first, the four)."""
-    t = [device_ms(torch, f) for f in (first, new, new, first)]
-    if None in t:
-        return None, None, t
-    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+             "allocate_insert": "alloc_cluster_kernel"}
 
 
 def gate_phases(c, mhz: float) -> dict:
@@ -1392,15 +1429,13 @@ def pool_phases(c, mhz: float) -> dict:
 
 
 def act_phase(torch, dev, traffic, build_log):
-    """K12 and K13 against their plain versions and their first forms on
-    the e2e run's fullest activation (the call with the most valid
-    candidates): K12's masks equal to the plain version's (edge lanes
-    counted), ok, drop, lane and the accepted idepths bit-equal to the
-    first form, its LM warps the sum over slots of min(survivors,
-    budget); K13 bit-equal to both, also at the pool's overflow (every
-    participating slot's own segment full; the pool all but full); two
-    runs of each bit-equal; each timed (the card's time in turns with the
-    first form) with its bound and ptxas's registers, shared memory and
+    """K12 and K13 against their plain versions on the e2e run's fullest
+    activation (the call with the most valid candidates): K12's masks
+    equal to the plain version's (edge lanes counted), its LM warps the
+    sum over slots of min(survivors, budget); K13 bit-equal to it, also at
+    the pool's overflow (every participating slot's own segment full; the
+    pool all but full); two runs of each bit-equal; each timed (the card's
+    own time too) with its bound and ptxas's registers, shared memory and
     spills. Returns the kernel rows."""
     act = traffic.act
     n_valid = [int(a[0].valid.sum()) for a in traffic.gate]
@@ -1419,7 +1454,6 @@ def act_phase(torch, dev, traffic, build_log):
     got = act.gate_compact_activate_cuda(*g, lm_ran=ran)
     want = act.gate_compact_activate_plain(*g)
     again = act.gate_compact_activate_cuda(*g)
-    first = act.gate_compact_activate_first_cuda(*g)
     ok_k, id_k, lane_k, drop_k = got
     ok_p, id_p, lane_p, drop_p = want
     same_masks = torch.equal(drop_k, drop_p) and torch.equal(lane_k, lane_p)
@@ -1429,9 +1463,6 @@ def act_phase(torch, dev, traffic, build_log):
     both = ok_k & ok_p
     err = float(torch.max(torch.abs(id_k - id_p)[both])) if bool(both.any()) else 0.0
     bit_equal = all(torch.equal(bits(x), bits(y)) for x, y in zip(got, again))
-    as_first = (torch.equal(ok_k, first[0]) and torch.equal(lane_k, first[2])
-                and torch.equal(drop_k, first[3])
-                and torch.equal(bits(id_k[ok_k]), bits(first[1][ok_k])))
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
     gate_ok, _ = act._gate_impl(g[0], g[1], f32(g[2]), f32(g[3]), f32(g[4]),
                                 torch.as_tensor(np.asarray(g[5], bool), device=dev), g[13],
@@ -1441,21 +1472,17 @@ def act_phase(torch, dev, traffic, build_log):
     print(f"K12 gate_compact_activate: drop and lane equal to the plain version: "
           f"{same_masks}; {n_acc} accepted lanes, {n_edge} edge lanes ({int((ok_k != ok_p).sum())} "
           f"accepts differ; idepth of the lanes both accept within rel 1e-4: max abs "
-          f"{err:.3g}); two runs bit-equal: {bit_equal}; ok, drop, lane and the accepted "
-          f"idepths bit-equal to the first form: {as_first}; survivors per slot "
+          f"{err:.3g}); two runs bit-equal: {bit_equal}; survivors per slot "
           f"{survivors.tolist()}, LM warps {lm_warps} (the sum of min(survivors, {bud}): "
-          f"{want_warps}; the first form runs {S * bud})", flush=True)
-    if (not same_masks or n_edge > max(1, n_acc // 100) or not bit_equal or not as_first
+          f"{want_warps})", flush=True)
+    if (not same_masks or n_edge > max(1, n_acc // 100) or not bit_equal
             or lm_warps != want_warps):
         fail(f"K12: masks equal {same_masks}, edge lanes {n_edge} of {n_acc}, "
-             f"bit-equal {bit_equal}, as the first form {as_first}, LM warps {lm_warps} "
-             f"(want {want_warps})")
+             f"bit-equal {bit_equal}, LM warps {lm_warps} (want {want_warps})")
     k12 = lambda: act.gate_compact_activate_cuda(*g)
-    k12_first = lambda: act.gate_compact_activate_first_cuda(*g)
     ms, pms = ab_ms(torch, k12, lambda: act.gate_compact_activate_plain(*g),
                     plain_kw=dict(repeats=5, inner=2))
-    first_ms = median_ms(torch, k12_first)
-    dms, first_dms, turns = turns_ms(torch, k12_first, k12)
+    dms = device_ms(torch, k12)
     stamps = torch.zeros((S, act.RANKS, act.GATE_STAMPS), dtype=torch.int64, device=dev)
     act.gate_compact_activate_cuda(*g, stamps=stamps)
     torch.cuda.synchronize()
@@ -1463,21 +1490,17 @@ def act_phase(torch, dev, traffic, build_log):
     k12_phases = gate_phases(stamps.cpu().numpy(), clock)
     print(f"K12 gate_compact_activate phases (us at {clock:.0f} MHz): {k12_phases}", flush=True)
     nb, no, fp = act_bytes_ops(torch, act, g)
-    print(f"K12 gate_compact_activate: kernel {ms:.4f} ms, first form {first_ms:.4f} ms; on "
-          f"the card (turns first, new, new, first) {turns} ms; plain {pms:.4f} ms; the call "
+    print(f"K12 gate_compact_activate: kernel {ms:.4f} ms; on the card {dms} ms; plain "
+          f"{pms:.4f} ms; the call "
           f"needs {nb} bytes and {no} f32 operations: "
           f"{fp['image_pixels']} distinct image pixels ({fp['image_bytes']} bytes) under "
           f"{fp['tap_reads']} tap reads of {fp['samples']} in-bounds samples of "
           f"{fp['survivors']} survivors over 4 passes, {fp['map_cells']} map cells", flush=True)
     rep = "direct_stereo_slam_tpu/models/frontend.py:149"
     rows.append(row("gate_compact_activate", "activate.cu", rep, err, ms, pms, nb, no))
-    rows[-1].update(device_ms=dms, device_ms_turns=turns, phases_us=k12_phases, edge_lanes=n_edge,
+    rows[-1].update(device_ms=dms, phases_us=k12_phases, edge_lanes=n_edge,
                     accepted_lanes=n_acc, lm_warps=lm_warps, ptxas=usage.get(ACT_PTXAS[
                         "gate_compact_activate"]), activate_split=traffic.split, **fp)
-    rows.append(row("gate_compact_activate_first", "activate.cu", rep, err, first_ms, pms, nb,
-                    no))
-    rows[-1].update(device_ms=first_dms, lm_warps=S * bud,
-                    ptxas=usage.get(ACT_PTXAS["gate_compact_activate_first"]))
     # ---- K13, on the recorded call and at the pool's overflow
     st, participate, P = al[0], al[6], al[7]
     cases = {"recorded": st}
@@ -1495,24 +1518,18 @@ def act_phase(torch, dev, traffic, build_log):
         k = act.allocate_insert_consume_cuda(*a)
         p = act.allocate_insert_consume_plain(*a)
         k2 = act.allocate_insert_consume_cuda(*a)
-        kf = act.allocate_insert_consume_first_cuda(*a)
         equal = all(torch.equal(x, y) for x, y in zip(flat(k), flat(p)))
         twice = all(torch.equal(x, y) for x, y in zip(flat(k), flat(k2)))
-        as_first = all(torch.equal(x, y) for x, y in zip(flat(k), flat(kf)))
         print(f"K13 allocate_insert {case}: {int(p[2][5].sum())} placed of "
               f"{int(al[2].cpu().numpy()[participate].sum())} accepted, "
               f"{int((~st_c.p_valid).sum())} free rows; bit-equal to the plain version: "
-              f"{equal}, to the first form: {as_first}; two runs bit-equal: {twice}",
-              flush=True)
-        if not (equal and twice and as_first):
-            fail(f"K13 {case}: bit-equal to plain {equal}, to the first form {as_first}, "
-                 f"two runs {twice}")
+              f"{equal}; two runs bit-equal: {twice}", flush=True)
+        if not (equal and twice):
+            fail(f"K13 {case}: bit-equal to plain {equal}, two runs {twice}")
     k13 = lambda: act.allocate_insert_consume_cuda(*al)
-    k13_first = lambda: act.allocate_insert_consume_first_cuda(*al)
     ms, pms = ab_ms(torch, k13, lambda: act.allocate_insert_consume_plain(*al),
                     plain_kw=dict(repeats=5, inner=2))
-    first_ms = median_ms(torch, k13_first)
-    dms, first_dms, turns = turns_ms(torch, k13_first, k13)
+    dms = device_ms(torch, k13)
     stamps = torch.zeros((act.RANKS, act.POOL_STAMPS), dtype=torch.int64, device=dev)
     act.allocate_insert_consume_cuda(*al, stamps=stamps)
     torch.cuda.synchronize()
@@ -1526,16 +1543,264 @@ def act_phase(torch, dev, traffic, build_log):
     # pool, the validity, the allocation and the consumed mask
     nb = (S * bud * (1 + 8 + 4) + 3 * S * NI + placed * 72
           + 2 * B * (POOL_ROW_BYTES + W_) + 5 * B * 8 + B + S * NI)
-    print(f"K13 allocate_insert: kernel {ms:.4f} ms, first form {first_ms:.4f} ms; on the "
-          f"card (turns first, new, new, first) {turns} ms; plain {pms:.4f} ms; {placed} "
-          f"rows placed", flush=True)
+    print(f"K13 allocate_insert: kernel {ms:.4f} ms; on the card {dms} ms; plain "
+          f"{pms:.4f} ms; {placed} rows placed", flush=True)
     rep = "direct_stereo_slam_tpu/models/frontend.py:190"
     rows.append(row("allocate_insert", "activate.cu", rep, 0.0, ms, pms, nb, 0))
-    rows[-1].update(device_ms=dms, device_ms_turns=turns, phases_us=k13_phases, placed=placed,
+    rows[-1].update(device_ms=dms, phases_us=k13_phases, placed=placed,
                     ptxas=usage.get(ACT_PTXAS["allocate_insert"]))
-    rows.append(row("allocate_insert_first", "activate.cu", rep, 0.0, first_ms, pms, nb, 0))
-    rows[-1].update(device_ms=first_dms, placed=placed,
-                    ptxas=usage.get(ACT_PTXAS["allocate_insert_first"]))
+    return rows
+
+
+# f32 operations of K14: a lane's phase 1 (the segment and its gates), a
+# search tap (the bilinear read, the residual, its square and sum), a
+# searched lane's GN refine (3 steps of 8 taps on 3 channels, the sums,
+# the step and the second read) and its interval update
+TRACE_LANE_OPS, TRACE_TAP_OPS, TRACE_GN_OPS = 80, 18, 1200
+# bytes K14 moves of every lane (reads valid, status, the idepth range,
+# quality and pixel interval, writes the last five anew), reads of a
+# traceable lane (u, v, grad_h) and of a searched lane (its colours)
+TRACE_LANE_BYTES, TRACE_TRACEABLE_BYTES, TRACE_COLOR_BYTES = 1 + 4 + 4 * 4 + 20, 2 * 4 + 12, 32
+# f32 operations of K15 a cell with weight after dilation (its pooling,
+# dilation, normalisation, gates) and bytes of a point (4 floats and its
+# flag) and of a list lane (4 floats and its flag)
+TEMPLATE_CELL_OPS, TEMPLATE_POINT_BYTES, TEMPLATE_LANE_BYTES = 40, 17, 17
+TRACE_PTXAS = {"trace_points_all_compact": "trace_kernel",
+               "build_template": "template_kernel"}
+
+
+def trace_bytes_ops(torch, a, kw) -> tuple:
+    """(bytes, f32 operations, footprint) K14 needs on a call, from the
+    call's own data: every lane's inputs and outputs, the traceable lanes'
+    geometry, the searched lanes' colours, the counts, and each distinct
+    pixel under the taps once: 12 bytes (the three planes) under the GN's
+    taps, 4 (the intensity) under the search's only; the taps recorded
+    from the plain version's run on the same inputs."""
+    from direct_stereo_slam_tpu_torch.models import immature
+    from direct_stereo_slam_tpu_torch.ops.interp import _corners
+
+    pts, planes = a[0], a[1]
+    Hp, Wp = planes.shape[:2]
+    taps = {"search": [], "gn": []}
+    real1, real3 = immature.bilinear_gather_scalar, immature.bilinear_gather
+
+    def kept1(img, u, v):
+        taps["search" if u.dim() == 3 else "gn"].append((u, v))
+        return real1(img, u, v)
+
+    def kept3(img, u, v):
+        taps["gn"].append((u, v))
+        return real3(img, u, v)
+
+    immature.bilinear_gather_scalar, immature.bilinear_gather = kept1, kept3
+    lanes = torch.empty(min(kw.get("budget", a[6].trace.search_budget), pts.u.numel()),
+                        dtype=torch.int64, device=planes.device)
+    try:
+        immature.trace_points_all_compact_plain(*a, **kw, lanes=lanes)
+    finally:
+        immature.bilinear_gather_scalar, immature.bilinear_gather = real1, real3
+    live = lanes < pts.u.numel()
+    n_searched = int(live.sum())
+    n_traceable = int((pts.valid & (pts.status != immature.IPS_OOB)).sum())
+
+    def distinct(pairs):
+        cells = []
+        for u, v in pairs:
+            m = live.reshape((-1,) + (1,) * (u.dim() - 1)).expand_as(u)
+            ix, iy, _, _ = _corners(Hp, Wp, u, v)
+            base = (iy * Wp + ix)[m]
+            cells += [base, base + 1, base + Wp, base + Wp + 1]
+        return torch.unique(torch.cat(cells)) if cells else torch.zeros(
+            0, dtype=torch.int64, device=planes.device)
+
+    gn = distinct(taps["gn"])
+    search = distinct(taps["search"])
+    px_gn, px_search = gn.numel(), int((~torch.isin(search, gn)).sum())
+    steps = kw.get("num_steps") or a[6].trace.num_steps
+    n = pts.u.numel()
+    nb = (n * TRACE_LANE_BYTES + n_traceable * TRACE_TRACEABLE_BYTES
+          + n_searched * TRACE_COLOR_BYTES + 4 * px_search + 12 * px_gn + 16)
+    no = n_traceable * TRACE_LANE_OPS + n_searched * (steps * 8 * TRACE_TAP_OPS + TRACE_GN_OPS)
+    return nb, no, dict(searched=n_searched, traceable=n_traceable, steps=steps,
+                        search_only_pixels=px_search, gn_pixels=px_gn)
+
+
+def template_needs(torch, a, kw) -> tuple:
+    """(image pixels, cells) K15 needs on a call: the distinct level-0
+    pixels of the image under a cell (2^l x 2^l pixels a cell of level l)
+    whose other gates (border, weight after dilation, idepth) pass, in
+    raster order up to the cell that fills the level's list; and the
+    cells of all levels with weight after dilation. The dilated maps are
+    recorded from the plain version's run on the same inputs."""
+    from direct_stereo_slam_tpu_torch.models import depth_template as dt
+
+    maps, real = [], dt._dilate_once
+
+    def kept(d, w, offsets):
+        maps.append(real(d, w, offsets))
+        return maps[-1]
+
+    dt._dilate_once = kept
+    try:
+        dt.build_template_plain(*a, **kw)
+    finally:
+        dt._dilate_once = real
+    img, budgets = a[4], a[6]
+    need = torch.zeros(img.shape, dtype=torch.bool, device=img.device)
+    img_l, weighted = img, 0
+    for l, (d, w) in enumerate(maps):
+        img_l = img_l if l == 0 else 0.25 * dt._pool(img_l)
+        h, wl = d.shape
+        weighted += int((w > 0).sum())
+        ys = torch.arange(h, device=img.device)[:, None]
+        xs = torch.arange(wl, device=img.device)[None, :]
+        gates = ((ys >= 2) & (ys < h - 2) & (xs >= 2) & (xs < wl - 2) & (w > 0)
+                 & (d / torch.clamp(w, min=1e-12) > 0)).reshape(-1)
+        good = torch.nonzero(gates & torch.isfinite(img_l).reshape(-1)).reshape(-1)
+        if good.numel() > budgets[l]:
+            gates &= torch.arange(h * wl, device=img.device) <= good[budgets[l] - 1]
+        s = 1 << l
+        need[:h * s, :wl * s] |= gates.reshape(h, wl).repeat_interleave(s, 0) \
+            .repeat_interleave(s, 1)
+    return int(need.sum()), weighted
+
+
+def trace_phases(c, mhz: float) -> dict:
+    """K14's phase stamps (cycles [grid, 4]: phase 1, the grid barrier, the
+    compaction, the searches) in us, the largest over the blocks."""
+    us = np.asarray(c, np.float64) / mhz
+    names = ("gates", "barrier", "compaction", "search")
+    out = {f"{k}_max": float(us[:, i].max()) for i, k in enumerate(names)}
+    out["span_max"] = float(us.sum(1).max())
+    return out
+
+
+def template_phases(c, levels: int, mhz: float) -> dict:
+    """K15's phase stamps (block 0's cycles: the points' pixel sums, their
+    writes, each level's dilation and pooling, each with its grid barrier,
+    the compaction) in us."""
+    us = np.asarray(c, np.float64) / mhz
+    out = dict(pixel_sums=float(us[0]), sums_written=float(us[1]))
+    out.update({f"level{l}": float(us[2 + l]) for l in range(levels)})
+    out["compaction"] = float(us[2 + levels])
+    out["span"] = float(us[:3 + levels].sum())
+    return out
+
+
+def trace_template_phase(torch, dev, traffic, build_log):
+    """K14 and K15 against their plain versions on the e2e run's calls: K14
+    on its fullest full-shape call, its fullest steady-tier call and the
+    full call with the budget at half its searching lanes (an overflow),
+    K15 on its fullest template; the statuses, the compacted lanes,
+    n_search and n_overflow equal and the four float fields bit-equal
+    (K15: every level's lists bit-equal), two runs bit-equal; each timed
+    (the wrapper's ms, the card's own ms, the plain version's ms) with its
+    bound, phase stamps and ptxas's registers, shared memory and spills.
+    Returns the kernel rows."""
+    from direct_stereo_slam_tpu_torch.models import depth_template as dt
+    from direct_stereo_slam_tpu_torch.models import immature
+    from direct_stereo_slam_tpu_torch.ops import _cuda
+    from direct_stereo_slam_tpu_torch.ops import template as template_ops
+    from direct_stereo_slam_tpu_torch.ops import trace as trace_ops
+
+    usage = ptxas_usage(build_log, tuple(TRACE_PTXAS.values()))
+    print(f"trace/template: ptxas (registers, shared memory, spill stores / loads): {usage}",
+          flush=True)
+    fullest = lambda calls: max(calls, key=lambda c: int(c[0][0].valid.sum()))
+    full = fullest([c for c in traffic.trace if "max_reach" not in c[1]])
+    steady = fullest([c for c in traffic.trace if "max_reach" in c[1]])
+    n_want = int(immature.trace_points_all_compact_plain(*full[0], **full[1])[1])
+    over = (full[0], dict(full[1], budget=max(n_want // 2, 1)))
+    clock = sm_clock_mhz()
+    rows = []
+    fields = ("idepth_min", "idepth_max", "quality", "status", "pixel_interval")
+    for case, (a, kw) in (("full", full), ("steady", steady), ("overflow", over)):
+        S, NI = a[0].u.shape
+        bud = min(kw.get("budget", a[6].trace.search_budget), S * NI)
+        lk = torch.empty(bud, dtype=torch.int64, device=dev)
+        lp = torch.empty(bud, dtype=torch.int64, device=dev)
+        got = trace_ops.trace_points_all_compact_cuda(*a, **kw, lanes=lk)
+        want = immature.trace_points_all_compact_plain(*a, **kw, lanes=lp)
+        again = trace_ops.trace_points_all_compact_cuda(*a, **kw)
+        torch.cuda.synchronize()
+        counts = (int(got[1]), int(got[2]), int(want[1]), int(want[2]))
+        diff = {f: int((bits(getattr(got[0], f)) != bits(getattr(want[0], f))).sum())
+                for f in fields}
+        twice = all(torch.equal(bits(getattr(got[0], f)), bits(getattr(again[0], f)))
+                    for f in fields) and int(again[1]) == counts[0] and int(again[2]) == counts[1]
+        same_lanes = torch.equal(lk, lp)
+        err = max(float(torch.nan_to_num(torch.abs(getattr(got[0], f) - getattr(want[0], f)),
+                                         nan=0.0).max()) for f in fields if f != "status")
+        nb, no, fp = trace_bytes_ops(torch, a, kw)
+        print(f"K14 trace_points_all_compact {case}: {int(a[0].valid.sum())} valid lanes of "
+              f"{S} x {NI}, budget {bud}, {fp['steps']} steps; n_search / n_overflow "
+              f"{counts[:2]} (plain {counts[2:]}), {fp['searched']} searched; compacted lanes "
+              f"equal: {same_lanes}; lanes differing from the plain version per field: {diff}; "
+              f"two runs bit-equal: {twice}", flush=True)
+        if (not same_lanes or any(diff.values()) or counts[:2] != counts[2:] or not twice
+                or (case == "overflow" and counts[1] <= 0)):
+            fail(f"K14 {case}: lanes equal {same_lanes}, counts {counts}, differing {diff}, "
+                 f"two runs {twice}")
+        k14 = lambda: trace_ops.trace_points_all_compact_cuda(*a, **kw)
+        ms, pms = ab_ms(torch, k14, lambda: immature.trace_points_all_compact_plain(*a, **kw),
+                        plain_kw=dict(repeats=5, inner=2))
+        dms = device_ms(torch, k14)
+        grid = _cuda.sm_count(dev)
+        stamps = torch.zeros((grid, trace_ops.TRACE_STAMPS), dtype=torch.int64, device=dev)
+        trace_ops.trace_points_all_compact_cuda(*a, **kw, stamps=stamps)
+        torch.cuda.synchronize()
+        ph = trace_phases(stamps.cpu().numpy(), clock)
+        print(f"K14 trace_points_all_compact {case}: kernel {ms:.4f} ms, on the card {dms} ms, "
+              f"plain {pms:.4f} ms; the call needs {nb} bytes and {no} f32 operations "
+              f"({fp['traceable']} traceable lanes, {fp['gn_pixels']} distinct pixels under "
+              f"the GN's taps, {fp['search_only_pixels']} more under the search's); phases (us at {clock:.0f} MHz) {ph}",
+              flush=True)
+        rows.append(row(f"trace_points_all_compact[{case}]", "trace.cu",
+                        "direct_stereo_slam_tpu/models/immature.py:479", err, ms, pms, nb, no))
+        rows[-1].update(device_ms=dms, phases_us=ph, n_search=counts[0], n_overflow=counts[1],
+                        ptxas=usage.get(TRACE_PTXAS["trace_points_all_compact"]), **fp)
+    # ---- K15 on the fullest template
+    a, kw = max(traffic.template, key=lambda c: int(c[1]["valid"].sum()))
+    got = template_ops.build_template_cuda(*a, kw["valid"])
+    again = template_ops.build_template_cuda(*a, kw["valid"])
+    want = dt.build_template_plain(*a, **kw)
+    torch.cuda.synchronize()
+    levels = a[5]
+    diff = {f"{n}[{l}]": int((bits(x[l]) != bits(y[l])).sum())
+            for n, x, y in zip(("pu", "pv", "pid", "pcolor", "pmask"), got, want)
+            for l in range(levels)}
+    twice = all(torch.equal(bits(x[l]), bits(y[l])) for x, y in zip(got, again)
+                for l in range(levels))
+    n_pts, counts = a[0].numel(), [int(m.sum()) for m in want[4]]
+    print(f"K15 build_template: {n_pts} points ({int(kw['valid'].sum())} valid), list counts "
+          f"{counts} of budgets {list(a[6])}; entries differing from the plain version "
+          f"{sum(diff.values())} ({ {k: v for k, v in diff.items() if v} }); two runs "
+          f"bit-equal: {twice}", flush=True)
+    if any(diff.values()) or not twice:
+        fail(f"K15: differing {diff}, two runs {twice}")
+    k15 = lambda: template_ops.build_template_cuda(*a, kw["valid"])
+    ms, pms = ab_ms(torch, k15, lambda: dt.build_template_plain(*a, **kw),
+                    plain_kw=dict(repeats=5, inner=2))
+    dms = device_ms(torch, k15)
+    stamps = torch.zeros(template_ops.TEMPLATE_STAMPS, dtype=torch.int64, device=dev)
+    template_ops.build_template_cuda(*a, kw["valid"], stamps=stamps)
+    torch.cuda.synchronize()
+    ph = template_phases(stamps.cpu().numpy(), levels, clock)
+    Hi, Wi = a[4].shape
+    cells = sum(h * w for h, w in template_ops.level_shapes(Hi, Wi, levels))
+    px_img, weighted = template_needs(torch, a, kw)
+    nb = n_pts * TEMPLATE_POINT_BYTES + 4 * px_img + sum(a[6][:levels]) * TEMPLATE_LANE_BYTES
+    no = weighted * TEMPLATE_CELL_OPS
+    grid = _cuda.sm_count(dev)
+    print(f"K15 build_template: kernel {ms:.4f} ms, on the card {dms} ms, plain {pms:.4f} ms; "
+          f"the call needs {nb} bytes ({px_img} image pixels of {Hi * Wi}) and {no} f32 "
+          f"operations ({weighted} cells of {cells} with weight); grid {grid} blocks; phases (us "
+          f"at {clock:.0f} MHz) {ph}", flush=True)
+    rows.append(row("build_template", "template.cu",
+                    "direct_stereo_slam_tpu/models/depth_template.py:80", 0.0, ms, pms, nb, no))
+    rows[-1].update(device_ms=dms, phases_us=ph, points=n_pts, list_counts=counts,
+                    image_pixels=px_img, weighted_cells=weighted,
+                    ptxas=usage.get(TRACE_PTXAS["build_template"]))
     return rows
 
 
@@ -1552,8 +1817,8 @@ ACT_SPLIT = (("host_pose_math", "frontend", "_activation_warps"),
 def act_only(torch, dev, build_log) -> None:
     """``--act``: the e2e sequence (a warm-up pass, then a pass with the
     activation calls recorded), the ``activate`` span's split, then the
-    act phase on the fullest call (K12 / K13 against their plain versions
-    and first forms, timed in turns, phase stamps, ptxas)."""
+    act phase on the fullest call (K12 / K13 against their plain versions,
+    timed, phase stamps, ptxas)."""
     from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
 
     ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
@@ -3028,12 +3293,14 @@ BA_KERNELS = ("ba_linearize", "ba_optimize")
 BA_ROWS = ("ba_linearize", "ba_step", "ba_accept", "ba_optimize")
 # a keyframe's activation: K12 (gate, compaction, idepth LM), K13 (pool rows)
 ACT_KERNELS = ("gate_compact_activate", "allocate_insert")
-E2E_KERNELS = ("distance_map", "track_lm", "scale_lm") + BA_KERNELS + ACT_KERNELS
+# every traced frame's K14, every template's K15
+TRACE_KERNELS = ("trace_points_all_compact", "build_template")
+E2E_KERNELS = ("distance_map", "track_lm", "scale_lm") + BA_KERNELS + ACT_KERNELS + TRACE_KERNELS
 # the loop thread's pose graph stays at or below 512 nodes here: K7, one
 # launch a dense optimize (K6 and K8 above 512, in the pose-graph phase)
 LOOP_KERNELS = E2E_KERNELS + ("loop_pose_lm", "pose_graph_gn")
 # DSO mode makes no stereo scale optimization
-MONO_KERNELS = ("distance_map", "track_lm") + BA_KERNELS + ACT_KERNELS
+MONO_KERNELS = ("distance_map", "track_lm") + BA_KERNELS + ACT_KERNELS + TRACE_KERNELS
 OFF_PATH = ("pose_residual_pass", "scale_residual_pass", "pose3d_residual_pass")
 
 
@@ -3106,12 +3373,14 @@ def kernel_counters():
     from direct_stereo_slam_tpu_torch.ops import pose_graph as pgk
     from direct_stereo_slam_tpu_torch.ops import resident_lm as rlm
     from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
+    from direct_stereo_slam_tpu_torch.ops import template as template_ops
+    from direct_stereo_slam_tpu_torch.ops import trace as trace_ops
 
     return {"distance_map": dm.build_distance_map_cuda,
             "gate_compact_activate": act.gate_compact_activate_cuda,
             "allocate_insert": act.allocate_insert_consume_cuda,
-            "gate_compact_activate_first": act.gate_compact_activate_first_cuda,
-            "allocate_insert_first": act.allocate_insert_consume_first_cuda,
+            "trace_points_all_compact": trace_ops.trace_points_all_compact_cuda,
+            "build_template": template_ops.build_template_cuda,
             "pose_residual_pass": rh.pose_residual_pass_cuda,
             "scale_residual_pass": rh.scale_residual_pass_cuda,
             "pose3d_residual_pass": rh.pose3d_residual_pass_cuda,
@@ -3671,7 +3940,13 @@ def batch_phase(torch, dev):
         if launches["track_lm"] != steps or launches["scale_lm"] != steps:
             fail(f"batch S={S}: {launches['track_lm']} K2-LM and {launches['scale_lm']} K3-LM "
                  f"launches for {steps} steps (one each per step)")
-        if any(v for k, v in launches.items() if k not in ("track_lm", "scale_lm")):
+        # the steps' inputs (built once, before the timed steps): a K15
+        # template of each sequence's frame a step
+        if launches["build_template"] != S * (BATCH_FRAMES - 1):
+            fail(f"batch S={S}: {launches['build_template']} K15 launches for the "
+                 f"{S * (BATCH_FRAMES - 1)} templates of the inputs")
+        if any(v for k, v in launches.items()
+               if k not in ("track_lm", "scale_lm", "build_template")):
             fail(f"batch S={S}: another kernel ran: {launches}")
         if not np.all(np.isfinite(r["T"])):
             fail(f"batch S={S}: non-finite poses")
@@ -4389,13 +4664,13 @@ def main() -> int:
                          "window FILE (--ba-window; with --root: another checkout's)")
     ap.add_argument("--act", action="store_true",
                     help="only run the e2e sequence, the activate span's split and the act "
-                         "phase (K12 / K13 against their plain versions and first forms)")
+                         "phase (K12 / K13 against their plain versions)")
     ap.add_argument("--pg-split", action="store_true",
                     help="only time the dense pose-graph optimize on ring graphs and, where "
                          "the port has K7's stamps, its split (with --root: another "
                          "checkout's)")
-    ap.add_argument("--root", help="with --lm-digest, --fps, --ba-split or --pg-split: the "
-                                   "checkout whose port to load")
+    ap.add_argument("--root", help="with --lm-digest, --fps, --ba-split, --pg-split or --act: "
+                                   "the checkout whose port to load")
     args = ap.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -4463,9 +4738,10 @@ def main() -> int:
     # each path's kernels count in that path's run: K1, K2-LM and K3-LM in
     # the e2e pass, K4-LM in the loop phase; the per-pass K2, K3 and K4 run
     # on none of the paths (every phase gates that they stay at 0)
-    launches, e2e_scale_calls, ba_calls, e2e_kfs, act_calls = e2e_phase(torch, dev,
-                                                                        args.profile)
+    launches, e2e_scale_calls, ba_calls, e2e_kfs, act_calls, trace_calls = e2e_phase(
+        torch, dev, args.profile)
     rows += act_phase(torch, dev, act_calls, lib.build_log)
+    rows += trace_template_phase(torch, dev, trace_calls, lib.build_log)
     rows += ba_phase(torch, dev, ba_calls)
     elapsed("e2e, act, ba")
     pl_launches = pipelined_phase(torch, dev)

@@ -1,6 +1,6 @@
 // K12 and K13: a keyframe's activation of immature candidates, on the card.
 //
-// K12 `gate_activate_kernel` replaces the JAX package's hand-written XLA
+// K12 `gate_cluster_kernel` replaces the JAX package's hand-written XLA
 // program direct_stereo_slam_tpu/models/frontend.py:149
 // `_gate_compact_activate` (with `_gate_impl`, :97, and
 // models/immature.py:709 `activate_points_all`): over the window's stacked
@@ -15,7 +15,7 @@
 // pair gates at 8 x outlier_th, the threshold penalty, lambda x0.5 / x4).
 // Its plain version is ops/activate.py::gate_compact_activate_plain.
 //
-// K13 `allocate_insert_kernel` replaces `_allocate_candidates` (:190),
+// K13 `alloc_cluster_kernel` replaces `_allocate_candidates` (:190),
 // `_insert_candidates_all` (:252) and `_consume_candidates` (:268): slots
 // in ascending order, each slot's accepted lanes (compacted order) take
 // the slot's own free pool rows first (ascending), then any other free row
@@ -45,16 +45,11 @@
 // into the shared memory of the block that runs position j = q * 8 +
 // rank (distributed shared memory; a barrier phase begun at the start
 // makes sure every block has started), and n_ok into every block's. After
-// one cluster barrier warp q of each block runs position j's LM (the same
-// device code and shuffle order as the first form, so ok, lane and every
-// accepted idepth are its bits), 256 warps a slot: up to `budget` = 256
-// survivors in one wave. `lm_ran` (optional, [S, budget]) gets 1 where a
-// warp ran the LM, 0 elsewhere. The per-slot warps KRKi1 / Kt1 come in
-// the launch's parameters (`__grid_constant__`), not through an upload.
-// The first form (`gate_activate_kernel`,
-// a block per 16 compacted positions, each recomputing the slot's gate,
-// the LM on every compacted position) stays as its bit reference, reached
-// only from the card tests and chip_smoke.py.
+// one cluster barrier warp q of each block runs position j's LM
+// (`lane_lm`), 256 warps a slot: up to `budget` = 256 survivors in one
+// wave. `lm_ran` (optional, [S, budget]) gets 1 where a warp ran the LM, 0
+// elsewhere. The per-slot warps KRKi1 / Kt1 come in the launch's
+// parameters (`__grid_constant__`), not through an upload.
 //
 // K13 (`alloc_cluster_kernel`): the allocation is sequential in the slots
 // and each slot's picks depend on the free rows the slots before it left;
@@ -78,9 +73,8 @@
 // eighth's free rows (the placed candidate or the old row), its eighth of
 // the allocation and of the candidates' consumption and validity, reading
 // rank 0's tables over distributed shared memory: every row written once,
-// coalesced, on 8 SMs. The first form (`allocate_insert_kernel`, one
-// block: the copy, then ~30 block barriers a slot) stays as its bit
-// reference. All integer: K13 is bit-equal to the plain version.
+// coalesced, on 8 SMs. All integer: K13 is bit-equal to the plain
+// version.
 //
 // `stamps` (optional) gets clock64 phase deltas of thread 0 of each block
 // (kGateStamps, kPoolStamps; chip_smoke.py's act phase prints them). No
@@ -91,18 +85,17 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "plain_ops.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 using dsslam::clamp_min;
+using namespace dsslam::rn;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWin = 8;               // window frames (2 a thread)
-constexpr int kGateThreads = 512;
-constexpr int kGateWarps = kGateThreads / 32;
-constexpr int kAllocThreads = 1024;
 constexpr int kRanks = 8;                // blocks of a K12 / K13 cluster
 constexpr int kActThreads = 1024;        // K12's cluster blocks: 32 LM warps each
 constexpr int kActWarps = kActThreads / 32;
@@ -173,53 +166,6 @@ struct AllocParams {
   unsigned char* consumed;               // [S, NI]
   long long* stamps;                     // [kRanks, kPoolStamps] cycles, or null
 };
-
-// the plain version's operations one at a time, each rounded (PyTorch
-// runs each as its own kernel: no fused multiply-add between them)
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
-// number / tensor in PyTorch: the reciprocal, then the product
-__device__ __forceinline__ float num_over(float n, float x) { return mul(__frcp_rn(x), n); }
-// torch.clamp(x, lo, hi): NaN stays NaN
-__device__ __forceinline__ float clamp(float x, float lo, float hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-// torch.minimum(x, hi) with NaN kept
-__device__ __forceinline__ float min_keep_nan(float x, float hi) { return x > hi ? hi : x; }
-
-// ops/interp.py's bilinear read of an [H, W, 3] (I, dx, dy) image, with
-// its borders (dsslam::sample3's: the coordinates clamped to [0, umax] x
-// [0, vmax], a NaN one reads NaN) and its roundings: each lerp's products
-// and sum rounded one at a time, as the plain version's separate
-// operations are (sample3 lets the compiler fuse them)
-__device__ __forceinline__ void sample3_rn(const float* __restrict__ img, int W, float umax,
-                                           float vmax, float u, float v, float& i0, float& gx,
-                                           float& gy) {
-  const bool nan_uv = isnan(u) || isnan(v);
-  u = fminf(fmaxf(u, 0.f), umax);
-  v = fminf(fmaxf(v, 0.f), vmax);
-  const float fu = floorf(u), fv = floorf(v);
-  const int ix = static_cast<int>(fu), iy = static_cast<int>(fv);
-  const float fx = sub(u, fu), fy = sub(v, fv);
-  const float gx1 = sub(1.f, fx), gy1 = sub(1.f, fy);
-  const float* p00 = img + 3 * (iy * W + ix);
-  const float* p10 = p00 + 3;
-  const float* p01 = p00 + 3 * W;
-  const float* p11 = p01 + 3;
-  float out[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float top = add(mul(p00[c], gx1), mul(p10[c], fx));
-    const float bot = add(mul(p01[c], gx1), mul(p11[c], fx));
-    out[c] = add(mul(top, gy1), mul(bot, fy));
-  }
-  const float qnan = __int_as_float(0x7fc00000);
-  i0 = nan_uv ? qnan : out[0];
-  gx = nan_uv ? qnan : out[1];
-  gy = nan_uv ? qnan : out[2];
-}
 
 // frontend._to_int: NaN -> 0, saturate at +-2^30, truncate
 __device__ __forceinline__ long long to_int(float x) {
@@ -438,197 +384,6 @@ __device__ __forceinline__ int block_rank(bool pred, int carry, int* scratch, in
   __syncthreads();                       // scratch is reused by the next call
   total = all;
   return carry + before + __popc(bal & ((1u << lane) - 1u));
-}
-
-// K12, first form (the redesign's bit reference): a block per (slot, 16
-// compacted positions), each recomputing the slot's gate and compaction.
-__global__ void __launch_bounds__(kGateThreads) gate_activate_kernel(const __grid_constant__ GateParams p) {
-  extern __shared__ unsigned char s_gate[];          // [NI]
-  __shared__ int s_scan[kGateWarps];
-  __shared__ int s_lane[kGateWarps];
-  __shared__ Pair s_pair[kMaxWin];
-  const int s = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int j0 = blockIdx.y * kGateWarps;
-  const bool writer = blockIdx.y == 0;
-  if (tid < p.Wn) pair_setup(p, s, tid, s_pair[tid]);
-  if (tid < kGateWarps) s_lane[tid] = 0;
-
-  // the gate on every lane of the slot
-  int n_ok = 0;
-  for (int base = 0; base < p.NI; base += kGateThreads) {
-    const int i = base + tid;
-    bool g = false, d = false;
-    if (i < p.NI) {
-      gate_lane(p, s, i, g, d);
-      s_gate[i] = g;
-      if (writer) p.drop[static_cast<size_t>(s) * p.NI + i] = d;
-    }
-    n_ok += __syncthreads_count(g);
-  }
-  // the stable compaction: survivors in lane order, then the rest; this
-  // block keeps the lanes of its compacted positions j0 ... j0 + 15
-  int ok_before = 0;
-  for (int base = 0; base < p.NI; base += kGateThreads) {
-    const int i = base + tid;
-    const bool g = i < p.NI && s_gate[i] != 0;
-    int total;
-    const int r_ok = block_rank<kGateThreads>(g, ok_before, s_scan, total);
-    if (i < p.NI) {
-      const int rank = g ? r_ok : n_ok + (i - r_ok);
-      if (rank >= j0 && rank < j0 + kGateWarps) s_lane[rank - j0] = i;
-    }
-    ok_before += total;
-  }
-  __syncthreads();
-
-  // the idepth LM, a warp a compacted lane
-  const int j = j0 + warp;
-  if (j >= p.budget) return;             // the whole warp
-  const int i = s_lane[warp];
-  const size_t k = static_cast<size_t>(s) * p.NI + i;
-  float idep;
-  const bool lm_ok = lane_lm(p, s_pair, k, lane, idep);
-  if (lane == 0) {
-    const bool ok = s_gate[i] != 0 && p.valid[k] != 0 && lm_ok;
-    const size_t o = static_cast<size_t>(s) * p.budget + j;
-    p.ok[o] = ok;
-    p.idepth[o] = idep;
-    p.lane[o] = i;
-  }
-}
-
-// n bytes from src to dst by the block (16 bytes a thread where both are
-// aligned and n is a multiple of 16)
-__device__ __forceinline__ void copy_bytes(void* dst, const void* src, size_t n) {
-  const bool wide = ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) |
-                      n) & 15u) == 0;
-  if (wide) {
-    int4* d = static_cast<int4*>(dst);
-    const int4* s = static_cast<const int4*>(src);
-    for (size_t i = threadIdx.x; i < n / 16; i += blockDim.x) d[i] = s[i];
-  } else {
-    unsigned char* d = static_cast<unsigned char*>(dst);
-    const unsigned char* s = static_cast<const unsigned char*>(src);
-    for (size_t i = threadIdx.x; i < n; i += blockDim.x) d[i] = s[i];
-  }
-}
-
-// K13, first form (the redesign's bit reference): one block.
-__global__ void __launch_bounds__(kAllocThreads) allocate_insert_kernel(const AllocParams p) {
-  extern __shared__ int s_dyn[];
-  int* s_pick = s_dyn;                                       // [budget]
-  unsigned char* s_free = reinterpret_cast<unsigned char*>(s_dyn + p.budget);  // [B]
-  __shared__ int s_scan[kAllocThreads / 32];
-  const int tid = threadIdx.x;
-  const int B = p.B, W = p.W, NI = p.NI, BUD = p.budget;
-
-  // the pool and the immature set as they stand, and empty outputs
-  copy_bytes(p.o_valid, p.p_valid, B);
-  copy_bytes(p.o_host, p.p_host, B * sizeof(long long));
-  copy_bytes(p.o_u, p.p_u, B * sizeof(float));
-  copy_bytes(p.o_v, p.p_v, B * sizeof(float));
-  copy_bytes(p.o_idepth, p.p_idepth, B * sizeof(float));
-  copy_bytes(p.o_idepth_zero, p.p_idepth_zero, B * sizeof(float));
-  copy_bytes(p.o_color, p.p_color, B * 8 * sizeof(float));
-  copy_bytes(p.o_weight, p.p_weight, B * 8 * sizeof(float));
-  copy_bytes(p.o_prior, p.p_prior, B * sizeof(float));
-  copy_bytes(p.o_res_good, p.p_res_good, static_cast<size_t>(B) * W);
-  copy_bytes(p.o_num_good, p.p_num_good, B * sizeof(float));
-  copy_bytes(p.o_last_res, p.p_last_res, B * 2 * sizeof(int));
-  for (int r = tid; r < B; r += kAllocThreads) {
-    s_free[r] = p.p_valid[r] == 0;
-    p.src_slot[r] = p.src_sub[r] = p.src_lane[r] = p.dst[r] = p.host[r] = 0;
-    p.alloc_valid[r] = 0;
-  }
-  for (int i = tid; i < p.S * NI; i += kAllocThreads) p.consumed[i] = 0;
-  __syncthreads();
-
-  int n_fill = 0;
-  for (int s = 0; s < p.S; ++s) {
-    if (((p.participate >> s) & 1) == 0) continue;       // the same for every thread
-    const int lo = s * p.P, hi = (s + 1) * p.P;
-    int n_own = 0, n_free = 0, n_acc = 0;
-    for (int base = 0; base < B; base += kAllocThreads) {
-      const int r = base + tid;
-      const bool f = r < B && s_free[r] != 0;
-      n_own += __syncthreads_count(f && r >= lo && r < hi);
-      n_free += __syncthreads_count(f);
-    }
-    for (int base = 0; base < BUD; base += kAllocThreads) {
-      const int jj = base + tid;
-      n_acc += __syncthreads_count(jj < BUD && p.ok[static_cast<size_t>(s) * BUD + jj] != 0);
-    }
-    const int k = min(min(n_free, n_acc), B - n_fill);
-    // the first k free rows in (own segment, then the rest) ascending order
-    int own_before = 0, out_before = 0;
-    for (int base = 0; base < B; base += kAllocThreads) {
-      const int r = base + tid;
-      const bool f = r < B && s_free[r] != 0;
-      const bool own = r >= lo && r < hi;
-      int t_own, t_out;
-      const int r_own = block_rank<kAllocThreads>(f && own, own_before, s_scan, t_own);
-      const int r_out = block_rank<kAllocThreads>(f && !own, out_before, s_scan, t_out);
-      if (f) {
-        const int idx = own ? r_own : n_own + r_out;
-        if (idx < k) s_pick[idx] = r;
-      }
-      own_before += t_own;
-      out_before += t_out;
-    }
-    // the consumed row: the dropped lanes, then the placed ones
-    for (int i = tid; i < NI; i += kAllocThreads)
-      p.consumed[static_cast<size_t>(s) * NI + i] = p.drop[static_cast<size_t>(s) * NI + i];
-    __syncthreads();
-    int acc_before = 0;
-    for (int base = 0; base < BUD; base += kAllocThreads) {
-      const int jj = base + tid;
-      const size_t o = static_cast<size_t>(s) * BUD + jj;
-      const bool acc = jj < BUD && p.ok[o] != 0;
-      int total;
-      const int rank = block_rank<kAllocThreads>(acc, acc_before, s_scan, total);
-      if (acc && rank < k) {
-        const int g = n_fill + rank, d = s_pick[rank];
-        const long long ln = p.lane[o];
-        p.src_slot[g] = s;
-        p.src_sub[g] = jj;
-        p.src_lane[g] = ln;
-        p.dst[g] = d;
-        p.host[g] = s;
-        p.alloc_valid[g] = 1;
-        s_free[d] = 0;
-        p.consumed[static_cast<size_t>(s) * NI + ln] = 1;
-      }
-      acc_before += total;
-    }
-    n_fill += k;
-    __syncthreads();
-  }
-
-  // the placed candidates into their pool rows, the consumed ones out of
-  // the immature set
-  for (int g = tid; g < n_fill; g += kAllocThreads) {
-    const int d = static_cast<int>(p.dst[g]);
-    const size_t c = static_cast<size_t>(p.src_slot[g]) * NI + p.src_lane[g];
-    const float idep = p.idepth[static_cast<size_t>(p.src_slot[g]) * BUD + p.src_sub[g]];
-    p.o_valid[d] = 1;
-    p.o_host[d] = p.host[g];
-    p.o_u[d] = p.u[c];
-    p.o_v[d] = p.v[c];
-    p.o_idepth[d] = idep;
-    p.o_idepth_zero[d] = idep;
-    for (int m = 0; m < 8; ++m) {
-      p.o_color[static_cast<size_t>(d) * 8 + m] = p.color[c * 8 + m];
-      p.o_weight[static_cast<size_t>(d) * 8 + m] = p.weight[c * 8 + m];
-    }
-    p.o_prior[d] = 0.f;
-    for (int t = 0; t < W; ++t) p.o_res_good[static_cast<size_t>(d) * W + t] = 1;
-    p.o_num_good[d] = 0.f;
-    p.o_last_res[2 * d] = 0;             // RES_IN
-    p.o_last_res[2 * d + 1] = 0;
-  }
-  for (int i = tid; i < p.S * NI; i += kAllocThreads)
-    p.o_imm_valid[i] = p.imm_valid[i] != 0 && p.consumed[i] == 0;
 }
 
 // The split cluster barrier: arrive (release: this thread's reads and
@@ -1147,16 +902,6 @@ __global__ void __cluster_dims__(kRanks, 1, 1) __launch_bounds__(kPoolThreads)
 
 }  // namespace
 
-DSSLAM_API int dsslam_gate_activate_first(const GateParams* params, cudaStream_t stream) {
-  const GateParams& p = *params;
-  if (p.S < 1 || p.S > 32 || p.NI < 1 || p.budget < 1 || p.budget > p.NI || p.Wn < 1 ||
-      p.Wn > kMaxWin || p.h2 < 1 || p.w2 < 1 || p.NI > 48 * 1024)
-    return cudaErrorInvalidValue;
-  const dim3 grid(p.S, (p.budget + kGateWarps - 1) / kGateWarps);
-  gate_activate_kernel<<<grid, kGateThreads, p.NI, stream>>>(p);
-  return cudaGetLastError();
-}
-
 DSSLAM_API int dsslam_gate_activate(const GateParams* params, cudaStream_t stream) {
   const GateParams& p = *params;
   if (p.S < 1 || p.S > 32 || p.NI < 1 || p.budget < 1 || p.budget > p.NI || p.Wn < 1 ||
@@ -1166,16 +911,6 @@ DSSLAM_API int dsslam_gate_activate(const GateParams* params, cudaStream_t strea
                       (p.NI > kActThreads ? static_cast<size_t>(p.NI) : 0);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   gate_cluster_kernel<<<dim3(kRanks, p.S), kActThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-DSSLAM_API int dsslam_allocate_insert_first(const AllocParams* params, cudaStream_t stream) {
-  const AllocParams& p = *params;
-  if (p.S < 1 || p.S > 32 || p.budget < 1 || p.NI < 1 || p.B < 1 || p.W < 1 || p.P < 0)
-    return cudaErrorInvalidValue;
-  const size_t smem = p.budget * sizeof(int) + p.B;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  allocate_insert_kernel<<<1, kAllocThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

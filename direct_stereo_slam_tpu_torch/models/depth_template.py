@@ -14,6 +14,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..ops import template as template_ops
 from ..utils.compact import nonzero_fixed
 
 
@@ -71,15 +72,40 @@ def _dilate_once(idepth, weight, offsets):
 
 
 def _pool(x: torch.Tensor) -> torch.Tensor:
+    """2x2 sum-pooling (odd edges dropped), each cell's four in a fixed
+    order, ((top left + top right) + bottom left) + bottom right, which K15
+    reproduces (a reduction's order on the card is its own)."""
     h2, w2 = x.shape[0] // 2, x.shape[1] // 2
-    return x[: 2 * h2, : 2 * w2].reshape(h2, 2, w2, 2).sum(dim=(1, 3))
+    x = x[: 2 * h2, : 2 * w2]
+    return ((x[0::2, 0::2] + x[0::2, 1::2]) + x[1::2, 0::2]) + x[1::2, 1::2]
 
 
-def build_template(proj_u, proj_v, proj_id, proj_w, ref_img, levels: int,
-                   budgets: Tuple[int, ...], valid=None) -> TrackerTemplate:
-    """proj_*: [N] points projected into the reference KF (level 0);
-    ref_img: [H, W] reference intensity (coarser levels re-derived by 2x2
-    mean, as the pyramid builder does)."""
+def _pixel_sums(key: torch.Tensor, vals: torch.Tensor, n_cells: int) -> torch.Tensor:
+    """Per cell, the sum of the values whose key is that cell, added to 0
+    in ascending point order (the order index_put_(accumulate=True) takes
+    on the CPU): a stable sort by key, then one gather-add-scatter per rank
+    within a cell, so every cell's chain has a fixed order on any device.
+    vals: [K, N] -> [K, n_cells]."""
+    out = torch.zeros(vals.shape[0], n_cells + 1, dtype=vals.dtype, device=vals.device)
+    n = key.shape[0]
+    if n == 0:
+        return out[:, :n_cells]
+    order = torch.sort(key, stable=True).indices
+    sk, sv = key[order], vals[:, order]
+    pos = torch.arange(n, device=key.device)
+    first = torch.ones_like(sk, dtype=torch.bool)
+    first[1:] = sk[1:] != sk[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, torch.zeros_like(pos)), 0).values
+    for r in range(int(rank.max()) + 1):        # the most points on one cell
+        idx = torch.where(rank == r, sk, torch.full_like(sk, n_cells))
+        # a cell once a rank (but the trash cell n_cells)
+        out.index_copy_(1, idx, out.index_select(1, idx) + sv)
+    return out[:, :n_cells]
+
+
+def build_template_plain(proj_u, proj_v, proj_id, proj_w, ref_img, levels: int,
+                         budgets: Tuple[int, ...], valid=None) -> TrackerTemplate:
+    """K15's plain version (see ``build_template``)."""
     H, W = ref_img.shape
     dev = ref_img.device
     if valid is None:
@@ -96,15 +122,10 @@ def build_template(proj_u, proj_v, proj_id, proj_w, ref_img, levels: int,
           & (proj_u < W) & (proj_v < H))
     wgt = torch.where(ok, proj_w, torch.zeros_like(proj_w))
 
-    # the per-pixel sums with index_put_(accumulate=True): on the card it
-    # sorts the indices (stably) and adds each pixel's points in their
-    # order, with no atomics, the order index_add_ takes on the CPU; two
-    # runs give the same bits
-    flat_idx = (vi * W + ui,)
-    idepth0 = torch.zeros(H * W, dtype=torch.float32, device=dev).index_put_(
-        flat_idx, proj_id * wgt, accumulate=True).reshape(H, W)
-    weight0 = torch.zeros(H * W, dtype=torch.float32, device=dev).index_put_(
-        flat_idx, wgt, accumulate=True).reshape(H, W)
+    # the per-pixel sums, each pixel's points in ascending order; no
+    # atomics: two runs give the same bits
+    sums = _pixel_sums(vi * W + ui, torch.stack([proj_id * wgt, wgt]), H * W)
+    idepth0, weight0 = sums[0].reshape(H, W), sums[1].reshape(H, W)
 
     idepths, weights, imgs = [idepth0], [weight0], [ref_img]
     img = ref_img
@@ -144,6 +165,20 @@ def build_template(proj_u, proj_v, proj_id, proj_w, ref_img, levels: int,
         pmask.append(lane_ok)
     return TrackerTemplate(tuple(pu), tuple(pv), tuple(pid), tuple(pcolor),
                            tuple(pmask))
+
+
+def build_template(proj_u, proj_v, proj_id, proj_w, ref_img, levels: int,
+                   budgets: Tuple[int, ...], valid=None) -> TrackerTemplate:
+    """proj_*: [N] points projected into the reference KF (level 0);
+    ref_img: [H, W] reference intensity (coarser levels re-derived by 2x2
+    mean, as the pyramid builder does; a strided view is read as it is).
+    On the card one launch of K15 (``ops/template.py``), for CPU tensors
+    the plain version; either way a new template object."""
+    if ref_img.is_cuda:
+        return TrackerTemplate(*template_ops.build_template_cuda(
+            proj_u, proj_v, proj_id, proj_w, ref_img, levels, budgets, valid))
+    return build_template_plain(proj_u, proj_v, proj_id, proj_w, ref_img, levels, budgets,
+                                valid)
 
 
 def scale_template_idepth(template: TrackerTemplate, scale) -> TrackerTemplate:

@@ -944,10 +944,9 @@ class FrontEnd:
         tc = self.cfg.trace
         tier = (dict(num_steps=tc.steady_num_steps, budget=tc.steady_budget,
                      max_reach=tc.steady_max_reach) if steady else {})
-        t = self._upload
+        # host values: K14 takes them in its launch's parameters
         self.immatures, _, n_overflow = immature.trace_points_all_compact(
-            self.immatures, target_planes, t(KRKi), t(Kt), t(a_rel), t(b_rel),
-            self.cfg, **tier)
+            self.immatures, target_planes, KRKi, Kt, a_rel, b_rel, self.cfg, **tier)
         self._trace_overflow_acc = (n_overflow if self._trace_overflow_acc is None
                                     else self._trace_overflow_acc + n_overflow)
 

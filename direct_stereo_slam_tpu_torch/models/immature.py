@@ -12,12 +12,14 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import PATTERN_OFFSETS, SLAMConfig
+from ..ops import trace as trace_ops
 from ..ops.interp import bilinear_gather, bilinear_gather_frames, bilinear_gather_scalar
 from ..utils.compact import nonzero_fixed
-from ..utils.device import constant
+from ..utils.device import constant, to_device
 
 IPS_GOOD = 0
 IPS_OOB = 1
@@ -96,6 +98,23 @@ def create_points(host_planes: torch.Tensor, selection_map: torch.Tensor,
     )
 
 
+def _sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, left to right: a fixed order, which K14
+    reproduces operation by operation (torch.sum's order on the card is
+    its own)."""
+    s = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        s = s + x[..., k]
+    return s
+
+
+def _project(KRKi: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """KRKi @ (u, v, 1) per lane, each row as two products and two sums in
+    index order (KRKi broadcastable to [..., 3, 3] against u, v [...])."""
+    return torch.stack([KRKi[..., r, 0] * u + KRKi[..., r, 1] * v + KRKi[..., r, 2]
+                        for r in range(3)], -1)
+
+
 def _segment(pts: ImmaturePoints, pr, Kt, H: int, W: int, max_pix_search: float,
              cfg: SLAMConfig):
     """Phase-1 epipolar geometry and gates shared by both trace forms.
@@ -137,19 +156,23 @@ def _search(plane, u_min, v_min, dirx, diry, dist, color, aff_a, aff_b, rdu, rdv
     """Uniform-grid search over [0, dist] + GN refine + interval update for
     a list of lanes ([B]); per-lane rdu/rdv [B, 8], color [B, 8],
     aff_a/aff_b [B, 1], pr/Kt [B, 3]. Returns (quality, outlier, new_min,
-    new_max)."""
+    new_max). Every sum is a left-to-right chain (``_sum_last``) and the
+    step is the segment times 1 / (num_steps - 1) rounded to f32, so that
+    K14 can give the same bits."""
     tc = cfg.trace
     dev = u_min.device
     t = torch.arange(num_steps, dtype=torch.float32, device=dev)[None, :]
-    step_len = torch.clamp(dist, min=1e-6)[:, None] / (num_steps - 1)
+    inv_steps = float(np.float32(1.0) / np.float32(max(num_steps - 1, 1)))
+    step_len = torch.clamp(dist, min=1e-6)[:, None] * inv_steps
     px = u_min[:, None] + dirx[:, None] * t * step_len
     py = v_min[:, None] + diry[:, None] * t * step_len
     s_ok = (px > 3) & (py > 3) & (px < W - 4) & (py < H - 4)
     spx = px[..., None] + rdu[:, None, :]
     spy = py[..., None] + rdv[:, None, :]
     hit = bilinear_gather_scalar(plane[..., 0], spx, spy)
-    res = hit - (aff_a[:, :, None] * color[:, None, :] + aff_b[:, :, None])
-    energy = torch.sum(res * res, dim=-1)
+    ref = aff_a * color + aff_b                                        # [B, 8]
+    res = hit - ref[:, None, :]
+    energy = _sum_last(res * res)
     energy = torch.where(s_ok, energy, _inf(energy))
 
     best_e, best_i = torch.min(energy, dim=-1)
@@ -162,20 +185,19 @@ def _search(plane, u_min, v_min, dirx, diry, dist, color, aff_a, aff_b, rdu, rdv
 
     best_u = u_min + dirx * step_len[:, 0] * best_i.to(torch.float32)
     best_v = v_min + diry * step_len[:, 0] * best_i.to(torch.float32)
-    ref = aff_a * color + aff_b
     for _ in range(tc.trace_gn_iterations):
         gpx = best_u[:, None] + rdu
         gpy = best_v[:, None] + rdv
         h3 = bilinear_gather(plane, gpx, gpy)
         r = h3[..., 0] - ref
         gdotd = h3[..., 1] * dirx[:, None] + h3[..., 2] * diry[:, None]
-        Hs = torch.sum(gdotd * gdotd, dim=-1)
-        bs = torch.sum(r * gdotd, dim=-1)
+        Hs = _sum_last(gdotd * gdotd)
+        bs = _sum_last(r * gdotd)
         stp = torch.clamp(-bs / torch.clamp(Hs, min=1e-9), -0.5, 0.5) * tc.trace_step_size
         nu = best_u + stp * dirx
         nv = best_v + stp * diry
-        ne = torch.sum((bilinear_gather_scalar(plane[..., 0], nu[:, None] + rdu,
-                                               nv[:, None] + rdv) - ref) ** 2, dim=-1)
+        rn = bilinear_gather_scalar(plane[..., 0], nu[:, None] + rdu, nv[:, None] + rdv) - ref
+        ne = _sum_last(rn * rn)
         better = ne < best_e
         best_u = torch.where(better, nu, best_u)
         best_v = torch.where(better, nv, best_v)
@@ -213,7 +235,7 @@ def trace_points(pts: ImmaturePoints, target_planes: torch.Tensor, KRKi, Kt,
     max_pix = max_search_px if max_search_px is not None else tc.max_pix_search_frac * (H + W)
     NI = pts.u.shape[0]
     traceable = pts.valid & (pts.status != IPS_OOB)
-    pr = torch.stack([pts.u, pts.v, torch.ones_like(pts.u)], -1) @ KRKi.T
+    pr = _project(KRKi, pts.u, pts.v)
     (u_min, v_min, oob_min, oob_max, dirx, diry, dist, error_px, badcond,
      skipped) = _segment(pts, pr, Kt[None, :], H, W, max_pix, cfg)
     du, dv = _pattern(dev)
@@ -241,17 +263,16 @@ def trace_points(pts: ImmaturePoints, target_planes: torch.Tensor, KRKi, Kt,
     )
 
 
-def trace_points_all_compact(pts: ImmaturePoints, target_planes: torch.Tensor,
-                             KRKi, Kt, aff_a, aff_b, cfg: SLAMConfig,
-                             num_steps: Optional[int] = None,
-                             budget: Optional[int] = None,
-                             max_reach: Optional[float] = None):
-    """traceOn for the whole window ([S, NI]) with search compaction: phase
-    1 gates every lane without touching the image, phase 2 searches the
-    first ``budget`` search-needing lanes (row-major lane order), phase 3
-    scatters results back. Lanes beyond the budget or (tiered form)
-    ``max_reach`` keep their state and are counted in n_overflow.
-    Returns (points, n_searched, n_overflow)."""
+def trace_points_all_compact_plain(pts: ImmaturePoints, target_planes: torch.Tensor,
+                                   KRKi, Kt, aff_a, aff_b, cfg: SLAMConfig,
+                                   num_steps: Optional[int] = None,
+                                   budget: Optional[int] = None,
+                                   max_reach: Optional[float] = None,
+                                   lanes: Optional[torch.Tensor] = None):
+    """K14's plain version (see ``trace_points_all_compact``); ``KRKi``
+    [S, 3, 3], ``Kt`` [S, 3], ``aff_a``, ``aff_b`` [S] host arrays or
+    tensors. ``lanes`` (int64 [budget]) gets the compacted lanes, as the
+    kernel's wrapper gives them."""
     S, NI = pts.u.shape
     H, W = target_planes.shape[:2]
     dev = target_planes.device
@@ -259,10 +280,12 @@ def trace_points_all_compact(pts: ImmaturePoints, target_planes: torch.Tensor,
     num_steps = tc.num_steps if num_steps is None else num_steps
     budget = min(tc.search_budget if budget is None else budget, S * NI)
     max_pix = tc.max_pix_search_frac * (H + W)
+    f32 = lambda x: (x.to(device=dev, dtype=torch.float32) if torch.is_tensor(x)
+                     else to_device(np.asarray(x, np.float32), dev))
+    KRKi, Kt, aff_a, aff_b = f32(KRKi), f32(Kt), f32(aff_a), f32(aff_b)
 
     traceable = pts.valid & (pts.status != IPS_OOB)
-    xyz = torch.stack([pts.u, pts.v, torch.ones_like(pts.u)], -1)
-    pr = torch.einsum("sij,snj->sni", KRKi, xyz)
+    pr = _project(KRKi[:, None], pts.u, pts.v)
     (u_min, v_min, oob_min, oob_max, dirx, diry, dist, error_px, badcond,
      skipped) = _segment(pts, pr, Kt[:, None, :], H, W, max_pix, cfg)
 
@@ -286,6 +309,8 @@ def trace_points_all_compact(pts: ImmaturePoints, target_planes: torch.Tensor,
     # ---- phase 2: compact + search -----------------------------------------
     flat = lambda a: a.reshape((S * NI,) + a.shape[2:])
     cidx = nonzero_fixed(flat(search), budget, S * NI)
+    if lanes is not None:
+        lanes.copy_(cidx)
     lane_ok = cidx < S * NI
     idx_c = torch.clamp(cidx, max=S * NI - 1)
     slot = idx_c // NI
@@ -317,6 +342,28 @@ def trace_points_all_compact(pts: ImmaturePoints, target_planes: torch.Tensor,
         status=status,
         pixel_interval=scat(pts.pixel_interval, 2.0 * c_err, good_c),
     ), n_search, n_overflow
+
+
+def trace_points_all_compact(pts: ImmaturePoints, target_planes: torch.Tensor,
+                             KRKi, Kt, aff_a, aff_b, cfg: SLAMConfig,
+                             num_steps: Optional[int] = None,
+                             budget: Optional[int] = None,
+                             max_reach: Optional[float] = None):
+    """traceOn for the whole window ([S, NI]) with search compaction: phase
+    1 gates every lane without touching the image, phase 2 searches the
+    first ``budget`` search-needing lanes (row-major lane order), phase 3
+    scatters results back. Lanes beyond the budget or (tiered form)
+    ``max_reach`` keep their state and are counted in n_overflow.
+    Returns (points, n_searched, n_overflow), new tensors (``pts`` stays
+    as it was). ``KRKi`` [S, 3, 3], ``Kt`` [S, 3], ``aff_a``, ``aff_b``
+    [S] are host values (numpy arrays, or CPU tensors). On the card this
+    is one launch of K14 (``ops/trace.py``), which takes them by value;
+    for CPU tensors the plain version runs."""
+    if target_planes.is_cuda:
+        return trace_ops.trace_points_all_compact_cuda(pts, target_planes, KRKi, Kt, aff_a,
+                                                       aff_b, cfg, num_steps, budget, max_reach)
+    return trace_points_all_compact_plain(pts, target_planes, KRKi, Kt, aff_a, aff_b, cfg,
+                                          num_steps, budget, max_reach)
 
 
 class ActivationResult(NamedTuple):

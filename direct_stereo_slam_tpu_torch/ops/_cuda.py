@@ -96,8 +96,10 @@ _SIGNATURES = {
     # &GateParams / &AllocParams (ops/activate.py), stream
     "dsslam_gate_activate": [_P, _P],
     "dsslam_allocate_insert": [_P, _P],
-    "dsslam_gate_activate_first": [_P, _P],
-    "dsslam_allocate_insert_first": [_P, _P],
+    # &TraceParams (ops/trace.py), grid, stream
+    "dsslam_trace": [_P, _I, _P],
+    # &TemplateParams (ops/template.py), stream
+    "dsslam_template": [_P, _P],
 }
 
 
@@ -186,6 +188,13 @@ def call(name: str, *args) -> None:
     if err != 0:
         msg = kl.lib.dsslam_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SMs: a cooperative kernel's grid, a block an SM (its
+    launch fails unless every block is resident)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require_cuda(name: str, *tensors: torch.Tensor,

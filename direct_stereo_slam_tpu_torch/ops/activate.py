@@ -18,9 +18,7 @@ models/immature.py ``activate_points_all``).
   allocation as ``allocate_candidates`` returns it.
 
 For CUDA tensors each entry point launches its kernel (and counts it in
-``.launches`` of the ``*_cuda`` wrapper); ``*_first_cuda`` launch the
-kernels' first forms, kept as the redesigns' bit references for the card
-tests and chip_smoke.py (no path calls them); the ``*_plain`` versions, the
+``.launches`` of the ``*_cuda`` wrapper); the ``*_plain`` versions, the
 front end's former PyTorch code, run for CPU tensors and, called by name,
 on the card. The host-known inputs (the relative warps ``KRKi1`` / ``Kt1``,
 the threshold, the flagged and participating slots) are host values: the
@@ -178,9 +176,19 @@ def _check(name, tensors: dict, dtypes: dict, dev) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def _gate_launch(entry: str, imm, dist_map, KRKi1, Kt1, min_act_dist, host_flagged, images,
-                 frame_valid, T_cw, T_wc, aff, calib, exposure, cfg: SLAMConfig, w2: int,
-                 h2: int, budget: int, lm_ran=None, stamps=None):
+def gate_compact_activate_cuda(imm, dist_map, KRKi1: np.ndarray, Kt1: np.ndarray,
+                               min_act_dist: float, host_flagged: np.ndarray, images,
+                               frame_valid, T_cw, T_wc, aff, calib, exposure, cfg: SLAMConfig,
+                               w2: int, h2: int, budget: int, lm_ran=None, stamps=None):
+    """Launch K12 (``dsslam_gate_activate``, one 8-block cluster a slot):
+    the gate and the compaction once a slot, the idepth LM on the gate's
+    survivors only; the outputs as the plain version's, except the idepth
+    of a position past the slot's survivors, which is NaN (its ``ok`` is
+    0: nothing reads it). ``lm_ran``, a uint8 [S, budget] tensor, gets 1
+    where a warp ran the LM and 0 elsewhere: its sum is the LM warps of
+    the launch, the sum over slots of min(survivors, budget). ``stamps``,
+    an int64 [S, RANKS, GATE_STAMPS] tensor, gets each block's phase
+    cycles (``csrc/activate.cu``'s kGateStamps)."""
     S, NI = imm.valid.shape
     Wn, Himg, Wimg = images.shape[0], images.shape[1], images.shape[2]
     budget = min(int(budget), NI)
@@ -228,47 +236,11 @@ def _gate_launch(entry: str, imm, dist_map, KRKi1, Kt1, min_act_dist, host_flagg
         proj=proj, pat_u=pat_u.data_ptr(), pat_v=pat_v.data_ptr(),
         ok=ok.data_ptr(), idepth=idepth.data_ptr(), lane=lane.data_ptr(),
         drop=drop.data_ptr(), **ptr)
-    _cuda.call(entry, ctypes.addressof(p))
+    _cuda.call("dsslam_gate_activate", ctypes.addressof(p))
+    gate_compact_activate_cuda.launches += 1
     return ok, idepth, lane, drop
 
 
-def gate_compact_activate_cuda(imm, dist_map, KRKi1: np.ndarray, Kt1: np.ndarray,
-                               min_act_dist: float, host_flagged: np.ndarray, images,
-                               frame_valid, T_cw, T_wc, aff, calib, exposure, cfg: SLAMConfig,
-                               w2: int, h2: int, budget: int, lm_ran=None, stamps=None):
-    """Launch K12 (``dsslam_gate_activate``, one 8-block cluster a slot):
-    the gate and the compaction once a slot, the idepth LM on the gate's
-    survivors only; the outputs as the plain version's, except the idepth
-    of a position past the slot's survivors, which is NaN (its ``ok`` is
-    0: nothing reads it). ``lm_ran``, a uint8 [S, budget] tensor, gets 1
-    where a warp ran the LM and 0 elsewhere: its sum is the LM warps of
-    the launch, the sum over slots of min(survivors, budget). ``stamps``,
-    an int64 [S, RANKS, GATE_STAMPS] tensor, gets each block's phase
-    cycles (``csrc/activate.cu``'s kGateStamps)."""
-    out = _gate_launch("dsslam_gate_activate", imm, dist_map, KRKi1, Kt1, min_act_dist,
-                       host_flagged, images, frame_valid, T_cw, T_wc, aff, calib, exposure,
-                       cfg, w2, h2, budget, lm_ran, stamps)
-    gate_compact_activate_cuda.launches += 1
-    return out
-
-
-def gate_compact_activate_first_cuda(imm, dist_map, KRKi1: np.ndarray, Kt1: np.ndarray,
-                                     min_act_dist: float, host_flagged: np.ndarray, images,
-                                     frame_valid, T_cw, T_wc, aff, calib, exposure,
-                                     cfg: SLAMConfig, w2: int, h2: int, budget: int):
-    """K12's first form (``dsslam_gate_activate_first``: a block per slot
-    and 16 compacted positions, each recomputing the slot's gate; the LM
-    on every compacted position), the redesign's bit reference: ``ok``,
-    ``drop``, ``lane`` and every accepted idepth are its bits. Called only
-    by the card tests and chip_smoke.py; no path launches it."""
-    out = _gate_launch("dsslam_gate_activate_first", imm, dist_map, KRKi1, Kt1, min_act_dist,
-                       host_flagged, images, frame_valid, T_cw, T_wc, aff, calib, exposure,
-                       cfg, w2, h2, budget)
-    gate_compact_activate_first_cuda.launches += 1
-    return out
-
-
-gate_compact_activate_first_cuda.launches = 0
 gate_compact_activate_cuda.launches = 0
 
 
@@ -347,8 +319,15 @@ def allocate_insert_consume_plain(state: ba.BAState, imm: immature.ImmaturePoint
     return state, imm._replace(valid=imm.valid & ~consumed), alloc
 
 
-def _alloc_launch(entry: str, state: ba.BAState, imm: immature.ImmaturePoints, ok, idepth,
-                  lane, drop, participate: np.ndarray, P: int, stamps=None):
+def allocate_insert_consume_cuda(state: ba.BAState, imm: immature.ImmaturePoints, ok,
+                                 idepth, lane, drop, participate: np.ndarray, P: int,
+                                 stamps=None):
+    """Launch K13 (``dsslam_allocate_insert``, one 8-block cluster: one
+    warp's walk of the slots over bit masks, the pool's rows written by
+    all 8 blocks): the allocation, the pool's new rows and the immature
+    set's new validity in one launch, into new tensors (states are
+    replaced, never written in place). ``stamps``, an int64 [RANKS,
+    POOL_STAMPS] tensor, gets each block's phase cycles (kPoolStamps)."""
     S, BUD = ok.shape
     NI = drop.shape[1]
     B, W = state.p_res_good.shape
@@ -381,37 +360,11 @@ def _alloc_launch(entry: str, state: ba.BAState, imm: immature.ImmaturePoints, o
                     **{k: addr(t) for k, t in ins.items()},
                     **{"o_" + f[2:]: addr(t) for f, t in new.items()},
                     **dict(zip(ALLOC_FIELDS, map(addr, alloc))))
-    _cuda.call(entry, ctypes.addressof(p))
+    _cuda.call("dsslam_allocate_insert", ctypes.addressof(p))
+    allocate_insert_consume_cuda.launches += 1
     return state._replace(**new), imm._replace(valid=imm_valid), tuple(alloc)
 
 
-def allocate_insert_consume_cuda(state: ba.BAState, imm: immature.ImmaturePoints, ok,
-                                 idepth, lane, drop, participate: np.ndarray, P: int,
-                                 stamps=None):
-    """Launch K13 (``dsslam_allocate_insert``, one 8-block cluster: one
-    warp's walk of the slots over bit masks, the pool's rows written by
-    all 8 blocks): the allocation, the pool's new rows and the immature
-    set's new validity in one launch, into new tensors (states are
-    replaced, never written in place). ``stamps``, an int64 [RANKS,
-    POOL_STAMPS] tensor, gets each block's phase cycles (kPoolStamps)."""
-    out = _alloc_launch("dsslam_allocate_insert", state, imm, ok, idepth, lane, drop,
-                        participate, P, stamps)
-    allocate_insert_consume_cuda.launches += 1
-    return out
-
-
-def allocate_insert_consume_first_cuda(state: ba.BAState, imm: immature.ImmaturePoints, ok,
-                                       idepth, lane, drop, participate: np.ndarray, P: int):
-    """K13's first form (``dsslam_allocate_insert_first``, one block), the
-    redesign's bit reference; called only by the card tests and
-    chip_smoke.py."""
-    out = _alloc_launch("dsslam_allocate_insert_first", state, imm, ok, idepth, lane, drop,
-                        participate, P)
-    allocate_insert_consume_first_cuda.launches += 1
-    return out
-
-
-allocate_insert_consume_first_cuda.launches = 0
 allocate_insert_consume_cuda.launches = 0
 
 

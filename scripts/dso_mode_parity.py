@@ -17,7 +17,12 @@ frame that made keyframe 0, keyframes, resets, the first keyframe BAs'
 RMSEs (frame, RMSE: what the gates compare) and the Sim(3)-aligned
 translation ATE of the tracked frames (the bootstrap hand-off frame left
 out, as chip_smoke.py's mono phase). One JSON line per run; with both
-packages, one per input saying where their camera positions part; then a
+packages, one per input and offset saying where their camera positions
+part; with several offsets, one per input and package giving the spread
+of the bootstrap's hand-off pose over the offsets (the camera pose at
+the frame that made keyframe 0 in the first offset's run, in every
+offset's run: the largest distance between two of its positions, m, and
+the largest angle between two of its rotations, degrees); then a
 summary. The port's runs on the CPU depend on torch's thread count
 (``torch.get_num_threads()``, printed: it orders the f32 sums): compare
 runs at one ``OMP_NUM_THREADS``.
@@ -141,7 +146,8 @@ def run(pkg: str, left, gt, K, t_stereo) -> dict:
                 keyframes=len(node.frontend.kf_shells), ate_sim3_m=ate,
                 ba_rmse_first=rmses[:6], seconds=time.perf_counter() - t0,
                 torch_threads=torch.get_num_threads(),
-                t_wc=[np.asarray(sh.T_wc, np.float64)[:3, 3] for sh in shells])
+                t_wc=[np.asarray(sh.T_wc, np.float64)[:3, 3] for sh in shells],
+                R_wc=[np.asarray(sh.T_wc, np.float64)[:3, :3] for sh in shells])
 
 
 def parted(a: dict, b: dict) -> dict:
@@ -153,6 +159,23 @@ def parted(a: dict, b: dict) -> dict:
     first = lambda th: next((i for i, x in enumerate(d) if x > th), None)
     return dict(pose_gap_m=[float(f"{x:.3g}") for x in d], first_past_1e4=first(1e-4),
                 first_past_1e2=first(1e-2))
+
+
+def handoff_spread(runs: list) -> dict:
+    """The spread of the bootstrap's hand-off pose over one package's runs
+    of one input at several offsets: the pose at the first run's hand-off
+    frame (``snap``) in every run (None where no run handed off)."""
+    f = runs[0]["snap"]
+    if f is None or any(len(r["t_wc"]) <= f for r in runs):
+        return dict(handoff_frame=f, handoff_frames=[r["snap"] for r in runs],
+                    spread_m=None, spread_deg=None)
+    ts = [r["t_wc"][f] for r in runs]
+    Rs = [r["R_wc"][f] for r in runs]
+    dist = max(float(np.linalg.norm(a - b)) for a in ts for b in ts)
+    ang = max(float(np.degrees(np.arccos(np.clip((np.trace(a.T @ b) - 1) / 2, -1, 1))))
+              for a in Rs for b in Rs)
+    return dict(handoff_frame=f, handoff_frames=[r["snap"] for r in runs], spread_m=dist,
+                spread_deg=ang)
 
 
 def main(argv=None) -> int:
@@ -171,11 +194,12 @@ def main(argv=None) -> int:
     jax.config.update("jax_platforms", "cpu")
 
     imgs, gt, K, t_stereo = render(args.frames)
-    results = []
+    results, spreads = [], []
     only = [t for t in args.only.split(",") if t]
     for tag, left in inputs(imgs, args.dithers):
         if only and tag not in only:
             continue
+        by_pkg = {}
         for off in (float(o) for o in args.offsets.split(",")):
             pair = []
             for pkg in args.packages.split(","):
@@ -183,10 +207,17 @@ def main(argv=None) -> int:
                          **run(pkg, (left + np.float32(off)).astype(np.float32), gt, K,
                                t_stereo))
                 pair.append(r)
-                print(json.dumps({k: v for k, v in r.items() if k != "t_wc"}), flush=True)
+                by_pkg.setdefault(pkg, []).append(r)
+                print(json.dumps({k: v for k, v in r.items() if k not in ("t_wc", "R_wc")}),
+                      flush=True)
                 results.append(r)
             if len(pair) == 2:
                 print(json.dumps(dict(input=tag, offset=off, **parted(*pair))), flush=True)
+        for pkg, runs in by_pkg.items():
+            if len(runs) > 1:
+                sp = dict(input=tag, package=pkg, **handoff_spread(runs))
+                spreads.append(sp)
+                print("handoff " + json.dumps(sp), flush=True)
     summary = {}
     for pkg in args.packages.split(","):
         for kind in ("float", "float dither", "uint8 dither"):
@@ -196,6 +227,10 @@ def main(argv=None) -> int:
                 summary[f"{pkg} {kind}"] = dict(
                     passed=sum(r["gate_passed"] for r in rs), runs=len(rs),
                     ate_sim3_m=[r["ate_sim3_m"] for r in rs])
+        sp = [x["spread_m"] for x in spreads if x["package"] == pkg and x["spread_m"] is not None]
+        if sp:
+            summary[f"{pkg} handoff spread"] = dict(inputs=len(sp), median_m=float(np.median(sp)),
+                                                    max_m=max(sp))
     print("summary " + json.dumps(summary), flush=True)
     return 0
 

@@ -18,16 +18,16 @@ slots of 1024 candidates, a budget of 256, a pool of 4096 rows):
 - one front-end ``_activate_points`` call with no host read
   (``torch.cuda.set_sync_debug_mode("error")``): one launch each of K1,
   K12 and K13;
-- the redesigns against the first forms (``*_first_cuda``, their bit
-  references) and K13 against the plain version, on the recorded calls
-  and on edge cases (GATE_CASES, ALLOC_CASES: a slot's survivors past the
+- both kernels against the plain version on the recorded calls and on
+  edge cases (GATE_CASES, ALLOC_CASES: a slot's survivors past the
   budget, no survivor, a slot without survivors, a slot that does not
   participate, a full pool, S = 1, NI = 1000 and 1500, no own segment,
   20 flags a pool row, own segments that are not whole free-mask words):
-  K12's ``ok``, ``drop``, ``lane`` and accepted idepths bit-equal to the
-  first form, its LM-warp count the sum over slots of min(survivors,
-  budget); K13 bit-equal to both; two runs bit-equal; K13 64 times, each
-  the plain version's bits.
+  K12's ``drop`` and ``lane`` equal to the plain version's and ``ok`` /
+  the accepted idepths equal but on counted edge lanes, its LM-warp
+  count the sum over slots of min(survivors, budget); K13 bit-equal to
+  the plain version; two runs bit-equal; K13 64 times, each the plain
+  version's bits.
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
@@ -236,20 +236,21 @@ def _bits(t):
 
 
 @pytest.mark.parametrize("case", GATE_CASES)
-def test_gate_cluster_is_the_first_form(calls, case):
+def test_gate_cluster_matches_plain_masks(calls, case):
     a = _gate_case(calls, case)
     S, NI = a[0].valid.shape
     bud = min(a[16], NI)
     ran = torch.full((S, bud), 7, dtype=torch.uint8, device=a[1].device)
     new = act.gate_compact_activate_cuda(*a, lm_ran=ran)
     again = act.gate_compact_activate_cuda(*a)
-    first = act.gate_compact_activate_first_cuda(*a)
+    plain = act.gate_compact_activate_plain(*a)
     n_ok = _survivors(a)
     torch.cuda.synchronize()
     ok, idepth, lane, drop = new
-    assert torch.equal(ok, first[0]) and torch.equal(drop, first[3])
-    assert torch.equal(lane, first[2])
-    assert torch.equal(_bits(idepth[ok]), _bits(first[1][ok]))
+    assert torch.equal(drop, plain[3]) and torch.equal(lane, plain[2])
+    close = torch.isclose(idepth, plain[1], rtol=1e-4, atol=1e-5)
+    edge = (ok != plain[0]) | ((ok & plain[0]) & ~close)
+    assert int(edge.sum()) <= max(1, int((ok | plain[0]).sum()) // 100)
     for x, y in zip(new, again):
         assert torch.equal(_bits(x), _bits(y))
     n_lm = torch.clamp(n_ok, max=bud)
@@ -306,17 +307,15 @@ def _alloc_flat(r):
 
 
 @pytest.mark.parametrize("case", ALLOC_CASES)
-def test_allocate_cluster_matches_plain_and_first_form(calls, case):
+def test_allocate_cluster_matches_plain(calls, case):
     a = _alloc_case(calls, case)
     new = _alloc_flat(act.allocate_insert_consume_cuda(*a))
     again = _alloc_flat(act.allocate_insert_consume_cuda(*a))
-    first = _alloc_flat(act.allocate_insert_consume_first_cuda(*a))
     plain = act.allocate_insert_consume_plain(*a)
     torch.cuda.synchronize()
     names = list(act.POOL_FIELDS) + ["imm_valid"] + list(act.ALLOC_FIELDS)
-    for name, x, y, z, w in zip(names, new, again, first, _alloc_flat(plain)):
+    for name, x, y, w in zip(names, new, again, _alloc_flat(plain)):
         assert torch.equal(_bits(x), _bits(y)), name
-        assert torch.equal(_bits(x), _bits(z)), name
         assert torch.equal(_bits(x), _bits(w)), name
     placed = int(plain[2][5].sum())
     accepted = int(a[2].cpu().numpy()[a[6]].sum())
