@@ -52,7 +52,10 @@ Phases, each of which must pass (any fault exits non-zero):
    wait a median of 3 times at most: the tracker's read and bundle 3); a
    fourth splits the ``activate`` span into its parts (``act_split``:
    the host pose math, the state reads and ``inv_ex``, the projection's
-   plain launches, K1's, K12's and K13's wrappers, the rest); then the
+   plain launches, K1's, K12's and K13's wrappers, the rest) and a fifth
+   the ``template`` span (``template_split``: the window's pose prep,
+   the plain per-point projection, K15's wrapper, the rest, beside K15's
+   card time); then the
    activation kernels (csrc/activate.cu) on that pass's fullest
    activation (the call with the most valid candidates: 8 slots of 1024,
    budget 256, a pool of 4096): K12 against its plain version (``drop``
@@ -68,10 +71,11 @@ Phases, each of which must pass (any fault exits non-zero):
    (csrc/trace.cu) on the fullest full-shape trace, the fullest
    steady-tier trace and the full one with its budget at half its
    searching lanes (an overflow), K15 (csrc/template.cu) on the fullest
-   template, each against its plain version (K14: the statuses, the
-   compacted lanes, n_search and n_overflow equal, idepth_min,
-   idepth_max, quality and pixel_interval bit-equal; K15: every level's
-   lists bit-equal), two runs bit-equal, timed (the wrapper, the card's
+   template in both modes (state mode, the path's, which projects the
+   points in its launch, and points mode), each against its plain version
+   (K14: the statuses, the compacted lanes, n_search and n_overflow
+   equal, idepth_min, idepth_max, quality and pixel_interval bit-equal;
+   K15: every level's lists bit-equal), two runs bit-equal, timed (the wrapper, the card's
    own time, the plain version) with its bound from the call's own data,
    its phase stamps and ptxas's registers and spills;
 5. pipelined tracking: the e2e sequence in turns synchronous, pipelined,
@@ -257,6 +261,9 @@ one f32 step.
 split and the activation kernels' part of phase 4 (K12 / K13 against
 their plain versions, timed, with phase stamps; with --root, of the port
 in another checkout).
+--trace only runs the e2e sequence, the ``template`` span's split and
+the trace and template kernels' part of phase 4 (K14 / K15 against their
+plain versions, timed, with phase stamps).
 --pg-split [--root DIR] only times the dense ``optimize`` on the ring
 graphs of buckets 16 ... 512 and the CG ``optimize`` at 1024 (host ms
 per call and the card's ms), and, where the port has K7's, K8's and the
@@ -1197,6 +1204,7 @@ def e2e_phase(torch, dev, profile_dir=None):
     waits = count_waits(torch, cfg, intr, ds, frames, dev)
     print(f"e2e: blocking waits per call: {waits}", flush=True)
     act_traffic.split = activate_split(torch, dev, cfg, intr, ds, frames)
+    trace_traffic.split = template_split(torch, dev, cfg, intr, ds, frames)
     # the reference's design: a keyframe call waits for the tracker's read
     # and bundle 3 only (the tail's read hides behind the next frame's)
     if waits.get("keyframe", {}).get("median", 0) > 3:
@@ -1294,9 +1302,9 @@ class ActTraffic:
 
 class TraceTraffic:
     """The front end's trace and template calls on a path: the entry points
-    wrapped for the run (the front end's own name of ``build_template``),
-    each call's arguments kept (candidate sets are replaced, never written
-    in place)."""
+    wrapped for the run (the front end's own name of
+    ``build_template_from_state``), each call's arguments kept (candidate
+    sets and BA states are replaced, never written in place)."""
 
     def __init__(self):
         from direct_stereo_slam_tpu_torch.models import frontend, immature
@@ -1304,7 +1312,7 @@ class TraceTraffic:
         self.fe, self.imm, self.trace, self.template = frontend, immature, [], []
 
     def __enter__(self):
-        self.wrapped = self.imm.trace_points_all_compact, self.fe.build_template
+        self.wrapped = self.imm.trace_points_all_compact, self.fe.build_template_from_state
 
         def trace(*a, **kw):
             self.trace.append((a, kw))
@@ -1314,11 +1322,11 @@ class TraceTraffic:
             self.template.append((a, kw))
             return self.wrapped[1](*a, **kw)
 
-        self.imm.trace_points_all_compact, self.fe.build_template = trace, template
+        self.imm.trace_points_all_compact, self.fe.build_template_from_state = trace, template
         return self
 
     def __exit__(self, *exc):
-        self.imm.trace_points_all_compact, self.fe.build_template = self.wrapped
+        self.imm.trace_points_all_compact, self.fe.build_template_from_state = self.wrapped
 
 
 # f32 operations of K12: a valid candidate's gate, and a (lane, frame,
@@ -1562,9 +1570,11 @@ TRACE_LANE_OPS, TRACE_TAP_OPS, TRACE_GN_OPS = 80, 18, 1200
 # traceable lane (u, v, grad_h) and of a searched lane (its colours)
 TRACE_LANE_BYTES, TRACE_TRACEABLE_BYTES, TRACE_COLOR_BYTES = 1 + 4 + 4 * 4 + 20, 2 * 4 + 12, 32
 # f32 operations of K15 a cell with weight after dilation (its pooling,
-# dilation, normalisation, gates) and bytes of a point (4 floats and its
-# flag) and of a list lane (4 floats and its flag)
-TEMPLATE_CELL_OPS, TEMPLATE_POINT_BYTES, TEMPLATE_LANE_BYTES = 40, 17, 17
+# dilation, normalisation, gates) and of a point's projection; bytes of a
+# point in state mode, the path's (p_u, p_v, p_idepth, hdd, its host slot
+# as int64 and its flag), and of a list lane (4 floats and its flag)
+TEMPLATE_CELL_OPS, TEMPLATE_PROJECT_OPS = 40, 32
+TEMPLATE_POINT_BYTES, TEMPLATE_LANE_BYTES = 4 * 4 + 8 + 1, 17
 TRACE_PTXAS = {"trace_points_all_compact": "trace_kernel",
                "build_template": "template_kernel"}
 
@@ -1675,16 +1685,24 @@ def trace_phases(c, mhz: float) -> dict:
     return out
 
 
-def template_phases(c, levels: int, mhz: float) -> dict:
-    """K15's phase stamps (block 0's cycles: the points' pixel sums, their
-    writes, each level's dilation and pooling, each with its grid barrier,
-    the compaction) in us."""
+def template_phases(c, mhz: float) -> dict:
+    """K15's phase stamps (block 0's cycles of ``ops/template.py``'s
+    STAMP_PHASES, the image's from block 1) in us; ``span`` is block 0's,
+    all but the image's."""
+    from direct_stereo_slam_tpu_torch.ops.template import STAMP_PHASES
+
     us = np.asarray(c, np.float64) / mhz
-    out = dict(pixel_sums=float(us[0]), sums_written=float(us[1]))
-    out.update({f"level{l}": float(us[2 + l]) for l in range(levels)})
-    out["compaction"] = float(us[2 + levels])
-    out["span"] = float(us[:3 + levels].sum())
+    out = {k: float(us[i]) for i, k in enumerate(STAMP_PHASES)}
+    out["span"] = float(sum(v for k, v in out.items() if k != "image"))
     return out
+
+
+def fullest_template(calls):
+    """The recorded template call (``build_template_from_state``'s
+    arguments) with the most valid points among those given the BA's
+    idepth hessian (a keyframe's; the initialisation re-linearizes)."""
+    return max((a for a, _ in calls if a[3] is not None),
+               key=lambda a: int(a[0].p_valid.sum()))
 
 
 def trace_template_phase(torch, dev, traffic, build_log):
@@ -1759,48 +1777,72 @@ def trace_template_phase(torch, dev, traffic, build_log):
                         "direct_stereo_slam_tpu/models/immature.py:479", err, ms, pms, nb, no))
         rows[-1].update(device_ms=dms, phases_us=ph, n_search=counts[0], n_overflow=counts[1],
                         ptxas=usage.get(TRACE_PTXAS["trace_points_all_compact"]), **fp)
-    # ---- K15 on the fullest template
-    a, kw = max(traffic.template, key=lambda c: int(c[1]["valid"].sum()))
-    got = template_ops.build_template_cuda(*a, kw["valid"])
-    again = template_ops.build_template_cuda(*a, kw["valid"])
-    want = dt.build_template_plain(*a, **kw)
-    torch.cuda.synchronize()
-    levels = a[5]
-    diff = {f"{n}[{l}]": int((bits(x[l]) != bits(y[l])).sum())
-            for n, x, y in zip(("pu", "pv", "pid", "pcolor", "pmask"), got, want)
-            for l in range(levels)}
-    twice = all(torch.equal(bits(x[l]), bits(y[l])) for x, y in zip(got, again)
-                for l in range(levels))
+    # ---- K15 on the fullest template, in both modes
+    from direct_stereo_slam_tpu_torch.models import ba
+
+    st, _, slot, hdd, img, levels, budgets = fullest_template(traffic.template)
+    ti = ba.template_inputs(st, None, slot, hdd)
+    a, kw = ti[:4] + (img, levels, budgets), dict(valid=ti[4])
+    calib, T_rh = ba.template_pose_prep(st, slot)
+    sa = (st.p_u, st.p_v, st.p_idepth, st.p_host, st.p_valid, hdd, calib, T_rh, img, levels,
+          budgets)
+
+    def state_plain():
+        pu, pv, pid, pw, valid = ba.template_project(*sa[:8])
+        return dt.build_template_plain(pu, pv, pid, pw, img, levels, budgets, valid=valid)
+
+    k15 = {"points": lambda: template_ops.build_template_cuda(*a, kw["valid"]),
+           "state": lambda: template_ops.build_template_from_state_cuda(*sa)}
+    plain = {"points": lambda: dt.build_template_plain(*a, **kw), "state": state_plain}
+    want = plain["points"]()
     n_pts, counts = a[0].numel(), [int(m.sum()) for m in want[4]]
-    print(f"K15 build_template: {n_pts} points ({int(kw['valid'].sum())} valid), list counts "
-          f"{counts} of budgets {list(a[6])}; entries differing from the plain version "
-          f"{sum(diff.values())} ({ {k: v for k, v in diff.items() if v} }); two runs "
-          f"bit-equal: {twice}", flush=True)
-    if any(diff.values()) or not twice:
-        fail(f"K15: differing {diff}, two runs {twice}")
-    k15 = lambda: template_ops.build_template_cuda(*a, kw["valid"])
-    ms, pms = ab_ms(torch, k15, lambda: dt.build_template_plain(*a, **kw),
-                    plain_kw=dict(repeats=5, inner=2))
-    dms = device_ms(torch, k15)
+    timed = {}
+    for mode in ("state", "points"):
+        got, again = k15[mode](), k15[mode]()
+        torch.cuda.synchronize()
+        diff = {f"{n}[{l}]": int((bits(x[l]) != bits(y[l])).sum())
+                for n, x, y in zip(("pu", "pv", "pid", "pcolor", "pmask"), got, want)
+                for l in range(levels)}
+        twice = all(torch.equal(bits(x[l]), bits(y[l])) for x, y in zip(got, again)
+                    for l in range(levels))
+        print(f"K15 build_template ({mode} mode): {n_pts} points ({int(kw['valid'].sum())} "
+              f"valid), list counts {counts} of budgets {list(budgets)}; entries differing from "
+              f"the plain version {sum(diff.values())} ({ {k: v for k, v in diff.items() if v} });"
+              f" two runs bit-equal: {twice}", flush=True)
+        if any(diff.values()) or not twice:
+            fail(f"K15 {mode} mode: differing {diff}, two runs {twice}")
+        ms, pms = ab_ms(torch, k15[mode], plain[mode], plain_kw=dict(repeats=5, inner=2))
+        timed[mode] = dict(ms=ms, plain_ms=pms, device_ms=device_ms(torch, k15[mode]))
     stamps = torch.zeros(template_ops.TEMPLATE_STAMPS, dtype=torch.int64, device=dev)
-    template_ops.build_template_cuda(*a, kw["valid"], stamps=stamps)
+    template_ops.build_template_from_state_cuda(*sa, stamps=stamps)
     torch.cuda.synchronize()
-    ph = template_phases(stamps.cpu().numpy(), levels, clock)
-    Hi, Wi = a[4].shape
+    ph = template_phases(stamps.cpu().numpy(), clock)
+    Hi, Wi = img.shape
     cells = sum(h * w for h, w in template_ops.level_shapes(Hi, Wi, levels))
     px_img, weighted = template_needs(torch, a, kw)
-    nb = n_pts * TEMPLATE_POINT_BYTES + 4 * px_img + sum(a[6][:levels]) * TEMPLATE_LANE_BYTES
-    no = weighted * TEMPLATE_CELL_OPS
+    # the path's state mode: each point's inputs, the window's poses and
+    # calibration, the image under the gated cells, the lists
+    nb = (n_pts * TEMPLATE_POINT_BYTES + T_rh.numel() * 4 + 16 + 4 * px_img
+          + sum(budgets[:levels]) * TEMPLATE_LANE_BYTES)
+    no = weighted * TEMPLATE_CELL_OPS + n_pts * TEMPLATE_PROJECT_OPS
     grid = _cuda.sm_count(dev)
-    print(f"K15 build_template: kernel {ms:.4f} ms, on the card {dms} ms, plain {pms:.4f} ms; "
-          f"the call needs {nb} bytes ({px_img} image pixels of {Hi * Wi}) and {no} f32 "
-          f"operations ({weighted} cells of {cells} with weight); grid {grid} blocks; phases (us "
-          f"at {clock:.0f} MHz) {ph}", flush=True)
+    print(f"K15 build_template: state mode kernel {timed['state']['ms']:.4f} ms, on the card "
+          f"{timed['state']['device_ms']} ms, plain {timed['state']['plain_ms']:.4f} ms; points "
+          f"mode kernel {timed['points']['ms']:.4f} ms, on the card "
+          f"{timed['points']['device_ms']} ms, plain {timed['points']['plain_ms']:.4f} ms; the "
+          f"state call needs {nb} bytes ({px_img} image pixels of {Hi * Wi}) and {no} f32 "
+          f"operations ({weighted} cells of {cells} with weight); grid {grid} blocks; phases "
+          f"(us at {clock:.0f} MHz) {ph}", flush=True)
     rows.append(row("build_template", "template.cu",
-                    "direct_stereo_slam_tpu/models/depth_template.py:80", 0.0, ms, pms, nb, no))
-    rows[-1].update(device_ms=dms, phases_us=ph, points=n_pts, list_counts=counts,
-                    image_pixels=px_img, weighted_cells=weighted,
+                    "direct_stereo_slam_tpu/models/depth_template.py:80", 0.0,
+                    timed["state"]["ms"], timed["state"]["plain_ms"], nb, no))
+    rows[-1].update(device_ms=timed["state"]["device_ms"], points_mode=timed["points"],
+                    phases_us=ph, points=n_pts, list_counts=counts, image_pixels=px_img,
+                    weighted_cells=weighted, template_split=getattr(traffic, "split", None),
                     ptxas=usage.get(TRACE_PTXAS["build_template"]))
+    if rows[-1]["template_split"] is not None:
+        print("template_split " + json.dumps(dict(
+            traffic.split, card_ms=timed["state"]["device_ms"])), flush=True)
     return rows
 
 
@@ -1812,6 +1854,12 @@ ACT_SPLIT = (("host_pose_math", "frontend", "_activation_warps"),
              ("k1", "frontend", "build_distance_map"),
              ("k12_wrapper", "activate", "gate_compact_activate"),
              ("k13_wrapper", "activate", "allocate_insert_consume"))
+# the template span's: the window's pose prep, the plain per-point
+# projection (none since K15 projects in its launch), K15's wrapper; the
+# card's part is K15's card time on the fullest template
+TEMPLATE_SPLIT = (("pose_prep", "ba", "template_pose_prep"),
+                  ("projection", "ba", "template_project"),
+                  ("k15_wrapper", "template", "build_template_from_state_cuda"))
 
 
 def act_only(torch, dev, build_log) -> None:
@@ -1829,17 +1877,33 @@ def act_only(torch, dev, build_log) -> None:
     print("act_rows " + json.dumps(act_phase(torch, dev, traffic, build_log)), flush=True)
 
 
-def activate_split(torch, dev, cfg, intr, ds, frames) -> dict:
-    """The e2e sequence once more, no synchronize, with the ``activate``
-    span's parts wrapped in their modules (ACT_SPLIT): the span's host ms
-    per keyframe and each part's (host pose math, the state reads and
-    ``inv_ex``, the projection's plain launches, K1's, K12's and K13's
-    wrappers; "other" the rest of the span)."""
-    from direct_stereo_slam_tpu_torch.models import frontend
-    from direct_stereo_slam_tpu_torch.ops import activate as act
+def trace_only(torch, dev, build_log) -> None:
+    """``--trace``: the e2e sequence (a warm-up pass, then a pass with the
+    trace and template calls recorded), the ``template`` span's split,
+    then the trace / template phase (K14 and K15 against their plain
+    versions, timed, phase stamps, ptxas)."""
     from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
 
-    mods = {"frontend": frontend, "activate": act}
+    ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
+    run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
+    with TraceTraffic() as traffic:
+        run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
+    traffic.split = template_split(torch, dev, cfg, intr, ds, frames)
+    print("trace_rows " + json.dumps(trace_template_phase(torch, dev, traffic, build_log)),
+          flush=True)
+
+
+def span_split(torch, dev, cfg, intr, ds, frames, span: str, parts) -> dict:
+    """The e2e sequence once more, no synchronize, with a span's parts
+    wrapped in their modules ((label, module, function) of the front end,
+    the BA, the activation or the template wrappers): the span's host ms
+    per call and each part's ("other" the rest of the span)."""
+    from direct_stereo_slam_tpu_torch.models import ba, frontend
+    from direct_stereo_slam_tpu_torch.ops import activate
+    from direct_stereo_slam_tpu_torch.ops import template
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    mods = {"frontend": frontend, "activate": activate, "ba": ba, "template": template}
     spent, saved = {}, []
 
     def timed(label, fn):
@@ -1851,7 +1915,7 @@ def activate_split(torch, dev, cfg, intr, ds, frames) -> dict:
                 spent[label] = spent.get(label, 0.0) + time.perf_counter() - t0
         return inner
 
-    for label, mod, name in ACT_SPLIT:
+    for label, mod, name in parts:
         saved.append((mods[mod], name, getattr(mods[mod], name)))
         setattr(mods[mod], name, timed(label, getattr(mods[mod], name)))
     try:
@@ -1859,14 +1923,33 @@ def activate_split(torch, dev, cfg, intr, ds, frames) -> dict:
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    n = max(node.timers.count("activate"), 1)
-    parts = {label: 1e3 * spent.get(label, 0.0) / n for label, _, _ in ACT_SPLIT}
+    n = max(node.timers.count(span), 1)
+    out = {label: 1e3 * spent.get(label, 0.0) / n for label, _, _ in parts}
+    return dict(span_ms=node.timers.average_ms(span), calls=node.timers.count(span),
+                parts_ms=out)
+
+
+def activate_split(torch, dev, cfg, intr, ds, frames) -> dict:
+    """The ``activate`` span's split (ACT_SPLIT): the host pose math, the
+    state reads and ``inv_ex``, the projection's plain launches, K1's,
+    K12's and K13's wrappers, the rest; per keyframe."""
+    got = span_split(torch, dev, cfg, intr, ds, frames, "activate", ACT_SPLIT)
+    parts = got["parts_ms"]
     parts["projection"] = parts.pop("projection_and_k1") - parts["k1"]
-    span = node.timers.average_ms("activate")
-    parts["other"] = span - sum(parts.values())
-    out = dict(activate_ms=span, keyframes=node.timers.count("activate"), parts_ms=parts)
+    parts["other"] = got["span_ms"] - sum(parts.values())
+    out = dict(activate_ms=got["span_ms"], keyframes=got["calls"], parts_ms=parts)
     print("act_split " + json.dumps(out), flush=True)
     return out
+
+
+def template_split(torch, dev, cfg, intr, ds, frames) -> dict:
+    """The ``template`` span's host split (TEMPLATE_SPLIT) per template:
+    the pose prep, the plain projection, K15's wrapper, the rest (the
+    template's share of the span's other work)."""
+    got = span_split(torch, dev, cfg, intr, ds, frames, "template", TEMPLATE_SPLIT)
+    parts = got["parts_ms"]
+    parts["other"] = got["span_ms"] - sum(parts.values())
+    return dict(template_ms=got["span_ms"], templates=got["calls"], parts_ms=parts)
 
 
 def ba_bytes_ops(st, D, n_pairs):
@@ -4665,6 +4748,9 @@ def main() -> int:
     ap.add_argument("--act", action="store_true",
                     help="only run the e2e sequence, the activate span's split and the act "
                          "phase (K12 / K13 against their plain versions)")
+    ap.add_argument("--trace", action="store_true",
+                    help="only run the e2e sequence, the template span's split and the "
+                         "trace / template phase (K14 / K15 against their plain versions)")
     ap.add_argument("--pg-split", action="store_true",
                     help="only time the dense pose-graph optimize on ring graphs and, where "
                          "the port has K7's stamps, its split (with --root: another "
@@ -4721,6 +4807,9 @@ def main() -> int:
         return 0
     if args.act:
         act_only(torch, dev, lib.build_log)
+        return 0
+    if args.trace:
+        trace_only(torch, dev, lib.build_log)
         return 0
     usage = lm_usage(lib.build_log)
     print(f"resident LM kernels (registers, bytes spilled, 8-block clusters resident at "

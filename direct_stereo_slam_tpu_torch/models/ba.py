@@ -790,25 +790,44 @@ def optimize_keyframe(state: BAState, cfg: SLAMConfig, iterations: int,
     return state, rmse, ok, hdd, n_dropped
 
 
+def template_pose_prep(state: BAState, ref_slot: int):
+    """The template's window part: the current calibration [4] (fx, fy,
+    cx, cy) and every slot's host-to-reference transform T_rh [W, 4, 4]."""
+    T_all = state.T_current()
+    T_rh = torch.einsum("ij,hjk->hik", T_all[ref_slot], torch.linalg.inv_ex(T_all)[0])
+    return state.calib_current(), T_rh
+
+
+def template_project(p_u, p_v, p_idepth, p_host, p_valid, hdd, calib, T_rh):
+    """The template's per-point part: each point projected into the
+    reference KF and weighted by its idepth hessian, (proj_u, proj_v,
+    new_id, w, valid). One elementwise operation at a time in a fixed
+    order (``R @ Xh`` as three products and two sums a row, then ``+ t``),
+    which K15's state mode (``csrc/template.cu``) repeats operation by
+    operation."""
+    fx0, fy0, cx0, cy0 = calib.unbind(0)
+    inv = torch.clamp(p_idepth, min=1e-6)
+    x0 = (p_u - cx0) / fx0 / inv
+    x1 = (p_v - cy0) / fy0 / inv
+    x2 = torch.ones_like(p_u) / inv
+    T = T_rh[p_host]
+    pt = [T[:, r, 0] * x0 + T[:, r, 1] * x1 + T[:, r, 2] * x2 + T[:, r, 3] for r in range(3)]
+    proj_u = fx0 * pt[0] / pt[2] + cx0
+    proj_v = fy0 * pt[1] / pt[2] + cy0
+    new_id = 1.0 / torch.clamp(pt[2], min=1e-6)
+    valid = p_valid & (pt[2] > 0)
+    w = torch.sqrt(1e-3 * torch.clamp(hdd, min=1e-9))
+    return proj_u, proj_v, new_id, w, valid
+
+
 def template_inputs(state: BAState, cfg: SLAMConfig, ref_slot: int, hdd=None):
     """Project every window point into the reference KF and weight it by
     the BA idepth hessian: (proj_u, proj_v, new_id, w, valid)."""
     if hdd is None:
         hdd = linearize(state, cfg).Hdd
-    fx0, fy0, cx0, cy0 = state.calib_current().unbind(0)
-    T_all = state.T_current()
-    T_rh = torch.einsum("ij,hjk->hik", T_all[ref_slot], torch.linalg.inv_ex(T_all)[0])
-    Xh = torch.stack([(state.p_u - cx0) / fx0, (state.p_v - cy0) / fy0,
-                      torch.ones_like(state.p_u)], -1) / torch.clamp(state.p_idepth, min=1e-6)[:, None]
-    R = T_rh[state.p_host, :3, :3]
-    t = T_rh[state.p_host, :3, 3]
-    pt = (R @ Xh[..., None])[..., 0] + t
-    proj_u = fx0 * pt[:, 0] / pt[:, 2] + cx0
-    proj_v = fy0 * pt[:, 1] / pt[:, 2] + cy0
-    new_id = 1.0 / torch.clamp(pt[:, 2], min=1e-6)
-    valid = state.p_valid & (pt[:, 2] > 0)
-    w = torch.sqrt(1e-3 * torch.clamp(hdd, min=1e-9))
-    return proj_u, proj_v, new_id, w, valid
+    calib, T_rh = template_pose_prep(state, ref_slot)
+    return template_project(state.p_u, state.p_v, state.p_idepth, state.p_host, state.p_valid,
+                            hdd, calib, T_rh)
 
 
 def add_frame(state: BAState, slot: int, frame_id: int, T_cw, aff, exposure: float,

@@ -14,8 +14,10 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..config import SLAMConfig
 from ..ops import template as template_ops
 from ..utils.compact import nonzero_fixed
+from . import ba
 
 
 class TrackerTemplate(NamedTuple):
@@ -179,6 +181,35 @@ def build_template(proj_u, proj_v, proj_id, proj_w, ref_img, levels: int,
             proj_u, proj_v, proj_id, proj_w, ref_img, levels, budgets, valid))
     return build_template_plain(proj_u, proj_v, proj_id, proj_w, ref_img, levels, budgets,
                                 valid)
+
+
+def build_template_from_state_plain(state: ba.BAState, cfg: SLAMConfig, ref_slot: int, hdd,
+                                   ref_img, levels: int,
+                                   budgets: Tuple[int, ...]) -> TrackerTemplate:
+    """K15's state mode's plain version: ``build_template_plain`` on
+    ``ba.template_inputs`` (``hdd`` None re-linearizes)."""
+    ti = ba.template_inputs(state, cfg, ref_slot, hdd)
+    return build_template_plain(ti[0], ti[1], ti[2], ti[3], ref_img, levels, budgets,
+                                valid=ti[4])
+
+
+def build_template_from_state(state: ba.BAState, cfg: SLAMConfig, ref_slot: int, hdd,
+                              ref_img, levels: int, budgets: Tuple[int, ...]) -> TrackerTemplate:
+    """The template of the BA window's points in reference slot
+    ``ref_slot``, weighted by the idepth hessian ``hdd`` (None:
+    re-linearize). On the card the window's pose prep
+    (``ba.template_pose_prep``, a few plain launches) and one launch of
+    K15 in state mode, which projects each point itself; for CPU tensors
+    the plain version; either way a new template object."""
+    if not ref_img.is_cuda:
+        return build_template_from_state_plain(state, cfg, ref_slot, hdd, ref_img, levels,
+                                               budgets)
+    if hdd is None:
+        hdd = ba.linearize(state, cfg).Hdd
+    calib, T_rh = ba.template_pose_prep(state, ref_slot)
+    return TrackerTemplate(*template_ops.build_template_from_state_cuda(
+        state.p_u, state.p_v, state.p_idepth, state.p_host, state.p_valid, hdd, calib, T_rh,
+        ref_img, levels, budgets))
 
 
 def scale_template_idepth(template: TrackerTemplate, scale) -> TrackerTemplate:

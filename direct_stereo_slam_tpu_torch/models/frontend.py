@@ -44,7 +44,7 @@ from ..ops.select import adapt_potential, make_selection_map
 from ..utils.device import DEFAULT_DEVICE, HostCopy, resolve_device, to_device, to_host
 from ..utils.timing import StageTimers
 from . import ba, immature, initializer, mono_init
-from .depth_template import (TrackerTemplate, build_template, default_budgets,
+from .depth_template import (TrackerTemplate, build_template_from_state, default_budgets,
                              scale_template_idepth)
 from .scale_opt import ScaleState, decide_scale_optimization, dispatch_scale_optimization
 from .tracker import (AffLight, TrackResult, make_motion_tries, select_winner,
@@ -1008,9 +1008,8 @@ class FrontEnd:
                 st, rmse, ok, hdd, ndrop = ba.optimize_keyframe(
                     st_pre_ba, cfg, iters, slot, compact_budget)
             with self.timers.span("template"):
-                ti = ba.template_inputs(st, cfg, slot, hdd)
-                tmpl = build_template(ti[0], ti[1], ti[2], ti[3], pyr0.data[0][..., 0],
-                                      self.levels, self.budgets, valid=ti[4])
+                tmpl = build_template_from_state(st, cfg, slot, hdd, pyr0.data[0][..., 0],
+                                                 self.levels, self.budgets)
             scale = ()
             if scale_enabled:
                 with self.timers.span("scale_opt"):
@@ -1355,9 +1354,9 @@ class FrontEnd:
 
     def _build_template(self, ref_slot: int, pyr_ref: Pyramid):
         """Tracker template for the initialization path."""
-        ti = ba.template_inputs(self.ba_state, self.cfg, ref_slot)
-        self.template = build_template(ti[0], ti[1], ti[2], ti[3], pyr_ref.data[0][..., 0],
-                                       self.levels, self.budgets, valid=ti[4])
+        self.template = build_template_from_state(self.ba_state, self.cfg, ref_slot, None,
+                                                  pyr_ref.data[0][..., 0], self.levels,
+                                                  self.budgets)
         if int(self.template.pmask[0].sum()) < 8:
             self.is_lost = True
         self.template_kf_slot = ref_slot

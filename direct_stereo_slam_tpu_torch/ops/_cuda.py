@@ -100,6 +100,8 @@ _SIGNATURES = {
     "dsslam_trace": [_P, _I, _P],
     # &TemplateParams (ops/template.py), stream
     "dsslam_template": [_P, _P],
+    # H, W, levels, grid, n, out[3] (host only: no stream)
+    "dsslam_template_sizes": [_I, _I, _I, _I, _I, _P],
 }
 
 

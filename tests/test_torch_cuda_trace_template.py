@@ -12,12 +12,19 @@ the calls the port's own SLAMNode makes over 24 rendered frames at 320x96
   exceeded, non-finite ``idepth_max``, lanes at the border, a flat image
   (every energy ties: the first index wins), segments under the slack;
   two runs bit-equal, and 32 runs of the fullest call;
-- K15 (``build_template``): every level's lists bit-equal to the plain
-  version on the fullest recorded call and on TEMPLATE_CASES: duplicate
-  pixels in shuffled point order, NaN coordinates of invalid lanes, no
-  point, level 0 over its budget, odd H and W; two runs bit-equal;
-- a non-keyframe frame's ``_trace_all`` with no host read
-  (``torch.cuda.set_sync_debug_mode("error")``): one launch of K14.
+- K15: every level's lists bit-equal to the plain version, two runs
+  bit-equal, in points mode (``build_template``) on the fullest recorded
+  call's projected points and on TEMPLATE_CASES: duplicate pixels in
+  shuffled point order, NaN coordinates of invalid lanes, no point, level
+  0 over its budget, odd H and W, every point on one pixel, points on the
+  last row and column of an odd image (dropped from every level above),
+  20000 points (the sort through global memory), every level's list
+  full; and in state mode (``build_template_from_state``, the projection
+  in the launch) on the fullest recorded state, with a NaN host pose and
+  NaN hessians, and on an odd image;
+- a non-keyframe frame's ``_trace_all`` and the front end's template step
+  with no host read (``torch.cuda.set_sync_debug_mode("error")``): one
+  launch of K14, one of K15.
 
 These tests need a CUDA card and skip elsewhere. They import nothing of
 JAX, so on the card's machine they run without the repo's conftest:
@@ -31,6 +38,7 @@ import torch
 from direct_stereo_slam_tpu_torch.config import make_config
 from direct_stereo_slam_tpu_torch.geometry.camera import make_pyramid_intrinsics
 from direct_stereo_slam_tpu_torch.io.synthetic import SyntheticStereoDataset
+from direct_stereo_slam_tpu_torch.models import ba
 from direct_stereo_slam_tpu_torch.models import depth_template as dt
 from direct_stereo_slam_tpu_torch.models import immature
 from direct_stereo_slam_tpu_torch.models.frontend import FrontEnd
@@ -56,8 +64,9 @@ def calls():
     intr = make_pyramid_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], W, H,
                                    cfg.tracker.pyr_levels)
     rec = {"trace": [], "template": [], "trace_all": []}
-    trace, template, trace_all = (immature.trace_points_all_compact, dt.build_template,
-                                  FrontEnd._trace_all)
+    from direct_stereo_slam_tpu_torch.models import frontend
+    trace, template, trace_all = (immature.trace_points_all_compact,
+                                  frontend.build_template_from_state, FrontEnd._trace_all)
 
     def trace_kept(*a, **kw):
         rec["trace"].append((a, kw))
@@ -72,10 +81,9 @@ def calls():
                                  dict(self.slot_exposure), a, kw))
         return trace_all(self, *a, **kw)
 
-    immature.trace_points_all_compact, dt.build_template = trace_kept, template_kept
+    immature.trace_points_all_compact = trace_kept
+    frontend.build_template_from_state = template_kept
     FrontEnd._trace_all = trace_all_kept
-    from direct_stereo_slam_tpu_torch.models import frontend
-    frontend.build_template = template_kept
     try:
         node = SLAMNode(cfg, intr, intr, ds.t_cam1_cam0, device=dev)
         for i in range(N_FRAMES):
@@ -83,8 +91,8 @@ def calls():
             node.process(f["img0"], f["img1"], float(f["timestamp"]))
         node.finish()
     finally:
-        immature.trace_points_all_compact, dt.build_template = trace, template
-        frontend.build_template = template
+        immature.trace_points_all_compact = trace
+        frontend.build_template_from_state = template
         FrontEnd._trace_all = trace_all
     torch.cuda.synchronize()
     assert len(rec["trace"]) >= 10 and len(rec["template"]) >= 3
@@ -208,16 +216,30 @@ def test_trace_all_reads_nothing_from_the_card(calls):
     assert fe.immatures is not imm
 
 
+def _fullest_state(calls):
+    """The recorded template call (the front end's state mode) with the
+    most valid points, with its idepth hessian (a keyframe's, not the
+    initialisation's re-linearization)."""
+    return max((c for c in calls["template"] if c[0][3] is not None),
+               key=lambda c: int(c[0][0].p_valid.sum()))[0]
+
+
+def _recorded_points(calls):
+    """The fullest state call's projected points (``ba.template_inputs``)."""
+    st, cfg, slot, hdd, img, levels, budgets = _fullest_state(calls)
+    u, v, pid, w, valid = ba.template_inputs(st, cfg, slot, hdd)
+    return u, v, pid, w, img, levels, budgets, valid
+
+
 def _template_case(calls, case):
-    a, kw = max(calls["template"], key=lambda c: int(c[1].get("valid", c[0][0]).sum()))
-    u, v, pid, w, img, levels, budgets = a
-    valid = kw.get("valid", torch.ones_like(u, dtype=torch.bool))
+    u, v, pid, w, img, levels, budgets, valid = _recorded_points(calls)
     gen = torch.Generator(device="cpu").manual_seed(5)
+    rand = lambda n: torch.rand(n, generator=gen).to(u.device)
     if case == "duplicates_shuffled":
         reps = torch.randint(0, u.numel(), (u.numel() // 3,), generator=gen).to(u.device)
         perm = torch.randperm(u.numel() + reps.numel(), generator=gen).to(u.device)
         cat = lambda x: torch.cat([x, x[reps]])[perm]
-        jit = (torch.rand(reps.numel(), generator=gen).to(u.device) - 0.5) * 0.6
+        jit = (rand(reps.numel()) - 0.5) * 0.6
         u = torch.cat([u, u[reps].round() + jit])[perm]
         v = torch.cat([v, v[reps].round() - jit])[perm]
         pid, w, valid = cat(pid), cat(w), cat(valid)
@@ -233,11 +255,40 @@ def _template_case(calls, case):
         budgets = (256,) + tuple(budgets[1:])
     elif case == "odd_size":
         img = img[:H - 3, :W - 5]
+    elif case == "one_pixel":                # every point on pixel (20, 37)
+        u, v = torch.full_like(u, 37.3), torch.full_like(v, 20.1)
+    elif case == "odd_edges":                # half the points on the last row or column
+        img = img[:H - 3, :W - 5]
+        h, wd = img.shape
+        u, v = u.clone(), v.clone()
+        u[0::4] = wd - 1 + 0.4 * rand(u[0::4].numel())
+        v[1::4] = h - 1 + 0.4 * rand(v[1::4].numel())
+        u[2::4], v[2::4] = wd - 0.8, h - 0.8
+    elif case == "n20000":                   # the points repeated, jittered, to 20000
+        idx = torch.randint(0, u.numel(), (20000,), generator=gen).to(u.device)
+        u = u[idx] + (rand(20000) - 0.5) * 8.0
+        v = v[idx] + (rand(20000) - 0.5) * 8.0
+        pid, w, valid = pid[idx], w[idx], valid[idx] & (rand(20000) < 0.9)
+    elif case == "lists_full":               # each level's budget half its good cells
+        counts = [int(m.sum()) for m in dt.build_template_plain(
+            u, v, pid, w, img, levels, budgets, valid).pmask]
+        assert min(counts) > 1, counts
+        budgets = tuple(c // 2 for c in counts)
     return (u, v, pid, w, img, levels, budgets), valid
 
 
 TEMPLATE_CASES = ("recorded", "duplicates_shuffled", "nan_invalid", "empty",
-                  "level0_over_budget", "odd_size")
+                  "level0_over_budget", "odd_size", "one_pixel", "odd_edges", "n20000",
+                  "lists_full")
+LISTS = ("pu", "pv", "pid", "pcolor", "pmask")
+
+
+def _same_lists(got, want, again, levels):
+    for name, x, y, z in zip(LISTS, got, want, again):
+        for lvl in range(levels):
+            assert torch.equal(_bits(x[lvl]), _bits(y[lvl])), (
+                f"{name}[{lvl}]: {int((_bits(x[lvl]) != _bits(y[lvl])).sum())} entries differ")
+            assert torch.equal(_bits(x[lvl]), _bits(z[lvl])), f"{name}[{lvl}]"
 
 
 @pytest.mark.parametrize("case", TEMPLATE_CASES)
@@ -247,17 +298,69 @@ def test_template_kernel_is_the_plain_version(calls, case):
     again = template_ops.build_template_cuda(*a, valid)
     want = dt.build_template_plain(*a, valid)
     torch.cuda.synchronize()
-    names = ("pu", "pv", "pid", "pcolor", "pmask")
-    for name, x, y, z in zip(names, got, want, again):
-        for lvl in range(a[5]):
-            assert torch.equal(_bits(x[lvl]), _bits(y[lvl])), (
-                f"{name}[{lvl}]: {int((_bits(x[lvl]) != _bits(y[lvl])).sum())} entries differ")
-            assert torch.equal(_bits(x[lvl]), _bits(z[lvl])), f"{name}[{lvl}]"
-    count = int(want[4][0].sum())
-    print(f"K15 {case}: {a[0].numel()} points, level-0 count {count} of {a[6][0]}")
+    _same_lists(got, want, again, a[5])
+    counts = [int(m.sum()) for m in want[4]]
+    print(f"K15 {case}: {a[0].numel()} points, list counts {counts} of {list(a[6])}")
     if case == "empty":
-        assert count == 0
+        assert counts[0] == 0
     elif case == "level0_over_budget":
-        assert count == 256
+        assert counts[0] == 256
+    elif case == "lists_full":
+        assert counts == list(a[6])
     else:
-        assert count > 0
+        assert counts[0] > 0
+
+
+def _state_case(calls, case):
+    """The fullest state call's inputs to the state mode: the pool's point
+    arrays, ``hdd``, the window's calibration and T_rh."""
+    st, cfg, slot, hdd, img, levels, budgets = _fullest_state(calls)
+    calib, T_rh = ba.template_pose_prep(st, slot)
+    pts = [st.p_u, st.p_v, st.p_idepth, st.p_host, st.p_valid, hdd]
+    if case == "nan_pose_hdd":               # a NaN host pose, NaN hessians
+        host = int(st.p_host[st.p_valid][0])
+        T_rh = T_rh.clone()
+        T_rh[host, 1, 2] = float("nan")
+        pts[5] = hdd.clone()
+        pts[5][3::7] = float("nan")
+    elif case == "odd_size":
+        img = img[:H - 3, :W - 5]
+    return pts, calib, T_rh, img, levels, budgets
+
+
+STATE_CASES = ("recorded", "nan_pose_hdd", "odd_size")
+
+
+@pytest.mark.parametrize("case", STATE_CASES)
+def test_template_state_mode_is_the_plain_version(calls, case):
+    pts, calib, T_rh, img, levels, budgets = _state_case(calls, case)
+    got = template_ops.build_template_from_state_cuda(*pts, calib, T_rh, img, levels, budgets)
+    again = template_ops.build_template_from_state_cuda(*pts, calib, T_rh, img, levels, budgets)
+    ti = ba.template_project(*pts, calib, T_rh)
+    want = dt.build_template_plain(*ti[:4], img, levels, budgets, valid=ti[4])
+    torch.cuda.synchronize()
+    _same_lists(got, want, again, levels)
+    counts = [int(m.sum()) for m in want[4]]
+    print(f"K15 state {case}: {pts[0].numel()} points ({int(ti[4].sum())} valid), list "
+          f"counts {counts} of {list(budgets)}")
+    assert counts[0] > 0
+    if case == "nan_pose_hdd":
+        assert not bool(torch.isfinite(ti[1]).all()) and not bool(torch.isfinite(ti[3]).all())
+
+
+def test_template_step_reads_nothing_from_the_card(calls):
+    """The front end's template step (``run_ba_chain``'s call) queues the
+    pose prep and one K15 launch, and waits for nothing."""
+    a = _fullest_state(calls)
+    want = dt.build_template_from_state_plain(*a)
+    before = template_ops.build_template_cuda.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dt.build_template_from_state(*a)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert template_ops.build_template_cuda.launches - before == 1
+    assert isinstance(got, dt.TrackerTemplate)
+    _same_lists(got, want, got, a[5])

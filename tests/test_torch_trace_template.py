@@ -217,3 +217,67 @@ def test_template_on_cpu_takes_the_plain_version():
     ref = torch.zeros(2, H * W).index_put_((torch.arange(2)[:, None], key[None, :]), vals,
                                            accumulate=True)
     assert torch.equal(dt_t._pixel_sums(key, vals, H * W), ref)
+
+
+@pytest.fixture(scope="module")
+def ba_window():
+    """A 3-frame BA window (``test_torch_select_immature_ba._ba_window``)
+    with every slot's tangent moved off its FEJ pose, and per-point idepth
+    hessians (some below the clamp, one NaN), in both packages."""
+    from direct_stereo_slam_tpu.models import ba as ba_j
+    from test_torch_select_immature_ba import _ba_window, _to_port
+
+    ds = SyntheticStereoDataset(n_frames=3, width=W, height=H, speed=0.25, yaw_rate=0.01)
+    cfg = make_config(W, H, preset=0, mode=1)
+    st_j = _ba_window([ds.frame(i) for i in range(3)], cfg)
+    rng = np.random.RandomState(17)
+    delta = np.zeros(np.asarray(st_j.delta).shape, np.float32)
+    delta[:3, :6] = rng.randn(3, 6).astype(np.float32) * 1e-3
+    st_j = st_j._replace(delta=jnp.asarray(delta))
+    hdd = rng.uniform(-1.0, 50.0, st_j.p_u.shape[0]).astype(np.float32)
+    hdd[5] = np.nan
+    return ba_j, st_j, _to_port(st_j), hdd, cfg
+
+
+def test_template_inputs_match_jax(ba_window):
+    """The port's fixed-order ``template_inputs`` against the JAX package's
+    (its einsum's and divisions' order XLA's): ``valid`` equal, the rest
+    within rel 1e-5."""
+    from direct_stereo_slam_tpu_torch.models import ba as ba_t
+
+    ba_j, st_j, st_t, hdd, cfg = ba_window
+    want = ba_j.template_inputs(st_j, cfg, jnp.int32(2), jnp.asarray(hdd))
+    got = ba_t.template_inputs(st_t, port_cfg(cfg), 2, torch.as_tensor(hdd))
+    np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
+    assert 0 < int(got[4].sum()) < got[4].numel()
+    for name, x, y in zip(("proj_u", "proj_v", "new_id", "w"), got[:4], want[:4]):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-5, atol=0, err_msg=name)
+
+
+def test_template_from_state_plain_is_build_template_on_its_inputs(ba_window):
+    """``build_template_from_state_plain`` is ``build_template_plain`` on
+    ``template_inputs``, bit for bit (the hessian given, and re-linearized
+    when it is None); on CPU tensors ``build_template_from_state`` takes it
+    and launches nothing."""
+    from direct_stereo_slam_tpu_torch.models import ba as ba_t
+
+    _, _, st_t, hdd, cfg = ba_window
+    img = st_t.images[2, ..., 0]
+    budgets = dt_t.default_budgets(W, H, LVLS)
+    c = port_cfg(cfg)
+    for h in (torch.as_tensor(hdd), None):
+        ti = ba_t.template_inputs(st_t, c, 2, h)
+        want = dt_t.build_template_plain(*ti[:4], img, LVLS, budgets, valid=ti[4])
+        before = template_ops.build_template_cuda.launches
+        got = dt_t.build_template_from_state(st_t, c, 2, h, img, LVLS, budgets)
+        plain = dt_t.build_template_from_state_plain(st_t, c, 2, h, img, LVLS, budgets)
+        assert template_ops.build_template_cuda.launches == before
+        assert isinstance(got, dt_t.TrackerTemplate) and got is not plain
+        for field in range(5):
+            for x, y, z in zip(got[field], plain[field], want[field]):
+                assert torch.equal(_bits(x), _bits(z)) and torch.equal(_bits(y), _bits(z))
+        assert int(want.pmask[0].sum()) > 0
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
