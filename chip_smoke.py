@@ -210,6 +210,24 @@ Phases, each of which must pass (any fault exits non-zero):
    with the kernels' registers, shared memory and spills as ptxas
    reported them, and ``optimize_keyframe``'s host split (run right
    after phase 4);
+13b. the BA's state programs (csrc/window.cu) on the same window and on
+   the e2e run's fullest keyframe tail (its ``ba.marginalize`` arguments
+   kept during the timed pass): K16 ``window_pose`` bit-equal to
+   ``window_pose_plain``; K17 (``optimize_keyframe``: the prologue, the
+   resident launch, the epilogue) bit-equal to ``optimize_keyframe_plain``
+   around the same resident launch; K18 ``marginalize``'s validity and
+   bookkeeping bit-equal to ``marginalize_plain``, its points stage's HM /
+   bM within 1e-5 of the largest entry of the change it made (K18_TOL),
+   the whole call no further from float64 frame marginalizations of its
+   points stage than twice the plain version plus 1e-5 of the largest
+   entry; two runs of each bit-equal; each timed against its plain
+   version in turns, with its card time, its wrapper's host ms, its bound
+   and ptxas's registers. The e2e phase counts their launches per frame
+   (one K18 a keyframe tail), splits the ``point_marg`` / ``frame_marg``
+   spans into the host's numpy and the device program's calls
+   (``marg_split``) and the ``scale_opt`` span into the right image's
+   upload, its pyramid, K3-LM's wrapper and the rest, with K3-LM's card
+   time (``scale_split``);
 14. ``ab_policies`` as a new process at the JAX package's 320x96, 80
    frames (``AB_CHILD``, each arm's launches counted in it): exit 0 within
    600 s (the force-accept arm's NaN poses reach the BA's kernels without
@@ -294,6 +312,7 @@ the JAX package, and checks so before its last line.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import re
@@ -521,6 +540,38 @@ def bits(t):
 def rel_err(torch, a, b) -> float:
     scale = float(torch.max(torch.abs(b)).clamp(min=1e-30))
     return float(torch.max(torch.abs(a - b))) / scale
+
+
+def frames64(torch, state, slots) -> dict:
+    """HM and bM (float64) after ``ba.marginalize_frame`` of each slot in
+    order, computed in float64: the anchor of each step (the oldest valid
+    frame) gets the 1e8 prior, the 8x8 block + 1e-8 I is inverted, and the
+    slot's rows and columns are zeroed."""
+    H, b = state.HM.double().clone(), state.bM.double().clone()
+    fv, fid = state.frame_valid.clone(), state.frame_id.clone()
+    D = H.shape[0]
+    for slot in slots:
+        anchor = int(torch.argmin(torch.where(fv, fid, torch.full_like(fid, 2 ** 30))))
+        sel = torch.arange(4 + 8 * slot, 12 + 8 * slot, device=H.device)
+        keep = torch.ones(D, dtype=torch.bool, device=H.device)
+        keep[sel] = False
+        if anchor == slot:
+            H[sel, sel] += 1e8
+        Hbb = H[sel][:, sel] + 1e-8 * torch.eye(8, dtype=H.dtype, device=H.device)
+        Hab = H[:, sel] * keep[:, None]
+        inv = torch.linalg.inv(Hbb)
+        H = (H - Hab @ inv @ Hab.T) * (keep[:, None] & keep[None, :])
+        b = (b - Hab @ (inv @ b[sel])) * keep
+        fv[slot], fid[slot] = False, -1
+    return {"HM": H, "bM": b}
+
+
+def change_err(torch, got, want, base) -> float:
+    """max|got - want| over the largest entry of the change ``want - base``
+    (in float64): the error against what the call changed, not against a
+    large prior it kept."""
+    d = float(torch.max(torch.abs(want.double() - base.double())).clamp(min=1e-30))
+    return float(torch.max(torch.abs(got.double() - want.double()))) / d
 
 
 def kernel_phase(torch, dev):
@@ -1138,7 +1189,7 @@ def e2e_phase(torch, dev, profile_dir=None):
     torch.cuda.reset_peak_memory_stats()
     # the timed pass: no per-span synchronize, as a user runs the node
     with ScaleTraffic() as traffic, BaTraffic() as ba_traffic, ActTraffic() as act_traffic, \
-            TraceTraffic() as trace_traffic:
+            TraceTraffic() as trace_traffic, MargTraffic() as marg_traffic:
         node, shells, resets, dt = run_sequence(torch, SLAMNode, cfg, intr, ds,
                                                 frames, dev)
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1201,10 +1252,19 @@ def e2e_phase(torch, dev, profile_dir=None):
           f"{node1.timers.average_ms('activate'):.3f} ms); launches per keyframe: "
           + ", ".join(f"{k} {launches[k] / max(n_kf, 1):.2f}"
                       for k in ("distance_map",) + ACT_KERNELS), flush=True)
+    print(f"e2e: K16-K18 launches per frame ({E2E_FRAMES} frames, {n_kf} keyframes, "
+          f"{len(marg_traffic.calls)} keyframe tails): " + ", ".join(
+              f"{k} {launches[k] / E2E_FRAMES:.3f} ({launches[k] / max(n_kf, 1):.2f} per "
+              f"keyframe)" for k in WINDOW_KERNELS), flush=True)
+    if launches["marginalize"] != len(marg_traffic.calls):
+        fail(f"e2e: K18 {launches['marginalize']} launches for {len(marg_traffic.calls)} "
+             f"keyframe tails (one a tail)")
     waits = count_waits(torch, cfg, intr, ds, frames, dev)
     print(f"e2e: blocking waits per call: {waits}", flush=True)
     act_traffic.split = activate_split(torch, dev, cfg, intr, ds, frames)
     trace_traffic.split = template_split(torch, dev, cfg, intr, ds, frames)
+    marg_traffic.split = marg_split(torch, dev, cfg, intr, ds, frames)
+    marg_traffic.scale = scale_split(torch, dev, cfg, intr, ds, frames)
     # the reference's design: a keyframe call waits for the tracker's read
     # and bundle 3 only (the tail's read hides behind the next frame's)
     if waits.get("keyframe", {}).get("median", 0) > 3:
@@ -1214,7 +1274,8 @@ def e2e_phase(torch, dev, profile_dir=None):
     if profile_dir:
         e2e_profile(torch, lambda: run_sequence(torch, SLAMNode, cfg, intr, ds,
                                                 frames, dev), profile_dir)
-    return launches, scale_calls, ba_traffic.calls, n_kf, act_traffic, trace_traffic
+    return (launches, scale_calls, ba_traffic.calls, n_kf, act_traffic, trace_traffic,
+            marg_traffic)
 
 
 def deterministic_turns(torch, tag, n_frames, run) -> dict:
@@ -1327,6 +1388,31 @@ class TraceTraffic:
 
     def __exit__(self, *exc):
         self.imm.trace_points_all_compact, self.fe.build_template_from_state = self.wrapped
+
+
+class MargTraffic:
+    """The keyframe tails' marginalizations on a path: ``ba.marginalize``
+    wrapped for the run, each call's arguments kept (states are replaced,
+    never written in place; the masks are host arrays)."""
+
+    def __init__(self):
+        from direct_stereo_slam_tpu_torch.models import ba
+
+        self.ba, self.calls = ba, []
+
+    def __enter__(self):
+        self.wrapped = getattr(self.ba, "marginalize", None)
+        if self.wrapped is not None:
+            def kept(*a):
+                self.calls.append(a)
+                return self.wrapped(*a)
+
+            self.ba.marginalize = kept
+        return self
+
+    def __exit__(self, *exc):
+        if self.wrapped is not None:
+            self.ba.marginalize = self.wrapped
 
 
 # f32 operations of K12: a valid candidate's gate, and a (lane, frame,
@@ -1849,7 +1935,8 @@ def trace_template_phase(torch, dev, traffic, build_log):
 # the activate span's parts, timed by wrapping them in their modules:
 # (label, module, function); "projection" is _halfres_distance_map less K1
 ACT_SPLIT = (("host_pose_math", "frontend", "_activation_warps"),
-             ("state_reads_inv_ex", "frontend", "_activation_state"),
+             ("state_reads_poses", "frontend", "_activation_state"),
+             ("state_reads_poses", "window", "window_pose"),
              ("projection_and_k1", "frontend", "_halfres_distance_map"),
              ("k1", "frontend", "build_distance_map"),
              ("k12_wrapper", "activate", "gate_compact_activate"),
@@ -1893,47 +1980,83 @@ def trace_only(torch, dev, build_log) -> None:
           flush=True)
 
 
-def span_split(torch, dev, cfg, intr, ds, frames, span: str, parts) -> dict:
+def span_split(torch, dev, cfg, intr, ds, frames, span: str, parts,
+               in_span: bool = False, outer_only: bool = False) -> dict:
     """The e2e sequence once more, no synchronize, with a span's parts
     wrapped in their modules ((label, module, function) of the front end,
-    the BA, the activation or the template wrappers): the span's host ms
-    per call and each part's ("other" the rest of the span)."""
+    the BA, the activation, the template or the scale wrappers, or a
+    method of ``FrontEnd``; a part this tree lacks is left out): the span's
+    host ms per call and each part's ("other" the rest of the span).
+    ``in_span``: a part's time counts only while ``span`` is the innermost
+    open span (for parts the front end also calls elsewhere);
+    ``outer_only``: a part called inside another counts in the outer one
+    only. ``spans``:
+    every span's ms per call and count in that run."""
     from direct_stereo_slam_tpu_torch.models import ba, frontend
+    from direct_stereo_slam_tpu_torch.models import scale_opt
     from direct_stereo_slam_tpu_torch.ops import activate
     from direct_stereo_slam_tpu_torch.ops import template
     from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+    from direct_stereo_slam_tpu_torch.utils import timing
 
-    mods = {"frontend": frontend, "activate": activate, "ba": ba, "template": template}
-    spent, saved = {}, []
+    mods = {"frontend": frontend, "activate": activate, "ba": ba, "template": template,
+            "scale_opt": scale_opt, "FrontEnd": frontend.FrontEnd, "window": None}
+    if importlib.util.find_spec("direct_stereo_slam_tpu_torch.ops.window") is not None:
+        from direct_stereo_slam_tpu_torch.ops import window
+        mods["window"] = window
+    spent, saved, active = {}, [], []
+    opened = timing.StageTimers.span
+
+    @contextmanager
+    def tracked(self, name):
+        active.append(name)
+        try:
+            with opened(self, name):
+                yield
+        finally:
+            active.pop()
+
+    depth = [0]
 
     def timed(label, fn):
         def inner(*a, **kw):
+            if (outer_only and depth[0]) or (in_span and not (active and active[-1] == span)):
+                return fn(*a, **kw)
+            depth[0] += 1
             t0 = time.perf_counter()
             try:
                 return fn(*a, **kw)
             finally:
+                depth[0] -= 1
                 spent[label] = spent.get(label, 0.0) + time.perf_counter() - t0
         return inner
 
-    for label, mod, name in parts:
+    present = [(label, mod, name) for label, mod, name in parts
+               if mods[mod] is not None and hasattr(mods[mod], name)]
+    for label, mod, name in present:
         saved.append((mods[mod], name, getattr(mods[mod], name)))
         setattr(mods[mod], name, timed(label, getattr(mods[mod], name)))
+    timing.StageTimers.span = tracked
     try:
         node = run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)[0]
     finally:
+        timing.StageTimers.span = opened
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     n = max(node.timers.count(span), 1)
-    out = {label: 1e3 * spent.get(label, 0.0) / n for label, _, _ in parts}
+    out = {label: 1e3 * spent.get(label, 0.0) / n for label, _, _ in present}
     return dict(span_ms=node.timers.average_ms(span), calls=node.timers.count(span),
-                parts_ms=out)
+                parts_ms=out, spans={k: (node.timers.average_ms(k), node.timers.count(k))
+                                     for k in node.timers.times})
 
 
 def activate_split(torch, dev, cfg, intr, ds, frames) -> dict:
     """The ``activate`` span's split (ACT_SPLIT): the host pose math, the
-    state reads and ``inv_ex``, the projection's plain launches, K1's,
-    K12's and K13's wrappers, the rest; per keyframe."""
-    got = span_split(torch, dev, cfg, intr, ds, frames, "activate", ACT_SPLIT)
+    window's poses (K16's wrapper; in an older tree the state reads and
+    ``inv_ex``), the projection's plain launches, K1's, K12's and K13's
+    wrappers, the rest; per keyframe. Each part counts only inside the
+    span (K16 also serves the template)."""
+    got = span_split(torch, dev, cfg, intr, ds, frames, "activate", ACT_SPLIT, in_span=True)
     parts = got["parts_ms"]
     parts["projection"] = parts.pop("projection_and_k1") - parts["k1"]
     parts["other"] = got["span_ms"] - sum(parts.values())
@@ -1952,14 +2075,86 @@ def template_split(torch, dev, cfg, intr, ds, frames) -> dict:
     return dict(template_ms=got["span_ms"], templates=got["calls"], parts_ms=parts)
 
 
-def ba_bytes_ops(st, D, n_pairs):
-    """(bytes, f32 operations) K9 needs on a window: 4 bilinear corners of
-    12 B per residual of a live pair (8 per pair), the point data, and the
-    outputs; BA_RES_OPS per residual."""
+# the keyframe tail's marginalization (the point_marg and frame_marg
+# spans): the host's numpy flagging, and the device program's calls (K18
+# in a tree that has it; else marginalize_points with its second K9,
+# drop_points and marginalize_frame), timed where they are called
+MARG_SPLIT = (("host_flagging", "frontend", "_flag_points_for_removal"),
+              ("k18_marginalize", "ba", "marginalize"),
+              ("marginalize_points", "ba", "marginalize_points"),
+              ("drop_points", "ba", "drop_points"),
+              ("marginalize_frame", "ba", "marginalize_frame"))
+# scale_opt's span: the right image's upload, its pyramid, the dispatch
+# (K3-LM's wrapper inside it) and the rest
+SCALE_SPLIT = (("right_image_upload", "FrontEnd", "_image"),
+               ("right_pyramid", "frontend", "build_pyramid"),
+               ("dispatch", "frontend", "dispatch_scale_optimization"),
+               ("k3lm_wrapper", "scale_opt", "scale_lm_cuda"))
+
+
+def marg_split(torch, dev, cfg, intr, ds, frames) -> dict:
+    """The ``point_marg`` and ``frame_marg`` spans per keyframe tail, each
+    split into the host's part and the device program's calls
+    (MARG_SPLIT), from one e2e run."""
+    got = span_split(torch, dev, cfg, intr, ds, frames, "point_marg", MARG_SPLIT,
+                     outer_only=True)
+    n_pm = max(got["calls"], 1)
+    fm_ms, n_fm = got["spans"].get("frame_marg", (0.0, 0))
+    parts = got["parts_ms"]
+    device = {k: v for k, v in parts.items() if k != "host_flagging"}
+    # marginalize_frame is called in frame_marg (before K18); per point_marg call here
+    frame_dev = device.pop("marginalize_frame", 0.0) * n_pm / max(n_fm, 1)
+    out = dict(point_marg=dict(span_ms=got["span_ms"], calls=got["calls"],
+                               host_flagging_ms=parts.get("host_flagging", 0.0),
+                               device_program_ms=device,
+                               host_other_ms=got["span_ms"] - sum(parts.values())
+                               + parts.get("marginalize_frame", 0.0)),
+               frame_marg=dict(span_ms=fm_ms, calls=n_fm,
+                               device_program_ms={"marginalize_frame": frame_dev},
+                               host_ms=fm_ms - frame_dev))
+    print("marg_split " + json.dumps(out), flush=True)
+    return out
+
+
+def scale_split(torch, dev, cfg, intr, ds, frames) -> dict:
+    """The ``scale_opt`` span's host split per keyframe (SCALE_SPLIT, each
+    counted only inside the span), and K3-LM's card time per call on the
+    run's last call (``device_ms``)."""
+    from direct_stereo_slam_tpu_torch.models import scale_opt
+
+    last = []
+    inner = scale_opt.scale_lm_cuda
+
+    def kept(*a, **kw):
+        last[:] = [(a, kw)]
+        return inner(*a, **kw)
+
+    scale_opt.scale_lm_cuda = kept
+    try:
+        got = span_split(torch, dev, cfg, intr, ds, frames, "scale_opt", SCALE_SPLIT,
+                         in_span=True)
+    finally:
+        scale_opt.scale_lm_cuda = inner
+    parts = got["parts_ms"]
+    dispatch = parts.pop("dispatch", 0.0)
+    parts["dispatch_less_k3lm_wrapper"] = dispatch - parts.get("k3lm_wrapper", 0.0)
+    parts["other"] = got["span_ms"] - sum(parts.values())
+    card = device_ms(torch, lambda: inner(*last[0][0], **last[0][1])) if last else None
+    out = dict(scale_opt_ms=got["span_ms"], keyframes=got["calls"], parts_ms=parts,
+               k3lm_card_ms=card)
+    print("scale_split " + json.dumps(out), flush=True)
+    return out
+
+
+def ba_bytes_ops(st, D, n_pairs, n_pixels):
+    """(bytes, f32 operations) K9 needs on a window: 12 B (value and
+    gradient) of each image pixel its live pairs read (``pair_pixels``),
+    the point data, and the outputs; BA_RES_OPS per residual (8 a live
+    pair)."""
     NP, W = st.num_points, st.num_slots
     point = NP * (4 * 5 + 8 + 2 * 8 * 4 + W)
     out = NP * D * 4 + NP * 8 + NP * W * 6 + D * D * 4 + D * 4 + 8
-    return n_pairs * 8 * 4 * 12 + point + out, n_pairs * 8 * BA_RES_OPS
+    return n_pixels * 12 + point + out, n_pairs * 8 * BA_RES_OPS
 
 
 def ba_step_ops(NP: int, D: int) -> int:
@@ -1972,12 +2167,39 @@ def ba_step_ops(NP: int, D: int) -> int:
     return NP * D + 2 * NP * (U + D) + 2 * D ** 3 // 3 + 2 * NP * D
 
 
-def live_pairs(torch, st) -> int:
+def pair_pixels(torch, st, valid=None) -> tuple:
+    """(live pairs, image pixels they read) of K9's pixel pass over the
+    points ``valid`` (default ``st.p_valid``): a live pair is a point
+    toward a valid frame other than its host with its residual flag set;
+    it reads the 4 bilinear corners of each of its 8 pattern pixels that
+    project inside the image, at the current poses. A pixel that two
+    residuals (of one point or of two) read counts once."""
+    from direct_stereo_slam_tpu_torch.config import PATTERN_OFFSETS
+
     W = st.num_slots
-    t = torch.arange(W, device=st.p_host.device)[None, :]
-    mask = (st.p_valid[:, None] & st.frame_valid[None, :] & (t != st.p_host[:, None])
+    valid = st.p_valid if valid is None else valid
+    t = torch.arange(W, device=st.p_host.device)
+    mask = (valid[:, None] & st.frame_valid[None, :] & (t[None, :] != st.p_host[:, None])
             & st.p_res_good)
-    return int(mask.sum())
+    p, tt = torch.nonzero(mask, as_tuple=True)
+    if p.numel() == 0:
+        return 0, 0
+    T = st.T_current().double()
+    Tth = T[tt] @ torch.linalg.inv(T[st.p_host[p]])                   # [n, 4, 4]
+    fx, fy, cx, cy = st.calib_current().double().unbind(0)
+    off = torch.tensor(PATTERN_OFFSETS, dtype=torch.float64, device=T.device)
+    idp = st.p_idepth[p].double().clamp(min=1e-6)[:, None]
+    u, v = st.p_u[p].double()[:, None] + off[:, 0], st.p_v[p].double()[:, None] + off[:, 1]
+    X = torch.stack([(u - cx) / fx, (v - cy) / fy, torch.ones_like(u)], -1) / idp[..., None]
+    pt = torch.einsum("nij,nkj->nki", Tth[:, :3, :3], X) + Tth[:, None, :3, 3]
+    z = pt[..., 2]
+    Ku, Kv = fx * pt[..., 0] / z + cx, fy * pt[..., 1] / z + cy
+    Hi, Wi = st.images.shape[1], st.images.shape[2]
+    inside = (Ku > 1.1) & (Kv > 1.1) & (Ku < Wi - 2.1) & (Kv < Hi - 2.1) & (z > 1e-4)
+    x0, y0 = torch.floor(Ku[inside]).long(), torch.floor(Kv[inside]).long()
+    f = tt[:, None].expand_as(Ku)[inside]
+    keys = torch.cat([(f * Hi + y0 + j) * Wi + x0 + i for i in (0, 1) for j in (0, 1)])
+    return int(p.numel()), int(torch.unique(keys).numel())
 
 
 @contextmanager
@@ -1987,14 +2209,16 @@ def plain_ba():
     place of the resident launch and K9."""
     from direct_stereo_slam_tpu_torch.models import ba
 
-    saved = ba._optimize_device, ba.linearize
+    saved = ba._optimize_device, ba.linearize, ba.optimize_keyframe
     ba._optimize_device = lambda st, cfg, it: ba._finish_optimize(
         *ba._optimize_loop_plain(st, cfg, it))
     ba.linearize = ba.linearize_plain
+    # K17's plain version around the plain loop (a tree without K17 has none)
+    ba.optimize_keyframe = getattr(ba, "optimize_keyframe_plain", ba.optimize_keyframe)
     try:
         yield
     finally:
-        ba._optimize_device, ba.linearize = saved
+        ba._optimize_device, ba.linearize, ba.optimize_keyframe = saved
 
 
 def reordered(st, ba):
@@ -2113,7 +2337,8 @@ BA_SPLIT_PARTS = {
                "reset_fej_newest", "_scatter_points"),
     "ops": ("optimize_params", "make_params", "empty_lin", "host_groups", "ba_linearize_cuda",
             "ba_step_cuda", "ba_accept_cuda", "ba_optimize_cuda", "pick"),
-    "cuda": ("require_cuda",)}
+    "window": ("ba_keyframe_cuda", "_keyframe"),
+    "cuda": ("require_cuda", "call")}
 
 
 def ba_host_split(torch, args, calls: int = 20) -> dict:
@@ -2127,7 +2352,11 @@ def ba_host_split(torch, args, calls: int = 20) -> dict:
     from direct_stereo_slam_tpu_torch.ops import _cuda
     from direct_stereo_slam_tpu_torch.ops import ba as kb
 
-    mods = {"models": ba, "ops": kb, "cuda": _cuda}
+    import importlib.util
+
+    window = (importlib.import_module("direct_stereo_slam_tpu_torch.ops.window")
+              if importlib.util.find_spec("direct_stereo_slam_tpu_torch.ops.window") else None)
+    mods = {"models": ba, "ops": kb, "cuda": _cuda, "window": window}
     spent, count, saved = {}, {}, []
 
     def timed(name, fn):
@@ -2143,7 +2372,7 @@ def ba_host_split(torch, args, calls: int = 20) -> dict:
 
     for key, names in BA_SPLIT_PARTS.items():
         for name in names:
-            if hasattr(mods[key], name):
+            if mods[key] is not None and hasattr(mods[key], name):
                 saved.append((mods[key], name, getattr(mods[key], name)))
                 setattr(mods[key], name, timed(name, getattr(mods[key], name)))
     try:
@@ -2284,7 +2513,7 @@ def ba_phase(torch, dev, calls):
     lam = 0.1
     for NP, st in windows.items():
         tag = f"NP={NP},W={W}"
-        n_pairs = live_pairs(torch, st)
+        n_pairs, n_pixels = pair_pixels(torch, st)
         # ---- K9
         params = kb.make_params(st, cfg)
         k9 = lambda: kb.ba_linearize_cuda(params, 0)
@@ -2320,7 +2549,7 @@ def ba_phase(torch, dev, calls):
                         plain_kw=dict(repeats=5, inner=2))
         dms = device_ms(torch, k9)
         call = statistics.median(call_ms(torch, lambda: ba.linearize(st, cfg), 10))
-        nb, no = ba_bytes_ops(st, D, n_pairs)
+        nb, no = ba_bytes_ops(st, D, n_pairs, n_pixels)
         print(f"K9 ba_linearize {tag}: kernel {ms:.4f} ms (queued on the card {dms} ms; "
               f"linearize() with its parameter block built per call {call:.4f} ms), plain "
               f"(index_add_) {pms:.4f} ms", flush=True)
@@ -2328,7 +2557,7 @@ def ba_phase(torch, dev, calls):
                         "direct_stereo_slam_tpu/models/ba.py:198",
                         max(float(torch.max(torch.abs(getattr(lk, n) - getattr(lp, n))))
                             for n in ("Hff", "bf", "Hfd", "Hdd", "bd")), ms, pms, nb, no))
-        rows[-1].update(device_ms=dms, live_pairs=n_pairs,
+        rows[-1].update(device_ms=dms, live_pairs=n_pairs, pixels_read=n_pixels,
                         pair_flips_near_threshold=sum(flips.values()))
 
         # ---- K10 on K9's linearization
@@ -2442,7 +2671,7 @@ def ba_phase(torch, dev, calls):
               f"chain / resident {turns}; one launch {ms:.4f} ms, the plain loop {pms:.4f} ms; "
               f"grid {grid}; phase stamps (block 0, us per round) {json.dumps(phases)}",
               flush=True)
-        nb9, no9 = ba_bytes_ops(st, D, live_pairs(torch, st))
+        nb9, no9 = ba_bytes_ops(st, D, *pair_pixels(torch, st))
         n_bytes = (1 + rounds) * nb9 + rounds * (NP * (D * 4 + 17) + 2 * D * D * 4)
         n_ops = (1 + rounds) * (no9 + 2 * D * D + 6 * D) + rounds * ba_step_ops(NP, D)
         rows.append(row(f"ba_optimize[{tag}]", "ba.cu",
@@ -2519,6 +2748,209 @@ def ba_phase(torch, dev, calls):
     for r in rows:
         r["optimize_keyframe_ms"] = kms
         r["optimize_keyframe_plain_ms"] = pms
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the BA's state programs: K16 (window_pose), K17 (the keyframe BA's
+# prologue and epilogue), K18 (marginalize)
+# ---------------------------------------------------------------------------
+
+# f32 operations of K16 a slot (se3_exp ~90, T_all 16 x 7, T_inv 12, T_rh
+# 16 x 7, aff 2) and its bytes a slot (T_zero 64 and delta 32 read; T_all,
+# T_inv, T_rh 3 x 64 and aff 8 written; aff_zero 8 read)
+K16_SLOT_OPS, K16_SLOT_BYTES = 90 + 112 + 12 + 112 + 2, 64 + 32 + 3 * 64 + 8 + 8
+# bytes of a pool row K17's prologue copies into the compact view (valid,
+# host, u, v, idepth_zero, idepth, 8 colours, 8 weights, prior, num_good, 2
+# states) and that its epilogue scatters back (idepth, valid, num_good, 2
+# states, Hdd), without the W residual flags
+K17_ROW_BYTES = 1 + 8 + 4 * 4 + 32 + 32 + 4 + 4 + 8
+# bytes K18 reads of a flagged point (host, u, v, idepth_zero, idepth,
+# prior, 8 colours, 8 weights, Hdd) and of a frame (T_zero, aff_zero,
+# exposure, energy_th; frame_valid, frame_id and delta read and written)
+# K18's points stage against the plain version: HM's and bM's largest
+# error over the largest entry of the change the stage made (change_err)
+K18_TOL = 1e-5
+K18_POINT_BYTES = 8 + 5 * 4 + 32 + 32 + 4
+K18_FRAME_BYTES = 64 + 8 + 4 + 4 + 2 * (1 + 4 + 32)
+K17_OUT_BYTES = 4 + 1 + 4 + 8 + 4
+
+
+def window_phase(torch, dev, ba_calls, marg_calls):
+    """K16-K18 against their plain versions on the e2e run's fullest
+    window (the keyframe call with the most valid slots) and its fullest
+    keyframe tail (the most points marginalized): K16 and K17 bit-equal
+    to the plain versions (K17: around the same resident launch), K18's
+    validity and bookkeeping bit-equal, its points stage's HM / bM within
+    K18_TOL of the largest entry of their change and the whole call no
+    further from float64 frame marginalizations of its points stage than
+    twice the plain version plus K18_TOL of the largest entry, two runs of
+    each bit-equal; each timed against its plain
+    version in turns (kernel ms: the entry point's launch alone, CUDA
+    events around back-to-back calls), its card time (``device_ms``), the
+    wrapper's host ms to issue it, and its bound. Returns the kernel
+    rows."""
+    from direct_stereo_slam_tpu_torch.models import ba
+    from direct_stereo_slam_tpu_torch.ops import _cuda
+    from direct_stereo_slam_tpu_torch.ops import ba as kb
+    from direct_stereo_slam_tpu_torch.ops import window as win
+
+    pick, nvalid, (st, cfg, iters, slot, budget) = fullest_call(ba_calls)
+    W, NP = st.num_slots, st.num_points
+    D = 4 + 8 * W
+    print(f"window: the e2e run's keyframe call {pick + 1} of {len(ba_calls)}: {nvalid} of "
+          f"{W} slots valid, {int(st.p_valid.sum())} valid points in a pool of {NP}, compact "
+          f"budget {budget}, newest slot {slot}", flush=True)
+    usage = ptxas_usage(_cuda.load_library().build_log,
+                        ("window_pose_kernel", "ba_prologue_kernel", "ba_epilogue_kernel",
+                         "marg_kernel"))
+    print(f"window: ptxas (registers, shared memory, spill stores / loads): {usage}",
+          flush=True)
+    rows = []
+    # ---- K16
+    pose_args = (st.T_zero, st.delta, st.aff_zero, st.calib_zero, st.calib_delta, slot)
+    got = win.window_pose_cuda(*pose_args)
+    again = win.window_pose_cuda(*pose_args)
+    want = win.window_pose_plain(*pose_args)
+    equal = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+    twice = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again))
+    print(f"K16 window_pose: bit-equal to the plain version {equal}; two runs bit-equal "
+          f"{twice}", flush=True)
+    if not (equal and twice):
+        fail(f"K16: bit-equal to plain {equal}, two runs {twice}")
+    k16 = lambda: win.window_pose_cuda(*pose_args)
+    ms, pms = ab_ms(torch, k16, lambda: win.window_pose_plain(*pose_args),
+                    plain_kw=dict(repeats=5, inner=4))
+    dms, ims = device_ms(torch, k16), issue_ms(torch, k16)
+    print(f"K16 window_pose: kernel {ms:.4f} ms; on the card {dms} ms; wrapper (host issue) "
+          f"{ims:.4f} ms; plain {pms:.4f} ms", flush=True)
+    rows.append(row("window_pose", "window.cu", "direct_stereo_slam_tpu/models/ba.py:125",
+                    0.0, ms, pms, W * K16_SLOT_BYTES + 48, W * K16_SLOT_OPS))
+    rows[-1].update(device_ms=dms, wrapper_ms=ims, ptxas=usage.get("window_pose_kernel"),
+                    also_replaces=["direct_stereo_slam_tpu/models/ba.py:895",
+                                   "direct_stereo_slam_tpu/models/ba.py:988",
+                                   "direct_stereo_slam_tpu/models/frontend.py:71"])
+    # ---- K17, around the same resident launch as its plain version
+    got = ba.optimize_keyframe(st, cfg, iters, slot, budget)
+    again = ba.optimize_keyframe(st, cfg, iters, slot, budget)
+    want = ba.optimize_keyframe_plain(st, cfg, iters, slot, budget)
+    flat = lambda r: [bits(x) for x in list(r[0]) + list(r[1:])]
+    equal = all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
+    twice = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+    print(f"K17 ba_keyframe: the whole optimize_keyframe bit-equal to optimize_keyframe_plain "
+          f"around the same resident launch {equal}; two runs bit-equal {twice}", flush=True)
+    if not (equal and twice):
+        fail(f"K17: bit-equal to plain {equal}, two runs {twice}")
+    B = budget if budget is not None and budget < NP else NP
+    ws = win._keyframe(st, cfg, B, B < NP)
+    pro = lambda: win.ba_prologue_cuda(ws.kf)
+    epi = lambda: win.ba_epilogue_cuda(ws.kf)
+    # the struct set for this window; its outputs kept alive while the
+    # entry points run again into them
+    held = ba.optimize_keyframe(st, cfg, iters, slot, budget)
+
+    def pro_plain():
+        sub, rows_, _ = ba._compact_points(st, B) if B < NP else (st, None, None)
+        kb.host_groups(sub.p_host, W)
+
+    sub, rows_, _ = ba._compact_points(st, B) if B < NP else (st, None, None)
+    work, _, _, lin = ba._optimize_device(sub, cfg, iters)
+    epi_plain = lambda: ba.keyframe_epilogue_plain(st, work, rows_, lin, slot, cfg)
+    whole = lambda: ba.optimize_keyframe(st, cfg, iters, slot, budget)
+    ims = issue_ms(torch, whole) - issue_ms(torch, lambda: kb.ba_optimize_cuda(ws.params,
+                                                                                iters))
+    n2 = 1 << max(B - 1, 1).bit_length()
+    for name, fn, plain, nb, no in (
+            ("ba_keyframe_prologue", pro, pro_plain,
+             NP + B * (2 * K17_ROW_BYTES + 2 * W) + 3 * B * 4 + B * 4 + 4 * (W + 1),
+             0),
+            ("ba_keyframe_epilogue", epi, epi_plain,
+             B * (K17_OUT_BYTES + W + 5) + NP * (2 * K17_OUT_BYTES + 2 * W) + 64 * W,
+             n2 // 2 * (n2.bit_length() - 1) * n2.bit_length() // 2 + 200)):
+        ms, pms = ab_ms(torch, fn, plain, plain_kw=dict(repeats=5, inner=2))
+        dms = device_ms(torch, fn)
+        print(f"K17 {name}: kernel {ms:.4f} ms; on the card {dms} ms; plain {pms:.4f} ms",
+              flush=True)
+        rows.append(row(name, "window.cu", {
+            "ba_keyframe_prologue": "direct_stereo_slam_tpu/models/ba.py:908",
+            "ba_keyframe_epilogue": "direct_stereo_slam_tpu/models/ba.py:755"}[name],
+            0.0, ms, pms, nb, no))
+        rows[-1].update(device_ms=dms, ptxas=usage.get(name.replace(
+            "ba_keyframe_", "ba_") + "_kernel"), budget=B)
+    rows[-2]["wrapper_ms"] = rows[-1]["wrapper_ms"] = ims
+    torch.cuda.synchronize()
+    del held
+    print(f"K17: its wrapper's host ms besides the resident launch's {ims:.4f} "
+          f"(prologue and epilogue together)", flush=True)
+    # ---- K18 on the fullest keyframe tail
+    n_marg = [int(np.asarray(a[2]).sum()) for a in marg_calls]
+    mp = max(range(len(n_marg)), key=lambda i: (n_marg[i], len(marg_calls[i][4]), i))
+    st_m, lin_m, marg, drop, slots, cfg_m = marg_calls[mp]
+    got = ba.marginalize(st_m, lin_m, marg, drop, slots, cfg_m)
+    again = ba.marginalize(st_m, lin_m, marg, drop, slots, cfg_m)
+    want = ba.marginalize_plain(st_m, lin_m, marg, drop, slots, cfg_m)
+    fixed = ("p_valid", "frame_valid", "frame_id", "p_res_good", "delta")
+    equal = all(torch.equal(bits(getattr(got, f)), bits(getattr(want, f))) for f in fixed)
+    # the points stage alone (no frame), against the plain version's; then
+    # each whole result against float64 frame marginalizations of its own
+    # points stage
+    got_p = ba.marginalize(st_m, lin_m, marg, drop, [], cfg_m)
+    want_p = ba.marginalize_plain(st_m, lin_m, marg, drop, [], cfg_m)
+    errs = {f: change_err(torch, getattr(got_p, f), getattr(want_p, f), getattr(st_m, f))
+            for f in ("HM", "bM")}
+    ref_k, ref_p = frames64(torch, got_p, slots), frames64(torch, want_p, slots)
+    # (kernel, plain) distances over the largest entry: the frame stage
+    # works on the whole prior, so its f32 error scales with it
+    f64 = {}
+    for f in ("HM", "bM"):
+        scale = float(torch.max(torch.abs(ref_p[f])).clamp(min=1e-30))
+        f64[f] = (float(torch.max(torch.abs(getattr(got, f).double() - ref_k[f]))) / scale,
+                  float(torch.max(torch.abs(getattr(want, f).double() - ref_p[f]))) / scale)
+    f64_ok = all(e_k <= 2.0 * e_p + K18_TOL for e_k, e_p in f64.values())
+    abs_err = max(float(torch.max(torch.abs(getattr(got, f) - getattr(want, f))))
+                  for f in ("HM", "bM"))
+    twice = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again))
+    print(f"K18 marginalize: the e2e run's tail {mp + 1} of {len(marg_calls)}: "
+          f"{n_marg[mp]} points folded in, {int(np.asarray(drop).sum())} dropped, frames "
+          f"{list(slots)}; validity and bookkeeping bit-equal to the plain version {equal}; the "
+          f"points stage's HM / bM error over the largest entry of their change {errs}; the "
+          f"whole call's distance from float64 frames on its own points stage over the "
+          f"largest entry (kernel, plain) {f64}; two runs bit-equal {twice}", flush=True)
+    if not (equal and twice and f64_ok and all(e <= K18_TOL for e in errs.values())):
+        fail(f"K18: bit-equal {equal}, points stage {errs}, float64 {f64}, two runs {twice}")
+    k18 = lambda: ba.marginalize(st_m, lin_m, marg, drop, slots, cfg_m)
+    ms, pms = ab_ms(torch, k18, lambda: ba.marginalize_plain(st_m, lin_m, marg, drop, slots,
+                                                             cfg_m),
+                    plain_kw=dict(repeats=5, inner=2))
+    dms, ims = device_ms(torch, k18), issue_ms(torch, k18)
+    nm, nf = n_marg[mp], len(slots)
+    # K9's pixel pass over the flagged points' live pairs (each image pixel
+    # they read once), the flagged points' rows, the flags, p_valid and
+    # p_res_good read and written, HM and bM read and written, the frames
+    marg_d = torch.as_tensor(np.asarray(marg, bool), device=st_m.p_valid.device)
+    n_pairs_m, n_pix_m = pair_pixels(torch, st_m, st_m.p_valid & marg_d)
+    nb = (n_pix_m * 12 + nm * K18_POINT_BYTES + NP + 2 * NP * (1 + W)
+          + 2 * 4 * (D * D + D) + W * K18_FRAME_BYTES + 2 * 4 * 4)
+    # operations: the residuals; a multiply-add per entry of each flagged
+    # point's outer product Hfd^T Hfd / Hdd over its nonzero columns (the
+    # calibration, its host and its live targets) and of its b_sc; per
+    # frame the 8x8 inverse and the rank-8 update of HM
+    t = torch.arange(W, device=marg_d.device)
+    live = ((st_m.p_valid & marg_d)[:, None] & st_m.frame_valid[None, :]
+            & (t[None, :] != st_m.p_host[:, None]) & st_m.p_res_good).sum(1)
+    cols = torch.where(live > 0, 4 + 8 * (1 + live), torch.zeros_like(live)).double()
+    schur = int(torch.sum(cols * (cols + 1) + 2 * cols))
+    no = n_pairs_m * 8 * BA_RES_OPS + schur + nf * (16 * D * D + 8 * 8 * 16)
+    print(f"K18 marginalize: kernel (with its flags' upload) {ms:.4f} ms; on the card {dms} "
+          f"ms; wrapper (host issue) {ims:.4f} ms; plain {pms:.4f} ms", flush=True)
+    rows.append(row("marginalize", "window.cu", "direct_stereo_slam_tpu/models/ba.py:796",
+                    abs_err, ms, pms, nb, no))
+    rows[-1].update(device_ms=dms, wrapper_ms=ims, ptxas=usage.get("marg_kernel"),
+                    marginalized_points=nm, live_pairs=n_pairs_m, pixels_read=n_pix_m,
+                    frames=nf, points_stage_change_err=errs,
+                    frames_float64=f64,
+                    also_replaces=["direct_stereo_slam_tpu/models/ba.py:832",
+                                   "direct_stereo_slam_tpu/models/ba.py:838"])
     return rows
 
 
@@ -2670,14 +3102,18 @@ def fps_only(torch, dev, variants=()) -> None:
 
     for name in variants:
         fps_variant(name)
-    stages = ("activate", "trace", "template", "dso_opt", "point_marg", "frame_marg",
-              "pose_graph_opt", "icp", "direct_est", "per_frame")
+    stages = ("activate", "trace", "template", "dso_opt", "scale_opt", "point_marg",
+              "frame_marg", "pose_graph_opt", "icp", "direct_est", "per_frame")
     table = lambda timers: {k: v for k, v in timing_table(timers).items() if k in stages}
     ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
     run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
     timed, _, _, e2e_dt = run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
     synced = run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev, sync_timers=True)[0]
     waits = count_waits(torch, cfg, intr, ds, frames, dev)
+    splits = dict(activate=activate_split(torch, dev, cfg, intr, ds, frames),
+                  template=template_split(torch, dev, cfg, intr, ds, frames),
+                  marg=marg_split(torch, dev, cfg, intr, ds, frames),
+                  scale=scale_split(torch, dev, cfg, intr, ds, frames))
     lds, lframes, lcfg = loop_setup(dev, LOOP_FRAMES, LOOP_MARGIN)
     loop = {}
     for mode in ("timed", "synchronized"):
@@ -2695,7 +3131,7 @@ def fps_only(torch, dev, variants=()) -> None:
         root=os.path.dirname(os.path.dirname(os.path.abspath(port.__file__))),
         variants=list(variants), e2e_fps=E2E_FRAMES / e2e_dt,
         e2e_stages=table(timed.timers), e2e_synchronized_stages=table(synced.timers),
-        e2e_keyframe_waits=waits.get("keyframe"), loop=loop)), flush=True)
+        e2e_keyframe_waits=waits.get("keyframe"), e2e_splits=splits, loop=loop)), flush=True)
 
 
 def pipelined_phase(torch, dev):
@@ -3373,17 +3809,22 @@ def observe_phase(torch, dev, seq, tmp: str):
 # and the resident launch (optimize_keyframe's LM loop); K10 and K11 queued
 # are its bit reference, held to it in phase 13, and make no launch on a path
 BA_KERNELS = ("ba_linearize", "ba_optimize")
+# the BA's state programs: K16 (the window's poses: activate, template,
+# views), K17 (around the resident launch), K18 (the keyframe tail)
+WINDOW_KERNELS = ("window_pose", "ba_keyframe_prologue", "ba_keyframe_epilogue", "marginalize")
 BA_ROWS = ("ba_linearize", "ba_step", "ba_accept", "ba_optimize")
 # a keyframe's activation: K12 (gate, compaction, idepth LM), K13 (pool rows)
 ACT_KERNELS = ("gate_compact_activate", "allocate_insert")
 # every traced frame's K14, every template's K15
 TRACE_KERNELS = ("trace_points_all_compact", "build_template")
-E2E_KERNELS = ("distance_map", "track_lm", "scale_lm") + BA_KERNELS + ACT_KERNELS + TRACE_KERNELS
+E2E_KERNELS = (("distance_map", "track_lm", "scale_lm") + BA_KERNELS + ACT_KERNELS
+               + TRACE_KERNELS + WINDOW_KERNELS)
 # the loop thread's pose graph stays at or below 512 nodes here: K7, one
 # launch a dense optimize (K6 and K8 above 512, in the pose-graph phase)
 LOOP_KERNELS = E2E_KERNELS + ("loop_pose_lm", "pose_graph_gn")
 # DSO mode makes no stereo scale optimization
-MONO_KERNELS = ("distance_map", "track_lm") + BA_KERNELS + ACT_KERNELS + TRACE_KERNELS
+MONO_KERNELS = (("distance_map", "track_lm") + BA_KERNELS + ACT_KERNELS + TRACE_KERNELS
+                + WINDOW_KERNELS)
 OFF_PATH = ("pose_residual_pass", "scale_residual_pass", "pose3d_residual_pass")
 
 
@@ -3458,8 +3899,13 @@ def kernel_counters():
     from direct_stereo_slam_tpu_torch.ops import residual_hb as rh
     from direct_stereo_slam_tpu_torch.ops import template as template_ops
     from direct_stereo_slam_tpu_torch.ops import trace as trace_ops
+    from direct_stereo_slam_tpu_torch.ops import window as win
 
     return {"distance_map": dm.build_distance_map_cuda,
+            "window_pose": win.window_pose_cuda,
+            "ba_keyframe_prologue": win.ba_prologue_cuda,
+            "ba_keyframe_epilogue": win.ba_epilogue_cuda,
+            "marginalize": win.marginalize_cuda,
             "gate_compact_activate": act.gate_compact_activate_cuda,
             "allocate_insert": act.allocate_insert_consume_cuda,
             "trace_points_all_compact": trace_ops.trace_points_all_compact_cuda,
@@ -4827,11 +5273,13 @@ def main() -> int:
     # each path's kernels count in that path's run: K1, K2-LM and K3-LM in
     # the e2e pass, K4-LM in the loop phase; the per-pass K2, K3 and K4 run
     # on none of the paths (every phase gates that they stay at 0)
-    launches, e2e_scale_calls, ba_calls, e2e_kfs, act_calls, trace_calls = e2e_phase(
-        torch, dev, args.profile)
+    (launches, e2e_scale_calls, ba_calls, e2e_kfs, act_calls, trace_calls,
+     marg_calls) = e2e_phase(torch, dev, args.profile)
     rows += act_phase(torch, dev, act_calls, lib.build_log)
     rows += trace_template_phase(torch, dev, trace_calls, lib.build_log)
     rows += ba_phase(torch, dev, ba_calls)
+    rows += window_phase(torch, dev, ba_calls, marg_calls.calls)
+    rows[-1].update(marg_split=marg_calls.split, scale_split=marg_calls.scale)
     elapsed("e2e, act, ba")
     pl_launches = pipelined_phase(torch, dev)
     mono_launches = mono_phase(torch, dev)
@@ -4876,8 +5324,9 @@ def main() -> int:
         r["loop_launches_per_frame"] = loop_launches[name] / LOOP_FRAMES
         if name == "scale_lm":
             r["path_calls"] = dict(e2e=e2e_scale_calls, loop=loop_scale_calls)
-        if name in BA_ROWS + ACT_KERNELS:
+        if name in BA_ROWS + ACT_KERNELS + WINDOW_KERNELS:
             r["e2e_launches_per_keyframe"] = launches[name] / max(e2e_kfs, 1)
+        r["e2e_launches_per_frame"] = launches[name] / E2E_FRAMES
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "direct_stereo_slam_tpu"))
     if leaked:

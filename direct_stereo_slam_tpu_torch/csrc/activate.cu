@@ -125,8 +125,8 @@ struct GateParams {
   const float* dist;                     // [h2, w2]
   const float* images;                   // [Wn, Himg, Wimg, 3]
   const unsigned char* frame_valid;      // [Wn]
-  // [Wn, 4, 4] poses and their inverses (torch.linalg.inv_ex's, as the
-  // plain version computes them), [Wn, 2], [4], [Wn]
+  // [Wn, 4, 4] poses and their inverses (K16's, csrc/window.cu, which the
+  // plain version reads too), [Wn, 2], [4], [Wn]
   const float *T_cw, *T_wc, *aff, *calib, *exposure;
   const float *pat_u, *pat_v;            // [8]
   unsigned char* ok;                     // [S, budget]

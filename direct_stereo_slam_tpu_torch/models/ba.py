@@ -16,14 +16,19 @@ einsum was a TPU gather workaround), and the 20-column per-pair blocks
 are placed into the D x D system by index.
 
 On the card the linearization and the LM loop are the hand-written
-kernels of ``csrc/ba.cu`` (``ops/ba.py``): K9 ``linearize``, and per LM
-iteration K10 (the step) -> K9 (at the candidate) -> K11 (accept or
-reject), queued a fixed number of times with no host read; sums in a
-fixed order, so two runs give the same bits. For a CPU state the plain
-versions run: ``linearize_plain`` and ``_optimize_loop_plain`` (a Python
-loop with one read of its exit condition per iteration). The
-marginalization's small dense solves and Schur products stay on
-``torch.linalg`` and matmuls.
+kernels of ``csrc/ba.cu`` (``ops/ba.py``): K9 ``linearize``, and the LM
+loop one resident launch (K10 the step -> K9 at the candidate -> K11 the
+accept or reject, with no host read); sums in a fixed order, so two runs
+give the same bits. The programs around it are ``csrc/window.cu``'s
+(``ops/window.py``): K16 the window's poses (``current_views``,
+``template_pose_prep``), K17 ``optimize_keyframe``'s compaction before the
+launch and its threshold, FEJ reset, drop and scatter after it, K18 the
+keyframe tail's marginalization (``marginalize``). For a CPU state the
+plain versions run: ``linearize_plain``, ``_optimize_loop_plain`` (a Python
+loop with one read of its exit condition per iteration),
+``optimize_keyframe_plain``, ``marginalize_plain`` (its small dense solves
+and Schur products on ``torch.linalg`` and matmuls) and
+``ops/window.py::window_pose_plain``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from ..config import (PATTERN_OFFSETS, SCALE_A, SCALE_B, SCALE_C, SCALE_F,
                       SCALE_XI_ROT, SCALE_XI_TRANS, SLAMConfig)
 from ..geometry import lie
 from ..ops import ba as kb
+from ..ops import window as win
 from ..ops.interp import bilinear_gather_frames
 from ..utils.device import constant, to_device
 
@@ -81,8 +87,9 @@ class BAState(NamedTuple):
         return self.p_valid.shape[0]
 
     def T_current(self) -> torch.Tensor:
-        """[W, 4, 4] current worldToCam = exp(delta) @ T_zero."""
-        return lie.se3_exp(self.delta[:, :6]) @ self.T_zero
+        """[W, 4, 4] current worldToCam = exp(delta) @ T_zero, in K16's
+        operation order (``ops/window.py::current_poses_plain``)."""
+        return win.current_poses_plain(self.T_zero, self.delta)
 
     def aff_current(self) -> torch.Tensor:
         return self.aff_zero + self.delta[:, 6:8]
@@ -647,8 +654,9 @@ def set_new_frame_energy_th_from_lin(state: BAState, lin: Linearization,
 
 
 def reset_fej_newest(state: BAState, newest_slot: int) -> BAState:
-    """Move the newest frame's FEJ point to its current pose, keeping the
-    affine delta."""
+    """Move the newest frame's FEJ point to its current pose (K16's
+    operation order, as K17's epilogue forms it), keeping the affine
+    delta."""
     T_zero = state.T_zero.clone()
     T_zero[newest_slot] = state.T_current()[newest_slot]
     delta = state.delta.clone()
@@ -727,15 +735,46 @@ def marginalize_frame(state: BAState, slot: int) -> BAState:
                           p_valid=state.p_valid & (state.p_host != slot), delta=delta)
 
 
+def marginalize_plain(state: BAState, lin: Linearization, marg: np.ndarray,
+                      drop: np.ndarray, slots, cfg: SLAMConfig) -> BAState:
+    """K18's plain version: ``marginalize_points`` of the host mask ``marg``
+    with ``lin``, ``drop_points`` of ``drop``, then ``marginalize_frame`` of
+    each slot in order (each step only where it has something to do)."""
+    dev = state.delta.device
+    if np.any(marg):
+        state = marginalize_points(state, to_device(np.asarray(marg, bool), dev), cfg, lin)
+    if np.any(drop):
+        state = drop_points(state, to_device(np.asarray(drop, bool), dev))
+    for slot in slots:
+        state = marginalize_frame(state, int(slot))
+    return state
+
+
+def marginalize(state: BAState, lin: Linearization, marg: np.ndarray, drop: np.ndarray,
+                slots, cfg: SLAMConfig) -> BAState:
+    """The keyframe tail's marginalization, given the host masks of the
+    points to fold into the prior (``marg``) and to drop (``drop``), the
+    frames to marginalize in order (``slots``) and the linearization the
+    points are folded with: K18, one launch, on the card (the masks go up
+    in one copy); ``marginalize_plain`` for a CPU state."""
+    if not state.images.is_cuda:
+        return marginalize_plain(state, lin, marg, drop, slots, cfg)
+    flags = to_device(win.pack_flags(marg, drop), state.images.device)
+    return win.marginalize_cuda(state, lin.Hdd, flags, bool(np.any(marg)), list(slots), cfg)
+
+
 # ---------------------------------------------------------------------------
 # window management
 # ---------------------------------------------------------------------------
 
 
-def current_views(state: BAState):
+def current_views(state: BAState, pose: Optional[win.WindowPose] = None):
     """(T_current [W,4,4], aff_current [W,2], calib_current [4],
-    frame_valid [W], frame_id [W], p_valid [NP], p_host [NP])."""
-    return (state.T_current(), state.aff_current(), state.calib_current(),
+    frame_valid [W], frame_id [W], p_valid [NP], p_host [NP]); the first
+    three from K16 (``pose``: its outputs for this state, else one launch)."""
+    if pose is None:
+        pose = win.window_pose(state)
+    return (pose.T_all, pose.aff, pose.calib,
             state.frame_valid, state.frame_id, state.p_valid, state.p_host)
 
 
@@ -770,32 +809,58 @@ def _scatter_points(full: BAState, work: BAState, rows) -> BAState:
 def optimize_keyframe(state: BAState, cfg: SLAMConfig, iterations: int,
                       newest_slot: int, compact_budget: Optional[int] = None):
     """Keyframe BA step: optimize -> percentile energy threshold for the
-    newest frame -> FEJ reset -> drop residual-less points. Returns
-    (state, rmse, ok, Hdd [NP], n_dropped)."""
+    newest frame -> FEJ reset -> drop residual-less points. On the card
+    K17's prologue, the resident launch and K17's epilogue
+    (``ops/window.py::ba_keyframe_cuda``); ``optimize_keyframe_plain`` for
+    a CPU state. Returns (state, rmse, ok, Hdd [NP], n_dropped)."""
+    if state.images.is_cuda:
+        return win.ba_keyframe_cuda(state, cfg, iterations, newest_slot, compact_budget)
+    return optimize_keyframe_plain(state, cfg, iterations, newest_slot, compact_budget)
+
+
+def optimize_keyframe_plain(state: BAState, cfg: SLAMConfig, iterations: int,
+                            newest_slot: int, compact_budget: Optional[int] = None):
+    """``optimize_keyframe`` in plain PyTorch around ``_optimize_impl`` (K17's
+    plain version: a stable sort for the compaction, ``torch.nanquantile``
+    for the threshold, indexed writes for the scatter)."""
     if compact_budget is None or compact_budget >= state.num_points:
         work, rows = state, None
         n_dropped = torch.zeros((), dtype=torch.int64, device=state.delta.device)
     else:
         work, rows, n_dropped = _compact_points(state, compact_budget)
     work, rmse, ok, lin = _optimize_impl(work, cfg, iterations)
+    state, hdd = keyframe_epilogue_plain(state, work, rows, lin, newest_slot, cfg)
+    return state, rmse, ok, hdd, n_dropped
+
+
+def keyframe_epilogue_plain(state: BAState, work: BAState, rows, lin: Linearization,
+                            newest_slot: int, cfg: SLAMConfig):
+    """What ``optimize_keyframe_plain`` does after the LM loop (K17's
+    epilogue's plain version): the newest frame's energy threshold, its FEJ
+    reset, the drop of points left without a good residual, and the
+    optimized view ``work`` (rows ``rows`` of the pool; None: the pool
+    itself) scattered back into ``state``. Returns (state, Hdd [NP])."""
     work = set_new_frame_energy_th_from_lin(work, lin, newest_slot, cfg)
     work = reset_fej_newest(work, newest_slot)
     no_res = ~torch.any(work.p_res_good & work.p_valid[:, None], dim=1)
     work = work._replace(p_valid=work.p_valid & ~no_res)
     if rows is None:
-        return work, rmse, ok, lin.Hdd, n_dropped
+        return work, lin.Hdd
     state = _scatter_points(state, work, rows)
     hdd = torch.zeros(state.num_points, dtype=torch.float32, device=state.delta.device)
     hdd[rows] = lin.Hdd
-    return state, rmse, ok, hdd, n_dropped
+    return state, hdd
 
 
-def template_pose_prep(state: BAState, ref_slot: int):
+def template_pose_prep(state: BAState, ref_slot: int,
+                       pose: Optional[win.WindowPose] = None):
     """The template's window part: the current calibration [4] (fx, fy,
-    cx, cy) and every slot's host-to-reference transform T_rh [W, 4, 4]."""
-    T_all = state.T_current()
-    T_rh = torch.einsum("ij,hjk->hik", T_all[ref_slot], torch.linalg.inv_ex(T_all)[0])
-    return state.calib_current(), T_rh
+    cx, cy) and every slot's host-to-reference transform T_rh [W, 4, 4],
+    from K16 (``pose``: its outputs for this state toward ``ref_slot``,
+    else one launch)."""
+    if pose is None:
+        pose = win.window_pose(state, ref_slot)
+    return pose.calib, pose.T_rh
 
 
 def template_project(p_u, p_v, p_idepth, p_host, p_valid, hdd, calib, T_rh):

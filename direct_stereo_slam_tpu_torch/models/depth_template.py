@@ -194,19 +194,21 @@ def build_template_from_state_plain(state: ba.BAState, cfg: SLAMConfig, ref_slot
 
 
 def build_template_from_state(state: ba.BAState, cfg: SLAMConfig, ref_slot: int, hdd,
-                              ref_img, levels: int, budgets: Tuple[int, ...]) -> TrackerTemplate:
+                              ref_img, levels: int, budgets: Tuple[int, ...],
+                              pose=None) -> TrackerTemplate:
     """The template of the BA window's points in reference slot
     ``ref_slot``, weighted by the idepth hessian ``hdd`` (None:
     re-linearize). On the card the window's pose prep
-    (``ba.template_pose_prep``, a few plain launches) and one launch of
-    K15 in state mode, which projects each point itself; for CPU tensors
-    the plain version; either way a new template object."""
+    (``ba.template_pose_prep``: K16, or ``pose``, K16's outputs for this
+    state toward ``ref_slot``) and one launch of K15 in state mode, which
+    projects each point itself; for CPU tensors the plain version; either
+    way a new template object."""
     if not ref_img.is_cuda:
         return build_template_from_state_plain(state, cfg, ref_slot, hdd, ref_img, levels,
                                                budgets)
     if hdd is None:
         hdd = ba.linearize(state, cfg).Hdd
-    calib, T_rh = ba.template_pose_prep(state, ref_slot)
+    calib, T_rh = ba.template_pose_prep(state, ref_slot, pose)
     return TrackerTemplate(*template_ops.build_template_from_state_cuda(
         state.p_u, state.p_v, state.p_idepth, state.p_host, state.p_valid, hdd, calib, T_rh,
         ref_img, levels, budgets))

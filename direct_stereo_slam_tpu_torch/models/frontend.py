@@ -37,6 +37,7 @@ import torch
 from ..config import SLAMConfig
 from ..geometry.camera import PyramidIntrinsics
 from ..ops import activate
+from ..ops import window as win
 from ..ops.distance_map import build_distance_map
 from ..ops.interp import bilinear_gather, bilinear_gather_scalar
 from ..ops.pyramid import Pyramid, build_pyramid
@@ -105,22 +106,13 @@ def _activation_warps(K: np.ndarray, T_cw_new: np.ndarray, T_all_old, slots, S: 
     return KRKi1, Kt1
 
 
-def _activation_state(st: ba.BAState):
-    """The window's current poses, their inverses (``inv_ex``), affine
-    parameters and intrinsics, on the state's device."""
-    T_all = st.T_current()
-    return T_all, torch.linalg.inv_ex(T_all)[0], st.aff_current(), st.calib_current()
-
-
-def _halfres_distance_map(state: ba.BAState, new_slot: int, K1: torch.Tensor,
-                          h2: int, w2: int, T_all: torch.Tensor, T_inv: torch.Tensor,
-                          calib: torch.Tensor):
+def _halfres_distance_map(state: ba.BAState, K1: torch.Tensor, h2: int, w2: int,
+                          T_nh: torch.Tensor, calib: torch.Tensor):
     """Project every active point into the new KF at half resolution and
-    build the activation distance map (kernel K1 on the card); ``T_all``,
-    ``T_inv`` and ``calib`` are the state's current poses, their inverses
-    and the intrinsics."""
+    build the activation distance map (kernel K1 on the card); ``T_nh``
+    [W, 4, 4] takes each host into the new keyframe (K16's T_rh toward
+    it), ``calib`` the intrinsics."""
     fx0, fy0, cx0, cy0 = calib.unbind(0)
-    T_nh = torch.einsum("ij,hjk->hik", T_all[new_slot], T_inv)
     Xh = torch.stack([(state.p_u - cx0) / fx0, (state.p_v - cy0) / fy0,
                       torch.ones_like(state.p_u)], -1) / torch.clamp(state.p_idepth, min=1e-6)[:, None]
     R = T_nh[state.p_host, :3, :3]
@@ -1008,8 +1000,11 @@ class FrontEnd:
                 st, rmse, ok, hdd, ndrop = ba.optimize_keyframe(
                     st_pre_ba, cfg, iters, slot, compact_budget)
             with self.timers.span("template"):
+                # K16 once for the template (T_rh toward the new keyframe) and
+                # bundle 3's views
+                pose = win.window_pose(st, slot)
                 tmpl = build_template_from_state(st, cfg, slot, hdd, pyr0.data[0][..., 0],
-                                                 self.levels, self.budgets)
+                                                 self.levels, self.budgets, pose=pose)
             scale = ()
             if scale_enabled:
                 with self.timers.span("scale_opt"):
@@ -1022,7 +1017,7 @@ class FrontEnd:
             # template's level-0 count, the compact view's overflow, the
             # post-BA views and the scale LM's results
             host = to_host((rmse, ok, tmpl.pmask[0].sum(), ndrop)
-                           + ba.current_views(st) + scale)
+                           + ba.current_views(st, pose) + scale)
             return st, tmpl, host
 
         cb = cfg.ba.compact_budget
@@ -1155,12 +1150,6 @@ class FrontEnd:
             for s in set(p_host[drop & p_valid]):
                 self.slot_stats.setdefault(int(s), {"out": 0, "marg": 0})[
                     "out"] += int((drop & (p_host == s)).sum())
-            if marg.any():
-                self.ba_state = ba.marginalize_points(
-                    self.ba_state, self._upload(marg), cfg, lin)
-            if drop.any():
-                self.ba_state = ba.drop_points(self.ba_state,
-                                               self._upload(drop))
             exp_mask = leaving if cfg.loop.densify_scans else marg
             stay = exp_mask & ~host_flagged
             if stay.any():
@@ -1175,6 +1164,12 @@ class FrontEnd:
                         self.removal_stats.get("stay_export", 0) + int(m.sum()))
                     self._marg_export_acc.setdefault(int(s), []).append((pts_cam, col))
             last_marg_mask = exp_mask & host_flagged
+            # the device program: the flagged points folded into the prior,
+            # the dropped ones invalidated, the flagged frames marginalized
+            # in order (K18, one launch on the card). What follows reads the
+            # host bundle only, never the state it writes.
+            if marg.any() or drop.any() or flagged:
+                self.ba_state = ba.marginalize(self.ba_state, lin, marg, drop, flagged, cfg)
 
         self.pot = adapt_potential(self.pot, got, cfg.ba.desired_immature_density)
 
@@ -1229,7 +1224,6 @@ class FrontEnd:
                     pyr=tuple(self.pyramids[mslot].data) if mslot in self.pyramids else None,
                     exposure=self.slot_exposure.get(mslot, 1.0),
                 ))
-                self.ba_state = ba.marginalize_frame(self.ba_state, mslot)
                 self.pyramids.pop(mslot, None)
                 self.slot_stats.pop(mslot, None)
                 self.scale_errors.pop(mslot, None)
@@ -1326,18 +1320,19 @@ class FrontEnd:
         participate = np.zeros(S, bool)
         participate[slots_todo] = True
 
-        # on the card: K1, then K12 (gate, compaction, idepth LM) and K13
-        # (pool rows, insertion, consumption), with no host read
+        # on the card: K16 (the window's poses, their inverses and each
+        # host's transform into the new keyframe), K1, then K12 (gate,
+        # compaction, idepth LM) and K13 (pool rows, insertion,
+        # consumption), with no host read
         if not slots_todo:
             return
         st = self.ba_state
-        T_all, T_inv, aff, calib = _activation_state(st)
-        dist_map = _halfres_distance_map(st, new_slot, self._upload(K), h2, w2, T_all, T_inv,
-                                         calib)
+        pose = win.window_pose(st, new_slot)
+        dist_map = _halfres_distance_map(st, self._upload(K), h2, w2, pose.T_rh, pose.calib)
         ok_d, idepth_d, lane_d, drop_d = activate.gate_compact_activate(
             self.immatures, dist_map, KRKi1, Kt1, self.current_min_act_dist, host_flagged,
-            st.images, st.frame_valid, T_all, T_inv, aff, calib, st.exposure, cfg, w2, h2,
-            cfg.ba.act_budget)
+            st.images, st.frame_valid, pose.T_all, pose.T_inv, pose.aff, pose.calib,
+            st.exposure, cfg, w2, h2, cfg.ba.act_budget)
         self.ba_state, self.immatures, _ = activate.allocate_insert_consume(
             st, self.immatures, ok_d, idepth_d, lane_d, drop_d, participate,
             cfg.ba.max_points_per_frame)

@@ -375,10 +375,11 @@ class ActivationResult(NamedTuple):
 
 
 def activate_points_all(pts: ImmaturePoints, slots: torch.Tensor, images,
-                        frame_valid, T_cw, aff, calib, exposure,
+                        frame_valid, T_cw, T_wc, aff, calib, exposure,
                         cfg: SLAMConfig) -> ActivationResult:
     """Batched 1-D inverse-depth LM for every slot's candidates ([S, NI];
-    ``slots`` [S] host slot of each row) against all other window frames."""
+    ``slots`` [S] host slot of each row) against all other window frames;
+    ``T_wc`` [W, 4, 4] the inverses of ``T_cw``."""
     Wn, H, Wd = images.shape[0], images.shape[1], images.shape[2]
     dev = images.device
     fx, fy, cx, cy = calib[0], calib[1], calib[2], calib[3]
@@ -386,8 +387,7 @@ def activate_points_all(pts: ImmaturePoints, slots: torch.Tensor, images,
     xh = (pts.u[..., None] + du - cx) / fx                       # [S, NI, 8]
     yh = (pts.v[..., None] + dv - cy) / fy
 
-    T_hw = torch.linalg.inv_ex(T_cw)[0]                          # camToWorld
-    Tth = torch.einsum("tij,sjk->stik", T_cw, T_hw[slots])       # [S, Wn, 4, 4]
+    Tth = torch.einsum("tij,sjk->stik", T_cw, T_wc[slots])       # [S, Wn, 4, 4]
     Rth = Tth[..., :3, :3]
     tth = Tth[..., :3, 3]
     a_t = torch.exp(aff[None, :, 0] - aff[slots, 0][:, None]) * (

@@ -102,6 +102,12 @@ _SIGNATURES = {
     "dsslam_template": [_P, _P],
     # H, W, levels, grid, n, out[3] (host only: no stream)
     "dsslam_template_sizes": [_I, _I, _I, _I, _I, _P],
+    # &PoseParams / &KfParams (ops/window.py), stream
+    "dsslam_window_pose": [_P, _P],
+    "dsslam_ba_prologue": [_P, _P],
+    "dsslam_ba_epilogue": [_P, _P],
+    # &MargParams (ops/window.py), grid, stream
+    "dsslam_marginalize": [_P, _I, _P],
 }
 
 

@@ -93,9 +93,9 @@ def gate_compact_activate_plain(imm, dist_map, KRKi1: np.ndarray, Kt1: np.ndarra
                                 w2: int, h2: int, budget: int):
     """K12's plain version: cheap gates on all lanes, then the idepth LM
     only on the first ``budget`` survivors of each slot (lane order).
-    Returns (ok [S,B], idepth [S,B], lane [S,B], drop [S,NI]). ``T_wc``,
-    the kernel's copy of ``inv_ex(T_cw)``, is not read: the plain LM
-    inverts ``T_cw`` itself."""
+    Returns (ok [S,B], idepth [S,B], lane [S,B], drop [S,NI]). ``T_wc``
+    is the inverse of ``T_cw`` that the kernel reads too (K16's), so both
+    warp with the same bits."""
     dev = dist_map.device
     t = lambda a: to_device(a, dev)
     gate_ok, drop = _gate_impl(imm, dist_map, t(np.asarray(KRKi1, np.float32)),
@@ -114,7 +114,7 @@ def gate_compact_activate_plain(imm, dist_map, KRKi1: np.ndarray, Kt1: np.ndarra
     S = gate_ok.shape[0]
     acts = immature.activate_points_all(
         sub, torch.arange(S, device=images.device), images, frame_valid, T_cw,
-        aff, calib, exposure, cfg)
+        T_wc, aff, calib, exposure, cfg)
     return sel_ok & acts.ok, acts.idepth, lane, drop
 
 
@@ -249,9 +249,9 @@ def gate_compact_activate(imm, dist_map, KRKi1, Kt1, min_act_dist, host_flagged,
                           w2: int, h2: int, budget: int):
     """K12 on the card, its plain version for CPU tensors. ``KRKi1`` [S, 3,
     3], ``Kt1`` [S, 3], ``host_flagged`` [S] and ``min_act_dist`` are host
-    values; ``T_wc`` is ``torch.linalg.inv_ex(T_cw)[0]`` (the front end
-    has it from the distance map's projection), which the kernel reads so
-    that its warps have the plain version's bits."""
+    values; ``T_wc`` is the inverse of ``T_cw`` (the front end has both
+    from K16, ``ops/window.py``), which the kernel and the plain version
+    both read, so that their warps have the same bits."""
     fn = gate_compact_activate_cuda if dist_map.is_cuda else gate_compact_activate_plain
     return fn(imm, dist_map, KRKi1, Kt1, min_act_dist, host_flagged, images, frame_valid,
               T_cw, T_wc, aff, calib, exposure, cfg, w2, h2, budget)

@@ -18,7 +18,7 @@ import torch
 
 from direct_stereo_slam_tpu_torch.ops import ba as kb
 
-CSRC = Path(kb.__file__).resolve().parents[1] / "csrc" / "ba.cu"
+CSRC = Path(kb.__file__).resolve().parents[1] / "csrc" / "ba_lin.cuh"
 
 
 def _groups_ref(p_host: np.ndarray, W: int):

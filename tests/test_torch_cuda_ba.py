@@ -199,7 +199,7 @@ def test_device_loop_matches_plain_loop(dev, case, iters, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(ba, "_optimize_device",
                   lambda s, c, it: ba._finish_optimize(*ba._optimize_loop_plain(s, c, it)))
-        sp, rmse_p, ok_p, _, _ = ba.optimize_keyframe(st, cfg, iters, 2, None)
+        sp, rmse_p, ok_p, _, _ = ba.optimize_keyframe_plain(st, cfg, iters, 2, None)
     assert bool(ok) == bool(ok_p)
     Tc, Tp = state.T_current(), sp.T_current()
     assert torch.equal(torch.isnan(Tc), torch.isnan(Tp))

@@ -139,9 +139,11 @@ def test_trace_and_activate_match(scene):
     expo = jnp.ones(3, jnp.float32)
     slots = jnp.arange(2, dtype=jnp.int32)
     acts_j = im_j.activate_points_all(out_j, slots, images, fv, T_cw, aff, calib, expo, cfg)
+    images_t, fv_t, T_cw_t, aff_t, calib_t, expo_t = (torch.tensor(np.asarray(x)) for x in
+                                                      (images, fv, T_cw, aff, calib, expo))
     acts_t = im_t.activate_points_all(to_torch(to_numpy(to_torch(out_j))), torch.arange(2),
-                                      *[torch.tensor(np.asarray(x)) for x in
-                                        (images, fv, T_cw, aff, calib, expo)], port_cfg(cfg))
+                                      images_t, fv_t, T_cw_t, torch.linalg.inv_ex(T_cw_t)[0],
+                                      aff_t, calib_t, expo_t, port_cfg(cfg))
     np.testing.assert_array_equal(acts_t.ok.numpy(), np.asarray(acts_j.ok))
     np.testing.assert_array_equal(acts_t.num_good.numpy(), np.asarray(acts_j.num_good))
     ok = np.asarray(acts_j.ok)
