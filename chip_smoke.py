@@ -2774,6 +2774,86 @@ K18_TOL = 1e-5
 K18_POINT_BYTES = 8 + 5 * 4 + 32 + 32 + 4
 K18_FRAME_BYTES = 64 + 8 + 4 + 4 + 2 * (1 + 4 + 32)
 K17_OUT_BYTES = 4 + 1 + 4 + 8 + 4
+# a phase-stamp buffer's words: room for any of K17's and K18's launches
+# (blocks x warps x stamps); the rows a launch leaves zero are not its
+STAMP_WORDS = 256 * 32 * 16
+
+
+def stamp_rows(buf, n_phases):
+    """The written rows of a phase-stamp buffer ([warps, n_phases + 1])."""
+    t = buf.cpu().numpy()
+    t = t[:len(t) // (n_phases + 1) * (n_phases + 1)].reshape(-1, n_phases + 1)
+    return t[t[:, 0] != 0]
+
+
+def wrapper_split(torch, fn, parts, calls: int = 20, samples: int = 5) -> dict:
+    """A kernel wrapper's host ms per call to issue fn() while the card is
+    busy (``queued``), split into parts: (label, object, attribute) of the
+    callables it calls, each timed where it is looked up for the run (a
+    part that ``object`` lacks is left out; a part called inside another
+    counts in the outer one only); ``other`` is the rest of the wrapper
+    (struct fields, Python); ``resident_launch`` (K17) is counted apart and
+    left out of the total."""
+    spent, saved, depth = {}, [], [0]
+
+    def timed(label, f):
+        def inner(*a, **kw):
+            if depth[0]:
+                return f(*a, **kw)
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **kw)
+            finally:
+                depth[0] -= 1
+                spent[label] = spent.get(label, 0.0) + time.perf_counter() - t0
+        if hasattr(f, "__dict__") and not isinstance(f, type):
+            inner.__dict__ = f.__dict__        # a wrapper's launch count stays its own
+        return inner
+
+    try:
+        for label, obj, attr in parts:
+            if obj is not None and hasattr(obj, attr):
+                saved.append((obj, attr, getattr(obj, attr)))
+                setattr(obj, attr, timed(label, getattr(obj, attr)))
+        runs = queued(torch, fn, calls, samples)
+    finally:
+        for obj, attr, f in reversed(saved):
+            setattr(obj, attr, f)
+    n = calls * samples + 1             # queued's warm-up call and its samples
+    per = {k: 1e3 * v / n for k, v in spent.items()}
+    issue = statistics.mean(i for _, i in runs)
+    resident = per.pop("resident_launch", 0.0)
+    total = issue - resident
+    per["other"] = total - sum(per.values())
+    return dict(wrapper_ms=total, parts_ms=per, resident_launch_ms=resident)
+
+
+def host_parts(torch, win, ba_mod):
+    """The wrapper parts ``wrapper_split`` times (any tree's window
+    module): allocations (``torch.empty``), the checks
+    (``_cuda.require_cuda``), the ctypes call (``_cuda.call``), the
+    masks' upload, and K17's resident launch."""
+    return [("resident_launch", win.kb, "ba_optimize_cuda"), ("allocations", torch, "empty"),
+            ("checks", win._cuda, "require_cuda"), ("checks", win, "_pointers"),
+            ("ctypes_call", win._cuda, "call"), ("upload", ba_mod, "to_device"),
+            ("upload", win, "pack_flags"), ("host_lists", win, "marg_lists"),
+            ("upload", getattr(win, "_Marg", None), "upload")]
+
+
+def window_only(torch, dev) -> None:
+    """``--window``: the e2e sequence (a warm-up pass, then a pass with the
+    keyframe BA's calls and the keyframe tails recorded), then the window
+    phase (K16-K18 against their plain versions, timed, phase stamps,
+    wrapper splits)."""
+    from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode
+
+    ds, frames, cfg, intr = sequence_setup(dev, E2E_FRAMES, speed=0.4)
+    run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
+    with BaTraffic() as ba_traffic, MargTraffic() as marg_traffic:
+        run_sequence(torch, SLAMNode, cfg, intr, ds, frames, dev)
+    print("window_rows " + json.dumps(window_phase(torch, dev, ba_traffic.calls,
+                                                   marg_traffic.calls)), flush=True)
 
 
 def window_phase(torch, dev, ba_calls, marg_calls):
@@ -2859,14 +2939,13 @@ def window_phase(torch, dev, ba_calls, marg_calls):
     whole = lambda: ba.optimize_keyframe(st, cfg, iters, slot, budget)
     ims = issue_ms(torch, whole) - issue_ms(torch, lambda: kb.ba_optimize_cuda(ws.params,
                                                                                 iters))
-    n2 = 1 << max(B - 1, 1).bit_length()
     for name, fn, plain, nb, no in (
             ("ba_keyframe_prologue", pro, pro_plain,
              NP + B * (2 * K17_ROW_BYTES + 2 * W) + 3 * B * 4 + B * 4 + 4 * (W + 1),
              0),
             ("ba_keyframe_epilogue", epi, epi_plain,
              B * (K17_OUT_BYTES + W + 5) + NP * (2 * K17_OUT_BYTES + 2 * W) + 64 * W,
-             n2 // 2 * (n2.bit_length() - 1) * n2.bit_length() // 2 + 200)):
+             2 * B + 200)):                   # a selection's comparisons, the FEJ reset
         ms, pms = ab_ms(torch, fn, plain, plain_kw=dict(repeats=5, inner=2))
         dms = device_ms(torch, fn)
         print(f"K17 {name}: kernel {ms:.4f} ms; on the card {dms} ms; plain {pms:.4f} ms",
@@ -2878,23 +2957,51 @@ def window_phase(torch, dev, ba_calls, marg_calls):
         rows[-1].update(device_ms=dms, ptxas=usage.get(name.replace(
             "ba_keyframe_", "ba_") + "_kernel"), budget=B)
     rows[-2]["wrapper_ms"] = rows[-1]["wrapper_ms"] = ims
+    if hasattr(win, "phase_split"):
+        bufs = [torch.zeros(STAMP_WORDS, dtype=torch.int64, device=dev) for _ in range(2)]
+        ws.kf.pro_timers, ws.kf.epi_timers = (b.data_ptr() for b in bufs)
+        try:
+            ba.optimize_keyframe(st, cfg, iters, slot, budget)
+            torch.cuda.synchronize()
+        finally:
+            ws.kf.pro_timers = ws.kf.epi_timers = None
+        pro_rows = stamp_rows(bufs[0], len(win.PRO_PHASES))
+        epi_rows = stamp_rows(bufs[1], len(win.EPI_PHASES))
+        b0 = getattr(win, "EPI_THREADS", 1024) // 32
+        ph = {"prologue": win.phase_split(pro_rows, win.PRO_PHASES),
+              "epilogue_block0": win.phase_split(epi_rows[:b0], win.EPI_PHASES),
+              "epilogue_scatter": win.phase_split(epi_rows[b0:, :2], ("scatter",))}
+        print(f"K17 phases (us, %globaltimer): {json.dumps(ph)}", flush=True)
+        rows[-2]["phases_us"], rows[-1]["phases_us"] = ph["prologue"], {
+            k: ph[k] for k in ("epilogue_block0", "epilogue_scatter")}
+    split17 = wrapper_split(torch, whole, host_parts(torch, win, ba))
+    print(f"K17: its wrapper's host ms besides the resident launch's {ims:.4f} "
+          f"(prologue and epilogue together); split {json.dumps(split17)}", flush=True)
+    # torch.nanquantile on the same keys: one library call for the
+    # epilogue's threshold part
+    keys = torch.where(lin.pair_in[:, slot], lin.pair_energy[:, slot],
+                       torch.full_like(lin.pair_energy[:, slot], float("nan")))
+    lib_ms = median_ms(torch, lambda: torch.nanquantile(keys, cfg.ba.frame_energy_th_n,
+                                                        interpolation="linear"))
+    print(f"K17: torch.nanquantile on the threshold's {B} keys {lib_ms:.4f} ms", flush=True)
+    rows[-1].update(library_ms=lib_ms, library="torch.nanquantile (the threshold part)",
+                    wrapper_split=split17)
     torch.cuda.synchronize()
     del held
-    print(f"K17: its wrapper's host ms besides the resident launch's {ims:.4f} "
-          f"(prologue and epilogue together)", flush=True)
     # ---- K18 on the fullest keyframe tail
     n_marg = [int(np.asarray(a[2]).sum()) for a in marg_calls]
     mp = max(range(len(n_marg)), key=lambda i: (n_marg[i], len(marg_calls[i][4]), i))
-    st_m, lin_m, marg, drop, slots, cfg_m = marg_calls[mp]
-    got = ba.marginalize(st_m, lin_m, marg, drop, slots, cfg_m)
-    again = ba.marginalize(st_m, lin_m, marg, drop, slots, cfg_m)
+    st_m, lin_m, marg, drop, slots, cfg_m = marg_calls[mp][:6]
+    views = tuple(marg_calls[mp][6:])        # the front end's host copies, where it passes them
+    got = ba.marginalize(st_m, lin_m, marg, drop, slots, cfg_m, *views)
+    again = ba.marginalize(st_m, lin_m, marg, drop, slots, cfg_m, *views)
     want = ba.marginalize_plain(st_m, lin_m, marg, drop, slots, cfg_m)
     fixed = ("p_valid", "frame_valid", "frame_id", "p_res_good", "delta")
     equal = all(torch.equal(bits(getattr(got, f)), bits(getattr(want, f))) for f in fixed)
     # the points stage alone (no frame), against the plain version's; then
     # each whole result against float64 frame marginalizations of its own
     # points stage
-    got_p = ba.marginalize(st_m, lin_m, marg, drop, [], cfg_m)
+    got_p = ba.marginalize(st_m, lin_m, marg, drop, [], cfg_m, *views)
     want_p = ba.marginalize_plain(st_m, lin_m, marg, drop, [], cfg_m)
     errs = {f: change_err(torch, getattr(got_p, f), getattr(want_p, f), getattr(st_m, f))
             for f in ("HM", "bM")}
@@ -2918,11 +3025,30 @@ def window_phase(torch, dev, ba_calls, marg_calls):
           f"largest entry (kernel, plain) {f64}; two runs bit-equal {twice}", flush=True)
     if not (equal and twice and f64_ok and all(e <= K18_TOL for e in errs.values())):
         fail(f"K18: bit-equal {equal}, points stage {errs}, float64 {f64}, two runs {twice}")
-    k18 = lambda: ba.marginalize(st_m, lin_m, marg, drop, slots, cfg_m)
+    k18 = lambda: ba.marginalize(st_m, lin_m, marg, drop, slots, cfg_m, *views)
     ms, pms = ab_ms(torch, k18, lambda: ba.marginalize_plain(st_m, lin_m, marg, drop, slots,
                                                              cfg_m),
                     plain_kw=dict(repeats=5, inner=2))
     dms, ims = device_ms(torch, k18), issue_ms(torch, k18)
+    ph18 = None
+    if hasattr(win, "phase_split"):
+        buf = torch.zeros(STAMP_WORDS, dtype=torch.int64, device=dev)
+        inner = win.marginalize_cuda
+
+        def stamped(*a, **kw):
+            return inner(*a, timers=buf, **kw)
+
+        stamped.__dict__ = inner.__dict__      # its launch count stays the wrapper's
+        win.marginalize_cuda = stamped
+        try:
+            ba.marginalize(st_m, lin_m, marg, drop, slots, cfg_m, *views)
+            torch.cuda.synchronize()
+        finally:
+            win.marginalize_cuda = inner
+        ph18 = win.phase_split(stamp_rows(buf, len(win.MARG_PHASES)), win.MARG_PHASES)
+        print(f"K18 phases (us, %globaltimer): {json.dumps(ph18)}", flush=True)
+    split18 = wrapper_split(torch, k18, host_parts(torch, win, ba))
+    print(f"K18 marginalize: its wrapper's host split {json.dumps(split18)}", flush=True)
     nm, nf = n_marg[mp], len(slots)
     # K9's pixel pass over the flagged points' live pairs (each image pixel
     # they read once), the flagged points' rows, the flags, p_valid and
@@ -2946,9 +3072,9 @@ def window_phase(torch, dev, ba_calls, marg_calls):
     rows.append(row("marginalize", "window.cu", "direct_stereo_slam_tpu/models/ba.py:796",
                     abs_err, ms, pms, nb, no))
     rows[-1].update(device_ms=dms, wrapper_ms=ims, ptxas=usage.get("marg_kernel"),
-                    marginalized_points=nm, live_pairs=n_pairs_m, pixels_read=n_pix_m,
-                    frames=nf, points_stage_change_err=errs,
-                    frames_float64=f64,
+                    wrapper_split=split18, phases_us=ph18, marginalized_points=nm,
+                    live_pairs=n_pairs_m, pixels_read=n_pix_m, frames=nf,
+                    points_stage_change_err=errs, frames_float64=f64,
                     also_replaces=["direct_stereo_slam_tpu/models/ba.py:832",
                                    "direct_stereo_slam_tpu/models/ba.py:838"])
     return rows
@@ -5197,11 +5323,16 @@ def main() -> int:
     ap.add_argument("--trace", action="store_true",
                     help="only run the e2e sequence, the template span's split and the "
                          "trace / template phase (K14 / K15 against their plain versions)")
+    ap.add_argument("--window", action="store_true",
+                    help="only run the e2e sequence and the window phase (K16-K18 against "
+                         "their plain versions, K17's and K18's phase stamps and wrapper "
+                         "splits)")
     ap.add_argument("--pg-split", action="store_true",
                     help="only time the dense pose-graph optimize on ring graphs and, where "
                          "the port has K7's stamps, its split (with --root: another "
                          "checkout's)")
-    ap.add_argument("--root", help="with --lm-digest, --fps, --ba-split, --pg-split or --act: "
+    ap.add_argument("--root", help="with --lm-digest, --fps, --ba-split, --pg-split, --act or "
+                                   "--window: "
                                    "the checkout whose port to load")
     args = ap.parse_args()
     if args.root:
@@ -5256,6 +5387,9 @@ def main() -> int:
         return 0
     if args.trace:
         trace_only(torch, dev, lib.build_log)
+        return 0
+    if args.window:
+        window_only(torch, dev)
         return 0
     usage = lm_usage(lib.build_log)
     print(f"resident LM kernels (registers, bytes spilled, 8-block clusters resident at "

@@ -23,7 +23,8 @@
 // compaction: the pool's rows once, ~0.4 MB at NP = 4096; K18: the flagged
 // points' pixels, their Hfd rows and HM) and does at most a few million
 // operations, so every one is bound by its latency (its launch, its chain
-// of barriers), not by bytes or operations.
+// of barriers), not by bytes or operations: the designs keep the chains
+// short and spread each step over many SMs.
 //
 // Design (no atomics: two runs give the same bits).
 // - K16: one block, a warp a slot. Lane 0 forms se3_exp(delta[:6]) with
@@ -34,28 +35,36 @@
 //   -R^T t); after one barrier lanes 0-15 an entry of T_all[ref] @
 //   T_inv[h]. One output buffer (T_all | T_inv | T_rh | aff | calib) that
 //   K12's and K15's wrappers read as views.
-// - K17's prologue: one block of 1024 threads. The stable valid-first rank
-//   is a block scan of each thread's count of valid points (a valid point's
-//   row is the valid points before it, an invalid one's the valid total
-//   plus the invalid points before it); the host groups are two block
-//   scans of four 16-bit per-host counters packed in a 64-bit word. Its
-//   epilogue: block 0 the newest slot's threshold (a bitonic sort of the
-//   energies' order-preserving keys in shared memory, NaN last, then
-//   torch.nanquantile's rank and lerp), the FEJ reset (K16's T_current)
-//   and the frame outputs; the other blocks a thread a pool point (the
-//   drop and the scatter). Two launches around the resident one, not its
-//   last phase: the resident launch keeps its registers for the LM loop,
-//   and the prologue must finish before its first pixel pass anyway.
-// - K18: one cooperative launch of 512-thread blocks. Block 0 lists the
-//   flagged points (ascending, and grouped by host as host_groups does);
-//   K9's pixel pass (ba_lin.cuh) runs over them alone, a (chunk, target,
-//   host) item on each 256-thread half, its chunks summed in rank order,
-//   each flagged point's Hfd row by K9's point_row; the Schur sums H_sc and
-//   b_sc a thread an entry over the flagged points in ascending order; then
-//   block 0 updates HM and bM with x0 and marginalizes each flagged frame
-//   in the loop's order: the anchor's prior, the 8x8 inverse by
-//   Gauss-Jordan with partial pivoting in one warp (a row a lane), the
-//   rank-8 update, the slot's bookkeeping. Four grid barriers.
+// - K17's prologue: one 8-block cluster, each block an eighth of the pool
+//   (the stable valid-first rank from the blocks' counts exchanged through
+//   distributed shared memory, each block's rows placed and gathered by
+//   the block; the host groups from per-(kind, host) 16-bit counters
+//   exchanged the same way), two cluster barriers. Its epilogue: block 0
+//   the newest slot's threshold (torch.nanquantile's two order statistics
+//   by an exact bit-serial select on the energies' order-preserving keys,
+//   a block-wide count a bit, no sort; its rank and ATen's lerp), the FEJ
+//   reset (K16's T_current) and the frame outputs; the other blocks a
+//   thread a pool point (the drop and the scatter). Two launches around
+//   the resident one, not its last phase: the resident launch keeps its
+//   registers for the LM loop, and the prologue must finish before its
+//   first pixel pass anyway.
+// - K18: one cooperative launch of 512-thread blocks, three grid barriers,
+//   no block working while the others wait. The flagged points' lists
+//   (ascending, and grouped by host as host_groups does) come from the
+//   host with the flags, in one copy. K9's pixel pass (ba_lin.cuh) runs a
+//   (chunk, target, host) item on each 256-thread half, for the hosts with
+//   flagged points only (the others' reduced blocks are zeros), its chunks
+//   summed in rank order, each flagged point's Hfd row by K9's point_row;
+//   the Schur sums by 8x8 tiles of the upper triangle, a block a tile (its
+//   Hff entries as finish_block sums them, its Hsc entries by 32 groups of
+//   the flagged points through shared memory, summed in group order), each
+//   tile writing HM + w (Hff - Hsc) and its terms of dH x0; then block 0
+//   sums bM and marginalizes each flagged frame in the loop's order: the
+//   anchor's prior, the 8x8 inverse by Gauss-Jordan with partial pivoting
+//   in one warp (a row a lane), the rank-8 update, the slot's bookkeeping.
+//   Every sum's order is the data's, not the grid's.
+
+#include <atomic>
 
 #include "ba_lin.cuh"
 #include "plain_ops.cuh"
@@ -178,6 +187,18 @@ __global__ void __launch_bounds__(kPoseThreads) window_pose_kernel(const PosePar
     T_rh[16 * f + lane] = mat4_entry(sT[p.ref], sI[f], lane >> 2, lane & 3);
 }
 
+// Phase stamps: lane 0 of every warp writes %globaltimer's ns at phase
+// boundary i into timers[(block * warps + warp) * n + i] (ops/window.py
+// reads them); null on the main path, which writes nothing.
+__device__ __forceinline__ void warp_stamp(unsigned long long* timers, int n, int i) {
+  if (timers != nullptr && (threadIdx.x & 31) == 0) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    timers[(static_cast<size_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5)) * n + i] =
+        ns;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // block scans (no atomics)
 // ---------------------------------------------------------------------------
@@ -210,47 +231,6 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T* sh, T& total) {
   total = sh[nwarps - 1];
   __syncthreads();
   return before + x - v;
-}
-
-// The points i of [0, n) with keep(i) grouped by host (host(i) in [0, W)),
-// each group in ascending i, into pts, and the groups' offsets into off
-// [W + 1] (ops/ba.py::host_groups' order): each thread counts its range of
-// i per host, as four 16-bit counters in each of two 64-bit words, which
-// two block scans rank. n < 65536.
-template <class Keep, class Host>
-__device__ __forceinline__ void group_by_host(int n, int W, Keep keep, Host host, int* pts,
-                                              int* off, unsigned long long* sh) {
-  const int T = blockDim.x, tid = threadIdx.x;
-  const int per = (n + T - 1) / T, lo = min(tid * per, n), hi = min(lo + per, n);
-  unsigned long long c[2] = {0ull, 0ull};
-  for (int i = lo; i < hi; ++i)
-    if (keep(i)) {
-      const int h = host(i);
-      c[h >> 2] += 1ull << (16 * (h & 3));
-    }
-  unsigned long long tot[2];
-  const unsigned long long ex0 = block_exclusive_scan(c[0], sh, tot[0]);
-  const unsigned long long ex1 = block_exclusive_scan(c[1], sh, tot[1]);
-  int base[kMaxSlots];
-  int acc = 0;
-#pragma unroll
-  for (int h = 0; h < kMaxSlots; ++h) {
-    const int t_h = static_cast<int>((tot[h >> 2] >> (16 * (h & 3))) & 0xffffull);
-    const int e_h = static_cast<int>(((h < 4 ? ex0 : ex1) >> (16 * (h & 3))) & 0xffffull);
-    if (tid == 0 && h <= W) off[h] = acc;
-    base[h] = acc + e_h;
-    acc += h < W ? t_h : 0;
-  }
-  if (tid == 0 && W == kMaxSlots) off[kMaxSlots] = acc;
-  for (int i = lo; i < hi; ++i)
-    if (keep(i)) {
-      const int h = host(i);
-      int slot = 0;
-#pragma unroll
-      for (int g = 0; g < kMaxSlots; ++g)
-        if (g == h) slot = base[g]++;
-      pts[slot] = i;
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -319,69 +299,249 @@ struct KfParams {
   float* hdd_out;
   float* rmse_out;
   unsigned char* ok_out;
+  unsigned long long* pro_timers;   // kProStamps a warp, or null
+  unsigned long long* epi_timers;   // kEpiStamps a warp, or null
 };
 
 constexpr int kKfThreads = 1024;
-constexpr int kSortMax = 8192;         // the threshold's keys in shared memory
+constexpr int kProBlocks = 8;          // the prologue's cluster
+constexpr int kProRounds = 8;          // NP < 65536: at most 8 rounds of 1024 points a block
+constexpr int kKeysPerThread = 16;     // the threshold's keys a thread of the epilogue's block 0
+constexpr int kSelectMax = kKfThreads * kKeysPerThread;
+constexpr int kProStamps = 6, kEpiStamps = 5;
 
-__global__ void __launch_bounds__(kKfThreads) ba_prologue_kernel(const KfParams p) {
+// The exclusive prefix of 4 words at once over the block's threads in
+// thread order, and their totals; sh holds 32 x 4 words.
+__device__ __forceinline__ void block_scan4(const unsigned long long (&v)[4],
+                                            unsigned long long (&ex)[4],
+                                            unsigned long long (&tot)[4],
+                                            unsigned long long (*sh)[4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  unsigned long long x[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    x[k] = v[k];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned long long y = __shfl_up_sync(kFull, x[k], o);
+      if (lane >= o) x[k] += y;
+    }
+    if (lane == 31) sh[warp][k] = x[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      unsigned long long w = lane < nwarps ? sh[lane][k] : 0ull;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned long long y = __shfl_up_sync(kFull, w, o);
+        if (lane >= o) w += y;
+      }
+      sh[lane][k] = w;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    ex[k] = (warp > 0 ? sh[warp - 1][k] : 0ull) + x[k] - v[k];
+    tot[k] = sh[nwarps - 1][k];
+  }
+  __syncthreads();
+}
+
+// 16-bit counter h (< 8) of the packed pair of words w[k], w[k + 1]
+__device__ __forceinline__ int counter(const unsigned long long* w, int k, int h) {
+  const unsigned long long x = (h >> 2) ? w[k + 1] : w[k];
+  return static_cast<int>((x >> (16 * (h & 3))) & 0xffffull);
+}
+
+// One 8-block cluster; block `rank` takes the pool's rank-th eighth, in
+// rounds of a point a thread. (1) Each block counts its kept points (the
+// valid ones, or all of them without compaction) and pushes the count
+// into every block's shared memory. (2) After a cluster barrier each block
+// places its points (a kept point's row is the kept points before it, the
+// others' the kept total plus the others before them: torch.sort(stable)
+// of the invalid flags), gathers the rows below B into the compact view,
+// and counts them per (host, kept or not) as 16-bit counters packed in
+// four words, pushed to every block the same way. (3) After a second
+// barrier each block writes its rows' places in the host groups: host h's
+// kept rows of every block in block order, then its other rows
+// (ops/ba.py::host_groups' order on the compact view).
+__global__ void __cluster_dims__(kProBlocks, 1, 1) __launch_bounds__(kKfThreads)
+    ba_prologue_kernel(const KfParams p) {
+  cg::cluster_group cluster = cg::this_cluster();
   __shared__ int shi[32];
-  __shared__ unsigned long long shl[32];
+  __shared__ unsigned long long sh4[32][4];
+  __shared__ int sKept[kProBlocks];                    // each block's kept points
+  __shared__ unsigned long long sHost[kProBlocks][4];  // each block's rows per (kind, host)
   const int NP = p.NP, B = p.B, W = p.W, T = blockDim.x, tid = threadIdx.x;
-  const int per = (NP + T - 1) / T, lo = min(tid * per, NP), hi = min(lo + per, NP);
-  if (p.compact) {
-    int cnt = 0;
-    for (int i = lo; i < hi; ++i) cnt += p.p_valid[i] != 0;
-    int total;
-    const int before = block_exclusive_scan(cnt, shi, total);
-    int rv = before, ri = total + (lo - before);
-    for (int i = lo; i < hi; ++i) {
-      const int r = p.p_valid[i] ? rv++ : ri++;
-      p.pos[i] = r < B ? r : -1;
-      if (r < B) p.rows[r] = i;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int span = (NP + kProBlocks - 1) / kProBlocks;
+  const int blo = min(rank * span, NP), bhi = min(blo + span, NP);
+  const int rounds = (bhi - blo + T - 1) / T;
+  // every block of the cluster has started before another writes into its
+  // shared memory: arrive now, wait just before the first remote write
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  warp_stamp(p.pro_timers, kProStamps, 0);
+  // (1) the kept points before each of this thread's, within the block
+  unsigned kept = 0;                     // bit k: round k's point is kept
+  int before[kProRounds];
+  int n_kept = 0;
+#pragma unroll
+  for (int k = 0; k < kProRounds; ++k) {
+    if (k >= rounds) break;
+    const int i = blo + k * T + tid;
+    const bool kp = i < bhi && (!p.compact || p.p_valid[i] != 0);
+    kept |= kp ? 1u << k : 0u;
+    int tot;
+    before[k] = n_kept + block_exclusive_scan(kp ? 1 : 0, shi, tot);
+    n_kept += tot;
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (tid < kProBlocks) *cluster.map_shared_rank(&sKept[rank], tid) = n_kept;
+  warp_stamp(p.pro_timers, kProStamps, 1);
+  cluster.sync();
+  warp_stamp(p.pro_timers, kProStamps, 2);
+  int base = 0, total = 0;
+#pragma unroll
+  for (int b = 0; b < kProBlocks; ++b) {
+    base += b < rank ? sKept[b] : 0;
+    total += sKept[b];
+  }
+  // (2) the rows: place, gather, count per (kind, host); info[k]: the row,
+  // its host (bits 16-18) and kind (bit 19: not kept), or -1; grank[k]: its
+  // place among this block's rows of its (kind, host)
+  int info[kProRounds], grank[kProRounds];
+  unsigned long long cnt[4] = {0ull, 0ull, 0ull, 0ull};
+#pragma unroll
+  for (int k = 0; k < kProRounds; ++k) {
+    if (k >= rounds) break;
+    const int i = blo + k * T + tid;
+    const bool kp = (kept >> k) & 1u;
+    int r = -1, h = 0;
+    if (i < bhi) {
+      const int kb = base + before[k];           // the kept points before i
+      r = kp ? kb : total + (i - kb);
+      r = r < B ? r : -1;
+      p.pos[i] = r;
     }
-    if (tid == 0) *p.n_dropped = total > B ? total - B : 0;
-  } else {
-    for (int i = lo; i < hi; ++i) {
-      p.pos[i] = i;
-      p.rows[i] = i;
+    unsigned long long one[4] = {0ull, 0ull, 0ull, 0ull};
+    const int kind = kp ? 0 : 2;
+    if (r >= 0) {
+      h = static_cast<int>(p.p_host[i]);
+      p.rows[r] = i;
+      p.c_valid[r] = p.p_valid[i];
+      p.c_host[r] = h;
+      p.c_u[r] = p.p_u[i];
+      p.c_v[r] = p.p_v[i];
+      p.c_idepth_zero[r] = p.p_idepth_zero[i];
+      p.c_prior[r] = p.p_prior[i];
+      p.c_num_good[r] = p.p_num_good[i];
+      p.c_last_res[2 * r] = p.p_last_res[2 * i];
+      p.c_last_res[2 * r + 1] = p.p_last_res[2 * i + 1];
+      const float id = p.p_idepth[i];
+      for (int s = 0; s < 3; ++s) p.s_idepth[s][r] = id;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        p.c_color[8 * static_cast<size_t>(r) + c] = p.p_color[8 * static_cast<size_t>(i) + c];
+        p.c_weight[8 * static_cast<size_t>(r) + c] = p.p_weight[8 * static_cast<size_t>(i) + c];
+      }
+      for (int t = 0; t < W; ++t)
+        p.c_res_good[static_cast<size_t>(r) * W + t] =
+            p.p_res_good[static_cast<size_t>(i) * W + t];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) one[w] = w == kind + (h >> 2) ? 1ull << (16 * (h & 3)) : 0ull;
     }
-    if (tid == 0) *p.n_dropped = 0;
+    unsigned long long ex[4], tot[4];
+    block_scan4(one, ex, tot, sh4);
+    info[k] = r < 0 ? -1 : r | (h << 16) | (kp ? 0 : 1 << 19);
+    grank[k] = kind ? counter(ex, 2, h) + counter(cnt, 2, h) : counter(ex, 0, h) + counter(cnt, 0, h);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) cnt[w] += tot[w];
   }
-  __syncthreads();                       // rows (global) complete for the block
-  for (int r = tid; r < B; r += T) {
-    const int i = p.rows[r];
-    p.c_valid[r] = p.p_valid[i];
-    p.c_host[r] = p.p_host[i];
-    p.c_u[r] = p.p_u[i];
-    p.c_v[r] = p.p_v[i];
-    p.c_idepth_zero[r] = p.p_idepth_zero[i];
-    p.c_prior[r] = p.p_prior[i];
-    p.c_num_good[r] = p.p_num_good[i];
-    p.c_last_res[2 * r] = p.p_last_res[2 * i];
-    p.c_last_res[2 * r + 1] = p.p_last_res[2 * i + 1];
-    const float id = p.p_idepth[i];
-    for (int k = 0; k < 3; ++k) p.s_idepth[k][r] = id;
-  }
-  for (int e = tid; e < B * 8; e += T) {
-    const int r = e >> 3, k = e & 7, i = p.rows[r];
-    p.c_color[e] = p.p_color[8 * i + k];
-    p.c_weight[e] = p.p_weight[8 * i + k];
-  }
-  for (int e = tid; e < B * W; e += T) {
-    const int r = e / W, t = e % W;
-    p.c_res_good[e] = p.p_res_good[static_cast<size_t>(p.rows[r]) * W + t];
-  }
-  if (tid < 4 + 8 * W) {
-    const float v = tid < 4 ? p.calib_delta[tid] : p.delta[tid - 4];
-    for (int k = 0; k < 3; ++k) {
-      if (tid < 4) p.s_calib_delta[k][tid] = v;
-      else p.s_delta[k][tid - 4] = v;
+  if (rank == 0) {
+    if (tid < 4 + 8 * W) {
+      const float v = tid < 4 ? p.calib_delta[tid] : p.delta[tid - 4];
+      for (int s = 0; s < 3; ++s) {
+        if (tid < 4) p.s_calib_delta[s][tid] = v;
+        else p.s_delta[s][tid - 4] = v;
+      }
     }
+    if (tid == 0) *p.n_dropped = p.compact && total > B ? total - B : 0;
   }
-  group_by_host(
-      B, W, [](int) { return true; },
-      [&](int r) { return static_cast<int>(p.p_host[p.rows[r]]); }, p.host_pts, p.host_off, shl);
+  if (tid < kProBlocks * 4) {
+    const int w = tid & 3;
+    cluster.map_shared_rank(&sHost[rank][0], tid >> 2)[w] =
+        w == 0 ? cnt[0] : w == 1 ? cnt[1] : w == 2 ? cnt[2] : cnt[3];
+  }
+  warp_stamp(p.pro_timers, kProStamps, 3);
+  cluster.sync();
+  warp_stamp(p.pro_timers, kProStamps, 4);
+  // (3) the host groups: host h's kept rows of blocks 0..7, then its others
+  int kept_h[kMaxSlots], mine_k[kMaxSlots], mine_o[kMaxSlots], off[kMaxSlots + 1];
+  off[0] = 0;
+#pragma unroll
+  for (int h = 0; h < kMaxSlots; ++h) {
+    int tk = 0, to = 0, bk = 0, bo = 0;
+#pragma unroll
+    for (int b = 0; b < kProBlocks; ++b) {
+      const int ck = counter(sHost[b], 0, h), co = counter(sHost[b], 2, h);
+      tk += ck;
+      to += co;
+      bk += b < rank ? ck : 0;
+      bo += b < rank ? co : 0;
+    }
+    kept_h[h] = tk;
+    mine_k[h] = bk;
+    mine_o[h] = bo;
+    off[h + 1] = off[h] + (h < W ? tk + to : 0);
+  }
+  if (rank == 0 && tid <= W) {
+    int o = 0;
+#pragma unroll
+    for (int h = 0; h <= kMaxSlots; ++h)
+      if (h == tid) o = off[h];
+    p.host_off[tid] = o;
+  }
+#pragma unroll
+  for (int k = 0; k < kProRounds; ++k) {
+    if (k >= rounds) break;
+    if (info[k] < 0) continue;
+    const int h = (info[k] >> 16) & 7;
+    const bool other = (info[k] >> 19) & 1;
+    int slot = 0;
+#pragma unroll
+    for (int g = 0; g < kMaxSlots; ++g)
+      if (g == h) slot = off[g] + (other ? kept_h[g] + mine_o[g] : mine_k[g]) + grank[k];
+    p.host_pts[slot] = info[k] & 0xffff;
+  }
+  warp_stamp(p.pro_timers, kProStamps, 5);
+}
+
+// The sum over the block of each thread's v, for every thread: warp sums
+// into one half of sh (round & 1), a barrier, then every warp sums the
+// warps' sums, a lane each. Two halves: a round's reads end before any
+// thread passes the next round's barrier, so the round after it may write
+// the same half. (An integer sum: its order does not matter.)
+__device__ __forceinline__ int block_count(int v, int (*sh)[32], int round) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  v = __reduce_add_sync(kFull, v);
+  if (lane == 0) sh[round & 1][warp] = v;
+  __syncthreads();
+  return __reduce_add_sync(kFull, lane < nwarps ? sh[round & 1][lane] : 0);
+}
+
+// the least of each thread's v over the block, for every thread (as
+// block_count)
+__device__ __forceinline__ unsigned block_min(unsigned v, int (*sh)[32], int round) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  v = __reduce_min_sync(kFull, v);
+  if (lane == 0) sh[round & 1][warp] = static_cast<int>(v);
+  __syncthreads();
+  return __reduce_min_sync(
+      kFull, lane < nwarps ? static_cast<unsigned>(sh[round & 1][lane]) : 0xffffffffu);
 }
 
 // a float's order-preserving key (NaN last, as torch.sort places it)
@@ -405,11 +565,15 @@ __device__ __forceinline__ float aten_lerp(float a, float b, float w) {
 
 __global__ void __launch_bounds__(kKfThreads) ba_epilogue_kernel(const KfParams p) {
   const int W = p.W, NP = p.NP, tid = threadIdx.x;
+  warp_stamp(p.epi_timers, kEpiStamps, 0);
   if (blockIdx.x > 0) {
     // a thread a pool point: the drop of points left without a good
     // residual, and the compact rows scattered back into the pool
     const int i = (blockIdx.x - 1) * blockDim.x + tid;
-    if (i >= NP) return;
+    if (i >= NP) {
+      warp_stamp(p.epi_timers, kEpiStamps, 1);
+      return;
+    }
     const int r = p.pos[i];
     if (r >= 0) {
       const unsigned char valid = p.c_valid[r];
@@ -436,63 +600,82 @@ __global__ void __launch_bounds__(kKfThreads) ba_epilogue_kernel(const KfParams 
       p.p_last_res_out[2 * i + 1] = p.p_last_res[2 * i + 1];
       p.hdd_out[i] = 0.f;
     }
+    warp_stamp(p.epi_timers, kEpiStamps, 1);
     return;
   }
   // block 0: the newest slot's energy threshold (a linear-interpolated
   // nanquantile of its pairs' energies), the FEJ reset, the frame outputs
-  __shared__ unsigned keys[kSortMax];
+  __shared__ int sCount[2][32];
   __shared__ float sE[16];
   __shared__ float sTh;
   const int B = p.B, nw = p.newest;
-  int n2 = 1;
-  while (n2 < B) n2 <<= 1;
-  for (int r = tid; r < n2; r += blockDim.x) {
+  // this thread's keys (rows tid, tid + 1024, ...; past B a NaN's key)
+  unsigned key[kKeysPerThread];
+  int n_real = 0;
+#pragma unroll
+  for (int j = 0; j < kKeysPerThread; ++j) {
+    const int r = j * kKfThreads + tid;
     unsigned k = 0xffffffffu;
     if (r < B) {
       const size_t pw = static_cast<size_t>(r) * W + nw;
       k = sort_key(p.l_pair_in[pw] ? p.l_pair_energy[pw] : __int_as_float(0x7fc00000));
     }
-    keys[r] = k;
+    key[j] = k;
+    n_real += k != 0xffffffffu;
   }
-  __syncthreads();
-  // bitonic sort, ascending
-  for (int k = 2; k <= n2; k <<= 1)
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < n2; i += blockDim.x) {
-        const int l = i ^ j;
-        if (l > i) {
-          const unsigned a = keys[i], b = keys[l];
-          if (((i & k) == 0) == (a > b)) {
-            keys[i] = b;
-            keys[l] = a;
-          }
-        }
-      }
-      __syncthreads();
+  if (tid == 32) exp4(p.s_delta[2] + 8 * nw, sE);         // the FEJ reset's se3_exp
+  int rnd = 0;
+  const int count = block_count(n_real, sCount, rnd++);     // the non-NaN keys
+  warp_stamp(p.epi_timers, kEpiStamps, 1);
+  float rank = __fmul_rn(p.q, static_cast<float>(count - 1));
+  if (rank < 0.f) rank = 0.f;
+  const int below = static_cast<int>(rank);
+  const int above = static_cast<int>(ceilf(rank));
+  // the key of rank `below` (every key past B and every NaN's sorts last,
+  // and below < count unless there is no finite key: then it is a NaN's),
+  // one bit a round from the top: the keys that share the bits chosen so
+  // far and have this one clear are counted; the rank is among them or
+  // the bit is set
+  unsigned sel = 0;
+  int k_rank = below;
+  for (int bit = 31; bit >= 0; --bit) {
+    const unsigned hi = ~((2u << bit) - 1u);     // the bits above `bit` (none for 31)
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; ++j)
+      c += ((key[j] ^ sel) & hi) == 0u && ((key[j] >> bit) & 1u) == 0u;
+    const int n = block_count(c, sCount, rnd++);
+    if (k_rank >= n) {
+      k_rank -= n;
+      sel |= 1u << bit;
     }
+  }
+  warp_stamp(p.epi_timers, kEpiStamps, 2);
+  // rank `above`: the same key while the keys up to it cover the rank, else
+  // the least key above it
+  unsigned sel_above = sel;
+  if (above != below) {
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; ++j) c += key[j] <= sel;
+    if (block_count(c, sCount, rnd++) <= above) {
+      unsigned m = 0xffffffffu;
+#pragma unroll
+      for (int j = 0; j < kKeysPerThread; ++j) m = key[j] > sel && key[j] < m ? key[j] : m;
+      sel_above = block_min(m, sCount, rnd++);
+    }
+  }
   if (tid == 0) {
-    // the non-NaN count: the first NaN key's position
-    int lo = 0, hi = n2;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (keys[mid] == 0xffffffffu) hi = mid;
-      else lo = mid + 1;
-    }
-    const int count = lo;
-    float rank = __fmul_rn(p.q, static_cast<float>(count - 1));
-    if (rank < 0.f) rank = 0.f;
-    const int below = static_cast<int>(rank);
-    const int above = static_cast<int>(ceilf(rank));
     const float w = rank - static_cast<float>(below);
-    const float nth = aten_lerp(key_value(keys[below]), key_value(keys[above]), w);
+    const float nth = aten_lerp(key_value(sel), key_value(sel_above), w);
     float th = isfinite(nth) ? __fsqrt_rn(nth) : p.fallback;
     th = rn::mul(th, p.fac);
     th = rn::add(rn::mul(th, p.c_keep), p.c_const);
     th = rn::mul(rn::mul(th, th), p.w2);
     sTh = th;
-    exp4(p.s_delta[2] + 8 * nw, sE);
   }
   __syncthreads();
+  warp_stamp(p.epi_timers, kEpiStamps, 3);
   if (tid < 16 * W) {
     const int f = tid >> 4, e = tid & 15;
     p.T_zero_out[tid] = f == nw ? mat4_entry(sE, p.T_zero + 16 * nw, e >> 2, e & 3)
@@ -508,6 +691,7 @@ __global__ void __launch_bounds__(kKfThreads) ba_epilogue_kernel(const KfParams 
     *p.rmse_out = *p.o_rmse;
     *p.ok_out = *p.o_ok;
   }
+  warp_stamp(p.epi_timers, kEpiStamps, 4);
 }
 
 // ---------------------------------------------------------------------------
@@ -516,17 +700,17 @@ __global__ void __launch_bounds__(kKfThreads) ba_epilogue_kernel(const KfParams 
 
 struct MargParams {
   BaParams ba;                   // the state's K9 inputs; buffer 0: the state's, the
-                                 // linearization's and the scratch
-  const unsigned char* flags;    // [NP]: bit 0 marginalize, bit 1 drop
+                                 // linearization's and the scratch; host_pts / host_off:
+                                 // the flagged points grouped by host (the upload)
+  const unsigned char* flags;    // [NP]: bit 0 marginalize, bit 1 drop (the upload)
+  const int* mlist;              // [nm]: the flagged valid points, ascending (the upload)
   const float* Hdd;              // [NP]: the tail's linearization's
   const float* calib_delta;      // [4]: x0's calibration part
-  int points;                    // fold the flagged points into (HM, bM)
+  int nm;                        // flagged valid points (0: no point is folded in)
   int n_slots;
   int slots[kMaxSlots];          // the frames to marginalize, in order
   float marg_w;                  // cfg.ba.marg_weight_fac
-  int* mlist;                    // [NP + 1]: the flagged points, ascending, then their count
-  float* Hsc;                    // [D, D]
-  float* bsc;                    // [D]
+  float* bpart;                  // [D, kMargTileRows]: dH x0 by tile column; then db [D]
   float* HM_out;
   float* bM_out;
   unsigned char* frame_valid_out;
@@ -534,9 +718,26 @@ struct MargParams {
   float* delta_out;
   unsigned char* p_valid_out;
   unsigned char* p_res_good_out;
+  unsigned long long* timers;    // kMargStamps a warp, or null
 };
 
 constexpr int kMargThreads = 512;
+constexpr int kMargStamps = 8;
+constexpr int kMT = 8;                          // a Schur tile's side
+constexpr int kMargTileRows = (kMaxD + kMT - 1) / kMT;
+constexpr int kMGroups = 32;                    // the point groups of a tile (16 threads each)
+constexpr int kMStage = 32;                     // points of a group staged at once
+
+// K18's Schur tile's shared memory: each group's staged points (the tile's
+// row columns scaled by 1 / Hdd, then its column columns), the groups'
+// partials, the tile's Hff and dH
+struct __align__(16) TileSmem {
+  float st[kMGroups][kMStage][2 * kMT];
+  float part[kMGroups][kMT * kMT];
+  float hff[kMT * kMT];
+  float dh[kMT * kMT];
+  int bad_t, h_nan, b_nan;
+};
 
 __device__ __noinline__ void marg_pixel(const BaParams& p, int item, int half, int htid) {
   extern __shared__ float4 dyn4[];
@@ -549,47 +750,243 @@ __device__ __noinline__ void marg_pixel(const BaParams& p, int item, int half, i
   for (int i = htid; i < kHE; i += kLinThreads) dst[i] = sm.out[i];
 }
 
-// Block 0's last phase: HM and bM with the flagged points folded in, then
+// Entry (r, c) of Hff (c >= 0), or r of bf (c < 0), host s's share of it
+// from the reduced (s, t) blocks: finish_block's terms in its order (each
+// target's up to 2 x 2 terms in (t, row index, column index) order, a
+// block of a target with a non-finite block adding the other hosts'
+// blocks times 0)
+__device__ __forceinline__ float hff_share(const BaParams& p, int r, int c, int s,
+                                          unsigned bad_t) {
+  const int W = p.W;
+  float v = 0.f;
+  if (s >= W) return v;
+  for (int t = 0; t < W; ++t) {
+    int r0, r1, c0 = -1, c1 = -1;
+    block_indices(r, s, t, r0, r1);
+    if (c >= 0) block_indices(c, s, t, c0, c1);
+    const float* blk = p.lin_part + (static_cast<size_t>(s) * W + t) * kHE;
+    float q[4];
+    int ents[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int i = m < 2 ? r0 : r1, j = (m & 1) ? c1 : c0;
+      const bool ok = i >= 0 && (c < 0 ? m % 2 == 0 : j >= 0);
+      const int lo = c < 0 ? i : min(i, j), hi = c < 0 ? i : max(i, j);
+      ents[m] = !ok ? -1 : (c < 0 ? kHU + i : lo * 20 - lo * (lo - 1) / 2 + (hi - lo));
+      q[m] = ok ? blk[ents[m]] : 0.f;
+    }
+    if ((bad_t >> t) & 1u) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        if (ents[m] < 0) continue;
+        float z = 0.f;
+        for (int h = 0; h < W; ++h)
+          if (h != s) z += p.lin_part[(static_cast<size_t>(h) * W + t) * kHE + ents[m]] * 0.f;
+        q[m] += z;
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      if (ents[m] >= 0) v += q[m];
+  }
+  return v;
+}
+
+// The Schur unit u of the points stage, by one block: a tile (I, J), I <= J,
+// of the upper triangle of D x D in kMT x kMT entries, or (u past the
+// tiles) the b entries of tile row I. A tile: its Hff entries (eight lanes
+// an entry, a host each, summed in host order as finish_block sums them);
+// its Hsc entries sum_q (Hfd[q, i] / Hdd[q]) Hfd[q, j] over the flagged
+// points, the point list cut into kMGroups contiguous groups (16 threads a
+// group, 2 x 2 entries a thread, each group's points in ascending order
+// through shared memory), the groups' partials summed in group order; then
+// HM + w (Hff - Hsc) into HM_out at (i, j) and (j, i), and dH x0's terms of
+// the tile's rows (and, off the diagonal, of its columns' rows) into bpart.
+// A b unit: w (bf - bsc) of its rows into db.
+__device__ __noinline__ void marg_unit(const MargParams& m, int u, int ntiles) {
+  extern __shared__ float4 dyn4[];
+  TileSmem& sm = *reinterpret_cast<TileSmem*>(dyn4);
+  const BaParams& p = m.ba;
+  const int W = p.W, D = 4 + 8 * W, TR = (D + kMT - 1) / kMT, tid = threadIdx.x;
+  const int lane = tid & 31, nm = m.nm;
+  const float w = m.marg_w;
+  float* db = m.bpart + D * kMargTileRows;
+  int I, J;
+  const bool b_unit = u >= ntiles;
+  if (b_unit) {
+    I = u - ntiles;
+    J = -1;
+  } else {
+    upper_ij(u, TR, I, J);
+  }
+  const int i0 = I * kMT, j0 = J * kMT;
+  if (tid < 32) {
+    // bit t: a block of target t is not finite; any H (b) flag
+    const float* fl = p.lin_part + static_cast<size_t>(W) * W * kHE;
+    const int f_lo = lane < W * W ? static_cast<int>(fl[lane]) : 0;
+    const int f_hi = lane + 32 < W * W ? static_cast<int>(fl[lane + 32]) : 0;
+    const unsigned lo_bad = __ballot_sync(kFull, f_lo != 0);
+    const unsigned hi_bad = __ballot_sync(kFull, f_hi != 0);
+    const bool h_nan = __any_sync(kFull, ((f_lo | f_hi) & kFlagH) != 0);
+    const bool b_nan = __any_sync(kFull, ((f_lo | f_hi) & kFlagB) != 0);
+    if (lane == 0) {
+      unsigned bad_t = 0;
+      for (int i = 0; i < W * W; ++i)
+        if (((i < 32 ? lo_bad >> i : hi_bad >> (i - 32)) & 1u) != 0) bad_t |= 1u << (i % W);
+      sm.bad_t = static_cast<int>(bad_t);
+      sm.h_nan = h_nan;
+      sm.b_nan = b_nan;
+    }
+  }
+  __syncthreads();
+  const unsigned bad_t = static_cast<unsigned>(sm.bad_t);
+  // Hff (bf) of the unit's entries: eight lanes an entry, lane & 7 its host
+  {
+    const int e = tid >> 3, s = tid & 7;
+    const int ei = e >> 3, ej = e & 7;
+    const int r = i0 + ei, c = b_unit ? -1 : j0 + ej;
+    const bool live = r < D && (b_unit ? ej == 0 : c < D);
+    const float v = live ? hff_share(p, r, c, s, bad_t) : 0.f;
+    float tot = 0.f;
+#pragma unroll
+    for (int ss = 0; ss < kMaxSlots; ++ss) tot += __shfl_sync(kFull, v, (lane & ~7) + ss);
+    if (s == 0) sm.hff[e] = (b_unit ? sm.b_nan : sm.h_nan) ? qnan() : tot;
+  }
+  // the Schur sums: group g takes the points [g nm / G, (g + 1) nm / G)
+  const int g = tid >> 4, gt = tid & 15;
+  const int q_lo = static_cast<int>(static_cast<long long>(g) * nm / kMGroups);
+  const int q_hi = static_cast<int>(static_cast<long long>(g + 1) * nm / kMGroups);
+  const int per_max = (nm + kMGroups - 1) / kMGroups;
+  const int ti = gt >> 2, tj = gt & 3;          // rows 2 ti, 2 ti + 1; columns 2 tj, 2 tj + 1
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  for (int b0 = 0; b0 < per_max; b0 += kMStage) {
+    // stage each group's next kMStage points: a thread a (group, point,
+    // half of 8 floats): a tile's rows' columns over Hdd, then its columns'
+    // columns; a b unit's rows' columns, then bd / Hdd in column 0
+    for (int x = tid; x < kMGroups * kMStage * 2; x += kMargThreads) {
+      const int gg = x / (kMStage * 2), k = (x >> 1) % kMStage, hf = x & 1;
+      const int ql = static_cast<int>(static_cast<long long>(gg) * nm / kMGroups) + b0 + k;
+      const int qh = static_cast<int>(static_cast<long long>(gg + 1) * nm / kMGroups);
+      float vals[kMT];
+#pragma unroll
+      for (int z = 0; z < kMT; ++z) vals[z] = 0.f;
+      if (ql < qh) {
+        const int pt = m.mlist[ql];
+        const float h = m.Hdd[pt];
+        const float inv = h > 1e-10f ? 1.f / h : 0.f;
+        const float* row = p.Hfd[0] + static_cast<size_t>(pt) * D;
+        if (hf == 0) {
+#pragma unroll
+          for (int z = 0; z < kMT; ++z)
+            vals[z] = i0 + z >= D ? 0.f : (b_unit ? row[i0 + z] : row[i0 + z] * inv);
+        } else if (!b_unit) {
+#pragma unroll
+          for (int z = 0; z < kMT; ++z) vals[z] = j0 + z < D ? row[j0 + z] : 0.f;
+        } else {
+          vals[0] = inv * p.bd[0][pt];
+        }
+      }
+      float4* dst = reinterpret_cast<float4*>(&sm.st[gg][k][hf * kMT]);
+      dst[0] = make_float4(vals[0], vals[1], vals[2], vals[3]);
+      dst[1] = make_float4(vals[4], vals[5], vals[6], vals[7]);
+    }
+    __syncthreads();
+    const int n = min(kMStage, q_hi - q_lo - b0);
+    for (int k = 0; k < n; ++k) {
+      const float2 a = *reinterpret_cast<const float2*>(&sm.st[g][k][2 * ti]);
+      const float2 c = *reinterpret_cast<const float2*>(&sm.st[g][k][kMT + 2 * tj]);
+      acc[0][0] += a.x * c.x;
+      acc[0][1] += a.x * c.y;
+      acc[1][0] += a.y * c.x;
+      acc[1][1] += a.y * c.y;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int y = 0; y < 2; ++y) sm.part[g][(2 * ti + x) * kMT + 2 * tj + y] = acc[x][y];
+  __syncthreads();
+  if (tid < kMT * kMT) {
+    float v = 0.f;
+    for (int gg = 0; gg < kMGroups; ++gg) v += sm.part[gg][tid];
+    const int ei = tid >> 3, ej = tid & 7, r = i0 + ei;
+    if (b_unit) {
+      // the b unit's column 0: bsc; db = w (bf - bsc)
+      if (ej == 0 && r < D) db[r] = w * (sm.hff[tid] - v);
+    } else {
+      sm.dh[tid] = w * (sm.hff[tid] - v);
+    }
+  }
+  __syncthreads();
+  if (b_unit) return;
+  if (tid < kMT * kMT) {
+    // the upper triangle's entries (the diagonal tile's lower ones mirror them)
+    const int ei = tid >> 3, ej = tid & 7, r = i0 + ei, c = j0 + ej;
+    if (r < D && c < D && (I < J || ei <= ej)) {
+      const float d = sm.dh[tid];
+      m.HM_out[r * D + c] = p.HM[r * D + c] + d;
+      if (r != c) m.HM_out[c * D + r] = p.HM[c * D + r] + d;
+    }
+  } else if (tid < kMT * kMT + 2 * kMT) {
+    // dH x0 by tile: the tile's rows over its columns, and (off the
+    // diagonal) its columns' rows over its rows, each in index order
+    const int k = tid - kMT * kMT, col = k >= kMT, z = k & (kMT - 1);
+    if (!col || I < J) {
+      const int r = (col ? j0 : i0) + z, cb = col ? i0 : j0;
+      if (r < D) {
+        float v = 0.f;
+        for (int y = 0; y < kMT && cb + y < D; ++y) {
+          const int c = cb + y;
+          const int ei = col ? y : z, ej = col ? z : y;
+          const float d = (I < J || ei <= ej) ? sm.dh[ei * kMT + ej] : sm.dh[ej * kMT + ei];
+          v += d * (c < 4 ? m.calib_delta[c] : p.delta[0][c - 4]);
+        }
+        m.bpart[r * kMargTileRows + (col ? I : J)] = v;
+      }
+    }
+  }
+  __syncthreads();                       // the shared memory is the next unit's
+}
+
+// Block 0's last phase: bM with the flagged points folded in (points), then
 // each flagged frame marginalized in order (models/ba.py's
-// marginalize_frame), in shared memory.
+// marginalize_frame), in shared memory, from HM_out (the points stage's
+// prior) or HM (no point folded in).
 __device__ __noinline__ void marg_frames(const MargParams& m) {
   extern __shared__ float4 dyn4[];
   const BaParams& p = m.ba;
-  const int W = p.W, D = 4 + 8 * W, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int W = p.W, D = 4 + 8 * W, TR = (D + kMT - 1) / kMT, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const bool points = m.nm > 0;
   float* sH = reinterpret_cast<float*>(dyn4);      // [D * D]
   float* sAb = sH + kMaxD * kMaxD;                 // [D, 8]: Hab
   float* sK = sAb + kMaxD * 8;                     // [D, 8]: Hab @ inv(Hbb)
   float* sB = sK + kMaxD * 8;                      // [D]
-  float* sX = sB + kMaxD;                          // [D]: x0
-  float* sInv = sX + kMaxD;                        // [8, 8]
+  float* sInv = sB + kMaxD;                        // [8, 8]
   float* sY = sInv + 64;                           // [8]
   __shared__ int sValid[kMaxSlots], sId[kMaxSlots];
-  for (int e = tid; e < D * D; e += blockDim.x) {
-    float h = p.HM[e];
-    if (m.points) h = h + m.marg_w * (p.Hff[0][e] - m.Hsc[e]);
-    sH[e] = h;
+  // bM + db - dH x0 (dH x0: its tiles' terms in tile order)
+  for (int i = tid; i < D; i += blockDim.x) {
+    float b = p.bM[i];
+    if (points) {
+      float s = 0.f;
+      for (int J = 0; J < TR; ++J) s += m.bpart[i * kMargTileRows + J];
+      b = (b + m.bpart[D * kMargTileRows + i]) - s;
+    }
+    sB[i] = b;
   }
-  for (int d = tid; d < D; d += blockDim.x) sX[d] = d < 4 ? m.calib_delta[d] : p.delta[0][d - 4];
+  if (m.n_slots == 0) {
+    for (int i = tid; i < D; i += blockDim.x) m.bM_out[i] = sB[i];
+    if (!points)
+      for (int e = tid; e < D * D; e += blockDim.x) m.HM_out[e] = p.HM[e];
+    return;
+  }
+  const float* H0 = points ? m.HM_out : p.HM;
+  for (int e = tid; e < D * D; e += blockDim.x) sH[e] = H0[e];
   if (tid < W) {
     sValid[tid] = p.frame_valid[tid];
     sId[tid] = p.frame_id[tid];
-  }
-  __syncthreads();
-  // bM + db - dH x0, a warp a row (dH's row summed in lane order, then a
-  // shuffle tree)
-  for (int i = warp; i < D; i += nwarps) {
-    float s = 0.f;
-    if (m.points)
-      for (int j = lane; j < D; j += 32)
-        s += m.marg_w * (p.Hff[0][i * D + j] - m.Hsc[i * D + j]) * sX[j];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-    if (lane == 0) {
-      float b = p.bM[i];
-      if (m.points) b = (b + m.marg_w * (p.bf[0][i] - m.bsc[i])) - s;
-      sB[i] = b;
-    }
   }
   __syncthreads();
   for (int q = 0; q < m.n_slots; ++q) {
@@ -699,10 +1096,15 @@ __device__ __noinline__ void marg_frames(const MargParams& m) {
   for (int d = tid; d < D; d += blockDim.x) m.bM_out[d] = sB[d];
 }
 
+// One cooperative launch; every phase spread over the grid, no block
+// working while the others wait at a barrier: (1) the bookkeeping, K9's
+// pixel pass over the (chunk, target) items of the hosts with flagged
+// points only (the others' reduced blocks are zero: written as zeros);
+// (2) their reduced blocks (the chunks in rank order) and each flagged
+// point's Hfd row, Hdd and bd; (3) the Schur units (marg_unit); (4) block
+// 0: bM and the frames. Without points: block 0's frames alone.
 __global__ void __launch_bounds__(kMargThreads, 1) marg_kernel(const __grid_constant__ MargParams m) {
   extern __shared__ float4 smem4[];
-  __shared__ unsigned long long shl[32];
-  __shared__ int shi[32];
   const BaParams& p = m.ba;
   cg::grid_group grid = cg::this_grid();
   const int W = p.W, NP = p.NP, D = 4 + 8 * W, tid = threadIdx.x;
@@ -712,6 +1114,8 @@ __global__ void __launch_bounds__(kMargThreads, 1) marg_kernel(const __grid_cons
   const long long gthreads = static_cast<long long>(nblk) * blockDim.x;
   unsigned slot_bits = 0;
   for (int q = 0; q < m.n_slots; ++q) slot_bits |= 1u << m.slots[q];
+  auto mark = [&](int i) { warp_stamp(m.timers, kMargStamps, i); };
+  mark(0);
 
   // the outputs that need no sums: validity, the slots' bookkeeping
   for (long long i = gtid; i < NP; i += gthreads) {
@@ -734,32 +1138,43 @@ __global__ void __launch_bounds__(kMargThreads, 1) marg_kernel(const __grid_cons
     m.delta_out[gtid] = ((slot_bits >> f) & 1u) ? 0.f : p.delta[0][gtid];
   }
 
-  if (m.points) {
-    // the flagged points: ascending (the Schur sums' order) and grouped by
-    // host (the pixel pass's lists), by block 0
-    auto flagged = [&](int i) { return (m.flags[i] & 1) && p.p_valid[i]; };
-    if (blockIdx.x == 0) {
-      const int T = blockDim.x, per = (NP + T - 1) / T;
-      const int lo = min(tid * per, NP), hi = min(lo + per, NP);
-      int cnt = 0;
-      for (int i = lo; i < hi; ++i) cnt += flagged(i);
-      int total;
-      int at = block_exclusive_scan(cnt, shi, total);
-      for (int i = lo; i < hi; ++i)
-        if (flagged(i)) m.mlist[at++] = i;
-      if (tid == 0) m.mlist[NP] = total;
-      group_by_host(
-          NP, W, flagged, [&](int i) { return static_cast<int>(p.p_host[i]); },
-          const_cast<int*>(p.host_pts), const_cast<int*>(p.host_off), shl);
+  if (m.nm > 0) {
+    // the hosts with flagged points, in order
+    unsigned hosts = 0;
+    int nh = 0;
+    for (int s = 0; s < W; ++s)
+      if (p.host_off[s + 1] > p.host_off[s]) {
+        hosts |= 1u << s;
+        ++nh;
+      }
+    auto nth_host = [&](int j) {
+      int s = 0;
+      for (unsigned b = hosts; b; b &= b - 1, --j)
+        if (j == 0) {
+          s = __ffs(b) - 1;
+          break;
+        }
+      return s;
+    };
+    // (1) K9's pixel pass: the (chunk, target) items of those hosts on the
+    // blocks' halves; zeros for the other hosts' reduced blocks
+    const int items = nh * kChunks * W;
+    for (int k = 2 * blockIdx.x + half; k < items; k += 2 * nblk) {
+      const int s = nth_host(k / (kChunks * W));
+      marg_pixel(p, s * kChunks * W + k % (kChunks * W), half, htid);
     }
+    for (long long e = gtid; e < static_cast<long long>(W) * W * (kHE + 1); e += gthreads) {
+      const bool flag = e >= static_cast<long long>(W) * W * kHE;
+      const int st_ = static_cast<int>(flag ? e - static_cast<long long>(W) * W * kHE : e / kHE);
+      if (!((hosts >> (st_ / W)) & 1u)) p.lin_part[e] = 0.f;
+    }
+    mark(1);
     grid.sync();
-    // K9's pixel pass over them: (chunk, target, host) items on the halves
-    const int items = kChunks * W * W;
-    for (int k = 2 * blockIdx.x + half; k < items; k += 2 * nblk) marg_pixel(p, k, half, htid);
-    grid.sync();
-    // the chunks in rank order into the (s, t) blocks, and each flagged
-    // point's Hfd row, Hdd and bd
-    for (int st_ = blockIdx.x; st_ < W * W; st_ += nblk) {
+    mark(2);
+    // (2) the chunks in rank order into those hosts' (s, t) blocks, and
+    // each flagged point's Hfd row, Hdd and bd
+    for (int k = blockIdx.x; k < nh * W; k += nblk) {
+      const int st_ = nth_host(k / W) * W + k % W;
       const float* part = p.chunk_part + static_cast<size_t>(st_) * kChunks * kHE;
       int hbad = 0, bbad = 0;
       if (tid < kHE) {
@@ -773,61 +1188,34 @@ __global__ void __launch_bounds__(kMargThreads, 1) marg_kernel(const __grid_cons
       if (tid == 0) p.lin_part[static_cast<size_t>(W) * W * kHE + st_] = block_flag(hbad, bbad);
     }
     float (*sG)[kMaxSlots * kG] = reinterpret_cast<float (*)[kMaxSlots * kG]>(smem4);
-    const int nm = m.mlist[NP];
-    for (int q = blockIdx.x * (blockDim.x >> 5) + warp; q < nm;
+    for (int q = blockIdx.x * (blockDim.x >> 5) + warp; q < m.nm;
          q += nblk * (blockDim.x >> 5))
       point_row(p, 0, m.mlist[q], lane, sG[warp]);
+    mark(3);
     grid.sync();
-    // Hff and bf from the reduced blocks; the Schur sums over the flagged
-    // points in ascending order, a thread an entry of the upper triangle
-    // or of b
-    const int U = D * (D + 1) / 2;
-    const int sum_blocks = ((U + D + 1) * kMaxSlots + kFinThreads - 1) / kFinThreads;
-    for (int vb = 2 * blockIdx.x + half; vb < sum_blocks; vb += 2 * nblk)
-      finish_block(p, 0, vb, sum_blocks, htid, sG + half * (kFinThreads / 32), nullptr);
-    // 16 lanes an entry, lane l summing the points l, l + 16, ..., then a
-    // fixed shuffle tree; a warp takes two entries a round
-    const int sub = lane & 15;
-    const long long gwarps = gthreads >> 5;
-    for (long long base = 2 * (gtid >> 5); base < U + D; base += 2 * gwarps) {
-      const long long e = base + (lane >> 4);
-      const bool live = e < U + D;
-      int i = 0, j = 0;
-      if (live && e < U) upper_ij_fast(static_cast<int>(e), D, i, j);
-      else if (live) i = static_cast<int>(e - U);
-      float v = 0.f;
-      if (live) {
-#pragma unroll 4
-        for (int q = sub; q < nm; q += 16) {
-          const int pt = m.mlist[q];
-          const float h = m.Hdd[pt];
-          const float inv = h > 1e-10f ? 1.f / h : 0.f;
-          const float* row = p.Hfd[0] + static_cast<size_t>(pt) * D;
-          v += e < U ? (row[i] * inv) * row[j] : row[i] * (inv * p.bd[0][pt]);
-        }
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-      if (live && sub == 0) {
-        if (e < U) {
-          m.Hsc[i * D + j] = v;
-          m.Hsc[j * D + i] = v;
-        } else {
-          m.bsc[i] = v;
-        }
-      }
-    }
+    mark(4);
+    // (3) the Schur units
+    const int TR = (D + kMT - 1) / kMT, ntiles = TR * (TR + 1) / 2;
+    for (int u = blockIdx.x; u < ntiles + TR; u += nblk) marg_unit(m, u, ntiles);
+    mark(5);
     grid.sync();
+    mark(6);
+  } else {
+    for (int i = 1; i < 7; ++i) mark(i);
   }
+  // (4) bM and the frames
   if (blockIdx.x == 0) marg_frames(m);
+  mark(7);
 }
 
 size_t marg_smem() {
   const size_t pix = 2 * sizeof(PixSmem);
   const size_t fin = sizeof(float) * (kMargThreads / 32) * kMaxSlots * kG;
-  const size_t frames = sizeof(float) * (kMaxD * kMaxD + 2 * kMaxD * 8 + 2 * kMaxD + 64 + 8);
+  const size_t tile = sizeof(TileSmem);
+  const size_t frames = sizeof(float) * (kMaxD * kMaxD + 2 * kMaxD * 8 + kMaxD + 64 + 8);
   size_t s = pix;
   if (fin > s) s = fin;
+  if (tile > s) s = tile;
   if (frames > s) s = frames;
   return s;
 }
@@ -844,15 +1232,16 @@ DSSLAM_API int dsslam_window_pose(const PoseParams* p, cudaStream_t stream) {
 
 // K17: the compact view and its host groups before the resident launch ...
 DSSLAM_API int dsslam_ba_prologue(const KfParams* p, cudaStream_t stream) {
-  if (p->W < 1 || p->W > kMaxSlots || p->B < 1 || p->B > p->NP || p->B >= 65536)
+  // NP < 65536: each block's kProRounds rounds and 16-bit counters
+  if (p->W < 1 || p->W > kMaxSlots || p->B < 1 || p->B > p->NP || p->NP >= 65536)
     return cudaErrorInvalidValue;
-  ba_prologue_kernel<<<1, kKfThreads, 0, stream>>>(*p);
+  ba_prologue_kernel<<<kProBlocks, kKfThreads, 0, stream>>>(*p);
   return cudaGetLastError();
 }
 
 // ... and the threshold, the FEJ reset, the drop and the scatter after it.
 DSSLAM_API int dsslam_ba_epilogue(const KfParams* p, cudaStream_t stream) {
-  if (p->W < 1 || p->W > kMaxSlots || p->B > kSortMax || p->newest < 0 || p->newest >= p->W)
+  if (p->W < 1 || p->W > kMaxSlots || p->B > kSelectMax || p->newest < 0 || p->newest >= p->W)
     return cudaErrorInvalidValue;
   const int blocks = 1 + (p->NP + kKfThreads - 1) / kKfThreads;
   ba_epilogue_kernel<<<blocks, kKfThreads, 0, stream>>>(*p);
@@ -863,15 +1252,24 @@ DSSLAM_API int dsslam_ba_epilogue(const KfParams* p, cudaStream_t stream) {
 // cooperative launch of `grid` blocks (at most one an SM).
 DSSLAM_API int dsslam_marginalize(const MargParams* m, int grid, cudaStream_t stream) {
   if (m->ba.W < 1 || m->ba.W > kMaxSlots || m->ba.NP < 1 || m->ba.NP >= 65536 ||
-      m->n_slots < 0 || m->n_slots > kMaxSlots || grid < 1)
+      m->n_slots < 0 || m->n_slots > kMaxSlots || m->nm < 0 || m->nm > m->ba.NP || grid < 1)
     return cudaErrorInvalidValue;
   const size_t smem = marg_smem();
-  cudaError_t err = cudaFuncSetAttribute(marg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  static std::atomic<unsigned long long> sized{0};   // bit d: the attribute set on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!((sized.load() >> dev) & 1ull)) {
+    err = cudaFuncSetAttribute(marg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    sized.fetch_or(1ull << dev);
+  }
   void* args[] = {const_cast<MargParams*>(m)};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(marg_kernel), dim3(grid),
-                                    dim3(kMargThreads), args, smem, stream);
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(marg_kernel), dim3(grid), dim3(kMargThreads), args, smem,
+      stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

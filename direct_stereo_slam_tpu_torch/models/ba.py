@@ -751,16 +751,19 @@ def marginalize_plain(state: BAState, lin: Linearization, marg: np.ndarray,
 
 
 def marginalize(state: BAState, lin: Linearization, marg: np.ndarray, drop: np.ndarray,
-                slots, cfg: SLAMConfig) -> BAState:
+                slots, cfg: SLAMConfig, views) -> BAState:
     """The keyframe tail's marginalization, given the host masks of the
     points to fold into the prior (``marg``) and to drop (``drop``), the
-    frames to marginalize in order (``slots``) and the linearization the
-    points are folded with: K18, one launch, on the card (the masks go up
-    in one copy); ``marginalize_plain`` for a CPU state."""
+    frames to marginalize in order (``slots``), the linearization the
+    points are folded with and ``views``: host copies (p_valid, p_host) of
+    the state's validity and hosts, as the front end's bundle holds them.
+    K18, one launch, on the card (its flags and the flagged points' lists,
+    built on the host from ``views``, go up in one copy);
+    ``marginalize_plain`` for a CPU state."""
     if not state.images.is_cuda:
         return marginalize_plain(state, lin, marg, drop, slots, cfg)
-    flags = to_device(win.pack_flags(marg, drop), state.images.device)
-    return win.marginalize_cuda(state, lin.Hdd, flags, bool(np.any(marg)), list(slots), cfg)
+    lists = win.marg_lists(marg, drop, views[0], views[1], state.num_slots)
+    return win.marginalize_cuda(state, lin.Hdd, lists, list(slots), cfg)
 
 
 # ---------------------------------------------------------------------------

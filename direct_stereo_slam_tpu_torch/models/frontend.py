@@ -1169,7 +1169,8 @@ class FrontEnd:
             # in order (K18, one launch on the card). What follows reads the
             # host bundle only, never the state it writes.
             if marg.any() or drop.any() or flagged:
-                self.ba_state = ba.marginalize(self.ba_state, lin, marg, drop, flagged, cfg)
+                self.ba_state = ba.marginalize(self.ba_state, lin, marg, drop, flagged, cfg,
+                                               (p_valid, p_host))
 
         self.pot = adapt_potential(self.pot, got, cfg.ba.desired_immature_density)
 

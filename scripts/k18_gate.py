@@ -32,7 +32,7 @@ from direct_stereo_slam_tpu_torch.runtime.node import SLAMNode  # noqa: E402
 
 
 def report(tag, st, lin, marg, drop, slots, cfg):
-    got = ba.marginalize(st, lin, marg, drop, slots, cfg)
+    got = ba.marginalize(st, lin, marg, drop, slots, cfg, T._views(st))
     want = ba.marginalize_plain(st, lin, marg, drop, slots, cfg)
     points, frames = T._k18_errors(st, lin, marg, drop, slots, cfg, got, want)
     out = dict(tag=tag, slots=list(slots), n=int(np.asarray(marg).sum()), points=points,
@@ -41,7 +41,7 @@ def report(tag, st, lin, marg, drop, slots, cfg):
     if np.asarray(marg).any():
         short = np.array(marg, bool)
         short[T._last_live(st, short)] = False
-        gp = ba.marginalize(st, lin, short, drop, [], cfg)
+        gp = ba.marginalize(st, lin, short, drop, [], cfg, T._views(st))
         wp = ba.marginalize_plain(st, lin, marg, drop, [], cfg)
         out["fault"] = {n: T._change_err(getattr(gp, n), getattr(wp, n), getattr(st, n))
                         for n in ("HM", "bM")}

@@ -9,8 +9,9 @@ their plain versions on the same card tensors:
   resident launch (the stable sort, ``host_groups``, ``torch.nanquantile``
   and the indexed scatter): every field of the state, rmse, ok, Hdd and
   the overflow count, at 2, 4 and 8 slots, compact and full-pool, a
-  shuffled pool, a NaN pose, an overflowing budget and each slot as the
-  newest;
+  shuffled pool, a NaN pose, an overflowing budget, each slot as the
+  newest, equal energies, no pair in toward the newest slot, B = 1, B =
+  NP and B past 8192;
 - K18 (``marginalize_cuda``) against ``marginalize_plain``: validity, ids,
   residual flags and deltas bit-equal (their order is fixed); the points
   stage alone (no frame): HM and bM within 1e-5 of the largest entry of
@@ -22,9 +23,13 @@ their plain versions on the same card tensors:
   1e8 prior, or one the points leave nearly singular, is ill-conditioned);
   a frame-only marginalization of the anchor against float64 (twice the
   plain version's error plus 1e-7 of the largest entry); an empty point
-  mask; several frames in one launch;
+  mask; several frames in one launch; flagged points on one host, on
+  every host and on none, the anchor's frame with points, each on grids
+  of 1, 8 and 132 blocks with the same bits;
 - two runs of each give the same bits, with no host read (under
-  ``torch.cuda.set_sync_debug_mode("error")``), and each is one launch.
+  ``torch.cuda.set_sync_debug_mode("error")``), and each is one launch;
+  K18's calls queued behind a busy card, as many as its staging buffers,
+  wait for no event.
 
 They need a CUDA card and skip elsewhere; they import nothing of JAX:
 
@@ -87,7 +92,7 @@ def test_window_pose_bit_equal(dev, W, nan):
             _same(a, b, name)
 
 
-def _window(dev, W=4, NP=256, shuffle=False, nan=False):
+def _window(dev, W=4, NP=256, shuffle=False, nan=False, case="plain"):
     st, cfg = ba_window(W, NP, n_frames=min(W, 5 if W > 4 else 3), per=min(48, NP // W),
                         device=dev)
     if shuffle:
@@ -95,6 +100,19 @@ def _window(dev, W=4, NP=256, shuffle=False, nan=False):
         st = st._replace(**{f: getattr(st, f)[perm] for f in ba._POINT_FIELDS})
     if nan:
         st = with_nan_pose(st)
+    if case == "ties":
+        # one gray level, one colour, one weight: the pairs in bounds have
+        # equal energies
+        st = st._replace(images=torch.full_like(st.images, 0.5),
+                         p_color=torch.full_like(st.p_color, 0.25),
+                         p_weight=torch.ones_like(st.p_weight))
+    elif case == "no_pair":
+        # no good residual toward the newest slot: no pair is in, the
+        # threshold falls back
+        newest = min(W, 5 if W > 4 else 3) - 1
+        rg = st.p_res_good.clone()
+        rg[:, newest] = False
+        st = st._replace(p_res_good=rg)
     return st, cfg
 
 
@@ -109,9 +127,15 @@ def _same_keyframe(got, want):
 @pytest.mark.parametrize("W,NP,budget,case", [
     (2, 128, None, "plain"), (4, 256, 160, "plain"), (4, 256, None, "plain"),
     (8, 512, 300, "shuffled"), (4, 256, 160, "nan_pose"), (4, 256, 100, "overflow"),
-    (8, 4096, 2560, "plain")])
+    (8, 4096, 2560, "plain"), (4, 256, 160, "ties"), (4, 256, 160, "no_pair"),
+    (4, 256, 1, "plain"), (8, 4096, None, "plain"), (8, 12288, None, "plain"),
+    (8, 12288, 9000, "shuffled")])
 def test_keyframe_bit_equal(dev, W, NP, budget, case):
-    st, cfg = _window(dev, W, NP, shuffle=case == "shuffled", nan=case == "nan_pose")
+    """B = NP, B = 1 and B past the 8192 keys a sort held in shared
+    memory; equal energies; NaN energies (a NaN pose); no pair in toward
+    the newest slot (the fallback)."""
+    st, cfg = _window(dev, W, NP, shuffle=case == "shuffled", nan=case == "nan_pose",
+                      case=case)
     newest = min(W, 5 if W > 4 else 3) - 1
     for slot in sorted({newest, 0}):
         got = ba.optimize_keyframe(st, cfg, 6, slot, budget)
@@ -157,6 +181,12 @@ def _marg_window(dev, W, points):
     return st, cfg, marg, drop, ba.linearize(st, cfg)
 
 
+def _views(st):
+    """Host copies of the state's validity and hosts (the front end's
+    bundle holds them)."""
+    return st.p_valid.cpu().numpy(), st.p_host.cpu().numpy()
+
+
 def _frames64(state, slots):
     """marginalize_frame of each slot in order on ``state``'s HM and bM, in
     float64 (the anchor of each step from the frames still valid)."""
@@ -177,7 +207,7 @@ def _k18_errors(st, lin, marg, drop, slots, cfg, got, want):
     block with the anchor's 1e8 prior, or one the points leave nearly
     singular, is ill-conditioned: f32 inverses differ there, so each is
     held to float64, as K6 is)."""
-    got_p = ba.marginalize(st, lin, marg, drop, [], cfg)
+    got_p = ba.marginalize(st, lin, marg, drop, [], cfg, _views(st))
     want_p = ba.marginalize_plain(st, lin, marg, drop, [], cfg)
     points = {n: _change_err(getattr(got_p, n), getattr(want_p, n), getattr(st, n))
               for n in ("HM", "bM")}
@@ -199,7 +229,7 @@ def _frames_ok(e_k, e_p, scale):
 @pytest.mark.parametrize("W,slots,points", MARG_CASES)
 def test_marginalize_matches_plain(dev, W, slots, points):
     st, cfg, marg, drop, lin = _marg_window(dev, W, points)
-    got = ba.marginalize(st, lin, marg, drop, slots, cfg)
+    got = ba.marginalize(st, lin, marg, drop, slots, cfg, _views(st))
     want = ba.marginalize_plain(st, lin, marg, drop, slots, cfg)
     for name in ("p_valid", "frame_valid", "frame_id", "p_res_good", "delta"):
         _same(getattr(got, name), getattr(want, name), name)
@@ -229,11 +259,52 @@ def test_marginalize_gate_sees_a_skipped_point(dev, W):
     st, cfg, marg, drop, lin = _marg_window(dev, W, True)
     short = marg.copy()
     short[_last_live(st, marg)] = False
-    got_p = ba.marginalize(st, lin, short, drop, [], cfg)
+    got_p = ba.marginalize(st, lin, short, drop, [], cfg, _views(st))
     want_p = ba.marginalize_plain(st, lin, marg, drop, [], cfg)
     errs = [_change_err(getattr(got_p, n), getattr(want_p, n), getattr(st, n))
             for n in ("HM", "bM")]
     assert max(errs) > K18_TOL, errs
+
+
+def _host_case(st, case):
+    """(marg, drop, slots) of a K18 case: flagged points on one host, on
+    every valid frame's host, on none (a frame alone), or the anchor's
+    frame marginalized with points."""
+    marg, drop = _marg_case(st, 5)
+    host = st.p_host.cpu().numpy()
+    anchor = int(ba.anchor_slot(st))
+    if case == "one_host":
+        marg &= host == 1
+        return marg, drop, [1]
+    if case == "all_hosts":
+        for h in range(int(st.frame_valid.sum())):
+            assert (marg & (host == h)).any()
+        return marg, drop, [2]
+    if case == "none":
+        marg[:] = False
+        return marg, drop, [1]
+    return marg, drop, [anchor]
+
+
+@pytest.mark.parametrize("case", ["one_host", "all_hosts", "none", "anchor"])
+def test_marginalize_hosts_and_grids(dev, case):
+    """K18 on grids of 1, 8 and 132 blocks gives the same bits (every sum
+    in an order of its own, not the grid's), and each held to the plain
+    version as above."""
+    st, cfg, _, _, lin = _marg_window(dev, 4, True)
+    marg, drop, slots = _host_case(st, case)
+    lists = win.marg_lists(marg, drop, *_views(st), st.num_slots)
+    runs = [win.marginalize_cuda(st, lin.Hdd, lists, slots, cfg, grid=g) for g in (1, 8, 132)]
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            _same(a, b)
+    want = ba.marginalize_plain(st, lin, marg, drop, slots, cfg)
+    got = runs[0]
+    for name in ("p_valid", "frame_valid", "frame_id", "p_res_good", "delta"):
+        _same(getattr(got, name), getattr(want, name), name)
+    points_err, frames_err = _k18_errors(st, lin, marg, drop, slots, cfg, got, want)
+    assert all(e <= K18_TOL for e in points_err.values()), points_err
+    assert all(_frames_ok(*e) for e in frames_err.values()), frames_err
 
 
 def _frame_marg64(HM, bM, slot, anchor):
@@ -259,7 +330,7 @@ def test_anchor_inverse_against_float64(dev):
     st = ba.marginalize_points(st, torch.as_tensor(_marg_case(st, 1)[0], device=dev), cfg, lin)
     none = np.zeros(st.num_points, bool)
     anchor = int(ba.anchor_slot(st))
-    got = ba.marginalize(st, lin, none, none, [anchor], cfg)
+    got = ba.marginalize(st, lin, none, none, [anchor], cfg, _views(st))
     want = ba.marginalize_plain(st, lin, none, none, [anchor], cfg)
     H64, b64 = _frame_marg64(st.HM, st.bM, anchor, True)
     for name, ref in (("HM", H64), ("bM", b64)):
@@ -276,7 +347,10 @@ def test_two_runs_same_bits_no_host_read(dev):
     runs = []
     counters = (win.window_pose_cuda, win.ba_prologue_cuda, win.ba_epilogue_cuda,
                 win.marginalize_cuda)
-    ba.marginalize(ba.optimize_keyframe(st, cfg, 6, 2, 160)[0], lin, marg, drop, [0], cfg)
+    kf0 = ba.optimize_keyframe(st, cfg, 6, 2, 160)[0]
+    # the host copies of the validity and hosts the front end's bundle holds
+    views = _views(kf0)
+    ba.marginalize(kf0, lin, marg, drop, [0], cfg, views)
     for _ in range(2):                     # (the buffers built above)
         torch.cuda.synchronize()
         before = [fn.launches for fn in counters]
@@ -284,10 +358,40 @@ def test_two_runs_same_bits_no_host_read(dev):
         try:
             pose = win.window_pose(st, 2)
             kf = ba.optimize_keyframe(st, cfg, 6, 2, 160)
-            mg = ba.marginalize(kf[0], lin, marg, drop, [0], cfg)
+            mg = ba.marginalize(kf[0], lin, marg, drop, [0], cfg, views)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 1, 1, 1]
         runs.append(list(pose) + list(kf[0]) + list(kf[1:]) + list(mg))
     for a, b in zip(runs[0], runs[1]):
         _same(a, b)
+
+
+def test_marginalize_queues_without_waiting(dev):
+    """K18 calls queued behind a busy card (several in flight, as a timing
+    loop issues them) wait for no event and read nothing back: each takes
+    the next of its key's staging buffers, and all give the same bits."""
+    st, cfg, marg, drop, lin = _marg_window(dev, 4, True)
+    views = _views(st)
+    ba.marginalize(st, lin, marg, drop, [1], cfg, views)      # the key's buffers
+    torch.cuda.synchronize()
+    waits = [0]
+    event_sync = torch.cuda.Event.synchronize
+
+    def counted(ev):
+        waits[0] += 1
+        return event_sync(ev)
+
+    torch.cuda.Event.synchronize = counted
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(50_000_000)
+        runs = [ba.marginalize(st, lin, marg, drop, [1], cfg, views)
+                for _ in range(win._RING)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.Event.synchronize = event_sync
+    assert waits[0] == 0
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            _same(a, b)

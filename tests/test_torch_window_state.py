@@ -22,12 +22,15 @@ the CPU runs, against the JAX package at 96x48 on the window of
   frame marginalized) on the anchor slot and on another slot: HM and bM
   within 2e-3 x max|entry| (the anchor's 1e8 prior makes its 8x8 block
   ill-conditioned: f32 inverses differ there), validity, ids, residual
-  flags and deltas equal; an empty point mask leaves HM and bM untouched.
+  flags and deltas equal; an empty point mask leaves HM and bM untouched;
+  a mask that also flags invalid points folds in only the valid ones (the
+  host lists' points, as the JAX package's ``marg & p_valid``).
 - On the CPU none of the three kernels is launched, and the ctypes
   structs are the C source's, field for field.
 """
 
 import re
+import types
 from pathlib import Path
 
 import jax
@@ -156,6 +159,12 @@ def test_energy_threshold_and_fej_reset_match_jax(cfg, window):
         np.testing.assert_array_equal(got.delta.numpy(), np.asarray(want.delta))
 
 
+def _views(st):
+    """Host copies of the state's validity and hosts (the front end's
+    bundle holds them)."""
+    return st.p_valid.cpu().numpy(), st.p_host.cpu().numpy()
+
+
 def _marg_masks(st_j):
     valid = np.asarray(st_j.p_valid)
     idx = np.flatnonzero(valid)
@@ -176,7 +185,7 @@ def test_marginalize_matches_jax(cfg, window, slot):
         ba_j.drop_points(ba_j.marginalize_points(st_j, jnp.asarray(marg), cfg, lj),
                          jnp.asarray(drop)), jnp.int32(slot))
     lt = ba_t.Linearization(*[torch.as_tensor(np.array(x)) for x in lj])
-    got = ba_t.marginalize(st_t, lt, marg, drop, [slot], port_cfg(cfg))
+    got = ba_t.marginalize(st_t, lt, marg, drop, [slot], port_cfg(cfg), _views(st_t))
     _close(got.HM.numpy(), want.HM, 2e-3)
     _close(got.bM.numpy(), want.bM, 2e-3)
     for name in ("p_valid", "frame_valid", "frame_id", "p_res_good", "delta"):
@@ -184,9 +193,31 @@ def test_marginalize_matches_jax(cfg, window, slot):
                                       np.asarray(getattr(want, name)), err_msg=name)
     # no point flagged: the prior is the frame's Schur complement alone
     none = np.zeros(N_POINTS, bool)
-    only = ba_t.marginalize(st_t, lt, none, none, [], port_cfg(cfg))
+    only = ba_t.marginalize(st_t, lt, none, none, [], port_cfg(cfg), _views(st_t))
     assert torch.equal(only.HM, st_t.HM) and torch.equal(only.bM, st_t.bM)
     assert torch.equal(only.p_valid, st_t.p_valid)
+
+
+def test_marginalize_folds_only_valid_flagged_points(cfg, window):
+    """K18's plain path takes the points it folds in from the host lists
+    (``marg_lists``: flagged and valid): a mask that also flags invalid
+    points gives the JAX package's result (its ``marg & p_valid``)."""
+    _, st_j, lj = window
+    st_t = _to_port(st_j)
+    marg, drop = _marg_masks(st_j)
+    invalid = np.flatnonzero(~np.asarray(st_j.p_valid))
+    marg[invalid[::3]] = True
+    drop &= ~marg
+    want = ba_j.marginalize_frame(
+        ba_j.drop_points(ba_j.marginalize_points(st_j, jnp.asarray(marg), cfg, lj),
+                         jnp.asarray(drop)), jnp.int32(1))
+    lt = ba_t.Linearization(*[torch.as_tensor(np.array(x)) for x in lj])
+    got = ba_t.marginalize(st_t, lt, marg, drop, [1], port_cfg(cfg), _views(st_t))
+    _close(got.HM.numpy(), want.HM, 2e-3)
+    _close(got.bM.numpy(), want.bM, 2e-3)
+    for name in ("p_valid", "frame_valid", "frame_id", "p_res_good", "delta"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
 
 
 def test_no_kernel_on_the_cpu(cfg, window):
@@ -200,7 +231,7 @@ def test_no_kernel_on_the_cpu(cfg, window):
     lin = ba_t.linearize(out[0], pc)
     marg = np.zeros(N_POINTS, bool)
     marg[:4] = True
-    ba_t.marginalize(out[0], lin, marg, np.zeros(N_POINTS, bool), [0], pc)
+    ba_t.marginalize(out[0], lin, marg, np.zeros(N_POINTS, bool), [0], pc, _views(out[0]))
     assert [fn.launches for fn in counters] == before
     np.testing.assert_array_equal(win.pack_flags([True, False, True], [False, True, True]),
                                   np.array([1, 2, 3], np.uint8))
@@ -222,6 +253,18 @@ def _c_fields(src: str, name: str):
 def test_params_structs_match_the_c_source(cls):
     names = _c_fields(CSRC.read_text(), cls)
     assert [n for n, _ in getattr(win, cls)._fields_] == names
+
+
+def test_wrappers_reject_a_pool_past_the_counters():
+    """K17's prologue and K18 count a pool's points in 16 bits: the C entry
+    points reject a larger pool, and the wrappers raise for it before they
+    build anything."""
+    assert CSRC.read_text().count(f"NP >= {win.NP_MAX + 1}") == 2
+    big = types.SimpleNamespace(num_slots=4, num_points=win.NP_MAX + 1)
+    with pytest.raises(ValueError, match="pool"):
+        win.ba_keyframe_cuda(big, None, 1, 0, 2560)
+    with pytest.raises(ValueError, match="pool"):
+        win.marginalize_cuda(big, None, None, [0], None)
 
 
 def test_every_entry_point_has_its_signature():
